@@ -9,18 +9,34 @@ script exits non-zero without the final result line):
             (``tante_tpu_torch/ops/csrc/fused_block.cu``); build seconds,
             the ``-Xptxas -v`` summary and each tile plan.
 2. kernel   each kernel against its plain PyTorch version (f32 from the
-            same bf16 inputs) at the serving path's shapes; max abs error,
+            same bf16 inputs) at the main paths' shapes; max abs error,
             tolerance, kernel / plain time (CUDA events) and the bound.
-3. fixed    flagship TANTE (deg=True, bf16, seeded random weights), B=8,
+            The chain kernel (run ``THW`` through ``fused_chain_apply``,
+            ``THWTHWTHW`` through ``fused_group_apply``) is also held bit
+            for bit against the single-block kernels applied in sequence.
+3. grad     gradients of sum(y**2) through the autograd Functions (block,
+            canonical T block, chain) against ordinary autograd through
+            the f32 plain versions; relative L2 error per tensor.
+4. fixed    flagship TANTE (deg=True, bf16, seeded random weights), B=8,
             16-step latent rollout through ``Predictor.rollout``; launch
             counts (exactly 96 + 48 per rollout), frames/s, and a check
-            against the CPU f32 model on one sample.
-4. adaptive the trained asset ``tante_tpu/assets/tante_flagship.npz``
+            against the CPU f32 model on one sample.  Then the same
+            rollout with ``fused_chain=3`` (48 chain launches, no
+            single-block launch), bit for bit the same frames.
+5. adaptive the trained asset ``tante_tpu/assets/tante_flagship.npz``
             (deg=False) through ``Predictor.rollout_adaptive`` with K=8 on
             the synthetic-waves input; n_calls, r_t, frames/s, VRMSE and
             L2RE on the held-out trajectory, checked against the CPU f32
             model.
-5. kernels  one {"kernels": [...]} line.
+6. train    the flagship through ``Trainer`` (bf16 over f32 weights, AdamW,
+            warmup-cosine, B=8 of 128x384x4 in-memory waves, 4 rollout
+            steps per train step): an epoch at ``dropout=0.1`` (plain
+            blocks: no kernel launch), an epoch at ``dropout=0`` (36
+            forward launches per step, backward recomputes), validation
+            with ``fused_chain=3`` / per block / ``fused_group``, save and
+            resume; first loss and gradient norm against the f32 model on
+            the CPU for one sample; seconds per step, peak memory.
+7. kernels  one {"kernels": [...]} line.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 result line {"ok": true, "device": {...}}.  Exits non-zero when no CUDA
@@ -33,6 +49,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -40,11 +57,18 @@ import numpy as np
 import torch
 
 from tante_tpu_torch.convert import seeded_jax_params
+from tante_tpu_torch.data.datamodule import WaveDataModule
 from tante_tpu_torch.data.metadata import TanteMetadata
+from tante_tpu_torch.models.attn_backbone import AttnBackbone
 from tante_tpu_torch.models.tante import TANTE
 from tante_tpu_torch.ops import _build
 from tante_tpu_torch.ops import fused_block as fb
 from tante_tpu_torch.serve import Predictor
+from tante_tpu_torch.train.metrics import L2RE, MSE, VRMSE
+from tante_tpu_torch.train.optimizers import AdamW, global_norm
+from tante_tpu_torch.train.rollout import rollout_fixed
+from tante_tpu_torch.train.schedules import LinearWarmupCosineAnnealingLR
+from tante_tpu_torch.train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent
 ASSET = ROOT / "tante_tpu" / "assets" / "tante_flagship.npz"
@@ -56,6 +80,21 @@ C, HEADS = 256, 8
 # Kernel vs plain: bf16 rounding of q, k, v, attention, fc1 and the
 # residuals (a CPU emulation of the kernel's rounding points gives 0.032).
 ATOL, RTOL = 5e-2, 2e-2
+# A chain rounds its activations to bf16 after every block, so its error
+# against the f32 plain chain grows with depth (this script on an NVIDIA H100
+# 80GB HBM3 at 700 W: 0.066 at 3 blocks, 0.114 at 9); the absolute part is
+# set at about twice that.
+CHAIN_ATOL = {3: 1e-1, 9: 2.5e-1}
+# Gradients through the Functions (the plain version recomputed in bf16)
+# against f32 autograd: relative L2 per tensor (this script on the same card:
+# worst 0.009; tests/test_torch_kernels_gpu.py over more cases: 0.013).
+GRAD_REL_TOL = 5e-2
+# First training loss / gradient norm, bf16 on the card against f32 on the
+# CPU, one sample, four rollout steps through 36 blocks.
+TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL = 2e-2, 1e-1
+# Validation loss with the chain / group kernel against the per-block
+# kernels: the same arithmetic, so the same number.
+VAL_REL_TOL = 1e-6
 # Rollouts in bf16 on the card vs the f32 model on the CPU: relative L2
 # error of the predicted change (the CPU in bf16 gives 2.5e-3), and the
 # relative VRMSE gap of the adaptive lane.
@@ -95,10 +134,25 @@ def metadata() -> TanteMetadata:
     )
 
 
-def flagship(deg: bool, dtype, device) -> TANTE:
-    return TANTE(in_T=IN_T, dset_metadata=metadata(), taylor_order=1, attn_axes="THWTHWTHW",
-                 embed_dim=C, patch_scale=8, n_head=HEADS, mlp_ratio=1.0, output_length=1,
-                 deg=deg, dtype=dtype, device=device)
+def flagship(deg: bool, dtype, device, md=None, **kw) -> TANTE:
+    return TANTE(in_T=IN_T, dset_metadata=md or metadata(), taylor_order=1,
+                 attn_axes="THWTHWTHW", embed_dim=C, patch_scale=8, n_head=HEADS, mlp_ratio=1.0,
+                 output_length=1, deg=deg, dtype=dtype, device=device, **kw)
+
+
+def set_fusion(model: TANTE, fused_chain: int = 0, fused_group: bool = False):
+    """Switch the backbones' opt-in chain / group fusion (constructor
+    fields of ``AttnBackbone``; ``TANTE(fused_chain=...)`` sets the first)."""
+    for m in model.modules():
+        if isinstance(m, AttnBackbone):
+            m.fused_chain, m.fused_group = fused_chain, fused_group
+
+
+def launch_counts() -> dict:
+    return {"fused_block_fwd": fb.fused_block_apply.launches,
+            "fused_block_canon_t_fwd": fb.fused_block_canon_t.launches,
+            "fused_chain_apply": fb.fused_chain_apply.launches,
+            "fused_group_apply": fb.fused_group_apply.launches}
 
 
 def wave_input(batch=BATCH, t0: int = 0, n_frames: int = IN_T, seed: int = 7) -> np.ndarray:
@@ -121,17 +175,11 @@ def wave_input(batch=BATCH, t0: int = 0, n_frames: int = IN_T, seed: int = 7) ->
 
 
 def vrmse(x: torch.Tensor, y: torch.Tensor) -> float:
-    """The Well's VRMSE (``tante_tpu/train/metrics.py:VRMSE``), mean over B, T, C."""
-    mse = ((x - y) ** 2).mean(dim=(2, 3))
-    var = y.var(dim=(2, 3), unbiased=True)
-    return float(torch.sqrt(mse / (var + 1e-7)).mean())
+    return float(VRMSE()(x, y).mean())
 
 
 def l2re(x: torch.Tensor, y: torch.Tensor) -> float:
-    """Per (B, C) vector-norm ratio over (T, H, W) (``metrics.py:L2RE``), mean."""
-    b, c = x.shape[0], x.shape[-1]
-    xf, yf = x.reshape(b, -1, c), y.reshape(b, -1, c)
-    return float((torch.linalg.norm(xf - yf, dim=1) / (torch.linalg.norm(yf, dim=1) + 1e-7)).mean())
+    return float(L2RE()(x, y).mean())
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -167,14 +215,17 @@ def block_params(seed: int, device) -> fb.BlockParams:
     )
 
 
-def bound(rows: int, l: int, causal: bool, p: fb.BlockParams) -> tuple[float, str, float, float]:
-    """(bound ms, what bounds it, flops, bytes) for one block launch:
-    matmuls 2*M*(4C^2 + 2C*hidden) plus attention 4*C per (query, key)
-    pair this mask admits; bytes = x in + y out + every weight once."""
-    hidden = p.w1.shape[-1]
-    pairs = rows * (l + 1) / 2 if causal else rows * l
-    flops = 2 * rows * (4 * C * C + 2 * C * hidden) + 4 * C * pairs
-    nbytes = 2 * rows * C * 2 + sum(t.numel() * t.element_size() for t in p)
+def bound(rows: int, blocks: list) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, flops, bytes) for one launch that runs
+    ``blocks`` = [(L, causal, params), ...] back to back on ``rows`` tokens.
+    Per block: matmuls 2*M*(4C^2 + 2C*hidden) plus attention 4*C per (query,
+    key) pair its mask admits.  Bytes: x in + y out + every weight once (a
+    chain's activations between blocks need not leave the 50 MB L2)."""
+    flops, nbytes = 0.0, 2 * rows * C * 2
+    for l, causal, p in blocks:
+        pairs = rows * (l + 1) / 2 if causal else rows * l
+        flops += 2 * rows * (4 * C * C + 2 * C * p.w1.shape[-1]) + 4 * C * pairs
+        nbytes += sum(t.numel() * t.element_size() for t in p)
     t_ops, t_mem = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes"), flops, nbytes
 
@@ -207,7 +258,7 @@ def phase_kernels(dev) -> dict[str, list[dict]]:
         ok = bool(torch.isfinite(got).all()) and bool((err <= ATOL + RTOL * want.abs()).all())
         check(ok, f"kernel {name} {label} disagrees with its plain version")
         rows = x.numel() // C
-        b_ms, b_by, flops, nbytes = bound(rows, l, causal, p)
+        b_ms, b_by, flops, nbytes = bound(rows, [(l, causal, p)])
         k_ms = cuda_ms(run, iters=50)
         p_ms = cuda_ms(plain, iters=10, warmup=1)
         res = {"phase": "kernel", "name": name, "case": label, "shape": list(shape),
@@ -218,6 +269,133 @@ def phase_kernels(dev) -> dict[str, list[dict]]:
         emit(res)
         results.setdefault(name, []).append(res)
     return results
+
+
+def sequential(x5: torch.Tensor, ps: list, axes: str) -> torch.Tensor:
+    """The single-block kernels applied one after the other, as the
+    per-block backbone path does."""
+    b, t, h, w, c = x5.shape
+    x = x5
+    for axis, p in zip(axes, ps):
+        if axis == "T":
+            x = fb.fused_block_canon_t(x.contiguous(), p, HEADS)
+        elif axis == "H":
+            y = x.permute(0, 1, 3, 2, 4).reshape(b * t * w, h, c).contiguous()
+            x = fb.fused_block_apply(y, p, h, HEADS, False).reshape(b, t, w, h, c)
+            x = x.permute(0, 1, 3, 2, 4)
+        else:
+            y = fb.fused_block_apply(x.reshape(b * t * h, w, c).contiguous(), p, w, HEADS, False)
+            x = y.reshape(b, t, h, w, c)
+    return x.contiguous()
+
+
+def to_t_order(x5: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B*H*W, T, C): the T axis's token order."""
+    return x5.permute(0, 2, 3, 1, 4).reshape(-1, x5.shape[1], x5.shape[-1]).contiguous()
+
+
+def f32_params(p: fb.BlockParams) -> fb.BlockParams:
+    return fb.BlockParams(*(t.float() for t in p))
+
+
+def phase_chain_kernels(dev) -> dict[str, dict]:
+    """The chain kernel through both wrappers at the flagship geometry."""
+    shape = (BATCH, IN_T, 16, 48, C)
+    dims, sizes = shape[1:4], dict(zip("THW", shape[1:4]))
+    x5 = torch.from_numpy(np.random.default_rng(20).normal(size=shape).astype(np.float32))
+    x5 = x5.to(dev, torch.bfloat16)
+    x3 = to_t_order(x5)
+    results = {}
+    for name, axes in (("fused_chain_apply", "THW"), ("fused_group_apply", "THWTHWTHW")):
+        ps = [block_params(200 + i, dev) for i in range(len(axes))]
+        pf = [f32_params(p) for p in ps]
+        if name == "fused_chain_apply":
+            run = lambda: fb.fused_chain_apply(x3, ps, axes, HEADS, dims)  # noqa: E731
+            # Chain contract: T order in, W order (= canonical) out.
+            as5 = lambda y: y.reshape(shape)  # noqa: E731
+            plain = lambda: fb.chain_ref(x3.float(), pf, axes, HEADS, dims)  # noqa: E731
+        else:
+            run = lambda: fb.fused_group_apply(x5, ps, axes, HEADS)  # noqa: E731
+            as5 = lambda y: y  # noqa: E731
+            plain = lambda: fb.group_ref(x5.float(), pf, axes, HEADS)  # noqa: E731
+        got = as5(run())
+        torch.cuda.synchronize()
+        want = as5(plain())
+        err = (got.float() - want).abs()
+        atol = CHAIN_ATOL[len(axes)]
+        close = bool(torch.isfinite(got).all()) and bool((err <= atol + RTOL * want.abs()).all())
+        bit_equal = bool(torch.equal(got, sequential(x5, ps, axes)))
+        check(close, f"{name} {axes} disagrees with its plain version")
+        check(bit_equal, f"{name} {axes} differs from the single-block kernels in sequence")
+        rows = x5.numel() // C
+        b_ms, b_by, flops, nbytes = bound(rows, [(sizes[a], a == "T", p) for a, p in zip(axes, ps)])
+        k_ms = cuda_ms(run, iters=20)
+        seq_ms = cuda_ms(lambda: sequential(x5, ps, axes), iters=20)
+        p_ms = cuda_ms(plain, iters=3, warmup=1)
+        res = {"phase": "kernel", "name": "fused_chain_fwd", "wrapper": name, "case": axes,
+               "shape": list(shape), "max_abs_err": float(err.max()),
+               "tolerance": f"|k - plain| <= {atol} + {RTOL}*|plain|", "ok": close and bit_equal,
+               "equals_single_block_kernels_bit_for_bit": bit_equal,
+               "kernel_ms": k_ms, "single_block_kernels_in_sequence_ms": seq_ms, "plain_ms": p_ms,
+               "bound_us": 1e3 * b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes,
+               "achieved_tflops": flops / k_ms / 1e9}
+        emit(res)
+        results[name] = res
+    return results
+
+
+def phase_grad(dev) -> dict:
+    """Gradients of sum(y**2) w.r.t. x and all 16 parameters per block
+    through each autograd Function (bf16, kernel forward, plain recompute
+    backward) against ordinary autograd through the f32 plain version."""
+    shape5 = (BATCH, IN_T, 16, 48, C)
+    dims = shape5[1:4]
+    cases = [
+        ("fused_block_fwd", (1536, 16, C), "H",
+         lambda x, ps: fb.fused_block_apply(x, ps[0], 16, HEADS, False),
+         lambda x, ps: fb.block_ref(x, ps[0], 16, HEADS, False)),
+        ("fused_block_canon_t_fwd", shape5, "T",
+         lambda x, ps: fb.fused_block_canon_t(x, ps[0], HEADS),
+         lambda x, ps: fb.canon_t_ref(x, ps[0], HEADS)),
+        ("fused_chain_fwd", (BATCH * 16 * 48, IN_T, C), "THW",
+         lambda x, ps: fb.fused_chain_apply(x, ps, "THW", HEADS, dims),
+         lambda x, ps: fb.chain_ref(x, ps, "THW", HEADS, dims)),
+    ]
+
+    def grads(fn, x, ps):
+        x = x.detach().requires_grad_(True)
+        ps = [fb.BlockParams(*(t.detach().requires_grad_(True) for t in p)) for p in ps]
+        (fn(x, ps).float() ** 2).sum().backward()
+        return [x.grad] + [t.grad for p in ps for t in p]
+
+    out = {}
+    for i, (name, shape, axes, kernel, plain) in enumerate(cases):
+        ps = [block_params(300 + 10 * i + k, dev) for k in range(len(axes))]
+        x = torch.from_numpy(np.random.default_rng(30 + i).normal(size=shape).astype(np.float32))
+        x = x.to(dev, torch.bfloat16)
+        fb.reset_launches()
+        got = grads(kernel, x, ps)
+        torch.cuda.synchronize()
+        forward_launches = sum(launch_counts().values())
+        want = grads(plain, x.float(), [f32_params(p) for p in ps])
+        names = ["x"] + [f"{f}[{k}]" for k in range(len(ps)) for f in fb.BlockParams._fields]
+        ref = dict(zip(names, want))
+        # bk: a key bias shifts every score of a query alike, softmax ignores
+        # it, the true gradient is 0; its rounding noise is held to bq's scale.
+        errs = {n: float(torch.linalg.norm(g.float() - w)
+                         / torch.linalg.norm(ref[n.replace("bk[", "bq[")]))
+                for n, g, w in zip(names, got, want)}
+        worst = max(errs, key=errs.get)
+        ok = forward_launches == 1 and errs[worst] <= GRAD_REL_TOL
+        check(ok, f"grad {name}: worst {worst} rel L2 {errs[worst]}, "
+                  f"{forward_launches} launches in forward + backward")
+        out[name] = {"shape": list(shape), "axes": axes, "worst_tensor": worst,
+                     "worst_rel_l2": errs[worst], "x_rel_l2": errs["x"],
+                     "launches_forward_and_backward": forward_launches, "ok": ok}
+    res = {"phase": "grad", "loss": "sum(y**2)", "dtype": "bf16 vs f32 plain autograd",
+           "rel_l2_tolerance": GRAD_REL_TOL, "kernels": out}
+    emit(res)
+    return res
 
 
 def trace(fn, top: int = 8) -> dict:
@@ -245,7 +423,7 @@ def trace(fn, top: int = 8) -> dict:
     }
 
 
-def timed_rollouts(fn, n: int = 5, windows: int = 5) -> dict:
+def timed_rollouts(fn, n: int = 3, windows: int = 3) -> dict:
     """Seconds per call of ``fn``: CUDA events around ``windows`` windows of
     ``n`` back-to-back calls; the median window and the spread (the host
     is shared, so single windows vary)."""
@@ -285,9 +463,9 @@ def phase_fixed(dev) -> dict:
     fb.reset_launches()
     y = pred.rollout(x, N_STEPS, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    launches = {"fused_block_fwd": fb.fused_block_apply.launches,
-                "fused_block_canon_t_fwd": fb.fused_block_canon_t.launches}
-    check(launches == {"fused_block_fwd": 96, "fused_block_canon_t_fwd": 48},
+    launches = launch_counts()
+    check(launches == {"fused_block_fwd": 96, "fused_block_canon_t_fwd": 48,
+                       "fused_chain_apply": 0, "fused_group_apply": 0},
           f"fixed lane launches {launches}, want 96 + 48")
     shape_ok = tuple(y.shape) == (BATCH, N_STEPS, *RES, FIELDS)
     finite = bool(torch.isfinite(y).all())
@@ -309,6 +487,36 @@ def phase_fixed(dev) -> dict:
            "launches_per_rollout": launches, **lane_speed(tm),
            "change_vs_cpu_f32_rel_l2": err, "rel_l2_tolerance": ROLLOUT_REL_TOL, "trace": prof}
     emit(res)
+    res["chain"] = phase_chain_serving(pred, x, y, res)
+    return res
+
+
+def phase_chain_serving(pred: Predictor, x: torch.Tensor, y_per_block: torch.Tensor,
+                        fixed: dict) -> dict:
+    """The fixed lane once more with ``fused_chain=3``: every run ``THW``
+    of the backbone in one chain launch."""
+    set_fusion(pred.model, fused_chain=3)
+    roll = lambda: pred.rollout(x, N_STEPS, out_dtype=torch.bfloat16)  # noqa: E731
+    roll()
+    torch.cuda.synchronize()
+    fb.reset_launches()
+    y = roll()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(launches == {"fused_block_fwd": 0, "fused_block_canon_t_fwd": 0,
+                       "fused_chain_apply": 3 * N_STEPS, "fused_group_apply": 0},
+          f"chain serving launches {launches}, want {3 * N_STEPS} chain launches only")
+    same = bool(torch.equal(y, y_per_block))
+    check(same, "fixed rollout with fused_chain=3 differs from the per-block rollout")
+    tm = timed_rollouts(roll)
+    prof = trace(roll, top=4)
+    prof.update(host_split(roll))
+    set_fusion(pred.model)
+    res = {"phase": "fixed_chain", "fused_chain": 3, "launches_per_rollout": launches,
+           "launches_per_model_call": launches["fused_chain_apply"] // N_STEPS,
+           "equals_per_block_rollout_bit_for_bit": same, **lane_speed(tm),
+           "per_block_frames_per_s": fixed["frames_per_s"], "trace": prof}
+    emit(res)
     return res
 
 
@@ -322,9 +530,9 @@ def phase_adaptive(dev) -> dict:
     y, rt, n_calls = pred.rollout_adaptive(x, N_STEPS, max_frames_per_call=K,
                                            out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    launches = {"fused_block_fwd": fb.fused_block_apply.launches,
-                "fused_block_canon_t_fwd": fb.fused_block_canon_t.launches}
-    check(launches == {"fused_block_fwd": 6 * n_calls, "fused_block_canon_t_fwd": 3 * n_calls},
+    launches = launch_counts()
+    check(launches == {"fused_block_fwd": 6 * n_calls, "fused_block_canon_t_fwd": 3 * n_calls,
+                       "fused_chain_apply": 0, "fused_group_apply": 0},
           f"adaptive lane launches {launches} for {n_calls} calls")
     tm = timed_rollouts(lambda: pred.rollout_adaptive(
         x, N_STEPS, max_frames_per_call=K, out_dtype=torch.bfloat16))
@@ -362,9 +570,169 @@ def phase_adaptive(dev) -> dict:
     return res
 
 
-def phase_summary(kernels: dict[str, list[dict]], fixed: dict) -> list[dict]:
+def phase_train(dev, workdir: Path) -> dict:
+    """The flagship through ``Trainer`` and the in-memory datamodule
+    (``configs/tante.yaml``'s geometry and optimizer; the schedule starts its
+    warmup at a fifth of the peak rate instead of 0, so that the first
+    epoch's steps move the weights)."""
+    n_out, n_roll = 4, 8
+    dm = WaveDataModule(
+        batch_size=BATCH, n_steps_input=IN_T, n_steps_output=n_out, eval_steps_output=n_roll,
+        data_workers=4, seed=0, device=dev,
+        waves=dict(resolution=RES, n_trajectories=4, n_steps=16, with_pressure=True, seed=0))
+    md = dm.train_dataset.metadata
+    mse = MSE()
+
+    def trainer_for(dropout: float, folder: str, model=None, **kw) -> Trainer:
+        model = model or flagship(True, torch.float32, dev, md, dropout=dropout)
+        return Trainer(
+            str(workdir / folder), "channels_first_default", model, dm,
+            AdamW(lr=5e-5, weight_decay=1e-5), mse, L2RE(), max_epoch=34,
+            lr_scheduler=LinearWarmupCosineAnnealingLR(
+                warmup_epochs=2, max_epochs=34, lr=5e-5, warmup_start_lr=1e-5),
+            enable_amp=True, n_steps_output=n_out, n_steps_rollout=n_roll, seed=0, **kw)
+
+    loader = dm.train_dataloader()
+    loader.set_epoch(1)
+    batches = [tuple(b[k] for k in ("input", "output")) for b in loader]
+    x0, y0 = batches[0]
+
+    def eval_loss(model) -> float:
+        with torch.no_grad():
+            pred = rollout_fixed(lambda w: model(w), x0, n_out, 1)
+            return float(mse(pred.float(), y0).mean())
+
+    def first_loss_and_gnorm(model, x, y):
+        """Loss and gradient norm of the train step's objective, no update."""
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        pred = rollout_fixed(lambda w: model(w, deterministic=False, generator=gen), x, n_out, 1)
+        loss = mse(pred.to(y.dtype), y).mean()
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        gnorm = float(global_norm(model.parameters()))
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), gnorm
+
+    def epoch(trainer: Trainer) -> dict:
+        """One epoch through ``train_one_epoch`` with the launches counted,
+        then the same batches step by step under CUDA events."""
+        before = eval_loss(trainer.model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fb.reset_launches()
+        epoch_loss, logs = trainer.train_one_epoch(1, loader)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        after = eval_loss(trainer.model)
+        ms = []
+        for x, y in batches:
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            trainer.train_step(x, y)
+            stop.record()
+            stop.synchronize()
+            ms.append(start.elapsed_time(stop))
+        split = host_split(lambda: trainer.train_step(x0, y0))
+        split["trace"] = trace(lambda: trainer.train_step(x0, y0), top=6)
+        steps = len(batches)
+        check(np.isfinite(epoch_loss) and np.isfinite(after), "training loss is not finite")
+        check(after < before, f"loss on the first batch did not fall: {before} -> {after}")
+        return {"steps": steps, "epoch_train_loss": epoch_loss, "lr": logs["lr"],
+                "first_batch_loss_before": before, "first_batch_loss_after": after,
+                "launches_per_step": {k: v / steps for k, v in launches.items()},
+                "seconds_per_step_median": sorted(ms[1:])[len(ms[1:]) // 2] / 1e3,
+                "seconds_per_step_all": [m / 1e3 for m in ms],
+                "peak_memory_allocated_gb": peak / 2**30, **split}
+
+    # (a) the config's dropout 0.1: every block takes its plain path.
+    tr_a = trainer_for(0.1, "dropout")
+    res_a = epoch(tr_a)
+    check(all(v == 0 for v in res_a["launches_per_step"].values()),
+          f"dropout-0.1 steps launched kernels: {res_a['launches_per_step']}")
+    del tr_a
+
+    # (b) dropout 0: the kernels forward, the plain recompute backward.
+    tr_b = trainer_for(0.0, "kernels")
+    init_state = {k: v.detach().cpu().clone() for k, v in tr_b.model.state_dict().items()}
+    loss_gpu, gnorm_gpu = first_loss_and_gnorm(tr_b.model, x0[:1], y0[:1])
+    res_b = epoch(tr_b)
+    want = {"fused_block_fwd": 6.0 * n_out, "fused_block_canon_t_fwd": 3.0 * n_out,
+            "fused_chain_apply": 0.0, "fused_group_apply": 0.0}
+    check(res_b["launches_per_step"] == want,
+          f"dropout-0 step launches {res_b['launches_per_step']}, want {want}")
+    cpu_model = flagship(True, torch.float32, "cpu", md, dropout=0.0)
+    cpu_model.load_state_dict(init_state)
+    loss_cpu, gnorm_cpu = first_loss_and_gnorm(cpu_model, x0[:1].cpu(), y0[:1].cpu())
+    check(abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_REL_TOL * loss_cpu,
+          f"first loss {loss_gpu} on the card vs {loss_cpu} in f32 on the CPU")
+    check(abs(gnorm_gpu - gnorm_cpu) <= TRAIN_GNORM_REL_TOL * gnorm_cpu,
+          f"first gradient norm {gnorm_gpu} on the card vs {gnorm_cpu} in f32 on the CPU")
+
+    # (c) validation: chain, per block, group.  Same batches each time (the
+    # loader's shuffle depends on seed and epoch only).
+    val_loader = dm.val_dataloader()
+    calls = len(val_loader) * n_roll
+    val = {}
+    for label, fusion, want in (
+        ("fused_chain=3", dict(fused_chain=3), {"fused_chain_apply": 3 * calls}),
+        ("per_block", {}, {"fused_block_fwd": 6 * calls, "fused_block_canon_t_fwd": 3 * calls}),
+        ("fused_group", dict(fused_group=True), {"fused_group_apply": calls}),
+    ):
+        set_fusion(tr_b.model, **fusion)
+        tr_b.validation_loop(val_loader)  # warm
+        torch.cuda.synchronize()
+        fb.reset_launches()
+        t0 = time.perf_counter()
+        loss = tr_b.validation_loop(val_loader)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        check(launches == {**dict.fromkeys(launches, 0), **want},
+              f"validation ({label}) launches {launches}, want only {want}")
+        val[label] = {"loss": loss, "seconds": seconds, "model_calls": calls,
+                      "launches": launches,
+                      "launches_per_model_call": {k: v / calls for k, v in launches.items()}}
+    set_fusion(tr_b.model)
+    base = val["per_block"]["loss"]
+    for label in ("fused_chain=3", "fused_group"):
+        check(np.isfinite(base) and abs(val[label]["loss"] - base) <= VAL_REL_TOL * abs(base),
+              f"validation loss {val[label]['loss']} ({label}) vs {base} per block")
+
+    # (d) save, and a second Trainer resuming from "recent".
+    tr_b.save_model(1, base, "recent")
+    resumed = trainer_for(0.0, "kernels", checkpoint_path=str(workdir / "kernels" / "recent"))
+    same_weights = all(torch.equal(a, b) for a, b in zip(
+        tr_b.model.state_dict().values(), resumed.model.state_dict().values()))
+    resume_ok = (same_weights and resumed.starting_epoch == 2
+                 and resumed.global_step == resumed.steps_per_epoch
+                 and resumed.starting_val_loss == base)
+    l_a, l_b = float(tr_b.train_step(x0, y0)), float(resumed.train_step(x0, y0))
+    check(resume_ok, "the resumed Trainer does not continue from the saved state")
+    check(np.isfinite(l_b) and abs(l_a - l_b) <= 1e-3 * abs(l_a),
+          f"first step after resume: loss {l_b} vs {l_a} for the Trainer that saved")
+
+    res = {"phase": "train", "batch": BATCH, "n_steps_output": n_out, "n_steps_rollout": n_roll,
+           "dtype": "bf16 compute, f32 weights", "weights": "seeded init (torch seed 0)",
+           "dropout_0.1": res_a, "dropout_0": res_b,
+           "first_step_one_sample": {
+               "loss": loss_gpu, "loss_cpu_f32": loss_cpu, "loss_rel_tol": TRAIN_LOSS_REL_TOL,
+               "grad_norm": gnorm_gpu, "grad_norm_cpu_f32": gnorm_cpu,
+               "grad_norm_rel_tol": TRAIN_GNORM_REL_TOL},
+           "validation": val, "validation_rel_tol": VAL_REL_TOL,
+           "resume": {"ok": resume_ok, "starting_epoch": resumed.starting_epoch,
+                      "global_step": resumed.global_step,
+                      "next_step_loss": l_b, "next_step_loss_of_saver": l_a}}
+    emit(res)
+    return res
+
+
+def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed: dict,
+                  train: dict) -> list[dict]:
     replaces = {"fused_block_fwd": "tante_tpu/ops/pallas_block.py:163",
-                "fused_block_canon_t_fwd": "tante_tpu/ops/pallas_block.py:401"}
+                "fused_block_canon_t_fwd": "tante_tpu/ops/pallas_block.py:401",
+                "fused_chain_apply": "tante_tpu/ops/pallas_block.py:1073",
+                "fused_group_apply": "tante_tpu/ops/pallas_block.py:989"}
     out = []
     for name, cases in kernels.items():
         # Headline numbers: mean over the main path's shapes (the H and W
@@ -374,6 +742,7 @@ def phase_summary(kernels: dict[str, list[dict]], fixed: dict) -> list[dict]:
         out.append({
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
             "launches": fixed["launches_per_rollout"][name],
+            "launches_counted_over": "one fixed 16-step rollout",
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_us") / 1e3, "bound_by": main[0]["bound_by"],
@@ -382,6 +751,22 @@ def phase_summary(kernels: dict[str, list[dict]], fixed: dict) -> list[dict]:
             "per_shape": [{k: c[k] for k in ("case", "shape", "kernel_ms", "plain_ms",
                                               "bound_us", "max_abs_err")} for c in cases],
         })
+    val = train["validation"]
+    per_call = {"fused_chain_apply": val["fused_chain=3"]["launches_per_model_call"],
+                "fused_group_apply": val["fused_group"]["launches_per_model_call"]}
+    for wrapper, c in chains.items():
+        out.append({
+            "name": f"fused_chain_fwd ({wrapper}, run {c['case']})", "route": "cuda",
+            "source": SOURCE, "replaces": replaces[wrapper],
+            "launches": int(per_call[wrapper][wrapper]),
+            "launches_counted_over": "one model call of the Trainer's validation loop",
+            "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_us"] / 1e3, "bound_by": c["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a run of blocks
+            "ok": c["ok"],
+            "single_block_kernels_in_sequence_ms": c["single_block_kernels_in_sequence_ms"],
+        })
+    check(all(k["launches"] > 0 for k in out), "a kernel of the main paths was never launched")
     emit({"kernels": out})
     return out
 
@@ -396,9 +781,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     kernels = phase_kernels(dev)
+    chains = phase_chain_kernels(dev)
+    phase_grad(dev)
     fixed = phase_fixed(dev)
     phase_adaptive(dev)
-    phase_summary(kernels, fixed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        train = phase_train(dev, Path(workdir))
+    phase_summary(kernels, chains, fixed, train)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

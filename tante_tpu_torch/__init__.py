@@ -3,8 +3,10 @@
 The JAX package ``tante_tpu`` stays the reference; every module here mirrors
 its counterpart's name and is tested against it on the CPU
 (``tests/test_torch_*.py``).  The serving path (fixed latent rollout and
-adaptive rollout of TANTE) runs end to end; its two fused transformer-block
-kernels are hand-written CUDA for ``sm_90a`` (``ops/csrc/fused_block.cu``).
+adaptive rollout of TANTE) and the fixed-step training path (``Trainer``
+over in-memory synthetic waves) run end to end; the fused transformer-block
+kernels (single block, canonical T block, chain/group of blocks) are
+hand-written CUDA for ``sm_90a`` (``ops/csrc/fused_block.cu``).
 
 This package imports ``torch``, ``numpy`` and ``einops`` only — never JAX,
 flax or ``tante_tpu``.

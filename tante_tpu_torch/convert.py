@@ -4,7 +4,10 @@ A flax param path joined with ``/`` (the layout of
 ``tante_tpu/assets/tante_flagship.npz`` and of a flattened ``model.init``
 tree) maps to the torch state-dict key with ``/`` replaced by ``.``: the
 port's modules carry the flax names and layouts (Dense ``(in, out)``, conv
-HWIO), so no tensor is transposed.  This is the one layout rule.
+HWIO), so no tensor is transposed.  This is the one layout rule, and it
+holds both ways (``jax_params_from_state_dict``) and for the AdamW moments
+(``load_optax_adam_state``), so a tree trained in one package loads in the
+other.
 """
 
 from __future__ import annotations
@@ -36,6 +39,33 @@ def load_jax_params(module: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> 
         if tuple(own[k].shape) != tuple(v.shape):
             raise ValueError(f"{k}: model has {tuple(own[k].shape)}, weights {tuple(v.shape)}")
     module.load_state_dict(sd)
+
+
+def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The way back: a torch ``state_dict`` as flax-keyed f32 numpy arrays
+    (unflatten on ``/`` for a flax param tree).  Copies: the arrays do not
+    follow later in-place updates of the parameters."""
+    return {k.replace(".", "/"): v.detach().float().cpu().numpy().copy() for k, v in sd.items()}
+
+
+def load_optax_adam_state(optimizer: torch.optim.Optimizer, module: torch.nn.Module, count: int,
+                          mu: Mapping[str, np.ndarray], nu: Mapping[str, np.ndarray]) -> None:
+    """Set ``torch.optim.AdamW``'s state from an optax ``ScaleByAdamState``
+    given as numpy: ``count`` -> every parameter's ``step``, the flax-keyed
+    first and second moments ``mu`` / ``nu`` -> ``exp_avg`` / ``exp_avg_sq``."""
+    named = {k.replace(".", "/"): p for k, p in module.named_parameters()}
+    if set(named) != set(mu) or set(named) != set(nu):
+        raise KeyError(f"moment keys differ from the module's parameters: "
+                       f"{sorted(set(named) ^ set(mu))[:8]}")
+    for key, p in named.items():
+        if tuple(mu[key].shape) != tuple(p.shape) or tuple(nu[key].shape) != tuple(p.shape):
+            raise ValueError(f"{key}: parameter {tuple(p.shape)}, moments "
+                             f"{tuple(mu[key].shape)} / {tuple(nu[key].shape)}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.from_numpy(np.array(mu[key], np.float32)).to(p.device),
+            "exp_avg_sq": torch.from_numpy(np.array(nu[key], np.float32)).to(p.device),
+        }
 
 
 def seeded_jax_params(module: torch.nn.Module, seed: int) -> dict[str, np.ndarray]:

@@ -10,9 +10,13 @@ rearranged so attention runs along that axis:
 
 A T block inside the canonical gate runs ``fused_block_canon_t`` on the
 (B, T, H, W, C) tensor directly; every other block rearranges and runs
-``fused_block_apply``.  Only the per-block path is ported: the JAX
-package's opt-in chain/group fusion and the channel-lift axis ``C`` are not
-(``C`` raises ``NotImplementedError``).
+``fused_block_apply``.  Opt-in, as in the JAX package: ``fused_group`` runs
+a pure T/H/W ``attn_axes`` in one ``fused_group_apply`` launch, and
+``fused_chain = n >= 2`` runs each run of up to n consecutive T/H/W blocks
+in one ``fused_chain_apply`` launch.  Both, like the canonical T kernel,
+apply only when ``deterministic or dropout == 0``; with dropout active every
+block takes its plain path.  The channel-lift axis ``C`` is not ported
+(raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -25,7 +29,14 @@ from torch import nn
 
 from tante_tpu_torch.models.common import FusedTransformerBlock
 from tante_tpu_torch.ops.activations import gelu
-from tante_tpu_torch.ops.fused_block import canon_t_supported, fused_block_canon_t
+from tante_tpu_torch.ops.fused_block import (
+    canon_t_supported,
+    chain_fusable,
+    fused_block_canon_t,
+    fused_chain_apply,
+    fused_group_apply,
+    group_fusable,
+)
 from tante_tpu_torch.ops.initializers import torch_bias_init, torch_kernel_init
 
 # axis -> (rearrange to (rows, L, C), inverse pattern, sizes the inverse needs)
@@ -65,7 +76,9 @@ class AxisPropagator(nn.Module):
 
 class AttnBackbone(nn.Module):
     def __init__(self, tensor_shape: Tuple[int, int, int, int], attn_axes: str = "THWTHWTHW",
-                 n_head: int = 8, mlp_ratio: float = 1.0, dtype=torch.float32, gen=None):
+                 n_head: int = 8, mlp_ratio: float = 1.0, dropout: float = 0.0,
+                 fused_group: bool = False, fused_chain: int = 0, dtype=torch.float32,
+                 gen=None):
         super().__init__()
         t, h, w, c = tensor_shape
         self.tensor_shape = tuple(tensor_shape)
@@ -78,17 +91,26 @@ class AttnBackbone(nn.Module):
         if bad:
             raise ValueError(f"Invalid attention axes {sorted(bad)}")
         self.n_head = n_head
+        self.dropout = dropout
+        self.fused_group = fused_group
+        self.fused_chain = fused_chain
+        self.hidden = int(c * mlp_ratio)
         self.dtype = dtype
         self.vertical_propagator = AxisPropagator(h, 2, dtype, gen)
         self.horizontal_propagator = AxisPropagator(w, 3, dtype, gen)
         self.temporal_propagator = AxisPropagator(t, 1, dtype, gen)
         for i in range(len(self.axes)):
             self.add_module(
-                f"block_{i}", FusedTransformerBlock(c, n_head, mlp_ratio, dtype, gen)
+                f"block_{i}", FusedTransformerBlock(c, n_head, mlp_ratio, dropout, dtype, gen)
             )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _params_seq(self, start: int, n: int):
+        return tuple(getattr(self, f"block_{start + k}").block_params() for k in range(n))
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         t, h, w, c = self.tensor_shape
+        dims = (t, h, w)
         sizes = {"b": x.shape[0], "t": t, "h": h, "w": w}
         # Compute-dtype gate: f32 embeddings upstream must not promote the
         # activation that rides through every block.
@@ -96,13 +118,36 @@ class AttnBackbone(nn.Module):
         x = self.vertical_propagator(x)
         x = self.horizontal_propagator(x)
         x = self.temporal_propagator(x)
-        for i, axis in enumerate(self.axes):
+        axes = self.axes
+        kernels_ok = deterministic or self.dropout == 0.0
+        if (self.fused_group and kernels_ok
+                and group_fusable(axes, dims, c, self.n_head, self.hidden)):
+            return fused_group_apply(
+                x.contiguous(), self._params_seq(0, len(axes)), axes, self.n_head)
+        use_chain = self.fused_chain >= 2 and kernels_ok
+        i = 0
+        while i < len(axes):
+            axis = axes[i]
+            if use_chain and axis in "THW":
+                run = axes[i : i + self.fused_chain]
+                j = 0
+                while j < len(run) and run[j] in "THW":
+                    j += 1
+                run = run[:j]
+                if len(run) >= 2 and chain_fusable(run, dims, c, self.n_head, self.hidden):
+                    y = rearrange(x, _LAYOUTS[run[0]][0]).contiguous()
+                    y = fused_chain_apply(y, self._params_seq(i, len(run)), run, self.n_head, dims)
+                    _, inv, keep = _LAYOUTS[run[-1]]
+                    x = rearrange(y, inv, **{k: sizes[k] for k in keep})
+                    i += len(run)
+                    continue
             block = getattr(self, f"block_{i}")
-            if axis == "T" and canon_t_supported(t, h, w, c, self.n_head):
+            i += 1
+            if axis == "T" and kernels_ok and canon_t_supported(t, h, w, c, self.n_head):
                 x = fused_block_canon_t(x.contiguous(), block.block_params(), self.n_head)
                 continue
             fwd, inv, keep = _LAYOUTS[axis]
             y = rearrange(x, fwd).contiguous()
-            y = block(y, causal=axis == "T")
+            y = block(y, causal=axis == "T", deterministic=deterministic, generator=generator)
             x = rearrange(y, inv, **{k: sizes[k] for k in keep})
         return x

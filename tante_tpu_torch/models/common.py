@@ -14,7 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from tante_tpu_torch.ops.fused_block import BlockParams, fused_block_apply
+from tante_tpu_torch.ops.activations import gelu_tanh_f32
+from tante_tpu_torch.ops.fused_block import BlockParams, fused_block_apply, ln
 from tante_tpu_torch.ops.initializers import (
     torch_bias_init,
     torch_kernel_init,
@@ -44,18 +45,31 @@ class TorchDense(nn.Module):
         return x.to(self.dtype) @ d.kernel.to(self.dtype) + d.bias.to(self.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``): keep with probability
+    1 - rate, scale the kept by 1 / (1 - rate).  The mask is drawn from
+    ``generator``, which lives on ``x``'s device and belongs to the caller."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class FusedTransformerBlock(nn.Module):
-    """Pre-LN transformer block with the flat 16-tensor parameter layout,
-    run by ``fused_block_apply`` (the CUDA kernel on the card, the plain
-    PyTorch block on the CPU).  Inference only: the dropout sites of the
-    JAX training path are not ported."""
+    """Pre-LN transformer block with the flat 16-tensor parameter layout.
+
+    ``fused_block_apply`` (the CUDA kernel on the card, the plain PyTorch
+    block on the CPU) runs it when ``deterministic`` or ``dropout == 0``;
+    otherwise the plain path with the three dropout sites of the JAX
+    training path (attention weights, post-attention, post-MLP) runs,
+    drawing from the caller's ``generator``.  Gradients of the kernel path
+    recompute the plain block (``ops/fused_block.py``)."""
 
     def __init__(self, embed_dim: int, n_head: int, mlp_ratio: float = 4.0,
-                 dtype=torch.float32, gen=None):
+                 dropout: float = 0.1, dtype=torch.float32, gen=None):
         super().__init__()
         c = embed_dim
         hidden = int(c * mlp_ratio)
         self.n_head = n_head
+        self.dropout = dropout
         self.dtype = dtype
         P = nn.Parameter
         self.ln1_scale = P(torch.ones(c))
@@ -77,14 +91,42 @@ class FusedTransformerBlock(nn.Module):
 
     def block_params(self) -> BlockParams:
         """The flat weight tuple in the compute dtype (cast only where the
-        stored dtype differs: this runs for every block of every call)."""
+        stored dtype differs: this runs for every block of every call).  The
+        cast is an autograd op, so gradients reach the f32 parameters."""
         dt, ps = self.dtype, self._parameters
         return BlockParams(*(
             t if t.dtype == dt else t.to(dt) for t in (ps[f] for f in BlockParams._fields)
         ))
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        return fused_block_apply(x, self.block_params(), x.shape[-2], self.n_head, causal)
+    def forward(self, x: torch.Tensor, causal: bool = False, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        p = self.block_params()
+        l = x.shape[-2]
+        if deterministic or self.dropout == 0.0:
+            return fused_block_apply(x, p, l, self.n_head, causal)
+        if generator is None:
+            raise ValueError("dropout is active: pass the torch.Generator to draw masks from")
+
+        def drop(t):
+            return dropout(t, self.dropout, generator)
+
+        # block_ref's math with the three dropout sites.
+        d = x.shape[-1] // self.n_head
+        xn = ln(x, p.ln1_scale, p.ln1_bias)
+        q = ((xn @ p.wq) + p.bq) * (d**-0.5)
+        k = (xn @ p.wk) + p.bk
+        v = (xn @ p.wv) + p.bv
+        q, k, v = (t.reshape(*t.shape[:-1], self.n_head, d) for t in (q, k, v))
+        logits = torch.einsum("blhd,bmhd->bhlm", q, k).float()
+        if causal:
+            m = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
+            logits = torch.where(m, logits, torch.full_like(logits, -1e30))
+        w = drop(torch.softmax(logits, dim=-1).to(x.dtype))
+        attn = torch.einsum("bhlm,bmhd->blhd", w, v).reshape(x.shape)
+        x = x + drop((attn @ p.wo) + p.bo)
+        yn = ln(x, p.ln2_scale, p.ln2_bias)
+        h1 = gelu_tanh_f32(((yn @ p.w1) + p.b1).float()).to(x.dtype)
+        return x + drop((h1 @ p.w2) + p.b2)
 
 
 class Film(nn.Module):

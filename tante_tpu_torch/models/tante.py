@@ -68,11 +68,13 @@ class TANTE(nn.Module):
         attn_axes: str = "THWTHWTHW",
         n_head: int = 8,
         mlp_ratio: float = 1.0,
+        dropout: float = 0.0,
         enc_dec_type: str = "cnn",
         embed_dim: int = 256,
         patch_scale: int = 32,
         overlap_ratio: float = 0.0,
         deg: bool = True,
+        fused_chain: int = 0,
         dtype=torch.float32,
         device=None,
         seed: int = 0,
@@ -112,7 +114,8 @@ class TANTE(nn.Module):
             self.add_module(f"decoders_{i}", DecCNN(**enc_kw))
         for i, block_axes in enumerate(blocks_axes):
             self.add_module(f"blocks_{i}", AttnBackbone(
-                (in_T, self.H_p, self.W_p, self.C), block_axes, n_head, mlp_ratio, dtype, gen
+                (in_T, self.H_p, self.W_p, self.C), block_axes, n_head, mlp_ratio, dropout,
+                fused_chain=fused_chain, dtype=dtype, gen=gen,
             ))
         self.t_emb = nn.Parameter(torch.from_numpy(get_1d_sincos_pos_embed(self.C, in_T)))
         self.s_emb = nn.Parameter(torch.from_numpy(
@@ -142,9 +145,12 @@ class TANTE(nn.Module):
         return self.encoder(inputs, packed_in=packed)
 
     def head(self, latents: torch.Tensor, u_last: torch.Tensor, out_T: float = 1,
-             packed=False):
+             deterministic: bool = True, packed=False,
+             generator: torch.Generator | None = None):
         """Backbone + Taylor prediction from cached latents (B, T, H_p, W_p, C)
-        and the expansion point u_last (B, 1, ...) (morton rows if packed)."""
+        and the expansion point u_last (B, 1, ...) (morton rows if packed).
+        ``deterministic=False`` turns the blocks' dropout on, drawn from
+        ``generator``."""
         dt = self.dtype
         x = self.t_encode(latents, self.t_seq)
         x = x + self.s_emb.to(dt)
@@ -152,7 +158,7 @@ class TANTE(nn.Module):
 
         derivatives, r_ts = [], []
         for i in range(self.taylor_order):
-            x = getattr(self, f"blocks_{i}")(x)
+            x = getattr(self, f"blocks_{i}")(x, deterministic, generator)
             derivative = x[:, -1:]
             if not self.deg:
                 b = derivative.shape[0]
@@ -176,8 +182,10 @@ class TANTE(nn.Module):
             return outputs
         return outputs, torch.stack(r_ts, dim=1).mean(dim=1)
 
-    def forward(self, inputs: torch.Tensor, out_T: float = 1):
+    def forward(self, inputs: torch.Tensor, out_T: float = 1, deterministic: bool = True,
+                generator: torch.Generator | None = None):
         """inputs (B, T, H, W, C) -> (B, n, H, W, C) [, r_t (B,) adaptive]."""
         if inputs.shape[1] != self.in_T:
             inputs = inputs[:, -self.in_T:]
-        return self.head(self.encode(inputs), inputs[:, -1:], out_T)
+        return self.head(self.encode(inputs), inputs[:, -1:], out_T, deterministic,
+                         generator=generator)

@@ -107,6 +107,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.tante_fused_block_fwd, lib.tante_fused_block_canon_t_fwd):
         fn.argtypes = [p, p, ctypes.POINTER(p), i, i, i, i, i, i, i, p]
         fn.restype = i
+    lib.tante_fused_chain_fwd.argtypes = [
+        p, p, p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, p]
+    lib.tante_fused_chain_fwd.restype = i
     lib.tante_fused_block_plan.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.tante_fused_block_plan.restype = i
     return lib

@@ -2,7 +2,7 @@
 //
 //   y = x' + fc2(gelu_tanh(fc1(ln2(x'))))      x' = x + wo(attn(ln1(x)))
 //
-// Two entry points share one kernel body and differ only in how a tile's
+// Three entry points share one tile body and differ only in how a tile's
 // rows are addressed in device memory (a RowMap):
 //
 //   tante_fused_block_fwd          rows of (S, L, C); sequences are L
@@ -19,6 +19,25 @@
 //     (_roll_body).  The TPU kernel rolled k/v by delta*H*W rows because
 //     Mosaic cannot split lanes; here each CTA simply gathers P pixels x T
 //     steps as P sequences of length T.
+//
+//   tante_fused_chain_fwd         a run of T/H/W blocks on one (B, T, H, W, C)
+//                                  tensor in ONE cooperative launch: a
+//                                  persistent grid loops over the run's
+//                                  blocks, each block over its tiles, with a
+//                                  grid-wide barrier between blocks.
+//     Replaces tante_tpu/ops/pallas_block.py fused_chain_apply and
+//     fused_group_apply (one body, _group_kernel).  The TPU kernel keeps one
+//     batch element in VMEM and re-orders tokens between blocks with 0/1
+//     permutation matmuls; an SM cannot hold an element, so here every block
+//     of the run is the same tile body under a strided row map for its axis
+//     (the permutations become addressing) and activations ping-pong
+//     between two device buffers that stay L2-resident at the flagship size.
+//     The first load and the last store take the caller's token order (the
+//     chain contract: first axis's order in, last axis's order out).  Each
+//     block is bound by operations like a single launch, so the run's bound
+//     is the sum of its blocks' (bytes: x in, y out, every weight once).
+//     Rounding points are those of the single-block kernels, so the run
+//     equals those kernels applied in sequence bit for bit.
 //
 // Numerics (the Pallas "fast" softmax): q arrives prescaled by
 // d^-0.5*log2(e) (folded into wq/bq by the wrapper), scores are
@@ -47,14 +66,16 @@
 // (H block, see PERF.md): ~75% matmuls, ~10% attention, ~10% LayerNorm and
 // row gathers.  What it leaves on the table against the bound: wgmma, TMA
 // and warp specialisation, a persistent grid, and more than one CTA per SM
-// (~217 KB of shared memory per CTA at 64 rows).
+// (~219 KB of shared memory per CTA at 64 rows).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
 using namespace nvcuda;
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 namespace {
@@ -79,7 +100,7 @@ struct Params {
 
 // Phase timing (measurement builds only, -DTANTE_PHASE_TIMING; see
 // tante_tpu_torch/tools/kernel_phases.py): thread 0 of each of the first
-// kPhaseCtas CTAs stamps the global nanosecond timer at every phase
+// kPhaseCtas tiles stamps the global nanosecond timer at every phase
 // boundary, after a CTA barrier.  Without the flag PHASE() is empty.
 constexpr int kPhases = 11;  // start, load, ln1, q, k, v, attention, o, ln2, fc1, fc2
 constexpr int kPhaseCtas = 8192;
@@ -88,10 +109,10 @@ __device__ unsigned long long g_phase_ns[kPhaseCtas][kPhases];
 #define PHASE(i)                                                               \
   do {                                                                         \
     __syncthreads();                                                           \
-    if (threadIdx.x == 0 && blockIdx.x < kPhaseCtas) {                         \
+    if (threadIdx.x == 0 && tile < kPhaseCtas) {                               \
       unsigned long long t;                                                    \
       asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                    \
-      g_phase_ns[blockIdx.x][i] = t;                                           \
+      g_phase_ns[tile][i] = t;                                                 \
     }                                                                          \
   } while (0)
 #else
@@ -112,6 +133,17 @@ struct CanonTRows {
   __device__ size_t offset(int seq, int t) const {
     const int b = seq / HW, p = seq - b * HW;
     return (((size_t)b * T + t) * HW + p) * C;
+  }
+};
+
+// Sequence = one line along an axis of a (B, T, H, W) token grid held in any
+// token order: sequence number = (b, i, j) over the two other axes (the
+// inner one of size n2), rows of a batch element `sb` apart, strides in rows.
+struct StridedRows {
+  int per, n2, sb, s1, s2, sa, C;
+  __device__ size_t offset(int seq, int t) const {
+    const int b = seq / per, r = seq - b * per, i = r / n2, j = r - i * n2;
+    return ((size_t)b * sb + (size_t)i * s1 + (size_t)j * s2 + (size_t)t * sa) * C;
   }
 };
 
@@ -232,20 +264,19 @@ struct EpiResidual {  // x = bf16(x + bf16(v)), in shared memory
   }
 };
 
-template <class RowMap>
-struct EpiOut {  // y[row] = bf16(x + bf16(v)) for the tile's valid rows
+struct EpiOut {  // y[row_off[r]] = bf16(x + bf16(v)) for the tile's valid rows
   const bf16* x;
   int ld;
   bf16* y;
-  RowMap rm;
-  int seq0, L, rows_valid;
+  const size_t* row_off;  // element offset of each tile row in y (shared memory)
+  int rows_valid;
   __device__ void operator()(int r, int c, float* v) const {
     if (r >= rows_valid) return;
     float xr[8];
     load8(x + r * ld + c, xr);
 #pragma unroll
     for (int e = 0; e < 8; ++e) v[e] = xr[e] + round_bf16(v[e]);
-    store8(y + rm.offset(seq0 + r / L, r % L) + c, v);
+    store8(y + row_off[r] + c, v);
   }
 };
 
@@ -466,22 +497,32 @@ __host__ __device__ constexpr size_t scratch_bytes(int L) {
   return ring > attn ? ring : attn;
 }
 
+// Where each tile row lives in x and in y (element offsets), worked out once
+// per tile: the row maps' divisions stay out of the gather and the epilogue.
+constexpr size_t kRowTableBytes = 2 * kMaxRows * sizeof(size_t);
+
 __host__ __device__ constexpr size_t smem_bytes(int rows, int C, int HID, int L) {
-  // x, ln-out, q (-> attention out), k, v tiles; fc1 output reuses q|k
-  // (HID <= 2C); per-warp matmul staging; per-warp scratch.
-  return (size_t)5 * rows * (C + kPad) * sizeof(bf16) +
+  // row offset tables; x, ln-out, q (-> attention out), k, v tiles; fc1
+  // output reuses q|k (HID <= 2C); per-warp matmul staging; per-warp scratch.
+  return kRowTableBytes + (size_t)5 * rows * (C + kPad) * sizeof(bf16) +
          (size_t)kWarps * 256 * sizeof(float) + scratch_bytes(L);
 }
 
-template <int RT, class RowMap>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_block_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, Params P, RowMap rm,
-                   int n_seqs, int seqs_per_tile, int L, int C, int HID, int heads,
-                   int causal) {
+// One tile of one block: the tile's whole sequences are gathered from x
+// through `in`, run through the block in shared memory, and stored to y
+// through `out`.  x is read with ld.global.cg (L2 only): inside the chain
+// kernel another SM wrote it earlier in the same launch.
+template <int RT, class InMap, class OutMap>
+__device__ __forceinline__ void block_tile(const bf16* x, bf16* y, const Params& P,
+                                           const InMap& in, const OutMap& out, int tile,
+                                           int n_seqs, int seqs_per_tile, int L, int C, int HID,
+                                           int heads, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int R = RT * 16;
   const int ldx = C + kPad, ldh = HID + kPad;
-  bf16* sX = reinterpret_cast<bf16*>(smem);
+  size_t* sRowIn = reinterpret_cast<size_t*>(smem);
+  size_t* sRowOut = sRowIn + kMaxRows;
+  bf16* sX = reinterpret_cast<bf16*>(smem + kRowTableBytes);
   bf16* sXN = sX + R * ldx;
   bf16* sQ = sXN + R * ldx;
   bf16* sK = sQ + R * ldx;
@@ -492,16 +533,21 @@ fused_block_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, Params P, R
   bf16* sRing = reinterpret_cast<bf16*>(sScratch);
 
   PHASE(0);
-  const int seq0 = blockIdx.x * seqs_per_tile;
+  const int seq0 = tile * seqs_per_tile;
   const int rows_valid = min(seqs_per_tile, n_seqs - seq0) * L;
 
+  for (int r = threadIdx.x; r < rows_valid; r += kThreads) {
+    sRowIn[r] = in.offset(seq0 + r / L, r % L);
+    sRowOut[r] = out.offset(seq0 + r / L, r % L);
+  }
+  __syncthreads();
   // Gather the tile's rows (zeros below the valid rows).
   const int vec_per_row = C / 8;
   for (int idx = threadIdx.x; idx < R * vec_per_row; idx += kThreads) {
     const int r = idx / vec_per_row, c8 = idx - r * vec_per_row;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows_valid)
-      v = *reinterpret_cast<const uint4*>(x + rm.offset(seq0 + r / L, r % L) + c8 * 8);
+      v = __ldcg(reinterpret_cast<const uint4*>(x + sRowIn[r] + c8 * 8));
     *reinterpret_cast<uint4*>(sX + r * ldx + c8 * 8) = v;
   }
   __syncthreads();
@@ -548,8 +594,66 @@ fused_block_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, Params P, R
   __syncthreads();
   PHASE(9);
   gemm<RT>(sH, ldh, P.p[W2], P.p[B2], HID, C, sStage, sRing,
-           EpiOut<RowMap>{sX, ldx, y, rm, seq0, L, rows_valid});
+           EpiOut{sX, ldx, y, sRowOut, rows_valid});
   PHASE(10);
+}
+
+template <int RT, class RowMap>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_block_kernel(const bf16* x, bf16* y, Params P, RowMap rm, int n_seqs, int seqs_per_tile,
+                   int L, int C, int HID, int heads, int causal) {
+  block_tile<RT>(x, y, P, rm, rm, blockIdx.x, n_seqs, seqs_per_tile, L, C, HID, heads, causal);
+}
+
+// ---- the chain: a run of blocks in one cooperative launch ------------------
+
+constexpr int kMaxChainBlocks = 12;
+
+struct ChainStep {
+  Params P;
+  StridedRows in, out;  // token order of the buffer read / written
+  int L, causal, n_seqs, seqs_per_tile, rt;
+  int src, dst;         // indices into ChainArgs::buf
+};
+
+struct ChainArgs {
+  ChainStep step[kMaxChainBlocks];
+  bf16* buf[4];  // caller's x, caller's y, two scratch buffers (canonical order)
+  int n_steps;
+};
+
+// Inlined on purpose: as a function of its own the tile body keeps its wmma
+// fragments in a stack frame and runs slower, although it then spills less.
+template <int RT>
+__device__ __forceinline__ void chain_tile(const bf16* x, bf16* y, const ChainStep& s, int tile,
+                                           int C, int HID, int heads) {
+  block_tile<RT>(x, y, s.P, s.in, s.out, tile, s.n_seqs, s.seqs_per_tile, s.L, C, HID, heads,
+                 s.causal);
+}
+
+// Persistent grid: every CTA walks the tiles of block i at stride gridDim.x,
+// then all CTAs meet at a grid barrier (which orders block i's global writes
+// before block i + 1's reads) and go on to block i + 1.  A block never reads
+// the buffer it writes.
+__global__ void __launch_bounds__(kThreads, 1)
+fused_chain_kernel(const __grid_constant__ ChainArgs A, int C, int HID, int heads) {
+  cg::grid_group grid = cg::this_grid();
+  for (int i = 0; i < A.n_steps; ++i) {
+    const ChainStep& s = A.step[i];
+    const bf16* x = A.buf[s.src];
+    bf16* y = A.buf[s.dst];
+    const int n_tiles = (s.n_seqs + s.seqs_per_tile - 1) / s.seqs_per_tile;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      switch (s.rt) {
+        case 1: chain_tile<1>(x, y, s, tile, C, HID, heads); break;
+        case 2: chain_tile<2>(x, y, s, tile, C, HID, heads); break;
+        case 3: chain_tile<3>(x, y, s, tile, C, HID, heads); break;
+        default: chain_tile<4>(x, y, s, tile, C, HID, heads); break;
+      }
+      __syncthreads();  // the tile's shared memory is free for the next tile
+    }
+    if (i + 1 < A.n_steps) grid.sync();
+  }
 }
 
 // Whole sequences per CTA: as many as fit in kMaxRows rows and in the
@@ -586,13 +690,17 @@ cudaError_t launch_rt(const bf16* x, bf16* y, const Params& P, RowMap rm, int n_
   return cudaGetLastError();
 }
 
+bool head_dim_ok(int C, int heads) {
+  const int d = heads > 0 && C % heads == 0 ? C / heads : 0;
+  return d == 16 || d == 32 || d == 64;
+}
+
 template <class RowMap>
 int launch(const void* x, void* y, const void* const* w, RowMap rm, int n_seqs, int L, int C,
            int HID, int heads, int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int d = heads > 0 ? C / heads : 0;
-  if (heads <= 0 || C % heads || (d != 16 && d != 32 && d != 64)) return cudaErrorInvalidValue;
+  if (!head_dim_ok(C, heads)) return cudaErrorInvalidValue;
   int seqs = 0, smem = 0;
   err = (cudaError_t)plan_tile(L, C, HID, &seqs, &smem);
   if (err != cudaSuccess) return err;
@@ -611,6 +719,73 @@ int launch(const void* x, void* y, const void* const* w, RowMap rm, int n_seqs, 
   }
 }
 
+// plan: n_steps x kChainPlanInts ints per block: L, causal, n_seqs, then the
+// read map and the write map as (per, n2, sb, s1, s2, sa) each.
+constexpr int kChainPlanInts = 15;
+
+int launch_chain(const void* x, void* y, void* buf0, void* buf1, const void* const* w,
+                 const int* plan, int n_steps, int C, int HID, int heads, int device,
+                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n_steps < 1 || n_steps > kMaxChainBlocks || !head_dim_ok(C, heads))
+    return cudaErrorInvalidValue;
+  int coop = 0, sms = 0;
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+
+  ChainArgs A;
+  A.n_steps = n_steps;
+  A.buf[0] = const_cast<bf16*>(static_cast<const bf16*>(x));
+  A.buf[1] = static_cast<bf16*>(y);
+  A.buf[2] = static_cast<bf16*>(buf0);
+  A.buf[3] = static_cast<bf16*>(buf1);
+  int smem = 0, max_tiles = 0;
+  for (int i = 0; i < n_steps; ++i) {
+    const int* p = plan + i * kChainPlanInts;
+    ChainStep& s = A.step[i];
+    for (int k = 0; k < 16; ++k) s.P.p[k] = static_cast<const bf16*>(w[i * 16 + k]);
+    s.L = p[0];
+    s.causal = p[1];
+    s.n_seqs = p[2];
+    s.in = StridedRows{p[3], p[4], p[5], p[6], p[7], p[8], C};
+    s.out = StridedRows{p[9], p[10], p[11], p[12], p[13], p[14], C};
+    if (s.n_seqs <= 0 || s.in.per <= 0 || s.in.n2 <= 0 || s.out.per <= 0 || s.out.n2 <= 0)
+      return cudaErrorInvalidValue;
+    int seqs = 0, bytes = 0;
+    err = (cudaError_t)plan_tile(s.L, C, HID, &seqs, &bytes);
+    if (err != cudaSuccess) return err;
+    s.seqs_per_tile = seqs;
+    s.rt = (seqs * s.L + 15) / 16;
+    s.src = i == 0 ? 0 : 2 + (i - 1) % 2;
+    s.dst = i == n_steps - 1 ? 1 : 2 + i % 2;
+    if (bytes > smem) smem = bytes;
+    const int tiles = (s.n_seqs + seqs - 1) / seqs;
+    if (tiles > max_tiles) max_tiles = tiles;
+  }
+  err = cudaFuncSetAttribute(fused_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  // A cooperative grid must be co-resident: size it from the occupancy at
+  // the real dynamic shared memory.
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_chain_kernel, kThreads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  int grid = per_sm * sms;
+  if (grid > max_tiles) grid = max_tiles;
+  void* args[] = {&A, &C, &HID, &heads};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_chain_kernel), dim3(grid),
+                                    dim3(kThreads), args, smem,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -626,6 +801,17 @@ int tante_fused_block_fwd(const void* x, void* y, const void* const* w, int n_se
 int tante_fused_block_canon_t_fwd(const void* x, void* y, const void* const* w, int B, int T,
                                   int HW, int C, int HID, int heads, int device, void* stream) {
   return launch(x, y, w, CanonTRows{T, HW, C}, B * HW, T, C, HID, heads, 1, device, stream);
+}
+
+// A run of n_steps blocks on one tensor of B*T*H*W rows in one cooperative
+// launch.  x: the input in the first block's read order; y: the output in
+// the last block's write order; buf0, buf1: scratch of the same size
+// (unused for n_steps == 1 / 2); w: host array of n_steps * 16 device
+// pointers; plan: host array of n_steps * 15 ints (see launch_chain).
+int tante_fused_chain_fwd(const void* x, void* y, void* buf0, void* buf1, const void* const* w,
+                          const int* plan, int n_steps, int C, int HID, int heads, int device,
+                          void* stream) {
+  return launch_chain(x, y, buf0, buf1, w, plan, n_steps, C, HID, heads, device, stream);
 }
 
 // The tile plan a launch with these sizes uses (for reports).

@@ -1,6 +1,6 @@
 """Fused axial transformer block (counterpart of ``tante_tpu/ops/pallas_block.py``).
 
-Two entry points carry every attention block of the TANTE serving path:
+Four entry points carry every attention block of the TANTE paths:
 
 - ``fused_block_apply(x, p, l, heads, causal)``: the whole pre-LN block on
   ``(S, L, C)`` rows (the H and W blocks, and the T block outside the
@@ -11,11 +11,26 @@ Two entry points carry every attention block of the TANTE serving path:
   CUDA kernel ``fused_block_canon_t_fwd`` replaces ``fused_block_canon_t``
   (``pallas_block.py:368``).
 
-Both kernels live in ``csrc/fused_block.cu`` and are built on first use by
+- ``fused_chain_apply(x3, params_seq, axes, heads, dims)``: a run of T/H/W
+  blocks in ONE launch, input in the first axis's token order, output in
+  the last's; ``fused_group_apply(x5, params_seq, axes, heads)``: the same
+  on the canonical tensor, in and out.  CUDA kernel ``fused_chain_fwd``
+  (cooperative, a grid barrier between blocks) replaces the Pallas kernel
+  reached by ``fused_chain_apply`` / ``fused_group_apply``
+  (``pallas_block.py:1073`` / ``:989``, one body ``_group_kernel``).
+
+The kernels live in ``csrc/fused_block.cu`` and are built on first use by
 ``_build.py``.  Each wrapper takes its plain PyTorch version (``block_ref``,
-``canon_t_ref``: the JAX package's ``_xla_block`` / ``_canon_t_ref``) only
+``canon_t_ref``, ``chain_ref``, ``group_ref``: the JAX package's
+``_xla_block`` / ``_canon_t_ref`` / ``_chain_ref`` / ``_xla_group``) only
 for a tensor on the CPU; a CUDA tensor launches the kernel or raises.  Each
-wrapper counts its launches in its ``launches`` attribute.
+wrapper counts its forward launches in its ``launches`` attribute.
+
+Gradients: as in the JAX package (``jax.vjp`` of the plain version in every
+custom VJP there), no kernel has a backward kernel.  On a CUDA tensor that
+needs a gradient the launch is wrapped in one ``torch.autograd.Function``
+that saves ``x`` and the parameters and, in backward, recomputes the plain
+version under ``torch.enable_grad()`` and pulls the cotangent through it.
 
 Kernel numerics are the Pallas kernel's "fast" softmax: ``d**-0.5 * log2(e)``
 folded into ``wq``/``bq`` once per launch, ``exp2(min(s, 60*log2(e)))`` with
@@ -28,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -167,13 +182,53 @@ def _prescaled(p: BlockParams, heads: int) -> BlockParams:
     return p._replace(wq=p.wq * qs, bq=p.bq * qs)
 
 
-def _ptr_array(p: BlockParams):
-    return (ctypes.c_void_p * 16)(*[t.data_ptr() for t in p])
+def _ptr_array(params_seq: Sequence[BlockParams]):
+    ptrs = [t.data_ptr() for p in params_seq for t in p]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
 def _raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+class _RecomputeGrad(torch.autograd.Function):
+    """``launch(x, params_seq)`` forward; backward = the cotangent pulled
+    through ``plain(x, params_seq)`` recomputed with autograd on.  The
+    parameters arrive flat (16 per block) so autograd sees each tensor."""
+
+    @staticmethod
+    def forward(ctx, launch: Callable, plain: Callable, x: torch.Tensor, *flat):
+        ctx.plain = plain
+        ctx.save_for_backward(x, *flat)
+        return launch(x, _blocks(flat))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *flat = ctx.saved_tensors
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip((x, *flat), need)]
+            y = ctx.plain(leaves[0], _blocks(leaves[1:]))
+            wanted = [t for t, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(y, wanted, g.to(y.dtype)))
+        return (None, None, *(next(grads) if n else None for n in need))
+
+
+def _blocks(flat: Sequence[torch.Tensor]) -> tuple:
+    return tuple(BlockParams(*flat[i : i + 16]) for i in range(0, len(flat), 16))
+
+
+def _run(launch: Callable, plain: Callable, x: torch.Tensor, params_seq: Sequence[BlockParams]):
+    """Launch the kernel, through ``_RecomputeGrad`` when a gradient can flow."""
+    flat = [t for p in params_seq for t in p]
+    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in flat)):
+        return _RecomputeGrad.apply(launch, plain, x, *flat)
+    return launch(x, params_seq)
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def fused_block_apply(
@@ -182,22 +237,26 @@ def fused_block_apply(
     """(S, L, C) -> (S, L, C) full pre-LN transformer block."""
     if x.device.type == "cpu":
         return block_ref(x, p, l, heads, causal)
-    from tante_tpu_torch.ops import _build
-
-    s, l_, c = x.shape
-    if l_ != l:
+    if x.shape[-2] != l:
         raise ValueError(f"x of shape {tuple(x.shape)} does not hold sequences of L={l}")
-    _check_kernel_args(x, p, l, heads)
-    ps = _prescaled(p, heads)
-    out = torch.empty_like(x)
-    rc = _build.load().tante_fused_block_fwd(
-        x.data_ptr(), out.data_ptr(), _ptr_array(ps), s, l, c, p.w1.shape[-1],
-        heads, int(bool(causal)), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _raise_on(rc, "fused_block_fwd")
-    fused_block_apply.launches += 1
-    return out
+
+    def launch(x, ps):
+        from tante_tpu_torch.ops import _build
+
+        (p,) = ps
+        s, _, c = x.shape
+        _check_kernel_args(x, p, l, heads)
+        out = torch.empty_like(x)
+        scaled = _prescaled(p, heads)  # alive until the launch is enqueued
+        rc = _build.load().tante_fused_block_fwd(
+            x.data_ptr(), out.data_ptr(), _ptr_array([scaled]), s, l, c,
+            p.w1.shape[-1], heads, int(bool(causal)), x.device.index, _stream(x),
+        )
+        _raise_on(rc, "fused_block_fwd")
+        fused_block_apply.launches += 1
+        return out
+
+    return _run(launch, lambda x, ps: block_ref(x, ps[0], l, heads, causal), x, (p,))
 
 
 fused_block_apply.launches = 0
@@ -208,26 +267,209 @@ def fused_block_canon_t(x5: torch.Tensor, p: BlockParams, heads: int) -> torch.T
     tensor, no rearrange on either side."""
     if x5.device.type == "cpu":
         return canon_t_ref(x5, p, heads)
-    from tante_tpu_torch.ops import _build
-
     b, t, h, w, c = x5.shape
     if not canon_t_supported(t, h, w, c, heads):
         raise ValueError(f"canonical T block unsupported for {tuple(x5.shape)}, heads={heads}")
-    _check_kernel_args(x5, p, t, heads)
-    ps = _prescaled(p, heads)
-    out = torch.empty_like(x5)
-    rc = _build.load().tante_fused_block_canon_t_fwd(
-        x5.data_ptr(), out.data_ptr(), _ptr_array(ps), b, t, h * w, c, p.w1.shape[-1],
-        heads, x5.device.index, torch.cuda.current_stream(x5.device).cuda_stream,
-    )
-    _raise_on(rc, "fused_block_canon_t_fwd")
-    fused_block_canon_t.launches += 1
-    return out
+
+    def launch(x5, ps):
+        from tante_tpu_torch.ops import _build
+
+        (p,) = ps
+        _check_kernel_args(x5, p, t, heads)
+        out = torch.empty_like(x5)
+        scaled = _prescaled(p, heads)
+        rc = _build.load().tante_fused_block_canon_t_fwd(
+            x5.data_ptr(), out.data_ptr(), _ptr_array([scaled]), b, t, h * w, c,
+            p.w1.shape[-1], heads, x5.device.index, _stream(x5),
+        )
+        _raise_on(rc, "fused_block_canon_t_fwd")
+        fused_block_canon_t.launches += 1
+        return out
+
+    return _run(launch, lambda x, ps: canon_t_ref(x, ps[0], heads), x5, (p,))
 
 
 fused_block_canon_t.launches = 0
 
 
+# --------------------------------------------------------------------------
+# Chain / group: a run of T/H/W blocks in one launch
+# --------------------------------------------------------------------------
+
+# Token orders that make each attention axis contiguous; canonical is "thw"
+# (``pallas_block.py:_ORDER``).
+_ORDER = {"T": "hwt", "H": "twh", "W": "thw"}
+_CANONICAL = "thw"
+# Blocks one cooperative launch takes (its argument block holds their 16
+# pointers and two row maps each).
+KERNEL_MAX_CHAIN = 12
+
+
+def group_ref(x5: torch.Tensor, params_seq: Sequence[BlockParams], axes: str, heads: int):
+    """Plain chain on canonical (B, T, H, W, C): rearrange per axis +
+    ``block_ref`` (``pallas_block.py:_xla_group``)."""
+    b, t, hp, wp, c = x5.shape
+    x = x5
+    for axis, p in zip(axes, params_seq):
+        if axis == "T":
+            x = canon_t_ref(x, p, heads)
+        elif axis == "H":
+            y = x.permute(0, 1, 3, 2, 4).reshape(b * t * wp, hp, c)
+            y = block_ref(y, p, hp, heads, False)
+            x = y.reshape(b, t, wp, hp, c).permute(0, 1, 3, 2, 4)
+        else:
+            y = block_ref(x.reshape(b * t * hp, wp, c), p, wp, heads, False)
+            x = y.reshape(b, t, hp, wp, c)
+    return x
+
+
+def chain_ref(x3: torch.Tensor, params_seq: Sequence[BlockParams], axes: str, heads: int,
+              dims: tuple) -> torch.Tensor:
+    """Plain sub-chain: (s, l, c) in ``axes[0]``'s token order -> (s', l', c)
+    in ``axes[-1]``'s (``pallas_block.py:_chain_ref``)."""
+    t, hp, wp = dims
+    c = x3.shape[-1]
+    b = x3.numel() // (t * hp * wp * c)
+    if axes[0] == "T":
+        x5 = x3.reshape(b, hp, wp, t, c).permute(0, 3, 1, 2, 4)
+    elif axes[0] == "H":
+        x5 = x3.reshape(b, t, wp, hp, c).permute(0, 1, 3, 2, 4)
+    else:
+        x5 = x3.reshape(b, t, hp, wp, c)
+    y5 = group_ref(x5, params_seq, axes, heads)
+    if axes[-1] == "T":
+        return y5.permute(0, 2, 3, 1, 4).reshape(b * hp * wp, t, c)
+    if axes[-1] == "H":
+        return y5.permute(0, 1, 3, 2, 4).reshape(b * t * wp, hp, c)
+    return y5.reshape(b * t * hp, wp, c)
+
+
+def group_fusable(axes: str, dims, c: int, heads: int, hidden: int | None = None) -> bool:
+    """Whether the T/H/W chain can run in the chain kernel: known axes, heads
+    dividing C (``pallas_block.py:949-956``) and the CUDA kernel's envelope
+    (at most 12 blocks, each axis length <= 64, C and the MLP width
+    (``hidden``, default C) multiples of 64 with C <= 512 and hidden <= 2C,
+    head dim 16/32/64).  The TPU gate's VMEM budget has no counterpart: the
+    CUDA kernel tiles sequences and keeps no batch element on chip."""
+    if any(a not in _ORDER for a in axes) or heads <= 0 or c % heads:
+        return False
+    hidden = c if hidden is None else hidden
+    sizes = dict(zip("THW", dims))
+    return (
+        1 <= len(axes) <= KERNEL_MAX_CHAIN
+        and c % 64 == 0 and c <= KERNEL_MAX_C and c // heads in KERNEL_HEAD_DIMS
+        and hidden % 64 == 0 and hidden <= 2 * c
+        and all(1 <= sizes[a] <= KERNEL_MAX_L for a in axes)
+    )
+
+
+# A sub-chain run has the group's conditions (``pallas_block.py:1028-1034``).
+chain_fusable = group_fusable
+
+
+def _row_strides(order: str, sizes: dict) -> dict:
+    """Row stride of each axis letter in a token order such as "hwt"."""
+    return {order[0]: sizes[order[1]] * sizes[order[2]], order[1]: sizes[order[2]], order[2]: 1}
+
+
+def chain_plan(axes: str, dims, b: int, start: str = _CANONICAL, stop: str = _CANONICAL):
+    """What the kernel is told per block, as ints: (L, causal, n_seqs) and
+    the read and write row maps (per, n2, sb, s1, s2, sa) each: sequence
+    ``b * per + i * n2 + j`` (i, j over the two other axes in canonical
+    order) has its token ``p`` at row ``b * sb + i * s1 + j * s2 + p * sa``.
+    The first block reads token order ``start``, the last writes ``stop``;
+    the buffers between are canonical.  This is ``_layout_plan``'s job, with
+    the permutations as addressing."""
+    sizes = dict(zip("thw", dims))
+    m = sizes["t"] * sizes["h"] * sizes["w"]
+    plan = []
+    for i, axis in enumerate(axes):
+        a = axis.lower()
+        o1, o2 = (x for x in _CANONICAL if x != a)
+        row = [sizes[a], int(axis == "T"), b * m // sizes[a]]
+        for order in (start if i == 0 else _CANONICAL, stop if i == len(axes) - 1 else _CANONICAL):
+            st = _row_strides(order, sizes)
+            row += [sizes[o1] * sizes[o2], sizes[o2], m, st[o1], st[o2], st[a]]
+        plan.append(tuple(row))
+    return plan
+
+
+def _launch_chain(x: torch.Tensor, params_seq, axes: str, heads: int, dims, start: str,
+                  stop: str, out_shape) -> torch.Tensor:
+    from tante_tpu_torch.ops import _build
+
+    c, hidden = x.shape[-1], params_seq[0].w1.shape[-1]
+    if len(params_seq) != len(axes):
+        raise ValueError(f"{len(axes)} axes but {len(params_seq)} parameter sets")
+    if not group_fusable(axes, dims, c, heads, hidden):
+        raise ValueError(f"chain kernel cannot take axes={axes!r}, dims={tuple(dims)}, C={c}, "
+                         f"hidden={hidden}, heads={heads}")
+    m = dims[0] * dims[1] * dims[2]
+    if x.numel() % (m * c):
+        raise ValueError(f"x of shape {tuple(x.shape)} does not hold (T, H, W) = {tuple(dims)}")
+    sizes = dict(zip("THW", dims))
+    for axis, p in zip(axes, params_seq):
+        _check_kernel_args(x, p, sizes[axis], heads)
+    plan = chain_plan(axes, dims, x.numel() // (m * c), start, stop)
+    flat = [v for row in plan for v in row]
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    # Ping-pong scratch for the activations between blocks (canonical order).
+    scratch = [torch.empty_like(x) for _ in range(min(2, len(axes) - 1))]
+    bufs = [t.data_ptr() for t in scratch] + [None] * (2 - len(scratch))
+    scaled = [_prescaled(p, heads) for p in params_seq]
+    rc = _build.load().tante_fused_chain_fwd(
+        x.data_ptr(), out.data_ptr(), *bufs, _ptr_array(scaled),
+        (ctypes.c_int * len(flat))(*flat), len(axes), c, hidden, heads, x.device.index,
+        _stream(x),
+    )
+    _raise_on(rc, "fused_chain_fwd")
+    return out
+
+
+def fused_group_apply(x5: torch.Tensor, params_seq: Sequence[BlockParams], axes: str,
+                      heads: int) -> torch.Tensor:
+    """(B, T, H, W, C) -> same, running the whole ``axes`` chain (one block
+    per letter, T causal) in a single kernel launch."""
+    params_seq = tuple(params_seq)
+    if x5.device.type == "cpu":
+        return group_ref(x5, params_seq, axes, heads)
+    dims = tuple(x5.shape[1:4])
+
+    def launch(x5, ps):
+        out = _launch_chain(x5, ps, axes, heads, dims, _CANONICAL, _CANONICAL, x5.shape)
+        fused_group_apply.launches += 1
+        return out
+
+    return _run(launch, lambda x, ps: group_ref(x, ps, axes, heads), x5, params_seq)
+
+
+fused_group_apply.launches = 0
+
+
+def fused_chain_apply(x3: torch.Tensor, params_seq: Sequence[BlockParams], axes: str,
+                      heads: int, dims: tuple) -> torch.Tensor:
+    """(s, l, c) in ``axes[0]``'s token order -> (s', l', c) in
+    ``axes[-1]``'s order, running every block of ``axes`` (T causal) in a
+    single kernel launch."""
+    params_seq = tuple(params_seq)
+    if x3.device.type == "cpu":
+        return chain_ref(x3, params_seq, axes, heads, dims)
+    l_out = dict(zip("THW", dims))[axes[-1]]
+
+    def launch(x3, ps):
+        out = _launch_chain(x3, ps, axes, heads, dims, _ORDER[axes[0]], _ORDER[axes[-1]],
+                            (x3.numel() // (l_out * x3.shape[-1]), l_out, x3.shape[-1]))
+        fused_chain_apply.launches += 1
+        return out
+
+    return _run(launch, lambda x, ps: chain_ref(x, ps, axes, heads, dims), x3, params_seq)
+
+
+fused_chain_apply.launches = 0
+
+WRAPPERS = (fused_block_apply, fused_block_canon_t, fused_chain_apply, fused_group_apply)
+
+
 def reset_launches():
-    fused_block_apply.launches = 0
-    fused_block_canon_t.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0

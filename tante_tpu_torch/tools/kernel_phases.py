@@ -9,6 +9,12 @@ LN2, fc1, fc2), launches the flagship H, W and T blocks with seeded bf16
 inputs, and prints one JSON line per block: the mean microseconds per CTA of
 each phase, the CTA count, and the measurement build's launch time (the
 stamps' barriers make it a little slower than the production kernel).
+
+A last line does the same for the chain kernel on the run ``THW``: tiles
+stamp by tile number and each block of a run overwrites the one before, so
+what is read back are the tiles of the run's LAST block (W), to hold against
+the single W launch above; ``block_span_us`` is the time from the first
+tile's start to the last tile's end of that block across the grid.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     for i, (label, (shape, causal)) in enumerate(CASES.items()):
-        ptrs = fb._ptr_array(fb._prescaled(_params(i, dev), HEADS))
+        scaled = fb._prescaled(_params(i, dev), HEADS)  # alive while the kernels run
+        ptrs = fb._ptr_array([scaled])
         x = torch.from_numpy(np.random.default_rng(i).normal(size=shape).astype(np.float32))
         x = x.to(dev, torch.bfloat16)
         y = torch.empty_like(x)
@@ -93,6 +100,41 @@ def main() -> int:
             "per_cta_us": {p: float(v) for p, v in zip(PHASES, per_cta_us)},
             "cta_us": float(per_cta_us.sum()), "card": card.strip(),
         }), flush=True)
+    # The chain kernel, run THW: the stamps left are the W block's tiles.
+    shape, axes = CASES["T"][0], "THW"
+    dims = shape[1:4]
+    ps = [fb._prescaled(_params(10 + i, dev), HEADS) for i in range(len(axes))]
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=shape).astype(np.float32))
+    x = x.to(dev, torch.bfloat16)
+    y, bufs = torch.empty_like(x), [torch.empty_like(x) for _ in range(2)]
+    plan = [v for row in fb.chain_plan(axes, dims, shape[0]) for v in row]
+    plan_arr = (ctypes.c_int * len(plan))(*plan)
+    launch = lambda: lib.tante_fused_chain_fwd(  # noqa: E731
+        x.data_ptr(), y.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), fb._ptr_array(ps),
+        plan_arr, len(axes), C, HIDDEN, HEADS, 0, stream)
+    for _ in range(3):
+        if launch() != 0:
+            raise RuntimeError("chain: launch failed")
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        launch()
+    stop.record()
+    stop.synchronize()
+    tiles = shape[0] * dims[0] * dims[1]  # one W sequence (48 rows) per tile
+    stamps = np.zeros((tiles, len(PHASES) + 1), dtype=np.uint64)
+    if lib.tante_phase_read(stamps.ctypes.data, tiles) != 0:
+        raise RuntimeError("reading the phase stamps failed")
+    ns = stamps.astype(np.float64)
+    per_tile_us = np.diff(ns, axis=1).mean(axis=0) / 1e3
+    print(json.dumps({
+        "block": "chain THW: tiles of its last block (W)", "shape": list(shape), "tiles": tiles,
+        "timing_build_ms": start.elapsed_time(stop) / 20,
+        "per_cta_us": {p: float(v) for p, v in zip(PHASES, per_tile_us)},
+        "cta_us": float(per_tile_us.sum()),
+        "block_span_us": float((ns[:, -1].max() - ns[:, 0].min()) / 1e3), "card": card.strip(),
+    }), flush=True)
     return 0
 
 

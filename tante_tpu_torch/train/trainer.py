@@ -1,0 +1,233 @@
+"""Fixed-step Trainer (counterpart of ``tante_tpu/train/trainer.py``).
+
+One train step: ``rollout_fixed`` with ``deterministic=False`` -> loss ->
+backward -> global-norm clip (1.0) -> AdamW -> schedule step.  bf16 "AMP"
+is native mixed precision: activations in bfloat16 through the modules'
+compute ``dtype`` while parameters and optimizer state stay float32; no
+GradScaler (bf16 has f32's exponent range).
+
+Per-epoch behaviour as in the JAX trainer: LR staircase per epoch, "recent"
+saved every epoch and "best" on validation improvement (with a working
+``best_val_loss``), ``saved_loss.txt`` appends, scalars
+{time_per_train_iter, train_loss, steps_per_sec_per_chip,
+frames_per_sec_per_chip, lr, valid}.
+
+Single device.  ``mesh`` / ``data_parallel`` (ROADMAP: parallelism slice),
+``cvit=True`` (ROADMAP: AViT/CViT slice) and models with mutable state such
+as BatchNorm statistics (ROADMAP: the rest of the zoo) raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Callable, Optional
+
+import torch
+
+from tante_tpu_torch.data.datamodule import AbstractDataModule, get_formatter
+from tante_tpu_torch.ops.backend import resolve_device
+from tante_tpu_torch.train.rollout import rollout_fixed
+from tante_tpu_torch.utils.checkpoint import CheckpointManager
+from tante_tpu_torch.utils.logging import MetricLogger
+
+logger = logging.getLogger(__name__)
+
+
+def set_compute_dtype(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
+    """Switch every module's compute ``dtype`` IN PLACE (the JAX trainer
+    clones the model with ``dtype=bfloat16``); parameters keep their storage
+    dtype and are cast at use."""
+    for m in model.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = dtype
+    return model
+
+
+class Trainer:
+    def __init__(
+        self,
+        checkpoint_folder: str,
+        formatter: str,
+        model: torch.nn.Module,
+        datamodule: AbstractDataModule,
+        optimizer: Any,  # AdamW spec (train/optimizers.py)
+        train_loss_fn: Callable,
+        eval_loss_fn: Callable,
+        max_epoch: int,
+        lr_scheduler: Optional[Any] = None,
+        enable_amp: bool = False,
+        amp_type: str = "bfloat16",
+        checkpoint_path: str = "",
+        n_steps_output: int = 1,
+        n_steps_rollout: int = 8,
+        rt_eps: float = 0.5,
+        rt_n: int = 2,
+        cvit: bool = False,
+        num_query_points: int = 1024,
+        seed: int = 0,
+        metric_logger: Optional[MetricLogger] = None,
+        grad_clip: str = "norm",
+        mesh: Optional[Any] = None,
+        data_parallel: bool = False,
+        device=None,
+        **_unused: Any,
+    ):
+        if mesh is not None or data_parallel:
+            raise NotImplementedError(
+                "mesh / data_parallel training waits for the parallelism slice (ROADMAP.md, "
+                "section 1: parallelism + fused_block_apply_tp)")
+        if cvit:
+            raise NotImplementedError(
+                "cvit=True waits for the AViT/CViT slice (ROADMAP.md, section 1: unfused "
+                "TransformerBlock + AViT/CViT + packed_attention_core)")
+        if any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in model.modules()):
+            raise NotImplementedError(
+                "models with mutable state (BatchNorm statistics, rollout_fixed_stateful) wait "
+                "for the zoo slice (ROADMAP.md, section 1: the rest of the zoo)")
+        if enable_amp and amp_type != "bfloat16":
+            raise ValueError(f"amp_type '{amp_type}': only bfloat16 mixed precision exists")
+        self.device = resolve_device(device)
+        self.checkpoint_folder = checkpoint_folder
+        self.datamodule = datamodule
+        self.train_loss_fn = train_loss_fn
+        self.eval_loss_fn = eval_loss_fn
+        self.max_epoch = max_epoch
+        self.n_steps_output = n_steps_output
+        self.n_steps_rollout = n_steps_rollout
+        self.rt_eps = rt_eps
+        self.rt_n = rt_n
+        self.starting_epoch = 1
+        self.best_val_loss: Optional[float] = None
+        self.starting_val_loss = float("inf")
+
+        self.dset_metadata = datamodule.train_dataset.metadata
+        self.formatter = get_formatter(formatter, self.dset_metadata)
+        self.metric_logger = metric_logger or MetricLogger(checkpoint_folder)
+
+        # f32 master weights on the device; bf16 only as the compute dtype.
+        self.model = model.to(self.device, torch.float32)
+        if enable_amp:
+            set_compute_dtype(self.model, torch.bfloat16)
+        # Dropout masks: the trainer's own generator, on the model's device.
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        steps_per_epoch = max(1, len(datamodule.train_dataloader()))
+        self.steps_per_epoch = steps_per_epoch
+        if lr_scheduler is not None:
+            self.lr_schedule = lr_scheduler.as_step_schedule(steps_per_epoch)
+        else:
+            self.lr_schedule = optimizer.lr
+        self.optimizer, self._clip = optimizer.make(self.model.parameters(), grad_clip=grad_clip)
+        self.global_step = 0
+        self.last_grad_norm: Optional[torch.Tensor] = None
+
+        self.ckpt = CheckpointManager(checkpoint_folder)
+        if checkpoint_path:
+            self.load_checkpoint(checkpoint_path)
+
+    # ------------------------------------------------------------------
+    def _model_chunk(self) -> int:
+        """Frames emitted per model call."""
+        return int(getattr(self.model, "output_length", 1) or 1)
+
+    def _lr(self, step: int) -> float:
+        return float(self.lr_schedule(step)) if callable(self.lr_schedule) else self.lr_schedule
+
+    def _loss(self, x, y, n_steps: int, loss_metric: Callable, deterministic: bool):
+        kw = {} if deterministic else {"generator": self.dropout_generator}
+        y_pred = rollout_fixed(
+            lambda w: self.model(w, deterministic=deterministic, **kw), x, n_steps,
+            self._model_chunk())
+        return loss_metric(y_pred.to(y.dtype), y, None).mean()
+
+    def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """One optimizer step on a batch; returns the loss (on the device).
+        The learning rate is the schedule's at the current ``global_step``."""
+        self.model.train()
+        for group in self.optimizer.param_groups:
+            group["lr"] = self._lr(self.global_step)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self._loss(x, y, self.n_steps_output, self.train_loss_fn, deterministic=False)
+        loss.backward()
+        self.last_grad_norm = self._clip(self.model.parameters())
+        self.optimizer.step()
+        self.global_step += 1
+        return loss.detach()
+
+    @torch.no_grad()
+    def eval_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        self.model.eval()
+        return self._loss(x, y, self.n_steps_rollout, self.eval_loss_fn, deterministic=True)
+
+    # ------------------------------------------------------------------
+    def save_model(self, epoch: int, validation_loss: float, name: str) -> None:
+        self.ckpt.save(name, self.model.state_dict(), self.optimizer.state_dict(), epoch,
+                       validation_loss, self.best_val_loss)
+
+    def load_checkpoint(self, checkpoint_path: str) -> None:
+        logger.info("Loading checkpoint from %s", checkpoint_path)
+        restored = self.ckpt.restore(checkpoint_path, {"params": self.model.state_dict()})
+        self.model.load_state_dict(restored["params"])
+        self.optimizer.load_state_dict(restored["opt_state"])
+        self.best_val_loss = restored["best_validation_loss"]
+        self.starting_val_loss = (
+            restored["validation_loss"] if restored["validation_loss"] is not None
+            else float("inf"))
+        self.starting_epoch = restored["epoch"] + 1
+        # The LR schedule is a pure function of the step; fast-forward the count.
+        self.global_step = (self.starting_epoch - 1) * self.steps_per_epoch
+
+    # ------------------------------------------------------------------
+    def train_one_epoch(self, epoch: int, dataloader) -> tuple:
+        n_batches = max(1, len(dataloader))
+        batch_frames = 0
+        losses = []
+        start = time.time()
+        for batch in dataloader:
+            batch_frames = batch["input"].shape[0] * self.n_steps_output
+            (x,), y = self.formatter.process_input(batch)
+            losses.append(self.train_step(x, y))
+        # One host sync per epoch, not per step: the losses stay on the device.
+        epoch_loss = float(torch.stack(losses).sum()) / n_batches if losses else 0.0
+        elapsed = time.time() - start
+        logs = {
+            "time_per_train_iter": elapsed / n_batches,
+            "train_loss": epoch_loss,
+            "steps_per_sec_per_chip": n_batches / elapsed,
+            "frames_per_sec_per_chip": n_batches * batch_frames / elapsed,
+            "lr": self._lr(self.global_step),
+        }
+        return epoch_loss, logs
+
+    def validation_loop(self, dataloader, epoch: int = 0) -> float:
+        n_batches = max(1, len(dataloader))
+        losses = []
+        for batch in dataloader:
+            (x,), y = self.formatter.process_input(batch)
+            losses.append(self.eval_step(x, y))
+        val_loss = float(torch.stack(losses).sum()) / n_batches if losses else 0.0
+        self.metric_logger.append_scalar_file("saved_loss.txt", val_loss)
+        return val_loss
+
+    def train(self) -> None:
+        train_loader = self.datamodule.train_dataloader()
+        val_loader = self.datamodule.val_dataloader()
+        val_loss = self.starting_val_loss
+
+        for epoch in range(self.starting_epoch, self.max_epoch + 1):
+            train_loader.set_epoch(epoch)
+            logger.info("Epoch %d/%d: starting training", epoch, self.max_epoch)
+            train_loss, train_logs = self.train_one_epoch(epoch, train_loader)
+            logger.info("Epoch %d/%d: avg training loss %s", epoch, self.max_epoch, train_loss)
+            self.metric_logger.log(train_logs, step=epoch)
+            self.save_model(epoch, val_loss, "recent")
+
+            logger.info("Epoch %d/%d: starting validation", epoch, self.max_epoch)
+            val_loss = self.validation_loop(val_loader, epoch=epoch)
+            logger.info("Epoch %d/%d: avg validation loss %s", epoch, self.max_epoch, val_loss)
+            self.metric_logger.log({"valid": val_loss}, step=epoch)
+            if self.best_val_loss is None or val_loss < self.best_val_loss:
+                self.best_val_loss = val_loss
+                self.save_model(epoch, val_loss, "best")

@@ -1,6 +1,8 @@
 """Shared helpers of the port's parity tests (``tests/test_torch_*.py``):
 one JAX ``init`` flattened to numpy and loaded into the port through
-``tante_tpu_torch.convert``, at the small TANTE geometry the tests share."""
+``tante_tpu_torch.convert``, at the small TANTE geometry the tests share;
+seeded block weights for both packages; and a CPU walk of the chain
+kernel's addressing plan."""
 
 import functools
 
@@ -9,11 +11,20 @@ import jax.numpy as jnp
 import numpy as np
 from flax import traverse_util
 
+import torch
+
 from tante_tpu.data.dataset import TanteMetadata as JaxMetadata
 from tante_tpu.models.tante import TANTE as JaxTANTE
+from tante_tpu.ops import pallas_block as jblock
 from tante_tpu_torch.convert import load_jax_params
 from tante_tpu_torch.data.metadata import TanteMetadata
 from tante_tpu_torch.models.tante import TANTE
+from tante_tpu_torch.ops import fused_block as tblock
+
+# The suite runs in several worker processes; PyTorch's default of one
+# intra-op thread per core in each of them oversubscribes the host (a 2 s
+# training test took 70 s under six workers).
+torch.set_num_threads(2)
 
 B, T, H, W, F = 2, 4, 32, 64, 4
 KW = dict(in_T=T, taylor_order=1, attn_axes="THWTHW", embed_dim=128, patch_scale=8,
@@ -52,3 +63,51 @@ def models(deg: bool, rt_bias: float | None = None):
 
 def frames(seed, n=T):
     return np.random.default_rng(seed).normal(size=(B, n, H, W, F)).astype(np.float32)
+
+
+def block_params(c, hidden, seed):
+    """Seeded numpy weights for one block (non-trivial LN and biases)."""
+    rng = np.random.default_rng(seed)
+
+    def u(*shape, fan_in=None):
+        bound = 1.0 / np.sqrt(fan_in or shape[0])
+        return rng.uniform(-bound, bound, size=shape).astype(np.float32)
+
+    return jblock.BlockParams(
+        ln1_scale=1.0 + 0.1 * u(c), ln1_bias=0.1 * u(c),
+        wq=u(c, c), bq=u(c), wk=u(c, c), bk=u(c), wv=u(c, c), bv=u(c),
+        wo=u(c, c), bo=u(c),
+        ln2_scale=1.0 + 0.1 * u(c), ln2_bias=0.1 * u(c),
+        w1=u(c, hidden), b1=u(hidden, fan_in=c), w2=u(hidden, c), b2=u(c, fan_in=hidden),
+    )
+
+
+def to_jax(p):
+    return jblock.BlockParams(*(jnp.asarray(a) for a in p))
+
+
+def to_torch(p, requires_grad=False):
+    return tblock.BlockParams(
+        *(torch.from_numpy(np.array(a)).requires_grad_(requires_grad) for a in p))
+
+
+def walk_chain_plan(x2, params_seq, plan, heads):
+    """What the chain kernel does with ``chain_plan``'s ints, on the CPU:
+    per block, gather each sequence's rows from the current buffer through
+    the read map, run ``block_ref``, scatter through the write map into a
+    fresh buffer.  x2: (B*T*H*W, C) rows in the first block's read order."""
+    cur = x2
+    for row, p in zip(plan, params_seq):
+        l, causal, n_seqs = row[:3]
+
+        def rows(m):
+            per, n2, sb, s1, s2, sa = m
+            seq = torch.arange(n_seqs)
+            b, r = seq // per, seq % per
+            return (b * sb + (r // n2) * s1 + (r % n2) * s2)[:, None] + torch.arange(l) * sa
+
+        y = tblock.block_ref(cur[rows(row[3:9])], p, l, heads, bool(causal))
+        nxt = torch.full_like(cur, float("nan"))
+        nxt[rows(row[9:15]).reshape(-1)] = y.reshape(-1, y.shape[-1])
+        cur = nxt
+    return cur

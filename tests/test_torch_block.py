@@ -10,36 +10,12 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import block_params, to_jax, to_torch
 from tante_tpu.ops import pallas_block as jblock
 from tante_tpu_torch.ops import _build
 from tante_tpu_torch.ops import fused_block as tblock
 
 ATOL = RTOL = 1e-5
-
-
-def block_params(c, hidden, seed):
-    """Seeded numpy weights for one block (non-trivial LN and biases)."""
-    rng = np.random.default_rng(seed)
-
-    def u(*shape, fan_in=None):
-        bound = 1.0 / np.sqrt(fan_in or shape[0])
-        return rng.uniform(-bound, bound, size=shape).astype(np.float32)
-
-    return jblock.BlockParams(
-        ln1_scale=1.0 + 0.1 * u(c), ln1_bias=0.1 * u(c),
-        wq=u(c, c), bq=u(c), wk=u(c, c), bk=u(c), wv=u(c, c), bv=u(c),
-        wo=u(c, c), bo=u(c),
-        ln2_scale=1.0 + 0.1 * u(c), ln2_bias=0.1 * u(c),
-        w1=u(c, hidden), b1=u(hidden, fan_in=c), w2=u(hidden, c), b2=u(c, fan_in=hidden),
-    )
-
-
-def to_jax(p):
-    return jblock.BlockParams(*(jnp.asarray(a) for a in p))
-
-
-def to_torch(p):
-    return tblock.BlockParams(*(torch.from_numpy(np.array(a)) for a in p))
 
 
 @pytest.mark.parametrize("l", [4, 16])

@@ -1,6 +1,8 @@
 """The port stands alone: importing ``tante_tpu_torch`` (every module) and
-``chip_smoke``'s module-level code loads no JAX, flax or ``tante_tpu``
-module, and ``chip_smoke`` refuses to run without a CUDA device."""
+``chip_smoke``'s module-level code loads no JAX, flax, optax, orbax or
+``tante_tpu`` module and none of the HDF5 data layer's dependencies (h5py,
+yaml, fsspec: the machine with the card need not have them), and
+``chip_smoke`` refuses to run without a CUDA device."""
 
 import json
 import os
@@ -18,7 +20,8 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "tante_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "tante_tpu",
+                                    "h5py", "yaml", "fsspec"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -34,7 +37,10 @@ def test_port_and_chip_smoke_import_no_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "tante_tpu_torch.ops.fused_block" in out["modules"]
-    assert "tante_tpu_torch.serve" in out["modules"]
+    for name in ("serve", "train.trainer", "train.metrics", "train.schedules",
+                 "train.optimizers", "data.loader", "data.datamodule", "data.synthetic",
+                 "utils.checkpoint", "utils.logging", "utils.seeding"):
+        assert f"tante_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
 

@@ -9,7 +9,21 @@ Inputs are seeded bf16; the plain version runs in f32 from the same bf16
 inputs.  Tolerance: |kernel - plain| <= 5e-2 + 2e-2 |plain| — bf16 keeps 8
 mantissa bits and the kernel rounds q, k, v, the attention output, the fc1
 output and both residual sums to bf16 (a CPU emulation of those rounding
-points at these shapes gives a max error of 0.032 at |y| ~ 5)."""
+points at these shapes gives a max error of 0.032 at |y| ~ 5).
+
+A chain of n blocks is held to two things: bit equality with the
+single-block kernels applied in sequence (same body, same rounding points:
+any difference is an addressing or synchronisation fault), and the f32 plain
+chain within CHAIN_ATOL[n] + 2e-2 |plain| (the error grows with depth as each
+block rounds its activations to bf16; the cases below read 0.058 at 3 blocks and
+0.121 at 9 on an NVIDIA H100 80GB HBM3 at 700 W).
+
+Gradients of the autograd Functions (backward = the plain version
+recomputed in bf16) against ordinary autograd through the f32 plain version:
+relative L2 error per tensor <= GRAD_REL.  ``bk`` is the exception: a bias on
+k shifts every score of a query alike, which softmax ignores, so its true
+gradient is zero and only rounding is left; it is held to GRAD_REL of the
+norm of ``bq``'s gradient instead."""
 
 import numpy as np
 import pytest
@@ -19,6 +33,8 @@ from tante_tpu_torch.ops import fused_block as fb
 
 pytestmark = pytest.mark.gpu
 ATOL, RTOL = 5e-2, 2e-2
+CHAIN_ATOL = {1: 5e-2, 2: 1e-1, 3: 1e-1, 9: 2.5e-1}
+GRAD_REL = 5e-2
 
 
 @pytest.fixture
@@ -99,3 +115,115 @@ def test_kernel_refuses_what_it_cannot_hold(cuda):
         fb.fused_block_apply(torch.zeros(4, 16, 256, device=cuda), p, 16, 8, False)
     with pytest.raises(ValueError):  # sequence longer than a tile
         fb.fused_block_apply(bf16_normal((2, 96, 256), 0, cuda), p, 96, 8, False)
+
+
+def sequential(x5, ps, axes, heads):
+    """The single-block kernels applied one after the other, as the
+    per-block backbone path does."""
+    b, t, h, w, c = x5.shape
+    x = x5
+    for axis, p in zip(axes, ps):
+        if axis == "T" and fb.canon_t_supported(t, h, w, c, heads):
+            x = fb.fused_block_canon_t(x.contiguous(), p, heads)
+        elif axis == "T":
+            y = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c).contiguous()
+            y = fb.fused_block_apply(y, p, t, heads, True)
+            x = y.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4)
+        elif axis == "H":
+            y = x.permute(0, 1, 3, 2, 4).reshape(b * t * w, h, c).contiguous()
+            y = fb.fused_block_apply(y, p, h, heads, False)
+            x = y.reshape(b, t, w, h, c).permute(0, 1, 3, 2, 4)
+        else:
+            y = fb.fused_block_apply(x.reshape(b * t * h, w, c).contiguous(), p, w, heads, False)
+            x = y.reshape(b, t, h, w, c)
+    return x.contiguous()
+
+
+_TO_ORDER = {"T": (0, 2, 3, 1, 4), "H": (0, 1, 3, 2, 4), "W": (0, 1, 2, 3, 4)}
+
+
+def to_order(x5, axis):
+    """(B, T, H, W, C) -> (S, L, C) in ``axis``'s token order."""
+    l = x5.shape[1 + "THW".index(axis)]
+    return x5.permute(_TO_ORDER[axis]).reshape(-1, l, x5.shape[-1]).contiguous()
+
+
+@pytest.mark.parametrize("b,t,h,w,c,heads,axes", [
+    (8, 4, 16, 48, 256, 8, "THW"),         # flagship sub-chain
+    (8, 4, 16, 48, 256, 8, "THWTHWTHW"),   # flagship whole group
+    (3, 4, 16, 48, 256, 8, "TH"),          # ragged B
+    (3, 2, 5, 7, 128, 4, "HW"),            # T = 2, ragged tiles
+    (2, 8, 4, 8, 128, 4, "WT"),            # T = 8, starts on W, ends on T
+    (1, 3, 6, 10, 192, 6, "THW"),          # C = 192: T outside the canonical gate
+    (5, 4, 16, 16, 256, 8, "H"),           # a run of one
+])
+def test_chain_kernel_matches_sequence_and_plain(cuda, b, t, h, w, c, heads, axes):
+    ps = [params(c, c, seed=10 * i + t, device=cuda) for i in range(len(axes))]
+    x5 = bf16_normal((b, t, h, w, c), seed=b + h, device=cuda)
+    before = fb.fused_group_apply.launches, fb.fused_chain_apply.launches
+    got5 = fb.fused_group_apply(x5, ps, axes, heads)
+    got3 = fb.fused_chain_apply(to_order(x5, axes[0]), ps, axes, heads, (t, h, w))
+    torch.cuda.synchronize()
+    assert (fb.fused_group_apply.launches, fb.fused_chain_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+    seq = sequential(x5, ps, axes, heads)
+    assert torch.equal(got5, seq)
+    assert torch.equal(got3, to_order(seq, axes[-1]))
+    want = fb.group_ref(x5.float(), [f32(p) for p in ps], axes, heads)
+    err = float((got5.float() - want).abs().max())
+    print(f"chain {axes} {tuple(x5.shape)}: max abs err vs f32 plain {err:.4f}")
+    torch.testing.assert_close(got5.float(), want, atol=CHAIN_ATOL[len(axes)], rtol=RTOL)
+
+
+def test_chain_kernel_refuses_outside_its_envelope(cuda):
+    ps = [params(256, 256, seed=i, device=cuda) for i in range(2)]
+    with pytest.raises(ValueError):  # an axis longer than a tile
+        fb.fused_group_apply(bf16_normal((1, 4, 96, 8, 256), 0, cuda), ps, "TH", 8)
+    with pytest.raises(ValueError):  # an axis the chain does not know
+        fb.fused_group_apply(bf16_normal((1, 4, 8, 8, 256), 0, cuda), ps, "TL", 8)
+    with pytest.raises(ValueError):  # one parameter set too few
+        fb.fused_group_apply(bf16_normal((1, 4, 8, 8, 256), 0, cuda), ps, "THW", 8)
+
+
+@pytest.mark.parametrize("kind,shape,axes", [
+    ("block", (1536, 16, 256), "H"),
+    ("block", (512, 48, 256), "W"),
+    ("canon_t", (8, 4, 16, 48, 256), "T"),
+    ("chain", (8, 4, 16, 48, 256), "THW"),
+    ("group", (2, 4, 16, 48, 256), "THWTHW"),
+])
+def test_kernel_gradients_match_plain_autograd(cuda, kind, shape, axes):
+    heads, c = 8, shape[-1]
+    ps = [params(c, c, seed=3 * i + 1, device=cuda) for i in range(len(axes))]
+    x = bf16_normal(shape, seed=5, device=cuda)
+
+    def run(x, ps, kernel):
+        if kind == "block":
+            fn = fb.fused_block_apply if kernel else fb.block_ref
+            return fn(x, ps[0], shape[1], heads, False)
+        if kind == "canon_t":
+            return (fb.fused_block_canon_t if kernel else fb.canon_t_ref)(x, ps[0], heads)
+        if kind == "group":
+            return (fb.fused_group_apply if kernel else fb.group_ref)(x, ps, axes, heads)
+        dims = shape[1:4]
+        fn = fb.fused_chain_apply if kernel else fb.chain_ref
+        return fn(to_order(x, axes[0]), ps, axes, heads, dims)
+
+    def grads(x, ps, kernel):
+        x = x.detach().requires_grad_(True)
+        ps = [fb.BlockParams(*(t.detach().requires_grad_(True) for t in p)) for p in ps]
+        (run(x, ps, kernel).float() ** 2).sum().backward()
+        return [x.grad] + [t.grad for p in ps for t in p]
+
+    before = sum(fn.launches for fn in fb.WRAPPERS)
+    got = grads(x, ps, kernel=True)
+    assert sum(fn.launches for fn in fb.WRAPPERS) == before + 1  # forward only
+    want = grads(x.float(), [f32(p) for p in ps], kernel=False)
+    names = ["x"] + [f"{f}[{i}]" for i in range(len(ps)) for f in fb.BlockParams._fields]
+    ref = dict(zip(names, want))
+    errs = {n: float(torch.linalg.norm(g.float() - w)
+                     / torch.linalg.norm(ref[n.replace("bk[", "bq[")]))
+            for n, g, w in zip(names, got, want)}
+    print(f"grad {kind} {axes}: worst {max(errs, key=errs.get)} {max(errs.values()):.4f}")
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    assert max(errs.values()) <= GRAD_REL, errs
