@@ -5,9 +5,10 @@
 Phases, each printing one JSON line (a failing phase is reported and the
 script exits non-zero without the final result line):
 
-1. build    nvcc builds the fused-block kernels from this checkout
-            (``tante_tpu_torch/ops/csrc/fused_block.cu``); build seconds,
-            the ``-Xptxas -v`` summary and each tile plan.
+1. build    nvcc builds every kernel source of this checkout
+            (``tante_tpu_torch/ops/csrc/fused_block.cu`` and
+            ``spectral_matmul.cu``, one nvcc each, started together); build
+            seconds, the ``-Xptxas -v`` summaries and each tile plan.
 2. kernel   each kernel against its plain PyTorch version (f32 from the
             same bf16 inputs) at the main paths' shapes; max abs error,
             tolerance, kernel / plain time (CUDA events) and the bound.
@@ -36,7 +37,25 @@ script exits non-zero without the final result line):
             with ``fused_chain=3`` / per block / ``fused_group``, save and
             resume; first loss and gradient norm against the f32 model on
             the CPU for one sample; seconds per step, peak memory.
-7. kernels  one {"kernels": [...]} line.
+7. spectral_kernel  ``spectral_mode_matmul`` against its plain version (the
+            four f32 einsums) at the shapes the FNO paths give it and at
+            ragged ones; kernel / plain time, the time of the one library
+            call that computes the same function (a complex64 einsum), the
+            bound; gradients of its Function against autograd of the plain
+            version.
+8. fno_serving  ``Predictor.rollout`` of flagship-width TANTE with the FNO
+            encoder/decoder (modes 32, B=8, 16 steps, bf16: exactly 66
+            mode-mixing launches beside the 96 + 48 block launches) and of
+            FNO at ``configs/fno.yaml`` width (hidden 48, modes 20, 4 layers,
+            B=4, both layouts: 64 launches); frames/s, and the first frames
+            against the same weights in f32 on the CPU.
+9. fno_train_eval  ``Trainer`` on that FNO over in-memory waves (two epochs
+            of four steps: 16 forward launches per step, first loss and
+            gradient norm against the f32 model on the CPU, the loss falls),
+            save, then ``Evaler`` on the saved weights: the 4-metric report,
+            each metric equal to the port's metric functions on the same
+            rollouts.
+10. kernels one {"kernels": [...]} line.
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 result line {"ok": true, "device": {...}}.  Exits non-zero when no CUDA
@@ -60,11 +79,14 @@ from tante_tpu_torch.convert import seeded_jax_params
 from tante_tpu_torch.data.datamodule import WaveDataModule
 from tante_tpu_torch.data.metadata import TanteMetadata
 from tante_tpu_torch.models.attn_backbone import AttnBackbone
+from tante_tpu_torch.models.fno import FNO
 from tante_tpu_torch.models.tante import TANTE
 from tante_tpu_torch.ops import _build
 from tante_tpu_torch.ops import fused_block as fb
+from tante_tpu_torch.ops import fused_spectral as fs
 from tante_tpu_torch.serve import Predictor
-from tante_tpu_torch.train.metrics import L2RE, MSE, VRMSE
+from tante_tpu_torch.train.evaler import Evaler
+from tante_tpu_torch.train.metrics import L2RE, MSE, NNMSE, VRMSE
 from tante_tpu_torch.train.optimizers import AdamW, global_norm
 from tante_tpu_torch.train.rollout import rollout_fixed
 from tante_tpu_torch.train.schedules import LinearWarmupCosineAnnealingLR
@@ -73,7 +95,9 @@ from tante_tpu_torch.train.trainer import Trainer
 ROOT = Path(__file__).resolve().parent
 ASSET = ROOT / "tante_tpu" / "assets" / "tante_flagship.npz"
 SOURCE = "tante_tpu_torch/ops/csrc/fused_block.cu"
+SPECTRAL_SOURCE = "tante_tpu_torch/ops/csrc/spectral_matmul.cu"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet, 700 W)
+PEAK_F32_FLOPS = 67e12    # f32 outside the tensor cores (the spectral kernel's FMAs)
 PEAK_HBM_BYTES = 3.35e12
 BATCH, IN_T, RES, FIELDS, N_STEPS, K = 8, 4, (128, 384), 4, 16, 8
 C, HEADS = 256, 8
@@ -99,8 +123,17 @@ VAL_REL_TOL = 1e-6
 # error of the predicted change (the CPU in bf16 gives 2.5e-3), and the
 # relative VRMSE gap of the adaptive lane.
 ROLLOUT_REL_TOL = 5e-2
+# The mode-mixing kernel is f32 and sums over Cin in order with FMAs where
+# the plain version sums four products separately: rounding order only.
+SPECTRAL_ATOL = SPECTRAL_RTOL = 1e-4
+SPECTRAL_GRAD_TOL = 1e-5  # the Function's backward IS the plain version's
+# FNO at configs/fno.yaml width (the model's default depth of 4 layers).
+FNO_BATCH = 4
+FNO_KW = dict(in_T=IN_T, modes1=20, modes2=20, hidden_channels=48, n_layers=4)
+FNO_MODES = 32  # TANTE's FNO encoder/decoder: modes1 = modes2 (configs/tante.yaml)
 
 FAILURES: list[str] = []
+NOTES: list[str] = []
 
 
 def emit(obj: dict):
@@ -149,10 +182,17 @@ def set_fusion(model: TANTE, fused_chain: int = 0, fused_group: bool = False):
 
 
 def launch_counts() -> dict:
+    """Launches of the block kernels' wrappers since the last reset."""
     return {"fused_block_fwd": fb.fused_block_apply.launches,
             "fused_block_canon_t_fwd": fb.fused_block_canon_t.launches,
             "fused_chain_apply": fb.fused_chain_apply.launches,
             "fused_group_apply": fb.fused_group_apply.launches}
+
+
+def reset_counts():
+    """Every wrapper's launch count to 0."""
+    fb.reset_launches()
+    fs.spectral_mode_matmul.launches = 0
 
 
 def wave_input(batch=BATCH, t0: int = 0, n_frames: int = IN_T, seed: int = 7) -> np.ndarray:
@@ -191,11 +231,16 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def phase_build() -> dict:
-    info = _build.build()
-    _build.load()
+    t0 = time.perf_counter()
+    info = _build.build()  # one nvcc per source, started together
+    seconds = time.perf_counter() - t0
+    for kernel in info:
+        _build.load(kernel)
     plans = {f"L={l}": _build.plan(l, C, C) for l in (4, 16, 48)}
-    emit({"phase": "build", "seconds": info["seconds"], "cached": info["cached"],
-          "nvcc_flags": " ".join(_build.NVCC_FLAGS), "ptxas": info["ptxas"], "tile_plans": plans})
+    emit({"phase": "build", "seconds": seconds, "nvcc_flags": " ".join(_build.NVCC_FLAGS),
+          "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"], "ptxas": v["ptxas"]}
+                        for k, v in info.items()},
+          "tile_plans": plans})
     return info
 
 
@@ -373,7 +418,7 @@ def phase_grad(dev) -> dict:
         ps = [block_params(300 + 10 * i + k, dev) for k in range(len(axes))]
         x = torch.from_numpy(np.random.default_rng(30 + i).normal(size=shape).astype(np.float32))
         x = x.to(dev, torch.bfloat16)
-        fb.reset_launches()
+        reset_counts()
         got = grads(kernel, x, ps)
         torch.cuda.synchronize()
         forward_launches = sum(launch_counts().values())
@@ -423,6 +468,23 @@ def trace(fn, top: int = 8) -> dict:
     }
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: the kernels' time summed by
+    ``torch.profiler`` over ``iters`` calls.  For a call that is shorter on the
+    card than its enqueue on the host, back-to-back CUDA events read the
+    host's pace; this reads the card's.  A profile now and then comes back
+    without device events: it is taken again, and after three empty ones the
+    CUDA-event time stands in (and the result line says so)."""
+    for _ in range(3):
+        fn()
+    for _ in range(3):
+        ms = trace(lambda: [fn() for _ in range(iters)])["device_kernel_ms"] / iters
+        if ms > 0:
+            return ms
+    NOTES.append("a device time is a CUDA-event time: three profiles held no device events")
+    return cuda_ms(fn, iters)
+
+
 def timed_rollouts(fn, n: int = 3, windows: int = 3) -> dict:
     """Seconds per call of ``fn``: CUDA events around ``windows`` windows of
     ``n`` back-to-back calls; the median window and the spread (the host
@@ -460,7 +522,7 @@ def phase_fixed(dev) -> dict:
     for _ in range(2):
         pred.rollout(x, N_STEPS, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    fb.reset_launches()
+    reset_counts()
     y = pred.rollout(x, N_STEPS, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     launches = launch_counts()
@@ -499,7 +561,7 @@ def phase_chain_serving(pred: Predictor, x: torch.Tensor, y_per_block: torch.Ten
     roll = lambda: pred.rollout(x, N_STEPS, out_dtype=torch.bfloat16)  # noqa: E731
     roll()
     torch.cuda.synchronize()
-    fb.reset_launches()
+    reset_counts()
     y = roll()
     torch.cuda.synchronize()
     launches = launch_counts()
@@ -526,7 +588,7 @@ def phase_adaptive(dev) -> dict:
     x = torch.from_numpy(wave_input()).to(dev)
     pred.rollout_adaptive(x, N_STEPS, max_frames_per_call=K, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    fb.reset_launches()
+    reset_counts()
     y, rt, n_calls = pred.rollout_adaptive(x, N_STEPS, max_frames_per_call=K,
                                            out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -619,7 +681,7 @@ def phase_train(dev, workdir: Path) -> dict:
         before = eval_loss(trainer.model)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fb.reset_launches()
+        reset_counts()
         epoch_loss, logs = trainer.train_one_epoch(1, loader)
         torch.cuda.synchronize()
         launches = launch_counts()
@@ -682,7 +744,7 @@ def phase_train(dev, workdir: Path) -> dict:
         set_fusion(tr_b.model, **fusion)
         tr_b.validation_loop(val_loader)  # warm
         torch.cuda.synchronize()
-        fb.reset_launches()
+        reset_counts()
         t0 = time.perf_counter()
         loss = tr_b.validation_loop(val_loader)
         torch.cuda.synchronize()
@@ -727,8 +789,333 @@ def phase_train(dev, workdir: Path) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The FNO path: spectral_mode_matmul, TANTE with the FNO encoder/decoder, FNO
+# ---------------------------------------------------------------------------
+
+
+def spectral_operands(b, modes, ci, co, layout, dev, seed=0):
+    """x_re, x_im (B, *modes, Cin) and w_re, w_im (*modes, Cin, Cout) as a
+    call site hands them over.  "stored": the weight as the models keep it,
+    (Cin, Cout, *modes, 2), through permuted views of its re / im halves;
+    "cw": that, and x channel-major; "contiguous": (M, Cin, Cout) weights."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).to(dev)
+
+    scale = 1.0 / math.sqrt(ci)
+    if layout == "contiguous":
+        w_re, w_im = normal(*modes, ci, co, scale=scale), normal(*modes, ci, co, scale=scale)
+    else:
+        w = normal(ci, co, *modes, 2, scale=scale)
+        perm = (*range(2, 2 + len(modes)), 0, 1)
+        w_re, w_im = w[..., 0].permute(perm), w[..., 1].permute(perm)
+    x_re, x_im = normal(b, *modes, ci), normal(b, *modes, ci)
+    if layout == "cw":
+        x_re, x_im = (t.transpose(-1, -2).contiguous().transpose(-1, -2) for t in (x_re, x_im))
+    return x_re, x_im, w_re, w_im
+
+
+def spectral_bound(b, modes, ci, co) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, flops, bytes): 8*B*M*Cin*Cout f32 flops
+    against x in, out and the weight once each, re and im."""
+    m = math.prod(modes)
+    flops = 8.0 * b * m * ci * co
+    nbytes = 4.0 * (2 * b * m * (ci + co) + 2 * m * ci * co)
+    t_ops, t_mem = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes"), flops, nbytes
+
+
+# (label, B, modes, Cin, Cout, layout, on a main path).  Both corners of
+# spectral_conv2d share the weight and ride in the batch, hence 2 * frames.
+SPECTRAL_CASES = [
+    ("TANTE-FNO enc 1, per step", 2 * BATCH, (32, 32), 4, 32, "stored", True),
+    ("TANTE-FNO enc 2, per step", 2 * BATCH, (8, 8), 64, 128, "stored", True),
+    ("TANTE-FNO dec 1", 2 * BATCH, (8, 8), 128, 64, "stored", True),
+    ("TANTE-FNO dec 2", 2 * BATCH, (32, 32), 32, 4, "stored", True),
+    ("FNO layer, cw", FNO_BATCH, (20, 11), 48, 48, "cw", True),
+    ("FNO layer, wc", FNO_BATCH, (20, 11), 48, 48, "stored", True),
+    ("TANTE-FNO enc 1, first window", 2 * BATCH * IN_T, (32, 32), 4, 32, "stored", False),
+    ("(M, Cin, Cout) weights", FNO_BATCH, (220,), 48, 48, "contiguous", False),
+    ("UNO width 38", 4, (32, 33), 38, 76, "stored", False),
+    ("ragged B=1", 1, (7,), 4, 4, "contiguous", False),
+    ("ragged B=3", 3, (13, 5), 38, 48, "stored", False),
+    ("ragged cw", 3, (5, 3), 128, 38, "cw", False),
+    ("three mode axes", 9, (4, 3, 5), 48, 128, "stored", False),
+]
+
+
+def phase_spectral_kernel(dev) -> list[dict]:
+    results = []
+    for i, (label, b, modes, ci, co, layout, main) in enumerate(SPECTRAL_CASES):
+        args = spectral_operands(b, modes, ci, co, layout, dev, seed=400 + i)
+        run = lambda: fs.spectral_mode_matmul(*args)  # noqa: E731
+        plain = lambda: fs.spectral_mode_matmul_ref(*args)  # noqa: E731
+        before = fs.spectral_mode_matmul.launches
+        got = run()
+        torch.cuda.synchronize()
+        launched = fs.spectral_mode_matmul.launches - before
+        want = plain()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        ok = launched == 1 and all(
+            bool(torch.isfinite(g).all())
+            and bool(((g - w).abs() <= SPECTRAL_ATOL + SPECTRAL_RTOL * w.abs()).all())
+            for g, w in zip(got, want))
+        check(ok, f"spectral_mode_matmul {label} disagrees with its plain version")
+        res = {"phase": "spectral_kernel", "case": label, "B": b, "modes": list(modes),
+               "Cin": ci, "Cout": co, "layout": layout, "main_path": main, "max_abs_err": err,
+               "tolerance": f"|k - plain| <= {SPECTRAL_ATOL} + {SPECTRAL_RTOL}*|plain|", "ok": ok}
+        if main:
+            # The one PyTorch call that computes the same function: a complex
+            # einsum on contiguous complex64 operands (made outside the timing).
+            xc = torch.complex(args[0], args[1]).reshape(b, -1, ci).contiguous()
+            wc = torch.complex(args[2], args[3]).reshape(-1, ci, co).contiguous()
+            lib = torch.einsum("bmi,mio->bmo", xc, wc)
+            lib_err = max(float((lib.real.reshape(got[0].shape) - got[0]).abs().max()),
+                          float((lib.imag.reshape(got[1].shape) - got[1]).abs().max()))
+            check(lib_err <= 1e-3, f"spectral_mode_matmul {label} disagrees with the complex einsum")
+            b_ms, b_by, flops, nbytes = spectral_bound(b, modes, ci, co)
+            library = lambda: torch.einsum("bmi,mio->bmo", xc, wc)  # noqa: E731
+            # These calls are shorter on the card than their enqueue on the
+            # host: *_ms is the device time (profiler), *_call_ms the time per
+            # call of back-to-back calls (CUDA events), which the host paces.
+            k_ms = device_ms(run)
+            res.update({
+                "kernel_ms": k_ms, "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+                "kernel_call_ms": cuda_ms(run, iters=200),
+                "plain_call_ms": cuda_ms(plain, iters=50),
+                "library_call_ms": cuda_ms(library, iters=100),
+                "library_call": "torch.einsum('bmi,mio->bmo') on complex64",
+                "bound_us": 1e3 * b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes,
+                "achieved_gbytes_per_s": nbytes / k_ms / 1e6})
+        emit(res)
+        results.append(res)
+
+    # Gradients of the Function (kernel forward, plain version differentiated)
+    # against ordinary autograd through the plain version.
+    grad = {}
+    for label, b, modes, ci, co, layout, _ in (SPECTRAL_CASES[1], SPECTRAL_CASES[4]):
+        args = spectral_operands(b, modes, ci, co, layout, dev, seed=77)
+        cot = [torch.randn((b, *modes, co), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(k)) for k in (1, 2)]
+
+        def grads(fn):
+            leaves = [t.detach().requires_grad_(True) for t in args]
+            o_re, o_im = fn(*leaves)
+            ((o_re * cot[0]).sum() + (o_im * cot[1]).sum()).backward()
+            return [t.grad for t in leaves]
+
+        before = fs.spectral_mode_matmul.launches
+        got = grads(fs.spectral_mode_matmul)
+        launched = fs.spectral_mode_matmul.launches - before
+        errs = [rel_l2(g, w) for g, w in zip(got, grads(fs.spectral_mode_matmul_ref))]
+        ok = launched == 1 and max(errs) <= SPECTRAL_GRAD_TOL
+        check(ok, f"spectral_mode_matmul gradients ({label}): rel L2 {errs}, {launched} launches")
+        grad[label] = {"rel_l2_x_re_x_im_w_re_w_im": errs, "launches_forward_and_backward": launched,
+                       "ok": ok}
+    emit({"phase": "spectral_grad", "rel_l2_tolerance": SPECTRAL_GRAD_TOL, "cases": grad})
+    return results
+
+
+def fno_model(dtype, device, md=None, layout="cw") -> FNO:
+    return FNO(dset_metadata=md or metadata(), dtype=dtype, layout=layout, device=device,
+               **FNO_KW)
+
+
+def phase_fno_serving(dev) -> dict:
+    """``Predictor.rollout`` on TANTE with the FNO encoder/decoder at flagship
+    width and on FNO at ``configs/fno.yaml`` width, seeded weights."""
+    out = {}
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(BATCH, IN_T, *RES, FIELDS)).astype(np.float32)).to(dev)
+
+    def serve(label, pred, ref_pred, x, want_blocks, want_spectral, derive):
+        batch = x.shape[0]
+        roll = lambda: pred.rollout(x, N_STEPS, out_dtype=torch.bfloat16)  # noqa: E731
+        for _ in range(2):
+            roll()
+        torch.cuda.synchronize()
+        reset_counts()
+        y = roll()
+        torch.cuda.synchronize()
+        blocks, spectral = launch_counts(), fs.spectral_mode_matmul.launches
+        check(blocks == want_blocks, f"{label}: block launches {blocks}, want {want_blocks}")
+        check(spectral == want_spectral,
+              f"{label}: {spectral} spectral_mode_matmul launches, want {want_spectral}")
+        finite = bool(torch.isfinite(y).all())
+        check(finite and tuple(y.shape) == (batch, N_STEPS, *RES, FIELDS),
+              f"{label}: output shape / finiteness")
+        tm = timed_rollouts(roll)
+        prof = trace(roll, top=6)
+        prof.update(host_split(roll))
+        # The same weights in f32 on the CPU, one sample, 2 steps.
+        ref = ref_pred.rollout(x[:1].cpu(), 2)
+        got = pred.rollout(x[:1], 2).float().cpu()
+        u = x[:1, -1:].cpu() if derive else 0.0
+        err = rel_l2(got - u, ref - u)
+        check(err <= ROLLOUT_REL_TOL, f"{label} vs CPU f32: rel L2 {err}")
+        frames = batch * N_STEPS
+        res = {"phase": "fno_serving", "model": label, "batch": batch, "n_steps": N_STEPS,
+               "dtype": "bf16 (mode space and spectral weights f32)",
+               "weights": "seeded (numpy seed 0)", "output_shape": list(y.shape),
+               "finite": finite, "block_launches_per_rollout": blocks,
+               "spectral_mode_matmul_launches_per_rollout": spectral,
+               "ms_per_rollout": 1e3 * tm["median_s"], "frames_per_s": frames / tm["median_s"],
+               "frames_per_s_range": [frames / tm["max_s"], frames / tm["min_s"]],
+               "timed_rollouts": tm["calls"],
+               ("change_vs_cpu_f32_rel_l2" if derive else "frames_vs_cpu_f32_rel_l2"): err,
+               "rel_l2_tolerance": ROLLOUT_REL_TOL, "trace": prof}
+        emit(res)
+        return res
+
+    # TANTE, FNO encoder/decoder, on physical frames (no Morton route).  Mode
+    # mixing per rollout: the first window's encode (2 spectral layers), then
+    # per step the decoder (2) and the encode of the new frame (2):
+    # 2 + 16 * 4 = 66.  The backbone is the fixed lane's: 6 + 3 blocks a call.
+    kw = dict(enc_dec_type="fno", modes1=FNO_MODES, modes2=FNO_MODES)
+    model = flagship(True, torch.bfloat16, dev, **kw)
+    flat = seeded_jax_params(model, seed=0)
+    out["tante_fno"] = serve(
+        "TANTE(enc_dec_type='fno', deg=True), embed 256, modes 32, patch_scale 8",
+        Predictor.from_numpy(model, flat),
+        Predictor.from_numpy(flagship(True, torch.float32, "cpu", **kw), flat, device="cpu"), x,
+        {"fused_block_fwd": 6 * N_STEPS, "fused_block_canon_t_fwd": 3 * N_STEPS,
+         "fused_chain_apply": 0, "fused_group_apply": 0},
+        2 + N_STEPS * 4, derive=True)
+    del model
+
+    # FNO: one mode mixing per layer per model call: 16 * 4 = 64, no block.
+    none = dict.fromkeys(launch_counts(), 0)
+    for layout in ("cw", "wc"):
+        model = fno_model(torch.bfloat16, dev, layout=layout)
+        flat = seeded_jax_params(model, seed=0)
+        out[f"fno_{layout}"] = serve(
+            f"FNO(hidden 48, modes 20, 4 layers, layout='{layout}')",
+            Predictor.from_numpy(model, flat),
+            Predictor.from_numpy(fno_model(torch.float32, "cpu", layout=layout), flat,
+                                 device="cpu"),
+            x[:FNO_BATCH], none, N_STEPS * FNO_KW["n_layers"], derive=False)
+    return out
+
+
+def phase_fno_train_eval(dev, workdir: Path) -> dict:
+    """``Trainer`` on FNO (``configs/fno.yaml``: B=4, 4 rollout steps per train
+    step, 8 per evaluation; AdamW at a constant 1e-3 so that eight steps move
+    the loss visibly) over in-memory waves, then ``Evaler`` on what it saved."""
+    n_out, n_roll, layers = 4, 8, FNO_KW["n_layers"]
+    dm = WaveDataModule(
+        batch_size=FNO_BATCH, n_steps_input=IN_T, n_steps_output=n_out, eval_steps_output=n_roll,
+        data_workers=4, seed=0, device=dev,
+        waves=dict(resolution=RES, n_trajectories=2, n_steps=16, with_pressure=True, seed=0))
+    md = dm.train_dataset.metadata
+    mse = MSE()
+    model = fno_model(torch.float32, dev, md)
+    init_state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    trainer = Trainer(str(workdir / "fno"), "channels_first_default", model, dm,
+                      AdamW(lr=1e-3, weight_decay=1e-5), mse, L2RE(), max_epoch=2,
+                      enable_amp=True, n_steps_output=n_out, n_steps_rollout=n_roll, seed=0)
+    loader = dm.train_dataloader()
+    loader.set_epoch(1)
+    first = list(loader)[0]
+    x0, y0 = first["input"], first["output"]
+
+    def loss_and_gnorm(model, x, y):
+        pred = rollout_fixed(lambda w: model(w, deterministic=False), x, n_out, 1)
+        loss = mse(pred.to(y.dtype), y).mean()
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        gnorm = float(global_norm(model.parameters()))
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), gnorm
+
+    def eval_loss() -> float:
+        with torch.no_grad():
+            return float(mse(rollout_fixed(model, x0, n_out, 1).float(), y0).mean())
+
+    loss_gpu, gnorm_gpu = loss_and_gnorm(model, x0[:1], y0[:1])
+    cpu_model = fno_model(torch.float32, "cpu", md)
+    cpu_model.load_state_dict(init_state)
+    loss_cpu, gnorm_cpu = loss_and_gnorm(cpu_model, x0[:1].cpu(), y0[:1].cpu())
+    check(abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_REL_TOL * loss_cpu,
+          f"FNO first loss {loss_gpu} on the card vs {loss_cpu} in f32 on the CPU")
+    check(abs(gnorm_gpu - gnorm_cpu) <= TRAIN_GNORM_REL_TOL * gnorm_cpu,
+          f"FNO first gradient norm {gnorm_gpu} on the card vs {gnorm_cpu} in f32 on the CPU")
+
+    before = eval_loss()
+    epochs = []
+    for epoch in (1, 2):
+        loader.set_epoch(epoch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        epoch_loss, _ = trainer.train_one_epoch(epoch, loader)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        steps = len(loader)
+        per_step = fs.spectral_mode_matmul.launches / steps
+        # Forward only (backward differentiates the plain version): one mode
+        # mixing per layer per rollout step.
+        check(per_step == n_out * layers and sum(launch_counts().values()) == 0,
+              f"FNO train step: {per_step} spectral launches, want {n_out * layers}")
+        epochs.append({"steps": steps, "epoch_train_loss": epoch_loss,
+                       "seconds_per_step": seconds / steps,
+                       "spectral_mode_matmul_launches_per_step": per_step,
+                       "peak_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30})
+    after = eval_loss()
+    check(np.isfinite(after) and after < before,
+          f"FNO loss on the first batch did not fall: {before} -> {after}")
+    split = host_split(lambda: trainer.train_step(x0, y0))
+    split["trace"] = trace(lambda: trainer.train_step(x0, y0), top=6)
+
+    val = trainer.validation_loop(dm.val_dataloader())
+    trainer.save_model(2, val, "recent")
+    fns = [MSE(), L2RE(), NNMSE(), VRMSE()]
+    evaler = Evaler(str(workdir / "fno"), "channels_first_default", fno_model(torch.float32, dev, md),
+                    dm, *fns, enable_amp=True, checkpoint_path=str(workdir / "fno" / "recent"),
+                    n_steps_rollout=n_roll)
+    same_weights = all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), evaler.model.state_dict().values()))
+    check(same_weights, "the Evaler did not load the Trainer's weights")
+    test_loader = dm.test_dataloader()
+    reset_counts()
+    report = evaler.Eval()
+    torch.cuda.synchronize()
+    eval_launches = fs.spectral_mode_matmul.launches
+    check(eval_launches == len(test_loader) * n_roll * layers,
+          f"Evaler: {eval_launches} spectral launches for {len(test_loader)} batches")
+    # Each reported metric is the port's metric function on the same rollout.
+    own = {name: [] for name in evaler.loss_names}
+    with torch.no_grad():
+        for batch in test_loader:
+            y = rollout_fixed(evaler.model, batch["input"], n_roll, 1).to(batch["output"].dtype)
+            for name, fn in zip(evaler.loss_names, fns):
+                own[name].append(float(fn(y, batch["output"]).mean()))
+    for name in evaler.loss_names:
+        got, want = report["metrics"][name], float(np.mean(own[name]))
+        check(np.isfinite(got) and abs(got - want) <= 1e-5 * abs(want),
+              f"Evaler {name} {got} vs the metric function on the same rollouts {want}")
+        check(np.isfinite(report["variance"][name]), f"Evaler variance of {name} is not finite")
+    res = {"phase": "fno_train_eval", "model": "FNO(hidden 48, modes 20, 4 layers, layout='cw')",
+           "batch": FNO_BATCH, "n_steps_output": n_out, "n_steps_rollout": n_roll,
+           "dtype": "bf16 compute, f32 weights", "optimizer": "AdamW lr 1e-3, weight decay 1e-5",
+           "first_step_one_sample": {
+               "loss": loss_gpu, "loss_cpu_f32": loss_cpu, "loss_rel_tol": TRAIN_LOSS_REL_TOL,
+               "grad_norm": gnorm_gpu, "grad_norm_cpu_f32": gnorm_cpu,
+               "grad_norm_rel_tol": TRAIN_GNORM_REL_TOL},
+           "first_batch_loss_before": before, "first_batch_loss_after": after,
+           "epochs": epochs, "train_step": split, "validation_loss": val,
+           "evaler": {"report": report, "test_batches": len(test_loader),
+                      "spectral_mode_matmul_launches": eval_launches,
+                      "metric_functions_on_the_same_rollouts": {
+                          k: float(np.mean(v)) for k, v in own.items()}}}
+    emit(res)
+    return res
+
+
 def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed: dict,
-                  train: dict) -> list[dict]:
+                  train: dict, spectral: list[dict], fno: dict) -> list[dict]:
     replaces = {"fused_block_fwd": "tante_tpu/ops/pallas_block.py:163",
                 "fused_block_canon_t_fwd": "tante_tpu/ops/pallas_block.py:401",
                 "fused_chain_apply": "tante_tpu/ops/pallas_block.py:1073",
@@ -766,6 +1153,28 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
             "ok": c["ok"],
             "single_block_kernels_in_sequence_ms": c["single_block_kernels_in_sequence_ms"],
         })
+    # Headline numbers of the mode-mixing kernel: mean over the shapes the
+    # FNO serving paths give it, one launch each per model call.
+    main = [c for c in spectral if c["main_path"]]
+    mean = lambda k: sum(c[k] for c in main) / len(main)  # noqa: E731
+    out.append({
+        "name": "spectral_mode_matmul", "route": "cuda", "source": SPECTRAL_SOURCE,
+        "replaces": "tante_tpu/ops/pallas_spectral.py:97",
+        "launches": fno["tante_fno"]["spectral_mode_matmul_launches_per_rollout"],
+        "launches_counted_over": "one 16-step rollout of TANTE with the FNO encoder/decoder",
+        "launches_per_fno_rollout": fno["fno_cw"]["spectral_mode_matmul_launches_per_rollout"],
+        "max_abs_err": max(c["max_abs_err"] for c in spectral),
+        "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_us") / 1e3,
+        "bound_by": main[0]["bound_by"], "library_ms": mean("library_ms"),
+        "library_call": main[0]["library_call"],
+        "times_are": "device time (torch.profiler); *_call_ms: per call, back to back (events)",
+        "call_ms": mean("kernel_call_ms"), "plain_call_ms": mean("plain_call_ms"),
+        "library_call_ms": mean("library_call_ms"), "ok": all(c["ok"] for c in spectral),
+        "per_shape": [{k: c[k] for k in ("case", "B", "modes", "Cin", "Cout", "layout",
+                                          "kernel_ms", "plain_ms", "library_ms", "kernel_call_ms",
+                                          "plain_call_ms", "library_call_ms", "bound_us",
+                                          "bound_by", "max_abs_err")} for c in main],
+    })
     check(all(k["launches"] > 0 for k in out), "a kernel of the main paths was never launched")
     emit({"kernels": out})
     return out
@@ -785,9 +1194,12 @@ def main() -> int:
     phase_grad(dev)
     fixed = phase_fixed(dev)
     phase_adaptive(dev)
+    spectral = phase_spectral_kernel(dev)
+    fno = phase_fno_serving(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = phase_train(dev, Path(workdir))
-    phase_summary(kernels, chains, fixed, train)
+        phase_fno_train_eval(dev, Path(workdir))
+    phase_summary(kernels, chains, fixed, train, spectral, fno)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -796,7 +1208,7 @@ def main() -> int:
     if FAILURES:
         emit({"failures": FAILURES, "seconds": time.perf_counter() - t0})
         return 1
-    emit({"seconds": time.perf_counter() - t0})
+    emit({"seconds": time.perf_counter() - t0, "notes": NOTES})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -33,15 +33,23 @@ class _Dense(nn.Module):
 
 
 class TorchDense(nn.Module):
-    """Dense layer with torch ``nn.Linear`` default init, computed in ``dtype``."""
+    """Dense layer with torch ``nn.Linear`` default init, computed in ``dtype``.
 
-    def __init__(self, in_features: int, features: int, dtype=torch.float32, gen=None):
+    ``cw=True`` applies the same (Cin, Cout) kernel over axis -2 of a
+    channel-major ``(..., C, W)`` tensor (the parameters are identical to
+    the channels-last form)."""
+
+    def __init__(self, in_features: int, features: int, dtype=torch.float32, gen=None,
+                 cw: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.cw = cw
         self.Dense_0 = _Dense(in_features, features, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.Dense_0
+        if self.cw:  # (..., Cin, W) -> (..., Cout, W)
+            return d.kernel.to(self.dtype).t() @ x.to(self.dtype) + d.bias.to(self.dtype)[:, None]
         return x.to(self.dtype) @ d.kernel.to(self.dtype) + d.bias.to(self.dtype)
 
 

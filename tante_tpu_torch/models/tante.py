@@ -1,5 +1,6 @@
 """TANTE: Time-Adaptive Neural Taylor Expansion (counterpart of
-``tante_tpu/models/tante.py``), CNN encoder/decoder.
+``tante_tpu/models/tante.py``), with the CNN or the FNO encoder/decoder
+(``enc_dec_type``).
 
   encode T frames -> latent grid (B, T, H_p, W_p, C)
   FiLM time-encode + position embeddings (added in the compute dtype)
@@ -33,6 +34,7 @@ from tante_tpu_torch.models.common import (
     t_series,
 )
 from tante_tpu_torch.models.enc_dec_cnn import PATCH_MAP, DecCNN, EncCNN
+from tante_tpu_torch.models.enc_dec_fno import DecFNO, EncFNO
 from tante_tpu_torch.ops.backend import resolve_device
 from tante_tpu_torch.ops.convs import morton_pyramid_ok
 
@@ -73,6 +75,8 @@ class TANTE(nn.Module):
         embed_dim: int = 256,
         patch_scale: int = 32,
         overlap_ratio: float = 0.0,
+        modes1: int = 32,
+        modes2: int = 32,
         deg: bool = True,
         fused_chain: int = 0,
         dtype=torch.float32,
@@ -80,8 +84,8 @@ class TANTE(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        if enc_dec_type != "cnn":
-            raise NotImplementedError(f"enc_dec_type '{enc_dec_type}' is not ported yet")
+        if enc_dec_type not in ("cnn", "fno"):
+            raise ValueError(f"Unknown enc_dec_type '{enc_dec_type}'")
         dev = resolve_device(device)
         gen = torch.Generator().manual_seed(seed)
         md = dset_metadata
@@ -90,6 +94,7 @@ class TANTE(nn.Module):
         self.taylor_order = taylor_order
         self.frame_interval = frame_interval
         self.output_length = output_length
+        self.enc_dec_type = enc_dec_type
         self.patch_scale = patch_scale
         self.overlap_ratio = overlap_ratio
         self.deg = deg
@@ -109,9 +114,13 @@ class TANTE(nn.Module):
 
         enc_kw = dict(dset_metadata=md, embed_dim=embed_dim, patch_scale=patch_scale,
                       overlap_ratio=overlap_ratio, dtype=dtype, gen=gen)
-        self.encoder = EncCNN(**enc_kw)
+        enc_cls, dec_cls = EncCNN, DecCNN
+        if enc_dec_type == "fno":
+            enc_cls, dec_cls = EncFNO, DecFNO
+            enc_kw["modes"] = (modes1, modes2)
+        self.encoder = enc_cls(**enc_kw)
         for i in range(taylor_order):
-            self.add_module(f"decoders_{i}", DecCNN(**enc_kw))
+            self.add_module(f"decoders_{i}", dec_cls(**enc_kw))
         for i, block_axes in enumerate(blocks_axes):
             self.add_module(f"blocks_{i}", AttnBackbone(
                 (in_T, self.H_p, self.W_p, self.C), block_axes, n_head, mlp_ratio, dropout,
@@ -137,12 +146,18 @@ class TANTE(nn.Module):
         return max(1, int(math.floor(out_T + 1e-3)))
 
     def morton_io_ok(self) -> bool:
-        return morton_pyramid_ok(PATCH_MAP[self.patch_scale], self.overlap_ratio)
+        """Whether the Morton-packed fast path applies: the CNN pyramid with
+        every stage a clean space-to-depth.  The FNO encoder/decoder works on
+        physical frames only (its spectral layers need the grid)."""
+        return self.enc_dec_type == "cnn" and morton_pyramid_ok(
+            PATCH_MAP[self.patch_scale], self.overlap_ratio)
 
     def encode(self, inputs: torch.Tensor, packed=False) -> torch.Tensor:
         """(B, K, H, W, C) -> (B, K, H_p, W_p, C); packed="morton" takes
         ``morton_pack_grouped`` frames."""
-        return self.encoder(inputs, packed_in=packed)
+        if packed:
+            return self.encoder(inputs, packed_in=packed)
+        return self.encoder(inputs)
 
     def head(self, latents: torch.Tensor, u_last: torch.Tensor, out_T: float = 1,
              deterministic: bool = True, packed=False,
@@ -167,7 +182,9 @@ class TANTE(nn.Module):
                 r_ts.append(rt)
                 tokens = getattr(self, f"modifiers_{i}")(tokens, rt)
                 derivative = tokens.reshape(b, 1, self.H_p, self.W_p, self.C)
-            derivatives.append(getattr(self, f"decoders_{i}")(derivative, packed_out=packed))
+            decoder = getattr(self, f"decoders_{i}")
+            derivatives.append(decoder(derivative, packed_out=packed) if packed
+                               else decoder(derivative))
 
         n_out = self.output_length if self.deg else self.n_frames(out_T)
         derivs = torch.cat(derivatives, dim=1)

@@ -1,9 +1,11 @@
-"""Build and load the port's CUDA kernels: ``nvcc`` into a shared library
+"""Build and load the port's CUDA kernels: ``nvcc`` into shared libraries
 with a plain C interface, bound with ``ctypes``.
 
-The library is built from ``csrc/fused_block.cu`` on first use, into
-``build/kernels/`` at the repository root, under a name that hashes the
-source and the flags (an edited source never loads a stale build).  Nothing
+One library per source file of ``csrc/`` (``KERNELS``), each built on first
+use into ``build/kernels/`` at the repository root under a name that hashes
+its own source and flags: an edited source never loads a stale build, and
+an edit of one kernel file does not rebuild the other.  ``build()`` starts
+one ``nvcc`` per source that still has to be built, all together.  Nothing
 here runs at import time.
 """
 
@@ -17,16 +19,17 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable, Sequence
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_block.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lib = None
-_build_info: dict = {}
+_libs: dict[str, ctypes.CDLL] = {}
+_build_info: dict[str, dict] = {}
 
 
 def _nvcc() -> str:
@@ -38,8 +41,8 @@ def _nvcc() -> str:
 
 
 def ptxas_summary(log: str) -> list[dict]:
-    """One entry per compiled kernel: registers and spills (shared memory
-    is dynamic; ``plan()`` reports it)."""
+    """One entry per compiled kernel: registers and spills (the block
+    kernels' shared memory is dynamic; ``plan()`` reports it)."""
     out = []
     for m in re.finditer(
         r"Compiling entry function '(\S+)'.*?Used (\d+) registers", log, re.S
@@ -56,7 +59,7 @@ def ptxas_summary(log: str) -> list[dict]:
 
 
 def plan(l: int, c: int, hidden: int, lib: ctypes.CDLL | None = None) -> dict:
-    """The kernel's tile plan for sequences of length ``l``: whole
+    """The block kernel's tile plan for sequences of length ``l``: whole
     sequences per CTA, rows per CTA (padded to 16) and dynamic shared
     memory bytes — read from the library (``lib``, by default the loaded
     one), so it is the launch's own plan."""
@@ -69,40 +72,69 @@ def plan(l: int, c: int, hidden: int, lib: ctypes.CDLL | None = None) -> dict:
             "smem_bytes": smem.value}
 
 
-def compile_library(name: str, extra_flags: tuple = ()) -> dict:
-    """nvcc ``fused_block.cu`` into ``build/kernels/<name>_<hash>.so`` unless
-    that exact source and flag set was built already.  Returns {"library",
-    "seconds", "cached", "ptxas"}."""
+def _start(kernel: str, name: str, extra_flags: Sequence[str]) -> dict:
+    """Start nvcc on ``csrc/<kernel>.cu`` into ``build/kernels/<name>_<hash>.so``
+    unless that exact source and flag set was built already."""
+    source = CSRC / f"{kernel}.cu"
     flags = [*NVCC_FLAGS, *extra_flags]
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"{name}_{tag}.so"
-    log_path = so.with_suffix(".log")
-    t0 = time.perf_counter()
-    cached = so.exists() and log_path.exists()
-    if not cached:
-        tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-        proc = subprocess.run(
-            [_nvcc(), *flags, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    return {"library": str(so), "seconds": time.perf_counter() - t0, "cached": cached,
-            "ptxas": ptxas_summary(log_path.read_text())}
+    job = {"so": so, "log": so.with_suffix(".log"), "t0": time.perf_counter(), "proc": None}
+    job["cached"] = so.exists() and job["log"].exists()
+    if not job["cached"]:
+        # nvcc writes library and log under temporary names; _finish renames
+        # them, so a half-written file never carries a final name.
+        job["tmp"] = so.with_suffix(f".tmp{os.getpid()}.so")
+        job["tmp_log"] = so.with_suffix(f".tmp{os.getpid()}.log")
+        with open(job["tmp_log"], "w") as log:
+            job["proc"] = subprocess.Popen(
+                [_nvcc(), *flags, "-o", str(job["tmp"]), str(source)],
+                stdout=log, stderr=subprocess.STDOUT)
+    return job
 
 
-def build() -> dict:
-    """Compile the kernels if this source has not been built yet."""
-    if not _build_info:
-        _build_info.update(compile_library("fused_block"))
-    return _build_info
+def _finish(job: dict) -> dict:
+    """Wait for a started build; {"library", "seconds", "cached", "ptxas"},
+    ``seconds`` from the build's start until this call returned."""
+    proc = job["proc"]
+    if proc is not None:
+        rc = proc.wait()
+        text = job["tmp_log"].read_text()
+        if rc != 0:
+            job["tmp_log"].unlink()
+            raise RuntimeError(f"nvcc failed ({rc}):\n{text[-8000:]}")
+        os.replace(job["tmp_log"], job["log"])
+        os.replace(job["tmp"], job["so"])
+    return {"library": str(job["so"]), "seconds": time.perf_counter() - job["t0"],
+            "cached": job["cached"], "ptxas": ptxas_summary(job["log"].read_text())}
 
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points' argument and return types."""
+def compile_library(kernel: str, name: str | None = None, extra_flags: tuple = ()) -> dict:
+    """Build ``csrc/<kernel>.cu`` (a measurement copy under another ``name``
+    and with extra flags, if given) and wait for it."""
+    return _finish(_start(kernel, name or kernel, extra_flags))
+
+
+def build(kernels: Sequence[str] | None = None) -> dict[str, dict]:
+    """Compile every kernel source (or ``kernels``) not built yet in this
+    process, one nvcc each, all started together; per-kernel build info."""
+    wanted = [k for k in (kernels or KERNELS) if k not in _build_info]
+    jobs = {k: _start(k, k, ()) for k in wanted}
+    failures = []
+    # Quickest first (the smallest source), so that each build's seconds are
+    # its own; all are waited for, so that no nvcc is left running.
+    for k, job in sorted(jobs.items(), key=lambda kv: (CSRC / f"{kv[0]}.cu").stat().st_size):
+        try:
+            _build_info[k] = _finish(job)
+        except RuntimeError as e:
+            failures.append(f"{k}: {e}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return {k: _build_info[k] for k in (kernels or KERNELS)}
+
+
+def _bind_fused_block(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.tante_fused_block_fwd, lib.tante_fused_block_canon_t_fwd):
         fn.argtypes = [p, p, ctypes.POINTER(p), i, i, i, i, i, i, i, p]
@@ -112,12 +144,30 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tante_fused_chain_fwd.restype = i
     lib.tante_fused_block_plan.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.tante_fused_block_plan.restype = i
+
+
+def _bind_spectral_matmul(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tante_spectral_mode_matmul.argtypes = [
+        p, p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, p]
+    lib.tante_spectral_mode_matmul.restype = i
+
+
+# Source file stem under csrc/ -> the declaration of its C entry points.
+KERNELS: dict[str, Callable[[ctypes.CDLL], None]] = {
+    "fused_block": _bind_fused_block,
+    "spectral_matmul": _bind_spectral_matmul,
+}
+
+
+def bind(lib: ctypes.CDLL, kernel: str = "fused_block") -> ctypes.CDLL:
+    """Declare the C entry points' argument and return types."""
+    KERNELS[kernel](lib)
     return lib
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        _lib = bind(ctypes.CDLL(build()["library"]))
-    return _lib
+def load(kernel: str = "fused_block") -> ctypes.CDLL:
+    """The loaded library of one kernel source (built on first call)."""
+    if kernel not in _libs:
+        _libs[kernel] = bind(ctypes.CDLL(build([kernel])[kernel]["library"]), kernel)
+    return _libs[kernel]

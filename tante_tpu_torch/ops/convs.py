@@ -1,12 +1,16 @@
 """Patchify / de-patchify convolutions as dense matmuls (counterpart of
 ``tante_tpu/ops/convs.py``), channels-last.
 
-Only the clean case is ported: stride == patch and zero padding
-(``overlap_ratio=0`` with 1x1 or 2x2 patches, every stage of
-``patch_scale=8``).  There a patch conv IS space-to-depth + one matmul and
-its transpose one matmul + depth-to-space, so the plain, ``packed`` and
-``"morton"`` modes all run as matmuls.  The overlapping cases (padding plus
-the adaptive-pool / bilinear grid enforcement) raise ``NotImplementedError``.
+Ported: stride == patch (``overlap_ratio=0``).  With 1x1 or 2x2 patches
+(every stage of the CNN pyramid at ``patch_scale=8``) the symmetric padding
+``(p - 1) // 2`` is zero and a patch conv IS space-to-depth + one matmul, its
+transpose one matmul + depth-to-space, so the plain, ``packed`` and
+``"morton"`` modes all run as matmuls.  Larger patches (the FNO pyramid's
+4x4 stage) pad: the conv then reads the frame shifted by the padding (the
+same matmul on the shifted frame; the grid already is (H/p, W/p)), and the
+transposed conv crops the padding off its (H*p, W*p) output and resizes
+bilinearly back to that grid, plain mode only.  Strides below the patch
+(``overlap_ratio > 0``) raise ``NotImplementedError``.
 
 Parameters keep the flax layouts: ``kernel`` HWIO ``(ph, pw, ci, co)``,
 ``bias`` ``(co,)``.
@@ -17,9 +21,11 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tante_tpu_torch.ops.initializers import torch_bias_init, torch_kernel_init
+from tante_tpu_torch.ops.pooling import resize_bilinear
 
 
 def pack_patches(x: torch.Tensor, p: int) -> torch.Tensor:
@@ -107,12 +113,17 @@ def _stride(p: int, overlap_ratio: float) -> int:
     return max(1, int(round(p * (1.0 - overlap_ratio))))
 
 
-def _require_clean(p: int, overlap_ratio: float):
-    if _stride(p, overlap_ratio) != p or (p - 1) // 2 != 0:
+def _require_stride_is_patch(p: int, overlap_ratio: float):
+    if _stride(p, overlap_ratio) != p:
         raise NotImplementedError(
-            f"patch {p} with overlap_ratio {overlap_ratio}: the padded conv and its "
-            "adaptive-pool / bilinear grid enforcement are not ported yet"
+            f"patch {p} with overlap_ratio {overlap_ratio}: overlapping patch convs and their "
+            "adaptive-pool grid enforcement are not ported yet"
         )
+
+
+def _pad(p: int) -> int:
+    """Symmetric 'same'-style padding of a pxp patch conv."""
+    return (p - 1) // 2
 
 
 def _grouped_matmul(z: torch.Tensor, wmat: torch.Tensor, group: int, bias=None):
@@ -136,12 +147,15 @@ class _ConvParams(nn.Module):
 
 
 class RealConv2d(nn.Module):
-    """Stride == patch conv as space-to-depth + matmul (``ops/convs.py:296``)."""
+    """Stride == patch conv as space-to-depth + matmul (``ops/convs.py:296``).
+    With padding ``pad`` (patches of 3 and more) the windows start ``pad``
+    pixels before the frame and the last ``pad`` pixels fall outside every
+    window: the frame shifted by ``pad`` with zeros in front."""
 
     def __init__(self, c_in, out_channels, patch_size, overlap_ratio=0.0,
                  dtype=torch.float32, gen=None):
         super().__init__()
-        _require_clean(patch_size, overlap_ratio)
+        _require_stride_is_patch(patch_size, overlap_ratio)
         self.p = patch_size
         self.dtype = dtype
         self.Conv_0 = _ConvParams(patch_size, c_in, out_channels, gen)
@@ -153,19 +167,28 @@ class RealConv2d(nn.Module):
         wmat = k.reshape(-1, k.shape[-1]).to(self.dtype)
         bias = self.Conv_0.bias.to(self.dtype)
         if not packed_in:
+            pad = _pad(self.p)
+            if pad:
+                h, w = x.shape[-3], x.shape[-2]
+                if h % self.p or w % self.p:
+                    raise ValueError(f"H and W must be divisible by the patch {self.p}")
+                x = F.pad(x, (0, 0, pad, 0, pad, 0))[..., :h, :w, :]
             x = pack_patches(x, self.p) if self.p > 1 else x
             packed_group = 1
+        elif _pad(self.p):
+            raise ValueError(f"packed input needs an unpadded patch conv, got patch {self.p}")
         return _grouped_matmul(x.to(self.dtype), wmat, packed_group, bias)
 
 
 class RealTransConv2d(nn.Module):
     """Stride == patch transposed conv as matmul + depth-to-space
-    (``ops/convs.py:365``)."""
+    (``ops/convs.py:365``).  With padding the (H*p, W*p) output loses ``pad``
+    pixels on every side and is resized bilinearly back to (H*p, W*p)."""
 
     def __init__(self, c_in, out_channels, patch_size, overlap_ratio=0.0,
                  dtype=torch.float32, gen=None):
         super().__init__()
-        _require_clean(patch_size, overlap_ratio)
+        _require_stride_is_patch(patch_size, overlap_ratio)
         self.p = patch_size
         self.dtype = dtype
         self.ConvTranspose_0 = _ConvParams(patch_size, c_in, out_channels, gen)
@@ -179,9 +202,16 @@ class RealTransConv2d(nn.Module):
         # spatially, so flip it (``_PatchDenseTranspose``, convs.py:262-267).
         wmat = k.flip(0, 1).permute(2, 0, 1, 3).reshape(c_in, p * p * c_out).to(self.dtype)
         bias = self.ConvTranspose_0.bias.to(self.dtype)
+        pad = _pad(p)
         if packed_out:
+            if pad:
+                raise ValueError(f"packed output needs an unpadded patch conv, got patch {p}")
             return _grouped_matmul(x.to(self.dtype), wmat, packed_group, bias)
         y = x.to(self.dtype) @ wmat
         if p > 1:
             y = unpack_patches(y, p)
-        return y + bias
+        y = y + bias
+        if pad:
+            full = (y.shape[-3], y.shape[-2])
+            y = resize_bilinear(y[..., pad:-pad, pad:-pad, :], full)
+        return y

@@ -32,3 +32,12 @@ def torch_bias_init(shape, fan_in: int, gen: torch.Generator) -> torch.Tensor:
 def torch_xavier_init(shape, gen: torch.Generator) -> torch.Tensor:
     fan_in, fan_out = math.prod(shape[:-1]), shape[-1]
     return _uniform(shape, math.sqrt(6.0 / (fan_in + fan_out)), gen)
+
+
+def complex_spectral_init(shape, in_channels: int, out_channels: int,
+                          gen: torch.Generator) -> torch.Tensor:
+    """Spectral weight init: complex normal scaled by 1/sqrt(Cin*Cout),
+    stored as a trailing [re, im] axis of a real tensor; re and im each
+    ~ N(0, 1/2) before the scale (unit E|z|^2), hence the extra 1/sqrt(2)."""
+    scale = 1.0 / (2.0 * in_channels * out_channels) ** 0.5
+    return torch.randn(shape, generator=gen, dtype=torch.float32) * scale

@@ -6,7 +6,8 @@
     frames, rt, calls = p.rollout_adaptive(history, 16, max_frames_per_call=8)
 
 Fixed-step TANTE rollouts use the latent-caching path; adaptive models use
-the adaptive loop, where a large r_t genuinely skips model calls.  Results
+the adaptive loop, where a large r_t genuinely skips model calls; any other
+model (FNO, TFNO, UNO) rolls out through ``rollout_fixed``.  Results
 are tensors on the model's device.  ``from_experiment`` (config +
 checkpoint) waits for the config/checkpoint port.
 """
@@ -34,12 +35,24 @@ class Predictor:
     The model's parameters are cast IN PLACE to its compute dtype
     (``model.dtype``): every use casts them to that dtype anyway, so the
     outputs are bit-identical, and a bf16 model call then launches no
-    per-call weight casts (~180 fewer small kernels per TANTE call)."""
+    per-call weight casts (~180 fewer small kernels per TANTE call).  The
+    exception are the spectral weights (a module names them in
+    ``mode_space_params``): mode space is f32 under every compute dtype, so
+    they stay f32.  The parameters also stop requiring gradients: serving
+    takes none, and ``torch.matmul`` of a 2-D weight that requires a gradient
+    with a batched field folds the field into a matrix, which for a
+    channel-major field is a transposing copy of the whole field per layer."""
 
     def __init__(self, model: torch.nn.Module, metadata: Any = None, device=None):
         self.device = resolve_device(device if device is not None else _model_device(model))
         dtype = getattr(model, "dtype", None) or torch.float32
-        self.model = model.to(self.device, dtype).eval()
+        keep = {id(m._parameters[name]) for m in model.modules()
+                for name in getattr(m, "mode_space_params", ())}
+        model.to(self.device).requires_grad_(False)
+        for t in (*model.parameters(), *model.buffers()):
+            if t.is_floating_point() and id(t) not in keep:
+                t.data = t.data.to(dtype)
+        self.model = model.eval()
         self.metadata = metadata
 
     @classmethod

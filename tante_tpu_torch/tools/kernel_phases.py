@@ -55,7 +55,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device available", file=sys.stderr)
         return 2
-    info = _build.compile_library("fused_block_phases", ("-DTANTE_PHASE_TIMING",))
+    info = _build.compile_library("fused_block", "fused_block_phases", ("-DTANTE_PHASE_TIMING",))
     lib = _build.bind(ctypes.CDLL(info["library"]))
     lib.tante_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.tante_phase_read.restype = ctypes.c_int

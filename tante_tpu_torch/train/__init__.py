@@ -1,3 +1,4 @@
+from tante_tpu_torch.train.evaler import Evaler
 from tante_tpu_torch.train.metrics import L2RE, MSE, NMSE, NNMSE, NRMSE, RMSE, VMSE, VRMSE, Metric
 from tante_tpu_torch.train.optimizers import AdamW
 from tante_tpu_torch.train.rollout import (
@@ -10,7 +11,7 @@ from tante_tpu_torch.train.schedules import LinearWarmupCosineAnnealingLR
 from tante_tpu_torch.train.trainer import Trainer
 
 __all__ = [
-    "AdamW", "L2RE", "LinearWarmupCosineAnnealingLR", "MSE", "Metric", "NMSE", "NNMSE", "NRMSE",
+    "AdamW", "Evaler", "L2RE", "LinearWarmupCosineAnnealingLR", "MSE", "Metric", "NMSE", "NNMSE", "NRMSE",
     "RMSE", "Trainer", "VMSE", "VRMSE",
     "rollout_adaptive_eval",
     "rollout_adaptive_eval_tante",

@@ -39,7 +39,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert "tante_tpu_torch.ops.fused_block" in out["modules"]
     for name in ("serve", "train.trainer", "train.metrics", "train.schedules",
                  "train.optimizers", "data.loader", "data.datamodule", "data.synthetic",
-                 "utils.checkpoint", "utils.logging", "utils.seeding"):
+                 "utils.checkpoint", "utils.logging", "utils.seeding",
+                 "ops.fused_spectral", "ops.spectral", "ops.pooling", "models.enc_dec_fno",
+                 "models.fno", "models.tfno", "models.uno", "train.evaler"):
         assert f"tante_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

@@ -23,13 +23,20 @@ recomputed in bf16) against ordinary autograd through the f32 plain version:
 relative L2 error per tensor <= GRAD_REL.  ``bk`` is the exception: a bias on
 k shifts every score of a query alike, which softmax ignores, so its true
 gradient is zero and only rounding is left; it is held to GRAD_REL of the
-norm of ``bq``'s gradient instead."""
+norm of ``bq``'s gradient instead.
+
+The mode-mixing kernel (``spectral_mode_matmul``) is f32 throughout and sums
+over Cin in order with FMAs where the plain version sums four products
+separately: |kernel - plain| <= 1e-4 + 1e-4 |plain| (the CPU tests' tolerance
+against the Pallas kernel), plain = the four f32 einsums on the card with
+TF32 off.  Its Function's gradients are the plain version's own: 1e-5."""
 
 import numpy as np
 import pytest
 import torch
 
 from tante_tpu_torch.ops import fused_block as fb
+from tante_tpu_torch.ops import fused_spectral as fs
 
 pytestmark = pytest.mark.gpu
 ATOL, RTOL = 5e-2, 2e-2
@@ -227,3 +234,170 @@ def test_kernel_gradients_match_plain_autograd(cuda, kind, shape, axes):
     print(f"grad {kind} {axes}: worst {max(errs, key=errs.get)} {max(errs.values()):.4f}")
     assert all(g.dtype == torch.bfloat16 for g in got)
     assert max(errs.values()) <= GRAD_REL, errs
+
+
+# --------------------------------------------------------------------------
+# spectral_mode_matmul
+# --------------------------------------------------------------------------
+
+
+def f32_normal(shape, seed, device, scale=1.0):
+    a = scale * np.random.default_rng(seed).normal(size=shape)
+    return torch.from_numpy(a.astype(np.float32)).to(device)
+
+
+def spectral_operands(b, modes, ci, co, layout, device, seed=0):
+    """x_re, x_im (B, *modes, Cin) and w_re, w_im (*modes, Cin, Cout) as the
+    call sites hand them over.  ``stored``: the weight as the models keep it,
+    (Cin, Cout, *modes, 2), through permuted views; ``cw``: that, and x
+    channel-major (B, ..., Cin, L) seen as (B, ..., L, Cin); ``complex``:
+    that weight, and x the re / im views of a complex tensor (an FFT slice);
+    ``contiguous``: (M, Cin, Cout) weights of their own, the Pallas entry's
+    signature."""
+    n = len(modes)
+    scale = 1.0 / np.sqrt(ci)
+    if layout == "contiguous":
+        w_re, w_im = (f32_normal((*modes, ci, co), seed + 2 + i, device, scale) for i in range(2))
+    else:
+        w = f32_normal((ci, co, *modes, 2), seed + 2, device, scale)
+        perm = (*range(2, 2 + n), 0, 1)
+        w_re, w_im = w[..., 0].permute(perm), w[..., 1].permute(perm)
+    if layout == "complex":
+        z = torch.view_as_complex(f32_normal((b, *modes, ci, 2), seed, device))
+        return z.real, z.imag, w_re, w_im
+    x_re, x_im = (f32_normal((b, *modes, ci), seed + i, device) for i in range(2))
+    if layout == "cw":
+        x_re, x_im = (t.transpose(-1, -2).contiguous().transpose(-1, -2) for t in (x_re, x_im))
+    return x_re, x_im, w_re, w_im
+
+
+SPECTRAL_CASES = [
+    # TANTE-FNO flagship (embed 256, modes 32x32, stages (4, 2)); both corners in the batch
+    (64, (32, 32), 4, 32, "stored"),     # encoder layer 1, the first window (2 * 8 * 4 frames)
+    (16, (32, 32), 4, 32, "stored"),     # encoder layer 1, one new frame per sample
+    (16, (8, 8), 64, 128, "stored"),     # encoder layer 2
+    (16, (8, 8), 128, 64, "stored"),     # decoder layer 1
+    (16, (32, 32), 32, 4, "stored"),     # decoder layer 2
+    # FNO / TFNO, configs/fno.yaml: hidden 48, centered modes 20 x 11, B=4
+    (4, (20, 11), 48, 48, "cw"),
+    (4, (20, 11), 48, 48, "stored"),
+    (4, (220,), 48, 48, "contiguous"),
+    # UNO, configs/uno.yaml width 38: channel counts that are multiples of nothing
+    (4, (32, 33), 38, 76, "stored"),
+    (4, (4, 5), 304, 152, "stored"),
+    # ragged
+    (1, (7,), 4, 4, "contiguous"),
+    (3, (13, 5), 38, 48, "stored"),
+    (3, (5, 3), 128, 38, "cw"),
+    (9, (6, 5), 48, 128, "complex"),     # a second batch tile, x from a complex tensor
+    (2, (4, 3, 5), 8, 12, "complex"),    # three mode axes (the 3-D convolution's corners)
+    (1, (33,), 1, 1, "contiguous"),
+]
+
+
+@pytest.mark.parametrize("b,modes,ci,co,layout", SPECTRAL_CASES)
+def test_spectral_mode_matmul_kernel_matches_plain(cuda, b, modes, ci, co, layout):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = spectral_operands(b, modes, ci, co, layout, cuda)
+    before = fs.spectral_mode_matmul.launches
+    got = fs.spectral_mode_matmul(*args)
+    torch.cuda.synchronize()
+    assert fs.spectral_mode_matmul.launches == before + 1
+    want = fs.spectral_mode_matmul_ref(*args)
+    for g, w in zip(got, want):
+        assert g.shape == (b, *modes, co) and g.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    if layout == "cw":  # the result keeps x's memory order: (B, ..., Cout, L) dense
+        assert got[0].transpose(-1, -2).is_contiguous()
+
+
+def test_spectral_kernel_refuses_what_it_cannot_take(cuda):
+    xr, xi, wr, wi = spectral_operands(2, (3, 4), 5, 6, "stored", cuda)
+    with pytest.raises(ValueError):  # f64
+        fs.spectral_mode_matmul(xr.double(), xi.double(), wr.double(), wi.double())
+    with pytest.raises(ValueError):  # the weight on another device
+        fs.spectral_mode_matmul(xr, xi, wr.cpu(), wi.cpu())
+    x4 = torch.zeros(1, 2, 2, 2, 2, 3, device=cuda)
+    w4 = torch.zeros(2, 2, 2, 2, 3, 3, device=cuda)
+    with pytest.raises(ValueError):  # four mode axes
+        fs.spectral_mode_matmul(x4, x4, w4, w4)
+
+
+@pytest.mark.parametrize("b,modes,ci,co,layout", [
+    (4, (20, 11), 48, 48, "cw"), (16, (8, 8), 64, 128, "stored"), (3, (7,), 4, 38, "contiguous")])
+def test_spectral_function_gradients_match_plain_autograd(cuda, b, modes, ci, co, layout):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = spectral_operands(b, modes, ci, co, layout, cuda)
+    cot = [f32_normal((b, *modes, co), 20 + i, cuda) for i in range(2)]
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_(True) for t in args]
+        o_re, o_im = fn(*leaves)
+        ((o_re * cot[0]).sum() + (o_im * cot[1]).sum()).backward()
+        return [t.grad for t in leaves]
+
+    before = fs.spectral_mode_matmul.launches
+    got = grads(fs.spectral_mode_matmul)
+    assert fs.spectral_mode_matmul.launches == before + 1  # forward only
+    for g, w in zip(got, grads(fs.spectral_mode_matmul_ref)):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# The FNO baselines on the card: every model through the mode-mixing kernel
+# --------------------------------------------------------------------------
+
+
+def _family_case(name):
+    """(model class, constructor arguments, input shape) at a small size."""
+    from tante_tpu_torch.data.metadata import TanteMetadata
+    from tante_tpu_torch.models import FNO, TFNO, UNO
+
+    def md(res):
+        return TanteMetadata(
+            dataset_name="t", n_spatial_dims=len(res), spatial_resolution=tuple(res),
+            field_names={0: ["f"] * 4, 1: [], 2: []}, boundary_condition_types=["PERIODIC"],
+            n_files=1, n_trajectories_per_file=[1], n_steps_per_trajectory=[16], n_fields=4)
+
+    fno = dict(in_T=4, modes1=8, modes2=8, hidden_channels=16, n_layers=2)
+    return {
+        "fno_cw": (FNO, dict(dset_metadata=md((32, 48)), **fno), (2, 4, 32, 48, 4)),
+        "fno_wc": (FNO, dict(dset_metadata=md((32, 48)), layout="wc", **fno), (2, 4, 32, 48, 4)),
+        "fno_3d": (FNO, dict(dset_metadata=md((6, 8, 10)), in_T=2, modes1=4, modes2=4, modes3=6,
+                             hidden_channels=8, n_layers=2), (1, 2, 6, 8, 10, 4)),
+        "tfno": (TFNO, dict(dset_metadata=md((32, 48)), **fno), (2, 4, 32, 48, 4)),
+        "uno": (UNO, dict(in_T=4, dset_metadata=md((64, 96)), width=6), (2, 4, 64, 96, 4)),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["fno_cw", "fno_wc", "fno_3d", "tfno", "uno"])
+def test_fno_family_on_the_card_matches_the_cpu(cuda, name):
+    """f32, the same seeded weights: forward and parameter gradients on the
+    card (mode mixing in the kernel, its backward through the plain version)
+    against the CPU (plain version throughout).  1e-3: f32 matmuls summed in
+    another order through a few layers.  (TANTE with the FNO encoder/decoder
+    needs bf16 for its block kernels: ``chip_smoke.py`` holds it to the CPU.)"""
+    from tante_tpu_torch.convert import load_jax_params, seeded_jax_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cls, kw, shape = _family_case(name)
+    cpu, gpu = cls(device="cpu", **kw), cls(device=cuda, **kw)
+    flat = seeded_jax_params(cpu, seed=3)
+    load_jax_params(cpu, flat)
+    load_jax_params(gpu, flat)
+    x = f32_normal(shape, 9, "cpu")
+
+    def run(model, x):
+        model.zero_grad(set_to_none=True)
+        y = model(x)
+        y.square().mean().backward()
+        return y.detach().cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()}
+
+    before = fs.spectral_mode_matmul.launches
+    got, got_grads = run(gpu, x.to(cuda))
+    assert fs.spectral_mode_matmul.launches > before
+    want, want_grads = run(cpu, x)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    for k, g in want_grads.items():
+        scale = float(g.abs().max())
+        torch.testing.assert_close(got_grads[k], g, atol=1e-3 * scale + 1e-7, rtol=1e-3, msg=k)
