@@ -6,9 +6,10 @@ Phases, each printing one JSON line (a failing phase is reported and the
 script exits non-zero without the final result line):
 
 1. build    nvcc builds every kernel source of this checkout
-            (``tante_tpu_torch/ops/csrc/fused_block.cu`` and
-            ``spectral_matmul.cu``, one nvcc each, started together); build
-            seconds, the ``-Xptxas -v`` summaries and each tile plan.
+            (``tante_tpu_torch/ops/csrc/fused_block.cu``,
+            ``spectral_matmul.cu`` and ``packed_attention.cu``, one nvcc each,
+            started together); build seconds, the ``-Xptxas -v`` summaries
+            and each tile plan.
 2. kernel   each kernel against its plain PyTorch version (f32 from the
             same bf16 inputs) at the main paths' shapes; max abs error,
             tolerance, kernel / plain time (CUDA events) and the bound.
@@ -55,7 +56,26 @@ script exits non-zero without the final result line):
             save, then ``Evaler`` on the saved weights: the 4-metric report,
             each metric equal to the port's metric functions on the same
             rollouts.
-10. kernels one {"kernels": [...]} line.
+10. packed_kernel  ``packed_attention`` against its plain version at the AViT
+            shape in f32 (as AViT launches it: strided row and column views of
+            one (16, 16, 16, 6, 192) projection; and as (256, 96, 64)), the JAX
+            tests' (10, 128, 32) and
+            (7, 16, 16) in f32 and bf16, causal and not, and a TransformerBlock's
+            (1536, 128, 32) in bf16; device time of kernel, plain version and
+            ``scaled_dot_product_attention`` (the yardstick), and the bound.
+11. packed_grad  gradients through its Function against autograd of the plain
+            version (f32), packed and on AViT's strided row / column views.
+12. avit    AViT at ``configs/avit.yaml`` width (embed 384, 6 heads, 12 blocks,
+            drop path 0.2), f32, B=4 of 256x256x8 waves: ``Predictor.rollout``
+            (16 steps = 4 calls, exactly 96 ``packed_attention`` launches), its
+            first call against the f32 CPU model; ``Trainer`` (24 forward
+            launches a step; with drop path 0 the first loss and gradient norm
+            against the CPU); ``Evaler`` on the saved weights.
+13. cvit    CViT at ``configs/cvit.yaml`` width in bf16 on the same data:
+            ``Predictor.rollout`` on the full grid, ``Trainer(cvit=True,
+            num_query_points=1024)``, ``Evaler(cvit=True)``; no hand-written
+            kernel runs here (8 heads x 256 tokens > 128), which the phase says.
+14. kernels one {"kernels": [...]} line (six kernels).
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 result line {"ok": true, "device": {...}}.  Exits non-zero when no CUDA
@@ -75,17 +95,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tante_tpu_torch.convert import seeded_jax_params
+from tante_tpu_torch.convert import load_jax_params, seeded_jax_params
 from tante_tpu_torch.data.datamodule import WaveDataModule
 from tante_tpu_torch.data.metadata import TanteMetadata
+from tante_tpu_torch.data.synthetic import make_well_arrays
 from tante_tpu_torch.models.attn_backbone import AttnBackbone
+from tante_tpu_torch.models.avit import AViT
+from tante_tpu_torch.models.cvit import CViT
 from tante_tpu_torch.models.fno import FNO
 from tante_tpu_torch.models.tante import TANTE
 from tante_tpu_torch.ops import _build
+from tante_tpu_torch.ops import fused_attention as fa
 from tante_tpu_torch.ops import fused_block as fb
 from tante_tpu_torch.ops import fused_spectral as fs
 from tante_tpu_torch.serve import Predictor
-from tante_tpu_torch.train.evaler import Evaler
+from tante_tpu_torch.train.evaler import Evaler, cvit_full_grid_rollout, full_grid_coords
 from tante_tpu_torch.train.metrics import L2RE, MSE, NNMSE, VRMSE
 from tante_tpu_torch.train.optimizers import AdamW, global_norm
 from tante_tpu_torch.train.rollout import rollout_fixed
@@ -96,6 +120,7 @@ ROOT = Path(__file__).resolve().parent
 ASSET = ROOT / "tante_tpu" / "assets" / "tante_flagship.npz"
 SOURCE = "tante_tpu_torch/ops/csrc/fused_block.cu"
 SPECTRAL_SOURCE = "tante_tpu_torch/ops/csrc/spectral_matmul.cu"
+PACKED_SOURCE = "tante_tpu_torch/ops/csrc/packed_attention.cu"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet, 700 W)
 PEAK_F32_FLOPS = 67e12    # f32 outside the tensor cores (the spectral kernel's FMAs)
 PEAK_HBM_BYTES = 3.35e12
@@ -193,6 +218,7 @@ def reset_counts():
     """Every wrapper's launch count to 0."""
     fb.reset_launches()
     fs.spectral_mode_matmul.launches = 0
+    fa.packed_attention.launches = 0
 
 
 def wave_input(batch=BATCH, t0: int = 0, n_frames: int = IN_T, seed: int = 7) -> np.ndarray:
@@ -1113,9 +1139,434 @@ def phase_fno_train_eval(dev, workdir: Path) -> dict:
     emit(res)
     return res
 
+# ---------------------------------------------------------------------------
+# The attention family: packed_attention, AViT, CViT
+# ---------------------------------------------------------------------------
+
+# AViT at configs/avit.yaml width (embed 384, 6 heads, 12 blocks, drop path
+# 0.2, in_T 4) and CViT at configs/cvit.yaml width, on 256 x 256 frames of 8
+# fields (the configs' active_matter geometry; the synthetic waves cannot make
+# its 11 fields).  Both axial attentions of an AViT block have L = 16 and
+# heads * L = 96 <= 128: 24 packed_attention launches per model call.
+WELL_RES, WELL_B = (256, 256), 4
+WELL_WAVES = dict(resolution=WELL_RES, n_trajectories=1, n_steps=16, with_t2=True,
+                  with_pressure=True, seed=0)
+AVIT_KW = dict(in_T=IN_T, patch_size=(16, 16), processor_blocks=12, embed_dim=384, num_heads=6,
+               drop_path=0.2)
+CVIT_KW = dict(in_T=IN_T, out_steps=4, patch_size=(1, 16, 16), grid_size=(128, 128),
+               latent_dim=512, emb_dim=512, depth=10, num_heads=8, dec_emb_dim=512,
+               dec_num_heads=8, dec_depth=1, num_mlp_layers=1, mlp_ratio=1,
+               embedding_type="grid")
+# Kernel vs plain: f32 sums in another order; in bf16 the plain version rounds
+# its AV product to bf16 where the kernel accumulates in f32 and rounds once.
+PACKED_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
+PACKED_GRAD_TOL = 1e-5  # the Function's backward IS the plain version's
+AVIT_CALL_REL_TOL = 1e-3  # f32 on the card vs f32 on the CPU, first model call
+AVIT_LOSS_REL_TOL, AVIT_GNORM_REL_TOL = 1e-3, 1e-2
+CVIT_REL_TOL = 5e-2  # bf16 on the card vs f32 on the CPU
+METRIC_REL_TOL = 1e-5
+
+
+def packed_bound(s, heads, l, d, causal, dtype) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, flops, bytes): q, k, v read and the output
+    written once; 4 * D flops per admitted (query, key) pair of a head, over
+    the peak of the operands' type (f32 outside the tensor cores, bf16 in)."""
+    pairs = l * (l + 1) / 2 if causal else l * l
+    flops = 4.0 * s * heads * pairs * d
+    nbytes = 4.0 * s * heads * l * d * torch.finfo(dtype).bits / 8
+    t_ops = flops / (PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+    t_mem = nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes"), flops, nbytes
+
+
+def packed_cases() -> list[tuple]:
+    """(label, S, heads, L, D, dtype, causal, form).  ``form`` "packed" is the
+    (S, P, D) signature; "row" and "column" are AViT's launches, on its main
+    path: ``packed_head_attention`` on strided q / k / v slices of one
+    (B', H, W, heads, 3D) projection, and on their (H, W)-transposed views."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("AViT axial attention, row views", 256, 6, 16, 64, f32, False, "row"),
+             ("AViT axial attention, column views", 256, 6, 16, 64, f32, False, "column"),
+             ("AViT axial attention (256, 96, 64)", 256, 6, 16, 64, f32, False, "packed")]
+    for dtype in (f32, bf16):
+        for causal in (False, True):
+            cases += [("tests/test_pallas_kernels.py (10, 128, 32)", 10, 8, 16, 32, dtype, causal,
+                       "packed"),
+                      ("tests/test_pallas_kernels.py (7, 16, 16)", 7, 4, 4, 16, dtype, causal,
+                       "packed")]
+    cases += [("TransformerBlock (1536, 128, 32)", 1536, 8, 16, 32, bf16, causal, "packed")
+              for causal in (False, True)]
+    return cases
+
+
+def packed_operands(i, s, heads, l, d, dtype, causal, form, dev):
+    """(kernel, plain, SDPA) closures on the case's inputs; outputs compare
+    after ``.reshape(S, heads * L, D)`` (the same element order for all three)."""
+    rng = np.random.default_rng(500 + i)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if form == "packed":
+        q, k, v = (torch.from_numpy(rng.normal(size=(s, heads * l, d)).astype(np.float32))
+                   .to(dev, dtype) for _ in range(3))
+        q = q * d**-0.5
+        q4, k4, v4 = (t.view(s, heads, l, d) for t in (q, k, v))
+        return (lambda: fa.packed_attention(q, k, v, l, causal),
+                lambda: fa.packed_attention_ref(q, k, v, l, causal),
+                lambda: sdpa(q4, k4, v4, is_causal=causal, scale=1.0))
+    side = math.isqrt(s)  # B' = H = W = L: the (B', H, W) grid of an AViT block
+    fused = torch.from_numpy(rng.normal(size=(side, side, l, heads, 3 * d)).astype(np.float32))
+    q, k, v = fused.to(dev, dtype).chunk(3, dim=-1)  # (B', H, W, heads, D) strided slices
+    if form == "column":
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    q5, k5, v5 = (t.transpose(-3, -2) for t in (q, k, v))  # (B', H, heads, W, D) views
+    return (lambda: fa.packed_head_attention(q, k, v, causal),
+            lambda: fa._head_ref(q, k, v, causal),
+            lambda: sdpa(q5, k5, v5, is_causal=causal).transpose(-3, -2))
+
+
+def phase_packed_kernel(dev) -> list[dict]:
+    """The kernel against its plain version on the same inputs, with the
+    device time of kernel, plain version and SDPA (the yardstick: the same
+    function on the (S, heads, L, D) view) beside the bound."""
+    results = []
+    for i, (label, s, heads, l, d, dtype, causal, form) in enumerate(packed_cases()):
+        p = heads * l
+        run, plain, library = packed_operands(i, s, heads, l, d, dtype, causal, form, dev)
+        before = fa.packed_attention.launches
+        got = run()
+        torch.cuda.synchronize()
+        launched = fa.packed_attention.launches - before
+        want = plain()
+        err = (got.float() - want.float()).abs()
+        atol, rtol = PACKED_TOL[dtype]
+        ok = (launched == 1 and bool(torch.isfinite(got).all())
+              and bool((err <= atol + rtol * want.float().abs()).all()))
+        check(ok, f"packed_attention {label} {dtype} causal={causal} disagrees with its plain "
+                  f"version (max abs err {float(err.max())})")
+        lib_err = float((library().reshape(s, p, d).float()
+                         - want.reshape(s, p, d).float()).abs().max())
+        b_ms, b_by, flops, nbytes = packed_bound(s, heads, l, d, causal, dtype)
+        k_ms = device_ms(run)
+        res = {"phase": "packed_kernel", "case": label, "form": form, "S": s, "P": p, "L": l,
+               "D": d, "heads": heads, "dtype": str(dtype).replace("torch.", ""),
+               "causal": causal, "main_path": form != "packed", "max_abs_err": float(err.max()),
+               "tolerance": f"|k - plain| <= {atol} + {rtol}*|plain|", "ok": ok,
+               "kernel_ms": k_ms, "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+               "library_call": "torch.nn.functional.scaled_dot_product_attention on the "
+                               "(S, heads, L, D) view", "library_max_abs_err": lib_err,
+               "kernel_call_ms": cuda_ms(run, iters=100), "plain_call_ms": cuda_ms(plain, 20),
+               "library_call_ms": cuda_ms(library, iters=100), "bound_us": 1e3 * b_ms,
+               "bound_by": b_by, "flops": flops, "bytes": nbytes,
+               "achieved_gbytes_per_s": nbytes / k_ms / 1e6}
+        emit(res)
+        results.append(res)
+    return results
+
+
+def phase_packed_grad(dev) -> dict:
+    """Gradients through the Function (kernel forward, plain backward)
+    against autograd through the plain version, f32: the packed form at the
+    AViT shape (causal), and AViT's operands (strided q / k / v slices of one
+    projection, row and column views)."""
+    rng = np.random.default_rng(77)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    s, heads, l, d = 256, 6, 16, 64
+    packed = [normal(s, heads * l, d) for _ in range(3)]
+    fused = normal(16, 16, 16, heads, 3 * d)  # (B', H, W, heads, 3D): q | k | v per head
+
+    def axial(fn, leaf):
+        q, k, v = leaf.chunk(3, dim=-1)
+        return fn(q, k, v) + fn(*(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+
+    cases = {
+        "packed (256, 96, 64), causal": (
+            packed, lambda a, b, c: fa.packed_attention(a, b, c, l, True),
+            lambda a, b, c: fa.packed_attention_ref(a, b, c, l, True), 1),
+        "AViT row + column views of one projection": (
+            [fused], lambda f: axial(fa.packed_head_attention, f),
+            lambda f: axial(lambda a, b, c: fa._head_ref(a, b, c, False), f), 2),
+    }
+    out = {}
+    for label, (args, kernel, plain, want_launches) in cases.items():
+        def grads(fn):
+            leaves = [t.detach().requires_grad_(True) for t in args]
+            y = fn(*leaves)
+            (y * torch.cos(y.detach())).sum().backward()
+            return [t.grad for t in leaves]
+
+        before = fa.packed_attention.launches
+        got = grads(kernel)
+        torch.cuda.synchronize()
+        launched = fa.packed_attention.launches - before
+        errs = [rel_l2(g, w) for g, w in zip(got, grads(plain))]
+        ok = launched == want_launches and max(errs) <= PACKED_GRAD_TOL
+        check(ok, f"packed_attention gradients ({label}): rel L2 {errs}, {launched} launches")
+        out[label] = {"rel_l2": errs, "launches_forward_and_backward": launched, "ok": ok}
+    res = {"phase": "packed_grad", "dtype": "f32", "rel_l2_tolerance": PACKED_GRAD_TOL,
+           "cases": out}
+    emit(res)
+    return res
+
+
+def well_datamodule(dev) -> WaveDataModule:
+    return WaveDataModule(batch_size=WELL_B, n_steps_input=IN_T, n_steps_output=4,
+                          eval_steps_output=8, data_workers=4, seed=0, device=dev,
+                          waves=WELL_WAVES)
+
+
+def well_history(dev) -> torch.Tensor:
+    """(4, 4, 256, 256, 8) f32: the first frames of four wave trajectories."""
+    arrays = make_well_arrays(splits=("train",), **{**WELL_WAVES, "n_trajectories": WELL_B})
+    return torch.from_numpy(np.ascontiguousarray(arrays["train"][0][:, :IN_T])).to(dev)
+
+
+def attention_counts() -> dict:
+    """Launches of every wrapper since the last reset."""
+    return {**launch_counts(), "spectral_mode_matmul": fs.spectral_mode_matmul.launches,
+            "packed_attention": fa.packed_attention.launches}
+
+
+def serve_lane(label, pred, x, want_packed, frames_out_dtype=None) -> dict:
+    """``Predictor.rollout`` of 16 steps: the launches of one rollout (every
+    other wrapper 0), frames/s, the profile."""
+    roll = lambda: pred.rollout(x, N_STEPS, out_dtype=frames_out_dtype)  # noqa: E731
+    roll()
+    torch.cuda.synchronize()
+    reset_counts()
+    y = roll()
+    torch.cuda.synchronize()
+    launches = attention_counts()
+    want = {**dict.fromkeys(launches, 0), "packed_attention": want_packed}
+    check(launches == want, f"{label}: launches {launches}, want {want}")
+    finite = bool(torch.isfinite(y).all())
+    check(finite and tuple(y.shape) == (x.shape[0], N_STEPS, *x.shape[2:]),
+          f"{label}: output shape / finiteness")
+    tm = timed_rollouts(roll)
+    prof = trace(roll, top=6)
+    prof.update(host_split(roll))
+    frames = x.shape[0] * N_STEPS
+    return {"launches_per_rollout": launches, "output_shape": list(y.shape), "finite": finite,
+            "ms_per_rollout": 1e3 * tm["median_s"], "frames_per_s": frames / tm["median_s"],
+            "frames_per_s_range": [frames / tm["max_s"], frames / tm["min_s"]],
+            "timed_rollouts": tm["calls"], "trace": prof}
+
+
+def timed_epoch(trainer: Trainer, loader) -> dict:
+    """One epoch through ``train_one_epoch`` with the launches counted, then
+    the same batches step by step under CUDA events."""
+    loader.set_epoch(1)
+    batches = [(b["input"], b["output"]) for b in loader]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    epoch_loss, logs = trainer.train_one_epoch(1, loader)
+    torch.cuda.synchronize()
+    launches = attention_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms = []
+    for x, y in batches:
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        trainer.train_step(x, y)
+        stop.record()
+        stop.synchronize()
+        ms.append(start.elapsed_time(stop))
+    split = host_split(lambda: trainer.train_step(*batches[0]))
+    split["trace"] = trace(lambda: trainer.train_step(*batches[0]), top=6)
+    check(np.isfinite(epoch_loss), "training loss is not finite")
+    steps = len(batches)
+    return {"steps": steps, "epoch_train_loss": epoch_loss,
+            "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "seconds_per_step_median": sorted(ms)[len(ms) // 2] / 1e3,
+            "seconds_per_step_all": [m / 1e3 for m in ms],
+            "peak_memory_allocated_gb": peak / 2**30, **split}
+
+
+def evaler_report(label, evaler: Evaler, fns, test_loader, rollout, want_packed) -> dict:
+    """The Evaler's report, its launches, and each metric against the metric
+    function on the same rollouts (``rollout(x, y)``)."""
+    reset_counts()
+    report = evaler.Eval()
+    torch.cuda.synchronize()
+    launches = fa.packed_attention.launches
+    check(launches == want_packed, f"{label} Evaler: {launches} packed launches, want "
+                                   f"{want_packed}")
+    own = {name: [] for name in evaler.loss_names}
+    with torch.no_grad():
+        for batch in test_loader:
+            y = rollout(batch["input"], batch["output"]).to(batch["output"].dtype)
+            for name, fn in zip(evaler.loss_names, fns):
+                own[name].append(float(fn(y, batch["output"]).mean()))
+    for name in evaler.loss_names:
+        got, want = report["metrics"][name], float(np.mean(own[name]))
+        check(np.isfinite(got) and abs(got - want) <= METRIC_REL_TOL * abs(want),
+              f"{label} Evaler {name} {got} vs the metric function on the same rollouts {want}")
+        check(np.isfinite(report["variance"][name]), f"{label} Evaler variance of {name}")
+    return {"report": report, "test_batches": len(test_loader), "packed_attention_launches":
+            launches, "metric_functions_on_the_same_rollouts": {
+                k: float(np.mean(v)) for k, v in own.items()}}
+
+
+def avit_model(device, md, **kw) -> AViT:
+    return AViT(dset_metadata=md, device=device, **{**AVIT_KW, **kw})
+
+
+def phase_avit(dev, workdir: Path) -> dict:
+    """AViT at configs/avit.yaml width, f32 (AViT has no compute dtype):
+    ``Predictor.rollout`` (16 steps = 4 calls, 96 packed launches), ``Trainer``
+    (24 forward launches a step), ``Evaler`` on the saved weights."""
+    dm = well_datamodule(dev)
+    md = dm.train_dataset.metadata
+    x = well_history(dev)
+    model = avit_model(dev, md)
+    per_call = 2 * AVIT_KW["processor_blocks"]  # row and column attention of every block
+    calls = math.ceil(N_STEPS / model.output_length)
+    flat = seeded_jax_params(model, seed=0)  # LayerScale gammas around 1
+    pred = Predictor.from_numpy(model, flat)
+    serving = serve_lane("avit", pred, x, want_packed=per_call * calls)
+    # The first model call against the same weights in f32 on the CPU.
+    cpu = Predictor.from_numpy(avit_model("cpu", md), flat, device="cpu")
+    with torch.no_grad():
+        got, ref = pred.model(x[:1]).cpu(), cpu.model(x[:1].cpu())
+    u = x[:1, -1:].cpu()
+    err, change_err = rel_l2(got, ref), rel_l2(got - u, ref - u)
+    check(err <= AVIT_CALL_REL_TOL and change_err <= AVIT_CALL_REL_TOL,
+          f"AViT first call vs CPU f32: rel L2 {err} (change {change_err})")
+    del pred, model, cpu
+
+    # Training: the config's drop path 0.2 (the kernel runs: drop path acts on
+    # whole residual branches), AdamW 5e-5 / 1e-5, no AMP, 4 rollout steps.
+    mse, fns = MSE(), [MSE(), L2RE(), NNMSE(), VRMSE()]
+    loader = dm.train_dataloader()
+    loader.set_epoch(1)
+    batch0 = next(iter(loader))
+    x0, y0 = batch0["input"][:1], batch0["output"][:1]
+
+    def loss_and_gnorm(model, x, y):
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        pred = rollout_fixed(lambda w: model(w, deterministic=False, generator=gen), x, 4, 4)
+        loss = mse(pred, y).mean()
+        model.zero_grad(set_to_none=True)
+        loss.backward()
+        gnorm = float(global_norm(model.parameters()))
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), gnorm
+
+    # drop path 0: the first loss and gradient norm on the card and on the CPU
+    one = {}
+    for device in (dev, "cpu"):
+        m = avit_model(device, md, drop_path=0.0)
+        load_jax_params(m, flat)
+        one[str(device)] = loss_and_gnorm(m, x0.to(device), y0.to(device))
+        del m
+    (loss_gpu, gnorm_gpu), (loss_cpu, gnorm_cpu) = one[str(dev)], one["cpu"]
+    check(abs(loss_gpu - loss_cpu) <= AVIT_LOSS_REL_TOL * loss_cpu,
+          f"AViT first loss {loss_gpu} on the card vs {loss_cpu} in f32 on the CPU")
+    check(abs(gnorm_gpu - gnorm_cpu) <= AVIT_GNORM_REL_TOL * gnorm_cpu,
+          f"AViT first gradient norm {gnorm_gpu} on the card vs {gnorm_cpu} on the CPU")
+
+    model = avit_model(dev, md)
+    load_jax_params(model, flat)
+    trainer = Trainer(str(workdir / "avit"), "channels_first_default", model, dm,
+                      AdamW(lr=5e-5, weight_decay=1e-5), mse, L2RE(), max_epoch=1,
+                      n_steps_output=4, n_steps_rollout=8, seed=0)
+    train = timed_epoch(trainer, loader)
+    want = {**dict.fromkeys(train["launches_per_step"], 0.0), "packed_attention": float(per_call)}
+    check(train["launches_per_step"] == want,
+          f"AViT train step launches {train['launches_per_step']}, want {want}")
+    val = trainer.validation_loop(dm.val_dataloader())
+    trainer.save_model(1, val, "recent")
+    evaler = Evaler(str(workdir / "avit"), "channels_first_default", avit_model(dev, md), dm,
+                    *fns, checkpoint_path=str(workdir / "avit" / "recent"), n_steps_rollout=8)
+    test_loader = dm.test_dataloader()
+    ev = evaler_report("AViT", evaler, fns, test_loader,
+                       lambda xb, yb: rollout_fixed(evaler.model, xb, 8, 4),
+                       want_packed=len(test_loader) * 2 * per_call)
+    res = {"phase": "avit", "config": "configs/avit.yaml width: " + json.dumps(AVIT_KW),
+           "data": f"B={WELL_B} of {WELL_RES[0]}x{WELL_RES[1]}x{md.n_fields} synthetic waves "
+                   "(with_t2, with_pressure); active_matter's 11 fields cut to 8",
+           "dtype": "f32 (AViT has no compute dtype)",
+           "weights": "seeded (numpy seed 0), LayerScale gammas around 1", "serving": serving,
+           "first_call_vs_cpu_f32_rel_l2": err, "first_call_change_vs_cpu_f32_rel_l2": change_err,
+           "rel_l2_tolerance": AVIT_CALL_REL_TOL,
+           "first_step_one_sample_drop_path_0": {
+               "loss": loss_gpu, "loss_cpu_f32": loss_cpu, "loss_rel_tol": AVIT_LOSS_REL_TOL,
+               "grad_norm": gnorm_gpu, "grad_norm_cpu_f32": gnorm_cpu,
+               "grad_norm_rel_tol": AVIT_GNORM_REL_TOL},
+           "train_drop_path_0.2": train, "validation_loss": val, "evaler": ev}
+    emit(res)
+    return res
+
+
+def cvit_model(device, dtype, md) -> CViT:
+    return CViT(dset_metadata=md, dtype=dtype, device=device, **CVIT_KW)
+
+
+def phase_cvit(dev, workdir: Path) -> dict:
+    """CViT at configs/cvit.yaml width in bf16: ``Predictor.rollout`` on the
+    full grid, ``Trainer(cvit=True, num_query_points=1024)``, ``Evaler(cvit=True)``.
+    Every attention here is unpacked (8 heads x 256 tokens > 128) or a
+    cross-attention: this lane launches no hand-written kernel."""
+    dm = well_datamodule(dev)
+    md = dm.train_dataset.metadata
+    x = well_history(dev)
+    model = cvit_model(dev, torch.bfloat16, md)
+    flat = seeded_jax_params(model, seed=0)
+    pred = Predictor.from_numpy(model, flat)
+    serving = serve_lane("cvit", pred, x, want_packed=0, frames_out_dtype=torch.bfloat16)
+    # The first call's frames at 2048 pixels against the f32 model on the CPU
+    # (queries are independent: the point output at those sites).
+    h, w = WELL_RES
+    sites = np.random.default_rng(0).permutation(h * w)[:2048]
+    coords = torch.from_numpy(full_grid_coords(h, w)[sites])
+    cpu = Predictor.from_numpy(cvit_model("cpu", torch.float32, md), flat, device="cpu")
+    with torch.no_grad():
+        got = pred.model(x[:1]).float().cpu().reshape(1, 4, h * w, -1)[:, :, sites]
+        ref = cpu.model(x[:1].cpu(), coords)
+    err = rel_l2(got, ref)
+    check(err <= CVIT_REL_TOL, f"CViT first frames vs CPU f32: rel L2 {err}")
+    del pred, model, cpu
+
+    mse, fns = MSE(), [MSE(), L2RE(), NNMSE(), VRMSE()]
+    model = cvit_model(dev, torch.float32, md)
+    load_jax_params(model, flat)
+    trainer = Trainer(str(workdir / "cvit"), "channels_first_default", model, dm,
+                      AdamW(lr=5e-5, weight_decay=1e-5), mse, L2RE(), max_epoch=1,
+                      enable_amp=True, n_steps_output=4, n_steps_rollout=8, cvit=True,
+                      num_query_points=1024, seed=0)
+    train = timed_epoch(trainer, dm.train_dataloader())
+    check(all(v == 0 for v in train["launches_per_step"].values()),
+          f"CViT train step launched kernels: {train['launches_per_step']}")
+    t0 = time.perf_counter()
+    val = trainer.validation_loop(dm.val_dataloader())
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    check(np.isfinite(val), f"CViT validation loss {val}")
+    trainer.save_model(1, val, "recent")
+    evaler = Evaler(str(workdir / "cvit"), "channels_first_default",
+                    cvit_model(dev, torch.float32, md), dm, *fns, enable_amp=True,
+                    checkpoint_path=str(workdir / "cvit" / "recent"), n_steps_rollout=8,
+                    cvit=True, num_query_points=1024)
+    ev = evaler_report("CViT", evaler, fns, dm.test_dataloader(),
+                       lambda xb, yb: cvit_full_grid_rollout(evaler.model, xb, yb.shape, 8, 1024),
+                       want_packed=0)
+    res = {"phase": "cvit", "config": "configs/cvit.yaml width: " + json.dumps(CVIT_KW),
+           "data": f"B={WELL_B} of {WELL_RES[0]}x{WELL_RES[1]}x{md.n_fields} synthetic waves",
+           "dtype": "bf16 compute (f32 weights; RBF logits, embeddings and latents f32)",
+           "hand_written_kernels": "none: 8 heads x 256 tokens > 128, every attention takes "
+                                   "the unpacked or the cross-attention branch",
+           "serving": serving, "first_frames_vs_cpu_f32_rel_l2": err,
+           "rel_l2_tolerance": CVIT_REL_TOL, "train_enable_amp": train,
+           "validation_loss": val, "validation_seconds": val_s, "evaler": ev}
+    emit(res)
+    return res
+
 
 def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed: dict,
-                  train: dict, spectral: list[dict], fno: dict) -> list[dict]:
+                  train: dict, spectral: list[dict], fno: dict, packed: list[dict],
+                  avit: dict, cvit: dict) -> list[dict]:
     replaces = {"fused_block_fwd": "tante_tpu/ops/pallas_block.py:163",
                 "fused_block_canon_t_fwd": "tante_tpu/ops/pallas_block.py:401",
                 "fused_chain_apply": "tante_tpu/ops/pallas_block.py:1073",
@@ -1175,6 +1626,29 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
                                           "plain_call_ms", "library_call_ms", "bound_us",
                                           "bound_by", "max_abs_err")} for c in main],
     })
+    # The attention core: its main path is AViT's axial attention (row and
+    # column views of one projection, one shape).
+    main = [c for c in packed if c["main_path"]]
+    mean = lambda k: sum(c[k] for c in main) / len(main)  # noqa: E731
+    out.append({
+        "name": "packed_attention", "route": "cuda", "source": PACKED_SOURCE,
+        "replaces": "tante_tpu/ops/pallas_attention.py:107",
+        "launches": avit["serving"]["launches_per_rollout"]["packed_attention"],
+        "launches_counted_over": "one 16-step AViT rollout (4 model calls)",
+        "launches_per_avit_train_step_forward":
+            avit["train_drop_path_0.2"]["launches_per_step"]["packed_attention"],
+        "launches_per_cvit_rollout": cvit["serving"]["launches_per_rollout"]["packed_attention"],
+        "max_abs_err": max(c["max_abs_err"] for c in packed),
+        "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_us") / 1e3,
+        "bound_by": main[0]["bound_by"], "library_ms": mean("library_ms"),
+        "library_call": main[0]["library_call"],
+        "times_are": "device time (torch.profiler); *_call_ms: per call, back to back (events)",
+        "call_ms": mean("kernel_call_ms"), "plain_call_ms": mean("plain_call_ms"),
+        "library_call_ms": mean("library_call_ms"), "ok": all(c["ok"] for c in packed),
+        "per_shape": [{k: c[k] for k in ("case", "form", "S", "P", "L", "D", "dtype", "causal",
+                                          "kernel_ms", "plain_ms", "library_ms", "bound_us",
+                                          "bound_by", "max_abs_err")} for c in packed],
+    })
     check(all(k["launches"] > 0 for k in out), "a kernel of the main paths was never launched")
     emit({"kernels": out})
     return out
@@ -1196,10 +1670,14 @@ def main() -> int:
     phase_adaptive(dev)
     spectral = phase_spectral_kernel(dev)
     fno = phase_fno_serving(dev)
+    packed = phase_packed_kernel(dev)
+    phase_packed_grad(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = phase_train(dev, Path(workdir))
         phase_fno_train_eval(dev, Path(workdir))
-    phase_summary(kernels, chains, fixed, train, spectral, fno)
+        avit = phase_avit(dev, Path(workdir))
+        cvit = phase_cvit(dev, Path(workdir))
+    phase_summary(kernels, chains, fixed, train, spectral, fno, packed, avit, cvit)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -5,11 +5,13 @@ its counterpart's name and is tested against it on the CPU
 (``tests/test_torch_*.py``).  The serving path (fixed latent rollout and
 adaptive rollout of TANTE) and the fixed-step training path (``Trainer``
 over in-memory synthetic waves) run end to end, for TANTE with either
-encoder/decoder and for the FNO family (FNO, TFNO, UNO), with the ``Evaler``'s
-4-metric report.  The kernels are hand-written CUDA for ``sm_90a``: the fused
-transformer blocks (single block, canonical T block, chain/group of blocks;
-``ops/csrc/fused_block.cu``) and the spectral convolutions' per-mode complex
-channel mixing (``ops/csrc/spectral_matmul.cu``).
+encoder/decoder, for the FNO family (FNO, TFNO, UNO) and for the attention
+family (AViT, CViT with ``cvit=True``), with the ``Evaler``'s 4-metric report.
+The kernels are hand-written CUDA for ``sm_90a``: the fused transformer blocks
+(single block, canonical T block, chain/group of blocks;
+``ops/csrc/fused_block.cu``), the spectral convolutions' per-mode complex
+channel mixing (``ops/csrc/spectral_matmul.cu``) and the head-packed attention
+core (``ops/csrc/packed_attention.cu``).
 
 This package imports ``torch``, ``numpy`` and ``einops`` only — never JAX,
 flax or ``tante_tpu``.

@@ -70,13 +70,17 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, module: torch.nn.Mod
 
 def seeded_jax_params(module: torch.nn.Module, seed: int) -> dict[str, np.ndarray]:
     """Random flax-keyed weights for ``module`` from a numpy seed:
-    LayerNorm scale 1 / bias 0, position embeddings kept (sincos), soft
-    gates near the identity (scale 1 + u, bias u), every other tensor
-    ~ U(-1/sqrt(n), 1/sqrt(n)) with n the fan-in: the product of all dims
-    but the last (the length of a 1-D tensor), and for a tensor with a
-    trailing [re, im] axis (spectral weights (Cin, Cout, *modes, 2), Tucker
-    cores and factors) its first dim (Cin; each mode mixes Cin inputs) or,
-    for a Tucker factor (dim, rank, 2), the rank it is summed over."""
+    the fused blocks' LayerNorm scale 1 / bias 0, position embeddings kept
+    (sincos), every other tensor ~ U(-1/sqrt(n), 1/sqrt(n)) with n the
+    fan-in: the product of all dims but the last (the length of a 1-D
+    tensor), and for a tensor with a trailing [re, im] axis (spectral weights
+    (Cin, Cout, *modes, 2), Tucker cores and factors) its first dim (Cin;
+    each mode mixes Cin inputs) or, for a Tucker factor (dim, rank, 2), the
+    rank it is summed over.  A module overrides the rule for its own
+    parameters in ``seed_rules``: "gain" (1 + the uniform draw: norm weights,
+    soft gates, LayerScale gammas, near the identity), "normal" (N(0, 1), the
+    JAX init of embedding tables and latents) or "keep" (the module's own
+    values, e.g. a coordinate grid)."""
     rng = np.random.default_rng(seed)
     complex_leaves = {
         name for m in module.modules() for name in getattr(m, "mode_space_params", ())}
@@ -84,19 +88,22 @@ def seeded_jax_params(module: torch.nn.Module, seed: int) -> dict[str, np.ndarra
     for k, v in module.state_dict().items():
         *parents, leaf = k.split(".")
         shape = tuple(v.shape)
+        rule = getattr(module.get_submodule(".".join(parents)), "seed_rules", {}).get(leaf)
 
         def uniform(fan_in, offset=0.0):
             bound = 1.0 / math.sqrt(fan_in)
             return (offset + rng.uniform(-bound, bound, size=shape)).astype(np.float32)
 
-        if leaf.endswith("_scale"):
+        if rule == "keep" or leaf in ("t_emb", "s_emb"):
+            a = v.detach().cpu().numpy()
+        elif rule == "normal":
+            a = rng.normal(size=shape).astype(np.float32)
+        elif rule == "gain":
+            a = uniform(shape[0], offset=1.0)
+        elif leaf.endswith("_scale"):
             a = np.ones(shape, np.float32)
         elif leaf in ("ln1_bias", "ln2_bias"):
             a = np.zeros(shape, np.float32)
-        elif leaf in ("t_emb", "s_emb"):
-            a = v.detach().cpu().numpy()
-        elif parents and parents[-1].startswith("SoftGate"):
-            a = uniform(shape[0], offset=1.0 if leaf == "weight" else 0.0)
         elif leaf in complex_leaves and shape[-1] == 2 and len(shape) >= 3:
             a = uniform(shape[1] if leaf.startswith("factor_") else shape[0])
         else:

@@ -12,24 +12,17 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tante_tpu_torch.ops.activations import gelu_tanh_f32
+from tante_tpu_torch.ops.attention import Dense, MultiheadAttention, dropout
 from tante_tpu_torch.ops.fused_block import BlockParams, fused_block_apply, ln
 from tante_tpu_torch.ops.initializers import (
     torch_bias_init,
     torch_kernel_init,
     torch_xavier_init,
 )
-
-
-class _Dense(nn.Module):
-    """flax ``nn.Dense`` parameters: kernel (in, out), bias (out,)."""
-
-    def __init__(self, in_features: int, features: int, gen: torch.Generator):
-        super().__init__()
-        self.kernel = nn.Parameter(torch_kernel_init((in_features, features), gen))
-        self.bias = nn.Parameter(torch_bias_init((features,), in_features, gen))
 
 
 class TorchDense(nn.Module):
@@ -44,21 +37,74 @@ class TorchDense(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.cw = cw
-        self.Dense_0 = _Dense(in_features, features, gen)
+        self.Dense_0 = Dense(torch_kernel_init((in_features, features), gen),
+                             torch_bias_init((features,), in_features, gen), dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.Dense_0
         if self.cw:  # (..., Cin, W) -> (..., Cout, W)
             return d.kernel.to(self.dtype).t() @ x.to(self.dtype) + d.bias.to(self.dtype)[:, None]
-        return x.to(self.dtype) @ d.kernel.to(self.dtype) + d.bias.to(self.dtype)
+        return d(x)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
-    """Inverted dropout (flax ``nn.Dropout``): keep with probability
-    1 - rate, scale the kept by 1 / (1 - rate).  The mask is drawn from
-    ``generator``, which lives on ``x``'s device and belongs to the caller."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` (epsilon 1e-5): ``scale`` and ``bias`` over the
+    last axis, statistics in f32, the result in ``dtype``."""
+
+    seed_rules = {"scale": "gain"}
+    f32_params = ("scale", "bias")  # flax does not cast them to ``dtype``
+
+    def __init__(self, dim: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ln(x.float(), self.scale, self.bias).to(self.dtype)
+
+
+class Mlp(nn.Module):
+    """Linear -> GELU (tanh form by default) -> Linear; ``fc1`` / ``fc2``."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 approximate_gelu: bool = True, dtype=torch.float32, gen=None):
+        super().__init__()
+        self.approximate = "tanh" if approximate_gelu else "none"
+        self.fc1 = TorchDense(in_features, hidden_features, dtype, gen)
+        self.fc2 = TorchDense(hidden_features, out_features, dtype, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.approximate))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN transformer block: LN -> MHA -> +res, LN -> MLP -> +res, with
+    the dropout sites of the JAX block (attention weights, post-attention,
+    post-MLP) drawn from the caller's ``generator`` when active."""
+
+    def __init__(self, embed_dim: int, n_head: int, mlp_ratio: float = 4.0,
+                 dropout: float = 0.1, dtype=torch.float32, gen=None):
+        super().__init__()
+        self.dropout = dropout
+        self.ln1 = LayerNorm(embed_dim, dtype)
+        self.attn = MultiheadAttention(embed_dim, n_head, dropout=dropout, dtype=dtype, gen=gen)
+        self.ln2 = LayerNorm(embed_dim, dtype)
+        self.mlp = Mlp(embed_dim, int(embed_dim * mlp_ratio), embed_dim, dtype=dtype, gen=gen)
+
+    def forward(self, x: torch.Tensor, causal: bool = False, deterministic: bool = True,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        def drop(t):
+            if deterministic or self.dropout == 0.0:
+                return t
+            if generator is None:
+                raise ValueError("dropout is active: pass the torch.Generator to draw masks from")
+            return dropout(t, self.dropout, generator)
+
+        y = self.attn(self.ln1(x), causal=causal, deterministic=deterministic,
+                      generator=generator)
+        x = x + drop(y)
+        return x + drop(self.mlp(self.ln2(x)))
 
 
 class FusedTransformerBlock(nn.Module):

@@ -40,6 +40,8 @@ class SoftGate(nn.Module):
     ``cw=True`` broadcasts over axis -2.  The parameters are cast to the
     field dtype, so a bf16 field stays bf16."""
 
+    seed_rules = {"weight": "gain"}
+
     def __init__(self, channels: int, cw: bool = False):
         super().__init__()
         self.cw = cw

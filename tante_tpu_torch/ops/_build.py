@@ -153,10 +153,18 @@ def _bind_spectral_matmul(lib: ctypes.CDLL) -> None:
     lib.tante_spectral_mode_matmul.restype = i
 
 
+def _bind_packed_attention(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tante_packed_attention.argtypes = [
+        p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, ctypes.c_float, i, i, p]
+    lib.tante_packed_attention.restype = i
+
+
 # Source file stem under csrc/ -> the declaration of its C entry points.
 KERNELS: dict[str, Callable[[ctypes.CDLL], None]] = {
     "fused_block": _bind_fused_block,
     "spectral_matmul": _bind_spectral_matmul,
+    "packed_attention": _bind_packed_attention,
 }
 
 

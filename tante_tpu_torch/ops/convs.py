@@ -18,6 +18,7 @@ Parameters keep the flax layouts: ``kernel`` HWIO ``(ph, pw, ci, co)``,
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -28,24 +29,42 @@ from tante_tpu_torch.ops.initializers import torch_bias_init, torch_kernel_init
 from tante_tpu_torch.ops.pooling import resize_bilinear
 
 
+def patchify(x: torch.Tensor, patch: Tuple[int, ...]) -> torch.Tensor:
+    """(..., *S, C) -> (..., *S/p, prod(p)*C) over the last ``len(patch)``
+    spatial axes, channel order (patch offsets, channel) = the kernel's
+    flattening; ``pack_patches`` for any rank and patch shape."""
+    n = len(patch)
+    lead, c = x.shape[: x.dim() - n - 1], x.shape[-1]
+    grid = [s // p for s, p in zip(x.shape[-n - 1 : -1], patch)]
+    if any(g * p != s for g, p, s in zip(grid, patch, x.shape[-n - 1 : -1])):
+        raise ValueError(f"spatial axes {tuple(x.shape[-n - 1:-1])} are not divisible by the "
+                         f"patch {tuple(patch)}")
+    z = x.reshape(*lead, *(d for g, p in zip(grid, patch) for d in (g, p)), c)
+    nl = len(lead)
+    z = z.permute(*range(nl), *(nl + 2 * i for i in range(n)), *(nl + 2 * i + 1 for i in range(n)),
+                  nl + 2 * n)
+    return z.reshape(*lead, *grid, -1)
+
+
+def unpatchify(z: torch.Tensor, patch: Tuple[int, ...]) -> torch.Tensor:
+    """Inverse of ``patchify``: (..., *G, prod(p)*C) -> (..., *G*p, C)."""
+    n = len(patch)
+    lead, grid = z.shape[: z.dim() - n - 1], z.shape[-n - 1 : -1]
+    y = z.reshape(*lead, *grid, *patch, -1)
+    nl = len(lead)
+    y = y.permute(*range(nl), *(d for i in range(n) for d in (nl + i, nl + n + i)), nl + 2 * n)
+    return y.reshape(*lead, *(g * p for g, p in zip(grid, patch)), y.shape[-1])
+
+
 def pack_patches(x: torch.Tensor, p: int) -> torch.Tensor:
     """Space-to-depth: (..., H, W, C) -> (..., H/p, W/p, p*p*C), channel
     order (patch-row, patch-col, channel) = the HWIO kernel flattening."""
-    *lead, h, w, c = x.shape
-    z = x.reshape(*lead, h // p, p, w // p, p, c)
-    nd = z.ndim
-    z = z.permute(*range(nd - 5), nd - 5, nd - 3, nd - 4, nd - 2, nd - 1)
-    return z.reshape(*lead, h // p, w // p, p * p * c)
+    return patchify(x, (p, p))
 
 
 def unpack_patches(z: torch.Tensor, p: int) -> torch.Tensor:
     """Depth-to-space inverse of ``pack_patches``."""
-    *lead, hp, wp, pc = z.shape
-    c = pc // (p * p)
-    y = z.reshape(*lead, hp, wp, p, p, c)
-    nd = y.ndim
-    y = y.permute(*range(nd - 5), nd - 5, nd - 3, nd - 4, nd - 2, nd - 1)
-    return y.reshape(*lead, hp * p, wp * p, c)
+    return unpatchify(z, (p, p))
 
 
 def packed_patch_ok(p: int, overlap_ratio: float) -> bool:
@@ -215,3 +234,43 @@ class RealTransConv2d(nn.Module):
             full = (y.shape[-3], y.shape[-2])
             y = resize_bilinear(y[..., pad:-pad, pad:-pad, :], full)
         return y
+
+
+# --------------------------------------------------------------------------
+# flax ``nn.Conv`` / ``nn.ConvTranspose`` with stride == kernel, any rank
+# (AViT's hMLP stem and head, CViT's space-time patch embed)
+# --------------------------------------------------------------------------
+
+
+class PatchConv(nn.Module):
+    """flax ``nn.Conv(features, kernel_size=p, strides=p)`` on inputs whose
+    spatial axes ``p`` divides ('SAME' and 'VALID' then pad nothing):
+    ``patchify`` + one matmul.  Parameters ``kernel`` (*p, Cin, Cout) and,
+    with ``use_bias``, ``bias`` (Cout,)."""
+
+    def __init__(self, c_in: int, c_out: int, patch: Tuple[int, ...], use_bias: bool = True,
+                 dtype=torch.float32, gen=None):
+        super().__init__()
+        self.patch, self.dtype = tuple(patch), dtype
+        fan_in = math.prod(patch) * c_in
+        self.kernel = nn.Parameter(torch_kernel_init((*patch, c_in, c_out), gen))
+        self.bias = nn.Parameter(torch_bias_init((c_out,), fan_in, gen)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.kernel.to(self.dtype)
+        y = patchify(x.to(self.dtype), self.patch) @ k.reshape(-1, k.shape[-1])
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class PatchConvTranspose(PatchConv):
+    """flax ``nn.ConvTranspose(features, kernel_size=p, strides=p)``: one
+    matmul + ``unpatchify``.  ``lax.conv_transpose`` (flax's default
+    ``transpose_kernel=False``) mirrors the kernel spatially, so the matmul
+    weight is the flipped kernel (as in ``RealTransConv2d``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = len(self.patch)
+        k = self.kernel.flip(tuple(range(n))).to(self.dtype)  # (*p, Cin, Cout)
+        wmat = k.movedim(n, 0).reshape(k.shape[n], -1)         # (Cin, prod(p)*Cout)
+        y = unpatchify(x.to(self.dtype) @ wmat, self.patch)
+        return y if self.bias is None else y + self.bias.to(self.dtype)

@@ -7,9 +7,10 @@
 
 Fixed-step TANTE rollouts use the latent-caching path; adaptive models use
 the adaptive loop, where a large r_t genuinely skips model calls; any other
-model (FNO, TFNO, UNO) rolls out through ``rollout_fixed``.  Results
-are tensors on the model's device.  ``from_experiment`` (config +
-checkpoint) waits for the config/checkpoint port.
+model (FNO, TFNO, UNO, AViT, CViT on the full grid) rolls out through
+``rollout_fixed``.  Results are tensors on the model's device.
+``from_experiment`` (config + checkpoint) waits for the config/checkpoint
+port.
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ class Predictor:
     per-call weight casts (~180 fewer small kernels per TANTE call).  The
     exception are the spectral weights (a module names them in
     ``mode_space_params``): mode space is f32 under every compute dtype, so
-    they stay f32.  The parameters also stop requiring gradients: serving
+    they stay f32; so do the parameters a module names in ``f32_params``
+    (LayerNorm's, CViT's embeddings and RBF grid: the JAX package computes
+    with them in f32).  The parameters also stop requiring gradients: serving
     takes none, and ``torch.matmul`` of a 2-D weight that requires a gradient
     with a batched field folds the field into a matrix, which for a
     channel-major field is a transposing copy of the whole field per layer."""
@@ -47,7 +50,7 @@ class Predictor:
         self.device = resolve_device(device if device is not None else _model_device(model))
         dtype = getattr(model, "dtype", None) or torch.float32
         keep = {id(m._parameters[name]) for m in model.modules()
-                for name in getattr(m, "mode_space_params", ())}
+                for name in getattr(m, "mode_space_params", ()) + getattr(m, "f32_params", ())}
         model.to(self.device).requires_grad_(False)
         for t in (*model.parameters(), *model.buffers()):
             if t.is_floating_point() and id(t) not in keep:

@@ -6,9 +6,10 @@ the datamodule's test split: per-batch means, across-batch variances
 after ``torch.cuda.synchronize()`` on the card).
 
 Fixed-step TANTE rolls out with cached frame latents
-(``rollout_tante_latent``); every other model through ``rollout_fixed``.
-``cvit=True`` (the chunked full-grid CViT rollout) raises
-``NotImplementedError``.
+(``rollout_tante_latent``); CViT (``cvit=True``) through
+``cvit_full_grid_rollout``: the full H*W query grid in ``num_query_points``
+chunks (the last padded with the first sites), the whole model re-run per
+chunk, as the JAX package does; every other model through ``rollout_fixed``.
 """
 
 from __future__ import annotations
@@ -29,6 +30,30 @@ from tante_tpu_torch.utils.checkpoint import CheckpointManager
 from tante_tpu_torch.utils.logging import MetricLogger
 
 logger = logging.getLogger(__name__)
+
+
+def full_grid_coords(h: int, w: int) -> np.ndarray:
+    """All (H*W, 2) normalised grid coordinates, row-major."""
+    hh, ww = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    return np.stack([hh.flatten() / (h - 1), ww.flatten() / (w - 1)], axis=-1).astype(np.float32)
+
+
+def cvit_full_grid_rollout(model, x: torch.Tensor, y_shape, n_steps: int,
+                           num_query_points: int) -> torch.Tensor:
+    """Autoregressive CViT rollout reconstructing the full field per call:
+    (B, T, H, W, C) -> (B, n_steps, H, W, C)."""
+    b, _, h, w, c = y_shape
+    coords = full_grid_coords(h, w)
+    n = coords.shape[0]
+    pad = (-n) % num_query_points  # padded with the first sites, dropped after
+    coords_p = np.concatenate([coords, coords[:pad]], axis=0) if pad else coords
+    chunks = torch.from_numpy(coords_p).to(x.device).split(num_query_points)
+
+    def call_model(window):
+        ys = torch.cat([model(window, chunk, deterministic=True) for chunk in chunks], dim=2)
+        return ys[:, :, :n].reshape(b, ys.shape[1], h, w, c)
+
+    return rollout_fixed(call_model, x, n_steps, int(getattr(model, "output_length", 1) or 1))
 
 
 class Evaler:
@@ -53,10 +78,6 @@ class Evaler:
         device=None,
         **_unused: Any,
     ):
-        if cvit:
-            raise NotImplementedError(
-                "cvit=True waits for the AViT/CViT slice (ROADMAP.md, section 1, item 13: "
-                "unfused TransformerBlock + AViT/CViT + packed_attention_core)")
         if enable_amp and amp_type != "bfloat16":
             raise ValueError(f"amp_type '{amp_type}': only bfloat16 mixed precision exists")
         self.device = resolve_device(device)
@@ -66,6 +87,8 @@ class Evaler:
         self.loss_names = ["MSE", "L2RE", "NNMSE", "VRMSE"]
         self.n_steps_rollout = n_steps_rollout
         self.batch_size = batch_size
+        self.cvit = cvit
+        self.num_query_points = num_query_points
         self.dset_metadata = datamodule.train_dataset.metadata
         self.formatter = get_formatter(formatter, self.dset_metadata)
         self.metric_logger = metric_logger or MetricLogger(checkpoint_folder)
@@ -88,6 +111,10 @@ class Evaler:
 
     @torch.no_grad()
     def _rollout(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cvit:
+            y_shape = (x.shape[0], self.n_steps_rollout, *x.shape[2:])
+            return cvit_full_grid_rollout(self.model, x, y_shape, self.n_steps_rollout,
+                                          self.num_query_points)
         # Fixed-step TANTE caches frame latents (each frame encoded once).
         if isinstance(self.model, TANTE) and self.model.deg:
             return rollout_tante_latent(self.model, x, self.n_steps_rollout)

@@ -12,10 +12,14 @@ saved every epoch and "best" on validation improvement (with a working
 {time_per_train_iter, train_loss, steps_per_sec_per_chip,
 frames_per_sec_per_chip, lr, valid}.
 
-Single device.  ``mesh`` / ``data_parallel`` (ROADMAP: parallelism slice),
-``cvit=True`` (ROADMAP: AViT/CViT slice) and models with mutable state such
-as BatchNorm statistics (ROADMAP: the rest of the zoo) raise
-``NotImplementedError``.
+CViT (``cvit=True``): a train step samples ``num_query_points`` grid sites
+per batch (``sample_query_coords``, the JAX package's numpy stream) and
+takes the loss on those points; evaluation reconstructs the full grid in
+chunks (``train/evaler.py:cvit_full_grid_rollout``).
+
+Single device.  ``mesh`` / ``data_parallel`` (ROADMAP: parallelism slice)
+and models with mutable state such as BatchNorm statistics (ROADMAP: the
+rest of the zoo) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import logging
 import time
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from tante_tpu_torch.data.datamodule import AbstractDataModule, get_formatter
@@ -35,10 +40,26 @@ from tante_tpu_torch.utils.logging import MetricLogger
 logger = logging.getLogger(__name__)
 
 
+def sample_query_coords(rng: np.random.Generator, h: int, w: int, m: int):
+    """Random query sites for CViT training: ``m`` distinct grid sites, their
+    normalised (h, w) coordinates and indices (the JAX package's function,
+    same numpy stream)."""
+    flat = rng.permutation(h * w)[:m]
+    h_idx, w_idx = flat // w, flat % w
+    coords = np.stack(
+        [h_idx.astype(np.float32) / (h - 1), w_idx.astype(np.float32) / (w - 1)], axis=-1)
+    return coords, h_idx.astype(np.int32), w_idx.astype(np.int32)
+
+
 def set_compute_dtype(model: torch.nn.Module, dtype: torch.dtype) -> torch.nn.Module:
     """Switch every module's compute ``dtype`` IN PLACE (the JAX trainer
     clones the model with ``dtype=bfloat16``); parameters keep their storage
-    dtype and are cast at use."""
+    dtype and are cast at use.  A model without a compute dtype of its own
+    (AViT) raises ``TypeError``, as ``model.clone(dtype=...)`` does in JAX,
+    rather than half-casting its inner layers."""
+    if not isinstance(getattr(model, "dtype", None), torch.dtype):
+        raise TypeError(f"{type(model).__name__} has no compute dtype: it cannot run in "
+                        f"{dtype} mixed precision")
     for m in model.modules():
         if isinstance(getattr(m, "dtype", None), torch.dtype):
             m.dtype = dtype
@@ -78,10 +99,6 @@ class Trainer:
             raise NotImplementedError(
                 "mesh / data_parallel training waits for the parallelism slice (ROADMAP.md, "
                 "section 1: parallelism + fused_block_apply_tp)")
-        if cvit:
-            raise NotImplementedError(
-                "cvit=True waits for the AViT/CViT slice (ROADMAP.md, section 1: unfused "
-                "TransformerBlock + AViT/CViT + packed_attention_core)")
         if any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in model.modules()):
             raise NotImplementedError(
                 "models with mutable state (BatchNorm statistics, rollout_fixed_stateful) wait "
@@ -98,6 +115,9 @@ class Trainer:
         self.n_steps_rollout = n_steps_rollout
         self.rt_eps = rt_eps
         self.rt_n = rt_n
+        self.cvit = cvit
+        self.num_query_points = num_query_points
+        self.rng = np.random.default_rng(seed)  # CViT query sites
         self.starting_epoch = 1
         self.best_val_loss: Optional[float] = None
         self.starting_val_loss = float("inf")
@@ -137,6 +157,26 @@ class Trainer:
 
     def _loss(self, x, y, n_steps: int, loss_metric: Callable, deterministic: bool):
         kw = {} if deterministic else {"generator": self.dropout_generator}
+        if self.cvit and not deterministic:
+            # The loss on num_query_points random grid sites of the frames.
+            coords, h_idx, w_idx = sample_query_coords(
+                self.rng, y.shape[2], y.shape[3], self.num_query_points)
+            y_pts = y[:, :, torch.as_tensor(h_idx, dtype=torch.long, device=y.device),
+                      torch.as_tensor(w_idx, dtype=torch.long, device=y.device)]
+            y_pred = self.model(x, torch.from_numpy(coords).to(x.device), deterministic=False,
+                                **kw)
+            if y_pred.shape != y_pts.shape:
+                raise ValueError(f"CViT prediction {tuple(y_pred.shape)} != sampled reference "
+                                 f"{tuple(y_pts.shape)}; set model.out_steps == "
+                                 "trainer.n_steps_output")
+            return loss_metric(y_pred.to(y.dtype), y_pts, None).mean()
+        if self.cvit:
+            # Imported here: train/evaler.py imports this module.
+            from tante_tpu_torch.train.evaler import cvit_full_grid_rollout
+
+            y_pred = cvit_full_grid_rollout(self.model, x, y.shape, n_steps,
+                                            self.num_query_points)
+            return loss_metric(y_pred.to(y.dtype), y, None).mean()
         y_pred = rollout_fixed(
             lambda w: self.model(w, deterministic=deterministic, **kw), x, n_steps,
             self._model_chunk())

@@ -16,7 +16,7 @@ import torch
 from tante_tpu.data.dataset import TanteMetadata as JaxMetadata
 from tante_tpu.models.tante import TANTE as JaxTANTE
 from tante_tpu.ops import pallas_block as jblock
-from tante_tpu_torch.convert import load_jax_params
+from tante_tpu_torch.convert import load_jax_params, seeded_jax_params
 from tante_tpu_torch.data.metadata import TanteMetadata
 from tante_tpu_torch.models.tante import TANTE
 from tante_tpu_torch.ops import fused_block as tblock
@@ -59,6 +59,22 @@ def models(deg: bool, rt_bias: float | None = None):
     tm = TANTE(dset_metadata=metadata(TanteMetadata), deg=deg, device="cpu", **KW)
     load_jax_params(tm, flatten(params))
     return jm, params, tm.eval()
+
+
+def transplant(jmodel, tmodel, *inputs, seed=0):
+    """Seeded weights for the port's model (``convert.seeded_jax_params``),
+    loaded into it and handed to the JAX model as its param tree, checked
+    against the tree ``jmodel.init(key, *inputs)`` gives (numpy inputs go in
+    as arrays, anything else, such as a length, as it is)."""
+    flat = seeded_jax_params(tmodel, seed)
+    inputs = [jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in inputs]
+    init = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), *inputs))
+    shapes = {"/".join(p.key for p in path): leaf.shape
+              for path, leaf in jax.tree_util.tree_flatten_with_path(init["params"])[0]}
+    assert {k: v.shape for k, v in flat.items()} == shapes
+    load_jax_params(tmodel, flat)
+    return {"params": traverse_util.unflatten_dict(
+        {k: jnp.asarray(v) for k, v in flat.items()}, sep="/")}, tmodel.eval()
 
 
 def frames(seed, n=T):

@@ -136,8 +136,6 @@ def test_amp_evaluates_in_bf16_over_f32_weights(tmp_path, tdm):
 
 def test_evaler_refuses_what_is_not_ported(tmp_path, tdm, monkeypatch):
     tm = FNO(dset_metadata=tdm.train_dataset.metadata, device="cpu", **MODELS["fno"][2])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_evaler(tmp_path, tdm, tm, cvit=True)
     with pytest.raises(ValueError):
         port_evaler(tmp_path, tdm, tm, enable_amp=True, amp_type="float16")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -7,13 +7,12 @@ Small geometry: 32x48 (or 16x24) frames of 4 fields, in_T=4, hidden 8-16,
 2 layers.  Tolerance 1e-4 abs / 1e-4 rel: f32 through forward and inverse
 DFTs and a few matmul layers summed in another order."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import F, T, flatten, metadata
+from _torch_parity import F, T, flatten, metadata, transplant
 from test_model_transplant import EMBED, FIXTURES, PATCH, _metadata, _nhwc, sd_of, tante_params
 from tante_tpu.data import TanteDataModule
 from tante_tpu.data.dataset import TanteMetadata as JaxMetadata
@@ -65,25 +64,6 @@ def close(got, want, atol=ATOL, rtol=RTOL):
 
 def rand(seed, *shape):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
-
-
-def transplant(jmodel, tmodel, x, seed=0):
-    """Seeded weights for the port's model, loaded into it and handed to the
-    JAX model as its param tree (checked against the tree ``init`` gives)."""
-    flat = seeded_jax_params(tmodel, seed)
-    init = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x)))
-    shapes = {"/".join(p.key for p in path): leaf.shape
-              for path, leaf in jax.tree_util.tree_flatten_with_path(init["params"])[0]}
-    assert {k: v.shape for k, v in flat.items()} == shapes
-    load_jax_params(tmodel, flat)
-    tree = {}
-    for k, v in flat.items():
-        node = tree
-        *path, leaf = k.split("/")
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = jnp.asarray(v)
-    return {"params": tree}, tmodel.eval()
 
 
 # ---- layers ---------------------------------------------------------------

@@ -41,7 +41,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "train.optimizers", "data.loader", "data.datamodule", "data.synthetic",
                  "utils.checkpoint", "utils.logging", "utils.seeding",
                  "ops.fused_spectral", "ops.spectral", "ops.pooling", "models.enc_dec_fno",
-                 "models.fno", "models.tfno", "models.uno", "train.evaler"):
+                 "models.fno", "models.tfno", "models.uno", "train.evaler",
+                 "ops.fused_attention", "ops.attention", "models.avit", "models.cvit"):
         assert f"tante_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

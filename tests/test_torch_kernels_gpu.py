@@ -29,7 +29,12 @@ The mode-mixing kernel (``spectral_mode_matmul``) is f32 throughout and sums
 over Cin in order with FMAs where the plain version sums four products
 separately: |kernel - plain| <= 1e-4 + 1e-4 |plain| (the CPU tests' tolerance
 against the Pallas kernel), plain = the four f32 einsums on the card with
-TF32 off.  Its Function's gradients are the plain version's own: 1e-5."""
+TF32 off.  Its Function's gradients are the plain version's own: 1e-5.
+
+The head-packed attention core (``packed_attention``) against its plain
+version on the same inputs: f32 within 1e-5 + 1e-5 |plain| (sums in another
+order), bf16 within 2e-2 + 2e-2 |plain| (the plain version rounds its AV
+product to bf16; the kernel accumulates in f32 and rounds once)."""
 
 import numpy as np
 import pytest
@@ -398,6 +403,148 @@ def test_fno_family_on_the_card_matches_the_cpu(cuda, name):
     assert fs.spectral_mode_matmul.launches > before
     want, want_grads = run(cpu, x)
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    for k, g in want_grads.items():
+        scale = float(g.abs().max())
+        torch.testing.assert_close(got_grads[k], g, atol=1e-3 * scale + 1e-7, rtol=1e-3, msg=k)
+
+
+# --------------------------------------------------------------------------
+# The head-packed attention core (``packed_attention``): f32 and bf16
+# --------------------------------------------------------------------------
+
+# (S, heads, L, D): the AViT shape (embed 384, 6 heads, a 16 x 16 patch grid),
+# the cases of tests/test_pallas_kernels.py, the flagship-width TransformerBlock
+# (C 256, 8 heads of 32 over L = 16), and the envelope's corners.
+PACKED_CASES = [
+    (256, 6, 16, 64), (10, 8, 16, 32), (7, 4, 4, 16), (1536, 8, 16, 32),
+    (3, 1, 128, 128), (5, 128, 1, 8), (9, 3, 5, 24),
+]
+
+
+def packed_tolerance(dtype):
+    """f32: the kernel sums in another order (1e-5); bf16: the plain version
+    rounds its AV product to bf16 on the way (2e-2)."""
+    return (1e-5, 1e-5) if dtype == torch.float32 else (2e-2, 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s,heads,l,d", PACKED_CASES)
+def test_packed_attention_kernel_matches_plain(cuda, s, heads, l, d, causal, dtype):
+    from tante_tpu_torch.ops import fused_attention as fa
+
+    p = heads * l
+    q, k, v = (f32_normal((s, p, d), 40 + i, cuda).to(dtype) for i in range(3))
+    q = q * d**-0.5
+    before = fa.packed_attention.launches
+    got = fa.packed_attention(q, k, v, l, causal)
+    torch.cuda.synchronize()
+    assert fa.packed_attention.launches == before + 1
+    want = fa.packed_attention_ref(q, k, v, l, causal)
+    assert got.shape == (s, p, d) and got.dtype == dtype
+    atol, rtol = packed_tolerance(dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_packed_head_attention_on_strided_views(cuda, dtype):
+    """The AViT block's operands: q / k / v as strided slices of one fused
+    projection, row views (B', H, W, heads, D) and column views (transposed
+    H and W), written into a contiguous output, against the plain version."""
+    from tante_tpu_torch.ops import fused_attention as fa
+
+    fused = f32_normal((4, 16, 12, 6, 3 * 64), 50, cuda).to(dtype)
+    q, k, v = fused.chunk(3, dim=-1)
+    atol, rtol = packed_tolerance(dtype)
+    for views in ((q, k, v), tuple(t.transpose(1, 2) for t in (q, k, v))):
+        got = fa.packed_head_attention(*views)
+        assert got.is_contiguous() and got.shape == views[0].shape
+        want = fa._head_ref(*views, False)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_packed_attention_refuses_what_it_cannot_take(cuda):
+    from tante_tpu_torch.ops import fused_attention as fa
+
+    q = torch.zeros(2, 129, 16, device=cuda)
+    with pytest.raises(ValueError):  # heads * L > 128
+        fa.packed_attention(q, q, q, 129)
+    q = torch.zeros(2, 16, 4, device=cuda)
+    with pytest.raises(ValueError):  # D < 8
+        fa.packed_attention(q, q, q, 4)
+    q = torch.zeros(2, 16, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError):  # f16
+        fa.packed_attention(q, q, q, 4)
+
+
+@pytest.mark.parametrize("heads_last", [False, True])
+def test_packed_attention_function_gradients_match_plain_autograd(cuda, heads_last):
+    from tante_tpu_torch.ops import fused_attention as fa
+
+    s, heads, l, d = 64, 6, 16, 64
+    shape = (s, l, heads, d) if heads_last else (s, heads * l, d)
+    args = [f32_normal(shape, 60 + i, cuda) for i in range(3)]
+    cot = f32_normal(shape, 63, cuda)
+    fn = fa.packed_head_attention if heads_last else (
+        lambda a, b, c: fa.packed_attention(a, b, c, l, True))
+    plain = (lambda a, b, c: fa._head_ref(a, b, c, False)) if heads_last else (
+        lambda a, b, c: fa.packed_attention_ref(a, b, c, l, True))
+
+    def grads(f):
+        leaves = [t.detach().requires_grad_(True) for t in args]
+        (f(*leaves) * cot).sum().backward()
+        return [t.grad for t in leaves]
+
+    before = fa.packed_attention.launches
+    got = grads(fn)
+    assert fa.packed_attention.launches == before + 1  # forward only
+    for g, w in zip(got, grads(plain)):
+        assert float(torch.linalg.norm(g - w) / torch.linalg.norm(w)) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["avit", "cvit"])
+def test_attention_family_on_the_card_matches_the_cpu(cuda, name):
+    """f32, the same seeded weights, small widths: forward and parameter
+    gradients on the card against the CPU.  AViT's axial attentions go
+    through the kernel (4 launches a call here: 2 blocks, row and column);
+    CViT's encoder at 6 tokens x 4 heads takes the packed branch too (2).
+    1e-3: f32 matmuls summed in another order through a few layers."""
+    from tante_tpu_torch.convert import load_jax_params, seeded_jax_params
+    from tante_tpu_torch.data.metadata import TanteMetadata
+    from tante_tpu_torch.models import AViT, CViT
+    from tante_tpu_torch.ops import fused_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    md = TanteMetadata(
+        dataset_name="t", n_spatial_dims=2, spatial_resolution=(32, 48),
+        field_names={0: ["f"] * 4, 1: [], 2: []}, boundary_condition_types=["PERIODIC"],
+        n_files=1, n_trajectories_per_file=[1], n_steps_per_trajectory=[16], n_fields=4)
+    if name == "avit":
+        cls, launches = AViT, 4
+        kw = dict(in_T=4, embed_dim=32, num_heads=4, processor_blocks=2, drop_path=0.0)
+    else:
+        cls, launches = CViT, 2
+        kw = dict(in_T=4, out_steps=2, grid_size=(8, 8), latent_dim=16, emb_dim=32, depth=2,
+                  num_heads=4, dec_emb_dim=32, dec_num_heads=4)
+    cpu, gpu = cls(dset_metadata=md, device="cpu", **kw), cls(dset_metadata=md, device=cuda, **kw)
+    flat = seeded_jax_params(cpu, seed=3)
+    load_jax_params(cpu, flat)
+    load_jax_params(gpu, flat)
+    x = f32_normal((2, 4, 32, 48, 4), 9, "cpu")
+
+    def run(model, x):
+        model.zero_grad(set_to_none=True)
+        y = model(x)
+        y.square().mean().backward()
+        return y.detach().cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()
+                                  if p.grad is not None}
+
+    before = fa.packed_attention.launches
+    got, got_grads = run(gpu, x.to(cuda))
+    assert fa.packed_attention.launches == before + launches
+    want, want_grads = run(cpu, x)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+    assert set(got_grads) == set(want_grads)
     for k, g in want_grads.items():
         scale = float(g.abs().max())
         torch.testing.assert_close(got_grads[k], g, atol=1e-3 * scale + 1e-7, rtol=1e-3, msg=k)

@@ -403,7 +403,7 @@ def test_trainer_with_dropout_draws_from_its_own_generator(tmp_path, dm):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, dm):
-    for kw in (dict(mesh=object()), dict(data_parallel=True), dict(cvit=True)):
+    for kw in (dict(mesh=object()), dict(data_parallel=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_trainer(tmp_path, dm, **kw)
     stateful = torch.nn.Sequential(torch.nn.BatchNorm2d(4))
