@@ -75,7 +75,20 @@ script exits non-zero without the final result line):
             ``Predictor.rollout`` on the full grid, ``Trainer(cvit=True,
             num_query_points=1024)``, ``Evaler(cvit=True)``; no hand-written
             kernel runs here (8 heads x 256 tokens > 128), which the phase says.
-14. kernels one {"kernels": [...]} line (six kernels).
+14. tp_kernel  the two tensor-parallel half kernels (``attn_half_fwd``,
+            ``mlp_half_fwd``) on every shard at the flagship's H, W and causal T
+            shapes, tp = 2 and 4, against their plain versions (limits of their
+            own: a half is a pre-bias partial with no residual); the shards'
+            partials recombined against the unsplit f32 block and the unsplit
+            kernel; device time, bound; gradients through each half's Function.
+15. parallel  two spawned ranks of one gloo process group, both on the card:
+            the flagship forward on (dp 1, tp 2) against one rank (exactly 18
+            half launches per model call per rank, no single-device kernel),
+            every step's loss and gradient norm of Trainer at (dp 1, tp 2),
+            (dp 2, tp 1) and FNO at (dp 1, sp 2) against one rank, replicas equal after a dropout step, the tp
+            checkpoint on one rank; seconds per step (two ranks sharing one card
+            through gloo: not a tp speed).
+16. kernels one {"kernels": [...]} line (eight kernels).
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 result line {"ok": true, "device": {...}}.  Exits non-zero when no CUDA
@@ -86,6 +99,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import queue
 import subprocess
 import sys
 import tempfile
@@ -108,6 +123,7 @@ from tante_tpu_torch.ops import _build
 from tante_tpu_torch.ops import fused_attention as fa
 from tante_tpu_torch.ops import fused_block as fb
 from tante_tpu_torch.ops import fused_spectral as fs
+from tante_tpu_torch.parallel.sharding import shard_block
 from tante_tpu_torch.serve import Predictor
 from tante_tpu_torch.train.evaler import Evaler, cvit_full_grid_rollout, full_grid_coords
 from tante_tpu_torch.train.metrics import L2RE, MSE, NNMSE, VRMSE
@@ -141,6 +157,17 @@ GRAD_REL_TOL = 5e-2
 # First training loss / gradient norm, bf16 on the card against f32 on the
 # CPU, one sample, four rollout steps through 36 blocks.
 TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL = 2e-2, 1e-1
+# A tp half returns a pre-bias partial with no residual: its rms is 0.03-0.14
+# at these weight scales, against about 1 for a block's output, so the
+# halves are held to their own limits: elementwise, and in relative L2 over
+# the whole partial (this script on an NVIDIA H100 80GB HBM3 at 700 W: worst
+# max abs error 0.0057, at the causal T shape).
+HALF_ATOL, HALF_RTOL, HALF_REL_L2_TOL = 1.5e-2, 2e-2, 2e-2
+# Trainer on a mesh against one rank on the same card, every step's loss and
+# gradient norm (this script on the same card: losses within 2.4e-5, norms
+# within 1.3e-3, the latter dp's bf16 reductions over half batches).  A
+# missing dp mean doubles the norm; a wrong update moves the second loss.
+MESH_LOSS_REL_TOL, MESH_GNORM_REL_TOL = 2e-4, 5e-3
 # Validation loss with the chain / group kernel against the per-block
 # kernels: the same arithmetic, so the same number.
 VAL_REL_TOL = 1e-6
@@ -1564,9 +1591,404 @@ def phase_cvit(dev, workdir: Path) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The tensor-parallel path: fused_block_apply_tp's half kernels; dp / tp / sp
+# through Trainer(mesh=...) on two ranks of one process group
+# ---------------------------------------------------------------------------
+
+TP_SIZES = (2, 4)
+TP_CASES = [("H", (1536, 16, C), False), ("W", (512, 48, C), False),
+            ("T", (BATCH * 16 * 48, IN_T, C), True)]  # T: rows of the rearranged tensor
+PARALLEL_WORLD = 2          # ranks of the process group, both on cuda:0 (gloo)
+PARALLEL_TIMEOUT_S = 300    # the parent's bound on the two ranks
+PARALLEL_TRAIN_B = 2        # global batch of the parallel Trainer runs (dp 2: 1 a rank)
+
+
+def tp_halves(p: fb.BlockParams):
+    return (fb.AttnHalfParams(*(getattr(p, f) for f in fb.AttnHalfParams._fields)),
+            fb.MlpHalfParams(*(getattr(p, f) for f in fb.MlpHalfParams._fields)))
+
+
+def half_bound(kind: str, rows: int, l: int, causal: bool, p) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, flops, bytes) of one half on one shard:
+    matmuls (attention: q/k/v C x C/tp and the C/tp x C out-projection, plus
+    4 * C/tp per admitted (query, key) pair; MLP: fc1 and fc2 over the
+    hidden shard) against x in + the partial out + the shard's weights."""
+    if kind == "attn":
+        ca = p.wq.shape[-1]
+        pairs = rows * (l + 1) / 2 if causal else rows * l
+        flops = 2 * rows * 4 * C * ca + 4 * ca * pairs
+    else:
+        flops = 2 * rows * 2 * C * p.w1.shape[-1]
+    nbytes = 2 * rows * C * 2 + sum(t.numel() * t.element_size() for t in p)
+    t_ops, t_mem = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes"), flops, nbytes
+
+
+def tp_recombine(x, p: fb.BlockParams, attn_parts, mlp_fn) -> torch.Tensor:
+    """The block from the shards' partials, as ``fused_block_apply_tp`` adds
+    them: the all-reduced partial in bf16, then bias and residual in bf16."""
+    out = torch.stack(attn_parts).sum(0).to(torch.bfloat16)
+    xm = x + (out + p.bo)
+    h2 = torch.stack([part.float() for part in mlp_fn(xm)]).sum(0).to(torch.bfloat16)
+    return xm + (h2 + p.b2)
+
+
+def phase_tp_kernel(dev) -> list[dict]:
+    """Both half kernels on every shard at the flagship's H, W and causal T
+    shapes for tp = 2 and 4, against their plain versions; the shards'
+    partials recombined against the unsplit f32 block and the unsplit
+    kernel; device time of shard 0's kernels and plain versions; gradients
+    through each half's Function at tp = 2."""
+    out = []
+    for tp in TP_SIZES:
+        for i, (label, shape, causal) in enumerate(TP_CASES):
+            p = block_params(500 + i, dev)
+            pf = f32_params(p)
+            x = torch.from_numpy(np.random.default_rng(50 + i).normal(size=shape).astype(
+                np.float32)).to(dev, torch.bfloat16)
+            rows, l, heads = shape[0] * shape[1], shape[1], HEADS // tp
+            errs = {k: {"max_abs_err": 0.0, "rel_l2": 0.0, "plain_rms": 0.0}
+                    for k in ("attn", "mlp")}
+            ok = True
+            attn_parts = []
+            for r in range(tp):
+                ap, mp = tp_halves(shard_block(p, tp, r))
+                apf, mpf = tp_halves(shard_block(pf, tp, r))
+                for kind, got, want in (
+                        ("attn", fb.attn_half_apply(x, ap, l, heads, causal),
+                         fb.attn_half_ref(x.float(), apf, l, heads, causal)),
+                        ("mlp", fb.mlp_half_apply(x, mp), fb.mlp_half_ref(x.float(), mpf))):
+                    torch.cuda.synchronize()
+                    err = (got.float() - want).abs()
+                    e = errs[kind]
+                    e["max_abs_err"] = max(e["max_abs_err"], float(err.max()))
+                    e["rel_l2"] = max(e["rel_l2"], rel_l2(got, want))
+                    e["plain_rms"] = max(e["plain_rms"], float(want.square().mean().sqrt()))
+                    ok &= (bool(torch.isfinite(got).all())
+                           and bool((err <= HALF_ATOL + HALF_RTOL * want.abs()).all())
+                           and e["rel_l2"] <= HALF_REL_L2_TOL)
+                    if kind == "attn":
+                        attn_parts.append(got.float())
+            mlp_fn = lambda xm: [  # noqa: E731
+                fb.mlp_half_apply(xm, tp_halves(shard_block(p, tp, r))[1]) for r in range(tp)]
+            y = tp_recombine(x, p, attn_parts, mlp_fn).float()
+            want = fb.block_ref(x.float(), pf, l, HEADS, causal)
+            unsplit = fb.fused_block_apply(x, p, l, HEADS, causal).float()
+            e_ref, e_kernel = (y - want).abs(), (y - unsplit).abs()
+            ok_block = (bool((e_ref <= ATOL + RTOL * want.abs()).all())
+                        and bool((e_kernel <= ATOL + RTOL * unsplit.abs()).all()))
+            check(ok, f"tp={tp} {label}: a half kernel disagrees with its plain version")
+            check(ok_block, f"tp={tp} {label}: the recombined halves disagree with the block")
+            ap, mp = tp_halves(shard_block(p, tp, 0))
+            apf, mpf = tp_halves(shard_block(pf, tp, 0))
+            xf = x.float()
+            res = {"phase": "tp_kernel", "tp": tp, "case": label, "shape": list(shape),
+                   "causal": causal, "local_heads": heads, "local_width": C // tp,
+                   "tolerance": f"|k - plain| <= {HALF_ATOL} + {HALF_RTOL}*|plain| and rel L2 "
+                                f"<= {HALF_REL_L2_TOL}; recombined block: {ATOL} + {RTOL}*|plain|",
+                   "ok": ok and ok_block,
+                   "recombined_vs_block_ref_max_abs_err": float(e_ref.max()),
+                   "recombined_vs_unsplit_kernel_max_abs_err": float(e_kernel.max())}
+            for kind, run, plain, hp in (
+                    ("attn", lambda: fb.attn_half_apply(x, ap, l, heads, causal),
+                     lambda: fb.attn_half_ref(xf, apf, l, heads, causal), ap),
+                    ("mlp", lambda: fb.mlp_half_apply(x, mp),
+                     lambda: fb.mlp_half_ref(xf, mpf), mp)):
+                b_ms, b_by, flops, nbytes = half_bound(kind, rows, l, causal, hp)
+                k_ms = device_ms(run, iters=10)
+                res[kind] = {**errs[kind], "kernel_ms": k_ms,
+                             "plain_ms": device_ms(plain, iters=5), "bound_us": 1e3 * b_ms,
+                             "bound_by": b_by, "flops": flops, "bytes": nbytes,
+                             "achieved_tflops": flops / k_ms / 1e9}
+            if tp == 2 and label == "H":
+                res["grad"] = tp_half_grads(x, p, l, heads, causal)
+            emit(res)
+            out.append(res)
+    return out
+
+
+def tp_half_grads(x, p, l, heads, causal) -> dict:
+    """Gradients of sum(y**2) through each half's Function (kernel forward,
+    plain backward, bf16) against autograd of the f32 plain half, shard 1."""
+    def grads(x, half, kernel):
+        x = x.detach().requires_grad_(True)
+        ps = type(half)(*(t.detach().requires_grad_(True) for t in half))
+        if isinstance(half, fb.AttnHalfParams):
+            fn = fb.attn_half_apply if kernel else fb.attn_half_ref
+            y = fn(x, ps, l, heads, causal)
+        else:
+            y = (fb.mlp_half_apply if kernel else fb.mlp_half_ref)(x, ps)
+        (y.float() ** 2).sum().backward()
+        return dict(zip(("x", *half._fields), (x.grad, *(t.grad for t in ps))))
+
+    out = {}
+    shard = shard_block(p, 2, 1)
+    for half, half_f in zip(tp_halves(shard), tp_halves(f32_params(shard))):
+        got, want = grads(x, half, True), grads(x.float(), half_f, False)
+        errs = {n: float(torch.linalg.norm(g.float() - want[n])
+                         / torch.linalg.norm(want["bq" if n == "bk" else n]))
+                for n, g in got.items()}
+        worst = max(errs, key=errs.get)
+        name = "attn" if isinstance(half, fb.AttnHalfParams) else "mlp"
+        check(errs[worst] <= GRAD_REL_TOL, f"tp half {name} grad: {worst} rel L2 {errs[worst]}")
+        out[name] = {"worst_tensor": worst, "worst_rel_l2": errs[worst], "x_rel_l2": errs["x"],
+                     "rel_l2_tolerance": GRAD_REL_TOL}
+    return out
+
+
+def tp_counts() -> dict:
+    return {"attn_half_fwd": fb.attn_half_apply.launches,
+            "mlp_half_fwd": fb.mlp_half_apply.launches}
+
+
+def parallel_data(dev, batch, n_in, fno=False) -> WaveDataModule:
+    """In-memory waves at the flagship resolution; the same on every rank."""
+    return WaveDataModule(
+        batch_size=batch, n_steps_input=n_in, n_steps_output=2, eval_steps_output=2,
+        data_workers=2, seed=0, device=dev,
+        waves=dict(resolution=RES, n_trajectories=2, n_steps=10 if fno else 8,
+                   with_pressure=True, seed=0))
+
+
+def parallel_trainer(dev, workdir: Path, folder: str, kind: str, mesh=None, dropout=0.0):
+    """A Trainer on the flagship TANTE (bf16 over f32 weights, AdamW 5e-5) or on
+    FNO at configs/fno.yaml width (channels-last), on one rank or on ``mesh``."""
+    if kind == "tante":
+        dm = parallel_data(dev, PARALLEL_TRAIN_B, IN_T)
+        model = flagship(True, torch.float32, dev, dm.train_dataset.metadata, dropout=dropout)
+        lr = 5e-5
+    else:
+        dm = parallel_data(dev, FNO_BATCH, IN_T, fno=True)
+        model = fno_model(torch.float32, dev, dm.train_dataset.metadata, layout="wc")
+        lr = 1e-3
+    trainer = Trainer(str(workdir / folder), "channels_first_default", model, dm,
+                      AdamW(lr=lr, weight_decay=1e-5), MSE(), L2RE(), max_epoch=1,
+                      enable_amp=True, n_steps_output=2, n_steps_rollout=2, seed=0, mesh=mesh,
+                      device=dev)
+    return trainer, dm
+
+
+def train_steps(trainer: Trainer, dm, steps: int) -> dict:
+    """``steps`` train steps of the first epoch's batches: the losses (the
+    global batch's), gradient norms and seconds per step (host clock around
+    a synchronised step)."""
+    loader = dm.train_dataloader()
+    loader.set_epoch(1)
+    losses, norms, seconds = [], [], []
+    for step, batch in enumerate(loader):
+        if step == steps:
+            break
+        (x,), y = trainer.formatter.process_input(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(x, y))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss)
+        norms.append(float(trainer.last_grad_norm))
+    return {"losses": losses, "grad_norms": norms, "seconds_per_step": seconds}
+
+
+def flagship_input(batch=BATCH) -> np.ndarray:
+    return np.random.default_rng(0).normal(size=(batch, IN_T, *RES, FIELDS)).astype(np.float32)
+
+
+def parallel_rank(rank: int, world: int, rdv: str, workdir: str, device: str, results) -> None:
+    """One rank of the ``parallel`` phase (a spawned process): joins the gloo
+    group, runs the flagship forward and the Trainer runs on their meshes,
+    hands its numbers to the parent."""
+    import datetime
+    import hashlib
+    import traceback
+
+    import torch.distributed as dist
+
+    from tante_tpu_torch.parallel import dp_tp_mesh, make_mesh
+
+    out = {}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=120))
+        dev = torch.device(device)  # every rank on the parent's card
+        torch.backends.cuda.matmul.allow_tf32 = False
+        workdir = Path(workdir)
+        tp_mesh = dp_tp_mesh(world, tp=world, device=dev)
+
+        # 1. The flagship forward, blocks split over tp.
+        model = flagship(True, torch.bfloat16, dev, tp_mesh=tp_mesh)
+        load_jax_params(model, seeded_jax_params(model, seed=0), tp_mesh)
+        x = torch.from_numpy(flagship_input()).to(dev)
+        with torch.no_grad():
+            model(x)  # warm
+            torch.cuda.synchronize()
+            reset_counts()
+            y = model(x)
+            torch.cuda.synchronize()
+            counts = {**launch_counts(), **tp_counts(),
+                      "spectral_mode_matmul": fs.spectral_mode_matmul.launches}
+            t0 = time.perf_counter()
+            for _ in range(3):
+                model(x)
+            torch.cuda.synchronize()
+        out["forward"] = {"y": y.float().cpu().numpy(), "launches_per_call": counts,
+                          "seconds_per_call": (time.perf_counter() - t0) / 3}
+        del model
+
+        # 2. Trainer at (dp 1, tp 2): dropout 0, then a dropout step; save.
+        trainer, dm = parallel_trainer(dev, workdir, "tp", "tante", tp_mesh)
+        out["train_tp"] = train_steps(trainer, dm, 2)
+        out["train_tp"]["split_parameters"] = sum(
+            hasattr(q, "tp_dim") for q in trainer.model.parameters())
+        trainer.save_model(1, 0.0, "recent")
+        with torch.no_grad():
+            out["train_tp"]["y_after"] = trainer.model(x[:2]).float().cpu().numpy()
+        del trainer
+        trainer, dm = parallel_trainer(dev, workdir, "tp_dropout", "tante", tp_mesh, dropout=0.1)
+        train_steps(trainer, dm, 1)
+        out["dropout_replicas"] = {
+            k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
+            for k, v in trainer.model.named_parameters() if not hasattr(v, "tp_dim")}
+        del trainer
+
+        # 3. Trainer at (dp 2, tp 1); 4. FNO at (dp 1, sp 2).
+        dp_mesh = dp_tp_mesh(world, tp=1, device=dev)
+        trainer, dm = parallel_trainer(dev, workdir, "dp", "tante", dp_mesh)
+        out["train_dp"] = train_steps(trainer, dm, 2)
+        del trainer
+        sp_mesh = make_mesh(world, ("dp", "sp"), (1, world), device=dev)
+        trainer, dm = parallel_trainer(dev, workdir, "sp", "fno", sp_mesh)
+        out["train_sp"] = train_steps(trainer, dm, 2)
+        out["train_sp"]["local_field_rows"] = next(iter(dm.train_dataloader()))["input"].shape[2]
+        del trainer
+        dist.destroy_process_group()
+    except Exception:  # the parent reports it and fails the phase
+        out = {"error": traceback.format_exc()}
+    results.put((rank, out))
+
+
+def phase_parallel(dev, workdir: Path) -> dict:
+    """Two ranks of one gloo process group share the card (NCCL refuses two
+    ranks on one device); each runs ``parallel_rank``.  Their numbers are
+    held here against single-rank runs of the same code: the flagship
+    forward with its blocks split over tp = 2 (exactly 18 half-kernel
+    launches a model call, no single-device kernel), every step's loss and
+    gradient norm of Trainer at (dp 1, tp 2), (dp 2, tp 1) and FNO at (dp 1, sp 2), replicas
+    equal after a dropout step, and the tp checkpoint on one rank.  Times
+    are two ranks sharing one card through gloo: not a tp speed."""
+    import multiprocessing
+
+    # Single-rank references, the same seeds.
+    model = flagship(True, torch.bfloat16, dev)
+    load_jax_params(model, seeded_jax_params(model, seed=0))
+    x = torch.from_numpy(flagship_input()).to(dev)
+    with torch.no_grad():
+        y_single = model(x).float().cpu()
+    del model
+    single = {}
+    for name, kind in (("tante", "tante"), ("fno", "fno")):
+        trainer, dm = parallel_trainer(dev, workdir / "single", name, kind)
+        single[name] = train_steps(trainer, dm, 2)
+        del trainer
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # both ranks on this host
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    rdv = tempfile.mkdtemp(prefix="rdv_", dir=workdir)
+    procs = [ctx.Process(target=parallel_rank,
+                         args=(r, PARALLEL_WORLD, os.path.join(rdv, "file"), str(workdir / "mesh"),
+                               str(dev), results))
+             for r in range(PARALLEL_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    ranks = {}
+    try:
+        while len(ranks) < PARALLEL_WORLD:
+            r, got = results.get(timeout=max(1.0, PARALLEL_TIMEOUT_S - (time.perf_counter() - t0)))
+            ranks[r] = got
+    except queue.Empty:
+        check(False, f"parallel: ranks {sorted(set(range(PARALLEL_WORLD)) - set(ranks))} did not "
+                     f"finish within {PARALLEL_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = {r: o["error"] for r, o in ranks.items() if "error" in o}
+    check(not errors and len(ranks) == PARALLEL_WORLD, f"parallel: rank failures {errors}")
+    res = {"phase": "parallel", "world": PARALLEL_WORLD, "backend": "gloo, both ranks on cuda:0",
+           "seconds": time.perf_counter() - t0, "errors": errors}
+    if errors or len(ranks) < PARALLEL_WORLD:
+        emit(res)
+        return res
+    r0, r1 = ranks[0], ranks[1]
+
+    # 1. forward
+    want = {"fused_block_fwd": 0, "fused_block_canon_t_fwd": 0, "fused_chain_apply": 0,
+            "fused_group_apply": 0, "attn_half_fwd": 9, "mlp_half_fwd": 9,
+            "spectral_mode_matmul": 0}
+    fwd_err = [rel_l2(torch.from_numpy(r["forward"]["y"]) - x[:, -1:].float().cpu(),
+                      y_single - x[:, -1:].float().cpu()) for r in (r0, r1)]
+    check(all(r["forward"]["launches_per_call"] == want for r in (r0, r1)),
+          f"tp forward launches {r0['forward']['launches_per_call']}, want {want}")
+    check(max(fwd_err) <= ROLLOUT_REL_TOL, f"tp=2 forward vs single rank: rel L2 {fwd_err}")
+    check(np.array_equal(r0["forward"]["y"], r1["forward"]["y"]), "tp ranks' outputs differ")
+
+    # 2-4. every step's loss and gradient norm against the single-rank Trainer
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b, strict=True))
+
+    losses = {}
+    for name, ref in (("train_tp", single["tante"]), ("train_dp", single["tante"]),
+                      ("train_sp", single["fno"])):
+        run = r0[name]
+        gaps = {"loss": rel(run["losses"], ref["losses"]),
+                "grad_norm": rel(run["grad_norms"], ref["grad_norms"])}
+        losses[name] = {"losses": run["losses"], "single_rank_losses": ref["losses"],
+                        "grad_norms": run["grad_norms"], "single_rank_grad_norms": ref["grad_norms"],
+                        "worst_rel_gap": gaps,
+                        "seconds_per_step": run["seconds_per_step"],
+                        "single_rank_seconds_per_step": ref["seconds_per_step"]}
+        check(gaps["loss"] <= MESH_LOSS_REL_TOL,
+              f"{name}: losses {run['losses']} vs {ref['losses']} on one rank")
+        check(gaps["grad_norm"] <= MESH_GNORM_REL_TOL,
+              f"{name}: gradient norms {run['grad_norms']} vs {ref['grad_norms']} on one rank")
+        check(run["losses"] == r1[name]["losses"], f"{name}: the ranks log different losses")
+    check(r0["train_tp"]["split_parameters"] == 9 * 10, "tp Trainer: blocks not split")
+    check(r0["train_sp"]["local_field_rows"] == RES[0] // PARALLEL_WORLD,
+          "sp Trainer: batches are not this rank's H rows")
+    same = r0["dropout_replicas"] == r1["dropout_replicas"]
+    check(same, "replicated parameters differ across tp ranks after a dropout step")
+
+    # 5. the tp checkpoint on one rank
+    model = flagship(True, torch.bfloat16, dev, parallel_data(dev, 2, IN_T).train_dataset.metadata)
+    restored = torch.load(workdir / "mesh" / "tp" / "recent" / "state.pt", map_location=dev,
+                          weights_only=True)
+    model.load_state_dict(restored["params"])
+    with torch.no_grad():
+        y_ckpt = model(x[:2]).float().cpu()
+    ckpt_err = rel_l2(torch.from_numpy(r0["train_tp"]["y_after"]) - x[:2, -1:].float().cpu(),
+                      y_ckpt - x[:2, -1:].float().cpu())
+    check(ckpt_err <= ROLLOUT_REL_TOL, f"tp checkpoint on one rank: rel L2 {ckpt_err}")
+    res.update({
+        "forward": {"batch": BATCH, "dtype": "bf16", "weights": "seeded (numpy seed 0)",
+                    "launches_per_model_call_per_rank": r0["forward"]["launches_per_call"],
+                    "change_vs_single_rank_rel_l2": fwd_err, "rel_l2_tolerance": ROLLOUT_REL_TOL,
+                    "seconds_per_call": [r["forward"]["seconds_per_call"] for r in (r0, r1)]},
+        "trainer": losses, "loss_rel_tol": MESH_LOSS_REL_TOL,
+        "grad_norm_rel_tol": MESH_GNORM_REL_TOL,
+        "dropout_0.1_step_replicated_parameters_equal": same,
+        "tp_checkpoint_on_one_rank_rel_l2": ckpt_err,
+        "times_are": "two ranks sharing one card through gloo: not a tp speed"})
+    emit(res)
+    return res
+
+
 def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed: dict,
                   train: dict, spectral: list[dict], fno: dict, packed: list[dict],
-                  avit: dict, cvit: dict) -> list[dict]:
+                  avit: dict, cvit: dict, tp: list[dict], parallel: dict) -> list[dict]:
     replaces = {"fused_block_fwd": "tante_tpu/ops/pallas_block.py:163",
                 "fused_block_canon_t_fwd": "tante_tpu/ops/pallas_block.py:401",
                 "fused_chain_apply": "tante_tpu/ops/pallas_block.py:1073",
@@ -1649,6 +2071,28 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
                                           "kernel_ms", "plain_ms", "library_ms", "bound_us",
                                           "bound_by", "max_abs_err")} for c in packed],
     })
+    # The tensor-parallel halves: the flagship's H, W and T shapes at tp = 2
+    # (the parallel phase's split), one launch each per block and rank.
+    main = [c for c in tp if c["tp"] == 2]
+    per_call = parallel.get("forward", {}).get("launches_per_model_call_per_rank", {})
+    for kind, name, kernel in (("attn", "attn_half_fwd", "_attn_half_kernel :696"),
+                               ("mlp", "mlp_half_fwd", "_mlp_half_kernel :704")):
+        mean = lambda k: sum(c[kind][k] for c in main) / len(main)  # noqa: E731,B023
+        out.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": f"tante_tpu/ops/pallas_block.py:730 ({kernel})",
+            "launches": per_call.get(name, 0),
+            "launches_counted_over": "one flagship model call on one rank of (dp 1, tp 2)",
+            "max_abs_err": max(c[kind]["max_abs_err"] for c in tp),
+            "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_us") / 1e3, "bound_by": main[0][kind]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a half block
+            "times_are": "device time (torch.profiler), shard 0, mean over H, W, T at tp = 2",
+            "ok": all(c["ok"] for c in tp),
+            "per_shape": [{"tp": c["tp"], "case": c["case"], **{k: c[kind][k] for k in (
+                "kernel_ms", "plain_ms", "bound_us", "bound_by", "max_abs_err", "rel_l2",
+                "plain_rms")}} for c in tp],
+        })
     check(all(k["launches"] > 0 for k in out), "a kernel of the main paths was never launched")
     emit({"kernels": out})
     return out
@@ -1672,12 +2116,14 @@ def main() -> int:
     fno = phase_fno_serving(dev)
     packed = phase_packed_kernel(dev)
     phase_packed_grad(dev)
+    tp = phase_tp_kernel(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = phase_train(dev, Path(workdir))
         phase_fno_train_eval(dev, Path(workdir))
         avit = phase_avit(dev, Path(workdir))
         cvit = phase_cvit(dev, Path(workdir))
-    phase_summary(kernels, chains, fixed, train, spectral, fno, packed, avit, cvit)
+        parallel = phase_parallel(dev, Path(workdir))
+    phase_summary(kernels, chains, fixed, train, spectral, fno, packed, avit, cvit, tp, parallel)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -26,11 +26,16 @@ def state_dict_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tenso
     }
 
 
-def load_jax_params(module: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> None:
+def load_jax_params(module: torch.nn.Module, flat: Mapping[str, np.ndarray], mesh=None) -> None:
     """Copy flax-keyed numpy weights into ``module`` (every parameter must
-    be present, with its flax shape)."""
+    be present, with its flax shape).  With a tensor-parallel ``mesh`` the
+    full weights are loaded and then split (``parallel.shard_params``); a
+    module split already takes this rank's blocks of them."""
+    from tante_tpu_torch.parallel import sharding
+
     sd = state_dict_from_jax(flat)
-    own = module.state_dict()
+    split = mesh is not None and any(hasattr(p, "tp_dim") for p in module.parameters())
+    own = sharding.full_shapes(module, mesh) if split else module.state_dict()
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))
     if missing or extra:
@@ -38,13 +43,19 @@ def load_jax_params(module: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> 
     for k, v in sd.items():
         if tuple(own[k].shape) != tuple(v.shape):
             raise ValueError(f"{k}: model has {tuple(own[k].shape)}, weights {tuple(v.shape)}")
+    if split:
+        module.load_state_dict(sharding.shard_state_dict(module, sd, mesh))
+        return
     module.load_state_dict(sd)
+    if mesh is not None:
+        sharding.shard_params(module, mesh)
 
 
 def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """The way back: a torch ``state_dict`` as flax-keyed f32 numpy arrays
     (unflatten on ``/`` for a flax param tree).  Copies: the arrays do not
-    follow later in-place updates of the parameters."""
+    follow later in-place updates of the parameters.  A tensor-parallel
+    model's full tensors: ``parallel.gather_params(model, mesh)``."""
     return {k.replace(".", "/"): v.detach().float().cpu().numpy().copy() for k, v in sd.items()}
 
 

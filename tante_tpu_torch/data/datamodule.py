@@ -62,10 +62,14 @@ class WaveDataModule(AbstractDataModule):
         self.batch_size = batch_size
         self.data_workers = data_workers
         self.seed = seed
+        # This rank's part of each global batch under a mesh
+        # (``parallel.mesh.input_sharding``); the Trainer sets it.
+        self.sharding = None
 
     def _loader(self, dataset, shuffle: bool) -> DataLoader:
         return DataLoader(dataset, batch_size=self.batch_size, shuffle=shuffle, drop_last=True,
-                          num_workers=self.data_workers, seed=self.seed, device=self.device)
+                          num_workers=self.data_workers, seed=self.seed, device=self.device,
+                          sharding=self.sharding)
 
     def train_dataloader(self) -> DataLoader:
         return self._loader(self.train_dataset, shuffle=True)

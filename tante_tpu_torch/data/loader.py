@@ -8,7 +8,13 @@
 
 Batch order is the JAX loader's: ``np.random.default_rng(seed + epoch)``
 shuffles the index range, ``set_epoch`` reshuffles, ``drop_last`` drops the
-ragged batch.  Sharding a batch over a mesh waits for the parallelism port.
+ragged batch.
+
+``sharding`` (a ``parallel.mesh.BatchSlice``, set by the Trainer under a
+mesh): every rank draws the same global batch (same seed, same shuffle) and
+reads only its part of it: its block of the batch over 'dp' and, for
+H-sharded models, its block of H rows over 'sp'.  A global batch that does
+not split over 'dp' raises, as ``jax.device_put`` refuses one.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from tante_tpu_torch.ops.backend import resolve_device
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, drop_last: bool = True,
                  num_workers: int = 4, seed: int = 0, prefetch: int = 2, device=None,
-                 epoch: int = 0):
+                 epoch: int = 0, sharding=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -37,6 +43,7 @@ class DataLoader:
         self.prefetch = max(1, prefetch)
         self.device = resolve_device(device)
         self._epoch = epoch
+        self.sharding = sharding
 
     def set_epoch(self, epoch: int) -> None:
         """Reshuffle per epoch (DistributedSampler.set_epoch parity)."""
@@ -68,11 +75,18 @@ class DataLoader:
         on_card = self.device.type == "cuda"
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
 
+        sharding = self.sharding
+
         def collate(idx) -> Dict[str, torch.Tensor]:
+            if sharding is not None:
+                idx = sharding.local_batch(idx)
             items = list(pool.map(self.dataset.__getitem__, (int(i) for i in idx)))
             batch = {}
             for k in items[0]:
-                t = torch.from_numpy(np.stack([it[k] for it in items], axis=0))
+                a = np.stack([it[k] for it in items], axis=0)
+                if sharding is not None:
+                    a = np.ascontiguousarray(sharding.local_field(a))
+                t = torch.from_numpy(a)
                 # Pinned memory is what lets the copy below overlap the step.
                 batch[k] = t.pin_memory() if on_card else t
             return batch

@@ -15,8 +15,10 @@ a pure T/H/W ``attn_axes`` in one ``fused_group_apply`` launch, and
 ``fused_chain = n >= 2`` runs each run of up to n consecutive T/H/W blocks
 in one ``fused_chain_apply`` launch.  Both, like the canonical T kernel,
 apply only when ``deterministic or dropout == 0``; with dropout active every
-block takes its plain path.  The channel-lift axis ``C`` is not ported
-(raises ``NotImplementedError``).
+block takes its plain path.  ``tp_mesh`` (tensor parallelism) goes to every
+block; the group, chain and canonical-T kernels are single-device kernels and
+are bypassed under it, so T blocks run as causal (rows, T, C) blocks.  The
+channel-lift axis ``C`` is not ported (raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ class AttnBackbone(nn.Module):
     def __init__(self, tensor_shape: Tuple[int, int, int, int], attn_axes: str = "THWTHWTHW",
                  n_head: int = 8, mlp_ratio: float = 1.0, dropout: float = 0.0,
                  fused_group: bool = False, fused_chain: int = 0, dtype=torch.float32,
-                 gen=None):
+                 gen=None, tp_mesh=None):
         super().__init__()
         t, h, w, c = tensor_shape
         self.tensor_shape = tuple(tensor_shape)
@@ -100,9 +102,15 @@ class AttnBackbone(nn.Module):
         self.horizontal_propagator = AxisPropagator(w, 3, dtype, gen)
         self.temporal_propagator = AxisPropagator(t, 1, dtype, gen)
         for i in range(len(self.axes)):
-            self.add_module(
-                f"block_{i}", FusedTransformerBlock(c, n_head, mlp_ratio, dropout, dtype, gen)
-            )
+            self.add_module(f"block_{i}", FusedTransformerBlock(
+                c, n_head, mlp_ratio, dropout, dtype, gen, tp_mesh=tp_mesh))
+        self.set_tp_mesh(tp_mesh)
+
+    def set_tp_mesh(self, mesh) -> None:
+        """Run the blocks tensor-parallel over ``mesh``'s 'tp' axis (None: not)."""
+        self.tp_mesh = mesh
+        for i in range(len(self.axes)):
+            getattr(self, f"block_{i}").tp_mesh = mesh
 
     def _params_seq(self, start: int, n: int):
         return tuple(getattr(self, f"block_{start + k}").block_params() for k in range(n))
@@ -120,11 +128,12 @@ class AttnBackbone(nn.Module):
         x = self.temporal_propagator(x)
         axes = self.axes
         kernels_ok = deterministic or self.dropout == 0.0
-        if (self.fused_group and kernels_ok
+        single = kernels_ok and self.tp_mesh is None  # the one-device kernels
+        if (self.fused_group and single
                 and group_fusable(axes, dims, c, self.n_head, self.hidden)):
             return fused_group_apply(
                 x.contiguous(), self._params_seq(0, len(axes)), axes, self.n_head)
-        use_chain = self.fused_chain >= 2 and kernels_ok
+        use_chain = self.fused_chain >= 2 and single
         i = 0
         while i < len(axes):
             axis = axes[i]
@@ -143,7 +152,7 @@ class AttnBackbone(nn.Module):
                     continue
             block = getattr(self, f"block_{i}")
             i += 1
-            if axis == "T" and kernels_ok and canon_t_supported(t, h, w, c, self.n_head):
+            if axis == "T" and single and canon_t_supported(t, h, w, c, self.n_head):
                 x = fused_block_canon_t(x.contiguous(), block.block_params(), self.n_head)
                 continue
             fwd, inv, keep = _LAYOUTS[axis]

@@ -17,12 +17,19 @@ from torch import nn
 
 from tante_tpu_torch.ops.activations import gelu_tanh_f32
 from tante_tpu_torch.ops.attention import Dense, MultiheadAttention, dropout
-from tante_tpu_torch.ops.fused_block import BlockParams, fused_block_apply, ln
+from tante_tpu_torch.ops.fused_block import (
+    BlockParams,
+    fused_block_apply,
+    fused_block_apply_tp,
+    ln,
+    tp_fusable,
+)
 from tante_tpu_torch.ops.initializers import (
     torch_bias_init,
     torch_kernel_init,
     torch_xavier_init,
 )
+from tante_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
 
 
 class TorchDense(nn.Module):
@@ -115,16 +122,28 @@ class FusedTransformerBlock(nn.Module):
     otherwise the plain path with the three dropout sites of the JAX
     training path (attention weights, post-attention, post-MLP) runs,
     drawing from the caller's ``generator``.  Gradients of the kernel path
-    recompute the plain block (``ops/fused_block.py``)."""
+    recompute the plain block (``ops/fused_block.py``).
+
+    ``tp_mesh`` (a ``parallel.Mesh`` with a 'tp' axis): once
+    ``parallel.shard_params`` has left this rank's shards in the block, the
+    kernel path is ``fused_block_apply_tp`` (two half kernels, an
+    all-reduce after each) and the dropout path is the same split in plain
+    PyTorch.  Its attention-weight masks are drawn for all heads and cut to
+    the local ones, and the post-attention and post-MLP masks act after the
+    all-reduce: every tp rank draws the same numbers from a generator
+    seeded alike (``utils/seeding.py:rank_seed``), so the replicas agree
+    and the masks are the unsplit block's."""
 
     def __init__(self, embed_dim: int, n_head: int, mlp_ratio: float = 4.0,
-                 dropout: float = 0.1, dtype=torch.float32, gen=None):
+                 dropout: float = 0.1, dtype=torch.float32, gen=None, tp_mesh=None):
         super().__init__()
         c = embed_dim
         hidden = int(c * mlp_ratio)
+        self.embed_dim = c
         self.n_head = n_head
         self.dropout = dropout
         self.dtype = dtype
+        self.tp_mesh = tp_mesh
         P = nn.Parameter
         self.ln1_scale = P(torch.ones(c))
         self.ln1_bias = P(torch.zeros(c))
@@ -152,35 +171,55 @@ class FusedTransformerBlock(nn.Module):
             t if t.dtype == dt else t.to(dt) for t in (ps[f] for f in BlockParams._fields)
         ))
 
+    def tp_shardable(self, tp: int) -> bool:
+        """Whether ``parallel.shard_params`` splits this block over ``tp``
+        ranks: it runs under a ``tp_mesh`` and its geometry splits evenly."""
+        return (self.tp_mesh is not None
+                and tp_fusable(self.embed_dim, self.n_head, self.w1.shape[1], tp))
+
     def forward(self, x: torch.Tensor, causal: bool = False, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         p = self.block_params()
         l = x.shape[-2]
+        split = self.tp_mesh is not None and self.wq.shape[1] != self.embed_dim  # shards held
         if deterministic or self.dropout == 0.0:
+            if split:
+                return fused_block_apply_tp(x, p, l, self.n_head, causal, self.tp_mesh)
             return fused_block_apply(x, p, l, self.n_head, causal)
         if generator is None:
             raise ValueError("dropout is active: pass the torch.Generator to draw masks from")
 
-        def drop(t):
-            return dropout(t, self.dropout, generator)
+        # block_ref's math with the three dropout sites; split, the Megatron
+        # pair around this rank's heads and hidden columns (identities when
+        # the group is None).
+        g, tp, r = ((self.tp_mesh.group("tp"), self.tp_mesh.size("tp"), self.tp_mesh.index("tp"))
+                    if split else (None, 1, 0))
+        heads = self.n_head // tp
+        d = self.embed_dim // self.n_head
+        rate = self.dropout
 
-        # block_ref's math with the three dropout sites.
-        d = x.shape[-1] // self.n_head
-        xn = ln(x, p.ln1_scale, p.ln1_bias)
+        def drop(t):
+            return dropout(t, rate, generator)
+
+        xn = ln(copy_to_tp(x, g), copy_to_tp(p.ln1_scale, g), copy_to_tp(p.ln1_bias, g))
         q = ((xn @ p.wq) + p.bq) * (d**-0.5)
         k = (xn @ p.wk) + p.bk
         v = (xn @ p.wv) + p.bv
-        q, k, v = (t.reshape(*t.shape[:-1], self.n_head, d) for t in (q, k, v))
+        q, k, v = (t.reshape(*t.shape[:-1], heads, d) for t in (q, k, v))
         logits = torch.einsum("blhd,bmhd->bhlm", q, k).float()
         if causal:
             m = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
             logits = torch.where(m, logits, torch.full_like(logits, -1e30))
-        w = drop(torch.softmax(logits, dim=-1).to(x.dtype))
-        attn = torch.einsum("bhlm,bmhd->blhd", w, v).reshape(x.shape)
-        x = x + drop((attn @ p.wo) + p.bo)
-        yn = ln(x, p.ln2_scale, p.ln2_bias)
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        # The unsplit block's mask over all heads; this rank keeps its own.
+        u = torch.rand((*w.shape[:-3], self.n_head, l, l), generator=generator, device=x.device)
+        keep = u[..., r * heads:(r + 1) * heads, :, :] >= rate
+        w = torch.where(keep, w / (1.0 - rate), torch.zeros((), dtype=w.dtype, device=w.device))
+        attn = torch.einsum("bhlm,bmhd->blhd", w, v).reshape(*x.shape[:-1], heads * d)
+        x = x + drop(reduce_from_tp(attn @ p.wo, g) + p.bo)
+        yn = ln(copy_to_tp(x, g), copy_to_tp(p.ln2_scale, g), copy_to_tp(p.ln2_bias, g))
         h1 = gelu_tanh_f32(((yn @ p.w1) + p.b1).float()).to(x.dtype)
-        return x + drop((h1 @ p.w2) + p.b2)
+        return x + drop(reduce_from_tp(h1 @ p.w2, g) + p.b2)
 
 
 class Film(nn.Module):

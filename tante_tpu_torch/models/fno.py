@@ -13,6 +13,13 @@ only) keeps fields as (B, H, C, W), so the two field-sized DFT contractions
 run over the contiguous last axis with no transposing copy; ``"wc"`` is
 channels-last and also carries the 3-D path.  The spectral convolutions'
 channel mixing runs through ``ops/fused_spectral.py`` in both.
+
+``sp_mesh`` (a ``parallel.Mesh`` with an 'sp' axis) shards H: every rank
+holds a contiguous block of rows, the spectral convolutions run the
+H-sharded partial DFT with one all-reduce each
+(``parallel/halo.py:sharded_spectral_conv2d_centered``, f32), and every other
+op is pointwise over H.  It forces the channels-last layout (2-D only), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from tante_tpu_torch.ops.spectral import (
     spectral_conv2d_centered_cw,
     spectral_conv3d_centered,
 )
+from tante_tpu_torch.parallel.halo import sharded_spectral_conv2d_centered
 
 
 class SoftGate(nn.Module):
@@ -85,6 +93,7 @@ class FNOBlock(_SpectralBlock):
             raise ValueError("the cw layout is 2-D only")
         self.modes = (modes1, modes2, modes3)[:dims]
         self.last, self.cw, self.dtype = last, cw, dtype
+        self.sp_mesh = None  # FNO.set_sp_mesh
         kept = (*self.modes[:-1], self.modes[-1] // 2 + 1)
         self.spectral_weight = nn.Parameter(complex_spectral_init(
             (hidden, hidden, *kept, 2), hidden, hidden, gen))
@@ -98,6 +107,8 @@ class FNOBlock(_SpectralBlock):
             if x.ndim != 5:
                 raise ValueError(f"3-D block expects (B, D, H, W, C), got {tuple(x.shape)}")
             y = spectral_conv3d_centered(x.float(), w, *self.modes)
+        elif self.sp_mesh is not None:  # this rank's H rows
+            y = sharded_spectral_conv2d_centered(self.sp_mesh, x.float(), w, *self.modes)
         else:
             y = spectral_conv2d_centered(x, w, *self.modes)
         return self._mix(x, y)
@@ -150,10 +161,6 @@ class FNO(_FoldedFrames):
         seed: int = 0,
     ):
         super().__init__()
-        if sp_mesh is not None:
-            raise NotImplementedError(
-                "sp_mesh (H-sharded spectral convs) waits for the parallelism slice "
-                "(ROADMAP.md, section 1, item 14)")
         if layout not in ("cw", "wc"):
             raise ValueError(f"Unknown layout '{layout}'")
         dev = resolve_device(device)
@@ -165,15 +172,30 @@ class FNO(_FoldedFrames):
         self.output_length = output_length
         self.gradient_checkpointing = gradient_checkpointing
         self.dtype = dtype
+        self.layout = layout
         # cw is the 2-D layout; 3-D inputs take wc, as in the JAX package.
-        self.cw = layout == "cw" and self.dims == 2
-        self._make_trunk(in_T * n_fields, n_fields, hidden_channels, dtype, gen, self.cw)
+        cw = layout == "cw" and self.dims == 2
+        self._make_trunk(in_T * n_fields, n_fields, hidden_channels, dtype, gen, cw)
         self.n_layers = n_layers
         for i in range(n_layers):
             self.add_module(f"FNOBlock_{i}", FNOBlock(
                 hidden_channels, modes1, modes2, modes3, last=(i == n_layers - 1), dtype=dtype,
-                cw=self.cw, dims=self.dims, gen=gen))
+                cw=cw, dims=self.dims, gen=gen))
+        self.set_sp_mesh(sp_mesh)
         self.to(dev)
+
+    def set_sp_mesh(self, mesh) -> None:
+        """Shard H over ``mesh``'s 'sp' axis (None: whole fields): the JAX
+        model's ``sp_mesh`` field, which its Trainer sets by ``clone``.  The
+        sharded path is channels-last, so it switches every layer to ``wc``
+        (same parameters); None restores the constructor's layout."""
+        self.sp_mesh = mesh
+        self.cw = self.layout == "cw" and self.dims == 2 and mesh is None
+        for m in self.modules():
+            if m is not self and hasattr(m, "cw"):
+                m.cw = self.cw
+            if isinstance(m, FNOBlock):
+                m.sp_mesh = mesh if self.dims == 2 else None
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: torch.Generator | None = None) -> torch.Tensor:

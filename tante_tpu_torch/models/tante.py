@@ -79,6 +79,7 @@ class TANTE(nn.Module):
         modes2: int = 32,
         deg: bool = True,
         fused_chain: int = 0,
+        tp_mesh=None,
         dtype=torch.float32,
         device=None,
         seed: int = 0,
@@ -124,7 +125,7 @@ class TANTE(nn.Module):
         for i, block_axes in enumerate(blocks_axes):
             self.add_module(f"blocks_{i}", AttnBackbone(
                 (in_T, self.H_p, self.W_p, self.C), block_axes, n_head, mlp_ratio, dropout,
-                fused_chain=fused_chain, dtype=dtype, gen=gen,
+                fused_chain=fused_chain, dtype=dtype, gen=gen, tp_mesh=tp_mesh,
             ))
         self.t_emb = nn.Parameter(torch.from_numpy(get_1d_sincos_pos_embed(self.C, in_T)))
         self.s_emb = nn.Parameter(torch.from_numpy(
@@ -139,6 +140,17 @@ class TANTE(nn.Module):
                 self.add_module(f"interprators_{i}", Interprator(self.C, dtype=dtype, gen=gen))
                 self.add_module(f"modifiers_{i}", Film(self.C, 1, dtype, gen))
         self.to(dev)
+
+    @property
+    def tp_mesh(self):
+        return self.blocks_0.tp_mesh
+
+    def set_tp_mesh(self, mesh) -> None:
+        """Tensor parallelism for every block (the JAX model's ``tp_mesh``
+        field, which its Trainer sets by ``clone``); ``parallel.shard_params``
+        then leaves this rank's shards in the blocks."""
+        for i in range(self.taylor_order):
+            getattr(self, f"blocks_{i}").set_tp_mesh(mesh)
 
     @staticmethod
     def n_frames(out_T: float) -> int:

@@ -12,6 +12,7 @@ here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -120,15 +121,20 @@ def build(kernels: Sequence[str] | None = None) -> dict[str, dict]:
     """Compile every kernel source (or ``kernels``) not built yet in this
     process, one nvcc each, all started together; per-kernel build info."""
     wanted = [k for k in (kernels or KERNELS) if k not in _build_info]
-    jobs = {k: _start(k, k, ()) for k in wanted}
     failures = []
-    # Quickest first (the smallest source), so that each build's seconds are
-    # its own; all are waited for, so that no nvcc is left running.
-    for k, job in sorted(jobs.items(), key=lambda kv: (CSRC / f"{kv[0]}.cu").stat().st_size):
-        try:
-            _build_info[k] = _finish(job)
-        except RuntimeError as e:
-            failures.append(f"{k}: {e}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Processes that share the checkout (the ranks of a process group) build
+    # one after the other: the later ones find the first one's libraries.
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        jobs = {k: _start(k, k, ()) for k in wanted}
+        # Quickest first (the smallest source), so that each build's seconds
+        # are its own; all are waited for, so that no nvcc is left running.
+        for k, job in sorted(jobs.items(), key=lambda kv: (CSRC / f"{kv[0]}.cu").stat().st_size):
+            try:
+                _build_info[k] = _finish(job)
+            except RuntimeError as e:
+                failures.append(f"{k}: {e}")
     if failures:
         raise RuntimeError("\n".join(failures))
     return {k: _build_info[k] for k in (kernels or KERNELS)}
@@ -144,6 +150,10 @@ def _bind_fused_block(lib: ctypes.CDLL) -> None:
     lib.tante_fused_chain_fwd.restype = i
     lib.tante_fused_block_plan.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.tante_fused_block_plan.restype = i
+    lib.tante_attn_half_fwd.argtypes = [p, p, ctypes.POINTER(p), i, i, i, i, i, i, i, p]
+    lib.tante_attn_half_fwd.restype = i
+    lib.tante_mlp_half_fwd.argtypes = [p, p, ctypes.POINTER(p), i, i, i, i, p]
+    lib.tante_mlp_half_fwd.restype = i
 
 
 def _bind_spectral_matmul(lib: ctypes.CDLL) -> None:

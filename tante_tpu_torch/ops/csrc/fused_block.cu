@@ -39,6 +39,22 @@
 //     Rounding points are those of the single-block kernels, so the run
 //     equals those kernels applied in sequence bit for bit.
 //
+//   tante_attn_half_fwd / tante_mlp_half_fwd
+//                                  the two tensor-parallel halves of one
+//                                  block on a tp rank's weight shards: LN1 +
+//                                  local q/k/v heads + attention + the
+//                                  out-projection partial, and LN2 + local
+//                                  fc1/GELU + the fc2 partial, each stored
+//                                  pre-bias in bf16 for the caller's
+//                                  all-reduce.
+//     Replace tante_tpu/ops/pallas_block.py fused_block_apply_tp
+//     (_pallas_rowtile -> _attn_half_kernel / _mlp_half_kernel).  At the
+//     flagship's tp = 2 H block a half moves ~25 MB (x in, partial out) for
+//     ~6.6 (attention) / ~3.2 (MLP) GFLOP: both sit at the byte bound
+//     (~7.5 us), unlike the whole block.  This first design reuses the
+//     block's tile body (wmma, per-warp weight rings), so it is bound by the
+//     same per-tile latency; a persistent grid and wgmma are later work.
+//
 // Numerics (the Pallas "fast" softmax): q arrives prescaled by
 // d^-0.5*log2(e) (folded into wq/bq by the wrapper), scores are
 // exp2(min(s, 60*log2 e)) with no max-subtract, masked keys contribute
@@ -280,6 +296,15 @@ struct EpiOut {  // y[row_off[r]] = bf16(x + bf16(v)) for the tile's valid rows
   }
 };
 
+struct EpiRows {  // y[r] = bf16(v) for the tile's valid rows (contiguous, ld apart)
+  bf16* y;
+  int ld;
+  int rows_valid;
+  __device__ void operator()(int r, int c, float* v) const {
+    if (r < rows_valid) store8(y + (size_t)r * ld + c, v);
+  }
+};
+
 // out[r, n] = sum_k A[r, k] W[k, n] + bias[n] for the RT*16 rows of A
 // (shared, lda) and W (K x N, row-major, device memory; K % 16 == 0),
 // handed to `epi` in f32.  Columns go in passes of kPassN; warp w owns 32
@@ -288,6 +313,8 @@ struct EpiOut {  // y[row_off[r]] = bf16(x + bf16(v)) for the tile's valid rows
 // private shared-memory ring, kStages k steps deep, with 16-byte cp.async
 // copies; no barrier is needed, only the warp's own: the caller
 // synchronises before reading what the epilogue wrote.
+// A null `bias` adds nothing (the tensor-parallel halves' pre-bias partials).
+// N need not fill a pass: a warp whose 32 columns start at or past N idles.
 template <int RT, class Epi>
 __device__ void gemm(const bf16* sA, int lda, const bf16* __restrict__ W,
                      const bf16* __restrict__ bias, int K, int N, float* sStage,
@@ -311,9 +338,11 @@ __device__ void gemm(const bf16* sA, int lda, const bf16* __restrict__ W,
     };
 #pragma unroll
     for (int k = 0; k < kStages - 1; ++k) fetch(k);
-    float bv[2][8];
-    load8(bias + n0 + cc, bv[0]);
-    load8(bias + n0 + 16 + cc, bv[1]);
+    float bv[2][8] = {};
+    if (bias) {
+      load8(bias + n0 + cc, bv[0]);
+      load8(bias + n0 + 16 + cc, bv[1]);
+    }
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RT][2];
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
@@ -786,6 +815,212 @@ int launch_chain(const void* x, void* y, void* buf0, void* buf1, const void* con
   return cudaGetLastError();
 }
 
+// ---- the tensor-parallel halves ---------------------------------------------
+//
+// The block split at its two all-reduces (Megatron layout): each tp rank holds
+// a head shard of wq/wk/wv (C x CA columns, CA = C / tp) with the matching rows
+// of wo (CA x C), and a hidden shard of w1 (C x HL) / b1 with the rows of w2
+// (HL x C).  Each half writes the rank's PRE-BIAS partial (M, C) in bf16; the
+// caller all-reduces it over tp and adds bias and residual.  The same device
+// functions as block_tile, on narrower tiles: the LayerNorm overwrites x in
+// place (a half has no residual), q/k/v/h are CA or HL wide, and the last
+// matmul's epilogue stores the f32 accumulator rounded once to bf16, with no
+// bias and no residual.
+
+enum { A_LN1S, A_LN1B, A_WQ, A_BQ, A_WK, A_BK, A_WV, A_BV, A_WO, A_NPARAMS };
+enum { M_LN2S, M_LN2B, M_W1, M_B1, M_W2, M_NPARAMS };
+
+struct HalfParams {
+  const bf16* p[A_NPARAMS];
+};
+
+__host__ __device__ constexpr size_t attn_half_smem(int rows, int C, int CA, int L) {
+  // row tile of x (LayerNorm in place), q (-> attention out), k, v; staging; scratch.
+  return (size_t)rows * (C + kPad) * sizeof(bf16) + (size_t)3 * rows * (CA + kPad) * sizeof(bf16) +
+         (size_t)kWarps * 256 * sizeof(float) + scratch_bytes(L);
+}
+
+__host__ __device__ constexpr size_t mlp_half_smem(int rows, int C, int HL) {
+  return (size_t)rows * (C + kPad) * sizeof(bf16) + (size_t)rows * (HL + kPad) * sizeof(bf16) +
+         (size_t)kWarps * 256 * sizeof(float) + scratch_bytes(1);
+}
+
+// Gather `rows_valid` contiguous rows of width C into a shared tile (zeros below).
+__device__ __forceinline__ void load_rows(const bf16* x, bf16* sX, int ldx, int R, int rows_valid,
+                                          int C) {
+  const int vec_per_row = C / 8;
+  for (int idx = threadIdx.x; idx < R * vec_per_row; idx += kThreads) {
+    const int r = idx / vec_per_row, c8 = idx - r * vec_per_row;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows_valid) v = *reinterpret_cast<const uint4*>(x + (size_t)r * C + c8 * 8);
+    *reinterpret_cast<uint4*>(sX + r * ldx + c8 * 8) = v;
+  }
+}
+
+// One tile of whole length-L sequences of (S, L, C): LN1, the local q/k/v
+// (CA columns, heads local heads of d = CA / heads), attention, and the
+// out-projection partial (K = CA, N = C).
+template <int RT>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_half_kernel(const bf16* x, bf16* y, HalfParams P, int n_seqs, int seqs_per_tile, int L,
+                 int C, int CA, int heads, int causal) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int R = RT * 16;
+  const int ldx = C + kPad, lda = CA + kPad;
+  bf16* sX = reinterpret_cast<bf16*>(smem);
+  bf16* sQ = sX + R * ldx;
+  bf16* sK = sQ + R * lda;
+  bf16* sV = sK + R * lda;
+  float* sStage = reinterpret_cast<float*>(sV + R * lda);
+  float* sScratch = sStage + kWarps * 256;
+  bf16* sRing = reinterpret_cast<bf16*>(sScratch);
+
+  const int seq0 = blockIdx.x * seqs_per_tile;
+  const int rows_valid = min(seqs_per_tile, n_seqs - seq0) * L;
+  const size_t row0 = (size_t)seq0 * L;
+  load_rows(x + row0 * C, sX, ldx, R, rows_valid, C);
+  __syncthreads();
+  layer_norm(sX, sX, ldx, R, C, P.p[A_LN1S], P.p[A_LN1B]);
+  __syncthreads();
+  gemm<RT>(sX, ldx, P.p[A_WQ], P.p[A_BQ], C, CA, sStage, sRing, EpiStore{sQ, lda});
+  gemm<RT>(sX, ldx, P.p[A_WK], P.p[A_BK], C, CA, sStage, sRing, EpiStore{sK, lda});
+  gemm<RT>(sX, ldx, P.p[A_WV], P.p[A_BV], C, CA, sStage, sRing, EpiStore{sV, lda});
+  __syncthreads();
+  const int d = CA / heads;
+  if (L % 16 == 0) {
+    const int nseq = rows_valid / L;
+    if (d == 32)
+      attention_mma<32>(sQ, sK, sV, sScratch, sStage, lda, nseq, L, heads, causal);
+    else if (d == 64)
+      attention_mma<64>(sQ, sK, sV, sScratch, sStage, lda, nseq, L, heads, causal);
+    else
+      attention_mma<16>(sQ, sK, sV, sScratch, sStage, lda, nseq, L, heads, causal);
+  } else {
+    if (d == 32)
+      attention_fma<32>(sQ, sK, sV, lda, R, rows_valid, L, heads, causal);
+    else if (d == 64)
+      attention_fma<64>(sQ, sK, sV, lda, R, rows_valid, L, heads, causal);
+    else
+      attention_fma<16>(sQ, sK, sV, lda, R, rows_valid, L, heads, causal);
+  }
+  __syncthreads();
+  gemm<RT>(sQ, lda, P.p[A_WO], nullptr, CA, C, sStage, sRing,
+           EpiRows{y + row0 * C, C, rows_valid});
+}
+
+// One tile of R rows of (M, C): LN2, fc1 (HL columns) + b1 + tanh-GELU, and
+// the fc2 partial (K = HL, N = C).
+template <int RT>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_half_kernel(const bf16* x, bf16* y, HalfParams P, int M, int C, int HL) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int R = RT * 16;
+  const int ldx = C + kPad, ldh = HL + kPad;
+  bf16* sX = reinterpret_cast<bf16*>(smem);
+  bf16* sH = sX + R * ldx;
+  float* sStage = reinterpret_cast<float*>(sH + R * ldh);
+  bf16* sRing = reinterpret_cast<bf16*>(sStage + kWarps * 256);
+
+  const size_t row0 = (size_t)blockIdx.x * R;
+  const int rows_valid = min(R, M - (int)row0);
+  load_rows(x + row0 * C, sX, ldx, R, rows_valid, C);
+  __syncthreads();
+  layer_norm(sX, sX, ldx, R, C, P.p[M_LN2S], P.p[M_LN2B]);
+  __syncthreads();
+  gemm<RT>(sX, ldx, P.p[M_W1], P.p[M_B1], C, HL, sStage, sRing, EpiGelu{sH, ldh});
+  __syncthreads();
+  gemm<RT>(sH, ldh, P.p[M_W2], nullptr, HL, C, sStage, sRing, EpiRows{y + row0 * C, C, rows_valid});
+}
+
+// What both halves take: C a LayerNorm width the registers hold and a matmul
+// depth, the local widths whole 32-column warp passes.
+bool half_dims_ok(int C, int local) {
+  return C % 64 == 0 && C <= kMaxC && local % 32 == 0 && local >= 32 && local <= 2 * C;
+}
+
+int optin_smem(int device, int* optin) {
+  return cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
+int launch_attn_half(const void* x, void* y, const void* const* w, int n_seqs, int L, int C,
+                     int CA, int heads, int causal, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (!half_dims_ok(C, CA) || CA > C || !head_dim_ok(CA, heads) || L < 1 || L > kMaxRows)
+    return cudaErrorInvalidValue;
+  int optin = 0;
+  err = (cudaError_t)optin_smem(device, &optin);
+  if (err != cudaSuccess) return err;
+  int seqs = 0;
+  size_t smem = 0;
+  for (int s = kMaxRows / L; s >= 1 && !seqs; --s) {
+    const size_t bytes = attn_half_smem((s * L + 15) / 16 * 16, C, CA, L);
+    if (bytes <= (size_t)optin) seqs = s, smem = bytes;
+  }
+  if (!seqs) return cudaErrorInvalidValue;
+  if (n_seqs <= 0) return cudaSuccess;
+  HalfParams P;
+  for (int i = 0; i < A_NPARAMS; ++i) P.p[i] = static_cast<const bf16*>(w[i]);
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* yb = static_cast<bf16*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = (n_seqs + seqs - 1) / seqs;
+#define TANTE_ATTN_HALF(RT)                                                                    \
+  {                                                                                            \
+    auto k = attn_half_kernel<RT>;                                                             \
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
+    if (err != cudaSuccess) return err;                                                        \
+    k<<<grid, kThreads, smem, st>>>(xb, yb, P, n_seqs, seqs, L, C, CA, heads, causal);        \
+    return cudaGetLastError();                                                                 \
+  }
+  switch ((seqs * L + 15) / 16) {
+    case 1: TANTE_ATTN_HALF(1)
+    case 2: TANTE_ATTN_HALF(2)
+    case 3: TANTE_ATTN_HALF(3)
+    case 4: TANTE_ATTN_HALF(4)
+    default: return cudaErrorInvalidValue;
+  }
+#undef TANTE_ATTN_HALF
+}
+
+int launch_mlp_half(const void* x, void* y, const void* const* w, int M, int C, int HL,
+                    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (!half_dims_ok(C, HL)) return cudaErrorInvalidValue;
+  int optin = 0;
+  err = (cudaError_t)optin_smem(device, &optin);
+  if (err != cudaSuccess) return err;
+  int rt = 0;
+  for (int r = kMaxRows / 16; r >= 1 && !rt; --r)
+    if (mlp_half_smem(16 * r, C, HL) <= (size_t)optin) rt = r;
+  if (!rt) return cudaErrorInvalidValue;
+  if (M <= 0) return cudaSuccess;
+  const size_t smem = mlp_half_smem(16 * rt, C, HL);
+  HalfParams P;
+  for (int i = 0; i < M_NPARAMS; ++i) P.p[i] = static_cast<const bf16*>(w[i]);
+  const bf16* xb = static_cast<const bf16*>(x);
+  bf16* yb = static_cast<bf16*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = (M + 16 * rt - 1) / (16 * rt);
+#define TANTE_MLP_HALF(RT)                                                                     \
+  {                                                                                            \
+    auto k = mlp_half_kernel<RT>;                                                              \
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
+    if (err != cudaSuccess) return err;                                                        \
+    k<<<grid, kThreads, smem, st>>>(xb, yb, P, M, C, HL);                                      \
+    return cudaGetLastError();                                                                 \
+  }
+  switch (rt) {
+    case 1: TANTE_MLP_HALF(1)
+    case 2: TANTE_MLP_HALF(2)
+    case 3: TANTE_MLP_HALF(3)
+    case 4: TANTE_MLP_HALF(4)
+    default: return cudaErrorInvalidValue;
+  }
+#undef TANTE_MLP_HALF
+}
+
 }  // namespace
 
 extern "C" {
@@ -812,6 +1047,23 @@ int tante_fused_chain_fwd(const void* x, void* y, void* buf0, void* buf1, const 
                           const int* plan, int n_steps, int C, int HID, int heads, int device,
                           void* stream) {
   return launch_chain(x, y, buf0, buf1, w, plan, n_steps, C, HID, heads, device, stream);
+}
+
+// Tensor-parallel attention half: x (S, L, C) bf16 -> y (S, L, C) bf16, the
+// rank's pre-bias out-projection partial.  w: host array of 9 device pointers
+// (ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wo), wq/wk/wv (C, CA), wo
+// (CA, C), wq/bq prescaled by d^-0.5*log2(e); `heads` local heads.
+int tante_attn_half_fwd(const void* x, void* y, const void* const* w, int n_seqs, int L, int C,
+                        int CA, int heads, int causal, int device, void* stream) {
+  return launch_attn_half(x, y, w, n_seqs, L, C, CA, heads, causal, device, stream);
+}
+
+// Tensor-parallel MLP half: x (M, C) bf16 -> y (M, C) bf16, the rank's
+// pre-bias fc2 partial.  w: 5 device pointers (ln2_scale, ln2_bias, w1 (C, HL),
+// b1 (HL), w2 (HL, C)).
+int tante_mlp_half_fwd(const void* x, void* y, const void* const* w, int M, int C, int HL,
+                       int device, void* stream) {
+  return launch_mlp_half(x, y, w, M, C, HL, device, stream);
 }
 
 // The tile plan a launch with these sizes uses (for reports).

@@ -1,6 +1,6 @@
 """Fused axial transformer block (counterpart of ``tante_tpu/ops/pallas_block.py``).
 
-Four entry points carry every attention block of the TANTE paths:
+Five entry points carry every attention block of the TANTE paths:
 
 - ``fused_block_apply(x, p, l, heads, causal)``: the whole pre-LN block on
   ``(S, L, C)`` rows (the H and W blocks, and the T block outside the
@@ -18,6 +18,13 @@ Four entry points carry every attention block of the TANTE paths:
   (cooperative, a grid barrier between blocks) replaces the Pallas kernel
   reached by ``fused_chain_apply`` / ``fused_group_apply``
   (``pallas_block.py:1073`` / ``:989``, one body ``_group_kernel``).
+
+- ``fused_block_apply_tp(x, p, l, heads, causal, mesh)``: the block on one
+  tensor-parallel rank's weight shards, as two halves with an all-reduce
+  after each.  CUDA kernels ``attn_half_fwd`` and ``mlp_half_fwd`` (wrappers
+  ``attn_half_apply`` / ``mlp_half_apply``) replace the Pallas kernels
+  reached by ``fused_block_apply_tp`` (``pallas_block.py:890``, through
+  ``_pallas_rowtile``: ``_attn_half_kernel`` / ``_mlp_half_kernel``).
 
 The kernels live in ``csrc/fused_block.cu`` and are built on first use by
 ``_build.py``.  Each wrapper takes its plain PyTorch version (``block_ref``,
@@ -162,10 +169,16 @@ def _check_kernel_args(x: torch.Tensor, p: BlockParams, l: int, heads: int):
         raise ValueError(f"kernel head dim must be one of {KERNEL_HEAD_DIMS}, got {c // heads}")
     if not 1 <= l <= KERNEL_MAX_L:
         raise ValueError(f"kernel holds sequences of 1..{KERNEL_MAX_L}, got L={l}")
+    _check_params(x, p, _param_shapes(c, hidden))
+
+
+def _check_params(x: torch.Tensor, p: tuple, shapes: tuple):
+    """Each parameter of ``p`` (a NamedTuple) contiguous, 32-byte aligned,
+    bf16, of its shape in ``shapes``, on ``x``'s device; ``x`` aligned."""
     dev = x.device
-    for name, t, want in zip(BlockParams._fields, p, _param_shapes(c, hidden)):
-        if (t.shape != want or t.dtype != bf16 or t.device != dev or not t.is_contiguous()
-                or t.data_ptr() % 32):
+    for name, t, want in zip(p._fields, p, shapes):
+        if (t.shape != want or t.dtype != torch.bfloat16 or t.device != dev
+                or not t.is_contiguous() or t.data_ptr() % 32):
             raise ValueError(
                 f"{name}: want contiguous 32-byte-aligned bf16 {want} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
@@ -193,37 +206,39 @@ def _raise_on(rc: int, name: str):
 
 
 class _RecomputeGrad(torch.autograd.Function):
-    """``launch(x, params_seq)`` forward; backward = the cotangent pulled
-    through ``plain(x, params_seq)`` recomputed with autograd on.  The
-    parameters arrive flat (16 per block) so autograd sees each tensor."""
+    """``launch(x, pack(flat))`` forward; backward = the cotangent pulled
+    through ``plain(x, pack(flat))`` recomputed with autograd on.  The
+    parameters arrive flat so autograd sees each tensor; ``pack`` regroups
+    them (16 per block, or one tensor-parallel half's)."""
 
     @staticmethod
-    def forward(ctx, launch: Callable, plain: Callable, x: torch.Tensor, *flat):
-        ctx.plain = plain
+    def forward(ctx, launch: Callable, plain: Callable, pack: Callable, x: torch.Tensor, *flat):
+        ctx.plain, ctx.pack = plain, pack
         ctx.save_for_backward(x, *flat)
-        return launch(x, _blocks(flat))
+        return launch(x, pack(flat))
 
     @staticmethod
     def backward(ctx, g):
         x, *flat = ctx.saved_tensors
-        need = ctx.needs_input_grad[2:]
+        need = ctx.needs_input_grad[3:]
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(n) for t, n in zip((x, *flat), need)]
-            y = ctx.plain(leaves[0], _blocks(leaves[1:]))
+            y = ctx.plain(leaves[0], ctx.pack(leaves[1:]))
             wanted = [t for t, n in zip(leaves, need) if n]
             grads = iter(torch.autograd.grad(y, wanted, g.to(y.dtype)))
-        return (None, None, *(next(grads) if n else None for n in need))
+        return (None, None, None, *(next(grads) if n else None for n in need))
 
 
 def _blocks(flat: Sequence[torch.Tensor]) -> tuple:
     return tuple(BlockParams(*flat[i : i + 16]) for i in range(0, len(flat), 16))
 
 
-def _run(launch: Callable, plain: Callable, x: torch.Tensor, params_seq: Sequence[BlockParams]):
+def _run(launch: Callable, plain: Callable, x: torch.Tensor, params_seq: Sequence[tuple],
+         pack: Callable = _blocks):
     """Launch the kernel, through ``_RecomputeGrad`` when a gradient can flow."""
     flat = [t for p in params_seq for t in p]
     if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in flat)):
-        return _RecomputeGrad.apply(launch, plain, x, *flat)
+        return _RecomputeGrad.apply(launch, plain, pack, x, *flat)
     return launch(x, params_seq)
 
 
@@ -467,7 +482,194 @@ def fused_chain_apply(x3: torch.Tensor, params_seq: Sequence[BlockParams], axes:
 
 fused_chain_apply.launches = 0
 
-WRAPPERS = (fused_block_apply, fused_block_canon_t, fused_chain_apply, fused_group_apply)
+
+# --------------------------------------------------------------------------
+# Tensor parallelism: the block split at its two all-reduces
+# --------------------------------------------------------------------------
+
+
+class AttnHalfParams(NamedTuple):
+    ln1_scale: torch.Tensor
+    ln1_bias: torch.Tensor
+    wq: torch.Tensor
+    bq: torch.Tensor
+    wk: torch.Tensor
+    bk: torch.Tensor
+    wv: torch.Tensor
+    bv: torch.Tensor
+    wo: torch.Tensor
+
+
+class MlpHalfParams(NamedTuple):
+    ln2_scale: torch.Tensor
+    ln2_bias: torch.Tensor
+    w1: torch.Tensor
+    b1: torch.Tensor
+    w2: torch.Tensor
+
+
+def attn_half_ref(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int, causal: bool):
+    """The attention half in plain PyTorch on (rows, L, C): ``block_ref`` cut
+    at the out-projection matmul (``pallas_block.py:_xla_attn_half``).  ``p``
+    may be a tp shard (attention width ``wq.shape[-1]``, ``heads`` local
+    heads).  Returns the pre-bias partial (rows, L, C) in ``x.dtype``."""
+    dt = x.dtype
+    c_att = p.wq.shape[-1]
+    d = c_att // heads
+    xn = ln(x, p.ln1_scale, p.ln1_bias)
+    q = ((xn @ p.wq.to(dt)) + p.bq.to(dt)) * (d**-0.5)
+    k = (xn @ p.wk.to(dt)) + p.bk.to(dt)
+    v = (xn @ p.wv.to(dt)) + p.bv.to(dt)
+    q, k, v = (t.reshape(*t.shape[:-1], heads, d) for t in (q, k, v))
+    logits = torch.einsum("blhd,bmhd->bhlm", q, k).float()
+    if causal:
+        m = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
+        logits = torch.where(m, logits, torch.full_like(logits, -1e30))
+    w = torch.softmax(logits, dim=-1).to(dt)
+    attn = torch.einsum("bhlm,bmhd->blhd", w, v).reshape(*x.shape[:-1], c_att)
+    return attn @ p.wo.to(dt)
+
+
+def mlp_half_ref(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
+    """The MLP half in plain PyTorch (``pallas_block.py:_xla_mlp_half``):
+    the pre-bias fc2 partial in ``x2.dtype``."""
+    dt = x2.dtype
+    yn = ln(x2, p.ln2_scale, p.ln2_bias)
+    h1 = gelu_tanh_f32(((yn @ p.w1.to(dt)) + p.b1.to(dt)).float()).to(dt)
+    return h1 @ p.w2.to(dt)
+
+
+def tp_fusable(c: int, heads: int, hidden: int, tp: int) -> bool:
+    """Whether the block geometry splits evenly over ``tp`` shards."""
+    return (tp >= 1 and heads % tp == 0 and c % tp == 0 and hidden % tp == 0
+            and (c // tp) % (heads // tp) == 0)
+
+
+def _pack_attn(flat) -> tuple:
+    return (AttnHalfParams(*flat),)
+
+
+def _pack_mlp(flat) -> tuple:
+    return (MlpHalfParams(*flat),)
+
+
+def _check_half_x(x: torch.Tensor, c: int, local: int):
+    if x.device.type != "cuda":
+        raise ValueError(f"tp half kernel needs a CUDA tensor, got {x.device}")
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"kernel input must be contiguous bf16, got {x.dtype}")
+    if c % 64 or c > KERNEL_MAX_C or local % 32 or not 32 <= local <= 2 * c:
+        raise ValueError(f"tp half kernel needs C % 64 == 0, C <= {KERNEL_MAX_C} and a local "
+                         f"width that is a multiple of 32 in [32, 2C]; got C={c}, local={local}")
+
+
+def attn_half_apply(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
+                    causal: bool) -> torch.Tensor:
+    """(S, L, C) -> the pre-bias attention partial (S, L, C) of one tp shard
+    (``heads`` local heads).  CUDA kernel ``attn_half_fwd``; the plain
+    version on the CPU."""
+    if x.device.type == "cpu":
+        return attn_half_ref(x, p, l, heads, causal)
+    if x.shape[-2] != l:
+        raise ValueError(f"x of shape {tuple(x.shape)} does not hold sequences of L={l}")
+
+    def launch(x, ps):
+        from tante_tpu_torch.ops import _build
+
+        (p,) = ps
+        c, ca = x.shape[-1], p.wq.shape[-1]
+        _check_half_x(x, c, ca)
+        if heads <= 0 or ca % heads or ca // heads not in KERNEL_HEAD_DIMS or ca > c:
+            raise ValueError(f"attention half: local width {ca} over {heads} heads, C={c}")
+        if not 1 <= l <= KERNEL_MAX_L:
+            raise ValueError(f"kernel holds sequences of 1..{KERNEL_MAX_L}, got L={l}")
+        _check_params(x, p, ((c,), (c,), (c, ca), (ca,), (c, ca), (ca,), (c, ca), (ca,), (ca, c)))
+        out = torch.empty_like(x)
+        qs = (ca // heads) ** -0.5 * LOG2E
+        scaled = p._replace(wq=p.wq * qs, bq=p.bq * qs)  # alive until enqueued
+        rc = _build.load().tante_attn_half_fwd(
+            x.data_ptr(), out.data_ptr(), _ptr_array([scaled]), x.numel() // (l * c), l, c, ca,
+            heads, int(bool(causal)), x.device.index, _stream(x),
+        )
+        _raise_on(rc, "attn_half_fwd")
+        attn_half_apply.launches += 1
+        return out
+
+    return _run(launch, lambda x, ps: attn_half_ref(x, ps[0], l, heads, causal), x, (p,),
+                _pack_attn)
+
+
+attn_half_apply.launches = 0
+
+
+def mlp_half_apply(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
+    """(..., C) -> the pre-bias MLP partial of one tp shard (rows are
+    independent).  CUDA kernel ``mlp_half_fwd``; the plain version on the
+    CPU."""
+    if x2.device.type == "cpu":
+        return mlp_half_ref(x2, p)
+
+    def launch(x2, ps):
+        from tante_tpu_torch.ops import _build
+
+        (p,) = ps
+        c, hl = x2.shape[-1], p.w1.shape[-1]
+        _check_half_x(x2, c, hl)
+        _check_params(x2, p, ((c,), (c,), (c, hl), (hl,), (hl, c)))
+        out = torch.empty_like(x2)
+        rc = _build.load().tante_mlp_half_fwd(
+            x2.data_ptr(), out.data_ptr(), _ptr_array([p]), x2.numel() // c, c, hl,
+            x2.device.index, _stream(x2),
+        )
+        _raise_on(rc, "mlp_half_fwd")
+        mlp_half_apply.launches += 1
+        return out
+
+    return _run(launch, lambda x, ps: mlp_half_ref(x, ps[0]), x2, (p,), _pack_mlp)
+
+
+mlp_half_apply.launches = 0
+
+
+def fused_block_apply_tp(x: torch.Tensor, p: BlockParams, l: int, heads: int, causal: bool,
+                         mesh) -> torch.Tensor:
+    """(rows, L, C) -> (rows, L, C): the block on this rank's weight shards
+    (``pallas_block.py:fused_block_apply_tp`` / ``_tp_block_impl``).
+
+    ``p`` holds this rank's shards as ``parallel/sharding.py:shard_params``
+    leaves them (q/k/v and fc1 columns, wo and fc2 rows), ``heads`` the
+    block's full head count.  Each half runs its kernel (its plain version
+    on the CPU), then an all-reduce over 'tp', then bias and residual in the
+    activation dtype.  Whole weights (tp == 1, or a geometry that does not
+    split, which ``shard_params`` leaves whole) run the unsplit block:
+    ``fused_block_apply``.
+
+    Gradients: the Megatron pair (``parallel/collectives.py``) around each
+    half, whose Function differentiates the plain half; the LayerNorm
+    parameters enter through ``copy_to_tp`` too (each shard's gradient of
+    them is partial).  The JAX package recomputes the unsplit block instead,
+    which needs whole weights; the gradient is the same."""
+    from tante_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+
+    c = x.shape[-1]
+    tp = mesh.size("tp")
+    if tp == 1 or p.wq.shape[-1] == c:
+        return fused_block_apply(x, p, l, heads, causal)
+    if p.wq.shape[-1] * tp != c or not tp_fusable(c, heads, p.w1.shape[-1] * tp, tp):
+        raise ValueError(f"weights of width {p.wq.shape[-1]} are not a tp={tp} shard of C={c} "
+                         f"with {heads} heads")
+    g = mesh.group("tp")
+    ap = AttnHalfParams(copy_to_tp(p.ln1_scale, g), copy_to_tp(p.ln1_bias, g),
+                        p.wq, p.bq, p.wk, p.bk, p.wv, p.bv, p.wo)
+    out = reduce_from_tp(attn_half_apply(copy_to_tp(x, g), ap, l, heads // tp, causal), g)
+    xm = x + (out + p.bo).to(x.dtype)
+    mp = MlpHalfParams(copy_to_tp(p.ln2_scale, g), copy_to_tp(p.ln2_bias, g), p.w1, p.b1, p.w2)
+    h2 = reduce_from_tp(mlp_half_apply(copy_to_tp(xm, g), mp), g)
+    return xm + (h2 + p.b2).to(x.dtype)
+
+
+WRAPPERS = (fused_block_apply, fused_block_canon_t, fused_chain_apply, fused_group_apply,
+            attn_half_apply, mlp_half_apply)
 
 
 def reset_launches():

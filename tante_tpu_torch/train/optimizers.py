@@ -26,23 +26,39 @@ class AdamW:
     eps: float = 1e-8
 
     def make(self, params: Iterable[torch.nn.Parameter], learning_rate: Optional[float] = None,
-             grad_clip: Optional[str] = "norm", clip_value: float = 1.0):
+             grad_clip: Optional[str] = "norm", clip_value: float = 1.0, mesh=None):
         """-> (optimizer, clip): ``clip(params)`` clips the gradients in
-        place and returns the global gradient norm before clipping."""
+        place and returns the global gradient norm before clipping (over the
+        whole model under a tensor-parallel ``mesh``)."""
         params = list(params)
         opt = torch.optim.AdamW(
             params, lr=self.lr if learning_rate is None else learning_rate,
             betas=(self.b1, self.b2), eps=self.eps, weight_decay=self.weight_decay,
         )
-        return opt, make_clip(grad_clip, clip_value)
+        return opt, make_clip(grad_clip, clip_value, mesh)
 
 
-def global_norm(params: Iterable[torch.nn.Parameter]) -> torch.Tensor:
-    grads = [p.grad for p in params if p.grad is not None]
-    return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+def global_norm(params: Iterable[torch.nn.Parameter], mesh=None) -> torch.Tensor:
+    """The L2 norm of all gradients.  Under a mesh with 'tp' > 1 the squares
+    of the split parameters' gradients (``tp_dim``, ``parallel/sharding.py``)
+    are summed over 'tp' and the replicated ones counted once, so the norm is
+    the unsplit model's (take it after the Trainer's dp all-reduce)."""
+    params = [p for p in params if p.grad is not None]
+    if mesh is None or mesh.size("tp") == 1:
+        grads = [p.grad for p in params]
+        return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    from tante_tpu_torch.parallel.collectives import all_reduce
+
+    def sq(ps):
+        return sum((p.grad.float().square().sum() for p in ps),
+                   torch.zeros((), device=params[0].grad.device))
+
+    split = sq(p for p in params if hasattr(p, "tp_dim"))
+    whole = sq(p for p in params if not hasattr(p, "tp_dim"))
+    return torch.sqrt(all_reduce(split, mesh.group("tp")) + whole)
 
 
-def make_clip(grad_clip: Optional[str], clip_value: float = 1.0) -> Callable:
+def make_clip(grad_clip: Optional[str], clip_value: float = 1.0, mesh=None) -> Callable:
     """"norm": scale all gradients by ``clip_value / max(norm, clip_value)``
     (``optax.clip_by_global_norm``); "value": clamp each entry to
     +-clip_value (``optax.clip``); None: leave them."""
@@ -52,7 +68,7 @@ def make_clip(grad_clip: Optional[str], clip_value: float = 1.0) -> Callable:
     @torch.no_grad()
     def clip(params):
         params = [p for p in params if p.grad is not None]
-        norm = global_norm(params)
+        norm = global_norm(params, mesh)
         if grad_clip == "norm":
             scale = clip_value / torch.clamp(norm, min=clip_value)
             for p in params:

@@ -17,9 +17,27 @@ per batch (``sample_query_coords``, the JAX package's numpy stream) and
 takes the loss on those points; evaluation reconstructs the full grid in
 chunks (``train/evaler.py:cvit_full_grid_rollout``).
 
-Single device.  ``mesh`` / ``data_parallel`` (ROADMAP: parallelism slice)
-and models with mutable state such as BatchNorm statistics (ROADMAP: the
-rest of the zoo) raise ``NotImplementedError``.
+Parallelism (``mesh``, a ``parallel.Mesh`` over a process group the
+caller initialised; ``data_parallel=True`` without one builds a dp mesh
+over the world when it has more than one rank):
+
+- tp > 1: a model with ``tp_mesh`` (TANTE) runs its blocks tensor-parallel
+  and ``parallel.shard_params`` leaves this rank's shards in every block
+  whose geometry splits; a block that does not split keeps whole weights and
+  computes the unsplit block on every tp rank.
+- sp > 1: a model with ``sp_mesh`` (FNO) shards H; batches arrive as this
+  rank's rows and the prediction and target are gathered (``gather_rows``)
+  before the loss.  Other models log a warning and keep H whole.
+- dp: batches are split over 'dp'; after backward one all-reduce per
+  gradient dtype takes the mean over 'dp' (and the sum over 'sp', whose
+  ranks each hold part of one field's gradient).  The clip's global norm is
+  the unsplit model's (``optimizers.global_norm``).
+- The losses a step returns and the epoch logs are the global batch's, as
+  on one device; only rank 0 logs and writes checkpoints, which hold the
+  gathered full tensors (a tp checkpoint loads on one device and back).
+
+Models with mutable state such as BatchNorm statistics (ROADMAP: the rest of
+the zoo) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,9 +51,12 @@ import torch
 
 from tante_tpu_torch.data.datamodule import AbstractDataModule, get_formatter
 from tante_tpu_torch.ops.backend import resolve_device
+from tante_tpu_torch.parallel import sharding
+from tante_tpu_torch.parallel.collectives import all_reduce, all_reduce_flat, gather_rows
 from tante_tpu_torch.train.rollout import rollout_fixed
 from tante_tpu_torch.utils.checkpoint import CheckpointManager
 from tante_tpu_torch.utils.logging import MetricLogger
+from tante_tpu_torch.utils.seeding import rank_seed
 
 logger = logging.getLogger(__name__)
 
@@ -95,17 +116,21 @@ class Trainer:
         device=None,
         **_unused: Any,
     ):
-        if mesh is not None or data_parallel:
-            raise NotImplementedError(
-                "mesh / data_parallel training waits for the parallelism slice (ROADMAP.md, "
-                "section 1: parallelism + fused_block_apply_tp)")
+        if mesh is None and data_parallel:
+            import torch.distributed as dist
+
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                from tante_tpu_torch.parallel import make_mesh
+
+                mesh = make_mesh(axis_names=("dp",), device=device)
         if any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in model.modules()):
             raise NotImplementedError(
                 "models with mutable state (BatchNorm statistics, rollout_fixed_stateful) wait "
                 "for the zoo slice (ROADMAP.md, section 1: the rest of the zoo)")
         if enable_amp and amp_type != "bfloat16":
             raise ValueError(f"amp_type '{amp_type}': only bfloat16 mixed precision exists")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None and device is None else resolve_device(device)
         self.checkpoint_folder = checkpoint_folder
         self.datamodule = datamodule
         self.train_loss_fn = train_loss_fn
@@ -124,14 +149,19 @@ class Trainer:
 
         self.dset_metadata = datamodule.train_dataset.metadata
         self.formatter = get_formatter(formatter, self.dset_metadata)
+        self.is_chief = mesh is None or mesh.rank == 0  # logs and writes checkpoints
         self.metric_logger = metric_logger or MetricLogger(checkpoint_folder)
 
         # f32 master weights on the device; bf16 only as the compute dtype.
         self.model = model.to(self.device, torch.float32)
         if enable_amp:
             set_compute_dtype(self.model, torch.bfloat16)
+        self.sp_sharded = False
+        if mesh is not None:
+            self._place_on_mesh(mesh, datamodule)
         # Dropout masks: the trainer's own generator, on the model's device.
-        self.dropout_generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(seed, mesh))
 
         steps_per_epoch = max(1, len(datamodule.train_dataloader()))
         self.steps_per_epoch = steps_per_epoch
@@ -139,13 +169,47 @@ class Trainer:
             self.lr_schedule = lr_scheduler.as_step_schedule(steps_per_epoch)
         else:
             self.lr_schedule = optimizer.lr
-        self.optimizer, self._clip = optimizer.make(self.model.parameters(), grad_clip=grad_clip)
+        self.optimizer, self._clip = optimizer.make(self.model.parameters(), grad_clip=grad_clip,
+                                                    mesh=mesh)
         self.global_step = 0
         self.last_grad_norm: Optional[torch.Tensor] = None
 
         self.ckpt = CheckpointManager(checkpoint_folder)
         if checkpoint_path:
             self.load_checkpoint(checkpoint_path)
+
+    def _place_on_mesh(self, mesh, datamodule) -> None:
+        """The JAX Trainer's ``clone(tp_mesh=...)`` / ``clone(sp_mesh=...)``
+        and ``shard_params``, in place."""
+        if mesh.size("tp") > 1 and hasattr(self.model, "tp_mesh"):
+            self.model.set_tp_mesh(mesh)
+        if mesh.size("sp") > 1:
+            if hasattr(self.model, "sp_mesh"):
+                self.model.set_sp_mesh(mesh)
+                self.sp_sharded = True
+            else:
+                logger.warning("mesh has an 'sp' axis but %s has no spatial-sharding support "
+                               "(sp_mesh); the H axis stays replicated", type(self.model).__name__)
+        if mesh.size(*mesh.axis_names) > 1:
+            from tante_tpu_torch.parallel.mesh import input_sharding
+
+            if hasattr(datamodule, "sharding"):
+                datamodule.sharding = input_sharding(mesh, spatial=self.sp_sharded)
+            sharding.shard_params(self.model, mesh)
+
+    def _dp_mean(self, value: torch.Tensor) -> torch.Tensor:
+        """A per-rank loss as the global batch's: the mean over 'dp'."""
+        if self.mesh is None or self.mesh.size("dp") == 1:
+            return value
+        return all_reduce(value, self.mesh.group("dp")) / self.mesh.size("dp")
+
+    def _reduce_grads(self) -> None:
+        """Mean over 'dp' and sum over 'sp' of every gradient, one
+        all-reduce per dtype (tp ranks already agree, or hold their shards')."""
+        if self.mesh is None:
+            return
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        all_reduce_flat(grads, self.mesh.group("dp", "sp"), 1.0 / self.mesh.size("dp"))
 
     # ------------------------------------------------------------------
     def _model_chunk(self) -> int:
@@ -180,6 +244,8 @@ class Trainer:
         y_pred = rollout_fixed(
             lambda w: self.model(w, deterministic=deterministic, **kw), x, n_steps,
             self._model_chunk())
+        if self.sp_sharded:  # every sp rank takes the loss on the whole field
+            y_pred, y = gather_rows(y_pred, self.mesh), gather_rows(y, self.mesh)
         return loss_metric(y_pred.to(y.dtype), y, None).mean()
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -191,26 +257,45 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(x, y, self.n_steps_output, self.train_loss_fn, deterministic=False)
         loss.backward()
+        self._reduce_grads()
         self.last_grad_norm = self._clip(self.model.parameters())
         self.optimizer.step()
         self.global_step += 1
-        return loss.detach()
+        return self._dp_mean(loss.detach())
 
     @torch.no_grad()
     def eval_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         self.model.eval()
-        return self._loss(x, y, self.n_steps_rollout, self.eval_loss_fn, deterministic=True)
+        return self._dp_mean(
+            self._loss(x, y, self.n_steps_rollout, self.eval_loss_fn, deterministic=True))
 
     # ------------------------------------------------------------------
     def save_model(self, epoch: int, validation_loss: float, name: str) -> None:
-        self.ckpt.save(name, self.model.state_dict(), self.optimizer.state_dict(), epoch,
-                       validation_loss, self.best_val_loss)
+        """Under a mesh every rank takes part in gathering the split tensors
+        and rank 0 writes them."""
+        params, opt = self.model.state_dict(), self.optimizer.state_dict()
+        if self.mesh is not None:
+            params = sharding.gather_params(self.model, self.mesh)
+            opt = sharding.gather_optimizer_state(self.optimizer, self.mesh)
+        if self.is_chief:
+            self.ckpt.save(name, params, opt, epoch, validation_loss, self.best_val_loss)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()  # the checkpoint exists for every rank from here on
 
     def load_checkpoint(self, checkpoint_path: str) -> None:
+        """Full tensors on every rank, re-split under a mesh."""
         logger.info("Loading checkpoint from %s", checkpoint_path)
-        restored = self.ckpt.restore(checkpoint_path, {"params": self.model.state_dict()})
-        self.model.load_state_dict(restored["params"])
-        self.optimizer.load_state_dict(restored["opt_state"])
+        template = (self.model.state_dict() if self.mesh is None
+                    else sharding.full_shapes(self.model, self.mesh))
+        restored = self.ckpt.restore(checkpoint_path, {"params": template})
+        params, opt = restored["params"], restored["opt_state"]
+        if self.mesh is not None:
+            params = sharding.shard_state_dict(self.model, params, self.mesh)
+            opt = sharding.shard_optimizer_state(self.optimizer, opt, self.mesh)
+        self.model.load_state_dict(params)
+        self.optimizer.load_state_dict(opt)
         self.best_val_loss = restored["best_validation_loss"]
         self.starting_val_loss = (
             restored["validation_loss"] if restored["validation_loss"] is not None
@@ -248,7 +333,8 @@ class Trainer:
             (x,), y = self.formatter.process_input(batch)
             losses.append(self.eval_step(x, y))
         val_loss = float(torch.stack(losses).sum()) / n_batches if losses else 0.0
-        self.metric_logger.append_scalar_file("saved_loss.txt", val_loss)
+        if self.is_chief:
+            self.metric_logger.append_scalar_file("saved_loss.txt", val_loss)
         return val_loss
 
     def train(self) -> None:
@@ -261,13 +347,15 @@ class Trainer:
             logger.info("Epoch %d/%d: starting training", epoch, self.max_epoch)
             train_loss, train_logs = self.train_one_epoch(epoch, train_loader)
             logger.info("Epoch %d/%d: avg training loss %s", epoch, self.max_epoch, train_loss)
-            self.metric_logger.log(train_logs, step=epoch)
+            if self.is_chief:
+                self.metric_logger.log(train_logs, step=epoch)
             self.save_model(epoch, val_loss, "recent")
 
             logger.info("Epoch %d/%d: starting validation", epoch, self.max_epoch)
             val_loss = self.validation_loop(val_loader, epoch=epoch)
             logger.info("Epoch %d/%d: avg validation loss %s", epoch, self.max_epoch, val_loss)
-            self.metric_logger.log({"valid": val_loss}, step=epoch)
+            if self.is_chief:
+                self.metric_logger.log({"valid": val_loss}, step=epoch)
             if self.best_val_loss is None or val_loss < self.best_val_loss:
                 self.best_val_loss = val_loss
                 self.save_model(epoch, val_loss, "best")

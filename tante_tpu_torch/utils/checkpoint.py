@@ -12,6 +12,11 @@ holding one ``state.pt``: ``torch.save`` of the model's and the optimizer's
 ``state_dict`` on the CPU plus the meta scalars.  It is written to
 ``<name>.tmp`` first and renamed, so a crash never leaves a half-written
 checkpoint under the final name.
+
+Under a mesh the Trainer gathers tensor-parallel parameters and their AdamW
+moments before it saves (``parallel/sharding.py``) and splits them again
+after it restores, so a checkpoint always holds full tensors: one written
+under tp loads on one device, and the other way round.
 """
 
 from __future__ import annotations

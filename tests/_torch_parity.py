@@ -5,6 +5,10 @@ seeded block weights for both packages; and a CPU walk of the chain
 kernel's addressing plan."""
 
 import functools
+import multiprocessing
+import queue
+import tempfile
+import time
 
 import jax
 import jax.numpy as jnp
@@ -127,3 +131,37 @@ def walk_chain_plan(x2, params_seq, plan, heads):
         nxt[rows(row[9:15]).reshape(-1)] = y.reshape(-1, y.shape[-1])
         cur = nxt
     return cur
+
+
+def spawn_ranks(world: int, tmp_path, jobs: list, timeout: float = 60.0) -> list:
+    """Run ``jobs`` (see ``_torch_ranks.run``) on ``world`` spawned CPU
+    processes joined in one gloo group; -> each rank's results, in rank
+    order.  The join is bounded: a rank stuck in a collective fails the
+    test instead of holding the suite."""
+    import _torch_ranks
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    rdv = tempfile.mkdtemp(dir=tmp_path)
+    procs = [ctx.Process(target=_torch_ranks.main, args=(r, world, rdv, jobs, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while len(got) < world:
+            rank, out = results.get(timeout=max(1.0, deadline - time.monotonic()))
+            got[rank] = out
+    except queue.Empty:
+        raise AssertionError(f"ranks {sorted(set(range(world)) - set(got))} did not finish "
+                             f"within {timeout} s") from None
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for rank, out in got.items():
+        assert "error" not in out, f"rank {rank}:\n{out['error']}"
+    return [got[r] for r in range(world)]

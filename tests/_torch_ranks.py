@@ -1,0 +1,239 @@
+"""What each rank of a spawned CPU process group runs in
+``tests/test_torch_parallel.py`` (gloo, ``file://`` rendezvous).  Torch and
+the port only: the JAX side is computed in the test process.  Every case
+runs in its own ``try`` and comes back as numpy arrays or as the traceback
+that stopped it, so one failing case fails only its own test."""
+
+from __future__ import annotations
+
+import traceback
+
+import numpy as np
+import torch
+
+from tante_tpu_torch.convert import load_jax_params
+from tante_tpu_torch.data.datamodule import WaveDataModule
+from tante_tpu_torch.data.metadata import TanteMetadata
+from tante_tpu_torch.models.common import FusedTransformerBlock
+from tante_tpu_torch.models.fno import FNO
+from tante_tpu_torch.models.tante import TANTE
+from tante_tpu_torch.ops import fused_block as fb
+from tante_tpu_torch.parallel import dp_tp_mesh, gather_params, make_mesh, replicated, shard_params
+from tante_tpu_torch.parallel.halo import sharded_spectral_conv2d_centered
+from tante_tpu_torch.parallel.sharding import shard_block
+from tante_tpu_torch.train.metrics import L2RE, MSE
+from tante_tpu_torch.train.optimizers import AdamW
+from tante_tpu_torch.train.trainer import Trainer
+
+# The small TANTE of the tp model test (tests/test_parallel.py:613-672).
+TP_TANTE = dict(in_T=4, taylor_order=1, attn_axes="THW", embed_dim=32, patch_scale=8, n_head=4,
+                output_length=1, deg=True)
+TP_RES, TP_FIELDS = (16, 32), 3
+# Trainer cases: in-memory waves, global batch 2, two steps.
+TRAIN_WAVES = dict(resolution=(16, 32), n_trajectories=2, n_steps=10, seed=0)
+TRAIN_FNO = dict(in_T=2, modes1=4, modes2=4, hidden_channels=8, n_layers=2)
+
+
+def tante_metadata(res=TP_RES, fields=TP_FIELDS, cls=TanteMetadata):
+    """The port's metadata, or ``cls``'s (the JAX package's) with the same fields."""
+    return cls(
+        dataset_name="tp", n_spatial_dims=2, spatial_resolution=tuple(res),
+        field_names={0: ["f"] * fields, 1: [], 2: []}, boundary_condition_types=["PERIODIC"],
+        n_files=1, n_trajectories_per_file=[1], n_steps_per_trajectory=[8], n_fields=fields)
+
+
+def _t(a, requires_grad=False):
+    return torch.from_numpy(np.array(a, np.float32)).requires_grad_(requires_grad)
+
+
+def np_(t):
+    return t.detach().float().cpu().numpy()
+
+
+# ---- cases -----------------------------------------------------------------
+
+
+# Megatron split of FusedTransformerBlock's flat parameters: the dimension
+# cut over tp (parallel/sharding.py's rules).
+SPLIT_DIM = {"wq": 1, "wk": 1, "wv": 1, "w1": 1, "bq": 0, "bk": 0, "bv": 0, "b1": 0, "wo": 0,
+             "w2": 0}
+
+
+def block_tp(mesh, x, params, l, heads, causal):
+    """fused_block_apply_tp on this rank's rows (dp) and shards (tp), with
+    gradients of sum(y**2) over the global rows."""
+    tp, r, dp = mesh.size("tp"), mesh.index("tp"), mesh.index("dp")
+    rows = x.shape[0] // mesh.size("dp")
+    x_loc = _t(x[dp * rows:(dp + 1) * rows], True)
+    p = fb.BlockParams(*(_t(a) for a in params))
+    if fb.tp_fusable(x.shape[-1], heads, p.w1.shape[-1], tp):
+        p = shard_block(p, tp, r)
+    p = fb.BlockParams(*(t.clone().requires_grad_(True) for t in p))
+    y = fb.fused_block_apply_tp(x_loc, p, l, heads, causal, mesh)
+    (y ** 2).sum().backward()
+    return {"y": np_(y), "gx": np_(x_loc.grad), "gp": [np_(t.grad) for t in p]}
+
+
+def tp_model_forward(mesh, flat, x):
+    """The small TANTE with tp_mesh, full JAX weights loaded then split;
+    this rank's dp block of the batch."""
+    model = TANTE(dset_metadata=tante_metadata(), tp_mesh=mesh, device="cpu", **TP_TANTE)
+    load_jax_params(model, flat, mesh)
+    b = x.shape[0] // mesh.size("dp")
+    xl = _t(x[mesh.index("dp") * b:(mesh.index("dp") + 1) * b])
+    with torch.no_grad():
+        y = model.eval()(xl)
+    split = sorted(k for k, p in model.named_parameters() if hasattr(p, "tp_dim"))
+    return {"y": np_(y), "split": split}
+
+
+def tp_dropout_forward(mesh, flat, x, seed):
+    """One training-mode forward with dropout 0.1 on the split weights."""
+    model = TANTE(dset_metadata=tante_metadata(), tp_mesh=mesh, dropout=0.1, device="cpu",
+                  **TP_TANTE)
+    load_jax_params(model, flat, mesh)
+    gen = torch.Generator().manual_seed(seed)
+    y = model.train()(_t(x), deterministic=False, generator=gen)
+    return {"y": np_(y)}
+
+
+def spectral_sp(mesh, x, w, modes):
+    n, i = mesh.size("sp"), mesh.index("sp")
+    h = x.shape[1] // n
+    y = sharded_spectral_conv2d_centered(mesh, _t(x[:, i * h:(i + 1) * h]), _t(w), modes, modes)
+    return {"y": np_(y)}
+
+
+def fno_sp_forward(mesh, flat, x, kw):
+    md = tante_metadata(res=x.shape[2:4], fields=x.shape[-1])
+    model = FNO(dset_metadata=md, sp_mesh=mesh, device="cpu", **kw)
+    load_jax_params(model, flat)
+    n, i = mesh.size("sp"), mesh.index("sp")
+    h = x.shape[2] // n
+    with torch.no_grad():
+        y = model.eval()(_t(x[:, :, i * h:(i + 1) * h]))
+    return {"y": np_(y)}
+
+
+def train_run(mesh, workdir, model_kind, steps=2, dropout=0.0):
+    """Two optimizer steps of the port's Trainer on in-memory waves; the
+    step losses and gradient norms, rank 0's gathered parameters after
+    them, and the checkpoint it saved."""
+    dm = WaveDataModule(batch_size=2, n_steps_input=4 if model_kind == "tante" else 2,
+                        n_steps_output=2, eval_steps_output=2, data_workers=1, seed=0,
+                        device="cpu", waves=TRAIN_WAVES)
+    md = dm.train_dataset.metadata
+    if model_kind == "tante":
+        kw = dict(TP_TANTE, dropout=dropout)
+        model = TANTE(dset_metadata=md, device="cpu", **kw)
+    else:
+        model = FNO(dset_metadata=md, layout="wc", device="cpu", **TRAIN_FNO)
+    def make(model, **kw):
+        return Trainer(str(workdir), "channels_first_default", model, dm, AdamW(lr=1e-3),
+                       MSE(), L2RE(), max_epoch=1, n_steps_output=2, n_steps_rollout=2, seed=0,
+                       mesh=mesh, device="cpu", **kw)
+
+    trainer = make(model)
+    losses, norms = [], []
+    for step, batch in enumerate(dm.train_dataloader()):
+        if step == steps:
+            break
+        (x,), y = trainer.formatter.process_input(batch)
+        losses.append(float(trainer.train_step(x, y)))
+        norms.append(float(trainer.last_grad_norm))
+    out = {"losses": losses, "norms": norms}
+    if mesh is not None:
+        out["split"] = sorted(k for k, p in trainer.model.named_parameters()
+                              if hasattr(p, "tp_dim"))
+        full = gather_params(trainer.model, mesh)
+        out["params"] = {k: np_(v) for k, v in full.items()}
+        out["local"] = {k: np_(v) for k, v in trainer.model.state_dict().items()}
+        trainer.save_model(1, 0.5, "recent")
+        out["ckpt"] = str(workdir / "recent")
+        # Resume re-splits the full tensors: the same local parameters and moments.
+        fresh = TANTE(dset_metadata=md, device="cpu", **kw) if model_kind == "tante" else FNO(
+            dset_metadata=md, layout="wc", device="cpu", **TRAIN_FNO)
+        resumed = make(fresh, checkpoint_path=out["ckpt"])
+        out["resume_equal"] = all(
+            torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                              resumed.model.state_dict().values())) and all(
+            torch.equal(sa[k], sb[k])
+            for sa, sb in zip(trainer.optimizer.state.values(), resumed.optimizer.state.values())
+            for k in ("exp_avg", "exp_avg_sq"))
+    return out
+
+
+def shard_round_trip(mesh):
+    """shard_params then gather_params gives back every tensor exactly; a
+    block whose geometry does not split keeps whole weights."""
+    model = TANTE(dset_metadata=tante_metadata(), tp_mesh=mesh, device="cpu", **TP_TANTE)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    shard_params(model, mesh)
+    after = gather_params(model, mesh)
+
+    odd = FusedTransformerBlock(24, 3, 2.0, 0.0, tp_mesh=mesh)
+    shard_params(odd, mesh)
+    try:  # a mesh larger than the world is refused, as JAX's make_mesh refuses one
+        make_mesh(mesh.size("tp") + 1, ("dp", "tp"), (1, mesh.size("tp") + 1), device="cpu")
+        refused = False
+    except ValueError:
+        refused = True
+    world = mesh.size(*mesh.axis_names)
+    items = np.arange(2 * world)
+    return {"equal": all(torch.equal(before[k], after[k]) for k in before),
+            "keys": sorted(before) == sorted(after), "wrong_size_refused": refused,
+            "dp_tp_mesh": [dp_tp_mesh(world, device="cpu").shape,
+                           dp_tp_mesh(world, tp=1, device="cpu").shape],
+            "replicated": replicated(mesh)(items).tolist(),
+            "odd_split": [k for k, p in odd.named_parameters() if hasattr(p, "tp_dim")]}
+
+
+CASES = {
+    "block_tp": block_tp,
+    "tp_model_forward": tp_model_forward,
+    "tp_dropout_forward": tp_dropout_forward,
+    "spectral_sp": spectral_sp,
+    "fno_sp_forward": fno_sp_forward,
+    "train_run": train_run,
+    "shard_round_trip": shard_round_trip,
+}
+
+
+def run(rank: int, world: int, tmpdir: str, jobs: list) -> dict:
+    """``jobs``: (name, mesh axes, mesh shape, case, kwargs) tuples, run in
+    order on one process group; -> {name: result or {"error": traceback}}."""
+    from pathlib import Path
+
+    out = {}
+    for name, axes, shape, case, kw in jobs:
+        try:
+            mesh = make_mesh(world, axes, shape, device="cpu") if axes else None
+            if "workdir" in kw:
+                kw = dict(kw, workdir=Path(tmpdir) / kw["workdir"] / f"rank{rank}"
+                          if mesh is None else Path(tmpdir) / kw["workdir"])
+            out[name] = CASES[case](mesh, **kw)
+            if mesh is not None:
+                out[name]["coords"] = mesh.coords
+        except Exception:  # reported to the test that owns the case
+            out[name] = {"error": traceback.format_exc()}
+    return out
+
+
+def main(rank: int, world: int, tmpdir: str, jobs: list, queue) -> None:
+    """Spawned process body: join the gloo group through a ``file://``
+    rendezvous, run ``jobs``, hand the results to the parent."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{tmpdir}/rendezvous", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=60))
+        try:
+            out = run(rank, world, tmpdir, jobs)
+        finally:
+            dist.destroy_process_group()
+    except Exception:
+        out = {"error": traceback.format_exc()}
+    queue.put((rank, out))

@@ -234,8 +234,12 @@ def test_fno_layouts_share_one_parameter_tree_and_checkpointing_changes_nothing(
     y_wc.square().sum().backward()
     for (k, a), b in zip(cw.named_parameters(), wc.parameters()):
         close(a.grad, b.grad, atol=1e-4 * float(a.grad.abs().max()) + 1e-8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FNO(dset_metadata=md, device="cpu", sp_mesh=object(), **FNO_KW)
+    # sp_mesh (H sharding, tests/test_torch_parallel.py) forces channels-last,
+    # as in the JAX package; without it the constructor's layout comes back.
+    sharded = FNO(dset_metadata=md, device="cpu", sp_mesh=object(), **FNO_KW)
+    assert not sharded.cw and not any(getattr(m, "cw", False) for m in sharded.modules())
+    sharded.set_sp_mesh(None)
+    assert sharded.cw and all(m.cw for m in sharded.modules() if hasattr(m, "cw"))
     with pytest.raises(ValueError):
         FNO(dset_metadata=md, device="cpu", layout="hw", **FNO_KW)
 

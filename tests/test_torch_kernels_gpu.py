@@ -34,7 +34,15 @@ TF32 off.  Its Function's gradients are the plain version's own: 1e-5.
 The head-packed attention core (``packed_attention``) against its plain
 version on the same inputs: f32 within 1e-5 + 1e-5 |plain| (sums in another
 order), bf16 within 2e-2 + 2e-2 |plain| (the plain version rounds its AV
-product to bf16; the kernel accumulates in f32 and rounds once)."""
+product to bf16; the kernel accumulates in f32 and rounds once).
+
+The tensor-parallel halves (``attn_half_apply`` / ``mlp_half_apply``) on each
+shard: limits of their own against their plain versions (a half is a
+pre-bias partial with no residual, far smaller than a block's output), and
+the shards'
+partials summed (rounded to bf16 as the all-reduce leaves them) plus bias and
+residual against the unsplit f32 block; their Functions' gradients as the
+block's."""
 
 import numpy as np
 import pytest
@@ -42,9 +50,11 @@ import torch
 
 from tante_tpu_torch.ops import fused_block as fb
 from tante_tpu_torch.ops import fused_spectral as fs
+from tante_tpu_torch.parallel.sharding import shard_block
 
 pytestmark = pytest.mark.gpu
 ATOL, RTOL = 5e-2, 2e-2
+HALF_ATOL, HALF_RTOL, HALF_REL_L2 = 1.5e-2, 2e-2, 2e-2  # as chip_smoke.py
 CHAIN_ATOL = {1: 5e-2, 2: 1e-1, 3: 1e-1, 9: 2.5e-1}
 GRAD_REL = 5e-2
 
@@ -548,3 +558,97 @@ def test_attention_family_on_the_card_matches_the_cpu(cuda, name):
     for k, g in want_grads.items():
         scale = float(g.abs().max())
         torch.testing.assert_close(got_grads[k], g, atol=1e-3 * scale + 1e-7, rtol=1e-3, msg=k)
+
+
+# ---- the tensor-parallel halves (fused_block_apply_tp) ------------------------
+
+def halves(p):
+    return (fb.AttnHalfParams(*(getattr(p, f) for f in fb.AttnHalfParams._fields)),
+            fb.MlpHalfParams(*(getattr(p, f) for f in fb.MlpHalfParams._fields)))
+
+
+def assert_half_close(got, want):
+    torch.testing.assert_close(got.float(), want, atol=HALF_ATOL, rtol=HALF_RTOL)
+    assert torch.linalg.norm(got.float() - want) <= HALF_REL_L2 * torch.linalg.norm(want)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("s,l,c,hidden,heads,causal", [
+    (1536, 16, 256, 256, 8, False),   # flagship H blocks
+    (512, 48, 256, 256, 8, False),    # flagship W blocks
+    (6144, 4, 256, 256, 8, True),     # flagship T blocks, rearranged
+    (37, 16, 256, 256, 8, True),      # ragged last tile
+    (21, 3, 256, 256, 8, True),       # padded rows (63 of 64)
+    (7, 48, 128, 256, 4, False),      # out-projection N = C = 128 < 256, hidden = 2C
+])
+def test_tp_half_kernels_match_plain(cuda, tp, s, l, c, hidden, heads, causal):
+    """Each shard's halves against their plain versions; their sum over the
+    shards, plus bias and residual, against the unsplit f32 block."""
+    p = params(c, hidden, seed=l + c + tp, device=cuda)
+    x = bf16_normal((s, l, c), seed=s + tp, device=cuda)
+    attn_sum = torch.zeros(x.shape, device=cuda)
+    parts = []
+    before = fb.attn_half_apply.launches, fb.mlp_half_apply.launches
+    for r in range(tp):
+        ap, mp = halves(shard_block(p, tp, r))
+        apf, mpf = halves(f32(shard_block(p, tp, r)))
+        got = fb.attn_half_apply(x, ap, l, heads // tp, causal)
+        torch.cuda.synchronize()
+        want = fb.attn_half_ref(x.float(), apf, l, heads // tp, causal)
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        assert_half_close(got, want)
+        attn_sum += got.float()
+        parts.append(mp)
+        got = fb.mlp_half_apply(x, mp)
+        torch.cuda.synchronize()
+        assert_half_close(got, fb.mlp_half_ref(x.float(), mpf))
+    assert (fb.attn_half_apply.launches, fb.mlp_half_apply.launches) == (
+        before[0] + tp, before[1] + tp)
+    xm = (x.float() + attn_sum.to(torch.bfloat16).float() + p.bo.float()).to(torch.bfloat16)
+    mlp_sum = sum(fb.mlp_half_apply(xm, mp).float() for mp in parts)
+    y = xm.float() + mlp_sum.to(torch.bfloat16).float() + p.b2.float()
+    want = fb.block_ref(x.float(), f32(p), l, heads, causal)
+    torch.testing.assert_close(y, want, atol=ATOL, rtol=RTOL)
+
+
+def test_tp_half_kernels_refuse_what_they_cannot_take(cuda):
+    p = params(256, 256, seed=0, device=cuda)
+    ap, mp = halves(shard_block(p, 2, 0))
+    with pytest.raises(ValueError):  # f32 activations
+        fb.attn_half_apply(torch.zeros(4, 16, 256, device=cuda), ap, 16, 4, False)
+    with pytest.raises(ValueError):  # head dim 128
+        fb.attn_half_apply(bf16_normal((4, 16, 256), 0, cuda), ap, 16, 1, False)
+    with pytest.raises(ValueError):  # a local width that is not whole warp passes
+        bad = fb.MlpHalfParams(mp.ln2_scale, mp.ln2_bias, mp.w1[:, :48].contiguous(),
+                               mp.b1[:48].contiguous(), mp.w2[:48].contiguous())
+        fb.mlp_half_apply(bf16_normal((4, 16, 256), 0, cuda), bad)
+
+
+@pytest.mark.parametrize("half,shape", [("attn", (1536, 16, 256)), ("attn", (6144, 4, 256)),
+                                        ("mlp", (512, 48, 256))])
+def test_tp_half_function_gradients_match_plain_autograd(cuda, half, shape):
+    heads, tp, l = 8, 2, shape[1]
+    causal = l == 4
+    ps = shard_block(params(256, 256, seed=4, device=cuda), tp, 1)
+    x = bf16_normal(shape, seed=6, device=cuda)
+
+    def grads(x, p, kernel):
+        x = x.detach().requires_grad_(True)
+        p = fb.BlockParams(*(t.detach().requires_grad_(True) for t in p))
+        ap, mp = halves(p)
+        if half == "attn":
+            fn = fb.attn_half_apply if kernel else fb.attn_half_ref
+            y, leaves = fn(x, ap, l, heads // tp, causal), ap
+        else:
+            y, leaves = (fb.mlp_half_apply if kernel else fb.mlp_half_ref)(x, mp), mp
+        (y.float() ** 2).sum().backward()
+        return dict(zip(("x", *leaves._fields), (x.grad, *(t.grad for t in leaves))))
+
+    before = sum(fn.launches for fn in fb.WRAPPERS)
+    got = grads(x, ps, kernel=True)
+    assert sum(fn.launches for fn in fb.WRAPPERS) == before + 1  # forward only
+    want = grads(x.float(), f32(ps), kernel=False)
+    for n, g in got.items():
+        scale = torch.linalg.norm(want["bq" if n == "bk" else n])
+        err = float(torch.linalg.norm(g.float() - want[n]) / scale)
+        assert err <= GRAD_REL, f"{half} {n}: rel L2 {err}"

@@ -403,9 +403,10 @@ def test_trainer_with_dropout_draws_from_its_own_generator(tmp_path, dm):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, dm):
-    for kw in (dict(mesh=object()), dict(data_parallel=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_trainer(tmp_path, dm, **kw)
+    # Parallelism is ported (tests/test_torch_parallel.py): data_parallel
+    # without a process group of more than one rank trains on one device, as
+    # the JAX Trainer does on one device.
+    assert make_trainer(tmp_path, dm, data_parallel=True).mesh is None
     stateful = torch.nn.Sequential(torch.nn.BatchNorm2d(4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_trainer(tmp_path, dm, stateful)
