@@ -142,24 +142,30 @@ def build(kernels: Sequence[str] | None = None) -> dict[str, dict]:
 
 def _bind_fused_block(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.tante_fused_block_fwd, lib.tante_fused_block_canon_t_fwd):
-        fn.argtypes = [p, p, ctypes.POINTER(p), i, i, i, i, i, i, i, p]
-        fn.restype = i
+    lib.tante_fused_block_canon_t_fwd.argtypes = [p, p, ctypes.POINTER(p), i, i, i, i, i, i, i, p]
+    lib.tante_fused_block_canon_t_fwd.restype = i
     lib.tante_fused_chain_fwd.argtypes = [
-        p, p, p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, p]
+        p, p, p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, i, p]
     lib.tante_fused_chain_fwd.restype = i
     lib.tante_fused_block_plan.argtypes = [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
     lib.tante_fused_block_plan.restype = i
-    lib.tante_attn_half_fwd.argtypes = [p, p, ctypes.POINTER(p), i, i, i, i, i, i, i, p]
+    lib.tante_attn_half_fwd.argtypes = [p, p, ctypes.POINTER(p), i, i, i, i, i, i, i, i, p]
     lib.tante_attn_half_fwd.restype = i
     lib.tante_mlp_half_fwd.argtypes = [p, p, ctypes.POINTER(p), i, i, i, i, p]
     lib.tante_mlp_half_fwd.restype = i
 
 
+def _bind_fused_block_sm90(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tante_fused_block_sm90_fwd.argtypes = [
+        p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, i, i, i, p]
+    lib.tante_fused_block_sm90_fwd.restype = i
+
+
 def _bind_spectral_matmul(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tante_spectral_mode_matmul.argtypes = [
-        p, p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, p]
+        p, p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i), i, p]
     lib.tante_spectral_mode_matmul.restype = i
 
 
@@ -173,6 +179,7 @@ def _bind_packed_attention(lib: ctypes.CDLL) -> None:
 # Source file stem under csrc/ -> the declaration of its C entry points.
 KERNELS: dict[str, Callable[[ctypes.CDLL], None]] = {
     "fused_block": _bind_fused_block,
+    "fused_block_sm90": _bind_fused_block_sm90,
     "spectral_matmul": _bind_spectral_matmul,
     "packed_attention": _bind_packed_attention,
 }

@@ -2,14 +2,10 @@
 //
 //   y = x' + fc2(gelu_tanh(fc1(ln2(x'))))      x' = x + wo(attn(ln1(x)))
 //
-// Three entry points share one tile body and differ only in how a tile's
-// rows are addressed in device memory (a RowMap):
-//
-//   tante_fused_block_fwd          rows of (S, L, C); sequences are L
-//                                  consecutive rows.
-//     Replaces the Pallas TPU kernel of tante_tpu/ops/pallas_block.py
-//     fused_block_apply (_pallas_block -> _kernel -> _kernel_body =
-//     _attn_half_body + _mlp_half_body).
+// The entry points share one tile body (block_tile, the first port of
+// tante_tpu/ops/pallas_block.py fused_block_apply, whose single-block entry
+// point is now the Hopper redesign in fused_block_sm90.cu) and differ only in
+// how a tile's rows are addressed in device memory (a RowMap):
 //
 //   tante_fused_block_canon_t_fwd  the causal T block on canonical
 //                                  (B, T, H, W, C): a sequence is one
@@ -55,11 +51,14 @@
 //     block's tile body (wmma, per-warp weight rings), so it is bound by the
 //     same per-tile latency; a persistent grid and wgmma are later work.
 //
-// Numerics (the Pallas "fast" softmax): q arrives prescaled by
-// d^-0.5*log2(e) (folded into wq/bq by the wrapper), scores are
-// exp2(min(s, 60*log2 e)) with no max-subtract, masked keys contribute
-// exactly 0 (skipped), the unnormalised weights are rounded to bf16 before
-// the AV product, and the result is scaled by 1/(sum + 1e-30).  q/k/v,
+// Numerics: q arrives prescaled by d^-0.5*log2(e) (folded into wq/bq by the
+// wrapper).  The Pallas "fast" softmax: scores are exp2(min(s, 60*log2 e))
+// with no max-subtract; or, under the SAFE template flag (the chain and the
+// tp halves take it; set_block_tuning(softmax="safe")), the Pallas "safe"
+// branch (pallas_block.py:_attn_half_body): exp2(s - max) over the admitted
+// keys.  Masked keys contribute exactly 0 (skipped), the unnormalised
+// weights are rounded to bf16 before the AV product, and the result is
+// scaled by 1/(sum + 1e-30).  q/k/v,
 // attention output, fc1 output and both residual sums are rounded to bf16
 // where the Pallas kernel rounds them; LayerNorm (one-pass moments), GELU,
 // softmax and every matmul accumulator are f32.
@@ -136,12 +135,6 @@ __device__ unsigned long long g_phase_ns[kPhaseCtas][kPhases];
   do {           \
   } while (0)
 #endif
-
-// Sequences of L consecutive rows of an (S, L, C) tensor.
-struct SeqRows {
-  int L, C;
-  __device__ size_t offset(int seq, int t) const { return ((size_t)seq * L + t) * C; }
-};
 
 // Sequence = one pixel's T steps of a canonical (B, T, HW, C) tensor.
 struct CanonTRows {
@@ -402,7 +395,7 @@ __host__ __device__ constexpr int attn_scratch_floats(int L) {
 
 // CUDA cores, any L: one thread per (row, head); the rows of a warp share a
 // head, so their k/v reads broadcast.
-template <int D>
+template <int D, bool SAFE>
 __device__ void attention_fma(bf16* sQ, const bf16* sK, const bf16* sV, int ld, int rows,
                               int rows_valid, int L, int heads, bool causal) {
   const float clamp = 60.f * kLog2e;
@@ -417,10 +410,8 @@ __device__ void attention_fma(bf16* sQ, const bf16* sK, const bf16* sV, int ld, 
     for (int i = 0; i < D; i += 8) load8(o + i, q + i);
 #pragma unroll
     for (int i = 0; i < D; ++i) acc[i] = 0.f;
-    float den = 0.f;
-    for (int j = 0; j <= jmax; ++j) {
+    auto score = [&](int j) {
       const bf16* kr = sK + (s0 + j) * ld + h * D;
-      const bf16* vr = sV + (s0 + j) * ld + h * D;
       float sp[4] = {0.f, 0.f, 0.f, 0.f};  // four chains, not one of D FMAs
 #pragma unroll
       for (int i = 0; i < D; i += 8) {
@@ -429,8 +420,16 @@ __device__ void attention_fma(bf16* sQ, const bf16* sK, const bf16* sV, int ld, 
 #pragma unroll
         for (int e = 0; e < 8; ++e) sp[e & 3] = fmaf(q[i + e], kv[e], sp[e & 3]);
       }
-      const float s = (sp[0] + sp[1]) + (sp[2] + sp[3]);
-      const float e = exp2f(fminf(s, clamp));
+      return (sp[0] + sp[1]) + (sp[2] + sp[3]);
+    };
+    float mx = -1e30f;  // "safe": the row's largest admitted score
+    if (SAFE)
+      for (int j = 0; j <= jmax; ++j) mx = fmaxf(mx, score(j));
+    float den = 0.f;
+    for (int j = 0; j <= jmax; ++j) {
+      const bf16* vr = sV + (s0 + j) * ld + h * D;
+      const float s = score(j);
+      const float e = exp2f(SAFE ? s - mx : fminf(s, clamp));
       den += e;
       const float eb = round_bf16(e);
 #pragma unroll
@@ -453,7 +452,7 @@ __device__ void attention_fma(bf16* sQ, const bf16* sK, const bf16* sV, int ld, 
 // Scores S = q k^T (wmma, f32) go to the warp's scratch, the unnormalised
 // weights bf16(exp2(min(s, clamp))) to a bf16 copy beside them, then
 // o = (P v) / rowsum.  Causal blocks skip the key tiles above the diagonal.
-template <int D>
+template <int D, bool SAFE>
 __device__ void attention_mma(bf16* sQ, const bf16* sK, const bf16* sV, float* scratch,
                               float* sStage, int ld, int nseq, int L, int heads, bool causal) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -484,11 +483,18 @@ __device__ void attention_mma(bf16* sQ, const bf16* sK, const bf16* sV, float* s
     __syncwarp();
     // Lane pair (2r, 2r+1) owns query row r: alternate key columns.
     const int tq = qb * 16 + row;
+    float mx = -1e30f;  // "safe": the row's largest admitted score
+    if (SAFE) {
+      for (int c = half; c < nkt * 16; c += 2)
+        if (!causal || c <= tq) mx = fmaxf(mx, sc[row * L + c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    }
     float den = 0.f;
     for (int c = half; c < nkt * 16; c += 2) {
       float e = 0.f;
       if (!causal || c <= tq) {
-        e = exp2f(fminf(sc[row * L + c], clamp));
+        const float s = sc[row * L + c];
+        e = exp2f(SAFE ? s - mx : fminf(s, clamp));
         den += e;
       }
       pm[row * ldp + c] = f2bf(e);
@@ -541,7 +547,7 @@ __host__ __device__ constexpr size_t smem_bytes(int rows, int C, int HID, int L)
 // through `in`, run through the block in shared memory, and stored to y
 // through `out`.  x is read with ld.global.cg (L2 only): inside the chain
 // kernel another SM wrote it earlier in the same launch.
-template <int RT, class InMap, class OutMap>
+template <int RT, bool SAFE, class InMap, class OutMap>
 __device__ __forceinline__ void block_tile(const bf16* x, bf16* y, const Params& P,
                                            const InMap& in, const OutMap& out, int tile,
                                            int n_seqs, int seqs_per_tile, int L, int C, int HID,
@@ -597,18 +603,18 @@ __device__ __forceinline__ void block_tile(const bf16* x, bf16* y, const Params&
   if (L % 16 == 0) {
     const int nseq = rows_valid / L;
     if (d == 32)
-      attention_mma<32>(sQ, sK, sV, sScratch, sStage, ldx, nseq, L, heads, causal);
+      attention_mma<32, SAFE>(sQ, sK, sV, sScratch, sStage, ldx, nseq, L, heads, causal);
     else if (d == 64)
-      attention_mma<64>(sQ, sK, sV, sScratch, sStage, ldx, nseq, L, heads, causal);
+      attention_mma<64, SAFE>(sQ, sK, sV, sScratch, sStage, ldx, nseq, L, heads, causal);
     else
-      attention_mma<16>(sQ, sK, sV, sScratch, sStage, ldx, nseq, L, heads, causal);
+      attention_mma<16, SAFE>(sQ, sK, sV, sScratch, sStage, ldx, nseq, L, heads, causal);
   } else {
     if (d == 32)
-      attention_fma<32>(sQ, sK, sV, ldx, R, rows_valid, L, heads, causal);
+      attention_fma<32, SAFE>(sQ, sK, sV, ldx, R, rows_valid, L, heads, causal);
     else if (d == 64)
-      attention_fma<64>(sQ, sK, sV, ldx, R, rows_valid, L, heads, causal);
+      attention_fma<64, SAFE>(sQ, sK, sV, ldx, R, rows_valid, L, heads, causal);
     else
-      attention_fma<16>(sQ, sK, sV, ldx, R, rows_valid, L, heads, causal);
+      attention_fma<16, SAFE>(sQ, sK, sV, ldx, R, rows_valid, L, heads, causal);
   }
   __syncthreads();
   PHASE(6);
@@ -631,7 +637,8 @@ template <int RT, class RowMap>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_block_kernel(const bf16* x, bf16* y, Params P, RowMap rm, int n_seqs, int seqs_per_tile,
                    int L, int C, int HID, int heads, int causal) {
-  block_tile<RT>(x, y, P, rm, rm, blockIdx.x, n_seqs, seqs_per_tile, L, C, HID, heads, causal);
+  block_tile<RT, false>(x, y, P, rm, rm, blockIdx.x, n_seqs, seqs_per_tile, L, C, HID, heads,
+                       causal);
 }
 
 // ---- the chain: a run of blocks in one cooperative launch ------------------
@@ -653,10 +660,10 @@ struct ChainArgs {
 
 // Inlined on purpose: as a function of its own the tile body keeps its wmma
 // fragments in a stack frame and runs slower, although it then spills less.
-template <int RT>
+template <int RT, bool SAFE>
 __device__ __forceinline__ void chain_tile(const bf16* x, bf16* y, const ChainStep& s, int tile,
                                            int C, int HID, int heads) {
-  block_tile<RT>(x, y, s.P, s.in, s.out, tile, s.n_seqs, s.seqs_per_tile, s.L, C, HID, heads,
+  block_tile<RT, SAFE>(x, y, s.P, s.in, s.out, tile, s.n_seqs, s.seqs_per_tile, s.L, C, HID, heads,
                  s.causal);
 }
 
@@ -664,6 +671,7 @@ __device__ __forceinline__ void chain_tile(const bf16* x, bf16* y, const ChainSt
 // then all CTAs meet at a grid barrier (which orders block i's global writes
 // before block i + 1's reads) and go on to block i + 1.  A block never reads
 // the buffer it writes.
+template <bool SAFE>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_chain_kernel(const __grid_constant__ ChainArgs A, int C, int HID, int heads) {
   cg::grid_group grid = cg::this_grid();
@@ -674,10 +682,10 @@ fused_chain_kernel(const __grid_constant__ ChainArgs A, int C, int HID, int head
     const int n_tiles = (s.n_seqs + s.seqs_per_tile - 1) / s.seqs_per_tile;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
       switch (s.rt) {
-        case 1: chain_tile<1>(x, y, s, tile, C, HID, heads); break;
-        case 2: chain_tile<2>(x, y, s, tile, C, HID, heads); break;
-        case 3: chain_tile<3>(x, y, s, tile, C, HID, heads); break;
-        default: chain_tile<4>(x, y, s, tile, C, HID, heads); break;
+        case 1: chain_tile<1, SAFE>(x, y, s, tile, C, HID, heads); break;
+        case 2: chain_tile<2, SAFE>(x, y, s, tile, C, HID, heads); break;
+        case 3: chain_tile<3, SAFE>(x, y, s, tile, C, HID, heads); break;
+        default: chain_tile<4, SAFE>(x, y, s, tile, C, HID, heads); break;
       }
       __syncthreads();  // the tile's shared memory is free for the next tile
     }
@@ -752,9 +760,11 @@ int launch(const void* x, void* y, const void* const* w, RowMap rm, int n_seqs, 
 // read map and the write map as (per, n2, sb, s1, s2, sa) each.
 constexpr int kChainPlanInts = 15;
 
+template <bool SAFE>
 int launch_chain(const void* x, void* y, void* buf0, void* buf1, const void* const* w,
                  const int* plan, int n_steps, int C, int HID, int heads, int device,
                  void* stream) {
+  auto kernel = fused_chain_kernel<SAFE>;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n_steps < 1 || n_steps > kMaxChainBlocks || !head_dim_ok(C, heads))
@@ -795,20 +805,18 @@ int launch_chain(const void* x, void* y, void* buf0, void* buf1, const void* con
     const int tiles = (s.n_seqs + seqs - 1) / seqs;
     if (tiles > max_tiles) max_tiles = tiles;
   }
-  err = cudaFuncSetAttribute(fused_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   // A cooperative grid must be co-resident: size it from the occupancy at
   // the real dynamic shared memory.
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_chain_kernel, kThreads,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   int grid = per_sm * sms;
   if (grid > max_tiles) grid = max_tiles;
   void* args[] = {&A, &C, &HID, &heads};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fused_chain_kernel), dim3(grid),
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid),
                                     dim3(kThreads), args, smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
@@ -860,7 +868,7 @@ __device__ __forceinline__ void load_rows(const bf16* x, bf16* sX, int ldx, int 
 // One tile of whole length-L sequences of (S, L, C): LN1, the local q/k/v
 // (CA columns, heads local heads of d = CA / heads), attention, and the
 // out-projection partial (K = CA, N = C).
-template <int RT>
+template <int RT, bool SAFE>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_half_kernel(const bf16* x, bf16* y, HalfParams P, int n_seqs, int seqs_per_tile, int L,
                  int C, int CA, int heads, int causal) {
@@ -890,18 +898,18 @@ attn_half_kernel(const bf16* x, bf16* y, HalfParams P, int n_seqs, int seqs_per_
   if (L % 16 == 0) {
     const int nseq = rows_valid / L;
     if (d == 32)
-      attention_mma<32>(sQ, sK, sV, sScratch, sStage, lda, nseq, L, heads, causal);
+      attention_mma<32, SAFE>(sQ, sK, sV, sScratch, sStage, lda, nseq, L, heads, causal);
     else if (d == 64)
-      attention_mma<64>(sQ, sK, sV, sScratch, sStage, lda, nseq, L, heads, causal);
+      attention_mma<64, SAFE>(sQ, sK, sV, sScratch, sStage, lda, nseq, L, heads, causal);
     else
-      attention_mma<16>(sQ, sK, sV, sScratch, sStage, lda, nseq, L, heads, causal);
+      attention_mma<16, SAFE>(sQ, sK, sV, sScratch, sStage, lda, nseq, L, heads, causal);
   } else {
     if (d == 32)
-      attention_fma<32>(sQ, sK, sV, lda, R, rows_valid, L, heads, causal);
+      attention_fma<32, SAFE>(sQ, sK, sV, lda, R, rows_valid, L, heads, causal);
     else if (d == 64)
-      attention_fma<64>(sQ, sK, sV, lda, R, rows_valid, L, heads, causal);
+      attention_fma<64, SAFE>(sQ, sK, sV, lda, R, rows_valid, L, heads, causal);
     else
-      attention_fma<16>(sQ, sK, sV, lda, R, rows_valid, L, heads, causal);
+      attention_fma<16, SAFE>(sQ, sK, sV, lda, R, rows_valid, L, heads, causal);
   }
   __syncthreads();
   gemm<RT>(sQ, lda, P.p[A_WO], nullptr, CA, C, sStage, sRing,
@@ -942,6 +950,7 @@ int optin_smem(int device, int* optin) {
   return cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }
 
+template <bool SAFE>
 int launch_attn_half(const void* x, void* y, const void* const* w, int n_seqs, int L, int C,
                      int CA, int heads, int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -967,7 +976,7 @@ int launch_attn_half(const void* x, void* y, const void* const* w, int n_seqs, i
   const int grid = (n_seqs + seqs - 1) / seqs;
 #define TANTE_ATTN_HALF(RT)                                                                    \
   {                                                                                            \
-    auto k = attn_half_kernel<RT>;                                                             \
+    auto k = attn_half_kernel<RT, SAFE>;                                                       \
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);    \
     if (err != cudaSuccess) return err;                                                        \
     k<<<grid, kThreads, smem, st>>>(xb, yb, P, n_seqs, seqs, L, C, CA, heads, causal);        \
@@ -1025,14 +1034,9 @@ int launch_mlp_half(const void* x, void* y, const void* const* w, int M, int C, 
 
 extern "C" {
 
-// x, y: (S, L, C) bf16; w: host array of the 16 BlockParams device pointers
-// (bf16, wq/bq prescaled).  Returns a cudaError_t (0 = launched).
-int tante_fused_block_fwd(const void* x, void* y, const void* const* w, int n_seqs, int L,
-                          int C, int HID, int heads, int causal, int device, void* stream) {
-  return launch(x, y, w, SeqRows{L, C}, n_seqs, L, C, HID, heads, causal, device, stream);
-}
-
-// x, y: (B, T, H, W, C) bf16, HW = H*W; causal over T.
+// x, y: (B, T, H, W, C) bf16, HW = H*W; causal over T; w: host array of the
+// 16 BlockParams device pointers (bf16, wq/bq prescaled).  Returns a
+// cudaError_t (0 = launched).
 int tante_fused_block_canon_t_fwd(const void* x, void* y, const void* const* w, int B, int T,
                                   int HW, int C, int HID, int heads, int device, void* stream) {
   return launch(x, y, w, CanonTRows{T, HW, C}, B * HW, T, C, HID, heads, 1, device, stream);
@@ -1044,9 +1048,10 @@ int tante_fused_block_canon_t_fwd(const void* x, void* y, const void* const* w, 
 // (unused for n_steps == 1 / 2); w: host array of n_steps * 16 device
 // pointers; plan: host array of n_steps * 15 ints (see launch_chain).
 int tante_fused_chain_fwd(const void* x, void* y, void* buf0, void* buf1, const void* const* w,
-                          const int* plan, int n_steps, int C, int HID, int heads, int device,
-                          void* stream) {
-  return launch_chain(x, y, buf0, buf1, w, plan, n_steps, C, HID, heads, device, stream);
+                          const int* plan, int n_steps, int C, int HID, int heads, int safe,
+                          int device, void* stream) {
+  return (safe ? launch_chain<true> : launch_chain<false>)(x, y, buf0, buf1, w, plan, n_steps, C,
+                                                           HID, heads, device, stream);
 }
 
 // Tensor-parallel attention half: x (S, L, C) bf16 -> y (S, L, C) bf16, the
@@ -1054,8 +1059,9 @@ int tante_fused_chain_fwd(const void* x, void* y, void* buf0, void* buf1, const 
 // (ln1_scale, ln1_bias, wq, bq, wk, bk, wv, bv, wo), wq/wk/wv (C, CA), wo
 // (CA, C), wq/bq prescaled by d^-0.5*log2(e); `heads` local heads.
 int tante_attn_half_fwd(const void* x, void* y, const void* const* w, int n_seqs, int L, int C,
-                        int CA, int heads, int causal, int device, void* stream) {
-  return launch_attn_half(x, y, w, n_seqs, L, C, CA, heads, causal, device, stream);
+                        int CA, int heads, int causal, int safe, int device, void* stream) {
+  return (safe ? launch_attn_half<true> : launch_attn_half<false>)(x, y, w, n_seqs, L, C, CA,
+                                                                   heads, causal, device, stream);
 }
 
 // Tensor-parallel MLP half: x (M, C) bf16 -> y (M, C) bf16, the rank's

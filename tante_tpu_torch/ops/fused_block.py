@@ -4,8 +4,11 @@ Five entry points carry every attention block of the TANTE paths:
 
 - ``fused_block_apply(x, p, l, heads, causal)``: the whole pre-LN block on
   ``(S, L, C)`` rows (the H and W blocks, and the T block outside the
-  canonical gate).  CUDA kernel ``fused_block_fwd`` replaces the Pallas
-  kernel reached by ``fused_block_apply`` (``pallas_block.py:208``).
+  canonical gate).  CUDA kernel ``fused_block_fwd`` (``csrc/fused_block_sm90.cu``:
+  wgmma, a producer warp streaming the weights with ``cp.async.bulk``)
+  replaces the Pallas kernel reached by ``fused_block_apply``
+  (``pallas_block.py:208``).  Its weights are re-laid once per weight
+  version (``sm90_weights``).
 - ``fused_block_canon_t(x5, p, heads)``: the causal T block straight on the
   canonical ``(B, T, H, W, C)`` tensor with no transpose on either side.
   CUDA kernel ``fused_block_canon_t_fwd`` replaces ``fused_block_canon_t``
@@ -26,8 +29,8 @@ Five entry points carry every attention block of the TANTE paths:
   reached by ``fused_block_apply_tp`` (``pallas_block.py:890``, through
   ``_pallas_rowtile``: ``_attn_half_kernel`` / ``_mlp_half_kernel``).
 
-The kernels live in ``csrc/fused_block.cu`` and are built on first use by
-``_build.py``.  Each wrapper takes its plain PyTorch version (``block_ref``,
+The other kernels live in ``csrc/fused_block.cu`` (one tile body,
+``block_tile``); both sources are built on first use by ``_build.py``.  Each wrapper takes its plain PyTorch version (``block_ref``,
 ``canon_t_ref``, ``chain_ref``, ``group_ref``: the JAX package's
 ``_xla_block`` / ``_canon_t_ref`` / ``_chain_ref`` / ``_xla_group``) only
 for a tensor on the CPU; a CUDA tensor launches the kernel or raises.  Each
@@ -39,17 +42,21 @@ needs a gradient the launch is wrapped in one ``torch.autograd.Function``
 that saves ``x`` and the parameters and, in backward, recomputes the plain
 version under ``torch.enable_grad()`` and pulls the cotangent through it.
 
-Kernel numerics are the Pallas kernel's "fast" softmax: ``d**-0.5 * log2(e)``
-folded into ``wq``/``bq`` once per launch, ``exp2(min(s, 60*log2(e)))`` with
-no max-subtract, normalisation after the AV product with a ``+1e-30``
-guard; bf16 activations and weights, f32 LayerNorm, softmax, GELU and
-accumulators.
+Kernel numerics are the Pallas kernel's: ``d**-0.5 * log2(e)`` folded into
+``wq``/``bq``, the "fast" softmax ``exp2(min(s, 60*log2(e)))`` with no
+max-subtract by default, or under ``set_block_tuning(softmax="safe")`` the
+masked f32 softmax with max-subtract ``exp2(s - max)`` (every kernel but the
+canonical T block, whose gate then closes, as in the JAX package);
+normalisation after the AV product with a ``+1e-30`` guard; bf16 activations
+and weights, f32 LayerNorm, softmax, GELU and accumulators.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import weakref
 from typing import Callable, NamedTuple, Sequence
 
 import torch
@@ -64,6 +71,25 @@ KERNEL_MAX_L = 64
 # widths the kernel holds in registers.
 KERNEL_MAX_C = 512
 KERNEL_HEAD_DIMS = (16, 32, 64)
+
+# The softmax of the block kernels (``pallas_block.py:_TUNE``): "fast" (the
+# default) or "safe".  JAX's ``row_tile`` knob tiles for the TPU and has no
+# counterpart here.
+_TUNE = {"softmax": "fast"}
+
+
+def set_block_tuning(softmax: str | None = None):
+    """Choose the block kernels' softmax (``pallas_block.py:set_block_tuning``):
+    "fast" = exp2 of scores clamped at 60*log2(e), no max-subtract; "safe" =
+    masked f32 softmax with max-subtract.  Takes effect on the next call."""
+    if softmax is not None:
+        if softmax not in ("safe", "fast"):
+            raise ValueError(f"softmax must be 'safe' or 'fast', got {softmax!r}")
+        _TUNE["softmax"] = softmax
+
+
+def _safe() -> int:
+    return int(_TUNE["softmax"] == "safe")
 
 
 class BlockParams(NamedTuple):
@@ -134,9 +160,13 @@ def canon_t_ref(x5: torch.Tensor, p: BlockParams, heads: int) -> torch.Tensor:
 
 def canon_t_supported(t: int, h: int, w: int, c: int, heads: int) -> bool:
     """Geometry gate for the canonical T-block kernel (``pallas_block.py:349``):
-    2 <= T <= 8, C % 128 == 0, heads divides C.  The TPU gate's VMEM
-    estimate has no counterpart: the CUDA kernel tiles pixels, so no whole
-    batch element has to fit on chip."""
+    the "fast" softmax (the kernel has no "safe" form: under "safe" the T
+    block takes the rearranged ``fused_block_apply``), 2 <= T <= 8,
+    C % 128 == 0, heads divides C.  The TPU gate's VMEM estimate has no
+    counterpart: the CUDA kernel tiles pixels, so no whole batch element has
+    to fit on chip."""
+    if _TUNE["softmax"] != "fast":
+        return False
     return 2 <= t <= 8 and c % heads == 0 and c % 128 == 0
 
 
@@ -246,6 +276,146 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# --------------------------------------------------------------------------
+# The single-block kernel for Hopper (csrc/fused_block_sm90.cu)
+# --------------------------------------------------------------------------
+
+SM90_SLAB_K = 32        # K rows of one weight slab
+SM90_QKV_N = 192        # q|k|v columns of one head group (64 columns each)
+SM90_QKV_LD = SM90_QKV_N + 8
+SM90_MAX_STAGES = 4
+# Dynamic shared memory a CTA may opt into on an H100 (the kernel checks the
+# device's own figure and refuses a plan that does not fit).
+SMEM_OPTIN = 232448
+
+
+class Sm90Plan(NamedTuple):
+    rows: int      # R: rows of a tile (64 or 128), whole sequences
+    seqs: int      # sequences per tile
+    np: tuple      # column pass widths of the qkv, out-projection, fc1, fc2 matmuls
+    stages: int    # weight slabs in the ring
+
+    def ints(self) -> list:
+        return [self.rows, self.seqs, *self.np, self.stages]
+
+
+def _pass_width(n: int) -> int:
+    """Columns a matmul pass takes: all of N up to 192 (a warpgroup holds at
+    most three 64-column f32 accumulators), else 128 or 64, whichever divides
+    N.  Narrow passes keep the slabs small, so more of them are in flight."""
+    return n if n <= 192 else 128 if n % 128 == 0 else 64
+
+
+def sm90_smem(rows: int, c: int, hidden: int, np: tuple, stages: int) -> int:
+    """Shared memory bytes of a plan (``fused_block_sm90.cu:layout``): the
+    LN1 output and the q|k|v tile (later the MLP hidden), the attention output
+    (later the LN2 output), the slab ring and its barriers."""
+    xn, qkv = rows * c * 2, rows * SM90_QKV_LD * 2
+    a = max(rows * hidden * 2, xn + qkv)
+    return a + rows * c * 2 + stages * SM90_SLAB_K * max(np) * 2 + 2 * SM90_MAX_STAGES * 8
+
+
+@functools.lru_cache(maxsize=64)
+def sm90_plan(l: int, c: int, hidden: int) -> Sm90Plan | None:
+    """The tile plan for sequences of length ``l``: 128-row tiles (two
+    warpgroups of 64 rows) when they fit the shared memory with at least two
+    slabs in flight, else 64 rows; as many slabs as fit, up to four.  None
+    outside the kernel's envelope."""
+    if not (1 <= l <= KERNEL_MAX_L and c % 64 == 0 and 0 < c <= KERNEL_MAX_C
+            and hidden % 64 == 0 and 0 < hidden <= 2 * c):
+        return None
+    np = (SM90_QKV_N, _pass_width(c), _pass_width(hidden), _pass_width(c))
+    for rows in (128, 64):
+        if rows < l or (rows == 128 and c > 256):  # a 128-row LayerNorm holds C <= 256
+            continue
+        for stages in range(SM90_MAX_STAGES, 1, -1):
+            if sm90_smem(rows, c, hidden, np, stages) <= SMEM_OPTIN:
+                return Sm90Plan(rows, rows // l, np, stages)
+    return None
+
+
+def arrange_weight(w: torch.Tensor, np: int) -> torch.Tensor:
+    """(K, N) -> the slabs the kernel streams, flat: pass after pass of ``np``
+    columns, in each pass K / 32 slabs, each slab in wgmma's K-major core-
+    matrix layout (8 output columns x 8 K rows per 128-byte core matrix, core
+    (n/8, k/8) at ((n/8) * 4 + k/8) * 64 elements)."""
+    k, n = w.shape
+    t = w.reshape(k // SM90_SLAB_K, SM90_SLAB_K // 8, 8, n // np, np // 8, 8)
+    return t.permute(3, 0, 4, 1, 5, 2).reshape(-1)
+
+
+class Sm90Weights(NamedTuple):
+    ln1_scale: torch.Tensor
+    ln1_bias: torch.Tensor
+    bqkv: torch.Tensor   # (C/64 * 192,): each head group's bq (prescaled) | bk | bv
+    bo: torch.Tensor
+    ln2_scale: torch.Tensor
+    ln2_bias: torch.Tensor
+    b1: torch.Tensor
+    b2: torch.Tensor
+    slabs: torch.Tensor  # every weight slab of a tile's schedule, in order
+
+
+def qkv_groups(p: BlockParams, heads: int) -> tuple[list, torch.Tensor]:
+    """Per head group (64 columns: 64/d heads), the (C, 192) weight
+    [wq | wk | wv] with d**-0.5*log2(e) folded into wq, and all groups'
+    [bq | bk | bv] biases in one vector (``pallas_block.py:147-151``)."""
+    c = p.wq.shape[0]
+    qs = (c // heads) ** -0.5 * LOG2E
+    # bf16 * scalar multiplies in f32 and rounds once: (w.f32 * qs).bf16.
+    wq, bq = p.wq * qs, p.bq * qs
+    cols = [slice(g, g + 64) for g in range(0, c, 64)]
+    ws = [torch.cat([wq[:, s], p.wk[:, s], p.wv[:, s]], dim=1) for s in cols]
+    bs = torch.cat([torch.cat([bq[s], p.bk[s], p.bv[s]]) for s in cols])
+    return ws, bs
+
+
+def _arrange(p: BlockParams, heads: int, plan: Sm90Plan) -> Sm90Weights:
+    ws, bqkv = qkv_groups(p, heads)
+    np_qkv, np_o, np_1, np_2 = plan.np
+    slabs = torch.cat([*(arrange_weight(w, np_qkv) for w in ws), arrange_weight(p.wo, np_o),
+                       arrange_weight(p.w1, np_1), arrange_weight(p.w2, np_2)])
+    return Sm90Weights(p.ln1_scale, p.ln1_bias, bqkv, p.bo, p.ln2_scale, p.ln2_bias, p.b1,
+                       p.b2, slabs)
+
+
+def _state(t: torch.Tensor) -> tuple:
+    """What a re-laid copy of ``t`` depends on besides its identity: the
+    version counter (in-place updates) and the storage address (``.data``
+    swaps, as ``Module.to`` makes, keep the identity and the counter)."""
+    try:
+        version = t._version
+    except RuntimeError:  # an inference tensor keeps no version counter
+        version = None
+    return version, t.data_ptr()
+
+
+# Re-laid weights by the identity and state of the 16 tensors they came
+# from: serving re-lays each block once; a weight updated in place (an
+# optimizer step), given new storage, or a new tensor (a cast made per call)
+# is re-laid again.
+_SM90_CACHE: collections.OrderedDict = collections.OrderedDict()
+SM90_CACHE_SIZE = 64
+
+
+def sm90_weights(p: BlockParams, heads: int, plan: Sm90Plan) -> Sm90Weights:
+    """The kernel's weights for ``p``, re-laid once per weight version."""
+    key = (tuple(id(t) for t in p), heads, plan)
+    hit = _SM90_CACHE.get(key)
+    if hit is not None:
+        refs, versions, w = hit
+        if all(r() is t for r, t in zip(refs, p)) and versions == tuple(_state(t) for t in p):
+            _SM90_CACHE.move_to_end(key)
+            return w
+    with torch.no_grad():
+        w = _arrange(p, heads, plan)
+    _SM90_CACHE[key] = (tuple(weakref.ref(t) for t in p), tuple(_state(t) for t in p), w)
+    _SM90_CACHE.move_to_end(key)
+    while len(_SM90_CACHE) > SM90_CACHE_SIZE:
+        _SM90_CACHE.popitem(last=False)
+    return w
+
+
 def fused_block_apply(
     x: torch.Tensor, p: BlockParams, l: int, heads: int, causal: bool
 ) -> torch.Tensor:
@@ -261,11 +431,16 @@ def fused_block_apply(
         (p,) = ps
         s, _, c = x.shape
         _check_kernel_args(x, p, l, heads)
+        hidden = p.w1.shape[-1]
+        plan = sm90_plan(l, c, hidden)
+        if plan is None:
+            raise ValueError(f"no tile plan for L={l}, C={c}, hidden={hidden}")
         out = torch.empty_like(x)
-        scaled = _prescaled(p, heads)  # alive until the launch is enqueued
-        rc = _build.load().tante_fused_block_fwd(
-            x.data_ptr(), out.data_ptr(), _ptr_array([scaled]), s, l, c,
-            p.w1.shape[-1], heads, int(bool(causal)), x.device.index, _stream(x),
+        w = sm90_weights(p, heads, plan)
+        plan_ints = plan.ints()
+        rc = _build.load("fused_block_sm90").tante_fused_block_sm90_fwd(
+            x.data_ptr(), out.data_ptr(), _ptr_array([w]), (ctypes.c_int * 7)(*plan_ints), s,
+            l, c, hidden, heads, int(bool(causal)), _safe(), x.device.index, _stream(x),
         )
         _raise_on(rc, "fused_block_fwd")
         fused_block_apply.launches += 1
@@ -434,8 +609,8 @@ def _launch_chain(x: torch.Tensor, params_seq, axes: str, heads: int, dims, star
     scaled = [_prescaled(p, heads) for p in params_seq]
     rc = _build.load().tante_fused_chain_fwd(
         x.data_ptr(), out.data_ptr(), *bufs, _ptr_array(scaled),
-        (ctypes.c_int * len(flat))(*flat), len(axes), c, hidden, heads, x.device.index,
-        _stream(x),
+        (ctypes.c_int * len(flat))(*flat), len(axes), c, hidden, heads, _safe(),
+        x.device.index, _stream(x),
     )
     _raise_on(rc, "fused_chain_fwd")
     return out
@@ -589,7 +764,7 @@ def attn_half_apply(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
         scaled = p._replace(wq=p.wq * qs, bq=p.bq * qs)  # alive until enqueued
         rc = _build.load().tante_attn_half_fwd(
             x.data_ptr(), out.data_ptr(), _ptr_array([scaled]), x.numel() // (l * c), l, c, ca,
-            heads, int(bool(causal)), x.device.index, _stream(x),
+            heads, int(bool(causal)), _safe(), x.device.index, _stream(x),
         )
         _raise_on(rc, "attn_half_fwd")
         attn_half_apply.launches += 1

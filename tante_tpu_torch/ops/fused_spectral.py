@@ -33,12 +33,20 @@ plain version.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Tuple
 
 import torch
 
 KERNEL_MAX_MODE_DIMS = 3
 _GEOM = ctypes.c_longlong * 21
+_TILE = ctypes.c_int * 6
+# Warps the tile plan aims at, about eight on each of the H100's 132 SMs:
+# latency, not bytes or FMAs, decides these small shapes, and the more loads
+# are in flight the less of it shows (the templates measured on the card:
+# tante_tpu_torch/tools/spectral_tiles.py).
+TARGET_WARPS = 1024
+OUT_PER_THREAD = 4  # output channels a kernel thread owns (kOT)
 
 
 def spectral_mode_matmul_ref(x_re, x_im, w_re, w_im) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -61,11 +69,65 @@ def _check_shapes(x_re, x_im, w_re, w_im):
             f"{tuple(w_im.shape)}")
 
 
-def mode_fast(w: torch.Tensor) -> bool:
-    """Whether a mode axis (not Cout) is the fastest axis of the weight view
-    ``(*modes, Cin, Cout)``: the kernel runs a warp's lanes along that axis."""
-    strides = [s for s, n in zip(w.stride()[:-2], w.shape[:-2]) if n > 1]
-    return bool(strides) and w.shape[-1] > 1 and min(strides) < w.stride(-1)
+def tile_plan(b: int, m: int, ci: int, co: int) -> tuple[int, int, int]:
+    """The kernel's template for this geometry: (LO, BT, KS) = lanes along
+    output channels (1 when Cout <= 4, else 2), batch entries per thread (4 or
+    2) and warps splitting the input channels (1, 2, 4 or 8, with at least two
+    2-channel chunks per warp).  The first of (KS 1, BT 4), (KS 1, BT 2),
+    (KS 2, BT 4), ... that gives ``TARGET_WARPS`` warps: at each split, BT 2
+    (each weight read by twice the threads) before a longer split (a longer
+    reduction); BT 4 needs more than 2 batch entries and a split below 8.
+    At the main path's shapes this is the fastest template of the sweep
+    ``tools/spectral_tiles.py`` measured."""
+    lo = 1 if co <= OUT_PER_THREAD else 2
+    chunks = (ci + 1) // 2
+    tile = None
+    for ks in (1, 2, 4, 8):
+        if ks > 1 and chunks < 2 * ks:
+            break
+        for bt in ((4, 2) if b > 2 and ks < 8 else (2,)):
+            tile = (lo, bt, ks)
+            if kernel_warps(b, m, co, tile) >= TARGET_WARPS:
+                return tile
+    return tile
+
+
+def kernel_grid(b: int, m: int, co: int, tile: tuple) -> tuple[int, int, int]:
+    """(mode tiles, cout tiles, batch tiles) of a launch: a CTA covers
+    32 / LO mode pairs x 4 * LO output channels x BT batch entries."""
+    lo, bt, _ = tile
+    pairs = (m + 1) // 2
+    return (-(-pairs // (32 // lo)), -(-co // (OUT_PER_THREAD * lo)), -(-b // bt))
+
+
+def kernel_warps(b: int, m: int, co: int, tile: tuple) -> int:
+    mt, ot, bt = kernel_grid(b, m, co, tile)
+    return mt * ot * bt * tile[2]
+
+
+def _aligned(t: torch.Tensor, elems: int) -> bool:
+    return t.data_ptr() % (4 * elems) == 0
+
+
+def vector_flags(x_re, x_im, w_re, w_im, out_re, out_im) -> tuple[int, int, int]:
+    """(wvec, xvec, ovec): the weight's modes flat at stride 2 with im one
+    element after re, 16-byte aligned (the stored layout: one float4 holds
+    both modes of a pair); x channel-fastest with an even Cin, 8-byte aligned;
+    out channel-fastest, Cout % 4 == 0, 16-byte aligned."""
+    modes = w_re.shape[:-2]
+    stride, want = 2, True
+    for n, s in zip(reversed(modes), reversed(w_re.stride()[:-2])):
+        if n > 1 and s != stride:
+            want = False
+        stride *= n
+    m = math.prod(modes)
+    wvec = (want and m % 2 == 0 and w_im.data_ptr() == w_re.data_ptr() + 4
+            and _aligned(w_re, 4) and w_re.stride(-1) % 4 == 0 and w_re.stride(-2) % 4 == 0)
+    xvec = (x_re.stride(-1) == 1 and x_re.shape[-1] % 2 == 0 and _aligned(x_re, 2)
+            and _aligned(x_im, 2) and all(s % 2 == 0 for s in x_re.stride()[:-1]))
+    ovec = (out_re.stride(-1) == 1 and out_re.shape[-1] % 4 == 0 and _aligned(out_re, 4)
+            and _aligned(out_im, 4) and all(s % 4 == 0 for s in out_re.stride()[:-1]))
+    return int(wvec), int(xvec), int(ovec)
 
 
 def _empty_like_layout(x: torch.Tensor, c_out: int) -> torch.Tensor:
@@ -112,9 +174,11 @@ def _launch(x_re, x_im, w_re, w_im):
 
     geom = _GEOM(x_re.shape[0], *([1] * pad), *modes, x_re.shape[-1], c_out,
                  *strides5(x_re, 1), *strides5(w_re, 0), *strides5(out_re, 1))
+    tile = tile_plan(x_re.shape[0], math.prod(modes), x_re.shape[-1], c_out)
+    flags = vector_flags(x_re, x_im, w_re, w_im, out_re, out_im)
     rc = _build.load("spectral_matmul").tante_spectral_mode_matmul(
         x_re.data_ptr(), x_im.data_ptr(), w_re.data_ptr(), w_im.data_ptr(),
-        out_re.data_ptr(), out_im.data_ptr(), geom, int(mode_fast(w_re)),
+        out_re.data_ptr(), out_im.data_ptr(), geom, _TILE(*tile, *flags),
         x_re.device.index, torch.cuda.current_stream(x_re.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"spectral_mode_matmul: CUDA launch failed with cudaError {rc}")

@@ -11,12 +11,20 @@ mantissa bits and the kernel rounds q, k, v, the attention output, the fc1
 output and both residual sums to bf16 (a CPU emulation of those rounding
 points at these shapes gives a max error of 0.032 at |y| ~ 5).
 
-A chain of n blocks is held to two things: bit equality with the
-single-block kernels applied in sequence (same body, same rounding points:
-any difference is an addressing or synchronisation fault), and the f32 plain
-chain within CHAIN_ATOL[n] + 2e-2 |plain| (the error grows with depth as each
-block rounds its activations to bf16; the cases below read 0.058 at 3 blocks and
+A chain of n blocks is held to three things: bit equality with its own
+tile body run one block at a time in sequence (one-block group runs: same
+body, same rounding points, so any difference is an addressing or
+synchronisation fault), the single-block kernels in sequence within the
+block limit (the Hopper kernel of ``fused_block_apply`` has a body of its
+own and sums in another order), and the f32 plain chain within
+CHAIN_ATOL[n] + 2e-2 |plain| (the error grows with depth as each block
+rounds its activations to bf16; the cases below read 0.058 at 3 blocks and
 0.121 at 9 on an NVIDIA H100 80GB HBM3 at 700 W).
+
+Both softmax forms: the "safe" cases of the JAX package's on-chip test
+(``tests/test_pallas_tpu.py``, its geometries and 0.05-scaled weights) and
+every single-block case again under ``set_block_tuning(softmax="safe")``, at
+the same limit.
 
 Gradients of the autograd Functions (backward = the plain version
 recomputed in bf16) against ordinary autograd through the f32 plain version:
@@ -91,7 +99,7 @@ def f32(p):
     return fb.BlockParams(*(t.float() for t in p))
 
 
-@pytest.mark.parametrize("s,l,c,hidden,heads,causal", [
+BLOCK_CASES = [
     (1536, 16, 256, 256, 8, False),   # flagship H blocks
     (512, 48, 256, 256, 8, False),    # flagship W blocks
     (512, 48, 256, 256, 8, True),
@@ -101,7 +109,10 @@ def f32(p):
     (40, 8, 256, 512, 4, True),       # head dim 64, hidden = 2C
     (21, 3, 256, 256, 8, True),       # padded rows (63 of 64)
     (10, 16, 192, 128, 6, False),     # C and hidden not powers of two
-])
+]
+
+
+@pytest.mark.parametrize("s,l,c,hidden,heads,causal", BLOCK_CASES)
 def test_fused_block_kernel_matches_plain(cuda, s, l, c, hidden, heads, causal):
     p = params(c, hidden, seed=l + c, device=cuda)
     x = bf16_normal((s, l, c), seed=s, device=cuda)
@@ -131,12 +142,58 @@ def test_fused_block_canon_t_kernel_matches_plain(cuda, b, t, h, w, c, heads):
     torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
 
 
+@pytest.fixture
+def safe_softmax():
+    fb.set_block_tuning(softmax="safe")
+    try:
+        yield
+    finally:
+        fb.set_block_tuning(softmax="fast")
+
+
+@pytest.mark.parametrize("s,l,c,hidden,heads,causal", BLOCK_CASES)
+def test_fused_block_kernel_matches_plain_safe_softmax(cuda, safe_softmax, s, l, c, hidden, heads,
+                                                       causal):
+    test_fused_block_kernel_matches_plain(cuda, s, l, c, hidden, heads, causal)
+
+
+# tests/test_pallas_tpu.py GEOMETRIES: (rows, L, causal, softmax).
+@pytest.mark.parametrize("s,l,causal,softmax", [
+    (6144, 4, True, "safe"), (6144, 4, True, "fast"), (1536, 16, False, "safe"),
+    (512, 48, False, "safe"),
+])
+def test_fused_block_kernel_softmax_forms_match_plain(cuda, s, l, causal, softmax):
+    c, heads = 256, 8
+    rng = np.random.default_rng(l)
+    x = torch.from_numpy(rng.normal(size=(s, l, c)).astype(np.float32)).to(cuda, torch.bfloat16)
+    shapes = [(c,), (c,), (c, c), (c,), (c, c), (c,), (c, c), (c,), (c, c), (c,), (c,), (c,),
+              (c, c), (c,), (c, c), (c,)]
+    p = fb.BlockParams(*(torch.from_numpy(rng.normal(size=sh).astype(np.float32) * 0.05)
+                         .to(cuda, torch.bfloat16) for sh in shapes))
+    fb.set_block_tuning(softmax=softmax)
+    try:
+        got = fb.fused_block_apply(x, p, l, heads, causal)
+        torch.cuda.synchronize()
+    finally:
+        fb.set_block_tuning(softmax="fast")
+    want = fb.block_ref(x.float(), f32(p), l, heads, causal)
+    torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
+
+
 def test_kernel_refuses_what_it_cannot_hold(cuda):
     p = params(256, 256, seed=0, device=cuda)
     with pytest.raises(ValueError):  # f32 activations
         fb.fused_block_apply(torch.zeros(4, 16, 256, device=cuda), p, 16, 8, False)
     with pytest.raises(ValueError):  # sequence longer than a tile
         fb.fused_block_apply(bf16_normal((2, 96, 256), 0, cuda), p, 96, 8, False)
+
+
+def one_block_runs(x5, ps, axes, heads):
+    """The chain's tile body one block at a time (one-block group runs,
+    canonical in and out)."""
+    for axis, p in zip(axes, ps):
+        x5 = fb.fused_group_apply(x5, [p], axis, heads)
+    return x5
 
 
 def sequential(x5, ps, axes, heads):
@@ -188,13 +245,22 @@ def test_chain_kernel_matches_sequence_and_plain(cuda, b, t, h, w, c, heads, axe
     torch.cuda.synchronize()
     assert (fb.fused_group_apply.launches, fb.fused_chain_apply.launches) == (
         before[0] + 1, before[1] + 1)
+    runs = one_block_runs(x5, ps, axes, heads)
+    assert torch.equal(got5, runs)
+    assert torch.equal(got3, to_order(runs, axes[-1]))
     seq = sequential(x5, ps, axes, heads)
-    assert torch.equal(got5, seq)
-    assert torch.equal(got3, to_order(seq, axes[-1]))
+    torch.testing.assert_close(seq.float(), got5.float(), atol=ATOL, rtol=RTOL)
     want = fb.group_ref(x5.float(), [f32(p) for p in ps], axes, heads)
     err = float((got5.float() - want).abs().max())
     print(f"chain {axes} {tuple(x5.shape)}: max abs err vs f32 plain {err:.4f}")
     torch.testing.assert_close(got5.float(), want, atol=CHAIN_ATOL[len(axes)], rtol=RTOL)
+
+
+@pytest.mark.parametrize("b,t,h,w,c,heads,axes", [(8, 4, 16, 48, 256, 8, "THW"),
+                                                   (3, 2, 5, 7, 128, 4, "HW")])
+def test_chain_kernel_safe_softmax_matches_sequence_and_plain(cuda, safe_softmax, b, t, h, w, c,
+                                                              heads, axes):
+    test_chain_kernel_matches_sequence_and_plain(cuda, b, t, h, w, c, heads, axes)
 
 
 def test_chain_kernel_refuses_outside_its_envelope(cuda):
@@ -609,6 +675,11 @@ def test_tp_half_kernels_match_plain(cuda, tp, s, l, c, hidden, heads, causal):
     y = xm.float() + mlp_sum.to(torch.bfloat16).float() + p.b2.float()
     want = fb.block_ref(x.float(), f32(p), l, heads, causal)
     torch.testing.assert_close(y, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("s,l,causal", [(1536, 16, False), (6144, 4, True)])
+def test_tp_half_kernels_safe_softmax_match_plain(cuda, safe_softmax, s, l, causal):
+    test_tp_half_kernels_match_plain(cuda, 2, s, l, 256, 256, 8, causal)
 
 
 def test_tp_half_kernels_refuse_what_they_cannot_take(cuda):

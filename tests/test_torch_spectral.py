@@ -117,9 +117,19 @@ def test_mode_matmul_rejects_mismatched_operands():
 
 def test_kernel_tile_orientation_follows_the_weight_strides():
     stored = torch.zeros(5, 4, 3, 6, 2)  # (Cin, Cout, m1, m2, 2)
-    assert fs.mode_fast(stored[..., 0].permute(2, 3, 0, 1))      # modes fastest
-    assert not fs.mode_fast(torch.zeros(18, 5, 4))               # (M, Cin, Cout) contiguous
-    assert not fs.mode_fast(torch.zeros(1, 5, 4))                # a single mode
+    wr, wi = (stored[..., i].permute(2, 3, 0, 1) for i in (0, 1))
+    x = torch.zeros(2, 3, 6, 5)
+    out = torch.zeros(2, 3, 6, 4)
+    # The stored weight: modes flat at stride 2, im beside re -> float4 loads.
+    assert fs.vector_flags(x, x.clone(), wr, wi, out, out.clone()) == (1, 0, 1)
+    # (M, Cin, Cout) contiguous: modes are not the fastest axis.
+    w = torch.zeros(18, 5, 4)
+    assert fs.vector_flags(x, x, w, w.clone(), out, out)[0] == 0
+    # A cropped weight (m2 < stored m2) is not flat over its modes; nor an odd M.
+    assert fs.vector_flags(x, x, wr[:, :4], wi[:, :4], out, out)[0] == 0
+    assert fs.vector_flags(x, x, wr[:1, :5], wi[:1, :5], out, out)[0] == 0
+    # Channel-major x (B, K, C, L) seen as (B, K, L, C): no 2-channel loads.
+    assert fs.vector_flags(torch.zeros(2, 3, 6, 6).transpose(-1, -2), x, wr, wi, out, out)[1] == 0
     x = torch.zeros(2, 3, 5, 6).permute(0, 1, 3, 2)              # (B, K, L, C) view of (B, K, C, L)
     out = fs._empty_like_layout(x, 7)
     assert out.shape == (2, 3, 6, 7) and out.permute(0, 1, 3, 2).is_contiguous()
