@@ -7,20 +7,25 @@ script exits non-zero without the final result line):
 
 1. build    nvcc builds every kernel source of this checkout
             (``tante_tpu_torch/ops/csrc/fused_block_sm90.cu``,
-            ``fused_block.cu``, ``spectral_matmul.cu`` and
-            ``packed_attention.cu``, one nvcc each, started together); build
-            seconds, the ``-Xptxas -v`` summaries and each tile plan.
+            ``fused_chain_sm90.cu`` (both on the Hopper tile body of
+            ``block_sm90.cuh``), ``fused_block.cu``, ``spectral_matmul.cu``
+            and ``packed_attention.cu``, one nvcc each, started together);
+            build seconds, the ``-Xptxas -v`` summaries and each tile plan.
 2. kernel   each kernel against its plain PyTorch version (f32 from the
             same bf16 inputs) at the main paths' shapes, the single-block
             kernel also under the "safe" softmax (H, W, the rearranged causal
             T block); max abs error, tolerance, kernel / plain time (CUDA
             events) and the bound.  At H and W ``fused_block_fwd`` is timed in
-            turns with the PR-1 tile body on the same block (a one-block
-            ``fused_chain_apply`` run).  The chain kernel (run ``THW`` through
-            ``fused_chain_apply``, ``THWTHWTHW`` through ``fused_group_apply``)
-            is held bit for bit against its own body's one-block runs in
-            sequence, and the single-block kernels in sequence at the block
-            limit.
+            turns with the first design's tile body (``block_tile``, a
+            one-block run of its chain entry) on the same block.  The
+            canonical T kernel is held bit for bit against
+            ``fused_block_fwd`` on the rearranged tensor and timed in turns
+            with the first design's canonical T entry and against rearrange +
+            ``fused_block_fwd`` + rearrange.  The chain kernel (run ``THW``
+            through ``fused_chain_apply``, ``THWTHWTHW`` through
+            ``fused_group_apply``) is held bit for bit against the
+            single-block kernels in sequence, timed in turns with the first
+            design's chain entry and against that sequence.
 3. grad     gradients of sum(y**2) through the autograd Functions (block,
             canonical T block, chain) against ordinary autograd through
             the f32 plain versions; relative L2 error per tensor.
@@ -29,9 +34,10 @@ script exits non-zero without the final result line):
             counts (exactly 96 + 48 per rollout), frames/s, and a check
             against the CPU f32 model on one sample.  Then the same
             rollout with ``fused_chain=3`` (48 chain launches, no
-            single-block launch), held to the same check, and its relative L2
-            from the per-block rollout (the two paths' block kernels round in
-            different places).
+            single-block launch), held to the same check, and whether it
+            equals the per-block rollout (same tile body and rounding
+            points).  Each profiled rollout's kernel events are compared with
+            the wrappers' launch counts.
 5. adaptive the trained asset ``tante_tpu/assets/tante_flagship.npz``
             (deg=False) through ``Predictor.rollout_adaptive`` with K=8 on
             the synthetic-waves input; n_calls, r_t, frames/s, VRMSE and
@@ -95,7 +101,8 @@ script exits non-zero without the final result line):
             (dp 2, tp 1) and FNO at (dp 1, sp 2) against one rank, replicas equal after a dropout step, the tp
             checkpoint on one rank; seconds per step (two ranks sharing one card
             through gloo: not a tp speed).
-16. kernels one {"kernels": [...]} line (eight kernels).
+16. kernels one {"kernels": [...]} line (eight kernels; the block, canonical
+            T and chain rows with the first design's time, in turns).
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 result line {"ok": true, "device": {...}}.  Exits non-zero when no CUDA
@@ -108,6 +115,7 @@ import json
 import math
 import os
 import queue
+import re
 import subprocess
 import sys
 import tempfile
@@ -143,6 +151,7 @@ ROOT = Path(__file__).resolve().parent
 ASSET = ROOT / "tante_tpu" / "assets" / "tante_flagship.npz"
 SOURCE = "tante_tpu_torch/ops/csrc/fused_block.cu"
 SM90_SOURCE = "tante_tpu_torch/ops/csrc/fused_block_sm90.cu"
+CHAIN_SOURCE = "tante_tpu_torch/ops/csrc/fused_chain_sm90.cu"
 SPECTRAL_SOURCE = "tante_tpu_torch/ops/csrc/spectral_matmul.cu"
 PACKED_SOURCE = "tante_tpu_torch/ops/csrc/packed_attention.cu"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet, 700 W)
@@ -297,13 +306,14 @@ def phase_build() -> dict:
     seconds = time.perf_counter() - t0
     for kernel in info:
         _build.load(kernel)
-    plans = {f"L={l}": {"fused_block_sm90": fb.sm90_plan(l, C, C)._asdict(),
-                        "fused_block (chain, canonical T, tp halves)": _build.plan(l, C, C)}
+    plans = {f"L={l}": {"block_sm90 (block, canonical T, chain)": fb.sm90_plan(l, C, C)._asdict(),
+                        "fused_block (tp halves; first design)": _build.plan(l, C, C)}
              for l in (4, 16, 48)}
     emit({"phase": "build", "seconds": seconds, "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"], "ptxas": v["ptxas"]}
                         for k, v in info.items()},
-          "tile_plans": plans})
+          "tile_plans": plans,
+          "chain_argument_bytes": _build.load("fused_chain_sm90").tante_chain_sm90_args_bytes()})
     return info
 
 
@@ -354,11 +364,29 @@ KERNEL_CASES = [
 MAIN_BLOCK_CASES = ("H", "W")  # the fused_block_fwd headline: the H and W blocks
 
 
+def in_turns(kernel, before, iters: int) -> dict:
+    """Mean ms of ``kernel`` and of ``before`` (the first design's body on
+    the same inputs), timed in turns: kernel, before, before, kernel."""
+    k1, b1 = cuda_ms(kernel, iters=iters), cuda_ms(before, iters=iters)
+    b2, k2 = cuda_ms(before, iters=iters), cuda_ms(kernel, iters=iters)
+    return {"kernel_ms": (k1 + k2) / 2, "first_design_ms": (b1 + b2) / 2,
+            "kernel_ms_turns": [k1, k2], "first_design_ms_turns": [b1, b2]}
+
+
+def rearranged_t(x5: torch.Tensor, p: fb.BlockParams) -> torch.Tensor:
+    """The causal T block as rearrange + ``fused_block_fwd`` + rearrange."""
+    b, t, h, w, c = x5.shape
+    y = fb.fused_block_apply(to_t_order(x5), p, t, HEADS, True)
+    return y.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4).contiguous()
+
+
 def phase_kernels(dev) -> dict[str, list[dict]]:
-    """Each block kernel against its plain version; at H and W the Hopper
-    kernel is also timed in turns with the PR-1 tile body on the same block
-    (a one-block ``fused_chain_apply`` run: ``block_tile`` under the chain's
-    row maps), kernel, body, body, kernel."""
+    """Each block kernel against its plain version.  At H and W the Hopper
+    kernel is also timed in turns with the first design's tile body on the
+    same block (a one-block run of ``block_tile_chain``: ``block_tile``
+    under the chain's row maps), kernel, body, body, kernel; the canonical T
+    kernel likewise against ``block_tile_canon_t``, and against rearrange +
+    ``fused_block_fwd`` + rearrange, which it must equal bit for bit."""
     results: dict[str, list[dict]] = {}
     for i, (name, label, shape, causal, softmax) in enumerate(KERNEL_CASES):
         p = block_params(100 + i, dev)
@@ -386,33 +414,30 @@ def phase_kernels(dev) -> dict[str, list[dict]]:
                "causal": causal, "softmax": softmax, "max_abs_err": float(err.max()),
                "tolerance": f"|k - plain| <= {ATOL} + {RTOL}*|plain|", "ok": ok,
                "bound_us": 1e3 * b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes}
+        if name == "fused_block_canon_t_fwd":
+            bit_equal = bool(torch.equal(got, rearranged_t(x, p)))
+            check(bit_equal, "fused_block_canon_t_fwd differs from fused_block_fwd on the "
+                             "rearranged tensor")
+            res["ok"] = ok and bit_equal
+            res["equals_rearranged_fused_block_fwd_bit_for_bit"] = bit_equal
         if softmax == "fast":
             if label in MAIN_BLOCK_CASES:
-                body = lambda: fb.fused_chain_apply(x, [p], label, HEADS, (IN_T, 16, 48))  # noqa: E731
-                k1, b1 = cuda_ms(run, iters=50), cuda_ms(body, iters=50)
-                b2, k2 = cuda_ms(body, iters=50), cuda_ms(run, iters=50)
-                k_ms = (k1 + k2) / 2
-                res.update({"pr1_body_ms": (b1 + b2) / 2, "kernel_ms_turns": [k1, k2],
-                            "pr1_body_ms_turns": [b1, b2],
-                            "pr1_body": "fused_chain_apply, one block (block_tile)"})
+                body = lambda: fb.block_tile_chain(  # noqa: E731
+                    x, [p], label, HEADS, (IN_T, 16, 48), fb._ORDER[label], fb._ORDER[label])
+                res.update(in_turns(run, body, 50))
+                res["first_design"] = "block_tile_chain, one block (block_tile)"
+            elif name == "fused_block_canon_t_fwd":
+                res.update(in_turns(run, lambda: fb.block_tile_canon_t(x, p, HEADS), 50))
+                res["first_design"] = "block_tile_canon_t (block_tile)"
+                res["rearranged_fused_block_fwd_ms"] = cuda_ms(lambda: rearranged_t(x, p), 50)
             else:
-                k_ms = cuda_ms(run, iters=50)
-            res.update({"kernel_ms": k_ms, "plain_ms": cuda_ms(plain, iters=10, warmup=1),
-                        "achieved_tflops": flops / k_ms / 1e9})
+                res["kernel_ms"] = cuda_ms(run, iters=50)
+            res.update({"plain_ms": cuda_ms(plain, iters=10, warmup=1),
+                        "achieved_tflops": flops / res["kernel_ms"] / 1e9})
         emit(res)
         results.setdefault(name, []).append(res)
     fb.set_block_tuning(softmax="fast")
     return results
-
-
-def one_block_runs(x5: torch.Tensor, ps: list, axes: str) -> torch.Tensor:
-    """The chain's own tile body one block at a time: a one-block
-    ``fused_group_apply`` run per axis, canonical in and out, in sequence
-    (the same body and rounding points as a longer run)."""
-    x = x5
-    for axis, p in zip(axes, ps):
-        x = fb.fused_group_apply(x, [p], axis, HEADS)
-    return x
 
 
 def sequential(x5: torch.Tensor, ps: list, axes: str) -> torch.Tensor:
@@ -443,7 +468,9 @@ def f32_params(p: fb.BlockParams) -> fb.BlockParams:
 
 
 def phase_chain_kernels(dev) -> dict[str, dict]:
-    """The chain kernel through both wrappers at the flagship geometry."""
+    """The chain kernel through both wrappers at the flagship geometry: bit
+    for bit against the single-block kernels in sequence, and timed in turns
+    with the first design's chain entry on the same inputs."""
     shape = (BATCH, IN_T, 16, 48, C)
     dims, sizes = shape[1:4], dict(zip("THW", shape[1:4]))
     x5 = torch.from_numpy(np.random.default_rng(20).normal(size=shape).astype(np.float32))
@@ -455,11 +482,14 @@ def phase_chain_kernels(dev) -> dict[str, dict]:
         pf = [f32_params(p) for p in ps]
         if name == "fused_chain_apply":
             run = lambda: fb.fused_chain_apply(x3, ps, axes, HEADS, dims)  # noqa: E731
+            before = lambda: fb.block_tile_chain(  # noqa: E731
+                x3, ps, axes, HEADS, dims, fb._ORDER[axes[0]], fb._ORDER[axes[-1]])
             # Chain contract: T order in, W order (= canonical) out.
             as5 = lambda y: y.reshape(shape)  # noqa: E731
             plain = lambda: fb.chain_ref(x3.float(), pf, axes, HEADS, dims)  # noqa: E731
         else:
             run = lambda: fb.fused_group_apply(x5, ps, axes, HEADS)  # noqa: E731
+            before = lambda: fb.block_tile_chain(x5, ps, axes, HEADS, dims)  # noqa: E731
             as5 = lambda y: y  # noqa: E731
             plain = lambda: fb.group_ref(x5.float(), pf, axes, HEADS)  # noqa: E731
         got = as5(run())
@@ -468,30 +498,25 @@ def phase_chain_kernels(dev) -> dict[str, dict]:
         err = (got.float() - want).abs()
         atol = CHAIN_ATOL[len(axes)]
         close = bool(torch.isfinite(got).all()) and bool((err <= atol + RTOL * want.abs()).all())
-        bit_equal = bool(torch.equal(got, one_block_runs(x5, ps, axes)))
-        # The per-block path's kernels (the Hopper single-block kernel and the
-        # canonical T kernel) round in other places: held at the block limit.
         seq = sequential(x5, ps, axes)
-        seq_err = float((seq.float() - got.float()).abs().max())
-        seq_close = bool((( seq.float() - got.float()).abs()
-                          <= ATOL + RTOL * got.float().abs()).all())
+        bit_equal = bool(torch.equal(got, seq))
+        before_err = float((as5(before()).float() - want).abs().max())
         check(close, f"{name} {axes} disagrees with its plain version")
-        check(bit_equal, f"{name} {axes} differs from its body's one-block runs in sequence")
-        check(seq_close, f"{name} {axes}: the single-block kernels in sequence differ by {seq_err}")
+        check(bit_equal, f"{name} {axes} differs from the single-block kernels in sequence")
         rows = x5.numel() // C
         b_ms, b_by, flops, nbytes = bound(rows, [(sizes[a], a == "T", p) for a, p in zip(axes, ps)])
-        k_ms = cuda_ms(run, iters=20)
+        turns = in_turns(run, before, 20)
         seq_ms = cuda_ms(lambda: sequential(x5, ps, axes), iters=20)
         p_ms = cuda_ms(plain, iters=3, warmup=1)
         res = {"phase": "kernel", "name": "fused_chain_fwd", "wrapper": name, "case": axes,
                "shape": list(shape), "max_abs_err": float(err.max()),
-               "tolerance": f"|k - plain| <= {atol} + {RTOL}*|plain|",
-               "ok": close and bit_equal and seq_close,
-               "equals_one_block_runs_bit_for_bit": bit_equal,
-               "single_block_kernels_in_sequence_max_abs_diff": seq_err,
-               "kernel_ms": k_ms, "single_block_kernels_in_sequence_ms": seq_ms, "plain_ms": p_ms,
+               "tolerance": f"|k - plain| <= {atol} + {RTOL}*|plain|", "ok": close and bit_equal,
+               "equals_single_block_kernels_in_sequence_bit_for_bit": bit_equal, **turns,
+               "first_design": "block_tile_chain (block_tile, cooperative)",
+               "first_design_max_abs_err": before_err,
+               "single_block_kernels_in_sequence_ms": seq_ms, "plain_ms": p_ms,
                "bound_us": 1e3 * b_ms, "bound_by": b_by, "flops": flops, "bytes": nbytes,
-               "achieved_tflops": flops / k_ms / 1e9}
+               "achieved_tflops": flops / turns["kernel_ms"] / 1e9}
         emit(res)
         results[name] = res
     return results
@@ -573,7 +598,44 @@ def trace(fn, top: int = 8) -> dict:
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels": [{"name": e.key[:90], "count": e.count,
                          "ms": e.self_device_time_total / 1e3} for e in kernels[:top]],
+        "block_kernel_events": block_kernel_events(kernels),
     }
+
+
+# The block kernels' symbols, demangled or not: the single-block kernel's
+# last template flag says whether it ran under the canonical T row map.
+_BLOCK_KERNEL = re.compile(r"fused_block_sm90_kernel(?:<\d+, \w+, (\w+)>|ILi\d+ELb[01]ELb([01])E)")
+
+
+def block_kernel_events(kernels) -> dict:
+    """Kernel events of the Hopper block kernels in a profile, by wrapper."""
+    out = {"fused_block_fwd": 0, "fused_block_canon_t_fwd": 0, "fused_chain_fwd": 0}
+    for e in kernels:
+        m = _BLOCK_KERNEL.search(e.key)
+        if m:
+            strided = (m.group(1) or m.group(2)) in ("true", "1")
+            out["fused_block_canon_t_fwd" if strided else "fused_block_fwd"] += e.count
+        elif "fused_chain_sm90_kernel" in e.key:
+            out["fused_chain_fwd"] += e.count
+    return out
+
+
+def traced(fn, label: str, top: int = 8) -> dict:
+    """``trace`` of one call, with its block-kernel events held against the
+    wrappers' launch counts over the same call; a difference is reported
+    (the profiler has dropped events before), not failed."""
+    reset_counts()
+    prof = trace(fn, top)
+    c = launch_counts()
+    counted = {"fused_block_fwd": c["fused_block_fwd"],
+               "fused_block_canon_t_fwd": c["fused_block_canon_t_fwd"],
+               "fused_chain_fwd": c["fused_chain_apply"] + c["fused_group_apply"]}
+    prof["launches_counted"] = counted
+    prof["events_match_counts"] = prof["block_kernel_events"] == counted
+    if not prof["events_match_counts"]:
+        NOTES.append(f"{label}: the profiler listed {prof['block_kernel_events']} block-kernel "
+                     f"events where the wrappers counted {counted} launches")
+    return prof
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -642,7 +704,7 @@ def phase_fixed(dev) -> dict:
     check(shape_ok and finite, "fixed lane output shape / finiteness")
     tm = timed_rollouts(lambda: pred.rollout(x, N_STEPS, out_dtype=torch.bfloat16))
 
-    prof = trace(lambda: pred.rollout(x, N_STEPS, out_dtype=torch.bfloat16))
+    prof = traced(lambda: pred.rollout(x, N_STEPS, out_dtype=torch.bfloat16), "fixed")
     prof.update(host_split(lambda: pred.rollout(x, N_STEPS, out_dtype=torch.bfloat16)))
 
     # The same weights in f32 on the CPU (plain path), one sample, 2 steps:
@@ -679,23 +741,25 @@ def phase_chain_serving(pred: Predictor, x: torch.Tensor, y_per_block: torch.Ten
     check(launches == {"fused_block_fwd": 0, "fused_block_canon_t_fwd": 0,
                        "fused_chain_apply": 3 * N_STEPS, "fused_group_apply": 0},
           f"chain serving launches {launches}, want {3 * N_STEPS} chain launches only")
-    # The chain runs the PR-1 tile body, the per-block path the Hopper kernel:
-    # their rounding differs, so each rollout is held to the lane's check
-    # against the f32 model on the CPU, and their gap is reported.
+    # The chain and the per-block kernels run one tile body with the same
+    # rounding points: the two rollouts should be equal.  Each is held to the
+    # lane's check against the f32 model on the CPU; their gap is reported.
     mutual = rel_l2(y, y_per_block)
+    same = bool(torch.equal(y, y_per_block))
     x1 = x[:1]
     u = x1[:, -1:].cpu()
     err = rel_l2(pred.rollout(x1, 2).cpu() - u, fixed["cpu_f32_rollout"] - u)
     check(err <= ROLLOUT_REL_TOL, f"fixed lane with fused_chain=3 vs CPU f32: rel L2 {err}")
     tm = timed_rollouts(roll)
-    prof = trace(roll, top=4)
+    prof = traced(roll, "fixed_chain", top=4)
     prof.update(host_split(roll))
     set_fusion(pred.model)
     res = {"phase": "fixed_chain", "fused_chain": 3, "launches_per_rollout": launches,
            "launches_per_model_call": launches["fused_chain_apply"] // N_STEPS,
            "change_vs_cpu_f32_rel_l2": err, "rel_l2_tolerance": ROLLOUT_REL_TOL,
-           "vs_per_block_rollout_rel_l2": mutual, **lane_speed(tm),
-           "per_block_frames_per_s": fixed["frames_per_s"], "trace": prof}
+           "vs_per_block_rollout_rel_l2": mutual, "equals_per_block_rollout_bit_for_bit": same,
+           **lane_speed(tm), "per_block_frames_per_s": fixed["frames_per_s"],
+           "per_block_device_kernel_ms": fixed["trace"]["device_kernel_ms"], "trace": prof}
     emit(res)
     return res
 
@@ -2066,8 +2130,7 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
         main = [c for c in cases if c["case"] in (*MAIN_BLOCK_CASES, "T")]
         mean = lambda k: sum(c[k] for c in main) / len(main)  # noqa: E731
         row = {
-            "name": name, "route": "cuda",
-            "source": SM90_SOURCE if name == "fused_block_fwd" else SOURCE,
+            "name": name, "route": "cuda", "source": SM90_SOURCE,
             "replaces": replaces[name],
             "launches": fixed["launches_per_rollout"][name],
             "launches_counted_over": "one fixed 16-step rollout",
@@ -2077,11 +2140,13 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
             "library_ms": None,  # no single PyTorch call computes a whole block
             "ok": all(c["ok"] for c in cases),
             "per_shape": [{k: c.get(k) for k in (
-                "case", "shape", "softmax", "kernel_ms", "pr1_body_ms", "plain_ms", "bound_us",
+                "case", "shape", "softmax", "kernel_ms", "first_design_ms", "plain_ms", "bound_us",
                 "max_abs_err")} for c in cases],
+            # The same blocks on the first design's body, in turns on this card.
+            "first_design_ms": mean("first_design_ms"),
         }
-        if name == "fused_block_fwd":
-            row["pr1_body_ms"] = mean("pr1_body_ms")  # the same blocks on block_tile
+        if name == "fused_block_canon_t_fwd":
+            row["rearranged_fused_block_fwd_ms"] = mean("rearranged_fused_block_fwd_ms")
         out.append(row)
     val = train["validation"]
     per_call = {"fused_chain_apply": val["fused_chain=3"]["launches_per_model_call"],
@@ -2089,7 +2154,7 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
     for wrapper, c in chains.items():
         out.append({
             "name": f"fused_chain_fwd ({wrapper}, run {c['case']})", "route": "cuda",
-            "source": SOURCE, "replaces": replaces[wrapper],
+            "source": CHAIN_SOURCE, "replaces": replaces[wrapper],
             "launches": int(per_call[wrapper][wrapper]),
             "launches_counted_over": "one model call of the Trainer's validation loop",
             "max_abs_err": c["max_abs_err"], "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
@@ -2097,7 +2162,9 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
             "library_ms": None,  # no single PyTorch call computes a run of blocks
             "ok": c["ok"],
             "single_block_kernels_in_sequence_ms": c["single_block_kernels_in_sequence_ms"],
-            "equals_one_block_runs_bit_for_bit": c["equals_one_block_runs_bit_for_bit"],
+            "first_design_ms": c["first_design_ms"],
+            "equals_single_block_kernels_in_sequence_bit_for_bit":
+                c["equals_single_block_kernels_in_sequence_bit_for_bit"],
         })
     # Headline numbers of the mode-mixing kernel: mean over the shapes the
     # FNO serving paths give it, one launch each per model call.

@@ -3,8 +3,9 @@ with a plain C interface, bound with ``ctypes``.
 
 One library per source file of ``csrc/`` (``KERNELS``), each built on first
 use into ``build/kernels/`` at the repository root under a name that hashes
-its own source and flags: an edited source never loads a stale build, and
-an edit of one kernel file does not rebuild the other.  ``build()`` starts
+its own source, the headers of ``csrc/`` and the flags: an edited source
+never loads a stale build, and an edit of one kernel file does not rebuild
+another.  ``build()`` starts
 one ``nvcc`` per source that still has to be built, all together.  Nothing
 here runs at import time.
 """
@@ -78,7 +79,9 @@ def _start(kernel: str, name: str, extra_flags: Sequence[str]) -> dict:
     unless that exact source and flag set was built already."""
     source = CSRC / f"{kernel}.cu"
     flags = [*NVCC_FLAGS, *extra_flags]
-    tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    # The headers of csrc/ count as part of every source that may include them.
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"{name}_{tag}.so"
     job = {"so": so, "log": so.with_suffix(".log"), "t0": time.perf_counter(), "proc": None}
@@ -115,6 +118,13 @@ def compile_library(kernel: str, name: str | None = None, extra_flags: tuple = (
     """Build ``csrc/<kernel>.cu`` (a measurement copy under another ``name``
     and with extra flags, if given) and wait for it."""
     return _finish(_start(kernel, name or kernel, extra_flags))
+
+
+def compile_libraries(specs: Sequence[tuple]) -> list[dict]:
+    """``compile_library`` for each (kernel, name, extra_flags), one nvcc
+    each, all started together."""
+    jobs = [_start(kernel, name, flags) for kernel, name, flags in specs]
+    return [_finish(job) for job in jobs]
 
 
 def build(kernels: Sequence[str] | None = None) -> dict[str, dict]:
@@ -160,6 +170,19 @@ def _bind_fused_block_sm90(lib: ctypes.CDLL) -> None:
     lib.tante_fused_block_sm90_fwd.argtypes = [
         p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, i, i, i, p]
     lib.tante_fused_block_sm90_fwd.restype = i
+    lib.tante_fused_block_canon_t_sm90_fwd.argtypes = [
+        p, p, ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(i), i, i, i, i, i, i, p]
+    lib.tante_fused_block_canon_t_sm90_fwd.restype = i
+
+
+def _bind_fused_chain_sm90(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tante_fused_chain_sm90_fwd.argtypes = [
+        p, p, p, p, ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(i), i, i, i, i, i, p, i,
+        i, p]
+    lib.tante_fused_chain_sm90_fwd.restype = i
+    lib.tante_chain_sm90_args_bytes.argtypes = []
+    lib.tante_chain_sm90_args_bytes.restype = i
 
 
 def _bind_spectral_matmul(lib: ctypes.CDLL) -> None:
@@ -180,6 +203,7 @@ def _bind_packed_attention(lib: ctypes.CDLL) -> None:
 KERNELS: dict[str, Callable[[ctypes.CDLL], None]] = {
     "fused_block": _bind_fused_block,
     "fused_block_sm90": _bind_fused_block_sm90,
+    "fused_chain_sm90": _bind_fused_chain_sm90,
     "spectral_matmul": _bind_spectral_matmul,
     "packed_attention": _bind_packed_attention,
 }

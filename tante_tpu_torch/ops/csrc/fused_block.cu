@@ -1,39 +1,10 @@
-// Fused pre-LN axial transformer block for Hopper (sm_90a), bf16.
+// Fused pre-LN axial transformer block for Hopper (sm_90a), bf16: the first
+// design's tile body (block_tile, the first port of
+// tante_tpu/ops/pallas_block.py fused_block_apply).
 //
 //   y = x' + fc2(gelu_tanh(fc1(ln2(x'))))      x' = x + wo(attn(ln1(x)))
 //
-// The entry points share one tile body (block_tile, the first port of
-// tante_tpu/ops/pallas_block.py fused_block_apply, whose single-block entry
-// point is now the Hopper redesign in fused_block_sm90.cu) and differ only in
-// how a tile's rows are addressed in device memory (a RowMap):
-//
-//   tante_fused_block_canon_t_fwd  the causal T block on canonical
-//                                  (B, T, H, W, C): a sequence is one
-//                                  pixel's T steps, gathered at stride
-//                                  H*W*C; no transpose in device memory.
-//     Replaces tante_tpu/ops/pallas_block.py fused_block_canon_t
-//     (_roll_body).  The TPU kernel rolled k/v by delta*H*W rows because
-//     Mosaic cannot split lanes; here each CTA simply gathers P pixels x T
-//     steps as P sequences of length T.
-//
-//   tante_fused_chain_fwd         a run of T/H/W blocks on one (B, T, H, W, C)
-//                                  tensor in ONE cooperative launch: a
-//                                  persistent grid loops over the run's
-//                                  blocks, each block over its tiles, with a
-//                                  grid-wide barrier between blocks.
-//     Replaces tante_tpu/ops/pallas_block.py fused_chain_apply and
-//     fused_group_apply (one body, _group_kernel).  The TPU kernel keeps one
-//     batch element in VMEM and re-orders tokens between blocks with 0/1
-//     permutation matmuls; an SM cannot hold an element, so here every block
-//     of the run is the same tile body under a strided row map for its axis
-//     (the permutations become addressing) and activations ping-pong
-//     between two device buffers that stay L2-resident at the flagship size.
-//     The first load and the last store take the caller's token order (the
-//     chain contract: first axis's order in, last axis's order out).  Each
-//     block is bound by operations like a single launch, so the run's bound
-//     is the sum of its blocks' (bytes: x in, y out, every weight once).
-//     Rounding points are those of the single-block kernels, so the run
-//     equals those kernels applied in sequence bit for bit.
+// Its live entry points are the two tensor-parallel halves:
 //
 //   tante_attn_half_fwd / tante_mlp_half_fwd
 //                                  the two tensor-parallel halves of one
@@ -49,7 +20,26 @@
 //     ~6.6 (attention) / ~3.2 (MLP) GFLOP: both sit at the byte bound
 //     (~7.5 us), unlike the whole block.  This first design reuses the
 //     block's tile body (wmma, per-warp weight rings), so it is bound by the
-//     same per-tile latency; a persistent grid and wgmma are later work.
+//     same per-tile latency; the Hopper body (block_sm90.cuh) is later work.
+//
+// Two more entries run the same body under a row map (how a tile's rows
+// are addressed in device memory) and are on no model path any more: the
+// Hopper body took their place (fused_block_sm90.cu, fused_chain_sm90.cu).
+// They stay as the baseline the measurement scripts time the Hopper kernels
+// against, in turns on the same card (ops/fused_block.py:block_tile_canon_t,
+// block_tile_chain):
+//
+//   tante_fused_block_canon_t_fwd  the causal T block on canonical
+//                                  (B, T, H, W, C): each CTA gathers P
+//                                  pixels x T steps as P sequences of
+//                                  length T, at stride H*W*C.
+//   tante_fused_chain_fwd         a run of T/H/W blocks on one (B, T, H, W, C)
+//                                  tensor in ONE cooperative launch: a
+//                                  persistent grid loops over the run's
+//                                  blocks, each block over its tiles under a
+//                                  strided row map for its axis, with a
+//                                  grid-wide barrier (grid.sync) between
+//                                  blocks and two ping-pong device buffers.
 //
 // Numerics: q arrives prescaled by d^-0.5*log2(e) (folded into wq/bq by the
 // wrapper).  The Pallas "fast" softmax: scores are exp2(min(s, 60*log2 e))

@@ -4,23 +4,28 @@ Five entry points carry every attention block of the TANTE paths:
 
 - ``fused_block_apply(x, p, l, heads, causal)``: the whole pre-LN block on
   ``(S, L, C)`` rows (the H and W blocks, and the T block outside the
-  canonical gate).  CUDA kernel ``fused_block_fwd`` (``csrc/fused_block_sm90.cu``:
-  wgmma, a producer warp streaming the weights with ``cp.async.bulk``)
+  canonical gate).  CUDA kernel ``fused_block_fwd`` (``csrc/fused_block_sm90.cu``
+  on the Hopper tile body of ``csrc/block_sm90.cuh``: wgmma, a producer warp
+  streaming the weights with ``cp.async.bulk``)
   replaces the Pallas kernel reached by ``fused_block_apply``
   (``pallas_block.py:208``).  Its weights are re-laid once per weight
   version (``sm90_weights``).
 - ``fused_block_canon_t(x5, p, heads)``: the causal T block straight on the
   canonical ``(B, T, H, W, C)`` tensor with no transpose on either side.
-  CUDA kernel ``fused_block_canon_t_fwd`` replaces ``fused_block_canon_t``
+  CUDA kernel ``fused_block_canon_t_fwd`` (the same Hopper tile body under
+  the T axis's strided row map) replaces ``fused_block_canon_t``
   (``pallas_block.py:368``).
 
 - ``fused_chain_apply(x3, params_seq, axes, heads, dims)``: a run of T/H/W
   blocks in ONE launch, input in the first axis's token order, output in
   the last's; ``fused_group_apply(x5, params_seq, axes, heads)``: the same
   on the canonical tensor, in and out.  CUDA kernel ``fused_chain_fwd``
-  (cooperative, a grid barrier between blocks) replaces the Pallas kernel
-  reached by ``fused_chain_apply`` / ``fused_group_apply``
-  (``pallas_block.py:1073`` / ``:989``, one body ``_group_kernel``).
+  (``csrc/fused_chain_sm90.cu``: the Hopper tile body, cooperative and
+  persistent, the tiles of all blocks in one schedule, each waiting only for
+  the previous block's tiles of its batch elements, one weight ring
+  streaming every block's slabs) replaces the Pallas kernel reached by
+  ``fused_chain_apply`` / ``fused_group_apply`` (``pallas_block.py:1073`` /
+  ``:989``, one body ``_group_kernel``).
 
 - ``fused_block_apply_tp(x, p, l, heads, causal, mesh)``: the block on one
   tensor-parallel rank's weight shards, as two halves with an all-reduce
@@ -29,9 +34,13 @@ Five entry points carry every attention block of the TANTE paths:
   reached by ``fused_block_apply_tp`` (``pallas_block.py:890``, through
   ``_pallas_rowtile``: ``_attn_half_kernel`` / ``_mlp_half_kernel``).
 
-The other kernels live in ``csrc/fused_block.cu`` (one tile body,
-``block_tile``); both sources are built on first use by ``_build.py``.  Each wrapper takes its plain PyTorch version (``block_ref``,
-``canon_t_ref``, ``chain_ref``, ``group_ref``: the JAX package's
+The tp halves live in ``csrc/fused_block.cu`` (the first design's tile body,
+``block_tile``, wmma), beside that body's canonical T and chain entries,
+which no model path takes: ``block_tile_canon_t`` and ``block_tile_chain``
+launch them as the baseline the measurement scripts time against.  Every
+source is built on first use by ``_build.py``.  Each wrapper takes its
+plain PyTorch version (``block_ref``, ``canon_t_ref``, ``chain_ref``,
+``group_ref``: the JAX package's
 ``_xla_block`` / ``_canon_t_ref`` / ``_chain_ref`` / ``_xla_group``) only
 for a tensor on the CPU; a CUDA tensor launches the kernel or raises.  Each
 wrapper counts its forward launches in its ``launches`` attribute.
@@ -48,7 +57,10 @@ max-subtract by default, or under ``set_block_tuning(softmax="safe")`` the
 masked f32 softmax with max-subtract ``exp2(s - max)`` (every kernel but the
 canonical T block, whose gate then closes, as in the JAX package);
 normalisation after the AV product with a ``+1e-30`` guard; bf16 activations
-and weights, f32 LayerNorm, softmax, GELU and accumulators.
+and weights, f32 LayerNorm, softmax, GELU and accumulators.  The Hopper
+kernels round at the same points under every row map, so the canonical T
+kernel equals ``fused_block_apply`` on the rearranged tensor, and a chain
+the single-block kernels in sequence, bit for bit.
 """
 
 from __future__ import annotations
@@ -307,7 +319,7 @@ def _pass_width(n: int) -> int:
 
 
 def sm90_smem(rows: int, c: int, hidden: int, np: tuple, stages: int) -> int:
-    """Shared memory bytes of a plan (``fused_block_sm90.cu:layout``): the
+    """Shared memory bytes of a plan (``block_sm90.cuh:layout``): the
     LN1 output and the q|k|v tile (later the MLP hidden), the attention output
     (later the LN2 output), the slab ring and its barriers."""
     xn, qkv = rows * c * 2, rows * SM90_QKV_LD * 2
@@ -466,11 +478,17 @@ def fused_block_canon_t(x5: torch.Tensor, p: BlockParams, heads: int) -> torch.T
 
         (p,) = ps
         _check_kernel_args(x5, p, t, heads)
+        hidden = p.w1.shape[-1]
+        plan = sm90_plan(t, c, hidden)
+        if plan is None:
+            raise ValueError(f"no tile plan for L={t}, C={c}, hidden={hidden}")
         out = torch.empty_like(x5)
-        scaled = _prescaled(p, heads)
-        rc = _build.load().tante_fused_block_canon_t_fwd(
-            x5.data_ptr(), out.data_ptr(), _ptr_array([scaled]), b, t, h * w, c,
-            p.w1.shape[-1], heads, x5.device.index, _stream(x5),
+        wts = sm90_weights(p, heads, plan)
+        row_map = canon_t_map((t, h, w), b)
+        rc = _build.load("fused_block_sm90").tante_fused_block_canon_t_sm90_fwd(
+            x5.data_ptr(), out.data_ptr(), _ptr_array([wts]), (ctypes.c_int * 7)(*plan.ints()),
+            (ctypes.c_int * 6)(*row_map), b * h * w, t, c, hidden, heads, x5.device.index,
+            _stream(x5),
         )
         _raise_on(rc, "fused_block_canon_t_fwd")
         fused_block_canon_t.launches += 1
@@ -584,10 +602,34 @@ def chain_plan(axes: str, dims, b: int, start: str = _CANONICAL, stop: str = _CA
     return plan
 
 
-def _launch_chain(x: torch.Tensor, params_seq, axes: str, heads: int, dims, start: str,
-                  stop: str, out_shape) -> torch.Tensor:
-    from tante_tpu_torch.ops import _build
+def canon_t_map(dims, b: int) -> tuple:
+    """The canonical T block's row map (per, n2, sb, s1, s2, sa), for x and y
+    alike: ``chain_plan``'s read map of a lone T block in canonical order."""
+    return chain_plan("T", dims, b)[0][3:9]
 
+
+def chain_plans(axes: str, dims, c: int, hidden: int) -> list:
+    """Each block's tile plan: ``sm90_plan`` of its own axis.  Rows, column
+    passes and ring stages depend on C and the MLP width alone (every L the
+    chain takes fits a tile), so one shared-memory layout serves the run."""
+    sizes = dict(zip("THW", dims))
+    plans = [sm90_plan(sizes[a], c, hidden) for a in axes]
+    if any(p is None for p in plans):
+        raise ValueError(f"no tile plan for axes={axes!r}, dims={tuple(dims)}, C={c}, "
+                         f"hidden={hidden}")
+    return plans
+
+
+def chain_weights(params_seq: Sequence[BlockParams], heads: int, plans) -> tuple:
+    """The chain's weight schedule: each block's ``sm90_weights`` (re-laid
+    once per weight version), streamed back to back."""
+    return tuple(sm90_weights(p, heads, plan) for p, plan in zip(params_seq, plans))
+
+
+def _chain_args(x: torch.Tensor, params_seq, axes: str, heads: int, dims, start: str,
+                stop: str) -> tuple:
+    """Checks shared by both chain kernels; (C, hidden, batch elements,
+    chain_plan ints)."""
     c, hidden = x.shape[-1], params_seq[0].w1.shape[-1]
     if len(params_seq) != len(axes):
         raise ValueError(f"{len(axes)} axes but {len(params_seq)} parameter sets")
@@ -599,18 +641,38 @@ def _launch_chain(x: torch.Tensor, params_seq, axes: str, heads: int, dims, star
         raise ValueError(f"x of shape {tuple(x.shape)} does not hold (T, H, W) = {tuple(dims)}")
     sizes = dict(zip("THW", dims))
     for axis, p in zip(axes, params_seq):
+        if p.w1.shape[-1] != hidden:
+            raise ValueError("every block of a chain needs the same MLP width")
         _check_kernel_args(x, p, sizes[axis], heads)
-    plan = chain_plan(axes, dims, x.numel() // (m * c), start, stop)
-    flat = [v for row in plan for v in row]
+    b = x.numel() // (m * c)
+    return c, hidden, b, chain_plan(axes, dims, b, start, stop)
+
+
+def _scratch(x: torch.Tensor, n_blocks: int) -> tuple:
+    """Ping-pong buffers for the activations between blocks (canonical
+    order), and their pointers with None where a shorter run needs none."""
+    scratch = [torch.empty_like(x) for _ in range(min(2, n_blocks - 1))]
+    return scratch, [t.data_ptr() for t in scratch] + [None] * (2 - len(scratch))
+
+
+def _launch_chain(x: torch.Tensor, params_seq, axes: str, heads: int, dims, start: str,
+                  stop: str, out_shape) -> torch.Tensor:
+    from tante_tpu_torch.ops import _build
+
+    c, hidden, b, rows = _chain_args(x, params_seq, axes, heads, dims, start, stop)
+    plans = chain_plans(axes, dims, c, hidden)
+    weights = chain_weights(params_seq, heads, plans)
+    plan_ints = [v for plan in plans for v in plan.ints()]
+    maps = [v for row in rows for v in row]
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
-    # Ping-pong scratch for the activations between blocks (canonical order).
-    scratch = [torch.empty_like(x) for _ in range(min(2, len(axes) - 1))]
-    bufs = [t.data_ptr() for t in scratch] + [None] * (2 - len(scratch))
-    scaled = [_prescaled(p, heads) for p in params_seq]
-    rc = _build.load().tante_fused_chain_fwd(
-        x.data_ptr(), out.data_ptr(), *bufs, _ptr_array(scaled),
-        (ctypes.c_int * len(flat))(*flat), len(axes), c, hidden, heads, _safe(),
-        x.device.index, _stream(x),
+    scratch, bufs = _scratch(x, len(axes))
+    # Tiles finished per (block, batch element): the kernel's waits between
+    # blocks (zeroed by the launch, on the stream).
+    done = torch.empty(len(axes) * b, dtype=torch.int32, device=x.device)
+    rc = _build.load("fused_chain_sm90").tante_fused_chain_sm90_fwd(
+        x.data_ptr(), out.data_ptr(), *bufs, _ptr_array(weights),
+        (ctypes.c_int * len(plan_ints))(*plan_ints), (ctypes.c_int * len(maps))(*maps),
+        len(axes), c, hidden, heads, _safe(), done.data_ptr(), b, x.device.index, _stream(x),
     )
     _raise_on(rc, "fused_chain_fwd")
     return out
@@ -656,6 +718,53 @@ def fused_chain_apply(x3: torch.Tensor, params_seq: Sequence[BlockParams], axes:
 
 
 fused_chain_apply.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The first design's canonical T and chain entries (csrc/fused_block.cu,
+# ``block_tile``: wmma, 48-64-row tiles, per-warp weight rings).  No model
+# path takes them; ``chip_smoke.py`` and ``tools/kernel_phases.py`` time the
+# Hopper kernels against them in turns on the same card.
+# --------------------------------------------------------------------------
+
+
+def block_tile_canon_t(x5: torch.Tensor, p: BlockParams, heads: int) -> torch.Tensor:
+    """The causal T block on canonical (B, T, H, W, C) through the first
+    design's body (CUDA only; "fast" softmax)."""
+    from tante_tpu_torch.ops import _build
+
+    b, t, h, w, c = x5.shape
+    _check_kernel_args(x5, p, t, heads)
+    out = torch.empty_like(x5)
+    scaled = _prescaled(p, heads)  # alive until enqueued
+    rc = _build.load().tante_fused_block_canon_t_fwd(
+        x5.data_ptr(), out.data_ptr(), _ptr_array([scaled]), b, t, h * w, c, p.w1.shape[-1],
+        heads, x5.device.index, _stream(x5),
+    )
+    _raise_on(rc, "block_tile canonical T")
+    return out
+
+
+def block_tile_chain(x: torch.Tensor, params_seq: Sequence[BlockParams], axes: str, heads: int,
+                     dims, start: str = _CANONICAL, stop: str = _CANONICAL) -> torch.Tensor:
+    """A run of blocks through the first design's cooperative chain kernel
+    (CUDA only): ``x`` in token order ``start`` -> the same shape in ``stop``
+    (a one-block run in the axis's own order is that body on (S, L, C))."""
+    from tante_tpu_torch.ops import _build
+
+    params_seq = tuple(params_seq)
+    c, hidden, _, rows = _chain_args(x, params_seq, axes, heads, dims, start, stop)
+    flat = [v for row in rows for v in row]
+    out = torch.empty_like(x)
+    scratch, bufs = _scratch(x, len(axes))
+    scaled = [_prescaled(p, heads) for p in params_seq]
+    rc = _build.load().tante_fused_chain_fwd(
+        x.data_ptr(), out.data_ptr(), *bufs, _ptr_array(scaled),
+        (ctypes.c_int * len(flat))(*flat), len(axes), c, hidden, heads, _safe(),
+        x.device.index, _stream(x),
+    )
+    _raise_on(rc, "block_tile chain")
+    return out
 
 
 # --------------------------------------------------------------------------

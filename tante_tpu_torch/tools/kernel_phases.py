@@ -2,30 +2,42 @@
 
     python3 -m tante_tpu_torch.tools.kernel_phases
 
-First the single-block kernel of ``fused_block_apply``
-(``ops/csrc/fused_block_sm90.cu``): a measurement copy built with
+First the Hopper single-block kernels (``ops/csrc/fused_block_sm90.cu`` on
+the tile body of ``block_sm90.cuh``): a measurement copy built with
 ``-DTANTE_PHASE_TIMING`` stamps the global timer after the consumer
 warpgroups' barrier at each phase (LN1, each head group's q|k|v projection
-and attention, out-projection, LN2, fc1, fc2); one JSON line per block (H,
-W and the rearranged causal T block) with the mean microseconds per tile of
-each phase, summed over the head groups.
+and attention, out-projection, LN2, fc1, fc2) and counts, per matmul, the
+SM cycles consumer thread 0 spends waiting for weight slabs, in wgmma and in
+the epilogue; one JSON line per block (H, W, the rearranged causal T block
+through ``fused_block_fwd``, and the canonical T block through
+``fused_block_canon_t_fwd``) with the mean microseconds per tile of each
+phase, summed over the head groups.
 
-Then the PR-1 tile body (``block_tile``, which the canonical T block, the
-chain and the tensor-parallel halves run): a measurement copy of
-``ops/csrc/fused_block.cu`` with
+Then the Hopper chain kernel (``ops/csrc/fused_chain_sm90.cu``) on the runs
+``THW`` and ``THWTHWTHW`` at the flagship: one JSON line per run and, per
+block of the run, the phases of each CTA's first tile of that block, the
+matmul cycles per tile, the tiles per CTA (the tiles of all blocks are one
+schedule dealt round-robin to the grid), the consumers' wait for the
+previous block's tiles of their batch elements (summed over a CTA's tiles
+of the block; mean and most over CTAs), the block's span from its first
+tile's start to its last tile's end, and how long before a CTA's first tile
+of the block its producer issued that block's first slab (positive: the
+weights were in flight before the tile began).
+
+Last the first design's tile body (``block_tile`` in ``ops/csrc/fused_block.cu``,
+which the tensor-parallel halves run, and whose canonical T and chain
+entries are the measurement baseline): a measurement copy with
 ``-DTANTE_PHASE_TIMING`` (a CTA barrier and a global-timer stamp at each
 phase boundary: start, row gather, LN1, q, k, v, attention, out-projection,
 LN2, fc1, fc2), launches the flagship H and W blocks (each a one-block chain
 run) and the canonical T block with seeded bf16 inputs, and prints one JSON
 line per block: the mean microseconds per CTA of each phase, the CTA count,
 and the measurement build's launch time (the stamps' barriers make it a
-little slower than the production kernel).
-
-A last line does the same for the chain kernel on the run ``THW``: tiles
-stamp by tile number and each block of a run overwrites the one before, so
-what is read back are the tiles of the run's LAST block (W), to hold against
-the one-block W run above; ``block_span_us`` is the time from the first
-tile's start to the last tile's end of that block across the grid.
+little slower than the production kernel).  A last line does the same for
+its chain kernel on the run ``THW``: tiles stamp by tile number and each
+block of a run overwrites the one before, so what is read back are the
+tiles of the run's LAST block (W); ``block_span_us`` is the time from the
+first tile's start to the last tile's end of that block across the grid.
 """
 
 from __future__ import annotations
@@ -64,71 +76,187 @@ def _params(seed: int, dev) -> fb.BlockParams:
 
 
 SM90_CASES = {"H": ((1536, 16, C), False), "W": ((512, 48, C), False),
-              "T rearranged": ((8 * 16 * 48, 4, C), True)}
+              "T rearranged": ((8 * 16 * 48, 4, C), True),
+              "T canonical": ((8, 4, 16, 48, C), True)}
+MATMULS = ("qkv", "o_proj", "fc1", "fc2")
+
+
+TIMING_FLAGS = ("-DTANTE_PHASE_TIMING",)
+
+
+def _timing_library(kernel: str) -> ctypes.CDLL:
+    """A measurement copy of ``csrc/<kernel>.cu`` with its phase readers."""
+    info = _build.compile_library(kernel, f"{kernel}_phases", TIMING_FLAGS)
+    lib = _build.bind(ctypes.CDLL(info["library"]), kernel)
+    for fn in ("tante_sm90_phase_read", "tante_sm90_gemm_cycles", "tante_sm90_chain_read"):
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int]
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _timed(launch, iters: int = 20) -> float:
+    """ms per launch over ``iters`` launches after three warm-up launches."""
+    for _ in range(3):
+        if launch() != 0:
+            raise RuntimeError("launch failed")
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        launch()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def _read(lib, fn: str, shape: tuple) -> np.ndarray:
+    out = np.zeros(shape, dtype=np.uint64)
+    if getattr(lib, fn)(out.ctypes.data, shape[0]) != 0:
+        raise RuntimeError(f"{fn} failed")
+    return out
+
+
+def _phase_summary(stamps: np.ndarray, groups: int) -> tuple[dict, np.ndarray]:
+    """Mean us per tile of each phase (q|k|v and attention summed over the
+    head groups) from rows of phase stamps; also the stamps used."""
+    n_stamps = stamps.shape[1]
+    names = ["ln1"] + [f"{k}_{g}" for g in range(groups) for k in ("qkv", "attention")]
+    names += ["o_proj", "ln2", "fc1", "fc2"]
+    used = [0, 1, *range(2, 2 + 2 * groups), *range(n_stamps - 4, n_stamps)]
+    ns = stamps[:, used].astype(np.float64)
+    per = dict(zip(names, np.diff(ns, axis=1).mean(axis=0) / 1e3))
+    return {"ln1": float(per["ln1"]), "qkv": float(sum(per[f"qkv_{g}"] for g in range(groups))),
+            "attention": float(sum(per[f"attention_{g}"] for g in range(groups))),
+            **{k: float(per[k]) for k in ("o_proj", "ln2", "fc1", "fc2")}}, ns
+
+
+def _cycles(per_mm: np.ndarray) -> dict:
+    return {mm: {part: float(per_mm[i][k]) for k, part in
+                 enumerate(("slab_wait", "wgmma", "epilogue"))}
+            for i, mm in enumerate(MATMULS)}
 
 
 def sm90_phases(dev, stream, card: str) -> None:
-    info = _build.compile_library("fused_block_sm90", "fused_block_sm90_phases",
-                                  ("-DTANTE_PHASE_TIMING",))
-    lib = _build.bind(ctypes.CDLL(info["library"]), "fused_block_sm90")
-    lib.tante_sm90_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.tante_sm90_phase_read.restype = ctypes.c_int
-    lib.tante_sm90_gemm_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.tante_sm90_gemm_cycles.restype = ctypes.c_int
+    lib = _timing_library("fused_block_sm90")
     n_stamps = lib.tante_sm90_phase_stamps()
-    groups = C // 64
-    names = ["ln1"] + [f"{k}_{g}" for g in range(groups) for k in ("qkv", "attention")]
-    names += ["o_proj", "ln2", "fc1", "fc2"]
     for i, (label, (shape, causal)) in enumerate(SM90_CASES.items()):
-        n_seqs, l, _ = shape
         p = _params(20 + i, dev)
-        plan = fb.sm90_plan(l, C, HIDDEN)
-        w = fb.sm90_weights(p, HEADS, plan)
-        ptrs, plan_arr = fb._ptr_array([w]), (ctypes.c_int * 7)(*plan.ints())
         x = torch.from_numpy(np.random.default_rng(i).normal(size=shape).astype(np.float32))
         x = x.to(dev, torch.bfloat16)
         y = torch.empty_like(x)
-        launch = lambda: lib.tante_fused_block_sm90_fwd(  # noqa: E731
-            x.data_ptr(), y.data_ptr(), ptrs, plan_arr, n_seqs, l, C, HIDDEN, HEADS, int(causal),
-            0, 0, stream)
+        if label == "T canonical":
+            b, l, h, w, _ = shape
+            n_seqs = b * h * w
+            plan = fb.sm90_plan(l, C, HIDDEN)
+            row_map = (ctypes.c_int * 6)(*fb.canon_t_map((l, h, w), b))
+        else:
+            n_seqs, l, _ = shape
+            plan = fb.sm90_plan(l, C, HIDDEN)
+        ptrs = fb._ptr_array([fb.sm90_weights(p, HEADS, plan)])
+        plan_arr = (ctypes.c_int * 7)(*plan.ints())
+        if label == "T canonical":
+            launch = lambda: lib.tante_fused_block_canon_t_sm90_fwd(  # noqa: E731
+                x.data_ptr(), y.data_ptr(), ptrs, plan_arr, row_map, n_seqs, l, C, HIDDEN, HEADS,
+                0, stream)
+        else:
+            launch = lambda: lib.tante_fused_block_sm90_fwd(  # noqa: E731
+                x.data_ptr(), y.data_ptr(), ptrs, plan_arr, n_seqs, l, C, HIDDEN, HEADS,
+                int(causal), 0, 0, stream)
         tiles = -(-n_seqs // plan.seqs)
-        cycles = np.zeros((tiles, 4, 3), dtype=np.uint64)
         for _ in range(3):
             if launch() != 0:
                 raise RuntimeError(f"{label}: launch failed")
         torch.cuda.synchronize()
-        lib.tante_sm90_gemm_cycles(cycles.ctypes.data, tiles)  # zeroes the counters
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            launch()
-        stop.record()
-        stop.synchronize()
-        if lib.tante_sm90_gemm_cycles(cycles.ctypes.data, tiles) != 0:
-            raise RuntimeError("reading the matmul cycle counters failed")
-        per_mm = cycles.astype(np.float64).mean(axis=0) / 20
-        stamps = np.zeros((tiles, n_stamps), dtype=np.uint64)
-        if lib.tante_sm90_phase_read(stamps.ctypes.data, tiles) != 0:
-            raise RuntimeError("reading the phase stamps failed")
-        used = [0, 1, *range(2, 2 + 2 * groups), *range(n_stamps - 4, n_stamps)]
-        ns = stamps[:, used].astype(np.float64)
-        us = np.diff(ns, axis=1).mean(axis=0) / 1e3
-        per = dict(zip(names, us))
-        summary = {"ln1": per["ln1"], "qkv": sum(per[f"qkv_{g}"] for g in range(groups)),
-                   "attention": sum(per[f"attention_{g}"] for g in range(groups)),
-                   **{k: per[k] for k in ("o_proj", "ln2", "fc1", "fc2")}}
+        _read(lib, "tante_sm90_gemm_cycles", (tiles, 4, 3))  # zeroes the counters
+        ms = _timed(launch, 20)
+        per_mm = _read(lib, "tante_sm90_gemm_cycles", (tiles, 4, 3)).astype(np.float64)
+        per_mm = per_mm.mean(axis=0) / (20 + 3)
+        summary, ns = _phase_summary(_read(lib, "tante_sm90_phase_read", (tiles, n_stamps)),
+                                     C // 64)
         print(json.dumps({
-            "kernel": "fused_block_fwd (fused_block_sm90.cu)", "block": label,
-            "shape": list(shape), "causal": causal, "tiles": tiles, "plan": plan._asdict(),
-            "timing_build_ms": start.elapsed_time(stop) / 20,
-            "per_tile_us": {k: float(v) for k, v in summary.items()},
-            "tile_us": float(us.sum()),
-            "matmul_cycles_per_tile": {
-                mm: {part: float(per_mm[i][k]) for k, part in
-                     enumerate(("slab_wait", "wgmma", "epilogue"))}
-                for i, mm in enumerate(("qkv", "o_proj", "fc1", "fc2"))},
+            "kernel": ("fused_block_canon_t_fwd" if label == "T canonical" else "fused_block_fwd")
+            + " (fused_block_sm90.cu)", "block": label, "shape": list(shape), "causal": causal,
+            "tiles": tiles, "plan": plan._asdict(), "timing_build_ms": ms,
+            "per_tile_us": summary, "tile_us": float(sum(summary.values())),
+            "matmul_cycles_per_tile": _cycles(per_mm),
             "span_us": float((ns[:, -1].max() - ns[:, 0].min()) / 1e3), "card": card,
         }), flush=True)
+
+
+def schedule(tiles: list, grid: int) -> np.ndarray:
+    """Tiles of each block per CTA under the chain's schedule: the tiles of
+    all blocks in one sequence, tile g to CTA g % grid."""
+    out = np.zeros((len(tiles), grid), dtype=np.int64)
+    g = 0
+    for i, n in enumerate(tiles):
+        for _ in range(n):
+            out[i, g % grid] += 1
+            g += 1
+    return out
+
+
+def chain_phases(dev, stream, card: str) -> None:
+    """The Hopper chain kernel, per block of a run (see the module text)."""
+    lib = _timing_library("fused_chain_sm90")
+    n_stamps, n_slots = lib.tante_sm90_phase_stamps(), lib.tante_sm90_phase_slots()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape = CASES["T"][0]
+    b, dims = shape[0], shape[1:4]
+    sizes = dict(zip("THW", dims))
+    for axes in ("THW", "THWTHWTHW"):
+        ps = [_params(30 + i, dev) for i in range(len(axes))]
+        plans = fb.chain_plans(axes, dims, C, HIDDEN)
+        weights = fb.chain_weights(ps, HEADS, plans)
+        rows = fb.chain_plan(axes, dims, b)
+        plan_ints = [v for plan in plans for v in plan.ints()]
+        maps = [v for row in rows for v in row]
+        x = torch.from_numpy(np.random.default_rng(9).normal(size=shape).astype(np.float32))
+        x = x.to(dev, torch.bfloat16)
+        y, bufs = torch.empty_like(x), [torch.empty_like(x) for _ in range(2)]
+        done = torch.empty(len(axes) * b, dtype=torch.int32, device=dev)
+        ptrs = fb._ptr_array(weights)
+        plan_arr = (ctypes.c_int * len(plan_ints))(*plan_ints)
+        map_arr = (ctypes.c_int * len(maps))(*maps)
+        launch = lambda: lib.tante_fused_chain_sm90_fwd(  # noqa: E731
+            x.data_ptr(), y.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), ptrs, plan_arr,
+            map_arr, len(axes), C, HIDDEN, HEADS, 0, done.data_ptr(), b, 0, stream)
+        tiles = [-(-row[2] // plan.seqs) for row, plan in zip(rows, plans)]
+        grid = min(sms, sum(tiles))  # one CTA per SM at this shared memory
+        per_cta = schedule(tiles, grid)
+        slots = len(axes) * grid
+        if slots > n_slots:
+            raise RuntimeError(f"{slots} timing slots needed, {n_slots} built")
+        for _ in range(3):
+            if launch() != 0:
+                raise RuntimeError(f"chain {axes}: launch failed")
+        torch.cuda.synchronize()
+        _read(lib, "tante_sm90_gemm_cycles", (slots, 4, 3))
+        ms = _timed(launch, 20)
+        cycles = _read(lib, "tante_sm90_gemm_cycles", (slots, 4, 3)).astype(np.float64)
+        stamps = _read(lib, "tante_sm90_phase_read", (slots, n_stamps))
+        chain = _read(lib, "tante_sm90_chain_read", (slots, 4)).astype(np.float64)
+        steps = []
+        for i, (axis, n_tiles) in enumerate(zip(axes, tiles)):
+            ran = np.nonzero(per_cta[i])[0]  # CTAs that ran a tile of this block
+            sl = i * grid + ran
+            n = per_cta[i, ran].astype(np.float64)
+            per_mm = (cycles[sl] / n[:, None, None]).mean(axis=0) / (20 + 3)
+            summary, _ = _phase_summary(stamps[sl], C // 64)
+            start, wait, end, issue = (chain[sl, k] for k in range(4))
+            steps.append({
+                "block": axis, "L": sizes[axis], "tiles": n_tiles, "grid": grid,
+                "ctas": int(len(ran)), "tiles_per_cta": [int(n.min()), int(n.max())],
+                "first_tile_us": summary, "first_tile_total_us": float(sum(summary.values())),
+                "matmul_cycles_per_tile": _cycles(per_mm),
+                "block_span_us": float((end.max() - start.min()) / 1e3),
+                "wait_us": {"mean": float(wait.mean() / 1e3), "max": float(wait.max() / 1e3)},
+                "producer_lead_us": {"mean": float(((start - issue) / 1e3).mean()),
+                                     "min": float(((start - issue) / 1e3).min())}})
+        print(json.dumps({"kernel": "fused_chain_fwd (fused_chain_sm90.cu)", "run": axes,
+                          "shape": list(shape), "timing_build_ms": ms, "total_tiles": sum(tiles),
+                          "tiles_per_cta": [int(per_cta.sum(0).min()), int(per_cta.sum(0).max())],
+                          "blocks": steps, "card": card}), flush=True)
 
 
 def main() -> int:
@@ -137,8 +265,12 @@ def main() -> int:
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    # The three measurement copies build together; each is found built below.
+    _build.compile_libraries([(k, f"{k}_phases", TIMING_FLAGS)
+                              for k in ("fused_block_sm90", "fused_chain_sm90", "fused_block")])
     sm90_phases(torch.device("cuda"), torch.cuda.current_stream().cuda_stream, card)
-    info = _build.compile_library("fused_block", "fused_block_phases", ("-DTANTE_PHASE_TIMING",))
+    chain_phases(torch.device("cuda"), torch.cuda.current_stream().cuda_stream, card)
+    info = _build.compile_library("fused_block", "fused_block_phases", TIMING_FLAGS)
     lib = _build.bind(ctypes.CDLL(info["library"]))
     lib.tante_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.tante_phase_read.restype = ctypes.c_int
