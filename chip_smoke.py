@@ -7,10 +7,11 @@ script exits non-zero without the final result line):
 
 1. build    nvcc builds every kernel source of this checkout
             (``tante_tpu_torch/ops/csrc/fused_block_sm90.cu``,
-            ``fused_chain_sm90.cu`` (both on the Hopper tile body of
-            ``block_sm90.cuh``), ``fused_block.cu``, ``spectral_matmul.cu``
-            and ``packed_attention.cu``, one nvcc each, started together);
-            build seconds, the ``-Xptxas -v`` summaries and each tile plan.
+            ``fused_chain_sm90.cu``, ``fused_half_sm90.cu`` (all three on the
+            Hopper tile body of ``block_sm90.cuh``), ``fused_block.cu`` (the
+            first design, the timing baseline), ``spectral_matmul.cu`` and
+            ``packed_attention.cu``, one nvcc each, started together); build
+            seconds, the ``-Xptxas -v`` summaries and each tile plan.
 2. kernel   each kernel against its plain PyTorch version (f32 from the
             same bf16 inputs) at the main paths' shapes, the single-block
             kernel also under the "safe" softmax (H, W, the rearranged causal
@@ -89,20 +90,30 @@ script exits non-zero without the final result line):
             num_query_points=1024)``, ``Evaler(cvit=True)``; no hand-written
             kernel runs here (8 heads x 256 tokens > 128), which the phase says.
 14. tp_kernel  the two tensor-parallel half kernels (``attn_half_fwd``,
-            ``mlp_half_fwd``) on every shard at the flagship's H, W and causal T
-            shapes, tp = 2 and 4, against their plain versions (limits of their
-            own: a half is a pre-bias partial with no residual); the shards'
-            partials recombined against the unsplit f32 block and the unsplit
-            kernel; device time, bound; gradients through each half's Function.
+            ``mlp_half_fwd``, ``fused_half_sm90.cu``) on every shard at the
+            flagship's H, W and causal T shapes, tp = 2 and 4, and at H for
+            tp = 8 (32-wide shards, zero-padded), against their plain versions
+            (limits of their own: a half is a pre-bias partial with no
+            residual); the shards' partials recombined against the unsplit f32
+            block and the unsplit kernel; launches counted; each half timed in
+            turns with the first design's (``block_tile_attn_half`` /
+            ``block_tile_mlp_half``) on the same shard, the kernel's own device
+            time apart from its wrapper's, the profiled symbols, the bound and
+            the achieved TFLOP/s; weight re-layouts counted (none over the
+            timed calls; once per weight version through ``copy_to_tp``
+            views) and one timed at tp = 2; gradients through each half's
+            Function.
 15. parallel  two spawned ranks of one gloo process group, both on the card:
             the flagship forward on (dp 1, tp 2) against one rank (exactly 18
-            half launches per model call per rank, no single-device kernel),
-            every step's loss and gradient norm of Trainer at (dp 1, tp 2),
+            half launches per model call per rank, no single-device kernel;
+            f32 weights cast per call, and 18 weight re-layouts in the first
+            call, none in the next four), every step's loss, gradient norm
+            (at tp 2 also 18 re-layouts a step) of Trainer at (dp 1, tp 2),
             (dp 2, tp 1) and FNO at (dp 1, sp 2) against one rank, replicas equal after a dropout step, the tp
             checkpoint on one rank; seconds per step (two ranks sharing one card
             through gloo: not a tp speed).
 16. kernels one {"kernels": [...]} line (eight kernels; the block, canonical
-            T and chain rows with the first design's time, in turns).
+            T, chain and tp half rows with the first design's time, in turns).
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 result line {"ok": true, "device": {...}}.  Exits non-zero when no CUDA
@@ -149,7 +160,8 @@ from tante_tpu_torch.train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent
 ASSET = ROOT / "tante_tpu" / "assets" / "tante_flagship.npz"
-SOURCE = "tante_tpu_torch/ops/csrc/fused_block.cu"
+FIRST_DESIGN_SOURCE = "tante_tpu_torch/ops/csrc/fused_block.cu"
+HALF_SOURCE = "tante_tpu_torch/ops/csrc/fused_half_sm90.cu"
 SM90_SOURCE = "tante_tpu_torch/ops/csrc/fused_block_sm90.cu"
 CHAIN_SOURCE = "tante_tpu_torch/ops/csrc/fused_chain_sm90.cu"
 SPECTRAL_SOURCE = "tante_tpu_torch/ops/csrc/spectral_matmul.cu"
@@ -307,8 +319,11 @@ def phase_build() -> dict:
     for kernel in info:
         _build.load(kernel)
     plans = {f"L={l}": {"block_sm90 (block, canonical T, chain)": fb.sm90_plan(l, C, C)._asdict(),
-                        "fused_block (tp halves; first design)": _build.plan(l, C, C)}
+                        "half_sm90 attention half, tp 2":
+                            fb.half_plan("attn", l, C, C // 2)._asdict(),
+                        "fused_block (first design)": _build.plan(l, C, C)}
              for l in (4, 16, 48)}
+    plans["half_sm90 MLP half, tp 2"] = fb.half_plan("mlp", 1, C, C // 2)._asdict()
     emit({"phase": "build", "seconds": seconds, "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"], "ptxas": v["ptxas"]}
                         for k, v in info.items()},
@@ -638,21 +653,62 @@ def traced(fn, label: str, top: int = 8) -> dict:
     return prof
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time per call of ``fn``: the kernels' time summed by
-    ``torch.profiler`` over ``iters`` calls.  For a call that is shorter on the
-    card than its enqueue on the host, back-to-back CUDA events read the
-    host's pace; this reads the card's.  A profile now and then comes back
-    without device events: it is taken again, and after three empty ones the
-    CUDA-event time stands in (and the result line says so)."""
+def device_split(fn, pattern: re.Pattern | None, iters: int = 10, launches=None,
+                 label: str = "") -> dict:
+    """Per call of ``fn`` (``torch.profiler`` over ``iters`` calls): the
+    device time of the kernels whose name matches ``pattern`` (the kernel's
+    own), of all its kernels (the call's), and the kernels' names.  A time
+    is the events' sum over the calls, except where ``launches`` (a callable
+    reading the wrapper's launch counter) says how often the kernel ran in
+    the window: a profile may list fewer events than ran (this script on an
+    NVIDIA H100 80GB HBM3 at 700 W: 9 of 10), so the kernel's time is then
+    its mean per event times the counted launches per call, and a window
+    whose events fall more than one short of the launches is noted.  A
+    profile now and then comes back without device events: it is taken
+    again, and after three empty ones the CUDA-event time stands in (and
+    the result line says so)."""
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(3):
         fn()
     for _ in range(3):
-        ms = trace(lambda: [fn() for _ in range(iters)])["device_kernel_ms"] / iters
-        if ms > 0:
-            return ms
+        torch.cuda.synchronize()
+        counted = launches() if launches else 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        counted = launches() - counted if launches else None
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+        total_us = sum(e.self_device_time_total for e in events)
+        if total_us > 0:
+            own = [e for e in events if pattern and pattern.search(e.key)]
+            own_events = sum(e.count for e in own)
+            own_us = sum(e.self_device_time_total for e in own)
+            kernel_us = own_us
+            if counted is not None and own_events:
+                kernel_us = own_us / own_events * counted
+                if own_events < counted - 1:
+                    NOTES.append(f"{label}: the profiler listed {own_events} kernel events "
+                                 f"where the wrapper counted {counted} launches")
+            return {"kernel_ms": kernel_us / iters / 1e3,
+                    "call_ms": (total_us - own_us + kernel_us) / iters / 1e3,
+                    "kernel_events": own_events, "launches_counted": counted, "calls": iters,
+                    "symbols": sorted({e.key for e in own}),
+                    "all_symbols": sorted({e.key for e in events})}
     NOTES.append("a device time is a CUDA-event time: three profiles held no device events")
-    return cuda_ms(fn, iters)
+    ms = cuda_ms(fn, iters)
+    return {"kernel_ms": ms, "call_ms": ms, "kernel_events": None, "launches_counted": None,
+            "calls": iters, "symbols": [], "all_symbols": []}
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: its kernels' time by ``torch.profiler``
+    over ``iters`` calls (``device_split``).  For a call that is shorter on
+    the card than its enqueue on the host, back-to-back CUDA events read the
+    host's pace; this reads the card's."""
+    return device_split(fn, None, iters)["call_ms"]
 
 
 def timed_rollouts(fn, n: int = 3, windows: int = 3) -> dict:
@@ -1764,78 +1820,214 @@ def tp_recombine(x, p: fb.BlockParams, attn_parts, mlp_fn) -> torch.Tensor:
     return xm + (h2 + p.b2)
 
 
+# The half kernels' symbols in a profile, demangled or not: the Hopper
+# kernel's first template argument is the head dim (0: the MLP half); the
+# first design's are attn_half_kernel / mlp_half_kernel.
+_HALF_SYMBOLS = {
+    "attn": (re.compile(r"half_sm90_kernel(?:<(?:16|32|64),|ILi(?:16|32|64)E)"),
+             re.compile(r"attn_half_kernel")),
+    "mlp": (re.compile(r"half_sm90_kernel(?:<0,|ILi0E)"), re.compile(r"mlp_half_kernel")),
+}
+
+
+def half_in_turns(kind: str, label: str, run, first, iters: int = 10) -> dict:
+    """The Hopper half (``run``) and the first design's (``first``) on the
+    same inputs, in turns: Hopper, first, first, Hopper; each kernel's own
+    device time (events per call from the wrappers' launch counters) and the
+    wrapper's whole device time per call (the first design's wrapper also
+    prescales wq and bq: two more kernels)."""
+    hopper, before = _HALF_SYMBOLS[kind]
+    wrappers = {"attn": (fb.attn_half_apply, fb.block_tile_attn_half),
+                "mlp": (fb.mlp_half_apply, fb.block_tile_mlp_half)}[kind]
+    counters = [lambda w=w: w.launches for w in wrappers]
+
+    def hop():
+        return device_split(run, hopper, iters, counters[0], f"{label} {kind} half")
+
+    def fst():
+        return device_split(first, before, iters, counters[1], f"{label} {kind} first design")
+
+    k1, b1, b2, k2 = hop(), fst(), fst(), hop()
+
+    def mean(a, b, key):  # over the windows the profiler saw (else CUDA events)
+        seen = [r[key] for r in (a, b) if r["kernel_events"] is not None]
+        return sum(seen) / len(seen) if seen else (a[key] + b[key]) / 2
+
+    return {"kernel_ms": mean(k1, k2, "kernel_ms"), "call_ms": mean(k1, k2, "call_ms"),
+            "first_design_ms": mean(b1, b2, "kernel_ms"),
+            "first_design_call_ms": mean(b1, b2, "call_ms"),
+            "kernel_ms_turns": [k1["kernel_ms"], k2["kernel_ms"]],
+            "first_design_ms_turns": [b1["kernel_ms"], b2["kernel_ms"]],
+            "events_launches_calls": [[r["kernel_events"], r["launches_counted"], r["calls"]]
+                                      for r in (k1, b1, b2, k2)],
+            "symbols": sorted(set(k1["symbols"]) | set(k2["symbols"])),
+            "first_design_symbols": sorted(set(b1["symbols"]) | set(b2["symbols"])),
+            "hopper_call_kernels": sorted(set(k1["all_symbols"]) | set(k2["all_symbols"]))}
+
+
 def phase_tp_kernel(dev) -> list[dict]:
-    """Both half kernels on every shard at the flagship's H, W and causal T
-    shapes for tp = 2 and 4, against their plain versions; the shards'
-    partials recombined against the unsplit f32 block and the unsplit
-    kernel; device time of shard 0's kernels and plain versions; gradients
-    through each half's Function at tp = 2."""
+    """Both Hopper half kernels on every shard at the flagship's H, W and
+    causal T shapes for tp = 2 and 4, and at H for tp = 8 (32-wide shards,
+    zero-padded to one 64-column group), against their plain versions; the
+    shards' partials recombined against the unsplit f32 block and the
+    unsplit kernel; shard 0's kernels timed in turns with the first design's
+    (``block_tile_attn_half`` / ``block_tile_mlp_half``), each kernel's own
+    device time apart from its wrapper's, and the plain versions; launches
+    and weight re-layouts counted; gradients through each half's Function at
+    tp = 2."""
     out = []
-    for tp in TP_SIZES:
-        for i, (label, shape, causal) in enumerate(TP_CASES):
-            p = block_params(500 + i, dev)
-            pf = f32_params(p)
-            x = torch.from_numpy(np.random.default_rng(50 + i).normal(size=shape).astype(
-                np.float32)).to(dev, torch.bfloat16)
-            rows, l, heads = shape[0] * shape[1], shape[1], HEADS // tp
-            errs = {k: {"max_abs_err": 0.0, "rel_l2": 0.0, "plain_rms": 0.0}
-                    for k in ("attn", "mlp")}
-            ok = True
-            attn_parts = []
-            for r in range(tp):
-                ap, mp = tp_halves(shard_block(p, tp, r))
-                apf, mpf = tp_halves(shard_block(pf, tp, r))
-                for kind, got, want in (
-                        ("attn", fb.attn_half_apply(x, ap, l, heads, causal),
-                         fb.attn_half_ref(x.float(), apf, l, heads, causal)),
-                        ("mlp", fb.mlp_half_apply(x, mp), fb.mlp_half_ref(x.float(), mpf))):
-                    torch.cuda.synchronize()
-                    err = (got.float() - want).abs()
-                    e = errs[kind]
-                    e["max_abs_err"] = max(e["max_abs_err"], float(err.max()))
-                    e["rel_l2"] = max(e["rel_l2"], rel_l2(got, want))
-                    e["plain_rms"] = max(e["plain_rms"], float(want.square().mean().sqrt()))
-                    ok &= (bool(torch.isfinite(got).all())
-                           and bool((err <= HALF_ATOL + HALF_RTOL * want.abs()).all())
-                           and e["rel_l2"] <= HALF_REL_L2_TOL)
-                    if kind == "attn":
-                        attn_parts.append(got.float())
-            mlp_fn = lambda xm: [  # noqa: E731
-                fb.mlp_half_apply(xm, tp_halves(shard_block(p, tp, r))[1]) for r in range(tp)]
-            y = tp_recombine(x, p, attn_parts, mlp_fn).float()
-            want = fb.block_ref(x.float(), pf, l, HEADS, causal)
-            unsplit = fb.fused_block_apply(x, p, l, HEADS, causal).float()
-            e_ref, e_kernel = (y - want).abs(), (y - unsplit).abs()
-            ok_block = (bool((e_ref <= ATOL + RTOL * want.abs()).all())
-                        and bool((e_kernel <= ATOL + RTOL * unsplit.abs()).all()))
-            check(ok, f"tp={tp} {label}: a half kernel disagrees with its plain version")
-            check(ok_block, f"tp={tp} {label}: the recombined halves disagree with the block")
-            ap, mp = tp_halves(shard_block(p, tp, 0))
-            apf, mpf = tp_halves(shard_block(pf, tp, 0))
-            xf = x.float()
-            res = {"phase": "tp_kernel", "tp": tp, "case": label, "shape": list(shape),
-                   "causal": causal, "local_heads": heads, "local_width": C // tp,
-                   "tolerance": f"|k - plain| <= {HALF_ATOL} + {HALF_RTOL}*|plain| and rel L2 "
-                                f"<= {HALF_REL_L2_TOL}; recombined block: {ATOL} + {RTOL}*|plain|",
-                   "ok": ok and ok_block,
-                   "recombined_vs_block_ref_max_abs_err": float(e_ref.max()),
-                   "recombined_vs_unsplit_kernel_max_abs_err": float(e_kernel.max())}
-            for kind, run, plain, hp in (
-                    ("attn", lambda: fb.attn_half_apply(x, ap, l, heads, causal),
-                     lambda: fb.attn_half_ref(xf, apf, l, heads, causal), ap),
-                    ("mlp", lambda: fb.mlp_half_apply(x, mp),
-                     lambda: fb.mlp_half_ref(xf, mpf), mp)):
-                b_ms, b_by, flops, nbytes = half_bound(kind, rows, l, causal, hp)
-                k_ms = device_ms(run, iters=10)
-                res[kind] = {**errs[kind], "kernel_ms": k_ms,
-                             "plain_ms": device_ms(plain, iters=5), "bound_us": 1e3 * b_ms,
-                             "bound_by": b_by, "flops": flops, "bytes": nbytes,
-                             "achieved_tflops": flops / k_ms / 1e9}
-            if tp == 2 and label == "H":
-                res["grad"] = tp_half_grads(x, p, l, heads, causal)
-            emit(res)
-            out.append(res)
+    cases = [(tp, *case) for tp in TP_SIZES for case in TP_CASES]
+    cases.append((8, *TP_CASES[0]))
+    for tp, label, shape, causal in cases:
+        i = [c[0] for c in TP_CASES].index(label)
+        p = block_params(500 + i, dev)
+        pf = f32_params(p)
+        x = torch.from_numpy(np.random.default_rng(50 + i).normal(size=shape).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        rows, l, heads = shape[0] * shape[1], shape[1], HEADS // tp
+        errs = {k: {"max_abs_err": 0.0, "rel_l2": 0.0, "plain_rms": 0.0} for k in ("attn", "mlp")}
+        ok = True
+        attn_parts = []
+        before = tp_counts()
+        shards = [tp_halves(shard_block(p, tp, r)) for r in range(tp)]
+        for r in range(tp):
+            ap, mp = shards[r]
+            apf, mpf = tp_halves(shard_block(pf, tp, r))
+            for kind, got, want in (
+                    ("attn", fb.attn_half_apply(x, ap, l, heads, causal),
+                     fb.attn_half_ref(x.float(), apf, l, heads, causal)),
+                    ("mlp", fb.mlp_half_apply(x, mp), fb.mlp_half_ref(x.float(), mpf))):
+                torch.cuda.synchronize()
+                err = (got.float() - want).abs()
+                e = errs[kind]
+                e["max_abs_err"] = max(e["max_abs_err"], float(err.max()))
+                e["rel_l2"] = max(e["rel_l2"], rel_l2(got, want))
+                e["plain_rms"] = max(e["plain_rms"], float(want.square().mean().sqrt()))
+                ok &= (bool(torch.isfinite(got).all())
+                       and bool((err <= HALF_ATOL + HALF_RTOL * want.abs()).all())
+                       and e["rel_l2"] <= HALF_REL_L2_TOL)
+                if kind == "attn":
+                    attn_parts.append(got.float())
+        launched = {k: v - before[k] for k, v in tp_counts().items()}
+        check(launched == {"attn_half_fwd": tp, "mlp_half_fwd": tp},
+              f"tp={tp} {label}: {launched} half launches for {tp} shards")
+        mlp_fn = lambda xm: [fb.mlp_half_apply(xm, mp) for _, mp in shards]  # noqa: E731,B023
+        y = tp_recombine(x, p, attn_parts, mlp_fn).float()
+        want = fb.block_ref(x.float(), pf, l, HEADS, causal)
+        unsplit = fb.fused_block_apply(x, p, l, HEADS, causal).float()
+        e_ref, e_kernel = (y - want).abs(), (y - unsplit).abs()
+        ok_block = (bool((e_ref <= ATOL + RTOL * want.abs()).all())
+                    and bool((e_kernel <= ATOL + RTOL * unsplit.abs()).all()))
+        check(ok, f"tp={tp} {label}: a half kernel disagrees with its plain version")
+        check(ok_block, f"tp={tp} {label}: the recombined halves disagree with the block")
+        ap, mp = shards[0]  # re-laid by their launches above
+        apf, mpf = tp_halves(shard_block(pf, tp, 0))
+        xf = x.float()
+        res = {"phase": "tp_kernel", "tp": tp, "case": label, "shape": list(shape),
+               "causal": causal, "local_heads": heads, "local_width": C // tp,
+               "plans": {"attn": fb.half_plan("attn", l, C, C // tp)._asdict(),
+                         "mlp": fb.half_plan("mlp", 1, C, C // tp)._asdict()},
+               "tolerance": f"|k - plain| <= {HALF_ATOL} + {HALF_RTOL}*|plain| and rel L2 "
+                            f"<= {HALF_REL_L2_TOL}; recombined block: {ATOL} + {RTOL}*|plain|",
+               "ok": ok and ok_block, "launches": launched,
+               "recombined_vs_block_ref_max_abs_err": float(e_ref.max()),
+               "recombined_vs_unsplit_kernel_max_abs_err": float(e_kernel.max())}
+        relays = fb.relaid_weights.count
+        for kind, run, first, plain, hp in (
+                ("attn", lambda: fb.attn_half_apply(x, ap, l, heads, causal),
+                 lambda: fb.block_tile_attn_half(x, ap, l, heads, causal),
+                 lambda: fb.attn_half_ref(xf, apf, l, heads, causal), ap),
+                ("mlp", lambda: fb.mlp_half_apply(x, mp), lambda: fb.block_tile_mlp_half(x, mp),
+                 lambda: fb.mlp_half_ref(xf, mpf), mp)):
+            b_ms, b_by, flops, nbytes = half_bound(kind, rows, l, causal, hp)
+            turns = half_in_turns(kind, f"tp={tp} {label}", run, first)
+            strays = [k for k in turns["hopper_call_kernels"] if _HALF_SYMBOLS[kind][1].search(k)]
+            check(bool(turns["symbols"]) and not strays,
+                  f"tp={tp} {label}: the {kind} wrapper's profile shows the Hopper kernels "
+                  f"{turns['symbols']} and first-design kernels {strays}")
+            windows = turns["events_launches_calls"]
+            seen = [w for w in windows if w[0] is not None]  # the rest: no device events
+            check(all(ev and n == calls for ev, n, calls in seen)
+                  and any(w[0] is not None for w in windows[::3])
+                  and any(w[0] is not None for w in windows[1:3]),
+                  f"tp={tp} {label}: {kind} half kernel events, launches counted and calls per "
+                  f"profiled window {windows}")
+            first_err = float((run().float() - first().float()).abs().max())
+            res[kind] = {**errs[kind], **turns, "hopper_vs_first_design_max_abs_err": first_err,
+                         "plain_ms": device_ms(plain, iters=5), "bound_us": 1e3 * b_ms,
+                         "bound_by": b_by, "flops": flops, "bytes": nbytes,
+                         "achieved_tflops": flops / turns["kernel_ms"] / 1e9,
+                         "bound_share": b_ms / turns["kernel_ms"]}
+        res["relays_over_timed_calls"] = fb.relaid_weights.count - relays
+        check(res["relays_over_timed_calls"] == 0,
+              f"tp={tp} {label}: {res['relays_over_timed_calls']} re-layouts of unchanged weights")
+        if tp == 2 and label == "H":
+            # What a weight version costs: a Trainer re-lays each half once
+            # per optimizer step (host clock around synchronised re-layouts).
+            plan_a, plan_m = fb.half_plan("attn", l, C, C // tp), fb.half_plan("mlp", 1, C, C // tp)
+            for kind, make in (("attn", lambda: fb._arrange_attn_half(ap, heads, plan_a)),
+                               ("mlp", lambda: fb._arrange_mlp_half(mp, plan_m))):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    for _ in range(10):
+                        make()
+                torch.cuda.synchronize()
+                res[kind]["relayout_ms"] = 1e3 * (time.perf_counter() - t0) / 10
+            res["grad"] = tp_half_grads(x, p, l, heads, causal)
+            res["relays_through_copy_to_tp_views"] = tp_view_relays(x, p, l, heads, causal)
+        emit(res)
+        out.append(res)
     return out
+
+
+class _StandInGroup:
+    """A process group for ``_CopyToTP.apply`` in one process (its forward
+    only keeps it)."""
+
+
+def tp_view_relays(x, p, l, heads, causal) -> dict:
+    """The halves as ``fused_block_apply_tp`` calls them: the LayerNorm
+    parameters as new ``copy_to_tp`` views on every call.  Three calls
+    re-lay each half once (the cache keys on the view's base) and give equal
+    partials; an in-place update re-lays again and moves the result with
+    the weights."""
+    from tante_tpu_torch.parallel.collectives import _CopyToTP
+
+    shard = shard_block(p, 2, 1)
+    g = _StandInGroup()
+
+    def call():
+        ap, mp = tp_halves(shard)
+        ap = ap._replace(ln1_scale=_CopyToTP.apply(ap.ln1_scale, g),
+                         ln1_bias=_CopyToTP.apply(ap.ln1_bias, g))
+        mp = mp._replace(ln2_scale=_CopyToTP.apply(mp.ln2_scale, g),
+                         ln2_bias=_CopyToTP.apply(mp.ln2_bias, g))
+        ys = fb.attn_half_apply(x, ap, l, heads, causal), fb.mlp_half_apply(x, mp)
+        torch.cuda.synchronize()
+        return ys
+
+    r0 = fb.relaid_weights.count
+    first = call()
+    same = all(all(torch.equal(a, b) for a, b in zip(first, call())) for _ in range(2))
+    relays_3_calls = fb.relaid_weights.count - r0
+    with torch.no_grad():  # an optimizer step: a new version of two weights
+        shard.wq.mul_(1.5)
+        shard.w1.mul_(1.5)
+    moved = call()
+    relays_after_update = fb.relaid_weights.count - r0 - relays_3_calls
+    apf, mpf = tp_halves(f32_params(shard))
+    wants = fb.attn_half_ref(x.float(), apf, l, heads, causal), fb.mlp_half_ref(x.float(), mpf)
+    err = max(float((got.float() - want).abs().max()) for got, want in zip(moved, wants))
+    close = all(bool(((got.float() - want).abs() <= HALF_ATOL + HALF_RTOL * want.abs()).all())
+                for got, want in zip(moved, wants))
+    check(relays_3_calls == 2 and same and relays_after_update == 2,
+          f"copy_to_tp views: {relays_3_calls} re-layouts over three calls (want 2), equal "
+          f"{same}, {relays_after_update} after an in-place update (want 2)")
+    check(close, f"copy_to_tp views after an update: max abs error {err}")
+    return {"calls": 3, "relays": relays_3_calls, "partials_equal": same,
+            "relays_after_in_place_update": relays_after_update,
+            "max_abs_err_after_update": err, "ok": close}
 
 
 def tp_half_grads(x, p, l, heads, causal) -> dict:
@@ -1905,19 +2097,21 @@ def train_steps(trainer: Trainer, dm, steps: int) -> dict:
     a synchronised step)."""
     loader = dm.train_dataloader()
     loader.set_epoch(1)
-    losses, norms, seconds = [], [], []
+    losses, norms, seconds, relays = [], [], [], []
     for step, batch in enumerate(loader):
         if step == steps:
             break
         (x,), y = trainer.formatter.process_input(batch)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        r0, t0 = fb.relaid_weights.count, time.perf_counter()
         loss = float(trainer.train_step(x, y))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
+        relays.append(fb.relaid_weights.count - r0)
         losses.append(loss)
         norms.append(float(trainer.last_grad_norm))
-    return {"losses": losses, "grad_norms": norms, "seconds_per_step": seconds}
+    return {"losses": losses, "grad_norms": norms, "seconds_per_step": seconds,
+            "relays_per_step": relays}
 
 
 def flagship_input(batch=BATCH) -> np.ndarray:
@@ -1950,9 +2144,12 @@ def parallel_rank(rank: int, world: int, rdv: str, workdir: str, device: str, re
         load_jax_params(model, seeded_jax_params(model, seed=0), tp_mesh)
         x = torch.from_numpy(flagship_input()).to(dev)
         with torch.no_grad():
+            relays = fb.relaid_weights.count
             model(x)  # warm
             torch.cuda.synchronize()
+            relays_first = fb.relaid_weights.count - relays
             reset_counts()
+            relays = fb.relaid_weights.count
             y = model(x)
             torch.cuda.synchronize()
             counts = {**launch_counts(), **tp_counts(),
@@ -1962,7 +2159,9 @@ def parallel_rank(rank: int, world: int, rdv: str, workdir: str, device: str, re
                 model(x)
             torch.cuda.synchronize()
         out["forward"] = {"y": y.float().cpu().numpy(), "launches_per_call": counts,
-                          "seconds_per_call": (time.perf_counter() - t0) / 3}
+                          "seconds_per_call": (time.perf_counter() - t0) / 3,
+                          "relays_first_call": relays_first,
+                          "relays_next_4_calls": fb.relaid_weights.count - relays}
         del model
 
         # 2. Trainer at (dp 1, tp 2): dropout 0, then a dropout step; save.
@@ -2065,6 +2264,13 @@ def phase_parallel(dev, workdir: Path) -> dict:
           f"tp forward launches {r0['forward']['launches_per_call']}, want {want}")
     check(max(fwd_err) <= ROLLOUT_REL_TOL, f"tp=2 forward vs single rank: rel L2 {fwd_err}")
     check(np.array_equal(r0["forward"]["y"], r1["forward"]["y"]), "tp ranks' outputs differ")
+    # Each rank re-lays its 9 blocks' two halves once, though every call
+    # casts the f32 parameters to bf16 anew and hands the LayerNorm ones to
+    # the halves as new copy_to_tp views; a Trainer re-lays them once per
+    # optimizer step.
+    relays = [(r["forward"]["relays_first_call"], r["forward"]["relays_next_4_calls"])
+              for r in (r0, r1)]
+    check(all(r == (18, 0) for r in relays), f"tp forward re-layouts (first call, next 4) {relays}")
 
     # 2-4. every step's loss and gradient norm against the single-rank Trainer
     def rel(a, b):
@@ -2080,6 +2286,8 @@ def phase_parallel(dev, workdir: Path) -> dict:
                         "grad_norms": run["grad_norms"], "single_rank_grad_norms": ref["grad_norms"],
                         "worst_rel_gap": gaps,
                         "seconds_per_step": run["seconds_per_step"],
+                        "relays_per_step": run["relays_per_step"],
+                        "single_rank_relays_per_step": ref["relays_per_step"],
                         "single_rank_seconds_per_step": ref["seconds_per_step"]}
         check(gaps["loss"] <= MESH_LOSS_REL_TOL,
               f"{name}: losses {run['losses']} vs {ref['losses']} on one rank")
@@ -2087,6 +2295,9 @@ def phase_parallel(dev, workdir: Path) -> dict:
               f"{name}: gradient norms {run['grad_norms']} vs {ref['grad_norms']} on one rank")
         check(run["losses"] == r1[name]["losses"], f"{name}: the ranks log different losses")
     check(r0["train_tp"]["split_parameters"] == 9 * 10, "tp Trainer: blocks not split")
+    check(all(r["train_tp"]["relays_per_step"] == [18, 18] for r in (r0, r1)),
+          f"tp Trainer re-layouts per step {[r['train_tp']['relays_per_step'] for r in (r0, r1)]}"
+          f", want 18 (9 blocks' two halves, once per optimizer step)")
     check(r0["train_sp"]["local_field_rows"] == RES[0] // PARALLEL_WORLD,
           "sp Trainer: batches are not this rank's H rows")
     same = r0["dropout_replicas"] == r1["dropout_replicas"]
@@ -2105,6 +2316,7 @@ def phase_parallel(dev, workdir: Path) -> dict:
     res.update({
         "forward": {"batch": BATCH, "dtype": "bf16", "weights": "seeded (numpy seed 0)",
                     "launches_per_model_call_per_rank": r0["forward"]["launches_per_call"],
+                    "weight_relayouts_per_rank_first_call_then_next_4": relays,
                     "change_vs_single_rank_rel_l2": fwd_err, "rel_l2_tolerance": ROLLOUT_REL_TOL,
                     "seconds_per_call": [r["forward"]["seconds_per_call"] for r in (r0, r1)]},
         "trainer": losses, "loss_rel_tol": MESH_LOSS_REL_TOL,
@@ -2221,7 +2433,7 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
                                ("mlp", "mlp_half_fwd", "_mlp_half_kernel :704")):
         mean = lambda k: sum(c[kind][k] for c in main) / len(main)  # noqa: E731,B023
         out.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": HALF_SOURCE,
             "replaces": f"tante_tpu/ops/pallas_block.py:730 ({kernel})",
             "launches": per_call.get(name, 0),
             "launches_counted_over": "one flagship model call on one rank of (dp 1, tp 2)",
@@ -2229,10 +2441,19 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
             "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_us") / 1e3, "bound_by": main[0][kind]["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a half block
-            "times_are": "device time (torch.profiler), shard 0, mean over H, W, T at tp = 2",
+            "times_are": "device time (torch.profiler) of the kernel alone, shard 0, mean over "
+                         "H, W, T at tp = 2; call_ms: the wrapper's whole device time",
+            "call_ms": mean("call_ms"),
+            # The same shards on the first design's body, in turns on this card.
+            "first_design_ms": mean("first_design_ms"),
+            "first_design_call_ms": mean("first_design_call_ms"),
+            "first_design_source": FIRST_DESIGN_SOURCE,
+            "achieved_tflops": mean("achieved_tflops"),
+            "symbols": sorted({s for c in tp for s in c[kind]["symbols"]}),
             "ok": all(c["ok"] for c in tp),
             "per_shape": [{"tp": c["tp"], "case": c["case"], **{k: c[kind][k] for k in (
-                "kernel_ms", "plain_ms", "bound_us", "bound_by", "max_abs_err", "rel_l2",
+                "kernel_ms", "call_ms", "first_design_ms", "first_design_call_ms", "plain_ms",
+                "bound_us", "bound_by", "achieved_tflops", "max_abs_err", "rel_l2",
                 "plain_rms")}} for c in tp],
         })
     check(all(k["launches"] > 0 for k in out), "a kernel of the main paths was never launched")

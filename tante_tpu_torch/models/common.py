@@ -19,6 +19,7 @@ from tante_tpu_torch.ops.activations import gelu_tanh_f32
 from tante_tpu_torch.ops.attention import Dense, MultiheadAttention, dropout
 from tante_tpu_torch.ops.fused_block import (
     BlockParams,
+    cast_weight,
     fused_block_apply,
     fused_block_apply_tp,
     ln,
@@ -165,11 +166,11 @@ class FusedTransformerBlock(nn.Module):
     def block_params(self) -> BlockParams:
         """The flat weight tuple in the compute dtype (cast only where the
         stored dtype differs: this runs for every block of every call).  The
-        cast is an autograd op, so gradients reach the f32 parameters."""
+        cast is an autograd op, so gradients reach the f32 parameters, and
+        each copy is marked with its parameter, under which the kernels'
+        re-laid weights are cached (``cast_weight``)."""
         dt, ps = self.dtype, self._parameters
-        return BlockParams(*(
-            t if t.dtype == dt else t.to(dt) for t in (ps[f] for f in BlockParams._fields)
-        ))
+        return BlockParams(*(cast_weight(ps[f], dt) for f in BlockParams._fields))
 
     def tp_shardable(self, tp: int) -> bool:
         """Whether ``parallel.shard_params`` splits this block over ``tp``

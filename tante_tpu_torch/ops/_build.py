@@ -185,6 +185,16 @@ def _bind_fused_chain_sm90(lib: ctypes.CDLL) -> None:
     lib.tante_chain_sm90_args_bytes.restype = i
 
 
+def _bind_fused_half_sm90(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tante_attn_half_sm90_fwd.argtypes = [
+        p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, i, i, i, p]
+    lib.tante_attn_half_sm90_fwd.restype = i
+    lib.tante_mlp_half_sm90_fwd.argtypes = [
+        p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, p]
+    lib.tante_mlp_half_sm90_fwd.restype = i
+
+
 def _bind_spectral_matmul(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.tante_spectral_mode_matmul.argtypes = [
@@ -204,6 +214,7 @@ KERNELS: dict[str, Callable[[ctypes.CDLL], None]] = {
     "fused_block": _bind_fused_block,
     "fused_block_sm90": _bind_fused_block_sm90,
     "fused_chain_sm90": _bind_fused_chain_sm90,
+    "fused_half_sm90": _bind_fused_half_sm90,
     "spectral_matmul": _bind_spectral_matmul,
     "packed_attention": _bind_packed_attention,
 }

@@ -1,6 +1,8 @@
 // Fused pre-LN axial transformer block for Hopper (sm_90a), bf16: one tile
-// body, redesigned for this card, shared by two sources (each its own
-// library, built in parallel):
+// body, redesigned for this card, shared by three sources (each its own
+// library, built in parallel; fused_half_sm90.cu, the two tensor-parallel
+// halves, runs its parts: LayerNorm, the slab ring, gemm_np with EpiQkv,
+// EpiGelu and EpiPartial, attention_group):
 //
 //   y = x' + fc2(gelu_tanh(fc1(ln2(x'))))      x' = x + wo(attn(ln1(x)))
 //
@@ -674,6 +676,34 @@ struct EpiResidual {
           *reinterpret_cast<const uint4*>(stage + r * ld + k * 8);
     }
     consumers_sync();  // the staging tile is free for the next pass
+  }
+};
+
+// y = bf16(v) for the tile's valid rows: no bias, no residual, rounded once
+// (a tensor-parallel half's pre-bias partial, fused_half_sm90.cu), through a
+// row-major staging tile as EpiResidual's.  Tile row r is written at
+// y + yr.off(r).
+template <class OutRows>
+struct EpiPartial {
+  bf16* y;
+  OutRows yr;
+  bf16* stage;
+  int ld, valid;
+  __device__ uint32_t bias(int) const { return 0u; }
+  __device__ void begin(int, int) const {}
+  __device__ void ready() const {}
+  __device__ void store(int r, int c, int n0, int, float v0, float v1, uint32_t) const {
+    *reinterpret_cast<uint32_t*>(stage + r * ld + (c - n0)) = pack_bf16(v0, v1);
+  }
+  __device__ void finish(int n0, int np) const {
+    consumers_sync();
+    const int chunks = np >> 3;
+    for (int i = threadIdx.x; i < valid * chunks; i += kConsumers) {
+      const int r = i / chunks, k = i - r * chunks;
+      *reinterpret_cast<uint4*>(y + yr.off(r) + n0 + k * 8) =
+          *reinterpret_cast<const uint4*>(stage + r * ld + k * 8);
+    }
+    consumers_sync();
   }
 };
 

@@ -4,7 +4,13 @@
 //
 //   y = x' + fc2(gelu_tanh(fc1(ln2(x'))))      x' = x + wo(attn(ln1(x)))
 //
-// Its live entry points are the two tensor-parallel halves:
+// No model path takes this body any more: the Hopper body (block_sm90.cuh)
+// took its place in fused_block_sm90.cu (the single block, the canonical T
+// block), fused_chain_sm90.cu (the chain) and fused_half_sm90.cu (the two
+// tensor-parallel halves).  Its entries stay as the baseline the
+// measurement scripts and the GPU tests time the Hopper kernels against, in
+// turns on the same card (ops/fused_block.py: block_tile_canon_t,
+// block_tile_chain, block_tile_attn_half, block_tile_mlp_half):
 //
 //   tante_attn_half_fwd / tante_mlp_half_fwd
 //                                  the two tensor-parallel halves of one
@@ -13,22 +19,9 @@
 //                                  out-projection partial, and LN2 + local
 //                                  fc1/GELU + the fc2 partial, each stored
 //                                  pre-bias in bf16 for the caller's
-//                                  all-reduce.
-//     Replace tante_tpu/ops/pallas_block.py fused_block_apply_tp
-//     (_pallas_rowtile -> _attn_half_kernel / _mlp_half_kernel).  At the
-//     flagship's tp = 2 H block a half moves ~25 MB (x in, partial out) for
-//     ~6.6 (attention) / ~3.2 (MLP) GFLOP: both sit at the byte bound
-//     (~7.5 us), unlike the whole block.  This first design reuses the
-//     block's tile body (wmma, per-warp weight rings), so it is bound by the
-//     same per-tile latency; the Hopper body (block_sm90.cuh) is later work.
-//
-// Two more entries run the same body under a row map (how a tile's rows
-// are addressed in device memory) and are on no model path any more: the
-// Hopper body took their place (fused_block_sm90.cu, fused_chain_sm90.cu).
-// They stay as the baseline the measurement scripts time the Hopper kernels
-// against, in turns on the same card (ops/fused_block.py:block_tile_canon_t,
-// block_tile_chain):
-//
+//                                  all-reduce (first port of
+//     tante_tpu/ops/pallas_block.py fused_block_apply_tp -> _pallas_rowtile
+//     -> _attn_half_kernel / _mlp_half_kernel).
 //   tante_fused_block_canon_t_fwd  the causal T block on canonical
 //                                  (B, T, H, W, C): each CTA gathers P
 //                                  pixels x T steps as P sequences of

@@ -30,20 +30,27 @@ Five entry points carry every attention block of the TANTE paths:
 - ``fused_block_apply_tp(x, p, l, heads, causal, mesh)``: the block on one
   tensor-parallel rank's weight shards, as two halves with an all-reduce
   after each.  CUDA kernels ``attn_half_fwd`` and ``mlp_half_fwd`` (wrappers
-  ``attn_half_apply`` / ``mlp_half_apply``) replace the Pallas kernels
-  reached by ``fused_block_apply_tp`` (``pallas_block.py:890``, through
-  ``_pallas_rowtile``: ``_attn_half_kernel`` / ``_mlp_half_kernel``).
+  ``attn_half_apply`` / ``mlp_half_apply``; ``csrc/fused_half_sm90.cu``, the
+  same Hopper tile body on a shard zero-padded to whole 64-column groups,
+  a persistent grid) replace the Pallas kernels reached by
+  ``fused_block_apply_tp`` (``pallas_block.py:890``, through
+  ``_pallas_rowtile``: ``_attn_half_kernel`` / ``_mlp_half_kernel``).  Their
+  weights are re-laid once per weight version (``half_weights``), cached
+  under the parameters they came from: through the ``copy_to_tp`` views the
+  LayerNorm parameters arrive as, and through the compute-dtype copies of
+  f32 parameters (``cast_weight``) made on every call.
 
-The tp halves live in ``csrc/fused_block.cu`` (the first design's tile body,
-``block_tile``, wmma), beside that body's canonical T and chain entries,
-which no model path takes: ``block_tile_canon_t`` and ``block_tile_chain``
-launch them as the baseline the measurement scripts time against.  Every
-source is built on first use by ``_build.py``.  Each wrapper takes its
-plain PyTorch version (``block_ref``, ``canon_t_ref``, ``chain_ref``,
-``group_ref``: the JAX package's
-``_xla_block`` / ``_canon_t_ref`` / ``_chain_ref`` / ``_xla_group``) only
-for a tensor on the CPU; a CUDA tensor launches the kernel or raises.  Each
-wrapper counts its forward launches in its ``launches`` attribute.
+``csrc/fused_block.cu`` holds the first design's tile body (``block_tile``,
+wmma), which no model path takes: ``block_tile_canon_t``,
+``block_tile_chain``, ``block_tile_attn_half`` and ``block_tile_mlp_half``
+launch its entries as the baseline the measurement scripts and GPU tests
+time against.  Every source is built on first use by ``_build.py``.  Each
+wrapper takes its plain PyTorch version (``block_ref``, ``canon_t_ref``,
+``chain_ref``, ``group_ref``, ``attn_half_ref``, ``mlp_half_ref``: the JAX
+package's ``_xla_block`` / ``_canon_t_ref`` / ``_chain_ref`` /
+``_xla_group`` / ``_xla_attn_half`` / ``_xla_mlp_half``) only for a tensor on
+the CPU; a CUDA tensor launches the kernel or raises.  Each wrapper counts
+its forward launches in its ``launches`` attribute.
 
 Gradients: as in the JAX package (``jax.vjp`` of the plain version in every
 custom VJP there), no kernel has a backward kernel.  On a CUDA tensor that
@@ -72,6 +79,7 @@ import weakref
 from typing import Callable, NamedTuple, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from tante_tpu_torch.ops.activations import gelu_tanh_f32
 
@@ -368,17 +376,22 @@ class Sm90Weights(NamedTuple):
     slabs: torch.Tensor  # every weight slab of a tile's schedule, in order
 
 
-def qkv_groups(p: BlockParams, heads: int) -> tuple[list, torch.Tensor]:
+def qkv_groups(p, heads: int) -> tuple[list, torch.Tensor]:
     """Per head group (64 columns: 64/d heads), the (C, 192) weight
     [wq | wk | wv] with d**-0.5*log2(e) folded into wq, and all groups'
-    [bq | bk | bv] biases in one vector (``pallas_block.py:147-151``)."""
-    c = p.wq.shape[0]
-    qs = (c // heads) ** -0.5 * LOG2E
+    [bq | bk | bv] biases in one vector (``pallas_block.py:147-151``).
+    ``p`` holds wq/bq/wk/bk/wv/bv (a block's, or a tp shard's with
+    ``heads`` local heads); a shard narrower than a whole number of groups
+    is padded with zero columns (a zero head, whose output is 0)."""
+    ca = p.wq.shape[-1]
+    qs = (ca // heads) ** -0.5 * LOG2E
+    pad = -ca % 64
     # bf16 * scalar multiplies in f32 and rounds once: (w.f32 * qs).bf16.
-    wq, bq = p.wq * qs, p.bq * qs
-    cols = [slice(g, g + 64) for g in range(0, c, 64)]
-    ws = [torch.cat([wq[:, s], p.wk[:, s], p.wv[:, s]], dim=1) for s in cols]
-    bs = torch.cat([torch.cat([bq[s], p.bk[s], p.bv[s]]) for s in cols])
+    wq, bq, wk, bk, wv, bv = (F.pad(t, (0, pad)) for t in (p.wq * qs, p.bq * qs, p.wk, p.bk,
+                                                             p.wv, p.bv))
+    cols = [slice(g, g + 64) for g in range(0, ca + pad, 64)]
+    ws = [torch.cat([wq[:, s], wk[:, s], wv[:, s]], dim=1) for s in cols]
+    bs = torch.cat([torch.cat([bq[s], bk[s], bv[s]]) for s in cols])
     return ws, bs
 
 
@@ -391,41 +404,81 @@ def _arrange(p: BlockParams, heads: int, plan: Sm90Plan) -> Sm90Weights:
                        p.b2, slabs)
 
 
-def _state(t: torch.Tensor) -> tuple:
-    """What a re-laid copy of ``t`` depends on besides its identity: the
-    version counter (in-place updates) and the storage address (``.data``
-    swaps, as ``Module.to`` makes, keep the identity and the counter)."""
+def cast_weight(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype`` (an autograd cast where the dtype differs), marked
+    as made from ``t``: the kernels' weights re-laid from the copy, which is
+    made anew on every call, are cached under ``t`` and its version."""
+    if t.dtype == dtype:
+        return t
+    out = t.to(dtype)
+    out._cast_of = t
+    return out
+
+
+def _origin(t: torch.Tensor) -> torch.Tensor:
+    """The tensor whose storage and version decide ``t``'s values: the base
+    of a view (``copy_to_tp`` hands the tp halves a new view of each
+    LayerNorm parameter on every call, ``x.view_as(x)``), the source of a
+    ``cast_weight`` copy (the compute-dtype weights of f32 parameters)."""
+    while True:
+        if t._base is not None:
+            t = t._base
+        elif hasattr(t, "_cast_of"):
+            t = t._cast_of
+        else:
+            return t
+
+
+def _version(t: torch.Tensor):
+    """The version counter (a view shares its base's), bumped by every
+    in-place update; None for an inference tensor, which keeps none."""
     try:
-        version = t._version
-    except RuntimeError:  # an inference tensor keeps no version counter
-        version = None
-    return version, t.data_ptr()
+        return t._version
+    except RuntimeError:
+        return None
 
 
-# Re-laid weights by the identity and state of the 16 tensors they came
-# from: serving re-lays each block once; a weight updated in place (an
-# optimizer step), given new storage, or a new tensor (a cast made per call)
-# is re-laid again.
+# Re-laid weights by the identity of the tensors they came from (through
+# views and casts), each one's storage address and layout, and the kernel
+# plan; valid while every origin keeps its version.  Serving re-lays each
+# block (or half) once, and so does a Trainer once per optimizer step: a
+# weight updated in place bumps its version, and one given new storage
+# (``.data`` swaps, as ``Module.to`` makes) or a new tensor changes the key.
 _SM90_CACHE: collections.OrderedDict = collections.OrderedDict()
 SM90_CACHE_SIZE = 64
 
 
-def sm90_weights(p: BlockParams, heads: int, plan: Sm90Plan) -> Sm90Weights:
-    """The kernel's weights for ``p``, re-laid once per weight version."""
-    key = (tuple(id(t) for t in p), heads, plan)
+def relaid_weights(p: tuple, extra: tuple, make: Callable):
+    """``make()`` (under ``no_grad``) for the tensors ``p`` and the plan
+    ``extra``, once per weight version; ``relaid_weights.count`` counts the
+    re-layouts made."""
+    roots = tuple(_origin(t) for t in p)
+    key = (extra, tuple((id(r), r.data_ptr(), tuple(r.shape), r.stride(), t.dtype,
+                         tuple(t.shape), t.stride(), t.storage_offset())
+                        for r, t in zip(roots, p)))
+    versions = tuple(_version(r) for r in roots)
     hit = _SM90_CACHE.get(key)
     if hit is not None:
-        refs, versions, w = hit
-        if all(r() is t for r, t in zip(refs, p)) and versions == tuple(_state(t) for t in p):
+        refs, seen, w = hit
+        if all(ref() is r for ref, r in zip(refs, roots)) and seen == versions:
             _SM90_CACHE.move_to_end(key)
             return w
     with torch.no_grad():
-        w = _arrange(p, heads, plan)
-    _SM90_CACHE[key] = (tuple(weakref.ref(t) for t in p), tuple(_state(t) for t in p), w)
+        w = make()
+    relaid_weights.count += 1
+    _SM90_CACHE[key] = (tuple(weakref.ref(r) for r in roots), versions, w)
     _SM90_CACHE.move_to_end(key)
     while len(_SM90_CACHE) > SM90_CACHE_SIZE:
         _SM90_CACHE.popitem(last=False)
     return w
+
+
+relaid_weights.count = 0
+
+
+def sm90_weights(p: BlockParams, heads: int, plan: Sm90Plan) -> Sm90Weights:
+    """The kernel's weights for ``p``, re-laid once per weight version."""
+    return relaid_weights(p, ("block", heads, plan), lambda: _arrange(p, heads, plan))
 
 
 def fused_block_apply(
@@ -847,11 +900,107 @@ def _check_half_x(x: torch.Tensor, c: int, local: int):
                          f"width that is a multiple of 32 in [32, 2C]; got C={c}, local={local}")
 
 
+def _check_attn_half(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int):
+    c, ca = x.shape[-1], p.wq.shape[-1]
+    _check_half_x(x, c, ca)
+    if heads <= 0 or ca % heads or ca // heads not in KERNEL_HEAD_DIMS or ca > c:
+        raise ValueError(f"attention half: local width {ca} over {heads} heads, C={c}")
+    if not 1 <= l <= KERNEL_MAX_L:
+        raise ValueError(f"kernel holds sequences of 1..{KERNEL_MAX_L}, got L={l}")
+    _check_params(x, p, ((c,), (c,), (c, ca), (ca,), (c, ca), (ca,), (c, ca), (ca,), (ca, c)))
+
+
+def _check_mlp_half(x2: torch.Tensor, p: MlpHalfParams):
+    c, hl = x2.shape[-1], p.w1.shape[-1]
+    _check_half_x(x2, c, hl)
+    _check_params(x2, p, ((c,), (c,), (c, hl), (hl,), (hl, c)))
+
+
+# --------------------------------------------------------------------------
+# The tp halves for Hopper (csrc/fused_half_sm90.cu, on the block body of
+# csrc/block_sm90.cuh)
+# --------------------------------------------------------------------------
+
+class HalfPlan(NamedTuple):
+    rows: int        # R: rows of a tile (64 or 128)
+    seqs: int        # whole sequences per tile (the MLP half: R rows of L = 1)
+    width: int       # the shard's local width padded to a multiple of 64 (W)
+    np: tuple        # column passes: q|k|v (192) or fc1; out-projection or fc2
+    stages: int      # weight slabs in the ring
+
+    def ints(self) -> list:
+        return [self.rows, self.seqs, self.width, *self.np, self.stages]
+
+
+def half_smem(attn: bool, rows: int, c: int, width: int, np: tuple, stages: int) -> int:
+    """Shared memory bytes of a half's plan (``fused_half_sm90.cu:half_layout``):
+    the LayerNorm output, the attention half's q|k|v tile, the attention or
+    fc1 output (W wide), the slab ring and its barriers."""
+    qkv = rows * SM90_QKV_LD * 2 if attn else 0
+    return (rows * c * 2 + qkv + rows * width * 2 + stages * SM90_SLAB_K * max(np) * 2
+            + 2 * SM90_MAX_STAGES * 8)
+
+
+@functools.lru_cache(maxsize=64)
+def half_plan(kind: str, l: int, c: int, local: int) -> HalfPlan | None:
+    """The tile plan of the "attn" half on sequences of length ``l`` or the
+    "mlp" half (``l`` = 1) for a shard ``local`` columns wide: 128-row tiles
+    when C <= 256, else 64 (the LayerNorm's registers); as many ring stages
+    as fit, up to four.  None outside ``_check_half_x``'s envelope (and, for
+    the attention half, local <= C)."""
+    attn = kind == "attn"
+    if not (c % 64 == 0 and 0 < c <= KERNEL_MAX_C and local % 32 == 0
+            and 32 <= local <= (c if attn else 2 * c) and 1 <= l <= (KERNEL_MAX_L if attn else 1)):
+        return None
+    width = -(-local // 64) * 64
+    np = (SM90_QKV_N if attn else _pass_width(width), _pass_width(c))
+    rows = 128 if c <= 256 else 64
+    for stages in range(SM90_MAX_STAGES, 1, -1):
+        if half_smem(attn, rows, c, width, np, stages) <= SMEM_OPTIN:
+            return HalfPlan(rows, rows // l, width, np, stages)
+    return None
+
+
+class HalfWeights(NamedTuple):
+    ln_scale: torch.Tensor
+    ln_bias: torch.Tensor
+    bias: torch.Tensor   # each head group's bq (prescaled) | bk | bv; or b1; W wide
+    slabs: torch.Tensor  # every weight slab of a tile's schedule, in order
+
+
+def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
+    return F.pad(w, (0, 0, 0, rows - w.shape[0]))
+
+
+def _arrange_attn_half(p: AttnHalfParams, heads: int, plan: HalfPlan) -> HalfWeights:
+    ws, bqkv = qkv_groups(p, heads)
+    slabs = torch.cat([*(arrange_weight(w, plan.np[0]) for w in ws),
+                       arrange_weight(_pad_rows(p.wo, plan.width), plan.np[1])])
+    return HalfWeights(p.ln1_scale, p.ln1_bias, bqkv, slabs)
+
+
+def _arrange_mlp_half(p: MlpHalfParams, plan: HalfPlan) -> HalfWeights:
+    pad = plan.width - p.w1.shape[-1]
+    slabs = torch.cat([arrange_weight(F.pad(p.w1, (0, pad)), plan.np[0]),
+                       arrange_weight(_pad_rows(p.w2, plan.width), plan.np[1])])
+    return HalfWeights(p.ln2_scale, p.ln2_bias, F.pad(p.b1, (0, pad)), slabs)
+
+
+def half_weights(p: AttnHalfParams | MlpHalfParams, plan: HalfPlan,
+                 heads: int = 0) -> HalfWeights:
+    """A half's weights for ``p`` (``heads`` local heads for the attention
+    half), re-laid once per weight version: zero-padded to the plan's width,
+    q prescaled, slab after slab in the order the tile consumes them."""
+    if isinstance(p, AttnHalfParams):
+        return relaid_weights(p, ("attn", heads, plan), lambda: _arrange_attn_half(p, heads, plan))
+    return relaid_weights(p, ("mlp", plan), lambda: _arrange_mlp_half(p, plan))
+
+
 def attn_half_apply(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
                     causal: bool) -> torch.Tensor:
     """(S, L, C) -> the pre-bias attention partial (S, L, C) of one tp shard
-    (``heads`` local heads).  CUDA kernel ``attn_half_fwd``; the plain
-    version on the CPU."""
+    (``heads`` local heads).  CUDA kernel ``attn_half_fwd``
+    (``csrc/fused_half_sm90.cu``); the plain version on the CPU."""
     if x.device.type == "cpu":
         return attn_half_ref(x, p, l, heads, causal)
     if x.shape[-2] != l:
@@ -861,19 +1010,15 @@ def attn_half_apply(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
         from tante_tpu_torch.ops import _build
 
         (p,) = ps
+        _check_attn_half(x, p, l, heads)
         c, ca = x.shape[-1], p.wq.shape[-1]
-        _check_half_x(x, c, ca)
-        if heads <= 0 or ca % heads or ca // heads not in KERNEL_HEAD_DIMS or ca > c:
-            raise ValueError(f"attention half: local width {ca} over {heads} heads, C={c}")
-        if not 1 <= l <= KERNEL_MAX_L:
-            raise ValueError(f"kernel holds sequences of 1..{KERNEL_MAX_L}, got L={l}")
-        _check_params(x, p, ((c,), (c,), (c, ca), (ca,), (c, ca), (ca,), (c, ca), (ca,), (ca, c)))
+        plan = half_plan("attn", l, c, ca)
+        w = half_weights(p, plan, heads)
         out = torch.empty_like(x)
-        qs = (ca // heads) ** -0.5 * LOG2E
-        scaled = p._replace(wq=p.wq * qs, bq=p.bq * qs)  # alive until enqueued
-        rc = _build.load().tante_attn_half_fwd(
-            x.data_ptr(), out.data_ptr(), _ptr_array([scaled]), x.numel() // (l * c), l, c, ca,
-            heads, int(bool(causal)), _safe(), x.device.index, _stream(x),
+        rc = _build.load("fused_half_sm90").tante_attn_half_sm90_fwd(
+            x.data_ptr(), out.data_ptr(), _ptr_array([w]), (ctypes.c_int * 6)(*plan.ints()),
+            x.numel() // (l * c), l, c, ca, heads, int(bool(causal)), _safe(), x.device.index,
+            _stream(x),
         )
         _raise_on(rc, "attn_half_fwd")
         attn_half_apply.launches += 1
@@ -888,8 +1033,8 @@ attn_half_apply.launches = 0
 
 def mlp_half_apply(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
     """(..., C) -> the pre-bias MLP partial of one tp shard (rows are
-    independent).  CUDA kernel ``mlp_half_fwd``; the plain version on the
-    CPU."""
+    independent).  CUDA kernel ``mlp_half_fwd`` (``csrc/fused_half_sm90.cu``);
+    the plain version on the CPU."""
     if x2.device.type == "cpu":
         return mlp_half_ref(x2, p)
 
@@ -897,13 +1042,14 @@ def mlp_half_apply(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
         from tante_tpu_torch.ops import _build
 
         (p,) = ps
+        _check_mlp_half(x2, p)
         c, hl = x2.shape[-1], p.w1.shape[-1]
-        _check_half_x(x2, c, hl)
-        _check_params(x2, p, ((c,), (c,), (c, hl), (hl,), (hl, c)))
+        plan = half_plan("mlp", 1, c, hl)
+        w = half_weights(p, plan)
         out = torch.empty_like(x2)
-        rc = _build.load().tante_mlp_half_fwd(
-            x2.data_ptr(), out.data_ptr(), _ptr_array([p]), x2.numel() // c, c, hl,
-            x2.device.index, _stream(x2),
+        rc = _build.load("fused_half_sm90").tante_mlp_half_sm90_fwd(
+            x2.data_ptr(), out.data_ptr(), _ptr_array([w]), (ctypes.c_int * 6)(*plan.ints()),
+            x2.numel() // c, c, hl, x2.device.index, _stream(x2),
         )
         _raise_on(rc, "mlp_half_fwd")
         mlp_half_apply.launches += 1
@@ -913,6 +1059,53 @@ def mlp_half_apply(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
 
 
 mlp_half_apply.launches = 0
+
+
+# The first design's halves (csrc/fused_block.cu: attn_half_kernel /
+# mlp_half_kernel on ``block_tile``'s device functions).  No model path
+# takes them; chip_smoke.py, tools/kernel_phases.py and the GPU tests time
+# the Hopper halves against them in turns on the same card.
+
+
+def block_tile_attn_half(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
+                         causal: bool) -> torch.Tensor:
+    """The attention half through the first design's body (CUDA only)."""
+    from tante_tpu_torch.ops import _build
+
+    _check_attn_half(x, p, l, heads)
+    c, ca = x.shape[-1], p.wq.shape[-1]
+    out = torch.empty_like(x)
+    qs = (ca // heads) ** -0.5 * LOG2E
+    scaled = p._replace(wq=p.wq * qs, bq=p.bq * qs)  # alive until enqueued
+    rc = _build.load().tante_attn_half_fwd(
+        x.data_ptr(), out.data_ptr(), _ptr_array([scaled]), x.numel() // (l * c), l, c, ca,
+        heads, int(bool(causal)), _safe(), x.device.index, _stream(x),
+    )
+    _raise_on(rc, "block_tile attention half")
+    block_tile_attn_half.launches += 1
+    return out
+
+
+block_tile_attn_half.launches = 0
+
+
+def block_tile_mlp_half(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
+    """The MLP half through the first design's body (CUDA only)."""
+    from tante_tpu_torch.ops import _build
+
+    _check_mlp_half(x2, p)
+    c, hl = x2.shape[-1], p.w1.shape[-1]
+    out = torch.empty_like(x2)
+    rc = _build.load().tante_mlp_half_fwd(
+        x2.data_ptr(), out.data_ptr(), _ptr_array([p]), x2.numel() // c, c, hl,
+        x2.device.index, _stream(x2),
+    )
+    _raise_on(rc, "block_tile MLP half")
+    block_tile_mlp_half.launches += 1
+    return out
+
+
+block_tile_mlp_half.launches = 0
 
 
 def fused_block_apply_tp(x: torch.Tensor, p: BlockParams, l: int, heads: int, causal: bool,

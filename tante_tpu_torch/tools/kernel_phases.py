@@ -1,6 +1,8 @@
 """Where the time goes inside the fused-block kernels, on the card.
 
-    python3 -m tante_tpu_torch.tools.kernel_phases
+    python3 -m tante_tpu_torch.tools.kernel_phases [--halves]
+
+(``--halves``: the tensor-parallel halves' sections alone.)
 
 First the Hopper single-block kernels (``ops/csrc/fused_block_sm90.cu`` on
 the tile body of ``block_sm90.cuh``): a measurement copy built with
@@ -24,9 +26,15 @@ tile's start to its last tile's end, and how long before a CTA's first tile
 of the block its producer issued that block's first slab (positive: the
 weights were in flight before the tile began).
 
+Then the Hopper tensor-parallel halves (``ops/csrc/fused_half_sm90.cu``)
+at tp = 2 (shard 0 of the flagship's H, W and rearranged causal T blocks):
+one JSON line per half and block with the mean microseconds per tile of
+each phase (the attention half: LN1, q|k|v projections and attention
+summed over the head groups, out-projection; the MLP half: LN2, fc1, fc2)
+and the matmul cycles per tile.
+
 Last the first design's tile body (``block_tile`` in ``ops/csrc/fused_block.cu``,
-which the tensor-parallel halves run, and whose canonical T and chain
-entries are the measurement baseline): a measurement copy with
+whose canonical T, chain and half entries are the measurement baseline): a measurement copy with
 ``-DTANTE_PHASE_TIMING`` (a CTA barrier and a global-timer stamp at each
 phase boundary: start, row gather, LN1, q, k, v, attention, out-projection,
 LN2, fc1, fc2), launches the flagship H and W blocks (each a one-block chain
@@ -259,23 +267,109 @@ def chain_phases(dev, stream, card: str) -> None:
                           "blocks": steps, "card": card}), flush=True)
 
 
+HALF_TP = 2
+HALF_CASES = {"H": ((1536, 16, C), False), "W": ((512, 48, C), False),
+              "T rearranged": ((8 * 16 * 48, 4, C), True)}
+
+
+def _half_setup(kind: str, label: str, dev):
+    """Shard 0 of a flagship block at tp = 2, its input and output, its
+    production plan and re-laid weights."""
+    from tante_tpu_torch.parallel.sharding import shard_block
+
+    (shape, causal) = HALF_CASES[label]
+    p = shard_block(_params(40 + list(HALF_CASES).index(label), dev), HALF_TP, 0)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=shape).astype(np.float32))
+    x = x.to(dev, torch.bfloat16)
+    n_seqs, l, _ = shape
+    heads = HEADS // HALF_TP
+    if kind == "attn":
+        half = fb.AttnHalfParams(*(getattr(p, f) for f in fb.AttnHalfParams._fields))
+        plan = fb.half_plan("attn", l, C, half.wq.shape[-1])
+    else:
+        half = fb.MlpHalfParams(*(getattr(p, f) for f in fb.MlpHalfParams._fields))
+        plan = fb.half_plan("mlp", 1, C, half.w1.shape[-1])
+    return half, x, torch.empty_like(x), plan, n_seqs, l, heads, causal
+
+
+def _half_launch(lib, kind, half, x, y, plan, n_seqs, l, heads, causal, stream):
+    """A launch of one half under ``plan`` through ``lib``: a callable
+    returning the cudaError_t, and the tile count."""
+    w = fb.half_weights(half, plan, heads) if kind == "attn" else fb.half_weights(half, plan)
+    ptrs, plan_arr = fb._ptr_array([w]), (ctypes.c_int * 6)(*plan.ints())
+    if kind == "attn":
+        ca = half.wq.shape[-1]
+        return (lambda: lib.tante_attn_half_sm90_fwd(  # noqa: E731
+            x.data_ptr(), y.data_ptr(), ptrs, plan_arr, n_seqs, l, C, ca, heads, int(causal), 0,
+            0, stream)), -(-n_seqs // plan.seqs)
+    m = n_seqs * l
+    return (lambda: lib.tante_mlp_half_sm90_fwd(  # noqa: E731
+        x.data_ptr(), y.data_ptr(), ptrs, plan_arr, m, C, half.w1.shape[-1], 0, stream)), \
+        -(-m // plan.rows)
+
+
+def half_phases(dev, stream, card: str) -> None:
+    """Per-tile phases of the Hopper halves at tp = 2 (see the module text)."""
+    lib = _timing_library("fused_half_sm90")
+    n_stamps = lib.tante_sm90_phase_stamps()
+    for label in HALF_CASES:
+        for kind in ("attn", "mlp"):
+            half, x, y, plan, n_seqs, l, heads, causal = _half_setup(kind, label, dev)
+            launch, tiles = _half_launch(lib, kind, half, x, y, plan, n_seqs, l, heads, causal,
+                                         stream)
+            for _ in range(3):
+                if launch() != 0:
+                    raise RuntimeError(f"{kind} half {label}: launch failed")
+            torch.cuda.synchronize()
+            _read(lib, "tante_sm90_gemm_cycles", (tiles, 4, 3))  # zeroes the counters
+            ms = _timed(launch, 20)
+            per_mm = _read(lib, "tante_sm90_gemm_cycles", (tiles, 4, 3)).astype(np.float64)
+            per_mm = per_mm.mean(axis=0) / (20 + 3)
+            ns = _read(lib, "tante_sm90_phase_read", (tiles, n_stamps)).astype(np.float64)
+            if kind == "attn":
+                g = plan.width // 64
+                d = lambda a, b: float((ns[:, a] - ns[:, b]).mean() / 1e3)  # noqa: E731
+                phases = {"ln1": d(1, 0),
+                          "qkv": sum(d(2 + 2 * i, 1 + 2 * i) for i in range(g)),
+                          "attention": sum(d(3 + 2 * i, 2 + 2 * i) for i in range(g)),
+                          "o_proj": d(n_stamps - 4, 1 + 2 * g)}
+                last, cycles = n_stamps - 4, {k: v for k, v in _cycles(per_mm).items()
+                                              if k in ("qkv", "o_proj")}
+            else:
+                phases = dict(zip(("ln2", "fc1", "fc2"),
+                                  (np.diff(ns[:, :4], axis=1).mean(axis=0) / 1e3).tolist()))
+                last, cycles = 3, {k: v for k, v in _cycles(per_mm).items() if k in ("fc1", "fc2")}
+            print(json.dumps({
+                "kernel": f"{kind}_half_fwd (fused_half_sm90.cu)", "block": label, "tp": HALF_TP,
+                "shape": list(x.shape), "causal": causal, "tiles": tiles, "plan": plan._asdict(),
+                "timing_build_ms": ms, "per_tile_us": phases,
+                "tile_us": float(sum(phases.values())), "matmul_cycles_per_tile": cycles,
+                "span_us": float((ns[:, last].max() - ns[:, 0].min()) / 1e3), "card": card,
+            }), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device available", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    # The three measurement copies build together; each is found built below.
-    _build.compile_libraries([(k, f"{k}_phases", TIMING_FLAGS)
-                              for k in ("fused_block_sm90", "fused_chain_sm90", "fused_block")])
-    sm90_phases(torch.device("cuda"), torch.cuda.current_stream().cuda_stream, card)
-    chain_phases(torch.device("cuda"), torch.cuda.current_stream().cuda_stream, card)
+    halves_only = "--halves" in sys.argv[1:]
+    # The measurement copies build together; each is found built below.
+    kernels = ("fused_half_sm90",) if halves_only else (
+        "fused_block_sm90", "fused_chain_sm90", "fused_half_sm90", "fused_block")
+    _build.compile_libraries([(k, f"{k}_phases", TIMING_FLAGS) for k in kernels])
+    dev, stream = torch.device("cuda"), torch.cuda.current_stream().cuda_stream
+    if not halves_only:
+        sm90_phases(dev, stream, card)
+        chain_phases(dev, stream, card)
+    half_phases(dev, stream, card)
+    if halves_only:
+        return 0
     info = _build.compile_library("fused_block", "fused_block_phases", TIMING_FLAGS)
     lib = _build.bind(ctypes.CDLL(info["library"]))
     lib.tante_phase_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.tante_phase_read.restype = ctypes.c_int
-    dev = torch.device("cuda")
-    stream = torch.cuda.current_stream().cuda_stream
     for i, (label, (shape, causal)) in enumerate(CASES.items()):
         scaled = fb._prescaled(_params(i, dev), HEADS)  # alive while the kernels run
         ptrs = fb._ptr_array([scaled])

@@ -111,6 +111,13 @@ def to_torch(p, requires_grad=False):
         *(torch.from_numpy(np.array(a)).requires_grad_(requires_grad) for a in p))
 
 
+def unarrange_weight(flat: torch.Tensor, k: int, n: int, np_: int) -> torch.Tensor:
+    """The inverse of ``tblock.arrange_weight``: the (K, N) weight the
+    kernel reads from ``flat``'s slabs (passes of ``np_`` columns)."""
+    t = flat.reshape(n // np_, k // 32, np_ // 8, 4, 8, 8)
+    return t.permute(1, 3, 5, 0, 2, 4).reshape(k, n)
+
+
 def walk_chain_plan(x2, params_seq, plan, heads):
     """What the chain kernel does with ``chain_plan``'s ints, on the CPU:
     per block, gather each sequence's rows from the current buffer through

@@ -739,6 +739,122 @@ def test_tp_half_kernels_safe_softmax_match_plain(cuda, safe_softmax, s, l, caus
     test_tp_half_kernels_match_plain(cuda, 2, s, l, 256, 256, 8, causal)
 
 
+@pytest.mark.parametrize("s,l,causal", [(1536, 16, False), (6144, 4, True), (7, 48, False)])
+def test_tp_half_kernels_match_plain_tp8(cuda, s, l, causal):
+    """tp = 8 at the flagship width: 32-wide shards (one head of d = 32, a
+    32-wide hidden shard), zero-padded to one 64-column group."""
+    test_tp_half_kernels_match_plain(cuda, 8, s, l, 256, 256, 8, causal)
+
+
+@pytest.mark.parametrize("tp,s,l,c,hidden,heads,causal", [
+    (2, 1536, 16, 256, 256, 8, False),
+    (4, 6144, 4, 256, 256, 8, True),
+    (8, 512, 48, 256, 256, 8, False),
+    (2, 37, 16, 512, 1024, 8, True),   # C = 512: 64-row tiles; HL = 512
+    (2, 10, 33, 192, 384, 6, False),   # CA = 96 (a half-padded second group), HL = 192
+])
+def test_tp_half_kernels_match_first_design(cuda, tp, s, l, c, hidden, heads, causal):
+    """The Hopper halves against the first design's on the same shard, in
+    turns (Hopper, first design, first design, Hopper): each within the
+    halves' limits of the plain version and of the other, the two Hopper
+    runs equal bit for bit; only the Hopper wrappers count launches."""
+    p = params(c, hidden, seed=tp + l, device=cuda)
+    x = bf16_normal((s, l, c), seed=l, device=cuda)
+    ap, mp = halves(shard_block(p, tp, tp - 1))
+    apf, mpf = halves(f32(shard_block(p, tp, tp - 1)))
+    for run, first, want in (
+            (lambda: fb.attn_half_apply(x, ap, l, heads // tp, causal),
+             lambda: fb.block_tile_attn_half(x, ap, l, heads // tp, causal),
+             fb.attn_half_ref(x.float(), apf, l, heads // tp, causal)),
+            (lambda: fb.mlp_half_apply(x, mp), lambda: fb.block_tile_mlp_half(x, mp),
+             fb.mlp_half_ref(x.float(), mpf))):
+        before = fb.attn_half_apply.launches + fb.mlp_half_apply.launches
+        k1, b1, b2, k2 = run(), first(), first(), run()
+        torch.cuda.synchronize()
+        assert fb.attn_half_apply.launches + fb.mlp_half_apply.launches == before + 2
+        assert torch.equal(k1, k2) and torch.equal(b1, b2)
+        assert_half_close(k1, want)
+        assert_half_close(b1, want)
+        torch.testing.assert_close(k1.float(), b1.float(), atol=HALF_ATOL, rtol=HALF_RTOL)
+
+
+class _StandInGroup:
+    """A process group for ``_CopyToTP.apply`` in one process."""
+
+
+def test_tp_halves_relay_once_per_weight_version(cuda):
+    """As ``fused_block_apply_tp`` calls them (new ``copy_to_tp`` views of
+    the LayerNorm parameters every call), the halves re-lay their weights
+    once per weight version."""
+    from tante_tpu_torch.parallel.collectives import _CopyToTP
+
+    p = shard_block(params(256, 256, seed=9, device=cuda), 2, 0)
+    x = bf16_normal((512, 48, 256), seed=9, device=cuda)
+    g = _StandInGroup()
+
+    def call():
+        ap, mp = halves(p)
+        ap = ap._replace(ln1_scale=_CopyToTP.apply(ap.ln1_scale, g),
+                         ln1_bias=_CopyToTP.apply(ap.ln1_bias, g))
+        mp = mp._replace(ln2_scale=_CopyToTP.apply(mp.ln2_scale, g),
+                         ln2_bias=_CopyToTP.apply(mp.ln2_bias, g))
+        ys = fb.attn_half_apply(x, ap, 48, 4, False), fb.mlp_half_apply(x, mp)
+        torch.cuda.synchronize()
+        return ys
+
+    before = fb.relaid_weights.count
+    first = call()
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(first, call()))
+    assert fb.relaid_weights.count == before + 2
+    with torch.no_grad():
+        p.wv.mul_(2.0)
+        p.w2.mul_(2.0)
+    moved = call()
+    assert fb.relaid_weights.count == before + 4
+    apf, mpf = halves(f32(p))
+    assert_half_close(moved[0], fb.attn_half_ref(x.float(), apf, 48, 4, False))
+    assert_half_close(moved[1], fb.mlp_half_ref(x.float(), mpf))
+
+
+def test_tp_halves_relay_once_per_version_of_f32_parameters(cuda):
+    """As a Trainer's block calls them (f32 parameters cast to bf16 on every
+    call by ``cast_weight``, a gradient flowing), the halves re-lay their
+    weights once per optimizer step, from the new values."""
+    from tante_tpu_torch.parallel.collectives import _CopyToTP
+
+    master = [torch.nn.Parameter(t.float())
+              for t in shard_block(params(256, 256, seed=10, device=cuda), 2, 0)]
+    x = bf16_normal((512, 48, 256), seed=10, device=cuda)
+    g = _StandInGroup()
+
+    def call():
+        p = fb.BlockParams(*(fb.cast_weight(t, torch.bfloat16) for t in master))
+        ap, mp = halves(p)
+        ap = ap._replace(ln1_scale=_CopyToTP.apply(ap.ln1_scale, g),
+                         ln1_bias=_CopyToTP.apply(ap.ln1_bias, g))
+        mp = mp._replace(ln2_scale=_CopyToTP.apply(mp.ln2_scale, g),
+                         ln2_bias=_CopyToTP.apply(mp.ln2_bias, g))
+        ys = fb.attn_half_apply(x, ap, 48, 4, False), fb.mlp_half_apply(x, mp)
+        torch.cuda.synchronize()
+        return p, ys
+
+    before = fb.relaid_weights.count
+    _, first = call()
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(first, call()[1]))
+    assert fb.relaid_weights.count == before + 2
+    opt = torch.optim.SGD(master, lr=1.0)
+    for t in master:
+        t.grad = torch.full_like(t, 0.01)
+    opt.step()
+    p, moved = call()
+    assert fb.relaid_weights.count == before + 4
+    apf, mpf = halves(f32(p))
+    assert_half_close(moved[0], fb.attn_half_ref(x.float(), apf, 48, 4, False))
+    assert_half_close(moved[1], fb.mlp_half_ref(x.float(), mpf))
+
+
 def test_tp_half_kernels_refuse_what_they_cannot_take(cuda):
     p = params(256, 256, seed=0, device=cuda)
     ap, mp = halves(shard_block(p, 2, 0))

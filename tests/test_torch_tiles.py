@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import B, flatten
+from _torch_parity import B, flatten, unarrange_weight
 from tante_tpu.models.attn_backbone import AttnBackbone as JaxBackbone
 from tante_tpu.ops import pallas_block as jblock
 from tante_tpu_torch.convert import load_jax_params
@@ -26,12 +26,6 @@ from tante_tpu_torch.ops import fused_spectral as fs
 import jax
 
 ATOL = RTOL = 1e-5
-
-
-def unarrange_weight(flat: torch.Tensor, k: int, n: int, np_: int) -> torch.Tensor:
-    """The inverse of ``arrange_weight``."""
-    t = flat.reshape(n // np_, k // 32, np_ // 8, 4, 8, 8)
-    return t.permute(1, 3, 5, 0, 2, 4).reshape(k, n)
 
 
 def tile_rows(n_seqs: int, l: int, plan) -> list:
@@ -132,6 +126,30 @@ def test_relaid_weights_are_made_once_per_weight_version():
     third = tblock.sm90_weights(p, 4, plan)
     assert third is not second
     assert torch.equal(unarrange_weight(third.slabs[-64 * 64:], 64, 64, 64), p.w2)
+
+
+def test_relaid_weights_of_a_bf16_block_over_f32_parameters_are_made_once_per_step():
+    """A Trainer's block keeps f32 parameters and casts them to its bf16
+    compute dtype on every call: the re-layout is cached under the
+    parameters (``cast_weight``), so it is made once per optimizer step."""
+    from tante_tpu_torch.models.common import FusedTransformerBlock
+
+    block = FusedTransformerBlock(64, 4, mlp_ratio=1.0, dropout=0.0, dtype=torch.bfloat16,
+                                  gen=torch.Generator().manual_seed(0))
+    plan = tblock.sm90_plan(16, 64, 64)
+    first_p = block.block_params()
+    first = tblock.sm90_weights(first_p, 4, plan)
+    again_p = block.block_params()
+    assert again_p.w1 is not first_p.w1 and again_p.w1.dtype == torch.bfloat16
+    assert tblock.sm90_weights(again_p, 4, plan) is first
+    opt = torch.optim.SGD(block.parameters(), lr=0.1)
+    block.w1.grad = torch.ones_like(block.w1)
+    opt.step()  # in place on the f32 parameter: a new version
+    p = block.block_params()
+    second = tblock.sm90_weights(p, 4, plan)
+    assert second is not first
+    assert torch.equal(unarrange_weight(second.slabs[-2 * 64 * 64:-64 * 64], 64, 64, 64), p.w1)
+    assert tblock.sm90_weights(block.block_params(), 4, plan) is second
 
 
 @pytest.mark.parametrize("n_seqs,l", [(1536, 16), (512, 48), (6144, 4), (7, 48), (21, 3),
