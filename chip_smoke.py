@@ -75,13 +75,17 @@ script exits non-zero without the final result line):
             one (16, 16, 16, 6, 192) projection; and as (256, 96, 64)), the JAX
             tests' (10, 128, 32) and
             (7, 16, 16) in f32 and bf16, causal and not, and a TransformerBlock's
-            (1536, 128, 32) in bf16; device time of kernel, plain version and
-            ``scaled_dot_product_attention`` (the yardstick), and the bound.
+            (1536, 128, 32) in bf16; two launches equal bit for bit, no operand
+            copied; CUDA-event times (100 calls queued behind a spin of the card)
+            of kernel, plain version and ``scaled_dot_product_attention`` (the
+            yardstick), L2-warm and L2-cold, the bound and its share of the cold
+            time.
 11. packed_grad  gradients through its Function against autograd of the plain
             version (f32), packed and on AViT's strided row / column views.
 12. avit    AViT at ``configs/avit.yaml`` width (embed 384, 6 heads, 12 blocks,
             drop path 0.2), f32, B=4 of 256x256x8 waves: ``Predictor.rollout``
-            (16 steps = 4 calls, exactly 96 ``packed_attention`` launches), its
+            (16 steps = 4 calls, exactly 96 ``packed_attention`` launches, no
+            operand copied by its wrapper here or below), its
             first call against the f32 CPU model; ``Trainer`` (24 forward
             launches a step; with drop path 0 the first loss and gradient norm
             against the CPU); ``Evaler`` on the saved weights.
@@ -151,6 +155,7 @@ from tante_tpu_torch.ops import fused_block as fb
 from tante_tpu_torch.ops import fused_spectral as fs
 from tante_tpu_torch.parallel.sharding import shard_block
 from tante_tpu_torch.serve import Predictor
+from tante_tpu_torch.tools.kernel_phases import SCRUB_BYTES, event_ms
 from tante_tpu_torch.train.evaler import Evaler, cvit_full_grid_rollout, full_grid_coords
 from tante_tpu_torch.train.metrics import L2RE, MSE, NNMSE, VRMSE
 from tante_tpu_torch.train.optimizers import AdamW, global_norm
@@ -275,6 +280,7 @@ def reset_counts():
     fb.reset_launches()
     fs.spectral_mode_matmul.launches = 0
     fa.packed_attention.launches = 0
+    fa.packed_attention.copies = 0
 
 
 def wave_input(batch=BATCH, t0: int = 0, n_frames: int = IN_T, seed: int = 7) -> np.ndarray:
@@ -1437,39 +1443,52 @@ def packed_operands(i, s, heads, l, d, dtype, causal, form, dev):
 
 
 def phase_packed_kernel(dev) -> list[dict]:
-    """The kernel against its plain version on the same inputs, with the
-    device time of kernel, plain version and SDPA (the yardstick: the same
-    function on the (S, heads, L, D) view) beside the bound."""
+    """The kernel against its plain version on the same inputs; the times of
+    kernel, plain version and SDPA (the yardstick: the same function on the
+    (S, heads, L, D) view) by CUDA events over 100 calls queued behind a
+    spin of the card, L2-warm (back to back) and L2-cold (a 128 MB write
+    before each call), beside the bound and its share of the cold time; no
+    operand copied on AViT's views."""
     results = []
+    scrub = torch.empty(SCRUB_BYTES // 4, device=dev)
     for i, (label, s, heads, l, d, dtype, causal, form) in enumerate(packed_cases()):
         p = heads * l
         run, plain, library = packed_operands(i, s, heads, l, d, dtype, causal, form, dev)
-        before = fa.packed_attention.launches
+        before, copies = fa.packed_attention.launches, fa.packed_attention.copies
         got = run()
         torch.cuda.synchronize()
         launched = fa.packed_attention.launches - before
+        copied = fa.packed_attention.copies - copies
         want = plain()
         err = (got.float() - want.float()).abs()
         atol, rtol = PACKED_TOL[dtype]
-        ok = (launched == 1 and bool(torch.isfinite(got).all())
+        equal = torch.equal(run(), got)
+        ok = (launched == 1 and copied == 0 and equal and bool(torch.isfinite(got).all())
               and bool((err <= atol + rtol * want.float().abs()).all()))
         check(ok, f"packed_attention {label} {dtype} causal={causal} disagrees with its plain "
-                  f"version (max abs err {float(err.max())})")
+                  f"version, copied {copied} operands or differs between two launches (max abs "
+                  f"err {float(err.max())})")
         lib_err = float((library().reshape(s, p, d).float()
                          - want.reshape(s, p, d).float()).abs().max())
         b_ms, b_by, flops, nbytes = packed_bound(s, heads, l, d, causal, dtype)
-        k_ms = device_ms(run)
+        k_ms, k_cold = event_ms(run), event_ms(run, flush=scrub.zero_)
         res = {"phase": "packed_kernel", "case": label, "form": form, "S": s, "P": p, "L": l,
                "D": d, "heads": heads, "dtype": str(dtype).replace("torch.", ""),
                "causal": causal, "main_path": form != "packed", "max_abs_err": float(err.max()),
                "tolerance": f"|k - plain| <= {atol} + {rtol}*|plain|", "ok": ok,
-               "kernel_ms": k_ms, "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+               "operands_copied": copied, "two_launches_equal": equal,
+               "times_are": "CUDA events over 100 calls queued behind a spin of the card; "
+                            "cold: a 128 MB write before each call",
+               "kernel_ms": k_ms, "kernel_cold_ms": k_cold, "plain_ms": event_ms(plain),
+               "library_ms": event_ms(library),
+               "library_cold_ms": event_ms(library, flush=scrub.zero_),
                "library_call": "torch.nn.functional.scaled_dot_product_attention on the "
                                "(S, heads, L, D) view", "library_max_abs_err": lib_err,
                "kernel_call_ms": cuda_ms(run, iters=100), "plain_call_ms": cuda_ms(plain, 20),
                "library_call_ms": cuda_ms(library, iters=100), "bound_us": 1e3 * b_ms,
-               "bound_by": b_by, "flops": flops, "bytes": nbytes,
-               "achieved_gbytes_per_s": nbytes / k_ms / 1e6}
+               "bound_by": b_by, "bound_share_cold": b_ms / k_cold,
+               "warm_beats_hbm_bound_l2_served": k_ms < b_ms, "flops": flops, "bytes": nbytes,
+               "achieved_gbytes_per_s_cold": nbytes / k_cold / 1e6}
         emit(res)
         results.append(res)
     return results
@@ -1553,6 +1572,8 @@ def serve_lane(label, pred, x, want_packed, frames_out_dtype=None) -> dict:
     launches = attention_counts()
     want = {**dict.fromkeys(launches, 0), "packed_attention": want_packed}
     check(launches == want, f"{label}: launches {launches}, want {want}")
+    copies = fa.packed_attention.copies
+    check(copies == 0, f"{label}: the attention wrapper copied {copies} operands")
     finite = bool(torch.isfinite(y).all())
     check(finite and tuple(y.shape) == (x.shape[0], N_STEPS, *x.shape[2:]),
           f"{label}: output shape / finiteness")
@@ -1560,7 +1581,8 @@ def serve_lane(label, pred, x, want_packed, frames_out_dtype=None) -> dict:
     prof = trace(roll, top=6)
     prof.update(host_split(roll))
     frames = x.shape[0] * N_STEPS
-    return {"launches_per_rollout": launches, "output_shape": list(y.shape), "finite": finite,
+    return {"launches_per_rollout": launches, "packed_attention_copies": copies,
+            "output_shape": list(y.shape), "finite": finite,
             "ms_per_rollout": 1e3 * tm["median_s"], "frames_per_s": frames / tm["median_s"],
             "frames_per_s_range": [frames / tm["max_s"], frames / tm["min_s"]],
             "timed_rollouts": tm["calls"], "trace": prof}
@@ -1686,6 +1708,7 @@ def phase_avit(dev, workdir: Path) -> dict:
                       AdamW(lr=5e-5, weight_decay=1e-5), mse, L2RE(), max_epoch=1,
                       n_steps_output=4, n_steps_rollout=8, seed=0)
     train = timed_epoch(trainer, loader)
+    copies = fa.packed_attention.copies
     want = {**dict.fromkeys(train["launches_per_step"], 0.0), "packed_attention": float(per_call)}
     check(train["launches_per_step"] == want,
           f"AViT train step launches {train['launches_per_step']}, want {want}")
@@ -1697,7 +1720,10 @@ def phase_avit(dev, workdir: Path) -> dict:
     ev = evaler_report("AViT", evaler, fns, test_loader,
                        lambda xb, yb: rollout_fixed(evaler.model, xb, 8, 4),
                        want_packed=len(test_loader) * 2 * per_call)
-    res = {"phase": "avit", "config": "configs/avit.yaml width: " + json.dumps(AVIT_KW),
+    copies += fa.packed_attention.copies + serving["packed_attention_copies"]
+    check(copies == 0, f"AViT: the attention wrapper copied {copies} operands")
+    res = {"phase": "avit", "packed_attention_copies": copies,
+           "config": "configs/avit.yaml width: " + json.dumps(AVIT_KW),
            "data": f"B={WELL_B} of {WELL_RES[0]}x{WELL_RES[1]}x{md.n_fields} synthetic waves "
                    "(with_t2, with_pressure); active_matter's 11 fields cut to 8",
            "dtype": "f32 (AViT has no compute dtype)",
@@ -2418,12 +2444,19 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
         "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_us") / 1e3,
         "bound_by": main[0]["bound_by"], "library_ms": mean("library_ms"),
         "library_call": main[0]["library_call"],
-        "times_are": "device time (torch.profiler); *_call_ms: per call, back to back (events)",
+        "times_are": "CUDA events over 100 calls queued behind a spin of the card, L2-warm; "
+                     "cold_ms: a 128 MB write before each call; *_call_ms: per call, back to "
+                     "back at the host's pace",
+        "cold_ms": mean("kernel_cold_ms"), "library_cold_ms": mean("library_cold_ms"),
+        "bound_share_cold": mean("bound_us") / 1e3 / mean("kernel_cold_ms"),
+        "copies_on_the_avit_path": avit["packed_attention_copies"],
         "call_ms": mean("kernel_call_ms"), "plain_call_ms": mean("plain_call_ms"),
         "library_call_ms": mean("library_call_ms"), "ok": all(c["ok"] for c in packed),
         "per_shape": [{k: c[k] for k in ("case", "form", "S", "P", "L", "D", "dtype", "causal",
-                                          "kernel_ms", "plain_ms", "library_ms", "bound_us",
-                                          "bound_by", "max_abs_err")} for c in packed],
+                                          "kernel_ms", "kernel_cold_ms", "plain_ms",
+                                          "library_ms", "library_cold_ms", "bound_us",
+                                          "bound_by", "bound_share_cold", "max_abs_err")}
+                      for c in packed],
     })
     # The tensor-parallel halves: the flagship's H, W and T shapes at tp = 2
     # (the parallel phase's split), one launch each per block and rank.

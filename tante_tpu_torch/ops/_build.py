@@ -74,13 +74,15 @@ def plan(l: int, c: int, hidden: int, lib: ctypes.CDLL | None = None) -> dict:
             "smem_bytes": smem.value}
 
 
-def _start(kernel: str, name: str, extra_flags: Sequence[str]) -> dict:
-    """Start nvcc on ``csrc/<kernel>.cu`` into ``build/kernels/<name>_<hash>.so``
-    unless that exact source and flag set was built already."""
-    source = CSRC / f"{kernel}.cu"
+def _start(kernel: str, name: str, extra_flags: Sequence[str], source=None) -> dict:
+    """Start nvcc on ``csrc/<kernel>.cu`` (or ``source``) into
+    ``build/kernels/<name>_<hash>.so`` unless that exact source and flag set
+    was built already."""
+    source = Path(source) if source else CSRC / f"{kernel}.cu"
     flags = [*NVCC_FLAGS, *extra_flags]
-    # The headers of csrc/ count as part of every source that may include them.
-    text = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    # The headers beside a source count as part of it: it may include them.
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"{name}_{tag}.so"
@@ -114,10 +116,12 @@ def _finish(job: dict) -> dict:
             "cached": job["cached"], "ptxas": ptxas_summary(job["log"].read_text())}
 
 
-def compile_library(kernel: str, name: str | None = None, extra_flags: tuple = ()) -> dict:
+def compile_library(kernel: str, name: str | None = None, extra_flags: tuple = (),
+                    source=None) -> dict:
     """Build ``csrc/<kernel>.cu`` (a measurement copy under another ``name``
-    and with extra flags, if given) and wait for it."""
-    return _finish(_start(kernel, name or kernel, extra_flags))
+    and with extra flags, or another tree's ``source`` file, if given) and
+    wait for it."""
+    return _finish(_start(kernel, name or kernel, extra_flags, source))
 
 
 def compile_libraries(specs: Sequence[tuple]) -> list[dict]:
@@ -207,6 +211,9 @@ def _bind_packed_attention(lib: ctypes.CDLL) -> None:
     lib.tante_packed_attention.argtypes = [
         p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, ctypes.c_float, i, i, p]
     lib.tante_packed_attention.restype = i
+    lib.tante_packed_attention_plan.argtypes = [
+        ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.tante_packed_attention_plan.restype = i
 
 
 # Source file stem under csrc/ -> the declaration of its C entry points.

@@ -23,7 +23,14 @@ axes).  Both count their launches in ``packed_attention.launches``.  The
 kernel takes element strides, so the projections go in as views (a q / k / v
 slice of a fused projection, a column view of an axial layout) and nothing is
 packed or transposed; for ``packed_head_attention`` it applies the scale to
-its f32 scores, where the plain version scales q in its own dtype first.
+its f32 scores, where the plain version scales q in its own dtype first.  It
+stages rows 16 bytes at a time, so it takes operands with channel stride 1 and
+rows on 16-byte boundaries; the wrapper copies an operand that has neither
+(into zero-padded rows where D * itemsize is not a multiple of 16) and counts
+it in ``packed_attention.copies``.  AViT's row and column views, the packed
+form and the slices of a fused projection need no copy.  ``packed_plan`` is
+the kernel's launch plan (``tante_packed_attention_plan`` returns the same on
+the card).
 
 Gradients: the Pallas kernel's custom VJP differentiates the XLA core
 (``_packed_attention_bwd``); here, on CUDA tensors that need a gradient, the
@@ -35,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -43,6 +51,60 @@ PACKED_ATTENTION_MAX_TOKENS = 128
 KERNEL_HEAD_DIMS = (8, 128)  # D range
 KERNEL_MAX_LEAD = 2  # sequence axes the kernel addresses by stride
 _GEOM = ctypes.c_longlong * 25
+
+# The kernel's launch plan (csrc/packed_attention.cu: make_plan, plan_for).
+PLAN_MAX_WARPS, PLAN_MAX_STAGES, PLAN_ROW_BLOCK = 16, 4, 16
+PLAN_SMEM_LIMIT = 232448  # 227 KB: a CTA's dynamic shared memory on sm_90
+
+
+class PackedPlan(NamedTuple):
+    """Per CTA ``warps`` consumer warps, each with a ring of ``stages`` unit
+    slots (q, k, v rows ``row_bytes`` apart) and an (L, 16) f32 scratch."""
+
+    warps: int
+    stages: int
+    row_bytes: int
+    unit_bytes: int
+    scratch_bytes: int
+    smem_bytes: int
+
+
+def packed_plan(l: int, d: int, itemsize: int, units: int, sms: int) -> PackedPlan:
+    """The kernel's plan for ``units`` units of L rows of D channels on a
+    card of ``sms`` SMs: a ring of two (one unit in flight while one
+    computes) where a warp holds two; as many warps as fit, up to 16, but no
+    more than give each at least two units of an SM's share; then the
+    deepest ring (up to 4) those warps leave room for."""
+    # Rows of n 16-byte chunks padded to n + pad == 2 (mod 4) chunks: the
+    # score tile's 4 rows x 2 chunk parities fall into 8 different banks.
+    n = -(-d * itemsize // 16)
+    row = 16 * (n + ((2 - n) % 4 or 4))
+    unit, scratch = 3 * l * row, 4 * PLAN_ROW_BLOCK * l
+    stages = 2 if 2 * unit + scratch <= PLAN_SMEM_LIMIT else 1
+    want = (-(-units // sms) + 1) // 2
+    warps = min(PLAN_MAX_WARPS, PLAN_SMEM_LIMIT // (stages * unit + scratch), want)
+    while stages < PLAN_MAX_STAGES and warps * ((stages + 1) * unit + scratch) <= PLAN_SMEM_LIMIT:
+        stages += 1
+    return PackedPlan(warps, stages, row, unit, scratch, warps * (stages * unit + scratch))
+
+
+def packed_grid(units: int, sms: int, ctas_per_sm: int) -> int:
+    """Persistent grid: the resident CTAs, down to one unit a CTA (so that
+    every SM takes a share)."""
+    return min(units, sms * ctas_per_sm)
+
+
+def launch_plan(s0: int, s1: int, h: int, l: int, d: int, dtype) -> dict:
+    """The plan a launch takes on the current card (from the library)."""
+    from tante_tpu_torch.ops import _build
+
+    out = (ctypes.c_longlong * 8)()
+    geom = _GEOM(s0, s1, h, l, d, *([0] * 20))
+    rc = _build.load("packed_attention").tante_packed_attention_plan(
+        geom, int(dtype == torch.bfloat16), torch.cuda.current_device(), out)
+    if rc != 0:
+        raise RuntimeError(f"packed_attention plan: cudaError {rc}")
+    return dict(zip((*PackedPlan._fields, "grid", "ctas_per_sm"), out))
 
 
 def packed_attention_ref(qp, kp, vp, l: int, causal: bool = False) -> torch.Tensor:
@@ -86,23 +148,73 @@ def _check_envelope(q, k, v):
         raise ValueError(f"the kernel takes f32 or bf16, got {q.dtype}")
 
 
-def _launch(q5, k5, v5, o5, causal: bool, scale: float):
-    """The kernel on (S0, S1, H, L, D) views of q, k, v and the output."""
-    from tante_tpu_torch.ops import _build
-
-    s0, s1, h, l, d = q5.shape
+def _check_geometry(q5):
+    _, _, h, l, d = q5.shape
     lo, hi = KERNEL_HEAD_DIMS
     if h * l > PACKED_ATTENTION_MAX_TOKENS or not lo <= d <= hi:
         raise ValueError(f"outside the kernel's envelope: heads * L = {h * l} (at most "
                          f"{PACKED_ATTENTION_MAX_TOKENS}), D = {d} (from {lo} to {hi})")
-    geom = _GEOM(s0, s1, h, l, d, *q5.stride(), *k5.stride(), *v5.stride(), *o5.stride())
+
+
+def rows_aligned(t5) -> bool:
+    """Whether every row of a (S0, S1, H, L, D) view starts on a 16-byte
+    boundary (the base, and the strides of the axes longer than 1) with its
+    channels adjacent: what the kernel checks of its inputs."""
+    size = t5.element_size()
+    if t5.stride(-1) != 1 or t5.data_ptr() % 16:
+        return False
+    return all(n == 1 or (st * size) % 16 == 0 for n, st in zip(t5.shape[:4], t5.stride()[:4]))
+
+
+def _staged(t5):
+    """``t5`` itself where the kernel can stage it as it is: ``rows_aligned``
+    and D * itemsize a multiple of 16 bytes (it copies whole 16-byte
+    chunks).  Else a copy with rows padded with zeros to a multiple of 16
+    bytes (a new, aligned allocation), counted in
+    ``packed_attention.copies``.  The zeros add nothing to a score, and the
+    output channels past D are not written."""
+    d, per = t5.shape[-1], 16 // t5.element_size()
+    if rows_aligned(t5) and d % per == 0:
+        return t5
+    padded = t5.new_zeros((*t5.shape[:-1], -(-d // per) * per))
+    padded[..., :d] = t5
+    packed_attention.copies += 1
+    return padded[..., :d]
+
+
+def geometry(q5, k5, v5, o5):
+    """The kernel's 25-value geometry: (S0, S1, H, L, D), then the element
+    strides of the q, k, v and output views."""
+    return _GEOM(*q5.shape, *q5.stride(), *k5.stride(), *v5.stride(), *o5.stride())
+
+
+def _launch(q5, k5, v5, o5, causal: bool, scale: float):
+    """The kernel on (S0, S1, H, L, D) views of q, k, v and the output
+    (checked by ``_kernel``: the envelope, and inputs from ``_staged``)."""
+    from tante_tpu_torch.ops import _build
+
     rc = _build.load("packed_attention").tante_packed_attention(
-        q5.data_ptr(), k5.data_ptr(), v5.data_ptr(), o5.data_ptr(), geom, int(causal),
-        float(scale), int(q5.dtype == torch.bfloat16), q5.device.index,
+        q5.data_ptr(), k5.data_ptr(), v5.data_ptr(), o5.data_ptr(), geometry(q5, k5, v5, o5),
+        int(causal), float(scale), int(q5.dtype == torch.bfloat16), q5.device.index,
         torch.cuda.current_stream(q5.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"packed_attention: CUDA launch failed with cudaError {rc}")
     packed_attention.launches += 1
+
+
+def kernel_views(tensors, l: int, heads_last: bool):
+    """The (S0, S1, H, L, D) views the kernel addresses, and the scale it
+    applies to its f32 scores: (*lead, L, H, D) with the lead padded to two
+    axes and (H, L) swapped (q unscaled), or (S, P, D) as (S, 1, H, L, D)
+    (q pre-scaled)."""
+    if heads_last:
+        lead = tensors[0].dim() - 3
+        if lead > KERNEL_MAX_LEAD:
+            raise ValueError(f"the kernel addresses at most {KERNEL_MAX_LEAD} leading axes, got "
+                             f"{lead}")
+        pad = (None,) * (KERNEL_MAX_LEAD - lead)
+        return [t[pad].transpose(-3, -2) for t in tensors], tensors[0].shape[-1] ** -0.5
+    return [t.unflatten(1, (t.shape[1] // l, l))[:, None] for t in tensors], 1.0
 
 
 def _kernel(q, k, v, l: int, causal: bool, heads_last: bool) -> torch.Tensor:
@@ -110,22 +222,9 @@ def _kernel(q, k, v, l: int, causal: bool, heads_last: bool) -> torch.Tensor:
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    if heads_last:  # (*lead, L, H, D): lead padded to two axes, then (H, L) swapped
-        lead = q.dim() - 3
-        if lead > KERNEL_MAX_LEAD:
-            raise ValueError(f"the kernel addresses at most {KERNEL_MAX_LEAD} leading axes, got "
-                             f"{lead}")
-
-        def view(t):
-            return t[(None,) * (KERNEL_MAX_LEAD - lead)].transpose(-3, -2)
-
-        scale = q.shape[-1] ** -0.5
-    else:  # (S, P, D) -> (S, 1, H, L, D)
-        def view(t):
-            return t.unflatten(1, (t.shape[1] // l, l))[:, None]
-
-        scale = 1.0
-    _launch(view(q), view(k), view(v), view(out), causal, scale)
+    (q5, k5, v5, o5), scale = kernel_views((q, k, v, out), l, heads_last)
+    _check_geometry(q5)
+    _launch(_staged(q5), _staged(k5), _staged(v5), o5, causal, scale)
     return out
 
 
@@ -177,3 +276,4 @@ def packed_head_attention(q, k, v, causal: bool = False) -> torch.Tensor:
 
 
 packed_attention.launches = 0
+packed_attention.copies = 0  # operands the wrapper copied for the kernel

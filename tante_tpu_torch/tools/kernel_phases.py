@@ -1,8 +1,10 @@
 """Where the time goes inside the fused-block kernels, on the card.
 
     python3 -m tante_tpu_torch.tools.kernel_phases [--halves]
+    python3 -m tante_tpu_torch.tools.kernel_phases --packed [--baseline DIR]
 
-(``--halves``: the tensor-parallel halves' sections alone.)
+(``--halves``: the tensor-parallel halves' sections alone.  ``--packed``: the
+attention kernel's section alone, described last.)
 
 First the Hopper single-block kernels (``ops/csrc/fused_block_sm90.cu`` on
 the tile body of ``block_sm90.cuh``): a measurement copy built with
@@ -46,19 +48,41 @@ its chain kernel on the run ``THW``: tiles stamp by tile number and each
 block of a run overwrites the one before, so what is read back are the
 tiles of the run's LAST block (W); ``block_span_us`` is the time from the
 first tile's start to the last tile's end of that block across the grid.
+
+``--packed``: the head-packed attention kernel (``ops/csrc/packed_attention.cu``)
+at the AViT shape in f32 (row and column views of one (16, 16, 16, 6, 192)
+projection, as AViT launches it, and the packed (256, 96, 64) form) and a
+TransformerBlock's (1536, 128, 32) in bf16.  A measurement copy built with
+``-DTANTE_PHASE_TIMING`` stamps every (sequence, head) unit: lane 0's SM
+cycles waiting for the unit's staged rows, in the scores, the softmax, the AV
+product, the stores and issuing the copies of a later unit, its start and end
+on the global timer, and the warp that took it.  One JSON line per shape: the
+plan, the mean cycles and microseconds per unit of each phase (all units, and
+each warp's first unit apart: it waits for its rows with nothing to overlap),
+units per warp, the launch's span.  With ``--baseline DIR`` (a checkout of
+another tree, e.g. the parent commit from ``git archive`` under ``build/``),
+its ``packed_attention.cu`` is built too and the two production kernels are
+timed in turns (baseline, this tree, this tree, baseline) at the same shapes,
+L2-warm (back to back) and L2-cold (a 128 MB write before each launch; and a
+128 MB read, which leaves no dirty lines to write back), by CUDA events over
+100 launches queued behind a spin of the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import math
 import subprocess
 import sys
 
 import numpy as np
 import torch
 
+from pathlib import Path
+
 from tante_tpu_torch.ops import _build
+from tante_tpu_torch.ops import fused_attention as fa
 from tante_tpu_torch.ops import fused_block as fb
 
 PHASES = ("gather", "ln1", "q", "k", "v", "attention", "o_proj", "ln2", "fc1", "fc2")
@@ -96,7 +120,8 @@ def _timing_library(kernel: str) -> ctypes.CDLL:
     """A measurement copy of ``csrc/<kernel>.cu`` with its phase readers."""
     info = _build.compile_library(kernel, f"{kernel}_phases", TIMING_FLAGS)
     lib = _build.bind(ctypes.CDLL(info["library"]), kernel)
-    for fn in ("tante_sm90_phase_read", "tante_sm90_gemm_cycles", "tante_sm90_chain_read"):
+    for fn in ("tante_sm90_phase_read", "tante_sm90_gemm_cycles", "tante_sm90_chain_read",
+               "tante_packed_phase_read"):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int]
             getattr(lib, fn).restype = ctypes.c_int
@@ -348,13 +373,192 @@ def half_phases(dev, stream, card: str) -> None:
             }), flush=True)
 
 
+# ---- the head-packed attention kernel (--packed) ------------------------------
+
+SLEEP_CYCLES = 50_000_000  # ~27 ms of the card's spin: the host queues a window behind it
+SCRUB_BYTES = 128 << 20    # written before each L2-cold launch (the L2 holds 50 MB)
+PACKED_PHASES = ("wait", "scores", "softmax", "av", "store", "stage")
+
+
+def event_ms(fn, iters: int = 100, flush=None) -> float:
+    """Mean ms per call of ``fn`` by CUDA events over ``iters`` calls queued
+    behind a spin of the card, so that the host's pace does not enter.  Warm:
+    one event pair around back-to-back calls.  Cold: ``flush`` (a pass over
+    more than the L2's 50 MB) before each call and an event pair around each
+    call alone."""
+    fn()
+    if flush is not None:
+        flush()
+    torch.cuda.synchronize()
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    if flush is None:
+        start, stop = ev(), ev()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) / iters
+    pairs = [(ev(), ev()) for _ in range(iters)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for a, b in pairs:
+        flush()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def packed_shapes(dev) -> list[tuple]:
+    """(label, (q, k, v), L, causal, heads_last) at the main path's shapes."""
+    rng = np.random.default_rng(3)
+
+    def normal(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, dtype)
+
+    q, k, v = normal(16, 16, 16, 6, 3 * 64).chunk(3, dim=-1)  # (B', H, W, heads, D) slices
+    packed = [normal(256, 96, 64) for _ in range(3)]
+    packed[0] *= 64**-0.5
+    tb = [normal(1536, 128, 32, dtype=torch.bfloat16) for _ in range(3)]
+    return [("AViT row views", (q, k, v), 16, False, True),
+            ("AViT column views", tuple(t.transpose(1, 2) for t in (q, k, v)), 16, False, True),
+            ("AViT (256, 96, 64)", tuple(packed), 16, False, False),
+            ("TransformerBlock (1536, 128, 32) bf16", tuple(tb), 16, False, False)]
+
+
+def packed_launch(lib, ts, l: int, causal: bool, heads_last: bool, stream):
+    """A launch of ``lib``'s ``tante_packed_attention`` on ``ts`` as the
+    wrapper hands them over (a callable returning the cudaError_t), its
+    output and its (S0, S1, H, L, D)."""
+    out = torch.empty(ts[0].shape, dtype=ts[0].dtype, device=ts[0].device)
+    (q5, k5, v5, o5), scale = fa.kernel_views((*ts, out), l, heads_last)
+    if not all(fa.rows_aligned(t) for t in (q5, k5, v5)):
+        raise RuntimeError("the main path's operands should need no copy")
+    geom = fa.geometry(q5, k5, v5, o5)
+    bf16, index = int(ts[0].dtype == torch.bfloat16), ts[0].device.index
+    return (lambda: lib.tante_packed_attention(  # noqa: E731
+        q5.data_ptr(), k5.data_ptr(), v5.data_ptr(), o5.data_ptr(), geom, int(causal),
+        float(scale), bf16, index, stream)), out, tuple(q5.shape)
+
+
+def packed_bound_ms(shape, dtype) -> float:
+    """q, k, v read and the output written once over 3.35 TB/s (the bytes
+    bound them: 4 * L flops a byte in f32 is below the f32 rate)."""
+    return 4.0 * math.prod(shape) * torch.finfo(dtype).bits / 8 / 3.35e12 * 1e3
+
+
+def packed_phases(dev, stream, card: str) -> None:
+    """Per-unit phases of the attention kernel (see the module text)."""
+    lib = _timing_library("packed_attention")
+    fields, capacity = lib.tante_packed_stamp_fields(), lib.tante_packed_stamp_units()
+    scrub = torch.empty(SCRUB_BYTES // 4, device=dev)
+    for label, ts, l, causal, heads_last in packed_shapes(dev):
+        launch, out, shape = packed_launch(lib, ts, l, causal, heads_last, stream)
+        units = shape[0] * shape[1] * shape[2]
+        if units > capacity:
+            raise RuntimeError(f"{units} units, {capacity} stamp slots built")
+        ms = _timed(launch, 20)
+        res = {"kernel": "packed_attention_kernel (packed_attention.cu)", "case": label,
+               "shape_s0_s1_heads_l_d": list(shape),
+               "dtype": str(out.dtype).replace("torch.", ""),
+               "plan": fa.launch_plan(*shape, out.dtype), "units": units,
+               "timing_build_ms": ms, "bound_ms": packed_bound_ms(shape, out.dtype)}
+        # The stamps of the last of those (L2-warm) launches, then of one
+        # launch after a 128 MB write (L2-cold).
+        res["warm"] = _unit_summary(_read(lib, "tante_packed_phase_read", (units, fields)))
+        scrub.zero_()
+        if launch() != 0:
+            raise RuntimeError(f"{label}: launch failed")
+        torch.cuda.synchronize()
+        res["cold"] = _unit_summary(_read(lib, "tante_packed_phase_read", (units, fields)))
+        print(json.dumps({**res, "card": card}), flush=True)
+
+
+def _unit_summary(stamps: np.ndarray) -> dict:
+    """Per-unit phase means (all units; each warp's first unit, which waits
+    for its rows with nothing to overlap; the later ones), units per warp,
+    the span and when the units' waits ended."""
+    st = stamps.astype(np.float64)
+    cycles, ns, warp = st[:, 2:2 + len(PACKED_PHASES)], st[:, 1] - st[:, 0], st[:, -1]
+    ghz = float(cycles.sum() / ns.sum())  # SM cycles per ns over the units' own spans
+    first = np.zeros(len(st), dtype=bool)  # each warp's first unit (the earliest start)
+    order = np.lexsort((st[:, 0], warp))
+    first[order[np.r_[True, np.diff(warp[order]) != 0]]] = True
+    _, per_warp = np.unique(warp, return_counts=True)
+    t0 = st[:, 0].min()
+    wait_end_us = (st[:, 0] - t0) / 1e3 + cycles[:, 0] / ghz / 1e3
+
+    def per_unit(rows):
+        if not rows.any():
+            return None
+        return {p: {"cycles": float(c), "us": float(c / ghz / 1e3)}
+                for p, c in zip(PACKED_PHASES, cycles[rows].mean(axis=0))}
+
+    return {"warps_used": int(len(per_warp)),
+            "units_per_warp": [int(per_warp.min()), int(per_warp.max())],
+            "sm_ghz_from_stamps": ghz, "per_unit_all": per_unit(np.ones(len(st), dtype=bool)),
+            "per_unit_first_of_warp": per_unit(first), "per_unit_later": per_unit(~first),
+            "unit_us_mean": float(ns.mean() / 1e3),
+            "rows_landed_us_quartiles": np.percentile(wait_end_us, [0, 25, 50, 75, 100]).tolist(),
+            "span_us": float((st[:, 1].max() - t0) / 1e3)}
+
+
+def packed_in_turns(dev, stream, card: str, baseline: str) -> None:
+    """The baseline tree's kernel and this tree's in turns (module text)."""
+    source = Path(baseline) / "tante_tpu_torch" / "ops" / "csrc" / "packed_attention.cu"
+    info = _build.compile_library("packed_attention", "packed_attention_baseline", (),
+                                  source=source)
+    other = ctypes.CDLL(info["library"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    other.tante_packed_attention.argtypes = [
+        p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, ctypes.c_float, i, i, p]
+    other.tante_packed_attention.restype = i
+    this = _build.load("packed_attention")
+    scrub = torch.empty(SCRUB_BYTES // 4, device=dev)
+    for label, ts, l, causal, heads_last in packed_shapes(dev):
+        runs = {name: packed_launch(lib, ts, l, causal, heads_last, stream)
+                for name, lib in (("baseline", other), ("this_tree", this))}
+        for launch, _, _ in runs.values():
+            if launch() != 0:
+                raise RuntimeError(f"{label}: launch failed")
+        torch.cuda.synchronize()
+        diff = float((runs["baseline"][1].float() - runs["this_tree"][1].float()).abs().max())
+        times = {}
+        # cold: after a 128 MB write (the L2 then holds 50 MB of dirty lines,
+        # whose write-back the launch shares); cold_read: after a 128 MB read.
+        for mode, flush in (("warm", None), ("cold", scrub.zero_),
+                            ("cold_read", lambda: scrub.sum())):
+            b1 = event_ms(runs["baseline"][0], flush=flush)
+            t1 = event_ms(runs["this_tree"][0], flush=flush)
+            t2 = event_ms(runs["this_tree"][0], flush=flush)
+            b2 = event_ms(runs["baseline"][0], flush=flush)
+            times[mode] = {"baseline_ms": (b1 + b2) / 2, "this_tree_ms": (t1 + t2) / 2,
+                           "baseline_ms_turns": [b1, b2], "this_tree_ms_turns": [t1, t2]}
+        shape, dtype = runs["this_tree"][2], ts[0].dtype
+        print(json.dumps({
+            "kernel": "packed_attention_kernel in turns", "case": label, "baseline": str(source),
+            "shape_s0_s1_heads_l_d": list(shape), "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_diff_baseline_vs_this_tree": diff, **times,
+            "bound_ms": packed_bound_ms(shape, dtype), "card": card,
+        }), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device available", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    halves_only = "--halves" in sys.argv[1:]
+    args = sys.argv[1:]
+    if "--packed" in args:
+        dev, stream = torch.device("cuda"), torch.cuda.current_stream().cuda_stream
+        packed_phases(dev, stream, card)
+        if "--baseline" in args:
+            packed_in_turns(dev, stream, card, args[args.index("--baseline") + 1])
+        return 0
+    halves_only = "--halves" in args
     # The measurement copies build together; each is found built below.
     kernels = ("fused_half_sm90",) if halves_only else (
         "fused_block_sm90", "fused_chain_sm90", "fused_half_sm90", "fused_block")

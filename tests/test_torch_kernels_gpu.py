@@ -683,6 +683,90 @@ def test_attention_family_on_the_card_matches_the_cpu(cuda, name):
         torch.testing.assert_close(got_grads[k], g, atol=1e-3 * scale + 1e-7, rtol=1e-3, msg=k)
 
 
+# The persistent schedule's edges (S, heads, L, D): one sequence; fewer units
+# than SMs; a unit count that is no multiple of the grid (1542 units on 132 x
+# 8 warps); P = 128 as 8 x 16 and 4 x 32; D = 8 and 128; L = 1.
+PACKED_EDGE_CASES = [
+    (1, 6, 16, 64), (4, 6, 16, 64), (257, 6, 16, 64), (64, 8, 16, 64), (64, 4, 32, 64),
+    (33, 4, 16, 8), (33, 4, 16, 128), (40, 16, 1, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s,heads,l,d", PACKED_EDGE_CASES)
+def test_packed_attention_schedule_edges_match_plain(cuda, s, heads, l, d, causal, dtype):
+    from tante_tpu_torch.ops import fused_attention as fa
+
+    p = heads * l
+    q, k, v = (f32_normal((s, p, d), 70 + i, cuda).to(dtype) for i in range(3))
+    q = q * d**-0.5
+    copies = fa.packed_attention.copies
+    got = fa.packed_attention(q, k, v, l, causal)
+    torch.cuda.synchronize()
+    assert fa.packed_attention.copies == copies
+    atol, rtol = packed_tolerance(dtype)
+    want = fa.packed_attention_ref(q, k, v, l, causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    # Two launches on one input: the same order of work, whichever warp takes a unit.
+    assert torch.equal(fa.packed_attention(q, k, v, l, causal), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_packed_attention_copy_path_equals_the_contiguous_call(cuda, dtype):
+    """An operand with channel stride != 1, one off a 16-byte boundary, and
+    rows of D * itemsize bytes that are no multiple of 16 (D = 10, 14): the
+    wrapper copies each (counted) and the output equals the call on
+    contiguous operands bit for bit; the aligned views need no copy."""
+    from tante_tpu_torch.ops import fused_attention as fa
+
+    s, heads, l, d = 9, 4, 16, 32
+    q, k, v = (f32_normal((s, heads * l, d), 80 + i, cuda).to(dtype) for i in range(3))
+    want = fa.packed_attention(q, k, v, l, True)
+    strided = k.transpose(1, 2).contiguous().transpose(1, 2)  # channel stride P
+    flat = torch.zeros(k.numel() + 1, device=cuda, dtype=dtype)
+    shifted = flat[1:].view(k.shape)  # base 2 or 4 bytes past the allocation's
+    shifted.copy_(k)
+    for other in (strided, shifted):
+        copies = fa.packed_attention.copies
+        got = fa.packed_attention(q, other, v, l, True)
+        assert fa.packed_attention.copies == copies + 1
+        assert torch.equal(got, want)
+    for d in (10, 14):  # zero-padded rows
+        q, k, v = (f32_normal((s, heads * l, d), 90 + i, cuda).to(dtype) for i in range(3))
+        copies = fa.packed_attention.copies
+        got = fa.packed_attention(q, k, v, l, False)
+        torch.cuda.synchronize()
+        assert fa.packed_attention.copies == copies + 3
+        atol, rtol = packed_tolerance(dtype)
+        want = fa.packed_attention_ref(q, k, v, l, False)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    fused = f32_normal((4, 16, 16, 6, 3 * 64), 95, cuda).to(dtype)  # AViT's row / column views
+    q, k, v = fused.chunk(3, dim=-1)
+    copies = fa.packed_attention.copies
+    for views in ((q, k, v), tuple(t.transpose(1, 2) for t in (q, k, v))):
+        fa.packed_head_attention(*views)
+    assert fa.packed_attention.copies == copies
+
+
+def test_packed_attention_plan_matches_its_mirror(cuda):
+    """The library's plan over the envelope equals ``packed_plan``, and the
+    persistent grid is the resident CTAs or the units' need."""
+    from tante_tpu_torch.ops import fused_attention as fa
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.finfo(dtype).bits // 8
+        for heads, l in ((1, 1), (6, 16), (8, 16), (4, 32), (2, 64), (1, 128), (16, 5)):
+            for d in (8, 24, 64, 128):
+                for s in (1, 256):
+                    got = fa.launch_plan(s, 1, heads, l, d, dtype)
+                    plan = fa.packed_plan(l, d, size, s * heads, sms)
+                    assert tuple(got[f] for f in fa.PackedPlan._fields) == plan
+                    assert got["ctas_per_sm"] >= 1
+                    assert got["grid"] == fa.packed_grid(s * heads, sms, got["ctas_per_sm"])
+
+
 # ---- the tensor-parallel halves (fused_block_apply_tp) ------------------------
 
 def halves(p):
