@@ -52,25 +52,43 @@ script exits non-zero without the final result line):
             with ``fused_chain=3`` / per block / ``fused_group``, save and
             resume; first loss and gradient norm against the f32 model on
             the CPU for one sample; seconds per step, peak memory.
-7. spectral_kernel  ``spectral_mode_matmul`` against its plain version (the
+7. adaptive_train  the adaptive training path: (a) ``R_Trainer`` at
+            ``configs/tante_adaptive.yaml`` (one-frame engine, B=8, 4 slots a
+            step, rt_eps 0.5, value clip, seeded weights): an epoch at
+            ``dropout=0.1`` (0 launches) and one at ``dropout=0`` (exactly 24 +
+            12 a step), the first loss and gradient norm of one sample against
+            the f32 model on the CPU; (b) the flagship recipe of
+            ``scripts/train_flagship.py:92-107`` from the trained asset
+            (variable-frame engine, B=4, 16 slots of 8-frame blocks, growth
+            supervision): an epoch with remat (the default: 2 x 9 launches a
+            real call) and one without (9), real calls per step, r_t, peak
+            memory, one step each from seeded weights, the first step of one
+            sample against the CPU (cums equal, loss, gradient norm); (c)
+            ``R_Trainer.validation_loop`` (9 launches a call, ``saved_rt.txt``)
+            and ``R_Evaler`` on the asset (16 steps, K 8: its calls per rollout
+            equal to ``Predictor.rollout_adaptive``'s, its metrics to the metric
+            functions on the same rollouts); model calls counted by a forward
+            hook; then each block kernel on the inputs the path gave it, one
+            per shape (B 8, 4 and 1), against its plain version.
+8. spectral_kernel  ``spectral_mode_matmul`` against its plain version (the
             four f32 einsums) at the shapes the FNO paths give it and at
             ragged ones; kernel / plain time, the time of the one library
             call that computes the same function (a complex64 einsum) and
             their ratio, the bound; gradients of its Function against
             autograd of the plain version.
-8. fno_serving  ``Predictor.rollout`` of flagship-width TANTE with the FNO
+9. fno_serving  ``Predictor.rollout`` of flagship-width TANTE with the FNO
             encoder/decoder (modes 32, B=8, 16 steps, bf16: exactly 66
             mode-mixing launches beside the 96 + 48 block launches) and of
             FNO at ``configs/fno.yaml`` width (hidden 48, modes 20, 4 layers,
             B=4, both layouts: 64 launches); frames/s, and the first frames
             against the same weights in f32 on the CPU.
-9. fno_train_eval  ``Trainer`` on that FNO over in-memory waves (two epochs
+10. fno_train_eval  ``Trainer`` on that FNO over in-memory waves (two epochs
             of four steps: 16 forward launches per step, first loss and
             gradient norm against the f32 model on the CPU, the loss falls),
             save, then ``Evaler`` on the saved weights: the 4-metric report,
             each metric equal to the port's metric functions on the same
             rollouts.
-10. packed_kernel  ``packed_attention`` against its plain version at the AViT
+11. packed_kernel  ``packed_attention`` against its plain version at the AViT
             shape in f32 (as AViT launches it: strided row and column views of
             one (16, 16, 16, 6, 192) projection; and as (256, 96, 64)), the JAX
             tests' (10, 128, 32) and
@@ -80,20 +98,20 @@ script exits non-zero without the final result line):
             of kernel, plain version and ``scaled_dot_product_attention`` (the
             yardstick), L2-warm and L2-cold, the bound and its share of the cold
             time.
-11. packed_grad  gradients through its Function against autograd of the plain
+12. packed_grad  gradients through its Function against autograd of the plain
             version (f32), packed and on AViT's strided row / column views.
-12. avit    AViT at ``configs/avit.yaml`` width (embed 384, 6 heads, 12 blocks,
+13. avit    AViT at ``configs/avit.yaml`` width (embed 384, 6 heads, 12 blocks,
             drop path 0.2), f32, B=4 of 256x256x8 waves: ``Predictor.rollout``
             (16 steps = 4 calls, exactly 96 ``packed_attention`` launches, no
             operand copied by its wrapper here or below), its
             first call against the f32 CPU model; ``Trainer`` (24 forward
             launches a step; with drop path 0 the first loss and gradient norm
             against the CPU); ``Evaler`` on the saved weights.
-13. cvit    CViT at ``configs/cvit.yaml`` width in bf16 on the same data:
+14. cvit    CViT at ``configs/cvit.yaml`` width in bf16 on the same data:
             ``Predictor.rollout`` on the full grid, ``Trainer(cvit=True,
             num_query_points=1024)``, ``Evaler(cvit=True)``; no hand-written
             kernel runs here (8 heads x 256 tokens > 128), which the phase says.
-14. tp_kernel  the two tensor-parallel half kernels (``attn_half_fwd``,
+15. tp_kernel  the two tensor-parallel half kernels (``attn_half_fwd``,
             ``mlp_half_fwd``, ``fused_half_sm90.cu``) on every shard at the
             flagship's H, W and causal T shapes, tp = 2 and 4, and at H for
             tp = 8 (32-wide shards, zero-padded), against their plain versions
@@ -107,7 +125,7 @@ script exits non-zero without the final result line):
             timed calls; once per weight version through ``copy_to_tp``
             views) and one timed at tp = 2; gradients through each half's
             Function.
-15. parallel  two spawned ranks of one gloo process group, both on the card:
+16. parallel  two spawned ranks of one gloo process group, both on the card:
             the flagship forward on (dp 1, tp 2) against one rank (exactly 18
             half launches per model call per rank, no single-device kernel;
             f32 weights cast per call, and 18 weight re-layouts in the first
@@ -116,8 +134,9 @@ script exits non-zero without the final result line):
             (dp 2, tp 1) and FNO at (dp 1, sp 2) against one rank, replicas equal after a dropout step, the tp
             checkpoint on one rank; seconds per step (two ranks sharing one card
             through gloo: not a tp speed).
-16. kernels one {"kernels": [...]} line (eight kernels; the block, canonical
-            T, chain and tp half rows with the first design's time, in turns).
+17. kernels one {"kernels": [...]} line (eight kernels; the block, canonical
+            T, chain and tp half rows with the first design's time, in turns;
+            the two block rows also with their launches per R_Trainer step).
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 result line {"ok": true, "device": {...}}.  Exits non-zero when no CUDA
@@ -126,6 +145,7 @@ device is available.  Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -144,6 +164,8 @@ from tante_tpu_torch.convert import load_jax_params, seeded_jax_params
 from tante_tpu_torch.data.datamodule import WaveDataModule
 from tante_tpu_torch.data.metadata import TanteMetadata
 from tante_tpu_torch.data.synthetic import make_well_arrays
+from tante_tpu_torch.models import attn_backbone as model_backbone
+from tante_tpu_torch.models import common as model_common
 from tante_tpu_torch.models.attn_backbone import AttnBackbone
 from tante_tpu_torch.models.avit import AViT
 from tante_tpu_torch.models.cvit import CViT
@@ -159,7 +181,13 @@ from tante_tpu_torch.tools.kernel_phases import SCRUB_BYTES, event_ms
 from tante_tpu_torch.train.evaler import Evaler, cvit_full_grid_rollout, full_grid_coords
 from tante_tpu_torch.train.metrics import L2RE, MSE, NNMSE, VRMSE
 from tante_tpu_torch.train.optimizers import AdamW, global_norm
-from tante_tpu_torch.train.rollout import rollout_fixed
+from tante_tpu_torch.train.r_evaler import R_Evaler
+from tante_tpu_torch.train.r_trainer import R_Trainer
+from tante_tpu_torch.train.rollout import (
+    rollout_adaptive_train,
+    rollout_adaptive_train_vf,
+    rollout_fixed,
+)
 from tante_tpu_torch.train.schedules import LinearWarmupCosineAnnealingLR
 from tante_tpu_torch.train.trainer import Trainer
 
@@ -1030,6 +1058,367 @@ def phase_train(dev, workdir: Path) -> dict:
                       "global_step": resumed.global_step,
                       "next_step_loss": l_b, "next_step_loss_of_saver": l_a}}
     emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The adaptive training path: R_Trainer (both rollout engines), R_Evaler
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counted_calls(model: torch.nn.Module):
+    """[n]: the model's calls while the block is open (a forward hook; a
+    recompute under remat is not a call and does not fire it)."""
+    n = [0]
+    hook = model.register_forward_hook(lambda *_: n.__setitem__(0, n[0] + 1))
+    try:
+        yield n
+    finally:
+        hook.remove()
+
+
+@contextlib.contextmanager
+def captured_block_inputs(store: dict):
+    """The block wrappers, where the models call them, wrapped to keep a copy
+    of the first card input of each shape (x, the bf16 weights, the softmax
+    in force); each call goes on to the wrapper, which counts its launch."""
+    apply, canon = model_common.fused_block_apply, model_backbone.fused_block_canon_t
+
+    def keep(key, x, p, *args):
+        if x.is_cuda and key not in store:
+            store[key] = (x.detach().clone(), fb.BlockParams(*(t.detach().clone() for t in p)),
+                          args, fb._TUNE["softmax"])
+
+    def apply_kept(x, p, l, heads, causal):
+        keep(("fused_block_fwd", tuple(x.shape), causal), x, p, l, heads, causal)
+        return apply(x, p, l, heads, causal)
+
+    def canon_kept(x, p, heads):
+        keep(("fused_block_canon_t_fwd", tuple(x.shape), True), x, p, heads)
+        return canon(x, p, heads)
+
+    model_common.fused_block_apply, model_backbone.fused_block_canon_t = apply_kept, canon_kept
+    try:
+        yield store
+    finally:
+        model_common.fused_block_apply, model_backbone.fused_block_canon_t = apply, canon
+
+
+def kernels_at_path_shapes(store: dict) -> list[dict]:
+    """Each block kernel on the inputs the path gave it (one per shape),
+    against its plain version at the kernel phase's tolerance."""
+    out = []
+    for (name, shape, causal), (x, p, args, softmax) in sorted(store.items()):
+        pf = fb.BlockParams(*(t.float() for t in p))
+        fb.set_block_tuning(softmax=softmax)
+        if name == "fused_block_fwd":
+            got, want = fb.fused_block_apply(x, p, *args), fb.block_ref(x.float(), pf, *args)
+        else:
+            got, want = fb.fused_block_canon_t(x, p, *args), fb.canon_t_ref(x.float(), pf, *args)
+        err = (got.float() - want).abs()
+        ok = bool(torch.isfinite(got).all()) and bool((err <= ATOL + RTOL * want.abs()).all())
+        check(ok, f"kernel {name} at the adaptive path's shape {shape} disagrees with its "
+                  f"plain version")
+        out.append({"name": name, "shape": list(shape), "causal": causal, "softmax": softmax,
+                    "max_abs_err": float(err.max()), "max_abs_plain": float(want.abs().max()),
+                    "ok": ok})
+    fb.set_block_tuning(softmax="fast")
+    return out
+
+
+def r_objective(trainer: R_Trainer, x, y) -> dict:
+    """The R_Trainer's objective on (x, y) and its gradient norm, no update:
+    the r_t statistics it logged and, for the variable-frame engine, the
+    first sample's per-slot cums / r_t / actives of the same rollout."""
+    model = trainer.model
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss, rt, rt_var, calls, rollout = trainer._adaptive_loss(x, y)
+    loss.backward()
+    gnorm = float(global_norm(model.parameters()))
+    model.zero_grad(set_to_none=True)
+    out = {"loss": float(loss.detach()), "grad_norm": gnorm, "rt": float(rt),
+           "rt_var": float(rt_var), "calls": float(calls)}
+    if trainer.vf:
+        out.update(cums=rollout["cums"][:, 0].tolist(), actives=rollout["actives"][:, 0].tolist(),
+                   rts=[float(r) for r in rollout["rts"][:, 0]])
+    return out
+
+
+def r_eval_loss(trainer: R_Trainer, x, y) -> float:
+    """MSE of the trainer's engine's rollout of (x, y) with dropout off."""
+    apply = lambda w: trainer.model(w, trainer.train_out_T)  # noqa: E731
+    with torch.no_grad():
+        if trainer.vf:
+            pred = rollout_adaptive_train_vf(apply, x, trainer.n_steps_output, trainer.k)[0]
+        else:
+            pred = rollout_adaptive_train(apply, x, trainer.n_steps_output)[0]
+        return float(MSE()(pred.float(), y).mean())
+
+
+def r_epoch(trainer: R_Trainer, loader, eval_batch, want_per_call: dict, remat: bool) -> dict:
+    """One epoch through ``train_one_epoch`` with the model calls and the
+    launches counted (each call launches ``want_per_call``, twice under
+    remat: forward and the recompute in backward), then the same batches
+    step by step under CUDA events; the rollout's MSE on ``eval_batch``
+    before and after."""
+    loader.set_epoch(1)
+    batches = [(b["input"], b["output"]) for b in loader]
+    before = r_eval_loss(trainer, *eval_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with counted_calls(trainer.model) as calls:
+        epoch_loss, logs = trainer.train_one_epoch(1, loader)
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps, n_calls = len(batches), calls[0]
+    factor = 2 if remat else 1
+    want = {k: factor * n_calls * want_per_call.get(k, 0) for k in launches}
+    tag = "remat" if remat else "no remat"
+    check(launches == want, f"R_Trainer epoch ({tag}) launches {launches}, want {want} for "
+                            f"{n_calls} model calls")
+    # The trainer's log: model calls per 4 target frames, calls * B / 4.
+    logged = logs["steps"] * 4 / batches[0][0].shape[0] * steps
+    check(abs(logged - n_calls) <= 1e-9 * n_calls,
+          f"R_Trainer epoch ({tag}) logged {logged} model calls, made {n_calls}")
+    after = r_eval_loss(trainer, *eval_batch)
+    ms = []
+    for x, y in batches:
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        trainer.train_step(x, y)
+        stop.record()
+        stop.synchronize()
+        ms.append(start.elapsed_time(stop))
+    check(np.isfinite(epoch_loss) and np.isfinite(after), "R_Trainer loss is not finite")
+    return {"steps": steps, "epoch_train_loss": epoch_loss, "logs": logs,
+            "model_calls_per_step": n_calls / steps,
+            "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "launches_per_model_call": {k: v / max(n_calls, 1) for k, v in launches.items()},
+            "first_batch_loss_before": before, "first_batch_loss_after": after,
+            "seconds_per_step_median": sorted(ms)[len(ms) // 2] / 1e3,
+            "seconds_per_step_all": [m / 1e3 for m in ms],
+            "peak_memory_allocated_gb": peak / 2**30}
+
+
+def rt_near_integers(run: dict) -> list:
+    """The r_t of the consuming slots within bf16 rounding (2^-8 relative)
+    of an integer, with their distance: where a floor on the card and on the
+    CPU may differ."""
+    return [{"rt": r, "distance": abs(r - round(r))}
+            for r, a in zip(run["rts"], run["actives"])
+            if a and abs(r - round(r)) <= 2.0 ** -8 * abs(r)]
+
+
+def phase_adaptive_train(dev, workdir: Path) -> dict:
+    """The adaptive training path (``R_Trainer``, ``R_Evaler``) on the card:
+    (a) ``configs/tante_adaptive.yaml``'s one-frame engine, (b) the flagship
+    recipe's variable-frame engine (``scripts/train_flagship.py:92-107``) from
+    the trained asset, (c) the validation loop and ``R_Evaler``; then each
+    block kernel on the inputs the path gave it, one per shape (B 8, 4 and
+    1), against its plain version."""
+    inputs: dict = {}
+    with captured_block_inputs(inputs):
+        res = adaptive_train_runs(dev, workdir)
+    res["kernels_at_the_path_shapes"] = kernels_at_path_shapes(inputs)
+    check({k[0] for k in inputs} == {"fused_block_fwd", "fused_block_canon_t_fwd"},
+          f"adaptive path: block kernels reached {sorted({k[0] for k in inputs})}")
+    emit(res)
+    return res
+
+
+def adaptive_train_runs(dev, workdir: Path) -> dict:
+    mse = MSE()
+    sched = lambda: LinearWarmupCosineAnnealingLR(  # noqa: E731
+        warmup_epochs=2, max_epochs=34, lr=5e-5, warmup_start_lr=1e-5)
+    per_call = {"fused_block_fwd": 6, "fused_block_canon_t_fwd": 3}
+
+    # (a) the config: B=8, 4 one-frame calls a step, rt_eps 0.5, rt_n 2.
+    n_out = 4
+    dm = WaveDataModule(
+        batch_size=BATCH, n_steps_input=IN_T, n_steps_output=n_out, eval_steps_output=8,
+        data_workers=4, seed=0, device=dev,
+        waves=dict(resolution=RES, n_trajectories=4, n_steps=16, with_pressure=True, seed=0))
+    md = dm.train_dataset.metadata
+
+    def config_trainer(dropout: float, folder: str, model=None, device=None) -> R_Trainer:
+        model = model or flagship(False, torch.float32, dev, md, dropout=dropout)
+        return R_Trainer(str(workdir / folder), "channels_first_default", model, dm,
+                         AdamW(lr=5e-5, weight_decay=1e-5), mse, L2RE(), max_epoch=34,
+                         lr_scheduler=sched(), enable_amp=device is None, n_steps_output=n_out,
+                         n_steps_rollout=8, rt_eps=0.5, rt_n=2, seed=0, device=device)
+
+    loader = dm.train_dataloader()
+    loader.set_epoch(1)
+    first = next(iter(loader))
+    x0, y0 = first["input"], first["output"]
+    tr = config_trainer(0.1, "r_dropout")
+    one_frame = {"dropout_0.1": r_epoch(tr, loader, (x0, y0), {}, remat=False)}
+    del tr
+    tr = config_trainer(0.0, "r_kernels")
+    init = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
+    gpu = r_objective(tr, x0[:1], y0[:1])
+    one_frame["dropout_0"] = r_epoch(tr, loader, (x0, y0), per_call, remat=False)
+    cpu_model = flagship(False, torch.float32, "cpu", md, dropout=0.0)
+    cpu_model.load_state_dict(init)
+    cpu = r_objective(config_trainer(0.0, "r_cpu", cpu_model, "cpu"), x0[:1].cpu(), y0[:1].cpu())
+    del tr
+    for run in one_frame.values():
+        check(run["first_batch_loss_after"] < run["first_batch_loss_before"],
+              f"R_Trainer (one frame) loss on the first batch did not fall: "
+              f"{run['first_batch_loss_before']} -> {run['first_batch_loss_after']}")
+        check(run["model_calls_per_step"] == n_out, "one-frame engine: a slot without a call")
+    check(abs(gpu["loss"] - cpu["loss"]) <= TRAIN_LOSS_REL_TOL * cpu["loss"],
+          f"R_Trainer first loss {gpu['loss']} on the card vs {cpu['loss']} in f32 on the CPU")
+    check(abs(gpu["grad_norm"] - cpu["grad_norm"]) <= TRAIN_GNORM_REL_TOL * cpu["grad_norm"],
+          f"R_Trainer first gradient norm {gpu['grad_norm']} vs {cpu['grad_norm']} on the CPU")
+    one_frame["first_step_one_sample"] = {"card": gpu, "cpu_f32": cpu,
+                                          "loss_rel_tol": TRAIN_LOSS_REL_TOL,
+                                          "grad_norm_rel_tol": TRAIN_GNORM_REL_TOL}
+
+    # (b) the flagship recipe from the trained asset: B=4, 16 slots of 8-frame
+    # Taylor blocks, the band anchored at 8, growth supervision.
+    b_vf, n_vf, k_vf = 4, 16, 8
+    recipe = dict(train_out_T=float(k_vf), rt_band_hi=float(k_vf), rt_eps=3.0,
+                  rt_supervision=0.05, rt_sup_mode="growth")
+    dm_vf = WaveDataModule(
+        batch_size=b_vf, n_steps_input=IN_T, n_steps_output=n_vf, eval_steps_output=n_vf,
+        data_workers=4, seed=0, device=dev,
+        waves=dict(resolution=RES, n_trajectories=2, n_steps=IN_T + n_vf + 4,
+                   with_pressure=True, seed=0))
+    md_vf = dm_vf.train_dataset.metadata
+    asset = dict(np.load(ASSET))
+
+    def recipe_trainer(folder: str, device=None, asset_weights=True, **kw) -> R_Trainer:
+        model = flagship(False, torch.float32, device or dev, md_vf, dropout=0.0)
+        if asset_weights:
+            load_jax_params(model, asset)
+        return R_Trainer(str(workdir / folder), "channels_first_default", model, dm_vf,
+                         AdamW(lr=5e-5, weight_decay=1e-5), mse, L2RE(), max_epoch=34,
+                         lr_scheduler=sched(), enable_amp=device is None, n_steps_output=n_vf,
+                         n_steps_rollout=n_vf, rt_n=2, seed=0, device=device, **recipe, **kw)
+
+    loader_vf = dm_vf.train_dataloader()
+    loader_vf.set_epoch(1)
+    first = next(iter(loader_vf))
+    xv, yv = first["input"], first["output"]
+    tr_vf = recipe_trainer("r_vf")
+    check(tr_vf.gradient_checkpointing, "the variable-frame R_Trainer's default is not remat")
+    gpu_vf = r_objective(tr_vf, xv[:1], yv[:1])
+    cpu_vf = r_objective(recipe_trainer("r_vf_cpu", "cpu"), xv[:1].cpu(), yv[:1].cpu())
+    check(gpu_vf["cums"] == cpu_vf["cums"],
+          f"vf first step: cums {gpu_vf['cums']} on the card vs {cpu_vf['cums']} on the CPU")
+    check(abs(gpu_vf["loss"] - cpu_vf["loss"]) <= TRAIN_LOSS_REL_TOL * cpu_vf["loss"],
+          f"vf first loss {gpu_vf['loss']} on the card vs {cpu_vf['loss']} on the CPU")
+    check(abs(gpu_vf["grad_norm"] - cpu_vf["grad_norm"])
+          <= TRAIN_GNORM_REL_TOL * cpu_vf["grad_norm"],
+          f"vf first gradient norm {gpu_vf['grad_norm']} vs {cpu_vf['grad_norm']} on the CPU")
+    vf = {"remat": r_epoch(tr_vf, loader_vf, (xv, yv), per_call, remat=True)}
+    tr_off = recipe_trainer("r_vf_off", gradient_checkpointing=False)
+    vf["no_remat"] = r_epoch(tr_off, loader_vf, (xv, yv), per_call, remat=False)
+    del tr_off
+    for label, run in vf.items():
+        check(0 < run["model_calls_per_step"] <= n_vf, f"vf ({label}): calls per step "
+                                                       f"{run['model_calls_per_step']}")
+    vf["first_step_one_sample"] = {
+        "card": gpu_vf, "cpu_f32": cpu_vf, "loss_rel_tol": TRAIN_LOSS_REL_TOL,
+        "grad_norm_rel_tol": TRAIN_GNORM_REL_TOL,
+        "rt_within_bf16_rounding_of_an_integer": {
+            "card": rt_near_integers(gpu_vf), "cpu_f32": rt_near_integers(cpu_vf)}}
+    # JAX's ~58 GB warning is for every slot a real call: seeded weights emit
+    # one or two frames a call at init; one step with remat and one without.
+    vf["seeded_weights"] = {}
+    for label, remat in (("remat", True), ("no_remat", False)):
+        tr_w = recipe_trainer(f"r_vf_seeded_{label}", asset_weights=False,
+                              gradient_checkpointing=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with counted_calls(tr_w.model) as n:
+            start.record()
+            reported = float(tr_w.train_step(xv, yv)[3])
+            stop.record()
+            stop.synchronize()
+        launches, calls = launch_counts(), n[0]
+        factor = 2 if remat else 1
+        check(launches == {k: factor * calls * per_call.get(k, 0) for k in launches}
+              and reported == calls,
+              f"vf step, seeded weights ({label}): launches {launches} for {calls} calls "
+              f"(the step reports {reported})")
+        vf["seeded_weights"][label] = {
+            "model_calls": calls, "seconds": start.elapsed_time(stop) / 1e3,
+            "peak_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches}
+        del tr_w
+
+    # (c) validation (out_T = 16, 9 block launches per model call) and R_Evaler
+    # on the asset (16 steps, K = 8) against Predictor.rollout_adaptive.
+    val_loader = dm_vf.val_dataloader()
+    torch.cuda.synchronize()
+    reset_counts()
+    with counted_calls(tr_vf.model) as n:
+        val_loss = tr_vf.validation_loop(val_loader)
+        torch.cuda.synchronize()
+    launches, n_val = launch_counts(), n[0]
+    want = {k: n_val * per_call.get(k, 0) for k in launches}
+    check(launches == want, f"R_Trainer validation launches {launches}, want {want}")
+    saved_rt = (workdir / "r_vf" / "saved_rt.txt").read_text().split()
+    check(np.isfinite(val_loss) and len(saved_rt) == 1, "R_Trainer validation / saved_rt.txt")
+    del tr_vf
+
+    fns = [MSE(), L2RE(), NNMSE(), VRMSE()]
+    model = flagship(False, torch.float32, dev, md_vf)
+    load_jax_params(model, asset)
+    evaler = R_Evaler(str(workdir / "r_eval"), "channels_first_default", model, dm_vf, *fns,
+                      enable_amp=True, n_steps_rollout=n_vf, out_T_max=k_vf, batch_size=b_vf)
+    test_loader = dm_vf.test_dataloader()
+    reset_counts()
+    report = evaler.Eval()
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    pred = Predictor.from_numpy(flagship(False, torch.bfloat16, dev, md_vf), asset)
+    own = {name: [] for name in evaler.loss_names}
+    pred_calls = []
+    with torch.no_grad():
+        for batch in test_loader:
+            y = evaler._rollout(batch["input"])
+            for name, fn in zip(evaler.loss_names, fns):
+                own[name].append(float(fn(y.to(batch["output"].dtype), batch["output"]).mean()))
+            pred_calls.append(pred.rollout_adaptive(batch["input"], n_vf, k_vf)[2])
+    check(report["model_calls_per_rollout"] == float(np.mean(pred_calls)),
+          f"R_Evaler {report['model_calls_per_rollout']} calls per rollout, Predictor "
+          f"{pred_calls}")
+    for name in evaler.loss_names:
+        got, want_m = report["metrics"][name], float(np.mean(own[name]))
+        check(np.isfinite(got) and abs(got - want_m) <= METRIC_REL_TOL * abs(want_m),
+              f"R_Evaler {name} {got} vs the metric function on the same rollouts {want_m}")
+    n_eval_calls = sum(pred_calls)
+    check(eval_launches == {k: n_eval_calls * per_call.get(k, 0) for k in eval_launches},
+          f"R_Evaler launches {eval_launches} for {n_eval_calls} model calls")
+
+    res = {"phase": "adaptive_train", "dtype": "bf16 compute, f32 weights",
+           "one_frame": {"config": "configs/tante_adaptive.yaml (B8, n_steps_output 4, rt_eps "
+                                   "0.5, rt_n 2, value clip, AdamW 5e-5 / 1e-5, warmup-cosine)",
+                         "weights": "seeded init (torch seed 0)", **one_frame},
+           "variable_frame": {"recipe": "scripts/train_flagship.py:92-107 (B4, n_steps_output "
+                                        "16, train_out_T 8, rt_band_hi 8, rt_eps 3, "
+                                        "rt_supervision 0.05 growth)",
+                              "weights": "trained (tante_tpu/assets/tante_flagship.npz)",
+                              "slots_per_step": n_vf,
+                              "card_memory_gb": torch.cuda.get_device_properties(0).total_memory
+                              / 2**30, **vf},
+           "validation": {"loss": val_loss, "model_calls": n_val, "launches": launches,
+                          "launches_per_model_call": {k: v / max(n_val, 1)
+                                                      for k, v in launches.items()},
+                          "saved_rt": float(saved_rt[0])},
+           "r_evaler": {"report": report, "test_batches": len(test_loader),
+                        "predictor_n_calls": pred_calls, "launches": eval_launches,
+                        "metric_functions_on_the_same_rollouts": {
+                            k: float(np.mean(v)) for k, v in own.items()},
+                        "metric_rel_tol": METRIC_REL_TOL}}
     return res
 
 
@@ -2355,8 +2744,9 @@ def phase_parallel(dev, workdir: Path) -> dict:
 
 
 def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed: dict,
-                  train: dict, spectral: list[dict], fno: dict, packed: list[dict],
-                  avit: dict, cvit: dict, tp: list[dict], parallel: dict) -> list[dict]:
+                  train: dict, adaptive_train: dict, spectral: list[dict], fno: dict,
+                  packed: list[dict], avit: dict, cvit: dict, tp: list[dict],
+                  parallel: dict) -> list[dict]:
     replaces = {"fused_block_fwd": "tante_tpu/ops/pallas_block.py:163",
                 "fused_block_canon_t_fwd": "tante_tpu/ops/pallas_block.py:401",
                 "fused_chain_apply": "tante_tpu/ops/pallas_block.py:1073",
@@ -2385,6 +2775,12 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
         }
         if name == "fused_block_canon_t_fwd":
             row["rearranged_fused_block_fwd_ms"] = mean("rearranged_fused_block_fwd_ms")
+        # The adaptive training path (R_Trainer): per step, forward (and the
+        # recompute in backward under remat).
+        row["launches_per_r_trainer_step"] = {
+            "one_frame": adaptive_train["one_frame"]["dropout_0"]["launches_per_step"][name],
+            "variable_frame_remat":
+                adaptive_train["variable_frame"]["remat"]["launches_per_step"][name]}
         out.append(row)
     val = train["validation"]
     per_call = {"fused_chain_apply": val["fused_chain=3"]["launches_per_model_call"],
@@ -2515,11 +2911,13 @@ def main() -> int:
     tp = phase_tp_kernel(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = phase_train(dev, Path(workdir))
+        adaptive_train = phase_adaptive_train(dev, Path(workdir))
         phase_fno_train_eval(dev, Path(workdir))
         avit = phase_avit(dev, Path(workdir))
         cvit = phase_cvit(dev, Path(workdir))
         parallel = phase_parallel(dev, Path(workdir))
-    phase_summary(kernels, chains, fixed, train, spectral, fno, packed, avit, cvit, tp, parallel)
+    phase_summary(kernels, chains, fixed, train, adaptive_train, spectral, fno, packed, avit, cvit,
+                  tp, parallel)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

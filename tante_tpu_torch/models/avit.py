@@ -27,7 +27,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from tante_tpu_torch.data.metadata import TanteMetadata
 from tante_tpu_torch.models.common import LayerNorm, TorchDense
@@ -40,6 +39,7 @@ from tante_tpu_torch.ops.fused_attention import (
     packed_head_attention,
 )
 from tante_tpu_torch.ops.initializers import torch_kernel_init
+from tante_tpu_torch.utils.remat import remat
 
 
 def drop_path(x: torch.Tensor, rate: float, deterministic: bool,
@@ -292,25 +292,10 @@ class AViT(nn.Module):
     def _block(self, block, z, deterministic, generator):
         if not (self.gradient_checkpointing and torch.is_grad_enabled()):
             return block(z, deterministic, generator)
-        if deterministic or generator is None:
-            return checkpoint(block, z, deterministic, generator, use_reentrant=False)
         # The recompute in backward draws the forward's drop-path masks again
-        # (as nn.remat replays its key): the generator is wound back to where
-        # the forward found it, and forward again afterwards.
-        start, calls = generator.get_state(), []
-
-        def run(z):
-            if not calls:
-                calls.append(1)
-                return block(z, deterministic, generator)
-            after = generator.get_state()
-            generator.set_state(start)
-            try:
-                return block(z, deterministic, generator)
-            finally:
-                generator.set_state(after)
-
-        return checkpoint(run, z, use_reentrant=False)
+        # (as nn.remat replays its key).
+        return remat(lambda z: block(z, deterministic, generator), z,
+                     rng=None if deterministic else generator)
 
     def forward(self, x: torch.Tensor, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -138,7 +138,9 @@ class Evaler:
             return report
 
     def validation_loop(self, dataloader):
-        seq_losses = [[] for _ in self.loss_fns]
+        """-> (per-metric means, their variances over batches, mean rollout
+        time); the per-batch values stay in ``batch_losses``."""
+        self.batch_losses = seq_losses = [[] for _ in self.loss_fns]
         times = []
         n_batches = max(1, len(dataloader))
         for batch in dataloader:

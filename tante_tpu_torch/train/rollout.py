@@ -12,6 +12,12 @@ Emission semantics are the JAX ones exactly:
   emits ``clip(floor(r_t[0]), 1, K)`` frames (batch-wide, from sample 0),
   or the whole K-frame block with ``force_budget``.  Reading floor(r_t[0])
   is one host sync per model call.
+- ``rollout_adaptive_train``: the adaptive trainer's one-frame engine,
+  n_steps calls of one frame each, r_t logged; no host sync.
+- ``rollout_adaptive_train_vf``: the differentiable variable-frame engine.
+  Every sample consumes ``clip(floor(r_t_i), 1, K)`` frames of its K-frame
+  block at its own offset; a slot calls the model only while some sample
+  still consumes (one host sync per slot to decide).
 
 Adaptive rollouts return ``(frames, rt_log, n_calls)`` with ``rt_log`` a
 (n_steps,) f32 tensor padded with NaN past the realised calls.
@@ -23,9 +29,12 @@ import math
 from typing import Callable, Tuple
 
 import torch
+import torch.distributed as dist
 
 from tante_tpu_torch.models.enc_dec_cnn import PATCH_MAP
 from tante_tpu_torch.ops.convs import morton_pack_grouped, morton_unpack_grouped
+from tante_tpu_torch.parallel.collectives import psum
+from tante_tpu_torch.utils.remat import remat as remat_call
 
 
 def rollout_fixed(apply_fn: Callable, window: torch.Tensor, n_steps: int, chunk: int):
@@ -69,27 +78,111 @@ def rollout_tante_latent(model, x: torch.Tensor, n_steps: int, out_dtype=None):
     return morton_unpack_grouped(y, ps, res) if packed else y
 
 
-def _emit(rt: torch.Tensor, k: int, force_budget: bool) -> int:
+def rollout_adaptive_train(apply_fn: Callable, window: torch.Tensor, n_steps: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame per call, r_t collected.  apply_fn: window -> (frames
+    (B, 1, ...), rt (B,)).  -> (y (B, n_steps, ...), rts (n_steps, B))."""
+    t_in = window.shape[1]
+    ys, rts = [], []
+    for _ in range(n_steps):
+        frames, rt = apply_fn(window)
+        window = torch.cat([window, frames], dim=1)[:, -t_in:]
+        ys.append(frames)
+        rts.append(rt)
+    return torch.cat(ys, dim=1)[:, :n_steps], torch.stack(rts)
+
+
+def rollout_adaptive_train_vf(
+    apply_fn: Callable, window: torch.Tensor, n_steps: int, k: int, remat: bool = False,
+    rng: torch.Generator | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Variable-frame adaptive training rollout (differentiable).
+
+    apply_fn: window -> (frames (B, k, ...), rt (B,)); k is the model's
+    static emission count.  n_steps slots (the one-frame worst case); in
+    each, every sample still short of n_steps frames (``active``) consumes
+    ``clip(floor(r_t_i), 1, k)`` frames of its block, written into a
+    (B, n_steps + k) buffer at its own offset ``cum_i`` and slid into its own
+    window.  A finished sample keeps its window and frames: its part of the
+    block is blended out before the write.  Frames a later block overwrites
+    get zero gradient, so a frame is trained iff it is used.  The reads,
+    writes and slides index each sample's offset with index tensors, out of
+    place (an in-place write into a buffer autograd saved fails in backward).
+
+    A slot where no sample is active calls no model; it logs rt = 0,
+    active = False and the unchanged cum, as JAX's ``lax.cond`` skip branch.
+    Deciding that is one host sync per slot.
+
+    remat: recompute each model call in backward (``jax.checkpoint``);
+    ``rng``, the dropout generator ``apply_fn`` draws from, is replayed for
+    the recompute.
+    -> (y (B, n_steps, ...), rts (n_steps, B), actives (n_steps, B) bool,
+    cums (n_steps, B) int32: each sample's frame offset before each slot).
+    """
+    t_in, b, dev = window.shape[1], window.shape[0], window.device
+    out = window.new_zeros((b, n_steps + k) + window.shape[2:])
+    rows = torch.arange(b, device=dev)[:, None]
+    block_idx, window_idx = torch.arange(k, device=dev), torch.arange(t_in, device=dev)
+    cum = torch.zeros(b, dtype=torch.long, device=dev)
+    rts, actives, cums = [], [], []
+    for _ in range(n_steps):
+        active = cum < n_steps
+        cums.append(cum)
+        if not bool(active.any()):  # every later slot is skipped too
+            break
+        frames, rt = remat_call(apply_fn, window, rng=rng) if remat else apply_fn(window)
+        emit = torch.where(active, torch.floor(rt).long().clamp(1, k), 0)
+        # The block lands at the offset clamped into the buffer, as
+        # dynamic_update_slice clamps (only a finished sample's offset passes
+        # n_steps, and its block is blended back to what is there).
+        at = cum.clamp(max=n_steps)[:, None] + block_idx
+        mask = active.reshape((b,) + (1,) * (frames.ndim - 1))
+        out = out.index_put((rows, at), torch.where(mask, frames.to(out.dtype), out[rows, at]))
+        cat = torch.cat([window, frames.to(window.dtype)], dim=1)
+        window = cat[rows, emit[:, None] + window_idx]  # emit_i = 0 keeps the window
+        rts.append(rt)
+        actives.append(active)
+        cum = cum + emit
+    skipped = n_steps - len(rts)
+    rts += [rts[0].new_zeros(b)] * skipped
+    actives += [active.new_zeros(b)] * skipped
+    cums += [cum] * (n_steps - len(cums))
+    return (out[:, :n_steps], torch.stack(rts), torch.stack(actives),
+            torch.stack(cums).to(torch.int32))
+
+
+def _emit(rt: torch.Tensor, k: int, force_budget: bool, group=None) -> tuple[int, torch.Tensor]:
+    """-> (the call's emission, its mean r_t).  Under a dp ``group`` both
+    are the global batch's, as JAX's GSPMD rollout reads them: the first
+    sample is dp rank 0's, the mean is over every rank's samples (one
+    all-reduce)."""
+    first, mean = rt[0], rt.mean().float()
+    if group is not None:
+        r = rt.float()
+        lead = r[0] if dist.get_rank(group) == 0 else r.new_zeros(())
+        s = psum(torch.stack([lead, r.sum(), r.new_tensor(r.numel())]), group)
+        first, mean = s[0], s[1] / s[2]
     if force_budget:
-        return k
-    return min(max(int(math.floor(float(rt[0]))), 1), k)
+        return k, mean
+    return min(max(int(math.floor(float(first))), 1), k), mean
 
 
 def rollout_adaptive_eval(
     apply_fn: Callable, window: torch.Tensor, n_steps: int,
-    max_frames_per_call: int = 0, force_budget: bool = False,
+    max_frames_per_call: int = 0, force_budget: bool = False, group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """apply_fn: window -> (frames (B, K, ...), rt (B,)), K =
-    max_frames_per_call or n_steps (capped at n_steps)."""
+    max_frames_per_call or n_steps (capped at n_steps).  ``group``: the dp
+    process group when ``window`` is this rank's block of a global batch."""
     t_in = window.shape[1]
     k = min(max_frames_per_call if max_frames_per_call > 0 else n_steps, n_steps)
     ys, rts, cum = [], [], 0
     while cum < n_steps:
         frames, rt = apply_fn(window)
-        emit = _emit(rt, k, force_budget)
+        emit, rt_mean = _emit(rt, k, force_budget, group)
         ys.append(frames[:, :emit])
         window = torch.cat([window, frames], dim=1)[:, emit : emit + t_in]
-        rts.append(rt.mean().float())
+        rts.append(rt_mean)
         cum += emit
     return torch.cat(ys, dim=1)[:, :n_steps], _rt_log(rts, n_steps, window.device), len(rts)
 
@@ -127,11 +220,11 @@ def rollout_adaptive_eval_tante(
     while cum < n_steps:
         lat = model.encode(win, packed="morton")
         frames, rt = model.head(lat, u, float(k), packed="morton")
-        emit = _emit(rt, k, force_budget)
+        emit, rt_mean = _emit(rt, k, force_budget)
         ys.append(frames[:, :emit] if out_dtype is None else frames[:, :emit].to(out_dtype))
         win = torch.cat([win, frames.to(win.dtype)], dim=1)[:, emit : emit + t_in]
         u = frames[:, emit - 1 : emit]
-        rts.append(rt.mean().float())
+        rts.append(rt_mean)
         cum += emit
     y = torch.cat(ys, dim=1)[:, :n_steps]
     return morton_unpack_grouped(y, ps, res), _rt_log(rts, n_steps, window.device), len(rts)

@@ -248,19 +248,29 @@ class Trainer:
             y_pred, y = gather_rows(y_pred, self.mesh), gather_rows(y, self.mesh)
         return loss_metric(y_pred.to(y.dtype), y, None).mean()
 
-    def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """One optimizer step on a batch; returns the loss (on the device).
-        The learning rate is the schedule's at the current ``global_step``."""
+    def _begin_step(self) -> None:
+        """Training mode, the schedule's learning rate at ``global_step``,
+        gradients cleared: what comes before a train step's forward."""
         self.model.train()
         for group in self.optimizer.param_groups:
             group["lr"] = self._lr(self.global_step)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(x, y, self.n_steps_output, self.train_loss_fn, deterministic=False)
+
+    def _finish_step(self, loss: torch.Tensor) -> None:
+        """Backward, the gradients' reduction over the mesh, the clip and
+        the AdamW update."""
         loss.backward()
         self._reduce_grads()
         self.last_grad_norm = self._clip(self.model.parameters())
         self.optimizer.step()
         self.global_step += 1
+
+    def train_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """One optimizer step on a batch; returns the loss (on the device).
+        The learning rate is the schedule's at the current ``global_step``."""
+        self._begin_step()
+        loss = self._loss(x, y, self.n_steps_output, self.train_loss_fn, deterministic=False)
+        self._finish_step(loss)
         return self._dp_mean(loss.detach())
 
     @torch.no_grad()

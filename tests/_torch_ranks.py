@@ -23,6 +23,7 @@ from tante_tpu_torch.parallel.halo import sharded_spectral_conv2d_centered
 from tante_tpu_torch.parallel.sharding import shard_block
 from tante_tpu_torch.train.metrics import L2RE, MSE
 from tante_tpu_torch.train.optimizers import AdamW
+from tante_tpu_torch.train.r_trainer import R_Trainer
 from tante_tpu_torch.train.trainer import Trainer
 
 # The small TANTE of the tp model test (tests/test_parallel.py:613-672).
@@ -163,6 +164,34 @@ def train_run(mesh, workdir, model_kind, steps=2, dropout=0.0):
     return out
 
 
+def r_train_run(mesh, workdir, flat, x, y, model_kw, rkw, steps=2):
+    """The port's R_Trainer on one global batch (this rank's dp block of
+    it): first its validation step (the loss, the r_t log and the model
+    calls of the adaptive rollout at out_T = n_steps_rollout, and the first
+    call's per-sample r_t), then ``steps`` optimizer steps: per step the
+    loss and r_t statistics, then the parameters."""
+    res, n_in, n_out = x.shape[2:4], x.shape[1], y.shape[1]
+    waves = dict(TRAIN_WAVES, resolution=res, n_steps=12, with_pressure=x.shape[-1] == 4)
+    dm = WaveDataModule(batch_size=x.shape[0], n_steps_input=n_in, n_steps_output=n_out,
+                        device="cpu", waves=waves)
+    model = TANTE(dset_metadata=tante_metadata(res, x.shape[-1]), device="cpu", **model_kw)
+    load_jax_params(model, flat)
+    trainer = R_Trainer(str(workdir), "channels_last_default", model, dm, AdamW(lr=1e-3),
+                        MSE(), L2RE(), max_epoch=1, n_steps_output=n_out, n_steps_rollout=n_out,
+                        seed=0, mesh=mesh, device="cpu", **rkw)
+    dp, i = (1, 0) if mesh is None else (mesh.size("dp"), mesh.index("dp"))
+    b = x.shape[0] // dp
+    xl, yl = _t(x[i * b:(i + 1) * b]), _t(y[i * b:(i + 1) * b])
+    with torch.no_grad():
+        first_rt = trainer.model(xl, float(n_out))[1]
+    loss, rt_log, n_calls = trainer.eval_step(xl, yl)
+    val = {"loss": float(loss), "rt_log": np_(rt_log[:n_calls]), "n_calls": n_calls,
+           "first_rt": np_(first_rt)}
+    stats = [[float(v) for v in trainer.train_step(xl, yl)] for _ in range(steps)]
+    return {"val": val, "stats": stats,
+            "params": {k: np_(v) for k, v in trainer.model.state_dict().items()}}
+
+
 def shard_round_trip(mesh):
     """shard_params then gather_params gives back every tensor exactly; a
     block whose geometry does not split keeps whole weights."""
@@ -195,6 +224,7 @@ CASES = {
     "spectral_sp": spectral_sp,
     "fno_sp_forward": fno_sp_forward,
     "train_run": train_run,
+    "r_train_run": r_train_run,
     "shard_round_trip": shard_round_trip,
 }
 

@@ -43,7 +43,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "ops.fused_spectral", "ops.spectral", "ops.pooling", "models.enc_dec_fno",
                  "models.fno", "models.tfno", "models.uno", "train.evaler",
                  "ops.fused_attention", "ops.attention", "models.avit", "models.cvit",
-                 "parallel.mesh", "parallel.collectives", "parallel.sharding", "parallel.halo"):
+                 "parallel.mesh", "parallel.collectives", "parallel.sharding", "parallel.halo",
+                 "train.r_trainer", "train.r_evaler", "utils.remat"):
         assert f"tante_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 

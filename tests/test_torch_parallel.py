@@ -15,6 +15,7 @@ import torch
 from flax import traverse_util
 
 import _torch_ranks as R
+import test_torch_adaptive_train as AT
 from _torch_parity import block_params, flatten, spawn_ranks, to_jax, to_torch
 from tante_tpu.data.dataset import TanteMetadata as JaxMetadata
 from tante_tpu.models.fno import FNO as JaxFNO
@@ -105,6 +106,8 @@ def world2(tmp_path_factory):
     jobs.append(("tp_dropout", ("dp", "tp"), (1, 2), "tp_dropout_forward",
                  dict(flat=flatten(params), x=xt[:2], seed=5)))
     jobs.append(("round_trip", ("tp",), (2,), "shard_round_trip", {}))
+    jobs.append(("r_train_dp2", ("dp",), (2,), "r_train_run",
+                 dict(workdir="r_train", **r_train_inputs())))
     return spawn_ranks(2, tmp_path_factory.mktemp("world2"), jobs, timeout=120)
 
 
@@ -281,6 +284,47 @@ def test_trainer_on_mesh_matches_single_device(world2, single_runs, name, kind):
     if name == "train_tp2":
         assert world2[0][name]["split"]  # the blocks really ran split
     assert all(r[name]["resume_equal"] for r in world2)  # resume re-splits the checkpoint
+
+
+def r_train_inputs():
+    """The variable-frame R_Trainer case of ``test_torch_adaptive_train``: the
+    two samples emit different counts and the band penalty is active, so a
+    rank that took the r_t mean over its own sample would differ."""
+    jm, params = AT.jax_model_and_params()
+    x, y = AT.step_batch(0)
+    rkw = AT.RKW["vf_growth"]
+    return dict(flat=flatten(AT.rt_head(params, x, rkw["train_out_T"])), x=x, y=y,
+                model_kw=AT.KW, rkw=rkw)
+
+
+def test_r_trainer_on_dp2_matches_single_device(world2, tmp_path):
+    """R_Trainer at dp 2 (one sample a rank): every step's loss and r_t
+    statistics over the global batch, and the weights after two steps, as
+    on one device."""
+    inputs = r_train_inputs()
+    want = R.r_train_run(None, tmp_path, **inputs)
+    assert want["stats"][0][1] > 2.5  # the r_t mean is the global batch's (2.5 and 3.5)
+    for r in world2:
+        got = r["r_train_dp2"]
+        # f32 over half batches, summed over ranks: 1e-5 (loss, rt, rt_var, calls).
+        np.testing.assert_allclose(got["stats"], want["stats"], rtol=1e-5, atol=1e-7)
+        for k, v in want["params"].items():
+            # Two AdamW steps of lr 1e-3: a twentieth of a step's size.
+            np.testing.assert_allclose(got["params"][k], v, rtol=0, atol=5e-5, err_msg=k)
+
+
+def test_r_trainer_validation_on_dp2_matches_single_device(world2, tmp_path):
+    """R_Trainer's validation step at dp 2: the two samples emit different
+    counts, and every rank rolls out by the global batch's first sample (dp
+    rank 0's), as JAX's GSPMD rollout does, and logs the global mean r_t."""
+    want = R.r_train_run(None, tmp_path, **r_train_inputs())["val"]
+    assert np.floor(want["first_rt"][0]) != np.floor(want["first_rt"][1])
+    for r in world2:
+        got = r["r_train_dp2"]["val"]
+        assert got["n_calls"] == want["n_calls"]
+        # f32 over half batches, summed over ranks: 1e-5 (as the train steps).
+        np.testing.assert_allclose(got["rt_log"], want["rt_log"], rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5, atol=1e-7)
 
 
 # ---- (g) shard / gather, checkpoints, dropout under tp -------------------------
