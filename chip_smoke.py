@@ -134,9 +134,36 @@ script exits non-zero without the final result line):
             (dp 2, tp 1) and FNO at (dp 1, sp 2) against one rank, replicas equal after a dropout step, the tp
             checkpoint on one rank; seconds per step (two ranks sharing one card
             through gloo: not a tp speed).
-17. kernels one {"kernels": [...]} line (eight kernels; the block, canonical
+17. cli     the paper's entry points at the flagship's width (run after
+            adaptive_train): for ``configs/tante.yaml`` and
+            ``configs/tante_adaptive.yaml`` (copies with only the data node
+            replaced: the in-memory ``WaveDataModule`` at 128x384x4, B 8, or,
+            where h5py imports, the configs' own node over a
+            ``make_well_dataset`` tree with the native loader), bf16 by the
+            overrides ``trainer.enable_amp=true evaler.enable_amp=true``:
+            ``cli.train.main`` in-process for one epoch (0 block launches a
+            train step at the config's dropout 0.1, 6 + 3 a validation model
+            call), again to ``max_epoch=2`` (exactly one more epoch, resumed
+            from ``recent/``), ``cli.eval.main --choose=best`` against the
+            ``Evaler`` / ``R_Evaler`` built by hand on the same checkpoint
+            (1e-6 relative), ``Predictor.from_experiment`` with no device (on
+            the card; 96 + 48 launches a 16-step B 8 rollout, the adaptive
+            one as many calls as ``R_Evaler``; bit for bit a Predictor built
+            by hand from the same ``state.pt``); then each block kernel on
+            the inputs the path gave it against its plain version.  Before
+            that, the shipped configs as they are (f32) make the three entry
+            points refuse on the card, naming those two overrides.
+18. wellpack  a WellPack cache of 128x384x4 waves written by the port's cache
+            writer, ``native/wellpack.cpp`` built with g++ into
+            ``build/native/``, the native loader's batches (B 8, 4 in, 4 out,
+            shuffled, 4 threads) against the Python ``DataLoader``'s on the
+            card over two epochs (max abs 0), then each loader timed in turns
+            over 3 windows of whole epochs of at least 3 s: batches/s and the
+            GB/s that reached the card, median and spread, and their ratio.
+19. kernels one {"kernels": [...]} line (eight kernels; the block, canonical
             T, chain and tp half rows with the first design's time, in turns;
-            the two block rows also with their launches per R_Trainer step).
+            the two block rows also with their launches per R_Trainer step
+            and on the CLI path).
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 result line {"ok": true, "device": {...}}.  Exits non-zero when no CUDA
@@ -160,6 +187,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tante_tpu_torch.config import AMP_OVERRIDES
 from tante_tpu_torch.convert import load_jax_params, seeded_jax_params
 from tante_tpu_torch.data.datamodule import WaveDataModule
 from tante_tpu_torch.data.metadata import TanteMetadata
@@ -189,7 +217,7 @@ from tante_tpu_torch.train.rollout import (
     rollout_fixed,
 )
 from tante_tpu_torch.train.schedules import LinearWarmupCosineAnnealingLR
-from tante_tpu_torch.train.trainer import Trainer
+from tante_tpu_torch.train.trainer import Trainer, set_compute_dtype
 
 ROOT = Path(__file__).resolve().parent
 ASSET = ROOT / "tante_tpu" / "assets" / "tante_flagship.npz"
@@ -1104,7 +1132,7 @@ def captured_block_inputs(store: dict):
         model_common.fused_block_apply, model_backbone.fused_block_canon_t = apply, canon
 
 
-def kernels_at_path_shapes(store: dict) -> list[dict]:
+def kernels_at_path_shapes(store: dict, path: str) -> list[dict]:
     """Each block kernel on the inputs the path gave it (one per shape),
     against its plain version at the kernel phase's tolerance."""
     out = []
@@ -1117,7 +1145,7 @@ def kernels_at_path_shapes(store: dict) -> list[dict]:
             got, want = fb.fused_block_canon_t(x, p, *args), fb.canon_t_ref(x.float(), pf, *args)
         err = (got.float() - want).abs()
         ok = bool(torch.isfinite(got).all()) and bool((err <= ATOL + RTOL * want.abs()).all())
-        check(ok, f"kernel {name} at the adaptive path's shape {shape} disagrees with its "
+        check(ok, f"kernel {name} at the {path} path's shape {shape} disagrees with its "
                   f"plain version")
         out.append({"name": name, "shape": list(shape), "causal": causal, "softmax": softmax,
                     "max_abs_err": float(err.max()), "max_abs_plain": float(want.abs().max()),
@@ -1222,7 +1250,7 @@ def phase_adaptive_train(dev, workdir: Path) -> dict:
     inputs: dict = {}
     with captured_block_inputs(inputs):
         res = adaptive_train_runs(dev, workdir)
-    res["kernels_at_the_path_shapes"] = kernels_at_path_shapes(inputs)
+    res["kernels_at_the_path_shapes"] = kernels_at_path_shapes(inputs, "adaptive")
     check({k[0] for k in inputs} == {"fused_block_fwd", "fused_block_canon_t_fwd"},
           f"adaptive path: block kernels reached {sorted({k[0] for k in inputs})}")
     emit(res)
@@ -1419,6 +1447,396 @@ def adaptive_train_runs(dev, workdir: Path) -> dict:
                         "metric_functions_on_the_same_rollouts": {
                             k: float(np.mean(v)) for k, v in own.items()},
                         "metric_rel_tol": METRIC_REL_TOL}}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The paper's entry points: the train / eval CLIs, Predictor.from_experiment
+# ---------------------------------------------------------------------------
+
+CLI_CONFIGS = ("tante", "tante_adaptive")
+# The fewest wave trajectories that give an epoch 2 train steps of B 8 at 4 in /
+# 4 out (2 x 9 windows of 16 frames); validation 1 batch (2 x 5 windows of 12
+# frames), test 2 batches at the eval CLI's 4-step window.
+CLI_WAVES = dict(resolution=list(RES), n_trajectories=2, n_steps=16, with_pressure=True, seed=0)
+# The shipped configs set no enable_amp: f32 blocks, which the block kernels
+# refuse (they take bf16 only), and so do the entry points on the card
+# (config.check_block_dtype; cli_refusals checks it).  The run switches bf16
+# on as a user would, with the overrides the refusal names.
+CLI_AMP = AMP_OVERRIDES.split()
+CLI_REL_TOL = 1e-6  # eval CLI against the Evaler by hand: the same computation
+
+
+def h5py_imports() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def cli_config_dir(workdir: Path, h5: bool) -> tuple[str, list, str]:
+    """(config dir, data overrides, route): copies of the two shipped configs,
+    every key but ``data`` as shipped.  Without h5py the data node is the
+    in-memory ``WaveDataModule`` at the bench's field; with it, the configs'
+    own data node over a ``make_well_dataset`` tree and the native loader."""
+    import yaml
+
+    from tante_tpu_torch.config import CONFIG_DIR
+    from tante_tpu_torch.data.synthetic import make_well_dataset
+
+    cdir = workdir / "cli_configs"
+    cdir.mkdir(exist_ok=True)
+    for name in CLI_CONFIGS:
+        with open(os.path.join(CONFIG_DIR, name + ".yaml")) as f:
+            cfg = yaml.safe_load(f)
+        if not h5:
+            cfg["data"] = {"_target_": "tante_tpu_torch.data.WaveDataModule",
+                           "batch_size": BATCH, "n_steps_input": IN_T, "n_steps_output": 4,
+                           "eval_steps_output": 8, "data_workers": 4,
+                           "dataset_name": "synthetic_waves", "waves": CLI_WAVES}
+        with open(cdir / f"{name}.yaml", "w") as f:
+            yaml.safe_dump(cfg, f, sort_keys=False)
+    if not h5:
+        return str(cdir), [], "in-memory WaveDataModule (h5py does not import)"
+    base = workdir / "cli_well"
+    make_well_dataset(str(base), dataset_name="synthetic_waves",
+                      **{k: v for k, v in CLI_WAVES.items() if k != "resolution"},
+                      resolution=tuple(RES))
+    return (str(cdir), [f"data.base_path={base}", "data.dataset_name=synthetic_waves",
+                        "data.use_wellpack=true", f"data.wellpack_cache_dir={base / 'wpk'}"],
+            "HDF5 TanteDataModule, native WellPack loader")
+
+
+@contextlib.contextmanager
+def cli_counts(log: list):
+    """Each epoch and validation loop of a Trainer / R_Trainer as it runs:
+    its kind, epoch, seconds (synchronised), block launches and TANTE model
+    calls (a global forward hook)."""
+    calls = [0]
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        lambda m, *_: calls.__setitem__(0, calls[0] + isinstance(m, TANTE)))
+    saved = []
+
+    def wrap(cls, name, kind):
+        fn = cls.__dict__[name]
+
+        def counted(self, *args, **kw):
+            # train_one_epoch(epoch, loader), validation_loop(loader, epoch=...)
+            epoch, loader = args if kind == "train" else (kw.get("epoch", 0), args[0])
+            torch.cuda.synchronize()
+            reset_counts()
+            n0, t0 = calls[0], time.perf_counter()
+            out = fn(self, *args, **kw)
+            torch.cuda.synchronize()
+            log.append({"kind": kind, "epoch": epoch, "seconds": time.perf_counter() - t0,
+                        "batches": len(loader), "model_calls": calls[0] - n0,
+                        "launches": launch_counts()})
+            return out
+
+        saved.append((cls, name, fn))
+        setattr(cls, name, counted)
+
+    for cls in (Trainer, R_Trainer):
+        wrap(cls, "train_one_epoch", "train")
+        wrap(cls, "validation_loop", "validation")
+    try:
+        yield calls
+    finally:
+        hook.remove()
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def want_launches(calls: int) -> dict:
+    return {"fused_block_fwd": 6 * calls, "fused_block_canon_t_fwd": 3 * calls,
+            "fused_chain_apply": 0, "fused_group_apply": 0}
+
+
+def cli_run(name: str, dev, workdir: Path, cdir: str, data_ov: list) -> dict:
+    """train 1 epoch -> train to 2 (resume) -> eval --choose=best against the
+    Evaler by hand -> from_experiment on the card against a Predictor built
+    by hand from the same state.pt."""
+    from tante_tpu_torch.cli import eval as cli_eval
+    from tante_tpu_torch.cli import train as cli_train
+    from tante_tpu_torch.config import instantiate, load_config
+    from tante_tpu_torch.utils.checkpoint import STATE_FILE
+
+    experiment = f"CLI_{name}"
+    ov = [f"root_path={workdir / 'cli_runs'}", f"experiment={experiment}", *CLI_AMP, *data_ov]
+    folder = workdir / "cli_runs" / "experiments" / experiment
+    args = [f"--config-name={name}", f"--config-dir={cdir}"]
+    res: dict = {"config": f"configs/{name}.yaml, data node replaced", "overrides": ov}
+
+    # 1-2: one epoch, then a rerun to max_epoch 2 resumes from recent/.
+    for epochs in (1, 2):
+        log: list = []
+        with cli_counts(log):
+            t0 = time.perf_counter()
+            trainer = cli_train.main([*args, f"trainer.max_epoch={epochs}", *ov])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        train = [r for r in log if r["kind"] == "train"]
+        val = [r for r in log if r["kind"] == "validation"]
+        check(trainer.device.type == "cuda", f"{name}: the train CLI ran on {trainer.device}")
+        check([r["epoch"] for r in train] == [epochs],
+              f"{name}: max_epoch={epochs} trained epochs {[r['epoch'] for r in train]}")
+        check(all(r["launches"] == want_launches(0) for r in train),
+              f"{name}: train steps launched block kernels at dropout 0.1: {train}")
+        check(all(r["launches"] == want_launches(r["model_calls"]) and r["model_calls"] > 0
+                  for r in val), f"{name}: validation launches {val}, want 6 + 3 a model call")
+        res[f"train_max_epoch_{epochs}"] = {
+            "device": str(trainer.device), "wall_s": wall, "epochs": log,
+            "steps_per_epoch": trainer.steps_per_epoch,
+            "parameters": sum(p.numel() for p in trainer.model.parameters()),
+            "starting_epoch": trainer.starting_epoch}
+        del trainer
+    for path in ("metrics.jsonl", "recent/" + STATE_FILE, "best/" + STATE_FILE,
+                 "extended_config.yaml", "saved_loss.txt") + (
+                     ("saved_rt.txt",) if name == "tante_adaptive" else ()):
+        check((folder / path).exists(), f"{name}: the train CLI wrote no {path}")
+
+    # 3: the eval CLI against the Evaler built by hand on the same checkpoint.
+    reset_counts()
+    report = cli_eval.main([*args, "--choose=best", *ov])
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    cfg = load_config(name, config_dir=cdir, overrides=ov)
+    cfg.data.eval_steps_output = cfg.evaler.n_steps_rollout
+    dm = instantiate(cfg.data, seed=cfg.seed)
+    md = dm.train_dataset.metadata
+    if cfg.data.get("use_wellpack"):
+        # TanteDataModule drops back to the Python loader without the native
+        # library: the HDF5 route must not.
+        from tante_tpu_torch.data.wellpack import WellPackLoader
+
+        loader = dm.test_dataloader()
+        check(isinstance(loader, WellPackLoader),
+              f"{name}: use_wellpack=true gave a {type(loader).__name__}")
+        res["test_loader"] = type(loader).__name__
+    evaler = instantiate(cfg.evaler, checkpoint_folder=str(folder),
+                         model=instantiate(cfg.model, dset_metadata=md, seed=cfg.seed),
+                         datamodule=dm, batch_size=cfg.data.batch_size,
+                         checkpoint_path=str(folder / "best"))
+    by_hand = evaler.Eval(mode="common")
+    for metric, got in report["metrics"].items():
+        want = by_hand["metrics"][metric]
+        check(np.isfinite(got) and abs(got - want) <= CLI_REL_TOL * abs(want),
+              f"{name}: eval CLI {metric} {got} vs the Evaler by hand {want}")
+    n_eval_batches = len(dm.test_dataloader())
+    eval_calls = (report["model_calls_per_rollout"] * n_eval_batches
+                  if name == "tante_adaptive" else cfg.evaler.n_steps_rollout * n_eval_batches)
+    check(eval_launches == want_launches(int(eval_calls)),
+          f"{name}: eval CLI launches {eval_launches} for {eval_calls} model calls")
+    res["eval"] = {"report": report, "evaler_by_hand": by_hand["metrics"],
+                   "rel_tol": CLI_REL_TOL, "test_batches": n_eval_batches,
+                   "model_calls": eval_calls, "launches": eval_launches}
+
+    # 4: from_experiment with no device serves on the card.
+    x = torch.from_numpy(wave_input())
+    pred = Predictor.from_experiment(name, experiment=experiment, choose="best",
+                                     overrides=ov, config_dir=cdir)
+    check(pred.device.type == "cuda" and next(pred.model.parameters()).is_cuda,
+          f"{name}: from_experiment serves on {pred.device}")
+    model = instantiate(cfg.model, dset_metadata=md, seed=cfg.seed, device="cpu")
+    model.load_state_dict(torch.load(folder / "best" / STATE_FILE, map_location="cpu",
+                                     weights_only=True)["params"])
+    ref = Predictor(set_compute_dtype(model, torch.bfloat16))
+    out: dict = {"device": str(pred.device), "dtype": str(pred.model.dtype)}
+    if name == "tante":
+        reset_counts()
+        frames = pred.rollout(x, N_STEPS)
+        torch.cuda.synchronize()
+        out["launches_per_rollout"] = launch_counts()
+        check(out["launches_per_rollout"] == want_launches(N_STEPS),
+              f"{name}: from_experiment rollout launches {out['launches_per_rollout']}")
+        out["equals_predictor_by_hand_bit_for_bit"] = bool(
+            torch.equal(frames, ref.rollout(x, N_STEPS)))
+    else:
+        n = cfg.evaler.n_steps_rollout
+        reset_counts()
+        frames, rt, n_calls = pred.rollout_adaptive(x, n)
+        torch.cuda.synchronize()
+        out["launches_per_rollout"] = launch_counts()
+        check(out["launches_per_rollout"] == want_launches(n_calls),
+              f"{name}: from_experiment adaptive launches {out['launches_per_rollout']} for "
+              f"{n_calls} calls")
+        evaler.calls = []
+        evaler._rollout(x.to(evaler.device))
+        out.update(n_calls=n_calls, r_evaler_calls=int(evaler.calls[0][1]), rt=rt.tolist())
+        check(n_calls == out["r_evaler_calls"],
+              f"{name}: from_experiment made {n_calls} calls, R_Evaler {out['r_evaler_calls']}")
+        out["equals_predictor_by_hand_bit_for_bit"] = bool(
+            torch.equal(frames, ref.rollout_adaptive(x, n)[0]))
+    check(bool(torch.isfinite(frames).all()), f"{name}: from_experiment frames not finite")
+    check(out["equals_predictor_by_hand_bit_for_bit"],
+          f"{name}: from_experiment differs from the Predictor by hand")
+    res["from_experiment"] = out
+    return res
+
+
+def cli_refusals(workdir: Path) -> dict:
+    """The shipped configs as they are (no enable_amp: f32 TANTE blocks) on
+    the card: the train and eval CLIs and ``from_experiment`` each refuse
+    before anything is built or written, naming the overrides that run it."""
+    from tante_tpu_torch.cli import eval as cli_eval
+    from tante_tpu_torch.cli import train as cli_train
+
+    root = workdir / "cli_shipped"
+    out = {}
+    for name in CLI_CONFIGS:
+        ov = [f"root_path={root}"]
+        args = [f"--config-name={name}", *ov]
+        for entry, call in (("train", lambda: cli_train.main(args)),
+                            ("eval", lambda: cli_eval.main(args)),
+                            ("from_experiment", lambda: Predictor.from_experiment(
+                                name, overrides=ov))):
+            try:
+                call()
+                msg = None
+            except ValueError as e:
+                msg = str(e)
+            check(msg is not None and AMP_OVERRIDES in msg,
+                  f"{name}: {entry} as shipped on the card did not refuse f32 blocks ({msg})")
+            out[f"{name} {entry}"] = msg
+    check(not root.exists(), "a refused entry point wrote into its experiment folder")
+    return out
+
+
+def phase_cli(dev, workdir: Path) -> dict:
+    """The paper's entry points on the card at the flagship's width: for
+    ``configs/tante.yaml`` and ``configs/tante_adaptive.yaml``, the train CLI
+    (one epoch, then a resume to two), the eval CLI against the Evaler by
+    hand, ``Predictor.from_experiment`` with no device; then each block
+    kernel on the inputs the path gave it against its plain version."""
+    h5 = h5py_imports()
+    cdir, data_ov, route = cli_config_dir(workdir, h5)
+    res = {"phase": "cli", "h5py": h5, "data_route": route,
+           "cuts": ["data: 2 wave trajectories of 16 frames a split (2 train steps an epoch, "
+                    "1 validation batch, 2 test batches at the eval CLI's 4 steps)",
+                    "epochs: 1, then a resume to 2 (configs: max_epoch 34)"],
+           "bf16": "overrides " + " ".join(CLI_AMP) + ": the configs set no enable_amp, and the "
+                   "block kernels take bf16 only"}
+    res["as_shipped_refused"] = cli_refusals(workdir)
+    inputs: dict = {}
+    with captured_block_inputs(inputs):
+        for name in CLI_CONFIGS:
+            res[name] = cli_run(name, dev, workdir, cdir, data_ov)
+    res["kernels_at_the_path_shapes"] = kernels_at_path_shapes(inputs, "cli")
+    check({k[0] for k in inputs} == {"fused_block_fwd", "fused_block_canon_t_fwd"},
+          f"cli path: block kernels reached {sorted({k[0] for k in inputs})}")
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The native WellPack loader feeding the card
+# ---------------------------------------------------------------------------
+
+# 8 trajectories of 48 frames: 41 windows each, 41 batches of B 8 an epoch
+# (a 302 MB cache).  Each loader is timed over whole epochs for at least
+# WELLPACK_WINDOW_S seconds, native and Python in turns, WELLPACK_REPEATS times.
+WELLPACK_WAVES = dict(resolution=RES, n_trajectories=8, n_steps=48, with_pressure=True, seed=3)
+WELLPACK_WINDOW_S = 3.0
+WELLPACK_REPEATS = 3
+
+
+def epoch_to_card(loader, epoch: int) -> list:
+    """Every batch of one epoch on the card (synchronised)."""
+    loader.set_epoch(epoch)
+    batches = list(loader)
+    torch.cuda.synchronize()
+    return batches
+
+
+def timed_window(loader, epoch: int, min_s: float) -> tuple[dict, int]:
+    """Whole epochs to the card (each batch dropped as the next arrives, a
+    sync after each epoch) until ``min_s`` seconds have passed; the window's
+    batches, bytes that reached the card, seconds, and the next epoch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = nbytes = epochs = 0
+    while True:
+        loader.set_epoch(epoch + epochs)
+        epochs += 1
+        for batch in loader:
+            n += 1
+            nbytes += sum(t.numel() * t.element_size() for t in batch.values())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if seconds >= min_s:
+            return ({"epochs": epochs, "batches": n, "bytes_to_card": nbytes, "seconds": seconds,
+                     "batches_per_s": n / seconds, "gb_per_s": nbytes / seconds / 1e9},
+                    epoch + epochs)
+
+
+def spread(values: list) -> dict:
+    return {"median": float(np.median(values)), "min": min(values), "max": max(values),
+            "runs": values}
+
+
+def phase_wellpack(dev, workdir: Path) -> dict:
+    """A WellPack cache of the 128x384x4 waves written by the port's cache
+    writer, the native loader built with g++ into build/, its batches (B 8,
+    4 in, 4 out, shuffled, 4 threads) against the Python DataLoader's on the
+    card over two epochs, then each loader timed in turns over windows of
+    whole epochs (median and spread)."""
+    from tante_tpu_torch.data import wellpack
+    from tante_tpu_torch.data.loader import DataLoader
+    from tante_tpu_torch.data.synthetic import WaveDataset, wave_field_names
+
+    arrays = make_well_arrays(splits=("train",), **WELLPACK_WAVES)["train"]
+    traj = arrays[0]
+    path = wellpack.write_cache(str(workdir / "waves.wpk"), iter(traj), *traj.shape)
+    t0 = time.perf_counter()
+    # None when g++ or the load failed: the phase then fails, it never
+    # falls back to the Python loader.
+    lib = wellpack.get_library()
+    build_s = time.perf_counter() - t0
+    if lib is None:
+        raise RuntimeError("the native wellpack library did not build or load (see the log)")
+    kw = dict(batch_size=BATCH, shuffle=True, seed=5)
+    native = wellpack.WellPackLoader(path, IN_T, 4, num_threads=4, device=dev, **kw)
+    python = DataLoader(WaveDataset(arrays, wave_field_names(2, with_pressure=True), IN_T, 4),
+                        num_workers=4, device=dev, **kw)
+    res = {"phase": "wellpack", "library": str(Path(lib._name).relative_to(ROOT)),
+           "library_build_s": build_s, "cache_bytes": os.path.getsize(path),
+           "trajectories": traj.shape[0], "frames": traj.shape[1], "batch": BATCH,
+           "batches_per_epoch": len(native),
+           "cuts": [f"{traj.shape[0]} trajectories of {traj.shape[1]} frames "
+                    f"({len(native)} batches an epoch)",
+                    f"timing: {WELLPACK_REPEATS} windows a loader of whole epochs, "
+                    f">= {WELLPACK_WINDOW_S} s each, native and Python in turns"]}
+    # Epochs 1-2 (two shuffles): every batch against the Python loader's; the
+    # first epoch of each loader also warms its thread pool and pinned pool.
+    for epoch in (1, 2):
+        got, want = epoch_to_card(native, epoch), epoch_to_card(python, epoch)
+        check(len(got) == len(want) == len(native) > 0,
+              f"wellpack: {len(got)} native batches, {len(want)} Python batches")
+        err = max(float((a[k] - b[k]).abs().max()) for a, b in zip(got, want)
+                  for k in ("input", "output"))
+        check(err == 0.0 and all(a[k].is_cuda for a in got for k in a),
+              f"wellpack epoch {epoch}: max abs {err} against the Python loader")
+        res[f"epoch_{epoch}_max_abs_err_vs_python_loader"] = err
+        del got, want
+    windows: dict = {"native": [], "python": []}
+    epoch = 3
+    for _ in range(WELLPACK_REPEATS):
+        for name, loader in (("native", native), ("python", python)):
+            window, epoch = timed_window(loader, epoch, WELLPACK_WINDOW_S)
+            windows[name].append(window)
+    native.close()
+    for name, runs in windows.items():
+        res[name] = {"windows": runs,
+                     "batches_per_s": spread([w["batches_per_s"] for w in runs]),
+                     "gb_per_s": spread([w["gb_per_s"] for w in runs])}
+    ratios = [a["batches_per_s"] / b["batches_per_s"]
+              for a, b in zip(windows["native"], windows["python"])]
+    res["native_over_python"] = {
+        "of_the_medians": res["native"]["batches_per_s"]["median"]
+        / res["python"]["batches_per_s"]["median"],
+        "per_turn": spread(ratios)}
+    emit(res)
     return res
 
 
@@ -2744,7 +3162,7 @@ def phase_parallel(dev, workdir: Path) -> dict:
 
 
 def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed: dict,
-                  train: dict, adaptive_train: dict, spectral: list[dict], fno: dict,
+                  train: dict, adaptive_train: dict, cli: dict, spectral: list[dict], fno: dict,
                   packed: list[dict], avit: dict, cvit: dict, tp: list[dict],
                   parallel: dict) -> list[dict]:
     replaces = {"fused_block_fwd": "tante_tpu/ops/pallas_block.py:163",
@@ -2781,6 +3199,18 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
             "one_frame": adaptive_train["one_frame"]["dropout_0"]["launches_per_step"][name],
             "variable_frame_remat":
                 adaptive_train["variable_frame"]["remat"]["launches_per_step"][name]}
+        # The paper's entry points (cli phase): per train step (dropout 0.1),
+        # per validation model call, per from_experiment rollout.
+        row["launches_on_the_cli_path"] = {
+            config: {"train_step": sum(e["launches"][name] for e in epochs if e["kind"] == "train")
+                     / sum(e["batches"] for e in epochs if e["kind"] == "train"),
+                     "validation_model_call": sum(e["launches"][name] for e in epochs
+                                                  if e["kind"] == "validation")
+                     / max(1, sum(e["model_calls"] for e in epochs if e["kind"] == "validation")),
+                     "from_experiment_rollout": cli[config]["from_experiment"][
+                         "launches_per_rollout"][name]}
+            for config in CLI_CONFIGS
+            for epochs in [cli[config]["train_max_epoch_1"]["epochs"]]}
         out.append(row)
     val = train["validation"]
     per_call = {"fused_chain_apply": val["fused_chain=3"]["launches_per_model_call"],
@@ -2912,12 +3342,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = phase_train(dev, Path(workdir))
         adaptive_train = phase_adaptive_train(dev, Path(workdir))
+        cli = phase_cli(dev, Path(workdir))
+        phase_wellpack(dev, Path(workdir))
         phase_fno_train_eval(dev, Path(workdir))
         avit = phase_avit(dev, Path(workdir))
         cvit = phase_cvit(dev, Path(workdir))
         parallel = phase_parallel(dev, Path(workdir))
-    phase_summary(kernels, chains, fixed, train, adaptive_train, spectral, fno, packed, avit, cvit,
-                  tp, parallel)
+    phase_summary(kernels, chains, fixed, train, adaptive_train, cli, spectral, fno, packed, avit,
+                  cvit, tp, parallel)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

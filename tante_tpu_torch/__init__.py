@@ -8,7 +8,11 @@ over in-memory synthetic waves) run end to end, for TANTE with either
 encoder/decoder, for the FNO family (FNO, TFNO, UNO) and for the attention
 family (AViT, CViT with ``cvit=True``), with the ``Evaler``'s 4-metric report;
 ``Trainer(mesh=...)`` trains under data, tensor and (FNO) spatial
-parallelism (``parallel/``).
+parallelism (``parallel/``).  The paper's entry points run on the shipped
+``configs/*.yaml``: ``python -m tante_tpu_torch.cli.train`` / ``cli.eval``
+(``config.py``, ``registry.py``) over the Well HDF5 reader
+(``data/dataset.py``, ``TanteDataModule``) or the native WellPack loader
+(``data/wellpack.py``), and ``serve.Predictor.from_experiment``.
 The kernels are hand-written CUDA for ``sm_90a``: the fused transformer blocks
 on one Hopper tile body (``ops/csrc/block_sm90.cuh``: the single block and the
 canonical T block in ``fused_block_sm90.cu``, the chain/group of blocks in
@@ -18,8 +22,9 @@ as the timing baseline), the spectral convolutions' per-mode complex channel
 mixing (``ops/csrc/spectral_matmul.cu``) and the head-packed attention core
 (``ops/csrc/packed_attention.cu``).
 
-This package imports ``torch``, ``numpy`` and ``einops`` only — never JAX,
-flax or ``tante_tpu``.
+This package imports ``torch``, ``numpy`` and ``einops`` — never JAX, flax or
+``tante_tpu``; ``h5py``, ``yaml`` and ``fsspec`` only inside the functions of
+the data and config layers that need them.
 """
 
 from tante_tpu_torch.ops.backend import resolve_device

@@ -1,7 +1,7 @@
 """Dataset metadata handed to every model constructor.
 
-The port's own copy of ``tante_tpu/data/dataset.py:TanteMetadata`` (that
-module imports h5py, which the serving path does not need)."""
+The port's own copy of ``tante_tpu/data/dataset.py:TanteMetadata``, shared by
+the HDF5 reader (``dataset.py``) and the in-memory waves (``synthetic.py``)."""
 
 from __future__ import annotations
 

@@ -1,19 +1,19 @@
-"""Synthetic travelling-wave fields held in memory (counterpart of
-``tante_tpu/data/synthetic.py`` + ``tante_tpu/data/dataset.py``).
+"""Synthetic travelling-wave fields (counterpart of
+``tante_tpu/data/synthetic.py``), in memory or as Well-format HDF5.
 
-This is the JAX package's synthetic Well dataset without the HDF5 file in
-between, not a new capability: ``make_well_arrays`` draws from the rng in
-the order ``make_well_dataset`` does (per split, per file: phases, then
-speeds) and builds the same fields, and ``WaveDataset`` windows them with
-``TanteDataset``'s index math, so item ``i`` of a split equals item ``i`` of
-``TanteDataset`` over the files ``make_well_dataset`` writes from the same
-arguments (the stats there are mean 0 / std 1, so normalisation is the
-identity).  The HDF5 reader itself waits for a later slice.
+``make_well_arrays`` draws from the rng in the order the JAX package's
+``make_well_dataset`` does (per split, per file: phases, then speeds) and
+builds the same fields; ``make_well_dataset`` writes them as the same HDF5
+tree.  ``WaveDataset`` windows the arrays with ``TanteDataset``'s index math,
+so item ``i`` of a split equals item ``i`` of ``TanteDataset`` over the files
+written from the same arguments (the stats there are mean 0 / std 1, so
+normalisation is the identity): the in-memory route needs no ``h5py``.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -21,21 +21,10 @@ import numpy as np
 from tante_tpu_torch.data.metadata import TanteMetadata
 
 
-def make_well_arrays(
-    splits: Sequence[str] = ("train", "valid", "test"),
-    n_files_per_split: int = 1,
-    n_trajectories: int = 3,
-    n_steps: int = 24,
-    resolution: tuple = (32, 64),
-    with_t2: bool = False,
-    with_pressure: bool = False,
-    seed: int = 0,
-    speed_range: tuple = (0.1, 0.3),
-    difficulty_ramp: bool = False,
-) -> Dict[str, List[np.ndarray]]:
-    """split -> one ``(n_trajectories, n_steps, *resolution, C)`` f32 array
-    per file, channels in the reader's order: t0 fields (density[,
-    pressure]), the d velocity components, then the d*d stress components."""
+def _well_files(splits, n_files_per_split, n_trajectories, n_steps, resolution, with_t2,
+                with_pressure, seed, speed_range, difficulty_ramp):
+    """(split, wave speeds, (n_trajectories, n_steps, *resolution, C) f32
+    array) per file, drawn in ``make_well_dataset``'s order."""
     rng = np.random.default_rng(seed)
     d = len(resolution)
     if d not in (2, 3):
@@ -46,9 +35,7 @@ def make_well_arrays(
     t = np.arange(n_steps, dtype=np.float32).reshape(1, n_steps, *([1] * d))
     k1, k2 = (1, 2, 1)[:d], (3, 1, 2)[:d]
     lo, hi = speed_range
-    out: Dict[str, List[np.ndarray]] = {}
     for split in splits:
-        files = []
         for _ in range(n_files_per_split):
             phase = rng.uniform(0, 2 * np.pi, size=(n_trajectories,)).reshape(
                 (n_trajectories,) + bshape[1:]).astype(np.float32)
@@ -68,9 +55,110 @@ def make_well_arrays(
             channels += [wave(*np.roll(k1, i), amp=1.0 - 0.3 * i) for i in range(d)]
             if with_t2:
                 channels += [wave(*np.roll(k1, i), amp=1.0 - 0.1 * i) for i in range(d * d)]
-            files.append(np.stack(channels, axis=-1).astype(np.float32))
-        out[split] = files
+            yield split, speeds, np.stack(channels, axis=-1).astype(np.float32)
+
+
+def make_well_arrays(
+    splits: Sequence[str] = ("train", "valid", "test"),
+    n_files_per_split: int = 1,
+    n_trajectories: int = 3,
+    n_steps: int = 24,
+    resolution: tuple = (32, 64),
+    with_t2: bool = False,
+    with_pressure: bool = False,
+    seed: int = 0,
+    speed_range: tuple = (0.1, 0.3),
+    difficulty_ramp: bool = False,
+) -> Dict[str, List[np.ndarray]]:
+    """split -> one ``(n_trajectories, n_steps, *resolution, C)`` f32 array
+    per file, channels in the reader's order: t0 fields (density[,
+    pressure]), the d velocity components, then the d*d stress components."""
+    out: Dict[str, List[np.ndarray]] = {split: [] for split in splits}
+    for split, _, arr in _well_files(splits, n_files_per_split, n_trajectories, n_steps,
+                                     resolution, with_t2, with_pressure, seed, speed_range,
+                                     difficulty_ramp):
+        out[split].append(arr)
     return out
+
+
+def make_well_dataset(
+    base_path: str,
+    dataset_name: str = "synthetic_waves",
+    splits: Sequence[str] = ("train", "valid", "test"),
+    n_files_per_split: int = 1,
+    n_trajectories: int = 3,
+    n_steps: int = 24,
+    resolution: tuple = (32, 64),
+    with_t2: bool = False,
+    with_pressure: bool = False,
+    seed: int = 0,
+    speed_range: tuple = (0.1, 0.3),
+    difficulty_ramp: bool = False,
+) -> str:
+    """Write ``make_well_arrays``' fields as a Well-format HDF5 tree with its
+    ``stats.yaml`` (mean 0, std 1); returns its root directory.  Same files,
+    read back, as the JAX package's writer for the same arguments: one
+    dataset per field (density[, pressure] (N, T, *res), velocity (..., d),
+    stress (..., d, d)), the same dimensions, boundary conditions, attributes
+    and ``wave_speeds``."""
+    import h5py
+    import yaml
+
+    d = len(resolution)
+    root = os.path.join(base_path, dataset_name)
+    os.makedirs(root, exist_ok=True)
+    t0_names = ["density", "pressure"] if with_pressure else ["density"]
+
+    stats = {"mean": {}, "std": {}}
+    for nm in t0_names:
+        stats["mean"][nm] = 0.0
+        stats["std"][nm] = 1.0
+    stats["mean"]["velocity"] = [0.0] * d
+    stats["std"]["velocity"] = [1.0] * d
+    if with_t2:
+        stats["mean"]["stress"] = [[0.0] * d] * d
+        stats["std"]["stress"] = [[1.0] * d] * d
+    with open(os.path.join(root, "stats.yaml"), "w") as f:
+        yaml.safe_dump(stats, f)
+
+    dim_names = ("x", "y", "z")[:d]
+    file_index = {split: 0 for split in splits}
+    for split, speeds, arr in _well_files(splits, n_files_per_split, n_trajectories, n_steps,
+                                          resolution, with_t2, with_pressure, seed, speed_range,
+                                          difficulty_ramp):
+        split_dir = os.path.join(root, "data", split)
+        os.makedirs(split_dir, exist_ok=True)
+        path = os.path.join(split_dir, f"{dataset_name}_{split}_{file_index[split]}.hdf5")
+        file_index[split] += 1
+        n0 = len(t0_names)
+        with h5py.File(path, "w") as f:
+            f.attrs["n_trajectories"] = n_trajectories
+            f.attrs["n_spatial_dims"] = d
+            f.attrs["dataset_name"] = dataset_name
+            dims = f.create_group("dimensions")
+            dims.attrs["spatial_dims"] = list(dim_names)
+            dims.create_dataset("time", data=np.arange(n_steps, dtype=np.float32))
+            for name, size in zip(dim_names, resolution):
+                dims.create_dataset(name, data=np.linspace(0, 1, size, dtype=np.float32))
+            bcs = f.create_group("boundary_conditions")
+            for name in dim_names:
+                bcs.create_group(name).attrs["bc_type"] = "PERIODIC"
+            f.attrs["wave_speeds"] = speeds
+
+            fields = {
+                "t0": [(nm, arr[..., i]) for i, nm in enumerate(t0_names)],
+                "t1": [("velocity", arr[..., n0:n0 + d])],
+                "t2": ([("stress", arr[..., n0 + d:].reshape(*arr.shape[:-1], d, d))]
+                       if with_t2 else []),
+            }
+            for order, entries in fields.items():
+                group = f.create_group(f"{order}_fields")
+                group.attrs["field_names"] = [nm for nm, _ in entries]
+                for nm, data in entries:
+                    ds = group.create_dataset(nm, data=np.ascontiguousarray(data))
+                    ds.attrs["sample_varying"] = True
+                    ds.attrs["time_varying"] = True
+    return root
 
 
 def compute_windows(total_steps: int, n_steps_input: int, n_steps_output: int,

@@ -12,6 +12,7 @@ here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -32,6 +33,46 @@ NVCC_FLAGS = [
 
 _libs: dict[str, ctypes.CDLL] = {}
 _build_info: dict[str, dict] = {}
+
+
+def build_tag(text: bytes, flags: Sequence[str]) -> str:
+    """The part of a library's name that hashes its source and flags."""
+    return hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def build_lock(build_dir: Path):
+    """Processes that share the checkout (the ranks of a process group, the
+    workers of a test run) build one after the other under this lock: the
+    later ones find the first one's libraries."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
+def temporary(path: Path) -> Path:
+    """A build writes here and is renamed to ``path`` when whole, so a
+    half-written file never carries a final name."""
+    return path.with_suffix(f".tmp{os.getpid()}{path.suffix}")
+
+
+def compile_once(so: Path, command: Callable[[Path], list]) -> Path:
+    """Run ``command(output path)`` (a compiler's argv) to build ``so``
+    under its directory's lock, unless it exists; raises RuntimeError with
+    the compiler's output when the build fails."""
+    with build_lock(so.parent):
+        if not so.exists():
+            tmp = temporary(so)
+            argv = command(tmp)
+            try:
+                subprocess.run(argv, check=True, capture_output=True, text=True)
+            except FileNotFoundError as e:
+                raise RuntimeError(f"{argv[0]} not found: {e}") from e
+            except subprocess.CalledProcessError as e:
+                raise RuntimeError(f"{argv[0]} failed:\n{e.stderr[-4000:]}") from e
+            os.replace(tmp, so)
+    return so
 
 
 def _nvcc() -> str:
@@ -83,16 +124,15 @@ def _start(kernel: str, name: str, extra_flags: Sequence[str], source=None) -> d
     # The headers beside a source count as part of it: it may include them.
     text = source.read_bytes() + b"".join(
         h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
-    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = BUILD_DIR / f"{name}_{tag}.so"
+    so = BUILD_DIR / f"{name}_{build_tag(text, flags)}.so"
     job = {"so": so, "log": so.with_suffix(".log"), "t0": time.perf_counter(), "proc": None}
     job["cached"] = so.exists() and job["log"].exists()
     if not job["cached"]:
         # nvcc writes library and log under temporary names; _finish renames
         # them, so a half-written file never carries a final name.
-        job["tmp"] = so.with_suffix(f".tmp{os.getpid()}.so")
-        job["tmp_log"] = so.with_suffix(f".tmp{os.getpid()}.log")
+        job["tmp"] = temporary(so)
+        job["tmp_log"] = temporary(job["log"])
         with open(job["tmp_log"], "w") as log:
             job["proc"] = subprocess.Popen(
                 [_nvcc(), *flags, "-o", str(job["tmp"]), str(source)],
@@ -136,11 +176,7 @@ def build(kernels: Sequence[str] | None = None) -> dict[str, dict]:
     process, one nvcc each, all started together; per-kernel build info."""
     wanted = [k for k in (kernels or KERNELS) if k not in _build_info]
     failures = []
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Processes that share the checkout (the ranks of a process group) build
-    # one after the other: the later ones find the first one's libraries.
-    with open(BUILD_DIR / ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with build_lock(BUILD_DIR):
         jobs = {k: _start(k, k, ()) for k in wanted}
         # Quickest first (the smallest source), so that each build's seconds
         # are its own; all are waited for, so that no nvcc is left running.

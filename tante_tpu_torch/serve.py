@@ -1,6 +1,8 @@
 """Batch-inference serving API (counterpart of ``tante_tpu/serve.py``).
 
     from tante_tpu_torch.serve import Predictor
+    p = Predictor.from_experiment("tante", experiment="TANTE_AM", root_path=".",
+                                  choose="best")          # config + trained checkpoint
     p = Predictor.from_numpy(model, flat_params)            # flax-keyed npz dict
     frames = p.rollout(history, n_steps=16)                 # (B, 16, H, W, C)
     frames, rt, calls = p.rollout_adaptive(history, 16, max_frames_per_call=8)
@@ -8,18 +10,19 @@
 Fixed-step TANTE rollouts use the latent-caching path; adaptive models use
 the adaptive loop, where a large r_t genuinely skips model calls; any other
 model (FNO, TFNO, UNO, AViT, CViT on the full grid) rolls out through
-``rollout_fixed``.  Results are tensors on the model's device.
-``from_experiment`` (config + checkpoint) waits for the config/checkpoint
-port.
+``rollout_fixed``.  A Predictor serves on the card unless it is given
+``device="cpu"``; results are tensors on its device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import os
+from typing import Any, List, Mapping, Optional
 
 import numpy as np
 import torch
 
+from tante_tpu_torch.config import check_block_dtype, instantiate, load_config, set_ckpt
 from tante_tpu_torch.convert import load_jax_params
 from tante_tpu_torch.models.tante import TANTE
 from tante_tpu_torch.ops.backend import resolve_device
@@ -28,10 +31,13 @@ from tante_tpu_torch.train.rollout import (
     rollout_fixed,
     rollout_tante_latent,
 )
+from tante_tpu_torch.train.trainer import set_compute_dtype
+from tante_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
 
 
 class Predictor:
-    """Serves ``model`` (moved to ``device``, CUDA by default).
+    """Serves ``model`` on ``device``: the card unless the caller passes
+    "cpu", wherever the model was built.
 
     The model's parameters are cast IN PLACE to its compute dtype
     (``model.dtype``): every use casts them to that dtype anyway, so the
@@ -47,7 +53,7 @@ class Predictor:
     channel-major field is a transposing copy of the whole field per layer."""
 
     def __init__(self, model: torch.nn.Module, metadata: Any = None, device=None):
-        self.device = resolve_device(device if device is not None else _model_device(model))
+        self.device = resolve_device(device)
         dtype = getattr(model, "dtype", None) or torch.float32
         keep = {id(m._parameters[name]) for m in model.modules()
                 for name in getattr(m, "mode_space_params", ()) + getattr(m, "f32_params", ())}
@@ -57,6 +63,41 @@ class Predictor:
                 t.data = t.data.to(dtype)
         self.model = model.eval()
         self.metadata = metadata
+
+    @classmethod
+    def from_experiment(cls, config_name: str, experiment: Optional[str] = None,
+                        root_path: Optional[str] = None, choose: str = "best",
+                        overrides: Optional[List[str]] = None, config_dir: Optional[str] = None,
+                        device=None) -> "Predictor":
+        """A trained experiment: the config (with ``overrides``; ``experiment``
+        and ``root_path`` replace the config's), its datamodule for the
+        metadata, the model with the ``choose`` checkpoint's weights
+        (``<root_path>/experiments/<experiment>/<choose>/state.pt``), in the
+        evaler's compute dtype (bf16 under ``evaler.enable_amp``, as the
+        ``Evaler`` evaluates it).  Raises FileNotFoundError without that
+        checkpoint, and ValueError for a TANTE config that would run its
+        block kernels in f32 on the card (``config.check_block_dtype``)."""
+        cfg = load_config(config_name, config_dir=config_dir, overrides=overrides or [])
+        if experiment is not None:
+            cfg.experiment = experiment
+        if root_path is not None:
+            cfg.root_path = root_path
+        check_block_dtype(cfg, device, "evaler")
+        cfg, folder = set_ckpt(cfg, choose=choose)
+        ckpt_path = cfg.evaler.checkpoint_path
+        if not ckpt_path or not os.path.exists(os.path.join(ckpt_path, STATE_FILE)):
+            raise FileNotFoundError(
+                f"no '{choose}' checkpoint under {cfg.root_path}/experiments/{cfg.experiment}")
+
+        device = resolve_device(device)
+        datamodule = instantiate(cfg.data, seed=cfg.seed, device=device)
+        md = datamodule.train_dataset.metadata
+        model = instantiate(cfg.model, dset_metadata=md, seed=cfg.seed, device="cpu")
+        model.load_state_dict(
+            CheckpointManager(folder).restore_params(ckpt_path, model.state_dict()))
+        if cfg.evaler.get("enable_amp", False):
+            set_compute_dtype(model, torch.bfloat16)
+        return cls(model, metadata=md, device=device)
 
     @classmethod
     def from_numpy(cls, model: torch.nn.Module, flat_params: Mapping[str, np.ndarray],
@@ -94,7 +135,3 @@ class Predictor:
         )
         return y, rt_log[:n_calls].cpu().numpy(), n_calls
 
-
-def _model_device(model: torch.nn.Module):
-    p = next(model.parameters(), None)
-    return None if p is None else p.device

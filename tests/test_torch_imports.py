@@ -44,7 +44,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "models.fno", "models.tfno", "models.uno", "train.evaler",
                  "ops.fused_attention", "ops.attention", "models.avit", "models.cvit",
                  "parallel.mesh", "parallel.collectives", "parallel.sharding", "parallel.halo",
-                 "train.r_trainer", "train.r_evaler", "utils.remat"):
+                 "train.r_trainer", "train.r_evaler", "utils.remat", "data.dataset",
+                 "data.wellpack", "config", "registry", "cli.train", "cli.eval"):
         assert f"tante_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
