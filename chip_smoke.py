@@ -111,7 +111,19 @@ script exits non-zero without the final result line):
             ``Predictor.rollout`` on the full grid, ``Trainer(cvit=True,
             num_query_points=1024)``, ``Evaler(cvit=True)``; no hand-written
             kernel runs here (8 heads x 256 tokens > 128), which the phase says.
-15. tp_kernel  the two tensor-parallel half kernels (``attn_half_fwd``,
+15. zoo     the rest of the model zoo at the shipped configs' widths, f32 as
+            shipped (``configs/afno.yaml``, ``dpot.yaml``, ``unet_convnext.yaml``,
+            ``unet_att.yaml``), B=4 of the AViT lane's 256x256x8 waves: per model
+            ``Predictor.rollout`` (16 steps; every wrapper's launch count 0: no zoo
+            model reaches a Pallas kernel in JAX), its first call against f32 on
+            the CPU; ``Trainer`` (AdamW 5e-5 / 1e-5, 4 rollout steps: s/step, peak
+            memory, 0 launches), one sample's first loss and gradient norm (and
+            AttentionUNet's running BatchNorm statistics) against the CPU;
+            ``Evaler`` on the saved weights; then ``cli.train`` for one epoch on
+            each config (data node replaced) and ``Predictor.from_experiment``
+            with no device (on the card, bit-equal to a Predictor built by hand
+            from the same ``state.pt``, buffers included).
+16. tp_kernel  the two tensor-parallel half kernels (``attn_half_fwd``,
             ``mlp_half_fwd``, ``fused_half_sm90.cu``) on every shard at the
             flagship's H, W and causal T shapes, tp = 2 and 4, and at H for
             tp = 8 (32-wide shards, zero-padded), against their plain versions
@@ -125,16 +137,20 @@ script exits non-zero without the final result line):
             timed calls; once per weight version through ``copy_to_tp``
             views) and one timed at tp = 2; gradients through each half's
             Function.
-16. parallel  two spawned ranks of one gloo process group, both on the card:
+17. parallel  two spawned ranks of one gloo process group, both on the card:
             the flagship forward on (dp 1, tp 2) against one rank (exactly 18
             half launches per model call per rank, no single-device kernel;
             f32 weights cast per call, and 18 weight re-layouts in the first
             call, none in the next four), every step's loss, gradient norm
             (at tp 2 also 18 re-layouts a step) of Trainer at (dp 1, tp 2),
-            (dp 2, tp 1) and FNO at (dp 1, sp 2) against one rank, replicas equal after a dropout step, the tp
-            checkpoint on one rank; seconds per step (two ranks sharing one card
-            through gloo: not a tp speed).
-17. cli     the paper's entry points at the flagship's width (run after
+            (dp 2, tp 1) and FNO at (dp 1, sp 2) against one rank, replicas
+            equal after a dropout step, the tp checkpoint on one rank;
+            AttentionUNet (``configs/unet_att.yaml``,
+            depth 5, 256x256, global B 2) at (dp 1, sp 2), every 3x3 conv
+            halo-exchanging, and at (dp 2, sp 1): its steps against one rank and
+            its BatchNorm statistics equal on both ranks; seconds per step (two
+            ranks sharing one card through gloo: not a tp speed).
+18. cli     the paper's entry points at the flagship's width (run after
             adaptive_train): for ``configs/tante.yaml`` and
             ``configs/tante_adaptive.yaml`` (copies with only the data node
             replaced: the in-memory ``WaveDataModule`` at 128x384x4, B 8, or,
@@ -153,14 +169,14 @@ script exits non-zero without the final result line):
             the inputs the path gave it against its plain version.  Before
             that, the shipped configs as they are (f32) make the three entry
             points refuse on the card, naming those two overrides.
-18. wellpack  a WellPack cache of 128x384x4 waves written by the port's cache
+19. wellpack  a WellPack cache of 128x384x4 waves written by the port's cache
             writer, ``native/wellpack.cpp`` built with g++ into
             ``build/native/``, the native loader's batches (B 8, 4 in, 4 out,
             shuffled, 4 threads) against the Python ``DataLoader``'s on the
             card over two epochs (max abs 0), then each loader timed in turns
             over 3 windows of whole epochs of at least 3 s: batches/s and the
             GB/s that reached the card, median and spread, and their ratio.
-19. kernels one {"kernels": [...]} line (eight kernels; the block, canonical
+20. kernels one {"kernels": [...]} line (eight kernels; the block, canonical
             T, chain and tp half rows with the first design's time, in turns;
             the two block rows also with their launches per R_Trainer step
             and on the CLI path).
@@ -258,6 +274,21 @@ HALF_ATOL, HALF_RTOL, HALF_REL_L2_TOL = 1.5e-2, 2e-2, 2e-2
 # within 1.3e-3, the latter dp's bf16 reductions over half batches).  A
 # missing dp mean doubles the norm; a wrong update moves the second loss.
 MESH_LOSS_REL_TOL, MESH_GNORM_REL_TOL = 2e-4, 5e-3
+# AttentionUNet in f32 decides its training numbers only so far
+# (tante_tpu_torch/tools/zoo_conditioning.py: f32 against float64 from the
+# same seeded weights, depth 5, 256x256).  At initialisation each rollout step
+# multiplies the gradient by ~10 (train-mode BatchNorm over a fed-back frame),
+# and AdamW's first step is lr * sign(g) for every parameter, also where f32
+# rounding (ReLU inputs near 0) sets the sign.  So its parallel cell takes one
+# model call a step; its first step is held at the mesh tolerances above (its
+# statistics at MESH_STATS_REL_TOL), and its second step, which every sign of
+# the first moves, at UNET_STEP2_* (its statistics are reported).  The tool at
+# this cell (--batch 2 --rollout 1, on the CPU): first step loss 2.1e-7,
+# gradient norm 4.2e-4, statistics 3.8e-6; second step 1.2e-5, 1.45e-2,
+# 1.4e-3.  On an NVIDIA H100 80GB HBM3 at 700 W the mesh runs' second losses
+# read 2.4e-4 and 3.1e-4 from one rank's (this script).
+UNET_STEP2_LOSS_REL_TOL, UNET_STEP2_GNORM_REL_TOL = 2e-3, 5e-2
+MESH_STATS_REL_TOL = 1e-3
 # Validation loss with the chain / group kernel against the per-block
 # kernels: the same arithmetic, so the same number.
 VAL_REL_TOL = 1e-6
@@ -2362,9 +2393,9 @@ def well_history(dev) -> torch.Tensor:
 
 
 def attention_counts() -> dict:
-    """Launches of every wrapper since the last reset."""
+    """Launches of every wrapper since the last reset (the eight kernels)."""
     return {**launch_counts(), "spectral_mode_matmul": fs.spectral_mode_matmul.launches,
-            "packed_attention": fa.packed_attention.launches}
+            "packed_attention": fa.packed_attention.launches, **tp_counts()}
 
 
 def serve_lane(label, pred, x, want_packed, frames_out_dtype=None) -> dict:
@@ -2606,6 +2637,204 @@ def phase_cvit(dev, workdir: Path) -> dict:
            "serving": serving, "first_frames_vs_cpu_f32_rel_l2": err,
            "rel_l2_tolerance": CVIT_REL_TOL, "train_enable_amp": train,
            "validation_loss": val, "validation_seconds": val_s, "evaler": ev}
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# The rest of the zoo: AFNO, DPOT, UNetConvNext, AttentionUNet at their
+# shipped configs' widths, f32 as shipped.  None of them reaches a Pallas
+# kernel in JAX, so none launches a hand-written kernel here.
+# ---------------------------------------------------------------------------
+
+ZOO_CONFIGS = ("afno", "dpot", "unet_convnext", "unet_att")
+ZOO_CALL_REL_TOL = 1e-3   # f32 on the card (TF32 off) vs f32 on the CPU, first model call
+ZOO_LOSS_REL_TOL, ZOO_GNORM_REL_TOL = 1e-3, 1e-2  # AViT's f32 rule
+ZOO_STATS_REL_TOL = 1e-3  # AttentionUNet's running statistics after that step, per tensor
+# Model calls of the first-step check.  AttentionUNet's gradient grows ~10x a
+# rollout step at initialisation, and f32 decides it only so far: against
+# float64 its gradient norm is off by 4.7e-4 after one call and 1.1e-1 after
+# four (tante_tpu_torch/tools/zoo_conditioning.py --batch 1, on the CPU), so
+# its check takes one call; the others take the Trainer's four.
+ZOO_CHECK_CALLS = {"afno": 4, "dpot": 4, "unet_convnext": 4, "unet_att": 1}
+
+
+def zoo_model(name: str, device, md):
+    """The model of ``configs/<name>.yaml`` as shipped (its ``model`` node)."""
+    from tante_tpu_torch.config import instantiate, load_config
+
+    return instantiate(load_config(name).model, dset_metadata=md, device=device)
+
+
+def first_step(model, x, y, calls: int) -> dict:
+    """One sample's first training loss (``calls`` rollout steps, train mode:
+    batch statistics, which move the running ones) and gradient norm, and the
+    model's buffers after it."""
+    pred = rollout_fixed(lambda w: model(w, deterministic=False), x, calls,
+                         int(model.output_length))
+    loss = MSE()(pred, y[:, :calls]).mean()
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    gnorm = float(global_norm(model.parameters()))
+    model.zero_grad(set_to_none=True)
+    return {"loss": float(loss.detach()), "grad_norm": gnorm,
+            "buffers": {k: b.detach().float().cpu() for k, b in model.named_buffers()}}
+
+
+def zoo_cli(name: str, dev, workdir: Path, cdir: Path) -> dict:
+    """``cli.train.main`` for one epoch on a copy of ``configs/<name>.yaml``
+    whose only change is the data node (the in-memory waves of this phase),
+    then ``Predictor.from_experiment`` with no device against a Predictor
+    built by hand from the same ``state.pt``, on a 16-step rollout."""
+    import yaml
+
+    from tante_tpu_torch.cli import train as cli_train
+    from tante_tpu_torch.config import CONFIG_DIR, instantiate, load_config
+    from tante_tpu_torch.utils.checkpoint import STATE_FILE
+
+    with open(os.path.join(CONFIG_DIR, name + ".yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["data"] = {"_target_": "tante_tpu_torch.data.WaveDataModule", "batch_size": WELL_B,
+                   "n_steps_input": IN_T, "n_steps_output": 4, "eval_steps_output": 8,
+                   "data_workers": 4, "dataset_name": "synthetic_waves",
+                   "waves": {**WELL_WAVES, "resolution": list(WELL_RES)}}
+    with open(cdir / f"{name}.yaml", "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    experiment = f"ZOO_{name}"
+    ov = [f"root_path={workdir / 'zoo_runs'}", f"experiment={experiment}", "trainer.max_epoch=1"]
+    folder = workdir / "zoo_runs" / "experiments" / experiment
+    t0 = time.perf_counter()
+    trainer = cli_train.main([f"--config-name={name}", f"--config-dir={cdir}", *ov])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(trainer.device.type == "cuda", f"zoo {name}: the train CLI ran on {trainer.device}")
+    for path in ("metrics.jsonl", "recent/" + STATE_FILE, "best/" + STATE_FILE, "saved_loss.txt"):
+        check((folder / path).exists(), f"zoo {name}: the train CLI wrote no {path}")
+    res = {"wall_s": wall, "steps_per_epoch": trainer.steps_per_epoch,
+           "model": type(trainer.model).__name__}
+    del trainer
+    pred = Predictor.from_experiment(name, experiment=experiment, choose="best", overrides=ov,
+                                     config_dir=str(cdir))
+    check(pred.device.type == "cuda" and next(pred.model.parameters()).is_cuda,
+          f"zoo {name}: from_experiment serves on {pred.device}")
+    c = load_config(name, config_dir=str(cdir), overrides=ov)
+    md = instantiate(c.data, seed=c.seed).train_dataset.metadata
+    model = instantiate(c.model, dset_metadata=md, seed=c.seed, device="cpu")
+    state = torch.load(folder / "best" / STATE_FILE, map_location="cpu", weights_only=True)
+    model.load_state_dict(state["params"])
+    ref = Predictor(model)
+    own = pred.model.state_dict()
+    res["state_equal"] = all(torch.equal(own[k].cpu(), v) for k, v in state["params"].items())
+    check(res["state_equal"] and set(own) == set(state["params"]),
+          f"zoo {name}: from_experiment's weights differ from state.pt")
+    if name == "unet_att":  # the checkpoint carries the trained BatchNorm statistics
+        moved = not torch.equal(state["params"]["Conv1.BatchNorm_0.var"], torch.ones(64))
+        res["batch_stats_in_checkpoint_moved"] = moved
+        check(moved, "zoo unet_att: the checkpoint's BatchNorm statistics are the init's")
+    x = well_history(dev)
+    frames = pred.rollout(x, N_STEPS)
+    res["device"] = str(pred.device)
+    res["equals_predictor_by_hand_bit_for_bit"] = bool(torch.equal(frames, ref.rollout(x, N_STEPS)))
+    check(res["equals_predictor_by_hand_bit_for_bit"] and bool(torch.isfinite(frames).all()),
+          f"zoo {name}: from_experiment differs from the Predictor by hand")
+    return res
+
+
+def zoo_lane(name: str, dev, workdir: Path, dm, x) -> dict:
+    md = dm.train_dataset.metadata
+    model = zoo_model(name, dev, md)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_buffers = sum(b.numel() for b in model.buffers())
+    flat = seeded_jax_params(model, seed=0)  # norm scales and LayerScale gammas around 1
+    pred = Predictor.from_numpy(model, flat)
+    serving = serve_lane(f"zoo {name}", pred, x, want_packed=0)  # every wrapper 0
+    cpu = Predictor.from_numpy(zoo_model(name, "cpu", md), flat, device="cpu")
+    with torch.no_grad():
+        got, ref = pred.model(x[:1]).cpu(), cpu.model(x[:1].cpu())
+    err = rel_l2(got, ref)
+    check(err <= ZOO_CALL_REL_TOL, f"zoo {name}: first call vs CPU f32: rel L2 {err}")
+    del pred, model, cpu
+
+    loader = dm.train_dataloader()
+    loader.set_epoch(1)
+    batch0 = next(iter(loader))
+    one = {}
+    for device in (dev, "cpu"):
+        m = zoo_model(name, device, md)
+        load_jax_params(m, flat)
+        one[str(device)] = first_step(m, batch0["input"][:1].to(device),
+                                      batch0["output"][:1].to(device), ZOO_CHECK_CALLS[name])
+        del m
+    gpu, cpu1 = one[str(dev)], one["cpu"]
+    check(abs(gpu["loss"] - cpu1["loss"]) <= ZOO_LOSS_REL_TOL * cpu1["loss"],
+          f"zoo {name}: first loss {gpu['loss']} on the card vs {cpu1['loss']} on the CPU")
+    check(abs(gpu["grad_norm"] - cpu1["grad_norm"]) <= ZOO_GNORM_REL_TOL * cpu1["grad_norm"],
+          f"zoo {name}: first gradient norm {gpu['grad_norm']} vs {cpu1['grad_norm']} on the CPU")
+    stats_err = max((rel_l2(gpu["buffers"][k], v) for k, v in cpu1["buffers"].items()),
+                    default=None)
+    if name == "unet_att":
+        check(stats_err is not None and stats_err <= ZOO_STATS_REL_TOL,
+              f"zoo unet_att: running statistics after the first step vs the CPU: {stats_err}")
+
+    mse, fns = MSE(), [MSE(), L2RE(), NNMSE(), VRMSE()]
+    model = zoo_model(name, dev, md)
+    load_jax_params(model, flat)
+    trainer = Trainer(str(workdir / name), "channels_first_default", model, dm,
+                      AdamW(lr=5e-5, weight_decay=1e-5), mse, L2RE(), max_epoch=1,
+                      n_steps_output=4, n_steps_rollout=8, seed=0)
+    train = timed_epoch(trainer, loader)
+    check(all(v == 0 for v in train["launches_per_step"].values()),
+          f"zoo {name}: train steps launched kernels {train['launches_per_step']}")
+    val = trainer.validation_loop(dm.val_dataloader())
+    check(np.isfinite(val), f"zoo {name}: validation loss {val}")
+    trainer.save_model(1, val, "recent")
+    del trainer, model
+    evaler = Evaler(str(workdir / name), "channels_first_default", zoo_model(name, dev, md), dm,
+                    *fns, checkpoint_path=str(workdir / name / "recent"), n_steps_rollout=8)
+    chunk = int(evaler.model.output_length)
+    ev = evaler_report(f"zoo {name}", evaler, fns, dm.test_dataloader(),
+                       lambda xb, yb: rollout_fixed(evaler.model, xb, 8, chunk), want_packed=0)
+    del evaler
+    return {"config": f"configs/{name}.yaml", "parameters": n_params,
+            "buffers": n_buffers,
+            "serving": serving, "first_call_vs_cpu_f32_rel_l2": err,
+            "rel_l2_tolerance": ZOO_CALL_REL_TOL,
+            "first_step_one_sample": {
+                "model_calls": ZOO_CHECK_CALLS[name], "loss": gpu["loss"], "loss_cpu_f32": cpu1["loss"],
+                "loss_rel_tol": ZOO_LOSS_REL_TOL, "grad_norm": gpu["grad_norm"],
+                "grad_norm_cpu_f32": cpu1["grad_norm"], "grad_norm_rel_tol": ZOO_GNORM_REL_TOL,
+                "running_stats_vs_cpu_worst_rel_l2": stats_err,
+                "running_stats_rel_tol": ZOO_STATS_REL_TOL if name == "unet_att" else None},
+            "train": train, "validation_loss": val, "evaler": ev}
+
+
+def phase_zoo(dev, workdir: Path) -> dict:
+    """AFNO, DPOT, UNetConvNext and AttentionUNet at their shipped configs'
+    widths, f32, on the AViT lane's data: ``Predictor.rollout`` (16 steps;
+    0 hand-written launches), the first call against f32 on the CPU;
+    ``Trainer`` (AdamW 5e-5 / 1e-5, 4 rollout steps), one sample's first
+    loss and gradient norm (and AttentionUNet's running statistics) against
+    the CPU; ``Evaler`` on the saved weights; then ``cli.train`` for one
+    epoch and ``Predictor.from_experiment`` for each config."""
+    dm = well_datamodule(dev)
+    x = well_history(dev)
+    res = {"phase": "zoo",
+           "data": f"B={WELL_B} of {WELL_RES[0]}x{WELL_RES[1]}x{dm.train_dataset.metadata.n_fields}"
+                   " synthetic waves; active_matter's 11 fields cut to 8",
+           "dtype": "f32 as shipped (the configs set no enable_amp), TF32 off",
+           "hand_written_kernels": "none: no zoo model reaches a Pallas kernel in JAX; every "
+                                   "wrapper's launch count is held at 0 on every path here",
+           "weights": "seeded (numpy seed 0)"}
+    t0 = time.perf_counter()
+    for name in ZOO_CONFIGS:
+        t1 = time.perf_counter()
+        res[name] = zoo_lane(name, dev, workdir, dm, x)
+        res[name]["lane_seconds"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    cdir = workdir / "zoo_configs"
+    cdir.mkdir(exist_ok=True)
+    res["cli"] = {name: zoo_cli(name, dev, workdir, cdir) for name in ZOO_CONFIGS}
+    res["seconds"] = time.perf_counter() - t0
     emit(res)
     return res
 
@@ -2926,11 +3155,12 @@ def parallel_trainer(dev, workdir: Path, folder: str, kind: str, mesh=None, drop
 
 def train_steps(trainer: Trainer, dm, steps: int) -> dict:
     """``steps`` train steps of the first epoch's batches: the losses (the
-    global batch's), gradient norms and seconds per step (host clock around
-    a synchronised step)."""
+    global batch's), gradient norms, seconds per step (host clock around a
+    synchronised step) and the model's buffers (BatchNorm statistics) after
+    each step."""
     loader = dm.train_dataloader()
     loader.set_epoch(1)
-    losses, norms, seconds, relays = [], [], [], []
+    losses, norms, seconds, relays, stats = [], [], [], [], []
     for step, batch in enumerate(loader):
         if step == steps:
             break
@@ -2943,8 +3173,25 @@ def train_steps(trainer: Trainer, dm, steps: int) -> dict:
         relays.append(fb.relaid_weights.count - r0)
         losses.append(loss)
         norms.append(float(trainer.last_grad_norm))
+        stats.append({k: b.detach().cpu().numpy().copy() for k, b in trainer.model.named_buffers()
+                      if k in trainer.model.state_dict()})
     return {"losses": losses, "grad_norms": norms, "seconds_per_step": seconds,
-            "relays_per_step": relays}
+            "relays_per_step": relays, "buffers_per_step": stats}
+
+
+def unet_parallel_trainer(dev, workdir: Path, folder: str, mesh=None):
+    """A Trainer on AttentionUNet at configs/unet_att.yaml (depth 5, f32,
+    seeded weights) over 256x256x8 waves, global batch 2, one model call a
+    step (see UNET_STEP2_LOSS_REL_TOL), on one rank or on ``mesh``."""
+    dm = WaveDataModule(batch_size=PARALLEL_TRAIN_B, n_steps_input=IN_T, n_steps_output=1,
+                        eval_steps_output=2, data_workers=2, seed=0, device=dev,
+                        waves={**WELL_WAVES, "n_trajectories": 2, "n_steps": 8})
+    model = zoo_model("unet_att", dev, dm.train_dataset.metadata)
+    load_jax_params(model, seeded_jax_params(model, seed=0))
+    trainer = Trainer(str(workdir / folder), "channels_first_default", model, dm,
+                      AdamW(lr=5e-5, weight_decay=1e-5), MSE(), L2RE(), max_epoch=1,
+                      n_steps_output=1, n_steps_rollout=2, seed=0, mesh=mesh, device=dev)
+    return trainer, dm
 
 
 def flagship_input(batch=BATCH) -> np.ndarray:
@@ -2953,8 +3200,8 @@ def flagship_input(batch=BATCH) -> np.ndarray:
 
 def parallel_rank(rank: int, world: int, rdv: str, workdir: str, device: str, results) -> None:
     """One rank of the ``parallel`` phase (a spawned process): joins the gloo
-    group, runs the flagship forward and the Trainer runs on their meshes,
-    hands its numbers to the parent."""
+    group, runs the flagship forward and the Trainer runs (TANTE, FNO,
+    AttentionUNet) on their meshes, hands its numbers to the parent."""
     import datetime
     import hashlib
     import traceback
@@ -2968,7 +3215,8 @@ def parallel_rank(rank: int, world: int, rdv: str, workdir: str, device: str, re
         dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
                                 world_size=world, timeout=datetime.timedelta(seconds=120))
         dev = torch.device(device)  # every rank on the parent's card
-        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets it: f32 stays f32
+        torch.backends.cudnn.allow_tf32 = False
         workdir = Path(workdir)
         tp_mesh = dp_tp_mesh(world, tp=world, device=dev)
 
@@ -3023,6 +3271,14 @@ def parallel_rank(rank: int, world: int, rdv: str, workdir: str, device: str, re
         out["train_sp"] = train_steps(trainer, dm, 2)
         out["train_sp"]["local_field_rows"] = next(iter(dm.train_dataloader()))["input"].shape[2]
         del trainer
+        # 5. AttentionUNet at (dp 1, sp 2): halo convs; at (dp 2, sp 1): one sample a rank.
+        for key, shape in (("unet_sp", (1, world)), ("unet_dp", (world, 1))):
+            mesh = make_mesh(world, ("dp", "sp"), shape, device=dev)
+            trainer, dm = unet_parallel_trainer(dev, workdir, key, mesh)
+            out[key] = train_steps(trainer, dm, 2)
+            batch = next(iter(dm.train_dataloader()))["input"]
+            out[key]["local_batch"] = list(batch.shape)
+            del trainer
         dist.destroy_process_group()
     except Exception:  # the parent reports it and fails the phase
         out = {"error": traceback.format_exc()}
@@ -3036,7 +3292,8 @@ def phase_parallel(dev, workdir: Path) -> dict:
     forward with its blocks split over tp = 2 (exactly 18 half-kernel
     launches a model call, no single-device kernel), every step's loss and
     gradient norm of Trainer at (dp 1, tp 2), (dp 2, tp 1) and FNO at (dp 1, sp 2), replicas
-    equal after a dropout step, and the tp checkpoint on one rank.  Times
+    equal after a dropout step, the tp checkpoint on one rank, and AttentionUNet
+    at (dp 1, sp 2) and (dp 2, sp 1) with its BatchNorm statistics.  Times
     are two ranks sharing one card through gloo: not a tp speed."""
     import multiprocessing
 
@@ -3052,6 +3309,9 @@ def phase_parallel(dev, workdir: Path) -> dict:
         trainer, dm = parallel_trainer(dev, workdir / "single", name, kind)
         single[name] = train_steps(trainer, dm, 2)
         del trainer
+    trainer, dm = unet_parallel_trainer(dev, workdir / "single", "unet")
+    single["unet"] = train_steps(trainer, dm, 2)
+    del trainer
 
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # both ranks on this host
     ctx = multiprocessing.get_context("spawn")
@@ -3111,10 +3371,18 @@ def phase_parallel(dev, workdir: Path) -> dict:
 
     losses = {}
     for name, ref in (("train_tp", single["tante"]), ("train_dp", single["tante"]),
-                      ("train_sp", single["fno"])):
+                      ("train_sp", single["fno"]), ("unet_sp", single["unet"]),
+                      ("unet_dp", single["unet"])):
         run = r0[name]
-        gaps = {"loss": rel(run["losses"], ref["losses"]),
-                "grad_norm": rel(run["grad_norms"], ref["grad_norms"])}
+        held = 1 if name.startswith("unet") else None  # see UNET_STEP2_LOSS_REL_TOL
+        gaps = {"loss": rel(run["losses"][:held], ref["losses"][:held]),
+                "grad_norm": rel(run["grad_norms"][:held], ref["grad_norms"][:held])}
+        if held:
+            gaps["step_2"] = {"loss": rel(run["losses"][1:], ref["losses"][1:]),
+                              "grad_norm": rel(run["grad_norms"][1:], ref["grad_norms"][1:])}
+            check(gaps["step_2"]["loss"] <= UNET_STEP2_LOSS_REL_TOL
+                  and gaps["step_2"]["grad_norm"] <= UNET_STEP2_GNORM_REL_TOL,
+                  f"{name}: second step {gaps['step_2']} vs one rank")
         losses[name] = {"losses": run["losses"], "single_rank_losses": ref["losses"],
                         "grad_norms": run["grad_norms"], "single_rank_grad_norms": ref["grad_norms"],
                         "worst_rel_gap": gaps,
@@ -3133,6 +3401,26 @@ def phase_parallel(dev, workdir: Path) -> dict:
           f", want 18 (9 blocks' two halves, once per optimizer step)")
     check(r0["train_sp"]["local_field_rows"] == RES[0] // PARALLEL_WORLD,
           "sp Trainer: batches are not this rank's H rows")
+    # AttentionUNet: the batches are this rank's rows / samples; the BatchNorm
+    # statistics are the global batch's, the same on both ranks, and after
+    # the first step the single rank's (UNET_STEP2_LOSS_REL_TOL: the second
+    # step's are reported).
+    want_shape = {"unet_sp": [1, IN_T, WELL_RES[0] // PARALLEL_WORLD, WELL_RES[1], 8],
+                  "unet_dp": [1, IN_T, *WELL_RES, 8]}
+    unet_stats = {}
+    for name in ("unet_sp", "unet_dp"):
+        want_b = [PARALLEL_TRAIN_B // (1 if name == "unet_sp" else PARALLEL_WORLD)]
+        check(r0[name]["local_batch"] == want_b + want_shape[name][1:],
+              f"{name}: a rank's batch is {r0[name]['local_batch']}")
+        equal = all(np.array_equal(a[k], b[k]) for a, b in zip(r0[name]["buffers_per_step"],
+                                                               r1[name]["buffers_per_step"])
+                    for k in a)
+        gaps = [max(rel_l2(torch.from_numpy(a[k]), torch.from_numpy(b[k])) for k in b)
+                for a, b in zip(r0[name]["buffers_per_step"], single["unet"]["buffers_per_step"])]
+        check(equal, f"{name}: the ranks' BatchNorm statistics differ")
+        check(gaps[0] <= MESH_STATS_REL_TOL,
+              f"{name}: BatchNorm statistics after the first step vs one rank: {gaps[0]}")
+        unet_stats[name] = {"equal_on_both_ranks": equal, "worst_rel_l2_vs_one_rank": gaps}
     same = r0["dropout_replicas"] == r1["dropout_replicas"]
     check(same, "replicated parameters differ across tp ranks after a dropout step")
 
@@ -3155,6 +3443,9 @@ def phase_parallel(dev, workdir: Path) -> dict:
         "trainer": losses, "loss_rel_tol": MESH_LOSS_REL_TOL,
         "grad_norm_rel_tol": MESH_GNORM_REL_TOL,
         "dropout_0.1_step_replicated_parameters_equal": same,
+        "unet_att_batch_stats": unet_stats, "unet_att_first_step_stats_rel_tol": MESH_STATS_REL_TOL,
+        "unet_att_second_step_rel_tol": {"loss": UNET_STEP2_LOSS_REL_TOL,
+                                          "grad_norm": UNET_STEP2_GNORM_REL_TOL},
         "tp_checkpoint_on_one_rank_rel_l2": ckpt_err,
         "times_are": "two ranks sharing one card through gloo: not a tp speed"})
     emit(res)
@@ -3347,6 +3638,7 @@ def main() -> int:
         phase_fno_train_eval(dev, Path(workdir))
         avit = phase_avit(dev, Path(workdir))
         cvit = phase_cvit(dev, Path(workdir))
+        phase_zoo(dev, Path(workdir))
         parallel = phase_parallel(dev, Path(workdir))
     phase_summary(kernels, chains, fixed, train, adaptive_train, cli, spectral, fno, packed, avit,
                   cvit, tp, parallel)

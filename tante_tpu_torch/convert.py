@@ -7,7 +7,10 @@ port's modules carry the flax names and layouts (Dense ``(in, out)``, conv
 HWIO), so no tensor is transposed.  This is the one layout rule, and it
 holds both ways (``jax_params_from_state_dict``) and for the AdamW moments
 (``load_optax_adam_state``), so a tree trained in one package loads in the
-other.
+other.  It holds for flax's other collections too: a model with BatchNorm
+keeps its ``batch_stats`` leaves (``mean``, ``var``) as buffers under the
+same rule (``load_jax_variables`` / ``jax_variables_from_module``), and a
+flax ``nn.scan`` stack keeps its leading depth axis in the port's parameter.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ def load_jax_params(module: torch.nn.Module, flat: Mapping[str, np.ndarray], mes
     sd = state_dict_from_jax(flat)
     split = mesh is not None and any(hasattr(p, "tp_dim") for p in module.parameters())
     own = sharding.full_shapes(module, mesh) if split else module.state_dict()
+    # Buffers (BatchNorm statistics) are not flax params: keep the module's.
+    names = _buffer_keys(module)
+    buffers = {k: v for k, v in module.state_dict().items() if k in names}
+    own = {k: v for k, v in own.items() if k not in buffers}
     missing = sorted(set(own) - set(sd))
     extra = sorted(set(sd) - set(own))
     if missing or extra:
@@ -44,11 +51,45 @@ def load_jax_params(module: torch.nn.Module, flat: Mapping[str, np.ndarray], mes
         if tuple(own[k].shape) != tuple(v.shape):
             raise ValueError(f"{k}: model has {tuple(own[k].shape)}, weights {tuple(v.shape)}")
     if split:
-        module.load_state_dict(sharding.shard_state_dict(module, sd, mesh))
+        module.load_state_dict({**buffers, **sharding.shard_state_dict(module, sd, mesh)})
         return
-    module.load_state_dict(sd)
+    module.load_state_dict({**buffers, **sd})
     if mesh is not None:
         sharding.shard_params(module, mesh)
+
+
+def _buffer_keys(module: torch.nn.Module) -> set:
+    return {k for k, _ in module.named_buffers()}
+
+
+def load_jax_variables(module: torch.nn.Module, params: Mapping[str, np.ndarray],
+                       batch_stats: Mapping[str, np.ndarray] | None = None, mesh=None) -> None:
+    """A flax variables tree, flattened per collection: ``params`` as
+    ``load_jax_params``, then ``batch_stats`` (every BatchNorm ``mean`` /
+    ``var``, flax-keyed) into the module's buffers, all of them or none."""
+    load_jax_params(module, params, mesh)
+    if batch_stats is None:
+        return
+    stats = state_dict_from_jax(batch_stats)
+    own = {k: b for k, b in module.named_buffers() if k in module.state_dict()}
+    if set(stats) != set(own):
+        raise KeyError(f"batch_stats keys differ from the module's buffers: "
+                       f"{sorted(set(stats) ^ set(own))[:8]}")
+    with torch.no_grad():
+        for k, v in stats.items():
+            if tuple(own[k].shape) != tuple(v.shape):
+                raise ValueError(f"{k}: model has {tuple(own[k].shape)}, "
+                                 f"batch_stats {tuple(v.shape)}")
+            own[k].copy_(v)
+
+
+def jax_variables_from_module(module: torch.nn.Module) -> dict[str, dict[str, np.ndarray]]:
+    """The way back for a whole module: {"params": ..., "batch_stats": ...},
+    each flax-keyed f32 numpy (``batch_stats`` empty without buffers)."""
+    flat = jax_params_from_state_dict(module.state_dict())
+    stats = {k.replace(".", "/") for k in _buffer_keys(module)}
+    return {"params": {k: v for k, v in flat.items() if k not in stats},
+            "batch_stats": {k: v for k, v in flat.items() if k in stats}}
 
 
 def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
@@ -87,16 +128,20 @@ def seeded_jax_params(module: torch.nn.Module, seed: int) -> dict[str, np.ndarra
     tensor), and for a tensor with a trailing [re, im] axis (spectral weights
     (Cin, Cout, *modes, 2), Tucker cores and factors) its first dim (Cin;
     each mode mixes Cin inputs) or, for a Tucker factor (dim, rank, 2), the
-    rank it is summed over.  A module overrides the rule for its own
-    parameters in ``seed_rules``: "gain" (1 + the uniform draw: norm weights,
-    soft gates, LayerScale gammas, near the identity), "normal" (N(0, 1), the
-    JAX init of embedding tables and latents) or "keep" (the module's own
-    values, e.g. a coordinate grid)."""
+    rank it is summed over.  Buffers (BatchNorm statistics) are not drawn.
+    A module overrides the rule for its own parameters in ``seed_rules``:
+    "gain" (1 + the uniform draw: norm weights, soft gates, LayerScale
+    gammas, near the identity), "normal" (N(0, 1), the JAX init of embedding
+    tables and latents) or "keep" (the module's own values, e.g. a
+    coordinate grid)."""
     rng = np.random.default_rng(seed)
     complex_leaves = {
         name for m in module.modules() for name in getattr(m, "mode_space_params", ())}
     out = {}
+    buffers = _buffer_keys(module)
     for k, v in module.state_dict().items():
+        if k in buffers:
+            continue
         *parents, leaf = k.split(".")
         shape = tuple(v.shape)
         rule = getattr(module.get_submodule(".".join(parents)), "seed_rules", {}).get(leaf)

@@ -56,20 +56,21 @@ class TorchDense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` (epsilon 1e-5): ``scale`` and ``bias`` over the
-    last axis, statistics in f32, the result in ``dtype``."""
+    """flax ``nn.LayerNorm`` (epsilon 1e-5 as the blocks set it; the zoo
+    passes flax's default 1e-6): ``scale`` and ``bias`` over the last axis,
+    statistics in f32, the result in ``dtype``."""
 
     seed_rules = {"scale": "gain"}
     f32_params = ("scale", "bias")  # flax does not cast them to ``dtype``
 
-    def __init__(self, dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, dtype=torch.float32, eps: float = 1e-5):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.eps = dtype, eps
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return ln(x.float(), self.scale, self.bias).to(self.dtype)
+        return ln(x.float(), self.scale, self.bias, self.eps).to(self.dtype)
 
 
 class Mlp(nn.Module):

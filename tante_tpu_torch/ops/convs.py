@@ -14,6 +14,13 @@ bilinearly back to that grid, plain mode only.  Strides below the patch
 
 Parameters keep the flax layouts: ``kernel`` HWIO ``(ph, pw, ci, co)``,
 ``bias`` ``(co,)``.
+
+``Conv2d`` is flax ``nn.Conv`` in general (any kernel, stride, explicit
+per-side padding, feature groups) on channels-last fields, through
+``F.conv2d`` on a channels-last view; ``depthwise_conv2d_lanes`` /
+``DepthwiseConv2d`` are the JAX package's depthwise 'same' conv, here the
+grouped conv itself (the lane-flat form is a TPU layout choice, the same
+function).  The zoo models build on these.
 """
 
 from __future__ import annotations
@@ -274,3 +281,105 @@ class PatchConvTranspose(PatchConv):
         wmat = k.movedim(n, 0).reshape(k.shape[n], -1)         # (Cin, prod(p)*Cout)
         y = unpatchify(x.to(self.dtype) @ wmat, self.patch)
         return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+# --------------------------------------------------------------------------
+# flax ``nn.Conv`` in general, and the depthwise 'same' conv (the zoo)
+# --------------------------------------------------------------------------
+
+
+def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor, bias, stride: int, padding, groups: int):
+    """Cross-correlation of (B, H, W, Cin) with an HWIO kernel, channels-last
+    in and out.  ``padding`` ((top, bottom), (left, right)); symmetric
+    padding goes to the convolution itself, anything else to ``F.pad``.
+
+    On the card a dense (``groups == 1``) f32 convolution's forward runs
+    PyTorch's own im2col + GEMM, not cuDNN: cuDNN 9.2's heuristics (f32, TF32
+    off) take an FFT algorithm for some shapes, and for AttentionUNet's
+    (4, 128, 128, 256) -> 128 3x3 conv it took 328 ms a call, where PyTorch's
+    own took 1.5 ms and cuDNN the shapes around it 0.4-1.5 ms; a whole
+    AttentionUNet call took 579.6 ms with cuDNN and 24.9 ms without (NVIDIA
+    H100 80GB HBM3, 700 W, ``tante_tpu_torch/tools/conv_layouts.py --model``).
+    The backward and the depthwise convs stay on cuDNN."""
+    (pt, pb), (pl, pr) = padding
+    pad = (pt, pl)
+    if pt != pb or pl != pr:
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+        pad = (0, 0)
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn and not (x.is_cuda and groups == 1
+                                                  and x.dtype == torch.float32)
+    try:
+        y = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1), bias, stride=stride,
+                     padding=pad, groups=groups)
+    finally:
+        torch.backends.cudnn.enabled = cudnn
+    return y.permute(0, 2, 3, 1)
+
+
+class Conv2d(nn.Module):
+    """flax ``nn.Conv(features, (k, k), strides=stride, padding=...,
+    feature_group_count=groups)`` on (B, H, W, Cin): ``kernel`` (k, k,
+    Cin / groups, Cout) and ``bias`` (Cout,), torch-default init with the
+    bias's fan-in ``bias_fan_in`` (default: the kernel's).  ``padding`` is
+    ((top, bottom), (left, right)), or None for 'VALID'.  A 1x1 conv is a
+    matmul over the channels."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1, padding=None,
+                 groups: int = 1, bias_fan_in: int | None = None, dtype=torch.float32, gen=None):
+        super().__init__()
+        self.stride, self.groups, self.dtype = stride, groups, dtype
+        self.padding = tuple(tuple(p) for p in padding) if padding else ((0, 0), (0, 0))
+        self.kernel = nn.Parameter(torch_kernel_init((kernel, kernel, c_in // groups, c_out), gen))
+        fan_in = bias_fan_in or kernel * kernel * c_in // groups
+        self.bias = nn.Parameter(torch_bias_init((c_out,), fan_in, gen))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, b = self.kernel.to(self.dtype), self.bias.to(self.dtype)
+        x = x.to(self.dtype)
+        if k.shape[0] == k.shape[1] == 1 and self.stride == 1 and self.groups == 1 and not any(
+                sum(self.padding, ())):
+            return x @ k[0, 0] + b
+        return conv_nhwc(x, k, b, self.stride, self.padding, self.groups)
+
+
+def same_padding(kernel: int):
+    """The zoo's 'same' padding of a k x k conv: (k // 2, (k - 1) // 2) on
+    each spatial axis (the reverse of XLA's 'SAME' for even k)."""
+    return ((kernel // 2, (kernel - 1) // 2),) * 2
+
+
+def depthwise_conv2d_lanes(x: torch.Tensor, kernel: torch.Tensor,
+                           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise k x k 'same' conv of (B, H, W, C) with a grouped-conv
+    kernel (kh, kw, 1, C) and bias (C,), odd kernels only (the JAX form
+    pads (k // 2, (k - 1) // 2), which is flax's 'SAME' only for odd k).
+    The result is in ``x.dtype``."""
+    kh, kw, _, c = kernel.shape
+    if c != x.shape[-1]:
+        raise ValueError(f"depthwise kernel channels {c} != input channels {x.shape[-1]} "
+                         f"(kernel {tuple(kernel.shape)}, x {tuple(x.shape)})")
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"depthwise_conv2d_lanes requires odd kernels, got {(kh, kw)}")
+    b = None if bias is None else bias.to(x.dtype)
+    return conv_nhwc(x, kernel.to(x.dtype), b, 1, ((kh // 2,) * 2, (kw // 2,) * 2), c)
+
+
+class DepthwiseConv2d(nn.Module):
+    """flax ``nn.Conv(features, kernel_size, feature_group_count=features)``
+    with odd kernels and 'same' padding: ``kernel`` (kh, kw, 1, C) and
+    ``bias`` (C,), the JAX module's names and shapes."""
+
+    def __init__(self, features: int, kernel_size: Tuple[int, int], dtype=torch.float32,
+                 gen=None):
+        super().__init__()
+        kh, kw = kernel_size
+        self.features, self.dtype = features, dtype
+        self.kernel = nn.Parameter(torch_kernel_init((kh, kw, 1, features), gen))
+        self.bias = nn.Parameter(torch_bias_init((features,), kh * kw, gen))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.features:
+            raise ValueError(f"DepthwiseConv2d(features={self.features}) got input with "
+                             f"{x.shape[-1]} channels (shape {tuple(x.shape)})")
+        return depthwise_conv2d_lanes(x.to(self.dtype), self.kernel, self.bias)

@@ -41,3 +41,10 @@ def complex_spectral_init(shape, in_channels: int, out_channels: int,
     ~ N(0, 1/2) before the scale (unit E|z|^2), hence the extra 1/sqrt(2)."""
     scale = 1.0 / (2.0 * in_channels * out_channels) ** 0.5
     return torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+
+
+def trunc_normal_init(shape, std: float, gen: torch.Generator) -> torch.Tensor:
+    """flax ``truncated_normal(stddev=std)``: a unit normal cut at +-2,
+    rescaled so the draw's standard deviation is ``std``."""
+    t = torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t * (std / 0.87962566103423978)

@@ -15,6 +15,15 @@ CUDA tensors (gloo included, which runs two ranks on one card).
 - ``gather_rows``: this rank's rows of a dimension written into a zero tensor
   of the full size and all-reduced; backward keeps this rank's rows (every
   rank computes the same loss on the full tensor).
+- ``all_gather``: every rank's tensor, stacked in rank order, by the same
+  slot trick; backward all-reduces the gradient and keeps this rank's slot
+  (each rank's backward holds its share of the gradient of every slot).  The
+  halo exchange of ``parallel/halo.py`` sends only boundary rows through it.
+- ``all_to_all``: ``lax.all_to_all(tiled=True)``, as the slices of an
+  ``all_gather``: simple and on every backend, but each rank holds the whole
+  gathered tensor for a moment (a point-to-point all-to-all moves 1 / n of
+  it; gloo takes none on CUDA tensors).  Its backward is the all-to-all with
+  the two axes swapped, through the gather's.
 """
 
 from __future__ import annotations
@@ -82,6 +91,20 @@ class _GatherRows(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None, None, None
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, parts):
+        ctx.group, ctx.index = group, index
+        full = x.new_zeros((parts, *x.shape))
+        full[index].copy_(x)
+        dist.all_reduce(full, group=group)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group)[ctx.index], None, None, None
+
+
 def psum(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _PSum.apply(x, group)
 
@@ -118,3 +141,27 @@ def all_reduce_flat(tensors: Iterable[torch.Tensor], group, scale: float = 1.0) 
             flat.mul_(scale)
         for t, part in zip(ts, flat.split([t.numel() for t in ts])):
             t.copy_(part.view_as(t))
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """(n, *x.shape): every ``axis`` rank's ``x`` in rank order (complex
+    tensors as their real pairs)."""
+    group = mesh.group(axis)
+    if group is None:
+        return x[None]
+    if x.is_complex():
+        return torch.view_as_complex(all_gather(torch.view_as_real(x), mesh, axis))
+    return _AllGather.apply(x, group, mesh.index(axis), mesh.size(axis))
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``: rank
+    ``i`` keeps block ``i`` of ``split_dim`` from every rank, concatenated
+    along ``concat_dim`` in rank order."""
+    n, i = mesh.size(axis), mesh.index(axis)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: axis {split_dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    k = x.shape[split_dim] // n
+    full = all_gather(x, mesh, axis)
+    return torch.cat([full[j].narrow(split_dim, i * k, k) for j in range(n)], dim=concat_dim)

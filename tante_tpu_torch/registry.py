@@ -15,9 +15,8 @@ from __future__ import annotations
 import importlib
 from typing import Any, Callable, Dict
 
-# The JAX package's zoo models the port has not ported yet (ROADMAP, item 17).
-NOT_PORTED = ("AFNO", "DPOT", "UNetConvNext", "AttentionUNet")
-MODELS = ("TANTE", "FNO", "TFNO", "UNO", "AViT", "CViT")
+MODELS = ("TANTE", "FNO", "TFNO", "UNO", "AViT", "CViT", "AFNO", "DPOT", "UNetConvNext",
+          "AttentionUNet")
 METRICS = ("MSE", "NMSE", "L2RE", "NNMSE", "RMSE", "NRMSE", "VMSE", "VRMSE")
 TRAINERS = ("Trainer", "R_Trainer", "Evaler", "R_Evaler")
 
@@ -48,8 +47,6 @@ def resolve(target: str) -> Callable[..., Any]:
     table = _names()
     if target in table:
         return table[target]
-    if target in {f"models.{name}" for name in NOT_PORTED}:
-        raise KeyError(f"Unknown target '{target}': not ported to tante_tpu_torch yet")
     if "." in target:
         module_name, attr = target.rsplit(".", 1)
         try:

@@ -9,6 +9,7 @@ from tante_tpu_torch.train.rollout import (
     rollout_adaptive_train,
     rollout_adaptive_train_vf,
     rollout_fixed,
+    rollout_fixed_stateful,
     rollout_tante_latent,
 )
 from tante_tpu_torch.train.schedules import LinearWarmupCosineAnnealingLR
@@ -23,5 +24,6 @@ __all__ = [
     "rollout_adaptive_train",
     "rollout_adaptive_train_vf",
     "rollout_fixed",
+    "rollout_fixed_stateful",
     "rollout_tante_latent",
 ]

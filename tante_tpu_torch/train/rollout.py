@@ -4,10 +4,11 @@ The JAX package's ``lax.scan`` / ``lax.while_loop`` become Python loops.
 Emission semantics are the JAX ones exactly:
 
 - ``rollout_fixed`` / ``rollout_tante_latent``: ceil(n_steps / chunk)
-  calls, the window slides by the emitted chunk.  The TANTE form encodes
-  each frame once (latents are cached) and, when the CNN pyramid is clean,
-  keeps frames as Morton-packed rows across the decode -> Taylor -> encode
-  round trip.
+  calls, the window slides by the emitted chunk; ``rollout_fixed_stateful``
+  also returns the model's state (BatchNorm statistics) after them.  The
+  TANTE form encodes each frame once (latents are cached) and, when the CNN
+  pyramid is clean, keeps frames as Morton-packed rows across the decode ->
+  Taylor -> encode round trip.
 - ``rollout_adaptive_eval`` / ``rollout_adaptive_eval_tante``: each call
   emits ``clip(floor(r_t[0]), 1, K)`` frames (batch-wide, from sample 0),
   or the whole K-frame block with ``force_budget``.  Reading floor(r_t[0])
@@ -46,6 +47,18 @@ def rollout_fixed(apply_fn: Callable, window: torch.Tensor, n_steps: int, chunk:
         window = torch.cat([window, y], dim=1)[:, -t_in:]
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :n_steps]
+
+
+def rollout_fixed_stateful(apply_fn: Callable, window: torch.Tensor, n_steps: int, chunk: int,
+                           module: torch.nn.Module):
+    """``rollout_fixed`` for a model with mutable state (BatchNorm
+    statistics): -> (frames (B, n_steps, ...), the state after the last
+    call).  The state is ``module``'s buffers, which each call of
+    ``apply_fn`` updates in place, once per call in call order, as the JAX
+    scan carries ``batch_stats``; the returned dict holds copies."""
+    y = rollout_fixed(apply_fn, window, n_steps, chunk)
+    state = module.state_dict(keep_vars=True)
+    return y, {k: state[k].detach().clone() for k, _ in module.named_buffers() if k in state}
 
 
 def rollout_tante_latent(model, x: torch.Tensor, n_steps: int, out_dtype=None):

@@ -25,9 +25,11 @@ over the world when it has more than one rank):
   and ``parallel.shard_params`` leaves this rank's shards in every block
   whose geometry splits; a block that does not split keeps whole weights and
   computes the unsplit block on every tp rank.
-- sp > 1: a model with ``sp_mesh`` (FNO) shards H; batches arrive as this
-  rank's rows and the prediction and target are gathered (``gather_rows``)
-  before the loss.  Other models log a warning and keep H whole.
+- sp > 1: a model with ``sp_mesh`` shards H (FNO: its spectral
+  convolutions; AttentionUNet: the whole forward, every 3x3 conv
+  halo-exchanging first); batches arrive as this rank's rows and the
+  prediction and target are gathered (``gather_rows``) before the loss.
+  Other models log a warning and keep H whole.
 - dp: batches are split over 'dp'; after backward one all-reduce per
   gradient dtype takes the mean over 'dp' (and the sum over 'sp', whose
   ranks each hold part of one field's gradient).  The clip's global norm is
@@ -36,8 +38,17 @@ over the world when it has more than one rank):
   on one device; only rank 0 logs and writes checkpoints, which hold the
   gathered full tensors (a tp checkpoint loads on one device and back).
 
-Models with mutable state such as BatchNorm statistics (ROADMAP: the rest of
-the zoo) raise ``NotImplementedError``.
+Mutable model state (BatchNorm statistics, ``ops/norms.py``): a train step
+runs the model with ``deterministic=False``, so every BatchNorm takes the
+batch's statistics and moves its running ones (buffers, in place) once per
+model call, as the JAX scan carries them (``rollout_fixed_stateful``);
+validation runs on the running ones.  Under a mesh every BatchNorm's
+statistics are the global batch's, summed over the axes that split it ('dp',
+'sp') inside autograd.  The statistics are buffers, so checkpoints and resume
+carry them.
+
+A parameter the loss does not reach (DPOT's unused cls head) gets a zero
+gradient, so AdamW decays it as optax updates every leaf of the tree.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ import torch
 
 from tante_tpu_torch.data.datamodule import AbstractDataModule, get_formatter
 from tante_tpu_torch.ops.backend import resolve_device
+from tante_tpu_torch.ops.norms import BatchNorm
 from tante_tpu_torch.parallel import sharding
 from tante_tpu_torch.parallel.collectives import all_reduce, all_reduce_flat, gather_rows
 from tante_tpu_torch.train.rollout import rollout_fixed
@@ -123,10 +135,6 @@ class Trainer:
                 from tante_tpu_torch.parallel import make_mesh
 
                 mesh = make_mesh(axis_names=("dp",), device=device)
-        if any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in model.modules()):
-            raise NotImplementedError(
-                "models with mutable state (BatchNorm statistics, rollout_fixed_stateful) wait "
-                "for the zoo slice (ROADMAP.md, section 1: the rest of the zoo)")
         if enable_amp and amp_type != "bfloat16":
             raise ValueError(f"amp_type '{amp_type}': only bfloat16 mixed precision exists")
         self.mesh = mesh
@@ -190,6 +198,13 @@ class Trainer:
             else:
                 logger.warning("mesh has an 'sp' axis but %s has no spatial-sharding support "
                                "(sp_mesh); the H axis stays replicated", type(self.model).__name__)
+        # BatchNorm statistics over the global batch: every rank that holds
+        # another part of it (JAX: the jit reductions over the dp-sharded
+        # batch, and stat_axes under sp).
+        stat_group = mesh.group("dp", "sp") if self.sp_sharded else mesh.group("dp")
+        for m in self.model.modules():
+            if isinstance(m, BatchNorm):
+                m.group = stat_group
         if mesh.size(*mesh.axis_names) > 1:
             from tante_tpu_torch.parallel.mesh import input_sharding
 
@@ -260,6 +275,9 @@ class Trainer:
         """Backward, the gradients' reduction over the mesh, the clip and
         the AdamW update."""
         loss.backward()
+        for p in self.model.parameters():
+            if p.grad is None and p.requires_grad:  # optax updates every leaf
+                p.grad = torch.zeros_like(p)
         self._reduce_grads()
         self.last_grad_norm = self._clip(self.model.parameters())
         self.optimizer.step()

@@ -19,7 +19,16 @@ from tante_tpu_torch.models.fno import FNO
 from tante_tpu_torch.models.tante import TANTE
 from tante_tpu_torch.ops import fused_block as fb
 from tante_tpu_torch.parallel import dp_tp_mesh, gather_params, make_mesh, replicated, shard_params
-from tante_tpu_torch.parallel.halo import sharded_spectral_conv2d_centered
+from tante_tpu_torch.models.unet_att import AttentionUNet
+from tante_tpu_torch.ops.norms import BatchNorm
+from tante_tpu_torch.parallel.halo import (
+    halo_exchange,
+    sharded_conv2d,
+    sharded_irfft2,
+    sharded_rfft2,
+    sharded_spectral_conv2d_centered,
+    spatial_sharding,
+)
 from tante_tpu_torch.parallel.sharding import shard_block
 from tante_tpu_torch.train.metrics import L2RE, MSE
 from tante_tpu_torch.train.optimizers import AdamW
@@ -30,6 +39,8 @@ from tante_tpu_torch.train.trainer import Trainer
 TP_TANTE = dict(in_T=4, taylor_order=1, attn_axes="THW", embed_dim=32, patch_scale=8, n_head=4,
                 output_length=1, deg=True)
 TP_RES, TP_FIELDS = (16, 32), 3
+# AttentionUNet under sp / dp: depth 2 keeps 8 local rows even at sp 2.
+UNET = dict(in_T=4, depth=2, out_T=1)
 # Trainer cases: in-memory waves, global batch 2, two steps.
 TRAIN_WAVES = dict(resolution=(16, 32), n_trajectories=2, n_steps=10, seed=0)
 TRAIN_FNO = dict(in_T=2, modes1=4, modes2=4, hidden_channels=8, n_layers=2)
@@ -192,6 +203,78 @@ def r_train_run(mesh, workdir, flat, x, y, model_kw, rkw, steps=2):
             "params": {k: np_(v) for k, v in trainer.model.state_dict().items()}}
 
 
+def halo_case(mesh, x, r, halo, periodic):
+    """halo_exchange of this rank's rows of x (B, H, W, C) and the gradient
+    of sum(out * r_i), r_i this rank's slice of ``r`` (n, B, H/n + 2 halo, W, C)."""
+    x_loc = _t(spatial_sharding(mesh)(x), True)
+    y = halo_exchange(x_loc, halo, mesh, periodic=periodic)
+    (y * _t(r[mesh.index("sp")])).sum().backward()
+    return {"y": np_(y), "gx": np_(x_loc.grad)}
+
+
+def sharded_ops(mesh, x, kernel, r):
+    """sharded_conv2d (zero edges) with its input gradient against ``r``'s
+    rows; sharded_rfft2; sharded_irfft2 of it, and the gradient of
+    sum(irfft2(rfft2(x)) * r) (the round trip is the identity: r itself)."""
+    rows = spatial_sharding(mesh)
+    x_loc = _t(rows(x), True)
+    y = sharded_conv2d(mesh, _t(kernel), x_loc)
+    (y * _t(rows(r))[..., :y.shape[-1]]).sum().backward()
+    out = {"conv": np_(y), "conv_gx": np_(x_loc.grad)}
+    x_loc = _t(rows(x), True)
+    xf = sharded_rfft2(mesh, x_loc)
+    back = sharded_irfft2(mesh, xf, x.shape[2])
+    (back * _t(rows(r))).sum().backward()
+    out.update(spec=xf.detach().numpy(), back=np_(back), round_trip_gx=np_(x_loc.grad))
+    return out
+
+
+def unet_sp_forward(mesh, flat, x):
+    """AttentionUNet on this rank's rows (its BatchNorm statistics over the
+    whole mesh): the eval output, then the train-mode output and the
+    statistics that call left."""
+    model = AttentionUNet(dset_metadata=tante_metadata(res=x.shape[2:4], fields=x.shape[-1]),
+                          device="cpu", **UNET)
+    load_jax_params(model, flat)
+    model.set_sp_mesh(mesh)
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = mesh.group("dp", "sp")
+    n, i = mesh.size("sp"), mesh.index("sp")
+    h = x.shape[2] // n
+    with torch.no_grad():
+        y_eval = model(_t(x[:, :, i * h:(i + 1) * h]))
+        y_train = model(_t(x[:, :, i * h:(i + 1) * h]), deterministic=False)
+    return {"y_eval": np_(y_eval), "y_train": np_(y_train),
+            "stats": {k: np_(b) for k, b in model.named_buffers()}}
+
+
+def unet_train_run(mesh, workdir, flat, steps=2):
+    """Two Trainer steps on AttentionUNet (seeded weights ``flat``): the
+    losses, gradient norms and BatchNorm statistics of each step, the
+    parameters after them, the validation loss, and the rows a batch holds
+    here."""
+    dm = WaveDataModule(batch_size=2, n_steps_input=4, n_steps_output=2, eval_steps_output=2,
+                        data_workers=1, seed=0, device="cpu", waves=TRAIN_WAVES)
+    model = AttentionUNet(dset_metadata=dm.train_dataset.metadata, device="cpu", **UNET)
+    load_jax_params(model, flat)
+    trainer = Trainer(str(workdir), "channels_first_default", model, dm, AdamW(lr=1e-3),
+                      MSE(), L2RE(), max_epoch=1, n_steps_output=2, n_steps_rollout=2, seed=0,
+                      mesh=mesh, device="cpu")
+    losses, norms, stats, rows = [], [], [], 0
+    for step, batch in enumerate(dm.train_dataloader()):
+        if step == steps:
+            break
+        rows = batch["input"].shape[2]
+        (x,), y = trainer.formatter.process_input(batch)
+        losses.append(float(trainer.train_step(x, y)))
+        norms.append(float(trainer.last_grad_norm))
+        stats.append({k: np_(b).copy() for k, b in trainer.model.named_buffers()})
+    val = trainer.validation_loop(dm.val_dataloader())
+    return {"losses": losses, "norms": norms, "rows": rows, "val": val, "stats": stats,
+            "params": {k: np_(p) for k, p in trainer.model.named_parameters()}}
+
+
 def shard_round_trip(mesh):
     """shard_params then gather_params gives back every tensor exactly; a
     block whose geometry does not split keeps whole weights."""
@@ -226,6 +309,10 @@ CASES = {
     "train_run": train_run,
     "r_train_run": r_train_run,
     "shard_round_trip": shard_round_trip,
+    "halo_case": halo_case,
+    "sharded_ops": sharded_ops,
+    "unet_sp_forward": unet_sp_forward,
+    "unet_train_run": unet_train_run,
 }
 
 

@@ -10,6 +10,7 @@ forward equal to JAX's on the same weights (carried across with
 import glob
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +23,9 @@ from tante_tpu.train.metrics import VRMSE as JaxVRMSE
 from tante_tpu_torch import config, registry
 from tante_tpu_torch.data.datamodule import TanteDataModule
 from tante_tpu_torch.data.metadata import TanteMetadata
-from tante_tpu_torch.models import AViT, CViT, FNO, TANTE, TFNO, UNO
+from tante_tpu_torch.models import (
+    AFNO, DPOT, FNO, TANTE, TFNO, UNO, AttentionUNet, AViT, CViT, UNetConvNext,
+)
 from tante_tpu_torch.train import (
     L2RE, MSE, NMSE, NNMSE, NRMSE, RMSE, VMSE, VRMSE, AdamW, Evaler, LinearWarmupCosineAnnealingLR,
     R_Evaler, R_Trainer, Trainer,
@@ -30,7 +33,8 @@ from tante_tpu_torch.train import (
 
 CONFIGS = sorted(os.path.splitext(os.path.basename(p))[0]
                  for p in glob.glob(os.path.join(config.CONFIG_DIR, "*.yaml")))
-PORTED = ("tante", "tante_adaptive", "fno", "fno3d", "tfno", "uno", "avit", "cvit")
+PORTED = ("tante", "tante_adaptive", "fno", "fno3d", "tfno", "uno", "avit", "cvit", "afno",
+          "dpot", "unet_convnext", "unet_att")
 
 # tests/test_configs_instantiate.py's SHRINK: tiny widths for CPU forwards.
 SHRINK = {
@@ -43,6 +47,10 @@ SHRINK = {
     "avit": ["model.embed_dim=32", "model.num_heads=4", "model.processor_blocks=1"],
     "cvit": ["model.emb_dim=32", "model.dec_emb_dim=32", "model.depth=1",
              "model.grid_size=[8, 8]", "model.latent_dim=16", "model.patch_size=[1, 16, 16]"],
+    "afno": ["model.hidden_dim=32", "model.n_blocks=2"],
+    "dpot": ["model.embed_dim=32", "model.depth=1", "model.patch_size=8", "model.modes=2"],
+    "unet_convnext": ["model.init_features=4", "model.blocks_per_stage=2", "model.stages=2"],
+    "unet_att": ["model.depth=2"],
 }
 
 
@@ -162,11 +170,25 @@ def test_adamw_is_the_ports_spec_not_torchs():
     assert isinstance(torch_opt, torch.optim.AdamW) and callable(clip)
 
 
+ZOO = {"AFNO": ("afno", AFNO), "DPOT": ("dpot", DPOT),
+       "UNetConvNext": ("unet_convnext", UNetConvNext),
+       "AttentionUNet": ("unet_att", AttentionUNet)}
+
+
 @pytest.mark.parametrize("name", ["AFNO", "DPOT", "UNetConvNext", "AttentionUNet"])
 def test_unported_zoo_models_raise_keyerror(name):
+    """The four zoo models the port took last (they raised KeyError before):
+    each name resolves to the port's class, which builds from its shipped
+    config's model node."""
+    config_name, cls = ZOO[name]
     assert jconfig.resolve(f"models.{name}") is not None  # JAX has it
-    with pytest.raises(KeyError, match="not ported"):
-        registry.resolve(f"models.{name}")
+    assert registry.resolve(f"models.{name}") is cls
+    assert cls.__module__.startswith("tante_tpu_torch.models.")
+    cfg = config.load_config(config_name)
+    assert cfg.model["_target_"] == f"models.{name}"
+    with torch.device("meta"):
+        model = config.instantiate(cfg.model, dset_metadata=md(TanteMetadata), device="meta")
+    assert type(model) is cls and sum(p.numel() for p in model.parameters()) > 0
 
 
 @pytest.mark.parametrize("target", ["nothing", "tante_tpu_torch.models.Nothing",
@@ -193,6 +215,8 @@ def test_shipped_config_forward_equals_jax(name):
     elif adaptive:
         extra = (1.5,)
     params, tm = transplant(jm, tm, x, *extra, seed=3)
+    if name == "unet_att":  # BatchNorm: the init's running statistics too
+        params["batch_stats"] = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["batch_stats"]
     want = jm.apply(params, jnp.asarray(x), *(jnp.asarray(a) if isinstance(a, np.ndarray) else a
                                               for a in extra))
     with torch.no_grad():

@@ -45,7 +45,9 @@ def test_port_and_chip_smoke_import_no_jax():
                  "ops.fused_attention", "ops.attention", "models.avit", "models.cvit",
                  "parallel.mesh", "parallel.collectives", "parallel.sharding", "parallel.halo",
                  "train.r_trainer", "train.r_evaler", "utils.remat", "data.dataset",
-                 "data.wellpack", "config", "registry", "cli.train", "cli.eval"):
+                 "data.wellpack", "config", "registry", "cli.train", "cli.eval",
+                 "ops.fourier", "ops.norms", "models.afno", "models.dpot",
+                 "models.unet_convnext", "models.unet_att", "utils.profiling"):
         assert f"tante_tpu_torch.{name}" in out["modules"]
     assert out["bad"] == []
 
