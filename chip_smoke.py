@@ -11,7 +11,8 @@ script exits non-zero without the final result line):
             Hopper tile body of ``block_sm90.cuh``), ``fused_block.cu`` (the
             first design, the timing baseline), ``spectral_matmul.cu`` and
             ``packed_attention.cu``, one nvcc each, started together); build
-            seconds, the ``-Xptxas -v`` summaries and each tile plan.
+            seconds, the ``-Xptxas -v`` summaries (the bf16 and the f32
+            instantiations) and each tile plan (bf16 and f32).
 2. kernel   each kernel against its plain PyTorch version (f32 from the
             same bf16 inputs) at the main paths' shapes, the single-block
             kernel also under the "safe" softmax (H, W, the rearranged causal
@@ -30,6 +31,15 @@ script exits non-zero without the final result line):
 3. grad     gradients of sum(y**2) through the autograd Functions (block,
             canonical T block, chain) against ordinary autograd through
             the f32 plain versions; relative L2 error per tensor.
+3a. kernel_f32  the f32 instantiations (``*_f32_fwd``) against the f32 plain
+            versions (TF32 off) on f32 inputs: ``fused_block_fwd`` at H, W,
+            the active_matter geometry (L 32) and the rearranged causal T
+            block, both softmax forms; the canonical T kernel, bit for bit
+            against f32 ``fused_block_fwd`` on the rearranged tensor; the
+            chain (``THW``) and group (``THWTHWTHW``), bit for bit against the
+            f32 single-block kernels in sequence.  Relative L2, max abs error,
+            kernel / plain time (CUDA events) and the bound (3xTF32).  Then
+            ``grad`` in f32.
 4. fixed    flagship TANTE (deg=True, bf16, seeded random weights), B=8,
             16-step latent rollout through ``Predictor.rollout``; launch
             counts (exactly 96 + 48 per rollout), frames/s, and a check
@@ -39,6 +49,13 @@ script exits non-zero without the final result line):
             equals the per-block rollout (same tile body and rounding
             points).  Each profiled rollout's kernel events are compared with
             the wrappers' launch counts.
+4a. fixed_f32  ``configs/tante.yaml``'s TANTE as shipped (f32), seeded weights,
+            B=8 x 16 steps through ``Predictor.rollout``: exactly 96 + 48 f32
+            launches, frames/s, device time, busy share, host split, the first
+            calls against f32 on the CPU; with ``fused_chain=3`` (48 f32 chain
+            launches) and ``fused_group`` (16); the trained asset's adaptive
+            rollout in f32 (K 8): calls, VRMSE and L2RE against the port's f32
+            CPU run (within 1e-4 relative), frames/s.
 5. adaptive the trained asset ``tante_tpu/assets/tante_flagship.npz``
             (deg=False) through ``Predictor.rollout_adaptive`` with K=8 on
             the synthetic-waves input; n_calls, r_t, frames/s, VRMSE and
@@ -152,23 +169,21 @@ script exits non-zero without the final result line):
             ranks sharing one card through gloo: not a tp speed).
 18. cli     the paper's entry points at the flagship's width (run after
             adaptive_train): for ``configs/tante.yaml`` and
-            ``configs/tante_adaptive.yaml`` (copies with only the data node
-            replaced: the in-memory ``WaveDataModule`` at 128x384x4, B 8, or,
-            where h5py imports, the configs' own node over a
-            ``make_well_dataset`` tree with the native loader), bf16 by the
-            overrides ``trainer.enable_amp=true evaler.enable_amp=true``:
-            ``cli.train.main`` in-process for one epoch (0 block launches a
-            train step at the config's dropout 0.1, 6 + 3 a validation model
-            call), again to ``max_epoch=2`` (exactly one more epoch, resumed
-            from ``recent/``), ``cli.eval.main --choose=best`` against the
-            ``Evaler`` / ``R_Evaler`` built by hand on the same checkpoint
-            (1e-6 relative), ``Predictor.from_experiment`` with no device (on
-            the card; 96 + 48 launches a 16-step B 8 rollout, the adaptive
-            one as many calls as ``R_Evaler``; bit for bit a Predictor built
-            by hand from the same ``state.pt``); then each block kernel on
-            the inputs the path gave it against its plain version.  Before
-            that, the shipped configs as they are (f32) make the three entry
-            points refuse on the card, naming those two overrides.
+            ``configs/tante_adaptive.yaml`` as shipped (f32: no enable_amp;
+            copies with only the data node replaced: the in-memory
+            ``WaveDataModule`` at 128x384x4, B 8, or, where h5py imports, the
+            configs' own node over a ``make_well_dataset`` tree with the
+            native loader): ``cli.train.main`` in-process for one epoch (0
+            block launches a train step at the config's dropout 0.1, 6 + 3 f32
+            a validation model call), again to ``max_epoch=2`` (exactly one
+            more epoch, resumed from ``recent/``), ``cli.eval.main
+            --choose=best`` against the ``Evaler`` / ``R_Evaler`` built by
+            hand on the same checkpoint (1e-6 relative),
+            ``Predictor.from_experiment`` with no device (on the card, f32;
+            96 + 48 f32 launches a 16-step B 8 rollout, the adaptive one as
+            many calls as ``R_Evaler``; bit for bit a Predictor built by hand
+            from the same ``state.pt``); then each block kernel on the inputs
+            the path gave it against its plain version.
 19. wellpack  a WellPack cache of 128x384x4 waves written by the port's cache
             writer, ``native/wellpack.cpp`` built with g++ into
             ``build/native/``, the native loader's batches (B 8, 4 in, 4 out,
@@ -176,10 +191,11 @@ script exits non-zero without the final result line):
             card over two epochs (max abs 0), then each loader timed in turns
             over 3 windows of whole epochs of at least 3 s: batches/s and the
             GB/s that reached the card, median and spread, and their ratio.
-20. kernels one {"kernels": [...]} line (eight kernels; the block, canonical
-            T, chain and tp half rows with the first design's time, in turns;
-            the two block rows also with their launches per R_Trainer step
-            and on the CLI path).
+20. kernels one {"kernels": [...]} line (eight kernels, then the three f32
+            entries; the bf16 block, canonical T, chain and tp half rows with
+            the first design's time, in turns; the two bf16 block rows also
+            with their launches per R_Trainer step, the two f32 block rows
+            with theirs on the CLI path).
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 result line {"ok": true, "device": {...}}.  Exits non-zero when no CUDA
@@ -203,7 +219,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tante_tpu_torch.config import AMP_OVERRIDES
 from tante_tpu_torch.convert import load_jax_params, seeded_jax_params
 from tante_tpu_torch.data.datamodule import WaveDataModule
 from tante_tpu_torch.data.metadata import TanteMetadata
@@ -245,6 +260,7 @@ SPECTRAL_SOURCE = "tante_tpu_torch/ops/csrc/spectral_matmul.cu"
 PACKED_SOURCE = "tante_tpu_torch/ops/csrc/packed_attention.cu"
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (data sheet, 700 W)
 PEAK_F32_FLOPS = 67e12    # f32 outside the tensor cores (the spectral kernel's FMAs)
+PEAK_TF32_FLOPS = 495e12  # dense TF32 (the f32 blocks' bound: 3 TF32 products a product)
 PEAK_HBM_BYTES = 3.35e12
 BATCH, IN_T, RES, FIELDS, N_STEPS, K = 8, 4, (128, 384), 4, 16, 8
 C, HEADS = 256, 8
@@ -305,12 +321,25 @@ FNO_BATCH = 4
 FNO_KW = dict(in_T=IN_T, modes1=20, modes2=20, hidden_channels=48, n_layers=4)
 FNO_MODES = 32  # TANTE's FNO encoder/decoder: modes1 = modes2 (configs/tante.yaml)
 
+# The f32 block kernels against their f32 plain versions (TF32 off): FFMA
+# products in another summation order, nothing rounded to bf16: relative L2
+# error and max abs error as a share of max |plain|.
+F32_REL_L2_TOL, F32_MAX_ABS_SHARE = 1e-5, 1e-4
+# Gradients through the Functions in f32: the backward is the plain
+# version's, fed the kernel's output; they differ by its rounding only.
+F32_GRAD_REL_TOL = 1e-4
+# f32 on the card against f32 on the CPU: a rollout's predicted change
+# (relative L2), and the adaptive lane's VRMSE / L2RE (relative).
+F32_ROLLOUT_REL_TOL = 1e-4
+AM_L = 32  # configs/tante.yaml's active_matter: 256 x 256 at patch 8, 32 x 32 tokens
+
 FAILURES: list[str] = []
 NOTES: list[str] = []
+T0 = time.perf_counter()  # the script's start: each phase line says when it ended
 
 
 def emit(obj: dict):
-    print(json.dumps(obj), flush=True)
+    print(json.dumps({**obj, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(cond: bool, what: str):
@@ -354,12 +383,23 @@ def set_fusion(model: TANTE, fused_chain: int = 0, fused_group: bool = False):
             m.fused_chain, m.fused_group = fused_chain, fused_group
 
 
-def launch_counts() -> dict:
-    """Launches of the block kernels' wrappers since the last reset."""
-    return {"fused_block_fwd": fb.fused_block_apply.launches,
-            "fused_block_canon_t_fwd": fb.fused_block_canon_t.launches,
-            "fused_chain_apply": fb.fused_chain_apply.launches,
-            "fused_group_apply": fb.fused_group_apply.launches}
+BLOCK_WRAPPERS = {"fused_block_fwd": fb.fused_block_apply,
+                  "fused_block_canon_t_fwd": fb.fused_block_canon_t,
+                  "fused_chain_apply": fb.fused_chain_apply,
+                  "fused_group_apply": fb.fused_group_apply}
+
+
+def launch_counts(dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Launches of the block kernels' wrappers since the last reset, in
+    ``dtype`` (each wrapper counts its launches by activation dtype)."""
+    return {name: fn.launches[dtype] for name, fn in BLOCK_WRAPPERS.items()}
+
+
+def other_launches(dtype: torch.dtype) -> int:
+    """The block wrappers' launches since the last reset in any dtype but
+    ``dtype``."""
+    return sum(n for fn in BLOCK_WRAPPERS.values() for dt, n in fn.launches.items()
+               if dt != dtype)
 
 
 def reset_counts():
@@ -412,10 +452,11 @@ def phase_build() -> dict:
     for kernel in info:
         _build.load(kernel)
     plans = {f"L={l}": {"block_sm90 (block, canonical T, chain)": fb.sm90_plan(l, C, C)._asdict(),
+                        "block_sm90 f32": f32_plan(l),
                         "half_sm90 attention half, tp 2":
                             fb.half_plan("attn", l, C, C // 2)._asdict(),
                         "fused_block (first design)": _build.plan(l, C, C)}
-             for l in (4, 16, 48)}
+             for l in (4, 16, AM_L, 48)}
     plans["half_sm90 MLP half, tp 2"] = fb.half_plan("mlp", 1, C, C // 2)._asdict()
     emit({"phase": "build", "seconds": seconds, "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"], "ptxas": v["ptxas"]}
@@ -425,13 +466,19 @@ def phase_build() -> dict:
     return info
 
 
-def block_params(seed: int, device) -> fb.BlockParams:
+def f32_plan(l: int) -> dict:
+    plan = fb.sm90_plan(l, C, C, torch.float32)
+    return {**plan._asdict(), "smem_bytes": fb.sm90_smem(plan.rows, C, C, plan.np, plan.stages,
+                                                         torch.float32)}
+
+
+def block_params(seed: int, device, dtype=torch.bfloat16) -> fb.BlockParams:
     rng = np.random.default_rng(seed)
 
     def u(*shape, fan_in=None, scale=1.0, offset=0.0):
         bound = 1.0 / math.sqrt(fan_in or shape[0])
         a = offset + scale * rng.uniform(-bound, bound, size=shape)
-        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+        return torch.from_numpy(a.astype(np.float32)).to(device, dtype)
 
     return fb.BlockParams(
         ln1_scale=u(C, scale=0.1, offset=1.0), ln1_bias=u(C, scale=0.1),
@@ -454,6 +501,29 @@ def bound(rows: int, blocks: list) -> tuple[float, str, float, float]:
         nbytes += sum(t.numel() * t.element_size() for t in p)
     t_ops, t_mem = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes"), flops, nbytes
+
+
+def bound_f32(rows: int, blocks: list) -> tuple[float, str, float, float]:
+    """``bound`` for f32 blocks: f32-accurate products take at least three
+    TF32 tensor-core products each (3xTF32) at the TF32 rate; bytes: f32 x
+    in and y out, every f32 weight once."""
+    _, _, flops, nbytes = bound(rows, blocks)
+    nbytes += 2 * rows * C * 2  # the activations' second two bytes
+    t_ops, t_mem = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes"), flops, nbytes
+
+
+def f32_agree(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, dict]:
+    """An f32 kernel's output against its plain version: finite, relative L2
+    <= F32_REL_L2_TOL and max abs <= F32_MAX_ABS_SHARE * max |plain|."""
+    err = float((got - want).abs().max())
+    peak = float(want.abs().max())
+    rel = rel_l2(got, want)
+    ok = (bool(torch.isfinite(got).all()) and rel <= F32_REL_L2_TOL
+          and err <= F32_MAX_ABS_SHARE * peak)
+    return ok, {"rel_l2": rel, "max_abs_err": err, "max_abs_plain": peak,
+                "tolerance": f"rel L2 <= {F32_REL_L2_TOL}, max abs <= {F32_MAX_ABS_SHARE} * "
+                             "max |plain|"}
 
 
 # (wrapper, label, shape, causal, softmax).  "T rearranged": the causal T
@@ -630,10 +700,12 @@ def phase_chain_kernels(dev) -> dict[str, dict]:
     return results
 
 
-def phase_grad(dev) -> dict:
+def phase_grad(dev, dtype=torch.bfloat16) -> dict:
     """Gradients of sum(y**2) w.r.t. x and all 16 parameters per block
-    through each autograd Function (bf16, kernel forward, plain recompute
-    backward) against ordinary autograd through the f32 plain version."""
+    through each autograd Function (bf16 or f32, kernel forward, plain
+    recompute backward) against ordinary autograd through the f32 plain
+    version."""
+    f32 = dtype == torch.float32
     shape5 = (BATCH, IN_T, 16, 48, C)
     dims = shape5[1:4]
     cases = [
@@ -655,14 +727,15 @@ def phase_grad(dev) -> dict:
         return [x.grad] + [t.grad for p in ps for t in p]
 
     out = {}
+    tol = F32_GRAD_REL_TOL if f32 else GRAD_REL_TOL
     for i, (name, shape, axes, kernel, plain) in enumerate(cases):
-        ps = [block_params(300 + 10 * i + k, dev) for k in range(len(axes))]
+        ps = [block_params(300 + 10 * i + k, dev, dtype) for k in range(len(axes))]
         x = torch.from_numpy(np.random.default_rng(30 + i).normal(size=shape).astype(np.float32))
-        x = x.to(dev, torch.bfloat16)
+        x = x.to(dev, dtype)
         reset_counts()
         got = grads(kernel, x, ps)
         torch.cuda.synchronize()
-        forward_launches = sum(launch_counts().values())
+        forward_launches = sum(launch_counts(dtype).values())
         want = grads(plain, x.float(), [f32_params(p) for p in ps])
         names = ["x"] + [f"{f}[{k}]" for k in range(len(ps)) for f in fb.BlockParams._fields]
         ref = dict(zip(names, want))
@@ -672,22 +745,137 @@ def phase_grad(dev) -> dict:
                          / torch.linalg.norm(ref[n.replace("bk[", "bq[")]))
                 for n, g, w in zip(names, got, want)}
         worst = max(errs, key=errs.get)
-        ok = forward_launches == 1 and errs[worst] <= GRAD_REL_TOL
-        check(ok, f"grad {name}: worst {worst} rel L2 {errs[worst]}, "
+        ok = forward_launches == 1 and errs[worst] <= tol
+        check(ok, f"grad {name} {dtype}: worst {worst} rel L2 {errs[worst]}, "
                   f"{forward_launches} launches in forward + backward")
         out[name] = {"shape": list(shape), "axes": axes, "worst_tensor": worst,
                      "worst_rel_l2": errs[worst], "x_rel_l2": errs["x"],
                      "launches_forward_and_backward": forward_launches, "ok": ok}
-    res = {"phase": "grad", "loss": "sum(y**2)", "dtype": "bf16 vs f32 plain autograd",
-           "rel_l2_tolerance": GRAD_REL_TOL, "kernels": out}
+    res = {"phase": "grad_f32" if f32 else "grad", "loss": "sum(y**2)",
+           "dtype": f"{'f32' if f32 else 'bf16'} vs f32 plain autograd",
+           "rel_l2_tolerance": tol, "kernels": out}
     emit(res)
     return res
 
 
-def trace(fn, top: int = 8) -> dict:
+# The f32 kernels at the slice's shapes: the H and W blocks and the
+# active_matter geometry (configs/tante.yaml, L 32), the rearranged causal T
+# block, in both softmax forms; the canonical T kernel.
+F32_KERNEL_CASES = [
+    ("fused_block_fwd", "H", (1536, 16, C), False, "fast"),
+    ("fused_block_fwd", "W", (512, 48, C), False, "fast"),
+    ("fused_block_fwd", "active_matter", (BATCH * IN_T * AM_L, AM_L, C), False, "fast"),
+    ("fused_block_fwd", "T rearranged", (BATCH * 16 * 48, IN_T, C), True, "fast"),
+    ("fused_block_fwd", "H safe", (1536, 16, C), False, "safe"),
+    ("fused_block_fwd", "W safe", (512, 48, C), False, "safe"),
+    ("fused_block_fwd", "active_matter safe", (BATCH * IN_T * AM_L, AM_L, C), False, "safe"),
+    ("fused_block_fwd", "T rearranged safe", (BATCH * 16 * 48, IN_T, C), True, "safe"),
+    ("fused_block_canon_t_fwd", "T", (BATCH, IN_T, 16, 48, C), True, "fast"),
+]
+F32_ENTRIES = {"fused_block_fwd": "tante_fused_block_sm90_f32_fwd",
+               "fused_block_canon_t_fwd": "tante_fused_block_canon_t_sm90_f32_fwd",
+               "fused_chain_fwd": "tante_fused_chain_sm90_f32_fwd"}
+
+
+def phase_kernels_f32(dev) -> dict[str, list[dict]]:
+    """Each f32 block kernel against its f32 plain version on the same f32
+    inputs (TF32 off): relative L2 and max abs error, kernel and plain time
+    (CUDA events), the bound; the canonical T kernel also bit for bit
+    against ``fused_block_fwd`` in f32 on the rearranged tensor."""
+    results: dict[str, list[dict]] = {}
+    for i, (name, label, shape, causal, softmax) in enumerate(F32_KERNEL_CASES):
+        p = block_params(400 + i, dev, torch.float32)
+        x = torch.from_numpy(np.random.default_rng(40 + i).normal(size=shape).astype(np.float32))
+        x = x.to(dev)
+        fb.set_block_tuning(softmax=softmax)
+        l = shape[1]
+        if name == "fused_block_fwd":
+            run = lambda: fb.fused_block_apply(x, p, l, HEADS, causal)  # noqa: E731
+            plain = lambda: fb.block_ref(x, p, l, HEADS, causal)  # noqa: E731
+        else:
+            run = lambda: fb.fused_block_canon_t(x, p, HEADS)  # noqa: E731
+            plain = lambda: fb.canon_t_ref(x, p, HEADS)  # noqa: E731
+        reset_counts()
+        got = run()
+        torch.cuda.synchronize()
+        launched = (launch_counts(torch.float32)[name] == 1
+                    and not other_launches(torch.float32))
+        check(launched, f"f32 {name} {label}: not one launch of its f32 kernel")
+        ok, agree = f32_agree(got, plain())
+        check(ok, f"f32 kernel {name} {label} disagrees with its plain version: {agree}")
+        b_ms, b_by, flops, nbytes = bound_f32(x.numel() // C, [(l, causal, p)])
+        res = {"phase": "kernel_f32", "name": name, "entry": F32_ENTRIES[name], "case": label,
+               "shape": list(shape), "causal": causal, "softmax": softmax, **agree,
+               "ok": ok and launched, "bound_us": 1e3 * b_ms, "bound_by": b_by,
+               "ffma_bound_us": 1e6 * flops / PEAK_F32_FLOPS, "flops": flops, "bytes": nbytes}
+        if name == "fused_block_canon_t_fwd":
+            bit_equal = bool(torch.equal(got, rearranged_t(x, p)))
+            check(bit_equal, "f32 fused_block_canon_t_fwd differs from f32 fused_block_fwd on "
+                             "the rearranged tensor")
+            res["ok"] = res["ok"] and bit_equal
+            res["equals_rearranged_fused_block_fwd_bit_for_bit"] = bit_equal
+        res["kernel_ms"] = cuda_ms(run, iters=20)
+        res["plain_ms"] = cuda_ms(plain, iters=5, warmup=1)
+        res["achieved_tflops"] = flops / res["kernel_ms"] / 1e9
+        emit(res)
+        results.setdefault(name, []).append(res)
+    fb.set_block_tuning(softmax="fast")
+    return results
+
+
+def phase_chain_kernels_f32(dev) -> dict[str, dict]:
+    """The f32 chain kernel through both wrappers at the flagship geometry:
+    against the f32 plain chain, and bit for bit against the f32
+    single-block kernels in sequence."""
+    shape = (BATCH, IN_T, 16, 48, C)
+    dims, sizes = shape[1:4], dict(zip("THW", shape[1:4]))
+    x5 = torch.from_numpy(np.random.default_rng(21).normal(size=shape).astype(np.float32)).to(dev)
+    x3 = to_t_order(x5)
+    results = {}
+    for name, axes in (("fused_chain_apply", "THW"), ("fused_group_apply", "THWTHWTHW")):
+        ps = [block_params(500 + i, dev, torch.float32) for i in range(len(axes))]
+        if name == "fused_chain_apply":
+            run = lambda: fb.fused_chain_apply(x3, ps, axes, HEADS, dims)  # noqa: E731
+            as5 = lambda y: y.reshape(shape)  # noqa: E731
+            plain = lambda: fb.chain_ref(x3, ps, axes, HEADS, dims)  # noqa: E731
+        else:
+            run = lambda: fb.fused_group_apply(x5, ps, axes, HEADS)  # noqa: E731
+            as5 = lambda y: y  # noqa: E731
+            plain = lambda: fb.group_ref(x5, ps, axes, HEADS)  # noqa: E731
+        reset_counts()
+        got = as5(run())
+        torch.cuda.synchronize()
+        launched = (launch_counts(torch.float32)[name] == 1
+                    and not other_launches(torch.float32))
+        ok, agree = f32_agree(got, as5(plain()))
+        bit_equal = bool(torch.equal(got, sequential(x5, ps, axes)))
+        check(launched, f"f32 {name} {axes}: not one launch of its f32 kernel")
+        check(ok, f"f32 {name} {axes} disagrees with its plain version: {agree}")
+        check(bit_equal, f"f32 {name} {axes} differs from the f32 single-block kernels in "
+                         "sequence")
+        b_ms, b_by, flops, nbytes = bound_f32(
+            x5.numel() // C, [(sizes[a], a == "T", p) for a, p in zip(axes, ps)])
+        k_ms = cuda_ms(run, iters=10)
+        res = {"phase": "kernel_f32", "name": "fused_chain_fwd", "entry": F32_ENTRIES[
+                   "fused_chain_fwd"], "wrapper": name, "case": axes, "shape": list(shape),
+               **agree, "ok": ok and bit_equal and launched,
+               "equals_single_block_kernels_in_sequence_bit_for_bit": bit_equal,
+               "kernel_ms": k_ms,
+               "single_block_kernels_in_sequence_ms": cuda_ms(
+                   lambda: sequential(x5, ps, axes), iters=10),
+               "plain_ms": cuda_ms(plain, iters=3, warmup=1), "bound_us": 1e3 * b_ms,
+               "bound_by": b_by, "ffma_bound_us": 1e6 * flops / PEAK_F32_FLOPS, "flops": flops,
+               "bytes": nbytes, "achieved_tflops": flops / k_ms / 1e9}
+        emit(res)
+        results[name] = res
+    return results
+
+
+def trace(fn, top: int = 8, f32: bool = False) -> dict:
     """One call of ``fn`` under ``torch.profiler``: host wall time, device
     kernel time and busy share, kernel launches, and the kernels that take
-    the most device time."""
+    the most device time (``f32``: the block-kernel events of the f32
+    kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -706,35 +894,40 @@ def trace(fn, top: int = 8) -> dict:
         "kernel_launches": sum(e.count for e in kernels),
         "top_kernels": [{"name": e.key[:90], "count": e.count,
                          "ms": e.self_device_time_total / 1e3} for e in kernels[:top]],
-        "block_kernel_events": block_kernel_events(kernels),
+        "block_kernel_events": block_kernel_events(kernels, f32),
     }
 
 
 # The block kernels' symbols, demangled or not: the single-block kernel's
 # last template flag says whether it ran under the canonical T row map.
-_BLOCK_KERNEL = re.compile(r"fused_block_sm90_kernel(?:<\d+, \w+, (\w+)>|ILi\d+ELb[01]ELb([01])E)")
+_BLOCK_KERNEL = {f32: re.compile(rf"fused_block_sm90{'_f32' if f32 else ''}_kernel"
+                                 r"(?:<\d+, \w+, (\w+)>|ILi\d+ELb[01]ELb([01])E)")
+                 for f32 in (False, True)}
 
 
-def block_kernel_events(kernels) -> dict:
-    """Kernel events of the Hopper block kernels in a profile, by wrapper."""
+def block_kernel_events(kernels, f32: bool = False) -> dict:
+    """Kernel events of the Hopper block kernels (bf16, or ``f32``) in a
+    profile, by wrapper."""
     out = {"fused_block_fwd": 0, "fused_block_canon_t_fwd": 0, "fused_chain_fwd": 0}
+    chain = "fused_chain_sm90_f32_kernel" if f32 else "fused_chain_sm90_kernel"
     for e in kernels:
-        m = _BLOCK_KERNEL.search(e.key)
+        m = _BLOCK_KERNEL[f32].search(e.key)
         if m:
             strided = (m.group(1) or m.group(2)) in ("true", "1")
             out["fused_block_canon_t_fwd" if strided else "fused_block_fwd"] += e.count
-        elif "fused_chain_sm90_kernel" in e.key:
+        elif chain in e.key:
             out["fused_chain_fwd"] += e.count
     return out
 
 
-def traced(fn, label: str, top: int = 8) -> dict:
-    """``trace`` of one call, with its block-kernel events held against the
-    wrappers' launch counts over the same call; a difference is reported
-    (the profiler has dropped events before), not failed."""
+def traced(fn, label: str, top: int = 8, f32: bool = False) -> dict:
+    """``trace`` of one call, with its block-kernel events (bf16, or
+    ``f32``) held against the wrappers' launch counts over the same call; a
+    difference is reported (the profiler has dropped events before), not
+    failed."""
     reset_counts()
-    prof = trace(fn, top)
-    c = launch_counts()
+    prof = trace(fn, top, f32)
+    c = launch_counts(torch.float32 if f32 else torch.bfloat16)
     counted = {"fused_block_fwd": c["fused_block_fwd"],
                "fused_block_canon_t_fwd": c["fused_block_canon_t_fwd"],
                "fused_chain_fwd": c["fused_chain_apply"] + c["fused_group_apply"]}
@@ -869,9 +1062,8 @@ def phase_fixed(dev) -> dict:
            "launches_per_rollout": launches, **lane_speed(tm),
            "change_vs_cpu_f32_rel_l2": err, "rel_l2_tolerance": ROLLOUT_REL_TOL, "trace": prof}
     emit(res)
-    res["cpu_f32_rollout"] = cpu_f32_rollout
+    res["cpu_f32_rollout"] = cpu_f32_rollout  # for the chain and f32 lanes; not emitted
     res["chain"] = phase_chain_serving(pred, x, y, res)
-    del res["cpu_f32_rollout"]
     return res
 
 
@@ -959,6 +1151,97 @@ def phase_adaptive(dev) -> dict:
            "heldout_cpu_f32": {"n_calls": calls_r, "rt_log": [float(r) for r in rt_r],
                                "vrmse": v_ref, "l2re": l_ref},
            "tpu_v5e_history_not_a_port_figure": {"n_calls": 3, "vrmse": 1.0722, "l2re": 1.1336}}
+    emit(res)
+    return res
+
+
+def phase_fixed_f32(dev, fixed: dict, adaptive: dict) -> dict:
+    """``configs/tante.yaml``'s TANTE in f32, as the config ships (no
+    enable_amp), seeded weights: ``Predictor.rollout`` B 8 x 16 steps
+    through the f32 kernels (exactly 96 + 48 f32 launches, no bf16 launch),
+    frames/s, device time, busy share and host split, the first calls
+    against f32 on the CPU (``phase_fixed``'s reference, same weights and
+    input); the same rollout with ``fused_chain=3`` (48 f32 chain launches)
+    and with ``fused_group`` (16 f32 group launches), each compared with the
+    per-block rollout; then the trained asset's adaptive rollout in f32
+    (K 8) on the held-out trajectory against the port's f32 CPU run
+    (``phase_adaptive``'s): calls, VRMSE, L2RE."""
+    model = flagship(True, torch.float32, dev)
+    pred = Predictor.from_numpy(model, seeded_jax_params(model, seed=0))
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(BATCH, IN_T, *RES, FIELDS)).astype(np.float32)).to(dev)
+    roll = lambda: pred.rollout(x, N_STEPS)  # noqa: E731
+    for _ in range(2):
+        roll()
+    torch.cuda.synchronize()
+    reset_counts()
+    y = roll()
+    torch.cuda.synchronize()
+    launches, other = launch_counts(torch.float32), other_launches(torch.float32)
+    check(launches == {"fused_block_fwd": 96, "fused_block_canon_t_fwd": 48,
+                       "fused_chain_apply": 0, "fused_group_apply": 0} and not other,
+          f"fixed_f32 lane launches {launches} ({other} in other dtypes), want 96 + 48 f32")
+    finite = bool(torch.isfinite(y).all()) and y.dtype == torch.float32
+    check(finite and tuple(y.shape) == (BATCH, N_STEPS, *RES, FIELDS),
+          "fixed_f32 lane output shape / finiteness")
+    tm = timed_rollouts(roll)
+    prof = traced(roll, "fixed_f32", f32=True)
+    prof.update(host_split(roll))
+    u = x[:1, -1:].cpu()
+    err = rel_l2(pred.rollout(x[:1], 2).cpu() - u, fixed["cpu_f32_rollout"] - u)
+    check(err <= F32_ROLLOUT_REL_TOL, f"fixed_f32 lane vs CPU f32: rel L2 {err}")
+
+    fusion = {}
+    for label, kw, want in (("fused_chain=3", dict(fused_chain=3), "fused_chain_apply"),
+                            ("fused_group", dict(fused_group=True), "fused_group_apply")):
+        set_fusion(pred.model, **kw)
+        reset_counts()
+        yf = roll()
+        torch.cuda.synchronize()
+        got = launch_counts(torch.float32)
+        n = 3 * N_STEPS if want == "fused_chain_apply" else N_STEPS
+        check(got == {**{k: 0 for k in got}, want: n} and not other_launches(torch.float32),
+              f"fixed_f32 lane with {label}: launches {got}, want {n} {want}")
+        fusion[label] = {"launches_per_rollout": got,
+                         "vs_per_block_rollout_rel_l2": rel_l2(yf, y),
+                         "equals_per_block_rollout_bit_for_bit": bool(torch.equal(yf, y)),
+                         **lane_speed(timed_rollouts(roll, n=2, windows=1))}
+    set_fusion(pred.model)
+
+    # The trained asset in f32 on the held-out trajectory (phase_adaptive's
+    # f32 CPU run is the reference), then timed on the lane's input.
+    pa = Predictor.from_numpy(flagship(False, torch.float32, dev), dict(np.load(ASSET)))
+    traj = wave_input(n_frames=IN_T + N_STEPS, seed=123)
+    hist, target = torch.from_numpy(traj[:, :IN_T]), torch.from_numpy(traj[:, IN_T:])
+    reset_counts()
+    ya, rt_a, calls_a = pa.rollout_adaptive(hist, N_STEPS, max_frames_per_call=K)
+    torch.cuda.synchronize()
+    a_launches = launch_counts(torch.float32)
+    ya = ya.float().cpu()
+    v, l2 = vrmse(ya, target), l2re(ya, target)
+    ref = adaptive["heldout_cpu_f32"]
+    check(calls_a == ref["n_calls"], f"f32 adaptive n_calls {calls_a}, {ref['n_calls']} on the CPU")
+    check(a_launches == {"fused_block_fwd": 6 * calls_a, "fused_block_canon_t_fwd": 3 * calls_a,
+                         "fused_chain_apply": 0, "fused_group_apply": 0},
+          f"f32 adaptive launches {a_launches} for {calls_a} calls")
+    check(abs(v - ref["vrmse"]) <= F32_ROLLOUT_REL_TOL * ref["vrmse"]
+          and abs(l2 - ref["l2re"]) <= F32_ROLLOUT_REL_TOL * ref["l2re"],
+          f"f32 adaptive VRMSE / L2RE {v} / {l2} vs {ref['vrmse']} / {ref['l2re']} on the CPU")
+    xa = torch.from_numpy(wave_input()).to(dev)
+    a_roll = lambda: pa.rollout_adaptive(xa, N_STEPS, max_frames_per_call=K)  # noqa: E731
+    a_roll()
+    a_tm = timed_rollouts(a_roll)
+    res = {"phase": "fixed_f32", "config": "configs/tante.yaml as shipped (f32, no enable_amp)",
+           "batch": BATCH, "n_steps": N_STEPS, "dtype": "f32", "weights": "seeded (numpy seed 0)",
+           "output_shape": list(y.shape), "finite": finite, "launches_per_rollout": launches,
+           "other_dtype_launches_per_rollout": other, **lane_speed(tm),
+           "change_vs_cpu_f32_rel_l2": err, "rel_l2_tolerance": F32_ROLLOUT_REL_TOL,
+           "trace": prof, "fusion": fusion,
+           "adaptive": {"weights": "trained (tante_tpu/assets/tante_flagship.npz)", "K": K,
+                        "launches_per_rollout": a_launches, "n_calls": calls_a,
+                        "rt_log": [float(r) for r in rt_a], "vrmse": v, "l2re": l2,
+                        "cpu_f32": {k: ref[k] for k in ("n_calls", "vrmse", "l2re")},
+                        "rel_tolerance": F32_ROLLOUT_REL_TOL, **lane_speed(a_tm)}}
     emit(res)
     return res
 
@@ -1139,8 +1422,9 @@ def counted_calls(model: torch.nn.Module):
 @contextlib.contextmanager
 def captured_block_inputs(store: dict):
     """The block wrappers, where the models call them, wrapped to keep a copy
-    of the first card input of each shape (x, the bf16 weights, the softmax
-    in force); each call goes on to the wrapper, which counts its launch."""
+    of the first card input of each shape and dtype (x, the weights, the
+    softmax in force); each call goes on to the wrapper, which counts its
+    launch."""
     apply, canon = model_common.fused_block_apply, model_backbone.fused_block_canon_t
 
     def keep(key, x, p, *args):
@@ -1149,11 +1433,11 @@ def captured_block_inputs(store: dict):
                           args, fb._TUNE["softmax"])
 
     def apply_kept(x, p, l, heads, causal):
-        keep(("fused_block_fwd", tuple(x.shape), causal), x, p, l, heads, causal)
+        keep(("fused_block_fwd", tuple(x.shape), causal, x.dtype), x, p, l, heads, causal)
         return apply(x, p, l, heads, causal)
 
     def canon_kept(x, p, heads):
-        keep(("fused_block_canon_t_fwd", tuple(x.shape), True), x, p, heads)
+        keep(("fused_block_canon_t_fwd", tuple(x.shape), True, x.dtype), x, p, heads)
         return canon(x, p, heads)
 
     model_common.fused_block_apply, model_backbone.fused_block_canon_t = apply_kept, canon_kept
@@ -1164,10 +1448,12 @@ def captured_block_inputs(store: dict):
 
 
 def kernels_at_path_shapes(store: dict, path: str) -> list[dict]:
-    """Each block kernel on the inputs the path gave it (one per shape),
-    against its plain version at the kernel phase's tolerance."""
+    """Each block kernel on the inputs the path gave it (one per shape and
+    dtype), against its plain version at the kernel phase's tolerance (bf16)
+    or the f32 phase's (f32)."""
     out = []
-    for (name, shape, causal), (x, p, args, softmax) in sorted(store.items()):
+    for (name, shape, causal, dtype), (x, p, args, softmax) in sorted(
+            store.items(), key=lambda kv: str(kv[0])):
         pf = fb.BlockParams(*(t.float() for t in p))
         fb.set_block_tuning(softmax=softmax)
         if name == "fused_block_fwd":
@@ -1175,12 +1461,16 @@ def kernels_at_path_shapes(store: dict, path: str) -> list[dict]:
         else:
             got, want = fb.fused_block_canon_t(x, p, *args), fb.canon_t_ref(x.float(), pf, *args)
         err = (got.float() - want).abs()
-        ok = bool(torch.isfinite(got).all()) and bool((err <= ATOL + RTOL * want.abs()).all())
-        check(ok, f"kernel {name} at the {path} path's shape {shape} disagrees with its "
-                  f"plain version")
-        out.append({"name": name, "shape": list(shape), "causal": causal, "softmax": softmax,
-                    "max_abs_err": float(err.max()), "max_abs_plain": float(want.abs().max()),
-                    "ok": ok})
+        if dtype == torch.float32:
+            ok, extra = f32_agree(got, want)
+        else:
+            ok = bool(torch.isfinite(got).all()) and bool((err <= ATOL + RTOL * want.abs()).all())
+            extra = {}
+        check(ok, f"kernel {name} at the {path} path's shape {shape} ({dtype}) disagrees with "
+                  f"its plain version")
+        out.append({"name": name, "shape": list(shape), "causal": causal, "dtype": str(dtype),
+                    "softmax": softmax, "max_abs_err": float(err.max()),
+                    "max_abs_plain": float(want.abs().max()), **extra, "ok": ok})
     fb.set_block_tuning(softmax="fast")
     return out
 
@@ -1490,11 +1780,11 @@ CLI_CONFIGS = ("tante", "tante_adaptive")
 # 4 out (2 x 9 windows of 16 frames); validation 1 batch (2 x 5 windows of 12
 # frames), test 2 batches at the eval CLI's 4-step window.
 CLI_WAVES = dict(resolution=list(RES), n_trajectories=2, n_steps=16, with_pressure=True, seed=0)
-# The shipped configs set no enable_amp: f32 blocks, which the block kernels
-# refuse (they take bf16 only), and so do the entry points on the card
-# (config.check_block_dtype; cli_refusals checks it).  The run switches bf16
-# on as a user would, with the overrides the refusal names.
-CLI_AMP = AMP_OVERRIDES.split()
+# The shipped configs set no enable_amp: TANTE runs in f32, its blocks on
+# the f32 kernels.  A user's choice of bf16 (the Trainer's and the Evaler's
+# compute dtype) is these two overrides; the phase runs it once, for
+# configs/tante.yaml.
+CLI_AMP = ["trainer.enable_amp=true", "evaler.enable_amp=true"]
 CLI_REL_TOL = 1e-6  # eval CLI against the Evaler by hand: the same computation
 
 
@@ -1540,10 +1830,10 @@ def cli_config_dir(workdir: Path, h5: bool) -> tuple[str, list, str]:
 
 
 @contextlib.contextmanager
-def cli_counts(log: list):
+def cli_counts(log: list, dtype: torch.dtype):
     """Each epoch and validation loop of a Trainer / R_Trainer as it runs:
-    its kind, epoch, seconds (synchronised), block launches and TANTE model
-    calls (a global forward hook)."""
+    its kind, epoch, seconds (synchronised), block launches in ``dtype`` and
+    in any other, and TANTE model calls (a global forward hook)."""
     calls = [0]
     hook = torch.nn.modules.module.register_module_forward_hook(
         lambda m, *_: calls.__setitem__(0, calls[0] + isinstance(m, TANTE)))
@@ -1562,7 +1852,8 @@ def cli_counts(log: list):
             torch.cuda.synchronize()
             log.append({"kind": kind, "epoch": epoch, "seconds": time.perf_counter() - t0,
                         "batches": len(loader), "model_calls": calls[0] - n0,
-                        "launches": launch_counts()})
+                        "launches": launch_counts(dtype),
+                        "other_dtype_launches": other_launches(dtype)})
             return out
 
         saved.append((cls, name, fn))
@@ -1584,38 +1875,54 @@ def want_launches(calls: int) -> dict:
             "fused_chain_apply": 0, "fused_group_apply": 0}
 
 
-def cli_run(name: str, dev, workdir: Path, cdir: str, data_ov: list) -> dict:
+def launched(dtype: torch.dtype, calls: int) -> bool:
+    """Since the last reset: ``calls`` TANTE model calls' block launches,
+    all in ``dtype``."""
+    return launch_counts(dtype) == want_launches(calls) and not other_launches(dtype)
+
+
+def cli_run(name: str, dev, workdir: Path, cdir: str, data_ov: list,
+            dtype: torch.dtype = torch.float32) -> dict:
     """train 1 epoch -> train to 2 (resume) -> eval --choose=best against the
     Evaler by hand -> from_experiment on the card against a Predictor built
-    by hand from the same state.pt."""
+    by hand from the same state.pt.  ``dtype`` bf16: the config with the
+    ``CLI_AMP`` overrides, one epoch and no resume."""
     from tante_tpu_torch.cli import eval as cli_eval
     from tante_tpu_torch.cli import train as cli_train
     from tante_tpu_torch.config import instantiate, load_config
     from tante_tpu_torch.utils.checkpoint import STATE_FILE
 
-    experiment = f"CLI_{name}"
-    ov = [f"root_path={workdir / 'cli_runs'}", f"experiment={experiment}", *CLI_AMP, *data_ov]
+    bf16 = dtype == torch.bfloat16
+    tag = f"{name} ({dtype})"
+    experiment = f"CLI_{name}" + ("_bf16" if bf16 else "")
+    ov = [f"root_path={workdir / 'cli_runs'}", f"experiment={experiment}",
+          *(CLI_AMP if bf16 else []), *data_ov]
     folder = workdir / "cli_runs" / "experiments" / experiment
     args = [f"--config-name={name}", f"--config-dir={cdir}"]
-    res: dict = {"config": f"configs/{name}.yaml, data node replaced", "overrides": ov}
+    res: dict = {"config": f"configs/{name}.yaml, data node replaced", "overrides": ov,
+                 "dtype": str(dtype)}
 
     # 1-2: one epoch, then a rerun to max_epoch 2 resumes from recent/.
-    for epochs in (1, 2):
+    for epochs in (1,) if bf16 else (1, 2):
         log: list = []
-        with cli_counts(log):
+        with cli_counts(log, dtype):
             t0 = time.perf_counter()
             trainer = cli_train.main([*args, f"trainer.max_epoch={epochs}", *ov])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         train = [r for r in log if r["kind"] == "train"]
         val = [r for r in log if r["kind"] == "validation"]
-        check(trainer.device.type == "cuda", f"{name}: the train CLI ran on {trainer.device}")
+        check(trainer.device.type == "cuda", f"{tag}: the train CLI ran on {trainer.device}")
         check([r["epoch"] for r in train] == [epochs],
-              f"{name}: max_epoch={epochs} trained epochs {[r['epoch'] for r in train]}")
-        check(all(r["launches"] == want_launches(0) for r in train),
-              f"{name}: train steps launched block kernels at dropout 0.1: {train}")
-        check(all(r["launches"] == want_launches(r["model_calls"]) and r["model_calls"] > 0
-                  for r in val), f"{name}: validation launches {val}, want 6 + 3 a model call")
+              f"{tag}: max_epoch={epochs} trained epochs {[r['epoch'] for r in train]}")
+        check(all(r["launches"] == want_launches(0) and not r["other_dtype_launches"]
+                  for r in train),
+              f"{tag}: train steps launched block kernels at dropout 0.1: {train}")
+        check(all(r["launches"] == want_launches(r["model_calls"])
+                  and not r["other_dtype_launches"] and r["model_calls"] > 0 for r in val),
+              f"{tag}: validation launches {val}, want 6 + 3 {dtype} a model call")
+        check(trainer.model.dtype == dtype,
+              f"{tag}: the train CLI computes in {trainer.model.dtype}, want {dtype}")
         res[f"train_max_epoch_{epochs}"] = {
             "device": str(trainer.device), "wall_s": wall, "epochs": log,
             "steps_per_epoch": trainer.steps_per_epoch,
@@ -1625,13 +1932,13 @@ def cli_run(name: str, dev, workdir: Path, cdir: str, data_ov: list) -> dict:
     for path in ("metrics.jsonl", "recent/" + STATE_FILE, "best/" + STATE_FILE,
                  "extended_config.yaml", "saved_loss.txt") + (
                      ("saved_rt.txt",) if name == "tante_adaptive" else ()):
-        check((folder / path).exists(), f"{name}: the train CLI wrote no {path}")
+        check((folder / path).exists(), f"{tag}: the train CLI wrote no {path}")
 
     # 3: the eval CLI against the Evaler built by hand on the same checkpoint.
     reset_counts()
     report = cli_eval.main([*args, "--choose=best", *ov])
     torch.cuda.synchronize()
-    eval_launches = launch_counts()
+    eval_launches, eval_other = launch_counts(dtype), other_launches(dtype)
     cfg = load_config(name, config_dir=cdir, overrides=ov)
     cfg.data.eval_steps_output = cfg.evaler.n_steps_rollout
     dm = instantiate(cfg.data, seed=cfg.seed)
@@ -1643,7 +1950,7 @@ def cli_run(name: str, dev, workdir: Path, cdir: str, data_ov: list) -> dict:
 
         loader = dm.test_dataloader()
         check(isinstance(loader, WellPackLoader),
-              f"{name}: use_wellpack=true gave a {type(loader).__name__}")
+              f"{tag}: use_wellpack=true gave a {type(loader).__name__}")
         res["test_loader"] = type(loader).__name__
     evaler = instantiate(cfg.evaler, checkpoint_folder=str(folder),
                          model=instantiate(cfg.model, dset_metadata=md, seed=cfg.seed),
@@ -1653,12 +1960,13 @@ def cli_run(name: str, dev, workdir: Path, cdir: str, data_ov: list) -> dict:
     for metric, got in report["metrics"].items():
         want = by_hand["metrics"][metric]
         check(np.isfinite(got) and abs(got - want) <= CLI_REL_TOL * abs(want),
-              f"{name}: eval CLI {metric} {got} vs the Evaler by hand {want}")
+              f"{tag}: eval CLI {metric} {got} vs the Evaler by hand {want}")
     n_eval_batches = len(dm.test_dataloader())
     eval_calls = (report["model_calls_per_rollout"] * n_eval_batches
                   if name == "tante_adaptive" else cfg.evaler.n_steps_rollout * n_eval_batches)
-    check(eval_launches == want_launches(int(eval_calls)),
-          f"{name}: eval CLI launches {eval_launches} for {eval_calls} model calls")
+    check(eval_launches == want_launches(int(eval_calls)) and not eval_other,
+          f"{tag}: eval CLI launches {eval_launches} ({eval_other} in other dtypes) for "
+          f"{eval_calls} model calls")
     res["eval"] = {"report": report, "evaler_by_hand": by_hand["metrics"],
                    "rel_tol": CLI_REL_TOL, "test_batches": n_eval_batches,
                    "model_calls": eval_calls, "launches": eval_launches}
@@ -1668,19 +1976,22 @@ def cli_run(name: str, dev, workdir: Path, cdir: str, data_ov: list) -> dict:
     pred = Predictor.from_experiment(name, experiment=experiment, choose="best",
                                      overrides=ov, config_dir=cdir)
     check(pred.device.type == "cuda" and next(pred.model.parameters()).is_cuda,
-          f"{name}: from_experiment serves on {pred.device}")
+          f"{tag}: from_experiment serves on {pred.device}")
     model = instantiate(cfg.model, dset_metadata=md, seed=cfg.seed, device="cpu")
     model.load_state_dict(torch.load(folder / "best" / STATE_FILE, map_location="cpu",
                                      weights_only=True)["params"])
-    ref = Predictor(set_compute_dtype(model, torch.bfloat16))
+    ref = Predictor(set_compute_dtype(model, torch.bfloat16)
+                    if cfg.evaler.get("enable_amp", False) else model)
     out: dict = {"device": str(pred.device), "dtype": str(pred.model.dtype)}
+    check(pred.model.dtype == dtype, f"{tag}: from_experiment serves in {pred.model.dtype}, "
+                                     f"want {dtype}")
     if name == "tante":
         reset_counts()
         frames = pred.rollout(x, N_STEPS)
         torch.cuda.synchronize()
-        out["launches_per_rollout"] = launch_counts()
-        check(out["launches_per_rollout"] == want_launches(N_STEPS),
-              f"{name}: from_experiment rollout launches {out['launches_per_rollout']}")
+        out["launches_per_rollout"] = launch_counts(dtype)
+        check(launched(dtype, N_STEPS),
+              f"{tag}: from_experiment rollout launches {out['launches_per_rollout']}")
         out["equals_predictor_by_hand_bit_for_bit"] = bool(
             torch.equal(frames, ref.rollout(x, N_STEPS)))
     else:
@@ -1688,74 +1999,51 @@ def cli_run(name: str, dev, workdir: Path, cdir: str, data_ov: list) -> dict:
         reset_counts()
         frames, rt, n_calls = pred.rollout_adaptive(x, n)
         torch.cuda.synchronize()
-        out["launches_per_rollout"] = launch_counts()
-        check(out["launches_per_rollout"] == want_launches(n_calls),
-              f"{name}: from_experiment adaptive launches {out['launches_per_rollout']} for "
+        out["launches_per_rollout"] = launch_counts(dtype)
+        check(launched(dtype, n_calls),
+              f"{tag}: from_experiment adaptive launches {out['launches_per_rollout']} for "
               f"{n_calls} calls")
         evaler.calls = []
         evaler._rollout(x.to(evaler.device))
         out.update(n_calls=n_calls, r_evaler_calls=int(evaler.calls[0][1]), rt=rt.tolist())
         check(n_calls == out["r_evaler_calls"],
-              f"{name}: from_experiment made {n_calls} calls, R_Evaler {out['r_evaler_calls']}")
+              f"{tag}: from_experiment made {n_calls} calls, R_Evaler {out['r_evaler_calls']}")
         out["equals_predictor_by_hand_bit_for_bit"] = bool(
             torch.equal(frames, ref.rollout_adaptive(x, n)[0]))
-    check(bool(torch.isfinite(frames).all()), f"{name}: from_experiment frames not finite")
+    check(bool(torch.isfinite(frames).all()), f"{tag}: from_experiment frames not finite")
     check(out["equals_predictor_by_hand_bit_for_bit"],
-          f"{name}: from_experiment differs from the Predictor by hand")
+          f"{tag}: from_experiment differs from the Predictor by hand")
     res["from_experiment"] = out
     return res
 
 
-def cli_refusals(workdir: Path) -> dict:
-    """The shipped configs as they are (no enable_amp: f32 TANTE blocks) on
-    the card: the train and eval CLIs and ``from_experiment`` each refuse
-    before anything is built or written, naming the overrides that run it."""
-    from tante_tpu_torch.cli import eval as cli_eval
-    from tante_tpu_torch.cli import train as cli_train
-
-    root = workdir / "cli_shipped"
-    out = {}
-    for name in CLI_CONFIGS:
-        ov = [f"root_path={root}"]
-        args = [f"--config-name={name}", *ov]
-        for entry, call in (("train", lambda: cli_train.main(args)),
-                            ("eval", lambda: cli_eval.main(args)),
-                            ("from_experiment", lambda: Predictor.from_experiment(
-                                name, overrides=ov))):
-            try:
-                call()
-                msg = None
-            except ValueError as e:
-                msg = str(e)
-            check(msg is not None and AMP_OVERRIDES in msg,
-                  f"{name}: {entry} as shipped on the card did not refuse f32 blocks ({msg})")
-            out[f"{name} {entry}"] = msg
-    check(not root.exists(), "a refused entry point wrote into its experiment folder")
-    return out
-
-
 def phase_cli(dev, workdir: Path) -> dict:
     """The paper's entry points on the card at the flagship's width: for
-    ``configs/tante.yaml`` and ``configs/tante_adaptive.yaml``, the train CLI
-    (one epoch, then a resume to two), the eval CLI against the Evaler by
-    hand, ``Predictor.from_experiment`` with no device; then each block
-    kernel on the inputs the path gave it against its plain version."""
+    ``configs/tante.yaml`` and ``configs/tante_adaptive.yaml`` as shipped
+    (f32: the configs set no enable_amp), the train CLI (one epoch, then a
+    resume to two), the eval CLI against the Evaler by hand,
+    ``Predictor.from_experiment`` with no device; then ``configs/tante.yaml``
+    again in bf16 through the ``CLI_AMP`` overrides (one epoch, eval,
+    ``from_experiment``); then each block kernel on the inputs the path gave
+    it (f32 and bf16) against its plain version."""
     h5 = h5py_imports()
     cdir, data_ov, route = cli_config_dir(workdir, h5)
     res = {"phase": "cli", "h5py": h5, "data_route": route,
            "cuts": ["data: 2 wave trajectories of 16 frames a split (2 train steps an epoch, "
                     "1 validation batch, 2 test batches at the eval CLI's 4 steps)",
                     "epochs: 1, then a resume to 2 (configs: max_epoch 34)"],
-           "bf16": "overrides " + " ".join(CLI_AMP) + ": the configs set no enable_amp, and the "
-                   "block kernels take bf16 only"}
-    res["as_shipped_refused"] = cli_refusals(workdir)
+           "dtype": "f32, as the configs ship (no enable_amp overrides): the f32 block kernels",
+           "bf16": "configs/tante.yaml with " + " ".join(CLI_AMP) + ": the bf16 block kernels"}
     inputs: dict = {}
     with captured_block_inputs(inputs):
         for name in CLI_CONFIGS:
             res[name] = cli_run(name, dev, workdir, cdir, data_ov)
+        res["tante_bf16"] = cli_run("tante", dev, workdir, cdir, data_ov, torch.bfloat16)
     res["kernels_at_the_path_shapes"] = kernels_at_path_shapes(inputs, "cli")
-    check({k[0] for k in inputs} == {"fused_block_fwd", "fused_block_canon_t_fwd"},
-          f"cli path: block kernels reached {sorted({k[0] for k in inputs})}")
+    reached = {(k[0], k[3]) for k in inputs}
+    check(reached == {(n, dt) for n in ("fused_block_fwd", "fused_block_canon_t_fwd")
+                      for dt in (torch.float32, torch.bfloat16)},
+          f"cli path: block kernels reached {sorted(map(str, reached))}")
     emit(res)
     return res
 
@@ -2901,7 +3189,7 @@ def half_in_turns(kind: str, label: str, run, first, iters: int = 10) -> dict:
     hopper, before = _HALF_SYMBOLS[kind]
     wrappers = {"attn": (fb.attn_half_apply, fb.block_tile_attn_half),
                 "mlp": (fb.mlp_half_apply, fb.block_tile_mlp_half)}[kind]
-    counters = [lambda w=w: w.launches for w in wrappers]
+    counters = [lambda w=w: w.launches.total() for w in wrappers]
 
     def hop():
         return device_split(run, hopper, iters, counters[0], f"{label} {kind} half")
@@ -3122,8 +3410,8 @@ def tp_half_grads(x, p, l, heads, causal) -> dict:
 
 
 def tp_counts() -> dict:
-    return {"attn_half_fwd": fb.attn_half_apply.launches,
-            "mlp_half_fwd": fb.mlp_half_apply.launches}
+    return {"attn_half_fwd": fb.attn_half_apply.launches.total(),
+            "mlp_half_fwd": fb.mlp_half_apply.launches.total()}
 
 
 def parallel_data(dev, batch, n_in, fno=False) -> WaveDataModule:
@@ -3452,10 +3740,29 @@ def phase_parallel(dev, workdir: Path) -> dict:
     return res
 
 
-def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed: dict,
-                  train: dict, adaptive_train: dict, cli: dict, spectral: list[dict], fno: dict,
-                  packed: list[dict], avit: dict, cvit: dict, tp: list[dict],
-                  parallel: dict) -> list[dict]:
+def cli_launches(cli: dict, name: str, runs=CLI_CONFIGS) -> dict:
+    """A block wrapper's launches on the paper's entry points (cli phase),
+    in each of ``runs``' dtype: per train step (dropout 0.1), per validation
+    model call, per from_experiment rollout."""
+    out = {}
+    for config in runs:
+        epochs = cli[config]["train_max_epoch_1"]["epochs"]
+        out[config] = {
+            "train_step": sum(e["launches"][name] for e in epochs if e["kind"] == "train")
+            / sum(e["batches"] for e in epochs if e["kind"] == "train"),
+            "validation_model_call": sum(e["launches"][name] for e in epochs
+                                         if e["kind"] == "validation")
+            / max(1, sum(e["model_calls"] for e in epochs if e["kind"] == "validation")),
+            "from_experiment_rollout": cli[config]["from_experiment"]["launches_per_rollout"][
+                name]}
+    return out
+
+
+def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict],
+                  kernels_f32: dict[str, list[dict]], chains_f32: dict[str, dict], fixed: dict,
+                  fixed_f32: dict, train: dict, adaptive_train: dict, cli: dict,
+                  spectral: list[dict], fno: dict, packed: list[dict], avit: dict, cvit: dict,
+                  tp: list[dict], parallel: dict) -> list[dict]:
     replaces = {"fused_block_fwd": "tante_tpu/ops/pallas_block.py:163",
                 "fused_block_canon_t_fwd": "tante_tpu/ops/pallas_block.py:401",
                 "fused_chain_apply": "tante_tpu/ops/pallas_block.py:1073",
@@ -3490,18 +3797,9 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
             "one_frame": adaptive_train["one_frame"]["dropout_0"]["launches_per_step"][name],
             "variable_frame_remat":
                 adaptive_train["variable_frame"]["remat"]["launches_per_step"][name]}
-        # The paper's entry points (cli phase): per train step (dropout 0.1),
-        # per validation model call, per from_experiment rollout.
-        row["launches_on_the_cli_path"] = {
-            config: {"train_step": sum(e["launches"][name] for e in epochs if e["kind"] == "train")
-                     / sum(e["batches"] for e in epochs if e["kind"] == "train"),
-                     "validation_model_call": sum(e["launches"][name] for e in epochs
-                                                  if e["kind"] == "validation")
-                     / max(1, sum(e["model_calls"] for e in epochs if e["kind"] == "validation")),
-                     "from_experiment_rollout": cli[config]["from_experiment"][
-                         "launches_per_rollout"][name]}
-            for config in CLI_CONFIGS
-            for epochs in [cli[config]["train_max_epoch_1"]["epochs"]]}
+        # The paper's entry points in bf16 (cli phase, configs/tante.yaml
+        # with the CLI_AMP overrides).
+        row["launches_on_the_cli_path"] = cli_launches(cli, name, ("tante_bf16",))
         out.append(row)
     val = train["validation"]
     per_call = {"fused_chain_apply": val["fused_chain=3"]["launches_per_model_call"],
@@ -3521,6 +3819,55 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict], fixed
             "equals_single_block_kernels_in_sequence_bit_for_bit":
                 c["equals_single_block_kernels_in_sequence_bit_for_bit"],
         })
+    # The f32 entries (configs/tante.yaml as shipped): the single-block and
+    # canonical T kernels counted over the fixed_f32 lane's rollout, the
+    # chain over its fused_chain=3 rollout (the group's beside it).
+    for name, cases in kernels_f32.items():
+        main = [c for c in cases if c["case"] in (*MAIN_BLOCK_CASES, "T")]
+        mean = lambda k: sum(c[k] for c in main) / len(main)  # noqa: E731
+        out.append({
+            "name": f"{name} (f32)", "route": "cuda", "source": SM90_SOURCE,
+            "entry": F32_ENTRIES[name], "replaces": replaces[name] + " (f32 activations)",
+            "launches": fixed_f32["launches_per_rollout"][name],
+            "launches_counted_over": "one fixed_f32 16-step rollout (configs/tante.yaml as "
+                                     "shipped)",
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "rel_l2": max(c["rel_l2"] for c in cases),
+            "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_us") / 1e3, "bound_by": main[0]["bound_by"],
+            "ffma_bound_ms": mean("ffma_bound_us") / 1e3,
+            "library_ms": None,  # no single PyTorch call computes a whole block
+            "ok": all(c["ok"] for c in cases),
+            "per_shape": [{k: c.get(k) for k in (
+                "case", "shape", "softmax", "kernel_ms", "plain_ms", "bound_us", "rel_l2",
+                "max_abs_err")} for c in cases],
+            "launches_on_the_cli_path": cli_launches(cli, name),
+        })
+    chain, group = chains_f32["fused_chain_apply"], chains_f32["fused_group_apply"]
+    fusion = fixed_f32["fusion"]
+    out.append({
+        "name": f"fused_chain_fwd (f32, run {chain['case']})", "route": "cuda",
+        "source": CHAIN_SOURCE, "entry": F32_ENTRIES["fused_chain_fwd"],
+        "replaces": replaces["fused_chain_apply"] + " (f32 activations)",
+        "launches": fusion["fused_chain=3"]["launches_per_rollout"]["fused_chain_apply"],
+        "launches_counted_over": "one fixed_f32 16-step rollout with fused_chain=3",
+        "max_abs_err": chain["max_abs_err"], "rel_l2": chain["rel_l2"],
+        "ms": chain["kernel_ms"], "plain_ms": chain["plain_ms"],
+        "bound_ms": chain["bound_us"] / 1e3, "bound_by": chain["bound_by"],
+        "ffma_bound_ms": chain["ffma_bound_us"] / 1e3,
+        "library_ms": None,  # no single PyTorch call computes a run of blocks
+        "ok": chain["ok"] and group["ok"],
+        "single_block_kernels_in_sequence_ms": chain["single_block_kernels_in_sequence_ms"],
+        "equals_single_block_kernels_in_sequence_bit_for_bit":
+            chain["equals_single_block_kernels_in_sequence_bit_for_bit"],
+        "group": {"case": group["case"],
+                  "launches": fusion["fused_group"]["launches_per_rollout"]["fused_group_apply"],
+                  "launches_counted_over": "one fixed_f32 16-step rollout with fused_group",
+                  **{k: group[k] for k in (
+                      "kernel_ms", "plain_ms", "single_block_kernels_in_sequence_ms",
+                      "rel_l2", "max_abs_err", "equals_single_block_kernels_in_sequence_bit_for_bit")},
+                  "bound_ms": group["bound_us"] / 1e3},
+    })
     # Headline numbers of the mode-mixing kernel: mean over the shapes the
     # FNO serving paths give it, one launch each per model call.
     main = [c for c in spectral if c["main_path"]]
@@ -3623,8 +3970,12 @@ def main() -> int:
     kernels = phase_kernels(dev)
     chains = phase_chain_kernels(dev)
     phase_grad(dev)
+    kernels_f32 = phase_kernels_f32(dev)
+    chains_f32 = phase_chain_kernels_f32(dev)
+    phase_grad(dev, torch.float32)
     fixed = phase_fixed(dev)
-    phase_adaptive(dev)
+    adaptive = phase_adaptive(dev)
+    fixed_f32 = phase_fixed_f32(dev, fixed, adaptive)
     spectral = phase_spectral_kernel(dev)
     fno = phase_fno_serving(dev)
     packed = phase_packed_kernel(dev)
@@ -3640,8 +3991,8 @@ def main() -> int:
         cvit = phase_cvit(dev, Path(workdir))
         phase_zoo(dev, Path(workdir))
         parallel = phase_parallel(dev, Path(workdir))
-    phase_summary(kernels, chains, fixed, train, adaptive_train, cli, spectral, fno, packed, avit,
-                  cvit, tp, parallel)
+    phase_summary(kernels, chains, kernels_f32, chains_f32, fixed, fixed_f32, train,
+                  adaptive_train, cli, spectral, fno, packed, avit, cvit, tp, parallel)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -3651,8 +4002,9 @@ def main() -> int:
         emit({"failures": FAILURES, "seconds": time.perf_counter() - t0})
         return 1
     emit({"seconds": time.perf_counter() - t0, "notes": NOTES})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import argparse
 import logging
 
-from tante_tpu_torch.config import check_block_dtype, instantiate, load_config, set_ckpt
+from tante_tpu_torch.config import instantiate, load_config, set_ckpt
 from tante_tpu_torch.utils.logging import MetricLogger
 from tante_tpu_torch.utils.seeding import set_seed
 
@@ -35,7 +35,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config_name, config_dir=args.config_dir, overrides=args.overrides)
-    check_block_dtype(cfg, args.device, "evaler")
     cfg.data.eval_steps_output = cfg.evaler.n_steps_rollout
     cfg, checkpoint_folder = set_ckpt(cfg, choose=args.choose)
 

@@ -16,7 +16,7 @@ import argparse
 import logging
 import os.path as osp
 
-from tante_tpu_torch.config import check_block_dtype, instantiate, load_config, set_ckpt
+from tante_tpu_torch.config import instantiate, load_config, set_ckpt
 from tante_tpu_torch.utils.logging import MetricLogger
 from tante_tpu_torch.utils.seeding import set_seed
 
@@ -36,7 +36,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config_name, config_dir=args.config_dir, overrides=args.overrides)
-    check_block_dtype(cfg, args.device, "trainer")
     cfg, checkpoint_folder = set_ckpt(cfg, choose="recent")
     print(cfg.to_yaml())
 

@@ -18,10 +18,6 @@ from typing import Any, Dict, List, Optional
 
 from tante_tpu_torch.registry import resolve
 
-# What a TANTE config needs to run on the card: its block kernels take bf16
-# only, and the shipped configs set no enable_amp (f32 blocks: ROADMAP item 19).
-AMP_OVERRIDES = "trainer.enable_amp=true evaler.enable_amp=true"
-
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 
 
@@ -149,25 +145,3 @@ def set_ckpt(cfg: Config, choose: str = "recent") -> tuple:
     if "evaler" in cfg:
         cfg["evaler"]["checkpoint_path"] = checkpoint_path
     return cfg, experiment_folder
-
-
-def check_block_dtype(cfg: Config, device, role: str) -> None:
-    """Refuse, before anything is built or trained, a config that would hand
-    the card's block kernels f32 blocks: a TANTE model on a CUDA device
-    (``device`` None is the card) whose ``role`` node (``trainer`` or
-    ``evaler``, the one that sets this entry point's compute dtype) does not
-    set ``enable_amp``.  The message names the overrides that run it."""
-    import torch
-
-    from tante_tpu_torch.models import TANTE
-
-    if device is not None and torch.device(device).type != "cuda":
-        return
-    if cfg[role].get("enable_amp", False):
-        return
-    model = resolve(cfg.model["_target_"])
-    if isinstance(model, type) and issubclass(model, TANTE):
-        raise ValueError(
-            f"{cfg.model['_target_']} would run in f32 on the card ({role}.enable_amp is not "
-            f"set), and its block kernels take bf16 only: pass the overrides {AMP_OVERRIDES}, "
-            "or --device cpu for the plain f32 path")

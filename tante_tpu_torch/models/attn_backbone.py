@@ -15,7 +15,11 @@ a pure T/H/W ``attn_axes`` in one ``fused_group_apply`` launch, and
 ``fused_chain = n >= 2`` runs each run of up to n consecutive T/H/W blocks
 in one ``fused_chain_apply`` launch.  Both, like the canonical T kernel,
 apply only when ``deterministic or dropout == 0``; with dropout active every
-block takes its plain path.  ``tp_mesh`` (tensor parallelism) goes to every
+block takes its plain path.  ``fused=False`` (the JAX backbone's ``fused``)
+runs the plain block math everywhere: no group, chain, canonical T or block
+kernel; the parameters are the same, so checkpoints are interchangeable.
+The kernels run in the backbone's dtype, bf16 or f32; the canonical T, chain
+and group gates take it (the f32 body holds C <= 256).  ``tp_mesh`` (tensor parallelism) goes to every
 block; the group, chain and canonical-T kernels are single-device kernels and
 are bypassed under it, so T blocks run as causal (rows, T, C) blocks.  The
 channel-lift axis ``C`` is not ported (raises ``NotImplementedError``).
@@ -80,7 +84,7 @@ class AttnBackbone(nn.Module):
     def __init__(self, tensor_shape: Tuple[int, int, int, int], attn_axes: str = "THWTHWTHW",
                  n_head: int = 8, mlp_ratio: float = 1.0, dropout: float = 0.0,
                  fused_group: bool = False, fused_chain: int = 0, dtype=torch.float32,
-                 gen=None, tp_mesh=None):
+                 gen=None, tp_mesh=None, fused: bool = True):
         super().__init__()
         t, h, w, c = tensor_shape
         self.tensor_shape = tuple(tensor_shape)
@@ -94,6 +98,7 @@ class AttnBackbone(nn.Module):
             raise ValueError(f"Invalid attention axes {sorted(bad)}")
         self.n_head = n_head
         self.dropout = dropout
+        self.fused = fused
         self.fused_group = fused_group
         self.fused_chain = fused_chain
         self.hidden = int(c * mlp_ratio)
@@ -103,7 +108,7 @@ class AttnBackbone(nn.Module):
         self.temporal_propagator = AxisPropagator(t, 1, dtype, gen)
         for i in range(len(self.axes)):
             self.add_module(f"block_{i}", FusedTransformerBlock(
-                c, n_head, mlp_ratio, dropout, dtype, gen, tp_mesh=tp_mesh))
+                c, n_head, mlp_ratio, dropout, dtype, gen, tp_mesh=tp_mesh, use_kernel=fused))
         self.set_tp_mesh(tp_mesh)
 
     def set_tp_mesh(self, mesh) -> None:
@@ -127,10 +132,11 @@ class AttnBackbone(nn.Module):
         x = self.horizontal_propagator(x)
         x = self.temporal_propagator(x)
         axes = self.axes
-        kernels_ok = deterministic or self.dropout == 0.0
+        kernels_ok = self.fused and (deterministic or self.dropout == 0.0)
         single = kernels_ok and self.tp_mesh is None  # the one-device kernels
+        dt = x.dtype
         if (self.fused_group and single
-                and group_fusable(axes, dims, c, self.n_head, self.hidden)):
+                and group_fusable(axes, dims, c, self.n_head, self.hidden, dt)):
             return fused_group_apply(
                 x.contiguous(), self._params_seq(0, len(axes)), axes, self.n_head)
         use_chain = self.fused_chain >= 2 and single
@@ -143,7 +149,7 @@ class AttnBackbone(nn.Module):
                 while j < len(run) and run[j] in "THW":
                     j += 1
                 run = run[:j]
-                if len(run) >= 2 and chain_fusable(run, dims, c, self.n_head, self.hidden):
+                if len(run) >= 2 and chain_fusable(run, dims, c, self.n_head, self.hidden, dt):
                     y = rearrange(x, _LAYOUTS[run[0]][0]).contiguous()
                     y = fused_chain_apply(y, self._params_seq(i, len(run)), run, self.n_head, dims)
                     _, inv, keep = _LAYOUTS[run[-1]]
@@ -152,7 +158,8 @@ class AttnBackbone(nn.Module):
                     continue
             block = getattr(self, f"block_{i}")
             i += 1
-            if axis == "T" and single and canon_t_supported(t, h, w, c, self.n_head):
+            if axis == "T" and single and canon_t_supported(t, h, w, c, self.n_head, self.hidden,
+                                                            dt):
                 x = fused_block_canon_t(x.contiguous(), block.block_params(), self.n_head)
                 continue
             fwd, inv, keep = _LAYOUTS[axis]

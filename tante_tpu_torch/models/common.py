@@ -119,11 +119,15 @@ class TransformerBlock(nn.Module):
 class FusedTransformerBlock(nn.Module):
     """Pre-LN transformer block with the flat 16-tensor parameter layout.
 
-    ``fused_block_apply`` (the CUDA kernel on the card, the plain PyTorch
-    block on the CPU) runs it when ``deterministic`` or ``dropout == 0``;
-    otherwise the plain path with the three dropout sites of the JAX
-    training path (attention weights, post-attention, post-MLP) runs,
-    drawing from the caller's ``generator``.  Gradients of the kernel path
+    ``fused_block_apply`` (the CUDA kernel on the card, in bf16 or f32 as
+    the block's dtype says; the plain PyTorch block on the CPU) runs it when
+    ``deterministic`` or ``dropout == 0``; otherwise the plain path with the
+    three dropout sites of the JAX training path (attention weights,
+    post-attention, post-MLP) runs, drawing from the caller's ``generator``.
+    ``use_kernel=False`` (the JAX block's ``use_kernel``, set by
+    ``AttnBackbone(fused=False)``) takes that plain path always, with the
+    dropout sites only when dropout is active; the parameters are the same
+    either way, so checkpoints are interchangeable.  Gradients of the kernel path
     recompute the plain block (``ops/fused_block.py``).
 
     ``tp_mesh`` (a ``parallel.Mesh`` with a 'tp' axis): once
@@ -137,7 +141,8 @@ class FusedTransformerBlock(nn.Module):
     and the masks are the unsplit block's."""
 
     def __init__(self, embed_dim: int, n_head: int, mlp_ratio: float = 4.0,
-                 dropout: float = 0.1, dtype=torch.float32, gen=None, tp_mesh=None):
+                 dropout: float = 0.1, dtype=torch.float32, gen=None, tp_mesh=None,
+                 use_kernel: bool = True):
         super().__init__()
         c = embed_dim
         hidden = int(c * mlp_ratio)
@@ -146,6 +151,7 @@ class FusedTransformerBlock(nn.Module):
         self.dropout = dropout
         self.dtype = dtype
         self.tp_mesh = tp_mesh
+        self.use_kernel = use_kernel
         P = nn.Parameter
         self.ln1_scale = P(torch.ones(c))
         self.ln1_bias = P(torch.zeros(c))
@@ -184,16 +190,17 @@ class FusedTransformerBlock(nn.Module):
         p = self.block_params()
         l = x.shape[-2]
         split = self.tp_mesh is not None and self.wq.shape[1] != self.embed_dim  # shards held
-        if deterministic or self.dropout == 0.0:
+        active = not (deterministic or self.dropout == 0.0)  # dropout draws masks
+        if not active and self.use_kernel:
             if split:
                 return fused_block_apply_tp(x, p, l, self.n_head, causal, self.tp_mesh)
             return fused_block_apply(x, p, l, self.n_head, causal)
-        if generator is None:
+        if active and generator is None:
             raise ValueError("dropout is active: pass the torch.Generator to draw masks from")
 
-        # block_ref's math with the three dropout sites; split, the Megatron
-        # pair around this rank's heads and hidden columns (identities when
-        # the group is None).
+        # block_ref's math with the three dropout sites (identities unless
+        # dropout is active); split, the Megatron pair around this rank's
+        # heads and hidden columns (identities when the group is None).
         g, tp, r = ((self.tp_mesh.group("tp"), self.tp_mesh.size("tp"), self.tp_mesh.index("tp"))
                     if split else (None, 1, 0))
         heads = self.n_head // tp
@@ -201,7 +208,7 @@ class FusedTransformerBlock(nn.Module):
         rate = self.dropout
 
         def drop(t):
-            return dropout(t, rate, generator)
+            return dropout(t, rate, generator) if active else t
 
         xn = ln(copy_to_tp(x, g), copy_to_tp(p.ln1_scale, g), copy_to_tp(p.ln1_bias, g))
         q = ((xn @ p.wq) + p.bq) * (d**-0.5)
@@ -213,10 +220,13 @@ class FusedTransformerBlock(nn.Module):
             m = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
             logits = torch.where(m, logits, torch.full_like(logits, -1e30))
         w = torch.softmax(logits, dim=-1).to(x.dtype)
-        # The unsplit block's mask over all heads; this rank keeps its own.
-        u = torch.rand((*w.shape[:-3], self.n_head, l, l), generator=generator, device=x.device)
-        keep = u[..., r * heads:(r + 1) * heads, :, :] >= rate
-        w = torch.where(keep, w / (1.0 - rate), torch.zeros((), dtype=w.dtype, device=w.device))
+        if active:
+            # The unsplit block's mask over all heads; this rank keeps its own.
+            u = torch.rand((*w.shape[:-3], self.n_head, l, l), generator=generator,
+                           device=x.device)
+            keep = u[..., r * heads:(r + 1) * heads, :, :] >= rate
+            w = torch.where(keep, w / (1.0 - rate),
+                            torch.zeros((), dtype=w.dtype, device=w.device))
         attn = torch.einsum("bhlm,bmhd->blhd", w, v).reshape(*x.shape[:-1], heads * d)
         x = x + drop(reduce_from_tp(attn @ p.wo, g) + p.bo)
         yn = ln(copy_to_tp(x, g), copy_to_tp(p.ln2_scale, g), copy_to_tp(p.ln2_bias, g))

@@ -12,6 +12,10 @@ Like the JAX model it always computes a static number of Taylor frames
 (``output_length``, or ``n_frames(out_T)`` adaptive) and returns r_t; the
 rollout decides how many are consumed.
 
+``fused_blocks`` (as in the JAX model, default True) goes to every backbone
+as ``AttnBackbone(fused=...)``: False runs the plain block math, no block
+kernel, with the same parameters (a config sets ``model.fused_blocks=false``).
+
 Parameters are created on the CPU from a seeded ``torch.Generator`` and the
 module moves to ``device`` (CUDA unless the caller passes ``"cpu"``).
 """
@@ -78,6 +82,7 @@ class TANTE(nn.Module):
         modes1: int = 32,
         modes2: int = 32,
         deg: bool = True,
+        fused_blocks: bool = True,
         fused_chain: int = 0,
         tp_mesh=None,
         dtype=torch.float32,
@@ -126,6 +131,7 @@ class TANTE(nn.Module):
             self.add_module(f"blocks_{i}", AttnBackbone(
                 (in_T, self.H_p, self.W_p, self.C), block_axes, n_head, mlp_ratio, dropout,
                 fused_chain=fused_chain, dtype=dtype, gen=gen, tp_mesh=tp_mesh,
+                fused=fused_blocks,
             ))
         self.t_emb = nn.Parameter(torch.from_numpy(get_1d_sincos_pos_embed(self.C, in_T)))
         self.s_emb = nn.Parameter(torch.from_numpy(

@@ -165,9 +165,9 @@ def compile_library(kernel: str, name: str | None = None, extra_flags: tuple = (
 
 
 def compile_libraries(specs: Sequence[tuple]) -> list[dict]:
-    """``compile_library`` for each (kernel, name, extra_flags), one nvcc
-    each, all started together."""
-    jobs = [_start(kernel, name, flags) for kernel, name, flags in specs]
+    """``compile_library`` for each (kernel, name, extra_flags[, source]),
+    one nvcc each, all started together."""
+    jobs = [_start(*spec) for spec in specs]
     return [_finish(job) for job in jobs]
 
 
@@ -207,20 +207,24 @@ def _bind_fused_block(lib: ctypes.CDLL) -> None:
 
 def _bind_fused_block_sm90(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tante_fused_block_sm90_fwd.argtypes = [
-        p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, i, i, i, p]
-    lib.tante_fused_block_sm90_fwd.restype = i
-    lib.tante_fused_block_canon_t_sm90_fwd.argtypes = [
-        p, p, ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(i), i, i, i, i, i, i, p]
-    lib.tante_fused_block_canon_t_sm90_fwd.restype = i
+    for dt in ("", "_f32"):  # the bf16 and f32 entries take the same arguments
+        block = getattr(lib, f"tante_fused_block_sm90{dt}_fwd")
+        block.argtypes = [p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, i, i, i, p]
+        block.restype = i
+        canon = getattr(lib, f"tante_fused_block_canon_t_sm90{dt}_fwd")
+        canon.argtypes = [
+            p, p, ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(i), i, i, i, i, i, i, p]
+        canon.restype = i
 
 
 def _bind_fused_chain_sm90(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tante_fused_chain_sm90_fwd.argtypes = [
-        p, p, p, p, ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(i), i, i, i, i, i, p, i,
-        i, p]
-    lib.tante_fused_chain_sm90_fwd.restype = i
+    for dt in ("", "_f32"):
+        chain = getattr(lib, f"tante_fused_chain_sm90{dt}_fwd")
+        chain.argtypes = [
+            p, p, p, p, ctypes.POINTER(p), ctypes.POINTER(i), ctypes.POINTER(i), i, i, i, i, i, p,
+            i, i, p]
+        chain.restype = i
     lib.tante_chain_sm90_args_bytes.argtypes = []
     lib.tante_chain_sm90_args_bytes.restype = i
 

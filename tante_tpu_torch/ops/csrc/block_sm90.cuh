@@ -1,4 +1,6 @@
-// Fused pre-LN axial transformer block for Hopper (sm_90a), bf16: one tile
+// Fused pre-LN axial transformer block for Hopper (sm_90a), bf16, and its
+// f32 instantiation (block_tile_f32, the "f32 tile body" section; the element
+// type is a policy, Elem<T>, of the weight stream): one tile
 // body, redesigned for this card, shared by three sources (each its own
 // library, built in parallel; fused_half_sm90.cu, the two tensor-parallel
 // halves, runs its parts: LayerNorm, the slab ring, gemm_np with EpiQkv,
@@ -106,6 +108,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 typedef __nv_bfloat16 bf16;
 
@@ -941,21 +945,39 @@ __device__ __forceinline__ int max_pass(const Shape& S) {
   return max(max(S.np[0], S.np[1]), max(S.np[2], S.np[3]));
 }
 
+// ---- the element-type policy ------------------------------------------------------
+//
+// What the weight stream's slabs are for each activation type: K rows a slab
+// and bytes an element (bf16: wgmma's core-matrix slabs; f32: the FFMA body's
+// row-major slabs, see the f32 section below).
+template <class T>
+struct Elem;
+template <>
+struct Elem<bf16> {
+  static constexpr int slab_k = kSlabK, bytes = 2;
+};
+template <>
+struct Elem<float> {
+  static constexpr int slab_k = 16, bytes = 4;
+};
+
 // ---- the producer --------------------------------------------------------------
 //
 // One tile's share of the weight stream: every slab of the block's schedule
 // (the re-laid weights, ops/fused_block.py:sm90_weights), in the consumers'
 // order.  idx counts the slabs this CTA has streamed so far, so the ring's
 // phase parity carries across tiles and blocks.
+template <class T = bf16>
 __device__ __forceinline__ void produce_tile(const unsigned char* src, const Shape& S, Ring& ring,
                                              int& idx) {
+  constexpr int SK = Elem<T>::slab_k;
   const int groups = S.C / 64;
   for (int m = 0; m < groups + 3; ++m) {
     const int kind = m < groups ? 0 : m - groups + 1;
     const int K = kind == 3 ? S.HID : S.C;
     const int N = kind == 0 ? kQkvN : kind == 2 ? S.HID : S.C;
-    const uint32_t bytes = (uint32_t)kSlabK * S.np[kind] * 2;
-    const int n = (N / S.np[kind]) * (K / kSlabK);
+    const uint32_t bytes = (uint32_t)SK * S.np[kind] * Elem<T>::bytes;
+    const int n = (N / S.np[kind]) * (K / SK);
     for (int i = 0; i < n; ++i, ++idx, src += bytes) {
       const int s = idx % ring.stages;
       if (idx >= ring.stages) mbar_wait(&ring.empty[s], ((idx / ring.stages) - 1) & 1);
@@ -1019,6 +1041,369 @@ __device__ __forceinline__ void block_tile(const Block& B, const Shape& S, const
 #endif
 }
 
+// ---- the f32 tile body ------------------------------------------------------------
+//
+// The same block in f32: the Pallas kernel's f32 instantiation, which rounds
+// nothing to bf16 (q/k/v, the unnormalised attention weights, the attention
+// output, the fc1 output and both residual sums stay f32).  Every product
+// is an f32 FMA on the CUDA cores: wgmma takes no f32 operand, a single TF32
+// pass (~3e-4 relative a product) is not f32, and FFMA keeps the plain f32
+// version's rounding of every product.  Bound: 2*M*(4C^2 + 2C*hidden) f32
+// FLOP at 67 TFLOP/s (~0.29 ms at the flagship's H block), where a 3xTF32
+// tensor-core design would be bound at ~0.12 ms.
+//
+// What stays of the bf16 design: the row maps, the weight ring (one
+// producer thread streaming slabs with cp.async.bulk, two consumer
+// warpgroups), the order of the phases, and so the bit equality of the
+// canonical T and chain kernels with the single-block kernel.  What differs:
+// - A tile is R = 64 rows (f32 tiles take twice the bytes): x^ 65 KB, the
+//   q|k|v tile of a head group 49 KB (later the MLP hidden), the attention
+//   output 65 KB (later the LN2 output), three stages of 16-row slabs,
+//   ~215 KB at C = hidden = 256.  C <= 256.
+// - Activation tiles are row-major, K + 4 floats a row (16-byte loads of
+//   8 rows hit 8 distinct bank quads); weight slabs are row-major 16 x np
+//   (ops/fused_block.py:arrange_weight_f32).
+// - A matmul pass is 64 rows x np columns: thread (ty, tx) of the 16 x 16
+//   grid owns rows ty + 16i (i < 4) and columns 4tx + 64j + {0..3}
+//   (j < np/64), so each 16-byte load of A feeds 4*np/16 FMAs; a warp's
+//   8 rows and 4 column quads read A and B conflict-free.
+// - Attention: one thread per (query row, head) of the group, its keys in
+//   order (scores with four partial sums), exp2 softmax in both forms,
+//   normalised after the AV sum.  GELU uses the accurate tanhf.
+constexpr int kRowsF = 64;                     // rows of an f32 tile
+constexpr int kSlabKF = Elem<float>::slab_k;   // K rows of an f32 weight slab
+constexpr int kQkvLdF = kQkvN + 4;             // row stride (floats) of the f32 q|k|v tile
+constexpr int kMaxCF = 256;                    // f32 C: LayerNorm holds two float4 a lane
+
+// Row stride (floats) of an f32 activation tile K wide.
+__host__ __device__ inline int ld_f(int K) { return K + 4; }
+
+__host__ __device__ inline Layout layout_f32(int C, int HID, int stages, int max_np) {
+  Layout l;
+  const size_t xn = (size_t)kRowsF * ld_f(C) * 4, qkv = (size_t)kRowsF * kQkvLdF * 4;
+  const size_t h = (size_t)kRowsF * ld_f(HID) * 4;
+  l.a = 0;
+  l.qkv = xn;
+  l.b = h > xn + qkv ? h : xn + qkv;  // xn + q|k|v, later the MLP hidden
+  l.ring = l.b + (size_t)kRowsF * ld_f(C) * 4;
+  l.bars = l.ring + (size_t)stages * kSlabKF * max_np * 4;
+  l.total = l.bars + 2 * kMaxStages * sizeof(uint64_t);
+  return l;
+}
+
+__device__ __forceinline__ const float* fptr(const Block& B, int k) {
+  return reinterpret_cast<const float*>(B.p[k]);
+}
+
+// LayerNorm of the tile's 64 rows into a row-major tile (ld_f(C)), f32
+// one-pass moments; rows past `valid` read as zeros.  Warp w takes rows
+// w + 8g; lane l holds the float4 columns l and l + 32 of a row, all eight
+// rows loaded before any is stored.
+template <class Rows>
+__device__ void layer_norm_f32(const float* src, const Rows& rows, int valid, float* dst, int C,
+                               const float* __restrict__ scale, const float* __restrict__ bias) {
+  constexpr int kWarps = kConsumers / 32, G = kRowsF / kWarps, NB = kMaxCF / 128;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nq = C / 4, ld = ld_f(C);
+  float4 v[G][NB];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int r = warp + g * kWarps;
+    const float4* row = reinterpret_cast<const float4*>(r < valid ? src + rows.off(r) : src);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int q = lane + 32 * i;
+      v[g][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q < nq && r < valid) v[g][i] = __ldcg(row + q);
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const int r = warp + g * kWarps;
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const float4 a = v[g][i];
+      s += (a.x + a.y) + (a.z + a.w);
+      ss += (a.x * a.x + a.y * a.y) + (a.z * a.z + a.w * a.w);
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mu = s / C;
+    const float var = fmaxf(ss / C - mu * mu, 0.f);
+    const float rs = rsqrtf(var + 1e-5f);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int q = lane + 32 * i;
+      if (q >= nq) break;
+      const float4 a = v[g][i];
+      const float4 sc = __ldg(reinterpret_cast<const float4*>(scale) + q);
+      const float4 bi = __ldg(reinterpret_cast<const float4*>(bias) + q);
+      *reinterpret_cast<float4*>(dst + r * ld + 4 * q) =
+          make_float4((a.x - mu) * rs * sc.x + bi.x, (a.y - mu) * rs * sc.y + bi.y,
+                      (a.z - mu) * rs * sc.z + bi.z, (a.w - mu) * rs * sc.w + bi.w);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// f32 epilogues: bias(c) is the float4 of bias columns c..c+3; store(r, c,
+// v) takes v = product + bias for row r, columns c..c+3.
+struct EpiQkvF {  // row-major q|k|v tile
+  float* dst;
+  const float* b;
+  __device__ float4 bias(int c) const { return __ldg(reinterpret_cast<const float4*>(b + c)); }
+  __device__ void store(int r, int c, float4 v) const {
+    *reinterpret_cast<float4*>(dst + r * kQkvLdF + c) = v;
+  }
+};
+
+struct EpiGeluF {  // gelu_tanh into a row-major tile ld floats a row
+  float* dst;
+  const float* b;
+  int ld;
+  __device__ static float gelu(float h) {
+    return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
+  }
+  __device__ float4 bias(int c) const { return __ldg(reinterpret_cast<const float4*>(b + c)); }
+  __device__ void store(int r, int c, float4 v) const {
+    *reinterpret_cast<float4*>(dst + r * ld + c) =
+        make_float4(gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
+  }
+};
+
+// y = res + v for the tile's valid rows: row r read at res + rr.off(r)
+// (L2-only: inside a chain another SM wrote it), written at y + yr.off(r).
+template <class ResRows, class OutRows>
+struct EpiResidualF {
+  const float* res;  // x (out-projection) or y itself (fc2: x' stored there)
+  ResRows rr;
+  float* y;
+  OutRows yr;
+  const float* b;
+  int valid;
+  __device__ float4 bias(int c) const { return __ldg(reinterpret_cast<const float4*>(b + c)); }
+  __device__ void store(int r, int c, float4 v) const {
+    if (r >= valid) return;
+    const float4 x = __ldcg(reinterpret_cast<const float4*>(res + rr.off(r) + c));
+    *reinterpret_cast<float4*>(y + yr.off(r) + c) = add4(x, v);
+  }
+};
+
+// out (64 x N) = A (64 x K, row-major in shared memory, ld_f(K)) . W (K x N,
+// the ring's next slabs: per pass of NP = 64*NJ columns, K/16 slabs of
+// 16 x NP row-major), each product an FMA in k order, handed to `epi`.
+template <int NJ, class Epi>
+__device__ void gemm_f32(const float* A, int K, int N, Ring& ring, const Epi& epi) {
+  constexpr int NP = 64 * NJ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ty = (warp >> 2) * 8 + (lane >> 2), tx = (warp & 3) * 4 + (lane & 3);
+  const int lda = ld_f(K);
+  const float* arow = A + ty * lda;
+  for (int n0 = 0; n0 < N; n0 += NP) {
+    float4 bb[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) bb[j] = epi.bias(n0 + 4 * tx + 64 * j);
+    float4 acc[4][NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int kc = 0; kc < K / kSlabKF; ++kc) {
+      const int s = ring.idx % ring.stages;
+      mbar_wait(&ring.full[s], (ring.idx / ring.stages) & 1);
+      const float* slab =
+          reinterpret_cast<const float*>(ring.base + (size_t)s * ring.stage_bytes) + 4 * tx;
+#pragma unroll
+      for (int k4 = 0; k4 < kSlabKF; k4 += 4) {
+        float4 a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(arow + 16 * i * lda + kc * kSlabKF + k4);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          float4 b[NJ];
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            b[j] = *reinterpret_cast<const float4*>(slab + (k4 + kk) * NP + 64 * j);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              acc[i][j].x = fmaf(av, b[j].x, acc[i][j].x);
+              acc[i][j].y = fmaf(av, b[j].y, acc[i][j].y);
+              acc[i][j].z = fmaf(av, b[j].z, acc[i][j].z);
+              acc[i][j].w = fmaf(av, b[j].w, acc[i][j].w);
+            }
+          }
+        }
+      }
+      release(ring, ring.idx);  // this warp's reads of the slab are done
+      ++ring.idx;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) epi.store(ty + 16 * i, n0 + 4 * tx + 64 * j, add4(acc[i][j], bb[j]));
+  }
+}
+
+// The out-projection, fc1 and fc2 passes are 64 or 128 wide in f32 (the
+// q|k|v pass is 192: gemm_f32<3>); fewer instantiations, a shorter build.
+template <class Epi>
+__device__ void gemm_f32_np(const float* A, int K, int N, int np, Ring& ring, const Epi& epi) {
+  if (np == 64)
+    gemm_f32<1>(A, K, N, ring, epi);
+  else
+    gemm_f32<2>(A, K, N, ring, epi);
+}
+
+// Attention of one head group in f32: q|k|v row-major in `qkv` (q at column
+// j*D, k at 64 + j*D, v at 128 + j*D for head j of the group); one thread
+// per (query row, head), over its admitted keys in order (its own sequence,
+// up to itself when causal).  Output to the attention-output tile (ld_f(C))
+// at head column hc*D; rows past `valid` get zeros.
+template <int D, bool SAFE>
+__device__ void attention_group_f32(const float* qkv, float* ao, int group, int valid, int L,
+                                    int C, int causal) {
+  constexpr int HG = 64 / D;
+  const int ld = ld_f(C);
+  const float clamp = 60.f * kLog2e;
+  for (int item = threadIdx.x; item < kRowsF * HG; item += kConsumers) {
+    const int j = item / kRowsF, i = item - j * kRowsF;
+    float o[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) o[d] = 0.f;
+    float den = 0.f;
+    if (i < valid) {
+      const int lo = (i / L) * L, hi = causal ? i : lo + L - 1;
+      float q[D];
+#pragma unroll
+      for (int d = 0; d < D; d += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(qkv + i * kQkvLdF + j * D + d);
+        q[d] = t.x, q[d + 1] = t.y, q[d + 2] = t.z, q[d + 3] = t.w;
+      }
+      const float* kb = qkv + 64 + j * D;
+      const float* vb = qkv + 128 + j * D;
+      auto score = [&](int key) {
+        const float* kr = kb + key * kQkvLdF;
+        float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; d += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(kr + d);
+          p0 = fmaf(q[d], t.x, p0);
+          p1 = fmaf(q[d + 1], t.y, p1);
+          p2 = fmaf(q[d + 2], t.z, p2);
+          p3 = fmaf(q[d + 3], t.w, p3);
+        }
+        return (p0 + p1) + (p2 + p3);
+      };
+      float mx = 0.f;
+      if (SAFE) {
+        mx = -1e30f;
+        for (int key = lo; key <= hi; ++key) mx = fmaxf(mx, score(key));
+      }
+      for (int key = lo; key <= hi; ++key) {
+        const float sv = score(key);
+        const float e = exp2f(SAFE ? sv - mx : fminf(sv, clamp));
+        den += e;
+        const float* vr = vb + key * kQkvLdF;
+#pragma unroll
+        for (int d = 0; d < D; d += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(vr + d);
+          o[d] = fmaf(e, t.x, o[d]);
+          o[d + 1] = fmaf(e, t.y, o[d + 1]);
+          o[d + 2] = fmaf(e, t.z, o[d + 2]);
+          o[d + 3] = fmaf(e, t.w, o[d + 3]);
+        }
+      }
+    }
+    const float inv = 1.f / (den + 1e-30f);
+    float* out = ao + i * ld + (group * HG + j) * D;
+#pragma unroll
+    for (int d = 0; d < D; d += 4)
+      *reinterpret_cast<float4*>(out + d) =
+          make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv, o[d + 3] * inv);
+  }
+}
+
+// One f32 tile of whole sequences (`valid` rows) of block B, in the bf16
+// body's order: LN1, per head group q|k|v and attention, out-projection +
+// residual (x' to y), LN2 (from y), fc1 + GELU, fc2 + residual.  Returns
+// with the shared tiles free for the next tile.
+template <int D, bool SAFE, class InRows, class OutRows>
+__device__ __forceinline__ void block_tile_f32(const Block& B, const Shape& S, const float* x,
+                                               float* y, const InRows& in, const OutRows& out,
+                                               int valid, Ring& ring, float* sA, float* sB,
+                                               float* sQkv) {
+  const int C = S.C, HID = S.HID, groups = C / 64;
+  layer_norm_f32(x, in, valid, sA, C, fptr(B, LN1S), fptr(B, LN1B));
+  consumers_sync();
+  for (int gi = 0; gi < groups; ++gi) {
+    gemm_f32<3>(sA, C, kQkvN, ring, EpiQkvF{sQkv, fptr(B, BQKV) + gi * kQkvN});
+    consumers_sync();
+    attention_group_f32<D, SAFE>(sQkv, sB, gi, valid, B.L, C, B.causal);
+    consumers_sync();  // the next group's projection overwrites q|k|v
+  }
+  gemm_f32_np(sB, C, C, S.np[1], ring,
+              EpiResidualF<InRows, OutRows>{x, in, y, out, fptr(B, BO), valid});
+  consumers_sync();  // x' stored; the attention output is read no more
+  layer_norm_f32(y, out, valid, sB, C, fptr(B, LN2S), fptr(B, LN2B));
+  consumers_sync();
+  gemm_f32_np(sB, C, HID, S.np[2], ring, EpiGeluF{sA, fptr(B, B1), ld_f(HID)});
+  consumers_sync();
+  gemm_f32_np(sA, HID, C, S.np[3], ring,
+              EpiResidualF<OutRows, OutRows>{y, out, y, out, fptr(B, B2), valid});
+  consumers_sync();  // y stored; the hidden tile is free
+}
+
+// ---- the CTA ---------------------------------------------------------------------
+//
+// What a block kernel's CTA does for activations of type T (bf16 or float;
+// the chain kernels and the f32 single-block kernel; the bf16 single-block
+// kernel spells it out, see fused_block_sm90.cu): lay out the dynamic
+// shared memory, start the slab
+// ring, split the threads.  The producer warpgroup hands most of its
+// registers to the consumers and its first thread runs produce(ring); the
+// two consumer warpgroups (2 x 128 x 232 + 128 x 40 <= 65536 registers) run
+// consume(ring, sA, sB, sQkv).
+template <class T, class Produce, class Consume>
+__device__ __forceinline__ void block_cta(const Shape& S, Produce&& produce, Consume&& consume) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int max_np = max_pass(S);
+  Layout lay;
+  if constexpr (std::is_same<T, float>::value)
+    lay = layout_f32(S.C, S.HID, S.stages, max_np);
+  else
+    lay = layout(S.R, S.C, S.HID, S.stages, max_np);
+  T* sA = reinterpret_cast<T*>(smem + lay.a);
+  T* sB = reinterpret_cast<T*>(smem + lay.b);
+  T* sQkv = reinterpret_cast<T*>(smem + lay.qkv);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  Ring ring{smem + lay.ring, bars, bars + S.stages, S.stages,
+            Elem<T>::slab_k * max_np * Elem<T>::bytes, 0};
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S.stages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kConsumers / 32);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) produce(ring);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  consume(ring, sA, sB, sQkv);
+}
+
 // ---- host side -----------------------------------------------------------------
 
 bool np_ok(int np, int N) { return np >= 64 && np <= 64 * kUnits && np % 64 == 0 && N % np == 0; }
@@ -1044,6 +1429,21 @@ long long make_shape(Shape& S, const int* plan, int C, int HID) {
   for (int i = 0; i < 4; ++i) S.np[i] = plan[2 + i];
   S.stages = plan[6];
   return plan_smem(S.R, C, HID, S.np, S.stages);
+}
+
+// The f32 body's plan: R = 64, C <= 256, q|k|v passes of 192 columns, the
+// others 64 or 128 (ops/fused_block.py:sm90_plan with dtype f32 mirrors
+// this).  Shared memory bytes, 0 outside the kernel.
+long long make_shape_f32(Shape& S, const int* plan, int C, int HID) {
+  make_shape(S, plan, C, HID);
+  if (S.R != kRowsF || C % 64 || C > kMaxCF || HID % 64 || HID > 2 * C || S.stages < 2 ||
+      S.stages > kMaxStages || S.np[0] != kQkvN || !np_ok(S.np[1], C) ||
+      !np_ok(S.np[2], HID) || !np_ok(S.np[3], C) || S.np[1] > 128 || S.np[2] > 128 ||
+      S.np[3] > 128)
+    return 0;
+  int mx = 0;
+  for (int i = 0; i < 4; ++i) mx = S.np[i] > mx ? S.np[i] : mx;
+  return (long long)layout_f32(C, HID, S.stages, mx).total;
 }
 
 // v: per, n2, sb, s1, s2, sa (ops/fused_block.py:chain_plan); null: unused

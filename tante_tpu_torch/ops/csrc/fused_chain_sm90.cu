@@ -1,5 +1,7 @@
 // The chain entry point of the Hopper block body (block_sm90.cuh): a run of
-// up to 12 T/H/W blocks in one cooperative, persistent launch.
+// up to 12 T/H/W blocks in one cooperative, persistent launch, for bf16 and
+// (tante_fused_chain_sm90_f32_fwd, on the f32 tile body block_tile_f32) for
+// f32 activations and weights.
 //
 // Bound: each block is bound by operations like a single launch, so a run's
 // bound is the sum of its blocks' (bytes: x in, y out, every weight once;
@@ -91,79 +93,94 @@ __device__ __forceinline__ bool next_tile(const ChainArgs& A, int g, int& i, int
 template <int D, bool SAFE>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_chain_sm90_kernel(const __grid_constant__ ChainArgs A) {
-  extern __shared__ __align__(128) unsigned char smem[];
   const Shape& S = A.sh;
-  const int max_np = max_pass(S);
-  const Layout lay = layout(S.R, S.C, S.HID, S.stages, max_np);
-  bf16* sA = reinterpret_cast<bf16*>(smem + lay.a);
-  bf16* sB = reinterpret_cast<bf16*>(smem + lay.b);
-  bf16* sQkv = reinterpret_cast<bf16*>(smem + lay.qkv);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
-  Ring ring{smem + lay.ring, bars, bars + S.stages, S.stages, kSlabK * max_np * 2, 0};
+  block_cta<bf16>(
+      S,
+      [&](Ring& ring) {
+        int idx = 0, i = 0, first = 0;
+#ifdef TANTE_PHASE_TIMING
+        int seen = -1;
+#endif
+        for (int g = blockIdx.x; next_tile(A, g, i, first); g += gridDim.x) {
+#ifdef TANTE_PHASE_TIMING
+          const int slot = i * gridDim.x + blockIdx.x;
+          if (i != seen && slot < kPhaseSlots) g_chain_ns[slot][3] = globaltimer();
+          seen = i;
+#endif
+          produce_tile(reinterpret_cast<const unsigned char*>(A.step[i].p[WARR]), S, ring, idx);
+        }
+      },
+      [&](Ring& ring, bf16* sA, bf16* sB, bf16* sQkv) {
+        int i = 0, first = 0, seen = -1;
+        for (int g = blockIdx.x; next_tile(A, g, i, first); g += gridDim.x) {
+          const Block& B = A.step[i];
+          const bf16* x = i == 0 ? A.x : A.buf[(i - 1) & 1];
+          bf16* y = i == A.n_steps - 1 ? A.y : A.buf[i & 1];
+          const int seq0 = (g - first) * B.seqs, nseq = min(B.seqs, B.n_seqs - seq0);
+          const int slot = i * gridDim.x + blockIdx.x;
+          const bool first_of_block = i != seen;
+          seen = i;
+#ifdef TANTE_PHASE_TIMING
+          const unsigned long long t_wait = globaltimer();
+          if (first_of_block) {
+            CHAIN_STAMP(0, t_wait);
+            CHAIN_STAMP(1, 0ull);
+          }
+#endif
+          if (i > 0) wait_inputs(A, i, seq0, nseq);
+#ifdef TANTE_PHASE_TIMING
+          CHAIN_STAMP(1, g_chain_ns[slot][1] + (globaltimer() - t_wait));
+#endif
+          block_tile<D, SAFE>(B, S, x, y, strided_tile(B, B.in, seq0, nseq, S.C),
+                              strided_tile(B, B.out, seq0, nseq, S.C), nseq * B.L, ring, sA, sB,
+                              sQkv, slot, first_of_block);
+          publish(A, i, seq0, nseq);
+          CHAIN_STAMP(2, globaltimer());
+        }
+      });
+}
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S.stages; ++s) {
-      mbar_init(&ring.full[s], 1);
-      mbar_init(&ring.empty[s], kConsumers / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == kConsumers) {
-      int idx = 0, i = 0, first = 0;
-#ifdef TANTE_PHASE_TIMING
-      int seen = -1;
-#endif
-      for (int g = blockIdx.x; next_tile(A, g, i, first); g += gridDim.x) {
-#ifdef TANTE_PHASE_TIMING
-        const int slot = i * gridDim.x + blockIdx.x;
-        if (i != seen && slot < kPhaseSlots) g_chain_ns[slot][3] = globaltimer();
-        seen = i;
-#endif
-        produce_tile(reinterpret_cast<const unsigned char*>(A.step[i].p[WARR]), S, ring, idx);
-      }
-    }
-    return;
-  }
-
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-  int i = 0, first = 0, seen = -1;
-  for (int g = blockIdx.x; next_tile(A, g, i, first); g += gridDim.x) {
-    const Block& B = A.step[i];
-    const bf16* x = i == 0 ? A.x : A.buf[(i - 1) & 1];
-    bf16* y = i == A.n_steps - 1 ? A.y : A.buf[i & 1];
-    const int seq0 = (g - first) * B.seqs, nseq = min(B.seqs, B.n_seqs - seq0);
-    const int slot = i * gridDim.x + blockIdx.x;
-    const bool first_of_block = i != seen;
-    seen = i;
-#ifdef TANTE_PHASE_TIMING
-    const unsigned long long t_wait = globaltimer();
-    if (first_of_block) {
-      CHAIN_STAMP(0, t_wait);
-      CHAIN_STAMP(1, 0ull);
-    }
-#endif
-    if (i > 0) wait_inputs(A, i, seq0, nseq);
-#ifdef TANTE_PHASE_TIMING
-    CHAIN_STAMP(1, g_chain_ns[slot][1] + (globaltimer() - t_wait));
-#endif
-    block_tile<D, SAFE>(B, S, x, y, strided_tile(B, B.in, seq0, nseq, S.C),
-                        strided_tile(B, B.out, seq0, nseq, S.C), nseq * B.L, ring, sA, sB, sQkv,
-                        slot, first_of_block);
-    publish(A, i, seq0, nseq);
-    CHAIN_STAMP(2, globaltimer());
-  }
+// The f32 chain: the same CTA, schedule, waits and ring on the f32 tile
+// body (a kernel of its own, as fused_block_sm90.cu's f32 kernel is).
+template <int D, bool SAFE>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_chain_sm90_f32_kernel(const __grid_constant__ ChainArgs A) {
+  const Shape& S = A.sh;
+  block_cta<float>(
+      S,
+      [&](Ring& ring) {
+        int idx = 0, i = 0, first = 0;
+        for (int g = blockIdx.x; next_tile(A, g, i, first); g += gridDim.x)
+          produce_tile<float>(reinterpret_cast<const unsigned char*>(A.step[i].p[WARR]), S,
+                              ring, idx);
+      },
+      [&](Ring& ring, float* sA, float* sB, float* sQkv) {
+        int i = 0, first = 0;
+        for (int g = blockIdx.x; next_tile(A, g, i, first); g += gridDim.x) {
+          const Block& B = A.step[i];
+          const float* x = reinterpret_cast<const float*>(i == 0 ? A.x : A.buf[(i - 1) & 1]);
+          float* y = reinterpret_cast<float*>(i == A.n_steps - 1 ? A.y : A.buf[i & 1]);
+          const int seq0 = (g - first) * B.seqs, nseq = min(B.seqs, B.n_seqs - seq0);
+          if (i > 0) wait_inputs(A, i, seq0, nseq);
+          block_tile_f32<D, SAFE>(B, S, x, y, strided_tile(B, B.in, seq0, nseq, S.C),
+                                  strided_tile(B, B.out, seq0, nseq, S.C), nseq * B.L, ring, sA,
+                                  sB, sQkv);
+          publish(A, i, seq0, nseq);
+        }
+      });
 }
 
 // A cooperative grid of one CTA per SM at most (as many as are co-resident
-// at this shared memory), no more CTAs than the schedule has tiles.
-template <int D, bool SAFE>
+// at this shared memory), no more CTAs than the schedule has tiles.  T: the
+// activation type (bf16 or float), which picks the kernel.
+template <class T, int D, bool SAFE>
 cudaError_t launch_chain_dt(const ChainArgs& A, int total_tiles, size_t smem, int device,
                             cudaStream_t st) {
-  auto k = fused_chain_sm90_kernel<D, SAFE>;
+  void (*k)(const ChainArgs);
+  if constexpr (std::is_same<T, float>::value)
+    k = fused_chain_sm90_f32_kernel<D, SAFE>;
+  else
+    k = fused_chain_sm90_kernel<D, SAFE>;
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int coop = 0, sms = 0, per_sm = 0;
@@ -185,31 +202,18 @@ cudaError_t launch_chain_dt(const ChainArgs& A, int total_tiles, size_t smem, in
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// A run of n_steps blocks on one tensor of B*T*H*W rows of C in one
-// cooperative launch.  x: the input in the first block's read order; y: the
-// output in the last block's write order; buf0, buf1: scratch of the same
-// size (unused for n_steps == 1 / 2).  w: n_steps x 9 device pointers (as
-// tante_fused_block_sm90_fwd takes); plans: n_steps x 7 ints (each block's
-// sm90 plan; R, the passes and the stages must agree, as they do for every L
-// when C and HID agree); maps: n_steps x 15 ints (L, causal, n_seqs, the read
-// map, the write map: ops/fused_block.py:chain_plan); done: n_steps x
-// n_batch ints of device memory (zeroed here on the stream), n_batch the
-// batch elements B.
-int tante_fused_chain_sm90_fwd(const void* x, void* y, void* buf0, void* buf1,
-                               const void* const* w, const int* plans, const int* maps,
-                               int n_steps, int C, int HID, int heads, int safe, void* done,
-                               int n_batch, int device, void* stream) {
+template <class T>
+int launch_chain(const void* x, void* y, void* buf0, void* buf1, const void* const* w,
+                 const int* plans, const int* maps, int n_steps, int C, int HID, int heads,
+                 int safe, void* done, int n_batch, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const int d = head_dim(C, heads);
   if (n_steps < 1 || n_steps > kMaxChain || !d || !done || n_batch < 1)
     return cudaErrorInvalidValue;
   ChainArgs A;
-  const long long smem = make_shape(A.sh, plans, C, HID);
+  const long long smem = std::is_same<T, float>::value ? make_shape_f32(A.sh, plans, C, HID)
+                                                        : make_shape(A.sh, plans, C, HID);
   if (!smem) return cudaErrorInvalidValue;
   long long total_tiles = 0;
   for (int i = 0; i < n_steps; ++i) {
@@ -239,13 +243,45 @@ int tante_fused_chain_sm90_fwd(const void* x, void* y, void* buf0, void* buf1,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = (int)total_tiles;
   if (d == 16)
-    return safe ? launch_chain_dt<16, true>(A, tiles, smem, device, st)
-                : launch_chain_dt<16, false>(A, tiles, smem, device, st);
+    return safe ? launch_chain_dt<T, 16, true>(A, tiles, smem, device, st)
+                : launch_chain_dt<T, 16, false>(A, tiles, smem, device, st);
   if (d == 32)
-    return safe ? launch_chain_dt<32, true>(A, tiles, smem, device, st)
-                : launch_chain_dt<32, false>(A, tiles, smem, device, st);
-  return safe ? launch_chain_dt<64, true>(A, tiles, smem, device, st)
-              : launch_chain_dt<64, false>(A, tiles, smem, device, st);
+    return safe ? launch_chain_dt<T, 32, true>(A, tiles, smem, device, st)
+                : launch_chain_dt<T, 32, false>(A, tiles, smem, device, st);
+  return safe ? launch_chain_dt<T, 64, true>(A, tiles, smem, device, st)
+              : launch_chain_dt<T, 64, false>(A, tiles, smem, device, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+// A run of n_steps blocks on one tensor of B*T*H*W rows of C in one
+// cooperative launch.  x: the input in the first block's read order; y: the
+// output in the last block's write order; buf0, buf1: scratch of the same
+// size (unused for n_steps == 1 / 2).  w: n_steps x 9 device pointers (as
+// tante_fused_block_sm90_fwd takes); plans: n_steps x 7 ints (each block's
+// sm90 plan; R, the passes and the stages must agree, as they do for every L
+// when C and HID agree); maps: n_steps x 15 ints (L, causal, n_seqs, the read
+// map, the write map: ops/fused_block.py:chain_plan); done: n_steps x
+// n_batch ints of device memory (zeroed here on the stream), n_batch the
+// batch elements B.
+int tante_fused_chain_sm90_fwd(const void* x, void* y, void* buf0, void* buf1,
+                               const void* const* w, const int* plans, const int* maps,
+                               int n_steps, int C, int HID, int heads, int safe, void* done,
+                               int n_batch, int device, void* stream) {
+  return launch_chain<bf16>(x, y, buf0, buf1, w, plans, maps, n_steps, C, HID, heads, safe, done,
+                            n_batch, device, stream);
+}
+
+// The same run in f32: every tensor f32, the weights in the f32 slab layout,
+// f32 plans (R = 64, C <= 256).
+int tante_fused_chain_sm90_f32_fwd(const void* x, void* y, void* buf0, void* buf1,
+                                   const void* const* w, const int* plans, const int* maps,
+                                   int n_steps, int C, int HID, int heads, int safe, void* done,
+                                   int n_batch, int device, void* stream) {
+  return launch_chain<float>(x, y, buf0, buf1, w, plans, maps, n_steps, C, HID, heads, safe,
+                             done, n_batch, device, stream);
 }
 
 // Bytes of the chain kernel's argument block (the kernel parameter limit

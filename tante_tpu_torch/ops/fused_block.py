@@ -50,7 +50,8 @@ wrapper takes its plain PyTorch version (``block_ref``, ``canon_t_ref``,
 package's ``_xla_block`` / ``_canon_t_ref`` / ``_chain_ref`` /
 ``_xla_group`` / ``_xla_attn_half`` / ``_xla_mlp_half``) only for a tensor on
 the CPU; a CUDA tensor launches the kernel or raises.  Each wrapper counts
-its forward launches in its ``launches`` attribute.
+its forward launches in its ``launches`` attribute, a ``collections.Counter``
+keyed by the activation dtype.
 
 Gradients: as in the JAX package (``jax.vjp`` of the plain version in every
 custom VJP there), no kernel has a backward kernel.  On a CUDA tensor that
@@ -63,11 +64,17 @@ Kernel numerics are the Pallas kernel's: ``d**-0.5 * log2(e)`` folded into
 max-subtract by default, or under ``set_block_tuning(softmax="safe")`` the
 masked f32 softmax with max-subtract ``exp2(s - max)`` (every kernel but the
 canonical T block, whose gate then closes, as in the JAX package);
-normalisation after the AV product with a ``+1e-30`` guard; bf16 activations
-and weights, f32 LayerNorm, softmax, GELU and accumulators.  The Hopper
-kernels round at the same points under every row map, so the canonical T
-kernel equals ``fused_block_apply`` on the rearranged tensor, and a chain
-the single-block kernels in sequence, bit for bit.
+normalisation after the AV product with a ``+1e-30`` guard.  The activation
+dtype picks the instantiation, as each Pallas call takes its output dtype
+from its input: bf16 activations and weights with f32 LayerNorm, softmax,
+GELU and accumulators (q/k/v, attention weights and output, fc1 output and
+the residual sums rounded to bf16); or f32 throughout, nothing rounded to
+bf16 (the ``*_f32_fwd`` entries on the f32 tile body: FFMA products, 64-row
+tiles, C <= 256, accurate tanh).  x and every parameter share one dtype,
+bf16 or f32.  The Hopper kernels round at the same points under every row
+map, so the canonical T kernel equals ``fused_block_apply`` on the
+rearranged tensor, and a chain the single-block kernels in sequence, bit
+for bit.
 """
 
 from __future__ import annotations
@@ -178,14 +185,18 @@ def canon_t_ref(x5: torch.Tensor, p: BlockParams, heads: int) -> torch.Tensor:
     return y.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4)
 
 
-def canon_t_supported(t: int, h: int, w: int, c: int, heads: int) -> bool:
+def canon_t_supported(t: int, h: int, w: int, c: int, heads: int, hidden: int | None = None,
+                      dtype: torch.dtype | None = None) -> bool:
     """Geometry gate for the canonical T-block kernel (``pallas_block.py:349``):
     the "fast" softmax (the kernel has no "safe" form: under "safe" the T
     block takes the rearranged ``fused_block_apply``), 2 <= T <= 8,
-    C % 128 == 0, heads divides C.  The TPU gate's VMEM estimate has no
+    C % 128 == 0, heads divides C; in f32 also a tile plan for the MLP width
+    ``hidden`` (default C).  The TPU gate's VMEM estimate has no
     counterpart: the CUDA kernel tiles pixels, so no whole batch element has
     to fit on chip."""
     if _TUNE["softmax"] != "fast":
+        return False
+    if dtype == torch.float32 and sm90_plan(t, c, c if hidden is None else hidden, dtype) is None:
         return False
     return 2 <= t <= 8 and c % heads == 0 and c % 128 == 0
 
@@ -201,14 +212,24 @@ def _param_shapes(c: int, hidden: int) -> tuple:
             (c, hidden), (hidden,), (hidden, c), (c,))
 
 
+# The activation dtypes the block kernels are instantiated for.
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _check_kernel_args(x: torch.Tensor, p: BlockParams, l: int, heads: int):
     """What the kernel takes, checked before any pointer reaches it (one
-    pass per tensor: the checks run on every launch)."""
-    bf16 = torch.bfloat16
+    pass per tensor: the checks run on every launch): a CUDA tensor and
+    ``_check_block_args``."""
     if x.device.type != "cuda":
         raise ValueError(f"fused block kernel needs a CUDA tensor, got {x.device}")
-    if x.dtype != bf16 or not x.is_contiguous():
-        raise ValueError(f"kernel input must be contiguous bf16, got {x.dtype}")
+    _check_block_args(x, p, l, heads)
+
+
+def _check_block_args(x: torch.Tensor, p: BlockParams, l: int, heads: int):
+    """The block kernels' envelope on any device: x and every parameter in
+    one dtype, bf16 or f32, contiguous and aligned, of the block's shapes."""
+    if x.dtype not in KERNEL_DTYPES or not x.is_contiguous():
+        raise ValueError(f"kernel input must be contiguous bf16 or f32, got {x.dtype}")
     c, hidden = x.shape[-1], p.w1.shape[-1]
     if c % 64 or c > KERNEL_MAX_C or hidden % 64 or hidden > 2 * c or heads <= 0 or c % heads:
         raise ValueError(
@@ -219,18 +240,19 @@ def _check_kernel_args(x: torch.Tensor, p: BlockParams, l: int, heads: int):
         raise ValueError(f"kernel head dim must be one of {KERNEL_HEAD_DIMS}, got {c // heads}")
     if not 1 <= l <= KERNEL_MAX_L:
         raise ValueError(f"kernel holds sequences of 1..{KERNEL_MAX_L}, got L={l}")
-    _check_params(x, p, _param_shapes(c, hidden))
+    _check_params(x, p, _param_shapes(c, hidden), x.dtype)
 
 
-def _check_params(x: torch.Tensor, p: tuple, shapes: tuple):
+def _check_params(x: torch.Tensor, p: tuple, shapes: tuple, dtype=torch.bfloat16):
     """Each parameter of ``p`` (a NamedTuple) contiguous, 32-byte aligned,
-    bf16, of its shape in ``shapes``, on ``x``'s device; ``x`` aligned."""
+    of ``dtype``, of its shape in ``shapes``, on ``x``'s device; ``x``
+    aligned."""
     dev = x.device
     for name, t, want in zip(p._fields, p, shapes):
-        if (t.shape != want or t.dtype != torch.bfloat16 or t.device != dev
+        if (t.shape != want or t.dtype != dtype or t.device != dev
                 or not t.is_contiguous() or t.data_ptr() % 32):
             raise ValueError(
-                f"{name}: want contiguous 32-byte-aligned bf16 {want} on {dev}, got "
+                f"{name}: want contiguous 32-byte-aligned {dtype} {want} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
             )
     if x.data_ptr() % 32:
@@ -307,6 +329,12 @@ SM90_MAX_STAGES = 4
 # Dynamic shared memory a CTA may opt into on an H100 (the kernel checks the
 # device's own figure and refuses a plan that does not fit).
 SMEM_OPTIN = 232448
+# The f32 tile body (``block_sm90.cuh``: kRowsF, kSlabKF, kQkvLdF, kMaxCF):
+# 64-row tiles, 16-row slabs, a q|k|v tile of 196 floats a row, C <= 256.
+SM90_F32_ROWS = 64
+SM90_F32_SLAB_K = 16
+SM90_F32_QKV_LD = SM90_QKV_N + 4
+SM90_F32_MAX_C = 256
 
 
 class Sm90Plan(NamedTuple):
@@ -326,23 +354,41 @@ def _pass_width(n: int) -> int:
     return n if n <= 192 else 128 if n % 128 == 0 else 64
 
 
-def sm90_smem(rows: int, c: int, hidden: int, np: tuple, stages: int) -> int:
-    """Shared memory bytes of a plan (``block_sm90.cuh:layout``): the
-    LN1 output and the q|k|v tile (later the MLP hidden), the attention output
-    (later the LN2 output), the slab ring and its barriers."""
+def sm90_smem(rows: int, c: int, hidden: int, np: tuple, stages: int,
+              dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory bytes of a plan (``block_sm90.cuh:layout`` /
+    ``layout_f32``): the LN1 output and the q|k|v tile (later the MLP
+    hidden), the attention output (later the LN2 output), the slab ring and
+    its barriers.  f32 tiles are row-major with 4 floats of padding a row."""
+    if dtype == torch.float32:
+        xn, qkv = rows * (c + 4) * 4, rows * SM90_F32_QKV_LD * 4
+        a = max(rows * (hidden + 4) * 4, xn + qkv)
+        return (a + rows * (c + 4) * 4 + stages * SM90_F32_SLAB_K * max(np) * 4
+                + 2 * SM90_MAX_STAGES * 8)
     xn, qkv = rows * c * 2, rows * SM90_QKV_LD * 2
     a = max(rows * hidden * 2, xn + qkv)
     return a + rows * c * 2 + stages * SM90_SLAB_K * max(np) * 2 + 2 * SM90_MAX_STAGES * 8
 
 
 @functools.lru_cache(maxsize=64)
-def sm90_plan(l: int, c: int, hidden: int) -> Sm90Plan | None:
-    """The tile plan for sequences of length ``l``: 128-row tiles (two
-    warpgroups of 64 rows) when they fit the shared memory with at least two
-    slabs in flight, else 64 rows; as many slabs as fit, up to four.  None
-    outside the kernel's envelope."""
+def sm90_plan(l: int, c: int, hidden: int, dtype: torch.dtype = torch.bfloat16) -> Sm90Plan | None:
+    """The tile plan for sequences of length ``l`` in ``dtype``: bf16,
+    128-row tiles (two warpgroups of 64 rows) when they fit the shared
+    memory with at least two slabs in flight, else 64 rows; f32, 64-row
+    tiles and C <= 256; as many slabs as fit, up to four.  None outside the
+    kernel's envelope."""
     if not (1 <= l <= KERNEL_MAX_L and c % 64 == 0 and 0 < c <= KERNEL_MAX_C
             and hidden % 64 == 0 and 0 < hidden <= 2 * c):
+        return None
+    if dtype == torch.float32:
+        if c > SM90_F32_MAX_C:
+            return None
+        # The f32 body's passes past the q|k|v one are 64 or 128 wide.
+        np = (SM90_QKV_N, *(128 if n % 128 == 0 else 64 for n in (c, hidden, c)))
+        rows = SM90_F32_ROWS
+        for stages in range(SM90_MAX_STAGES, 1, -1):
+            if sm90_smem(rows, c, hidden, np, stages, dtype) <= SMEM_OPTIN:
+                return Sm90Plan(rows, rows // l, np, stages)
         return None
     np = (SM90_QKV_N, _pass_width(c), _pass_width(hidden), _pass_width(c))
     for rows in (128, 64):
@@ -362,6 +408,15 @@ def arrange_weight(w: torch.Tensor, np: int) -> torch.Tensor:
     k, n = w.shape
     t = w.reshape(k // SM90_SLAB_K, SM90_SLAB_K // 8, 8, n // np, np // 8, 8)
     return t.permute(3, 0, 4, 1, 5, 2).reshape(-1)
+
+
+def arrange_weight_f32(w: torch.Tensor, np: int) -> torch.Tensor:
+    """(K, N) f32 -> the f32 body's slabs, flat: pass after pass of ``np``
+    columns, in each pass K / 16 slabs of 16 rows x ``np`` columns,
+    row-major (``block_sm90.cuh:gemm_f32`` reads row k of a slab at k * np)."""
+    k, n = w.shape
+    t = w.reshape(k // SM90_F32_SLAB_K, SM90_F32_SLAB_K, n // np, np)
+    return t.permute(2, 0, 1, 3).reshape(-1)
 
 
 class Sm90Weights(NamedTuple):
@@ -398,8 +453,9 @@ def qkv_groups(p, heads: int) -> tuple[list, torch.Tensor]:
 def _arrange(p: BlockParams, heads: int, plan: Sm90Plan) -> Sm90Weights:
     ws, bqkv = qkv_groups(p, heads)
     np_qkv, np_o, np_1, np_2 = plan.np
-    slabs = torch.cat([*(arrange_weight(w, np_qkv) for w in ws), arrange_weight(p.wo, np_o),
-                       arrange_weight(p.w1, np_1), arrange_weight(p.w2, np_2)])
+    arrange = arrange_weight_f32 if p.wq.dtype == torch.float32 else arrange_weight
+    slabs = torch.cat([*(arrange(w, np_qkv) for w in ws), arrange(p.wo, np_o),
+                       arrange(p.w1, np_1), arrange(p.w2, np_2)])
     return Sm90Weights(p.ln1_scale, p.ln1_bias, bqkv, p.bo, p.ln2_scale, p.ln2_bias, p.b1,
                        p.b2, slabs)
 
@@ -481,6 +537,22 @@ def sm90_weights(p: BlockParams, heads: int, plan: Sm90Plan) -> Sm90Weights:
     return relaid_weights(p, ("block", heads, plan), lambda: _arrange(p, heads, plan))
 
 
+def _f32(x: torch.Tensor) -> bool:
+    return x.dtype == torch.float32
+
+
+def _plan_for(l: int, c: int, hidden: int, dtype: torch.dtype) -> Sm90Plan:
+    plan = sm90_plan(l, c, hidden, dtype)
+    if plan is None:
+        raise ValueError(f"no tile plan for L={l}, C={c}, hidden={hidden} in {dtype}")
+    return plan
+
+
+def _count(fn: Callable, x: torch.Tensor):
+    """One launch of ``fn``'s kernel, counted under ``x``'s dtype."""
+    fn.launches[x.dtype] += 1
+
+
 def fused_block_apply(
     x: torch.Tensor, p: BlockParams, l: int, heads: int, causal: bool
 ) -> torch.Tensor:
@@ -497,24 +569,23 @@ def fused_block_apply(
         s, _, c = x.shape
         _check_kernel_args(x, p, l, heads)
         hidden = p.w1.shape[-1]
-        plan = sm90_plan(l, c, hidden)
-        if plan is None:
-            raise ValueError(f"no tile plan for L={l}, C={c}, hidden={hidden}")
+        plan = _plan_for(l, c, hidden, x.dtype)
         out = torch.empty_like(x)
         w = sm90_weights(p, heads, plan)
-        plan_ints = plan.ints()
-        rc = _build.load("fused_block_sm90").tante_fused_block_sm90_fwd(
-            x.data_ptr(), out.data_ptr(), _ptr_array([w]), (ctypes.c_int * 7)(*plan_ints), s,
+        lib = _build.load("fused_block_sm90")
+        entry = lib.tante_fused_block_sm90_f32_fwd if _f32(x) else lib.tante_fused_block_sm90_fwd
+        rc = entry(
+            x.data_ptr(), out.data_ptr(), _ptr_array([w]), (ctypes.c_int * 7)(*plan.ints()), s,
             l, c, hidden, heads, int(bool(causal)), _safe(), x.device.index, _stream(x),
         )
         _raise_on(rc, "fused_block_fwd")
-        fused_block_apply.launches += 1
+        _count(fused_block_apply, x)
         return out
 
     return _run(launch, lambda x, ps: block_ref(x, ps[0], l, heads, causal), x, (p,))
 
 
-fused_block_apply.launches = 0
+fused_block_apply.launches = collections.Counter()
 
 
 def fused_block_canon_t(x5: torch.Tensor, p: BlockParams, heads: int) -> torch.Tensor:
@@ -523,8 +594,9 @@ def fused_block_canon_t(x5: torch.Tensor, p: BlockParams, heads: int) -> torch.T
     if x5.device.type == "cpu":
         return canon_t_ref(x5, p, heads)
     b, t, h, w, c = x5.shape
-    if not canon_t_supported(t, h, w, c, heads):
-        raise ValueError(f"canonical T block unsupported for {tuple(x5.shape)}, heads={heads}")
+    if not canon_t_supported(t, h, w, c, heads, p.w1.shape[-1], x5.dtype):
+        raise ValueError(f"canonical T block unsupported for {tuple(x5.shape)}, heads={heads}, "
+                         f"{x5.dtype}")
 
     def launch(x5, ps):
         from tante_tpu_torch.ops import _build
@@ -532,25 +604,26 @@ def fused_block_canon_t(x5: torch.Tensor, p: BlockParams, heads: int) -> torch.T
         (p,) = ps
         _check_kernel_args(x5, p, t, heads)
         hidden = p.w1.shape[-1]
-        plan = sm90_plan(t, c, hidden)
-        if plan is None:
-            raise ValueError(f"no tile plan for L={t}, C={c}, hidden={hidden}")
+        plan = _plan_for(t, c, hidden, x5.dtype)
         out = torch.empty_like(x5)
         wts = sm90_weights(p, heads, plan)
         row_map = canon_t_map((t, h, w), b)
-        rc = _build.load("fused_block_sm90").tante_fused_block_canon_t_sm90_fwd(
+        lib = _build.load("fused_block_sm90")
+        entry = (lib.tante_fused_block_canon_t_sm90_f32_fwd if _f32(x5)
+                 else lib.tante_fused_block_canon_t_sm90_fwd)
+        rc = entry(
             x5.data_ptr(), out.data_ptr(), _ptr_array([wts]), (ctypes.c_int * 7)(*plan.ints()),
             (ctypes.c_int * 6)(*row_map), b * h * w, t, c, hidden, heads, x5.device.index,
             _stream(x5),
         )
         _raise_on(rc, "fused_block_canon_t_fwd")
-        fused_block_canon_t.launches += 1
+        _count(fused_block_canon_t, x5)
         return out
 
     return _run(launch, lambda x, ps: canon_t_ref(x, ps[0], heads), x5, (p,))
 
 
-fused_block_canon_t.launches = 0
+fused_block_canon_t.launches = collections.Counter()
 
 
 # --------------------------------------------------------------------------
@@ -605,13 +678,15 @@ def chain_ref(x3: torch.Tensor, params_seq: Sequence[BlockParams], axes: str, he
     return y5.reshape(b * t * hp, wp, c)
 
 
-def group_fusable(axes: str, dims, c: int, heads: int, hidden: int | None = None) -> bool:
+def group_fusable(axes: str, dims, c: int, heads: int, hidden: int | None = None,
+                  dtype: torch.dtype | None = None) -> bool:
     """Whether the T/H/W chain can run in the chain kernel: known axes, heads
     dividing C (``pallas_block.py:949-956``) and the CUDA kernel's envelope
     (at most 12 blocks, each axis length <= 64, C and the MLP width
     (``hidden``, default C) multiples of 64 with C <= 512 and hidden <= 2C,
-    head dim 16/32/64).  The TPU gate's VMEM budget has no counterpart: the
-    CUDA kernel tiles sequences and keeps no batch element on chip."""
+    head dim 16/32/64; in f32 a tile plan for every axis, so C <= 256).  The
+    TPU gate's VMEM budget has no counterpart: the CUDA kernel tiles
+    sequences and keeps no batch element on chip."""
     if any(a not in _ORDER for a in axes) or heads <= 0 or c % heads:
         return False
     hidden = c if hidden is None else hidden
@@ -621,6 +696,8 @@ def group_fusable(axes: str, dims, c: int, heads: int, hidden: int | None = None
         and c % 64 == 0 and c <= KERNEL_MAX_C and c // heads in KERNEL_HEAD_DIMS
         and hidden % 64 == 0 and hidden <= 2 * c
         and all(1 <= sizes[a] <= KERNEL_MAX_L for a in axes)
+        and (dtype != torch.float32
+             or all(sm90_plan(sizes[a], c, hidden, dtype) is not None for a in axes))
     )
 
 
@@ -661,12 +738,13 @@ def canon_t_map(dims, b: int) -> tuple:
     return chain_plan("T", dims, b)[0][3:9]
 
 
-def chain_plans(axes: str, dims, c: int, hidden: int) -> list:
+def chain_plans(axes: str, dims, c: int, hidden: int, dtype: torch.dtype = torch.bfloat16) -> list:
     """Each block's tile plan: ``sm90_plan`` of its own axis.  Rows, column
-    passes and ring stages depend on C and the MLP width alone (every L the
-    chain takes fits a tile), so one shared-memory layout serves the run."""
+    passes and ring stages depend on C, the MLP width and the dtype alone
+    (every L the chain takes fits a tile), so one shared-memory layout serves
+    the run."""
     sizes = dict(zip("THW", dims))
-    plans = [sm90_plan(sizes[a], c, hidden) for a in axes]
+    plans = [sm90_plan(sizes[a], c, hidden, dtype) for a in axes]
     if any(p is None for p in plans):
         raise ValueError(f"no tile plan for axes={axes!r}, dims={tuple(dims)}, C={c}, "
                          f"hidden={hidden}")
@@ -686,9 +764,9 @@ def _chain_args(x: torch.Tensor, params_seq, axes: str, heads: int, dims, start:
     c, hidden = x.shape[-1], params_seq[0].w1.shape[-1]
     if len(params_seq) != len(axes):
         raise ValueError(f"{len(axes)} axes but {len(params_seq)} parameter sets")
-    if not group_fusable(axes, dims, c, heads, hidden):
+    if not group_fusable(axes, dims, c, heads, hidden, x.dtype):
         raise ValueError(f"chain kernel cannot take axes={axes!r}, dims={tuple(dims)}, C={c}, "
-                         f"hidden={hidden}, heads={heads}")
+                         f"hidden={hidden}, heads={heads}, {x.dtype}")
     m = dims[0] * dims[1] * dims[2]
     if x.numel() % (m * c):
         raise ValueError(f"x of shape {tuple(x.shape)} does not hold (T, H, W) = {tuple(dims)}")
@@ -713,7 +791,7 @@ def _launch_chain(x: torch.Tensor, params_seq, axes: str, heads: int, dims, star
     from tante_tpu_torch.ops import _build
 
     c, hidden, b, rows = _chain_args(x, params_seq, axes, heads, dims, start, stop)
-    plans = chain_plans(axes, dims, c, hidden)
+    plans = chain_plans(axes, dims, c, hidden, x.dtype)
     weights = chain_weights(params_seq, heads, plans)
     plan_ints = [v for plan in plans for v in plan.ints()]
     maps = [v for row in rows for v in row]
@@ -722,7 +800,9 @@ def _launch_chain(x: torch.Tensor, params_seq, axes: str, heads: int, dims, star
     # Tiles finished per (block, batch element): the kernel's waits between
     # blocks (zeroed by the launch, on the stream).
     done = torch.empty(len(axes) * b, dtype=torch.int32, device=x.device)
-    rc = _build.load("fused_chain_sm90").tante_fused_chain_sm90_fwd(
+    lib = _build.load("fused_chain_sm90")
+    entry = lib.tante_fused_chain_sm90_f32_fwd if _f32(x) else lib.tante_fused_chain_sm90_fwd
+    rc = entry(
         x.data_ptr(), out.data_ptr(), *bufs, _ptr_array(weights),
         (ctypes.c_int * len(plan_ints))(*plan_ints), (ctypes.c_int * len(maps))(*maps),
         len(axes), c, hidden, heads, _safe(), done.data_ptr(), b, x.device.index, _stream(x),
@@ -742,13 +822,13 @@ def fused_group_apply(x5: torch.Tensor, params_seq: Sequence[BlockParams], axes:
 
     def launch(x5, ps):
         out = _launch_chain(x5, ps, axes, heads, dims, _CANONICAL, _CANONICAL, x5.shape)
-        fused_group_apply.launches += 1
+        _count(fused_group_apply, x5)
         return out
 
     return _run(launch, lambda x, ps: group_ref(x, ps, axes, heads), x5, params_seq)
 
 
-fused_group_apply.launches = 0
+fused_group_apply.launches = collections.Counter()
 
 
 def fused_chain_apply(x3: torch.Tensor, params_seq: Sequence[BlockParams], axes: str,
@@ -764,13 +844,13 @@ def fused_chain_apply(x3: torch.Tensor, params_seq: Sequence[BlockParams], axes:
     def launch(x3, ps):
         out = _launch_chain(x3, ps, axes, heads, dims, _ORDER[axes[0]], _ORDER[axes[-1]],
                             (x3.numel() // (l_out * x3.shape[-1]), l_out, x3.shape[-1]))
-        fused_chain_apply.launches += 1
+        _count(fused_chain_apply, x3)
         return out
 
     return _run(launch, lambda x, ps: chain_ref(x, ps, axes, heads, dims), x3, params_seq)
 
 
-fused_chain_apply.launches = 0
+fused_chain_apply.launches = collections.Counter()
 
 
 # --------------------------------------------------------------------------
@@ -781,12 +861,18 @@ fused_chain_apply.launches = 0
 # --------------------------------------------------------------------------
 
 
+def _check_first_design(x: torch.Tensor):
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"the first design's body takes bf16 only, got {x.dtype}")
+
+
 def block_tile_canon_t(x5: torch.Tensor, p: BlockParams, heads: int) -> torch.Tensor:
     """The causal T block on canonical (B, T, H, W, C) through the first
     design's body (CUDA only; "fast" softmax)."""
     from tante_tpu_torch.ops import _build
 
     b, t, h, w, c = x5.shape
+    _check_first_design(x5)
     _check_kernel_args(x5, p, t, heads)
     out = torch.empty_like(x5)
     scaled = _prescaled(p, heads)  # alive until enqueued
@@ -806,6 +892,7 @@ def block_tile_chain(x: torch.Tensor, params_seq: Sequence[BlockParams], axes: s
     from tante_tpu_torch.ops import _build
 
     params_seq = tuple(params_seq)
+    _check_first_design(x)
     c, hidden, _, rows = _chain_args(x, params_seq, axes, heads, dims, start, stop)
     flat = [v for row in rows for v in row]
     out = torch.empty_like(x)
@@ -1021,14 +1108,14 @@ def attn_half_apply(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
             _stream(x),
         )
         _raise_on(rc, "attn_half_fwd")
-        attn_half_apply.launches += 1
+        _count(attn_half_apply, x)
         return out
 
     return _run(launch, lambda x, ps: attn_half_ref(x, ps[0], l, heads, causal), x, (p,),
                 _pack_attn)
 
 
-attn_half_apply.launches = 0
+attn_half_apply.launches = collections.Counter()
 
 
 def mlp_half_apply(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
@@ -1052,13 +1139,13 @@ def mlp_half_apply(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
             x2.numel() // c, c, hl, x2.device.index, _stream(x2),
         )
         _raise_on(rc, "mlp_half_fwd")
-        mlp_half_apply.launches += 1
+        _count(mlp_half_apply, x2)
         return out
 
     return _run(launch, lambda x, ps: mlp_half_ref(x, ps[0]), x2, (p,), _pack_mlp)
 
 
-mlp_half_apply.launches = 0
+mlp_half_apply.launches = collections.Counter()
 
 
 # The first design's halves (csrc/fused_block.cu: attn_half_kernel /
@@ -1082,11 +1169,11 @@ def block_tile_attn_half(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
         heads, int(bool(causal)), _safe(), x.device.index, _stream(x),
     )
     _raise_on(rc, "block_tile attention half")
-    block_tile_attn_half.launches += 1
+    _count(block_tile_attn_half, x)
     return out
 
 
-block_tile_attn_half.launches = 0
+block_tile_attn_half.launches = collections.Counter()
 
 
 def block_tile_mlp_half(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
@@ -1101,11 +1188,11 @@ def block_tile_mlp_half(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
         x2.device.index, _stream(x2),
     )
     _raise_on(rc, "block_tile MLP half")
-    block_tile_mlp_half.launches += 1
+    _count(block_tile_mlp_half, x2)
     return out
 
 
-block_tile_mlp_half.launches = 0
+block_tile_mlp_half.launches = collections.Counter()
 
 
 def fused_block_apply_tp(x: torch.Tensor, p: BlockParams, l: int, heads: int, causal: bool,
@@ -1151,4 +1238,4 @@ WRAPPERS = (fused_block_apply, fused_block_canon_t, fused_chain_apply, fused_gro
 
 def reset_launches():
     for fn in WRAPPERS:
-        fn.launches = 0
+        fn.launches.clear()

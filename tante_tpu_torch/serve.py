@@ -22,7 +22,7 @@ from typing import Any, List, Mapping, Optional
 import numpy as np
 import torch
 
-from tante_tpu_torch.config import check_block_dtype, instantiate, load_config, set_ckpt
+from tante_tpu_torch.config import instantiate, load_config, set_ckpt
 from tante_tpu_torch.convert import load_jax_params
 from tante_tpu_torch.models.tante import TANTE
 from tante_tpu_torch.ops.backend import resolve_device
@@ -74,15 +74,14 @@ class Predictor:
         metadata, the model with the ``choose`` checkpoint's weights
         (``<root_path>/experiments/<experiment>/<choose>/state.pt``), in the
         evaler's compute dtype (bf16 under ``evaler.enable_amp``, as the
-        ``Evaler`` evaluates it).  Raises FileNotFoundError without that
-        checkpoint, and ValueError for a TANTE config that would run its
-        block kernels in f32 on the card (``config.check_block_dtype``)."""
+        ``Evaler`` evaluates it; f32 as the shipped configs set it, where
+        TANTE's blocks run the f32 kernels).  Raises FileNotFoundError
+        without that checkpoint."""
         cfg = load_config(config_name, config_dir=config_dir, overrides=overrides or [])
         if experiment is not None:
             cfg.experiment = experiment
         if root_path is not None:
             cfg.root_path = root_path
-        check_block_dtype(cfg, device, "evaler")
         cfg, folder = set_ckpt(cfg, choose=choose)
         ckpt_path = cfg.evaler.checkpoint_path
         if not ckpt_path or not os.path.exists(os.path.join(ckpt_path, STATE_FILE)):

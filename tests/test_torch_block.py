@@ -65,8 +65,8 @@ def test_wrapper_on_cpu_takes_the_plain_path(canon):
         got = tblock.fused_block_apply(x, p, 8, heads, False)
         want = tblock.block_ref(x, p, 8, heads, False)
     assert torch.equal(got, want)
-    assert tblock.fused_block_apply.launches == 0
-    assert tblock.fused_block_canon_t.launches == 0
+    assert not tblock.fused_block_apply.launches
+    assert not tblock.fused_block_canon_t.launches
 
 
 def test_wrapper_refuses_a_non_cpu_tensor_it_cannot_launch():

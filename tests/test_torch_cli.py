@@ -5,7 +5,10 @@
 against the port's ``Evaler``, and ``Predictor.from_experiment`` against the
 JAX ``Predictor`` on the same weights (``tests/test_torch_rollout.py``'s
 1e-4).  Without ``--device cpu`` / ``device="cpu"`` every entry point asks
-for the card."""
+for the card.  The shipped TANTE configs run as written, in f32 (they set
+no ``enable_amp``): the port's train CLI's checkpoint serves as the JAX
+``Predictor`` does with the same weights, and the eval CLI reports what the
+JAX package's evaler reports on them."""
 
 import json
 import os
@@ -21,8 +24,8 @@ from tante_tpu.data.dataset import TanteMetadata as JaxMetadata
 from tante_tpu.serve import Predictor as JaxPredictor
 from tante_tpu_torch.cli import eval as cli_eval
 from tante_tpu_torch.cli import train as cli_train
-from tante_tpu_torch.config import AMP_OVERRIDES, check_block_dtype, instantiate, load_config
-from tante_tpu_torch.convert import load_jax_params, seeded_jax_params
+from tante_tpu_torch.config import instantiate, load_config
+from tante_tpu_torch.convert import jax_params_from_state_dict, load_jax_params, seeded_jax_params
 from tante_tpu_torch.data import TanteDataModule
 from tante_tpu_torch.models import TANTE
 from tante_tpu_torch.serve import Predictor
@@ -230,46 +233,84 @@ def test_entry_points_ask_for_the_card_by_default(well_root_tiny, tmp_path, trai
                                   overrides=run["overrides"])
 
 
-def as_shipped(name, entry, well, root):
-    """``entry``'s call on the shipped config ``name`` (data and experiment
-    overrides only), on the card unless ``device`` is given."""
-    ov = [f"data.base_path={well}", "data.dataset_name=synthetic_waves",
-          f"root_path={root}", "experiment=SHIPPED"]
-    if entry == "from_experiment":
-        return lambda *device: Predictor.from_experiment(
-            name, overrides=ov, **({"device": device[0]} if device else {}))
-    main = {"train": cli_train.main, "eval": cli_eval.main}[entry]
-    return lambda *device: main([f"--config-name={name}",
-                                 *(["--device", device[0]] if device else []), *ov])
+def jax_weights(folder):
+    """The best checkpoint the port's train CLI wrote, as a flax param tree."""
+    state = torch.load(os.path.join(folder, "best", "state.pt"), weights_only=True)
+    flat = jax_params_from_state_dict(state["params"])
+    return {"params": traverse_util.unflatten_dict(
+        {k: jnp.asarray(v) for k, v in flat.items()}, sep="/")}
 
 
-@pytest.mark.parametrize("entry", ["train", "eval", "from_experiment"])
+def jax_model(name, ov, md):
+    return jconfig.instantiate(jconfig.load_config(name, overrides=ov).model,
+                               dset_metadata=JaxMetadata(**vars(md)))
+
+
 @pytest.mark.parametrize("name", ["tante", "tante_adaptive"])
-@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
-def test_shipped_tante_configs_are_refused_on_the_card_before_anything_runs(
-        well_root_tiny, tmp_path, name, entry, device):
-    """The shipped configs set no enable_amp, so TANTE's blocks would reach
-    the bf16-only kernels in f32: every entry point refuses on the card, with
-    the two overrides named, and writes nothing."""
-    call = as_shipped(name, entry, well_root_tiny, str(tmp_path))
-    with pytest.raises(ValueError, match=AMP_OVERRIDES):
-        call() if device is None else call(device)
-    assert not (tmp_path / "experiments").exists()
+@pytest.mark.parametrize("entry", ["train", "eval", "from_experiment"])
+def test_shipped_tante_configs_run_in_f32_at_every_entry(trained, name, entry):
+    """The shipped configs (only data, size and run overrides) set no
+    enable_amp: every entry point builds and runs the model in f32."""
+    run = trained[name]
+    assert not any("enable_amp" in o for o in run["overrides"])
+    cfg = load_config(name, overrides=run["overrides"])
+    assert not cfg.trainer.get("enable_amp", False) and not cfg.evaler.get("enable_amp", False)
+    root = os.path.dirname(os.path.dirname(run["folder"]))
+    if entry == "train":
+        model = run["first"].model
+    elif entry == "eval":
+        report = cli_eval.main([f"--config-name={name}", "--choose=best", "--device", "cpu",
+                                *run["overrides"]])
+        assert all(np.isfinite(v) for v in report["metrics"].values())
+        model = None
+    else:
+        model = Predictor.from_experiment(name, experiment=name, root_path=root,
+                                          overrides=run["overrides"], device="cpu").model
+    if model is not None:
+        assert model.dtype == torch.float32
+        assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
-@pytest.mark.parametrize("overrides_, device, refused", [
-    ([], "cpu", False),
-    (["trainer.enable_amp=true"], None, "evaler"),
-    (["evaler.enable_amp=true"], None, "trainer"),
-    (AMP_OVERRIDES.split(), None, False),
-    (AMP_OVERRIDES.split(), "cuda", False),
-])
-@pytest.mark.parametrize("name", ["tante", "tante_adaptive", "fno"])
-def test_block_dtype_check_reads_the_role_device_and_model(name, overrides_, device, refused):
-    cfg = load_config(name, overrides=overrides_)
-    for role in ("trainer", "evaler"):
-        if refused == role and name != "fno":
-            with pytest.raises(ValueError, match=f"{role}.enable_amp is not set"):
-                check_block_dtype(cfg, device, role)
-        else:
-            check_block_dtype(cfg, device, role)
+@pytest.mark.parametrize("name", ["tante", "tante_adaptive"])
+def test_shipped_config_train_cli_weights_serve_as_the_jax_predictor(trained, well_root_tiny,
+                                                                    name):
+    """The train CLI's best checkpoint (shipped config, f32) through
+    ``from_experiment`` against the JAX ``Predictor`` on the same weights."""
+    run = trained[name]
+    root = os.path.dirname(os.path.dirname(run["folder"]))
+    p = Predictor.from_experiment(name, experiment=name, root_path=root,
+                                  overrides=run["overrides"], device="cpu")
+    jp = JaxPredictor(jax_model(name, run["overrides"], p.metadata), jax_weights(run["folder"]))
+    x = history(3)
+    if name == "tante":
+        np.testing.assert_allclose(p.rollout(x, 5).numpy(), np.asarray(jp.rollout(x, 5)),
+                                   atol=ATOL, rtol=RTOL)
+        return
+    got, got_rt, got_calls = p.rollout_adaptive(x, 5)
+    want, want_rt, want_calls = jp.rollout_adaptive(x, 5)
+    assert got_calls == want_calls
+    np.testing.assert_allclose(got_rt, want_rt, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("name", ["tante", "tante_adaptive"])
+def test_shipped_config_eval_cli_reports_what_the_jax_evaler_reports(trained, name):
+    """The eval CLI on the train CLI's best checkpoint (shipped config, f32)
+    against the JAX package's evaler, built from the same config as its eval
+    CLI builds it, on the same weights and HDF5 files."""
+    run = trained[name]
+    ov = run["overrides"]
+    report = cli_eval.main([f"--config-name={name}", "--choose=best", "--device", "cpu", *ov])
+    jcfg = jconfig.load_config(name, overrides=ov)
+    jcfg.data.eval_steps_output = jcfg.evaler.n_steps_rollout
+    jdm = jconfig.instantiate(jcfg.data, seed=jcfg.seed)
+    jev = jconfig.instantiate(jcfg.evaler, checkpoint_folder=str(run["folder"]) + "_jax",
+                              model=jax_model(name, ov, jdm.train_dataset.metadata),
+                              datamodule=jdm, batch_size=jcfg.data.batch_size)
+    jev.params = jax_weights(run["folder"])
+    want = jev.Eval(mode="common")
+    for k, v in want["metrics"].items():
+        assert report["metrics"][k] == pytest.approx(float(v), rel=1e-4), k
+    if name == "tante_adaptive":
+        assert report["model_calls_per_rollout"] == pytest.approx(
+            float(want["model_calls_per_rollout"]))

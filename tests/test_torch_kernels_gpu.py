@@ -23,6 +23,14 @@ grows with depth as each block rounds its activations to bf16; the first
 design's chain read 0.058 at 3 blocks and 0.121 at 9 on an NVIDIA H100 80GB
 HBM3 at 700 W).
 
+The f32 instantiations (``test_f32_*``): f32 inputs and weights against the
+f32 plain version with TF32 off, relative L2 <= 1e-5 and max abs <= 1e-4
+max |plain| (every product an f32 FMA, only the order of the sums differs),
+in both softmax forms; the canonical T and chain kernels bit for bit against
+the f32 single-block kernels, as in bf16; gradients through the Functions
+within 1e-4 of f32 autograd; f16 and mixed dtypes refused, and f32 past
+C = 256.
+
 Both softmax forms: the "safe" cases of the JAX package's on-chip test
 (``tests/test_pallas_tpu.py``, its geometries and 0.05-scaled weights) and
 every single-block case again under ``set_block_tuning(softmax="safe")``, at
@@ -54,6 +62,8 @@ partials summed (rounded to bf16 as the all-reduce leaves them) plus bias and
 residual against the unsplit f32 block; their Functions' gradients as the
 block's."""
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -76,13 +86,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def params(c, hidden, seed, device):
+def params(c, hidden, seed, device, dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
 
     def u(*shape, fan_in=None, scale=1.0, offset=0.0):
         bound = 1.0 / np.sqrt(fan_in or shape[0])
         a = offset + scale * rng.uniform(-bound, bound, size=shape)
-        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+        return torch.from_numpy(a.astype(np.float32)).to(device, dtype)
 
     return fb.BlockParams(
         ln1_scale=u(c, scale=0.1, offset=1.0), ln1_bias=u(c, scale=0.1),
@@ -99,6 +109,11 @@ def bf16_normal(shape, seed, device):
 
 def f32(p):
     return fb.BlockParams(*(t.float() for t in p))
+
+
+def all_launches() -> Counter:
+    """Every block wrapper's launches so far, summed, by activation dtype."""
+    return sum((fn.launches for fn in fb.WRAPPERS), Counter())
 
 
 BLOCK_CASES = [
@@ -118,10 +133,10 @@ BLOCK_CASES = [
 def test_fused_block_kernel_matches_plain(cuda, s, l, c, hidden, heads, causal):
     p = params(c, hidden, seed=l + c, device=cuda)
     x = bf16_normal((s, l, c), seed=s, device=cuda)
-    before = fb.fused_block_apply.launches
+    before = fb.fused_block_apply.launches.copy()
     got = fb.fused_block_apply(x, p, l, heads, causal)
     torch.cuda.synchronize()
-    assert fb.fused_block_apply.launches == before + 1
+    assert fb.fused_block_apply.launches - before == Counter({torch.bfloat16: 1})
     want = fb.block_ref(x.float(), f32(p), l, heads, causal)
     assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
@@ -147,10 +162,10 @@ def rearranged_t(x5, p, heads):
 def test_fused_block_canon_t_kernel_matches_plain(cuda, b, t, h, w, c, heads):
     p = params(c, c, seed=t, device=cuda)
     x = bf16_normal((b, t, h, w, c), seed=b * t, device=cuda)
-    before = fb.fused_block_canon_t.launches
+    before = fb.fused_block_canon_t.launches.copy()
     got = fb.fused_block_canon_t(x, p, heads)
     torch.cuda.synchronize()
-    assert fb.fused_block_canon_t.launches == before + 1
+    assert fb.fused_block_canon_t.launches - before == Counter({torch.bfloat16: 1})
     want = fb.canon_t_ref(x.float(), f32(p), heads)
     assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
@@ -169,11 +184,11 @@ def test_fused_block_canon_t_kernel_matches_plain(cuda, b, t, h, w, c, heads):
 def test_canon_t_kernel_equals_rearranged_block_bit_for_bit(cuda, b, t, h, w, c, heads):
     p = params(c, c, seed=t + c, device=cuda)
     x = bf16_normal((b, t, h, w, c), seed=b + h * w, device=cuda)
-    before = fb.fused_block_canon_t.launches, fb.fused_block_apply.launches
+    before = fb.fused_block_canon_t.launches.copy(), fb.fused_block_apply.launches.copy()
     got = fb.fused_block_canon_t(x, p, heads)
     torch.cuda.synchronize()
-    assert (fb.fused_block_canon_t.launches, fb.fused_block_apply.launches) == (
-        before[0] + 1, before[1])
+    assert (fb.fused_block_canon_t.launches - before[0], fb.fused_block_apply.launches
+            - before[1]) == (Counter({torch.bfloat16: 1}), Counter())
     assert torch.equal(got, rearranged_t(x, p, heads))
     want = fb.canon_t_ref(x.float(), f32(p), heads)
     torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
@@ -219,10 +234,141 @@ def test_fused_block_kernel_softmax_forms_match_plain(cuda, s, l, causal, softma
 
 def test_kernel_refuses_what_it_cannot_hold(cuda):
     p = params(256, 256, seed=0, device=cuda)
-    with pytest.raises(ValueError):  # f32 activations
+    with pytest.raises(ValueError):  # f16 activations and weights: no instantiation
+        fb.fused_block_apply(torch.zeros(4, 16, 256, device=cuda, dtype=torch.float16),
+                             fb.BlockParams(*(t.half() for t in p)), 16, 8, False)
+    with pytest.raises(ValueError):  # f32 activations, bf16 weights
         fb.fused_block_apply(torch.zeros(4, 16, 256, device=cuda), p, 16, 8, False)
     with pytest.raises(ValueError):  # sequence longer than a tile
         fb.fused_block_apply(bf16_normal((2, 96, 256), 0, cuda), p, 96, 8, False)
+    p512 = params(512, 512, seed=0, device=cuda, dtype=torch.float32)
+    with pytest.raises(ValueError, match="no tile plan"):  # f32 holds C <= 256
+        fb.fused_block_apply(torch.zeros(4, 16, 512, device=cuda), p512, 16, 8, False)
+
+
+# --------------------------------------------------------------------------
+# The f32 instantiations (the *_f32_fwd entries): against the f32 plain
+# version with TF32 off, relative L2 <= 1e-5 and max abs <= 1e-4 max |plain|
+# (FFMA products in another summation order; chip_smoke.py's limits); the
+# canonical T and chain kernels bit for bit against the f32 single-block
+# kernel, as in bf16.
+# --------------------------------------------------------------------------
+
+F32_REL_L2, F32_MAX_ABS_SHARE = 1e-5, 1e-4
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def f32_normal(shape, seed, device, scale=1.0):
+    a = np.random.default_rng(seed).normal(size=shape).astype(np.float32) * scale
+    return torch.from_numpy(a).to(device)
+
+
+def assert_f32_close(got, want):
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    err, peak = float((got - want).abs().max()), float(want.abs().max())
+    assert rel <= F32_REL_L2 and err <= F32_MAX_ABS_SHARE * peak, (rel, err, peak)
+
+
+F32_BLOCK_CASES = [c for c in BLOCK_CASES if c[2] <= 256] + [
+    (1024, 32, 256, 256, 8, False),   # configs/tante.yaml's active_matter (32 x 32 tokens)
+    (5, 64, 256, 256, 8, True),       # L = 64, a whole tile
+]
+
+
+@pytest.mark.parametrize("s,l,c,hidden,heads,causal", F32_BLOCK_CASES)
+def test_f32_fused_block_kernel_matches_plain(cuda, no_tf32, s, l, c, hidden, heads, causal):
+    p = params(c, hidden, seed=l + c, device=cuda, dtype=torch.float32)
+    x = f32_normal((s, l, c), seed=s, device=cuda)
+    before = fb.fused_block_apply.launches.copy()
+    got = fb.fused_block_apply(x, p, l, heads, causal)
+    torch.cuda.synchronize()
+    assert fb.fused_block_apply.launches - before == Counter({torch.float32: 1})
+    assert_f32_close(got, fb.block_ref(x, p, l, heads, causal))
+
+
+@pytest.mark.parametrize("s,l,c,hidden,heads,causal", F32_BLOCK_CASES)
+def test_f32_fused_block_kernel_matches_plain_safe_softmax(cuda, no_tf32, safe_softmax, s, l, c,
+                                                           hidden, heads, causal):
+    test_f32_fused_block_kernel_matches_plain(cuda, no_tf32, s, l, c, hidden, heads, causal)
+
+
+@pytest.mark.parametrize("b,t,h,w,c,heads", [
+    (8, 4, 16, 48, 256, 8), (2, 2, 5, 7, 128, 4), (3, 4, 5, 7, 256, 8), (1, 8, 9, 9, 256, 16)])
+def test_f32_canon_t_kernel_equals_rearranged_block_bit_for_bit(cuda, no_tf32, b, t, h, w, c,
+                                                                 heads):
+    p = params(c, c, seed=t + c, device=cuda, dtype=torch.float32)
+    x = f32_normal((b, t, h, w, c), seed=b + h * w, device=cuda)
+    before = fb.fused_block_canon_t.launches.copy()
+    got = fb.fused_block_canon_t(x, p, heads)
+    torch.cuda.synchronize()
+    assert fb.fused_block_canon_t.launches - before == Counter({torch.float32: 1})
+    assert torch.equal(got, rearranged_t(x, p, heads))
+    assert_f32_close(got, fb.canon_t_ref(x, p, heads))
+
+
+@pytest.mark.parametrize("b,t,h,w,c,heads,axes", [
+    (8, 4, 16, 48, 256, 8, "THW"), (8, 4, 16, 48, 256, 8, "THWTHWTHW"),
+    (3, 2, 5, 7, 128, 4, "HW"), (2, 8, 4, 8, 128, 4, "WT"), (2, 4, 8, 12, 128, 4, "THWTHWTHWTHW")])
+def test_f32_chain_kernel_equals_sequence_and_matches_plain(cuda, no_tf32, b, t, h, w, c, heads,
+                                                            axes):
+    ps = [params(c, c, seed=10 * i + t, device=cuda, dtype=torch.float32)
+          for i in range(len(axes))]
+    x5 = f32_normal((b, t, h, w, c), seed=b + h, device=cuda)
+    before = fb.fused_group_apply.launches.copy(), fb.fused_chain_apply.launches.copy()
+    got5 = fb.fused_group_apply(x5, ps, axes, heads)
+    got3 = fb.fused_chain_apply(to_order(x5, axes[0]), ps, axes, heads, (t, h, w))
+    torch.cuda.synchronize()
+    assert (fb.fused_group_apply.launches - before[0], fb.fused_chain_apply.launches
+            - before[1]) == (Counter({torch.float32: 1}),) * 2
+    seq = sequential(x5, ps, axes, heads)
+    assert torch.equal(got5, seq)
+    assert torch.equal(got3, to_order(seq, axes[-1]))
+    assert_f32_close(got5, fb.group_ref(x5, ps, axes, heads))
+
+
+@pytest.mark.parametrize("kind,shape,axes", [
+    ("block", (1536, 16, 256), "H"), ("canon_t", (8, 4, 16, 48, 256), "T"),
+    ("chain", (8, 4, 16, 48, 256), "THW")])
+def test_f32_kernel_gradients_match_plain_autograd(cuda, no_tf32, kind, shape, axes):
+    """The backward is the plain version's, fed the f32 kernel's output."""
+    heads = 8
+    ps = [params(256, 256, seed=3 * i + 1, device=cuda, dtype=torch.float32)
+          for i in range(len(axes))]
+    x = f32_normal(shape, seed=5, device=cuda)
+
+    def run(x, ps, kernel):
+        if kind == "block":
+            return (fb.fused_block_apply if kernel else fb.block_ref)(x, ps[0], 16, heads, False)
+        if kind == "canon_t":
+            return (fb.fused_block_canon_t if kernel else fb.canon_t_ref)(x, ps[0], heads)
+        fn = fb.fused_chain_apply if kernel else fb.chain_ref
+        return fn(to_order(x, axes[0]), ps, axes, heads, shape[1:4])
+
+    def grads(kernel):
+        xl = x.detach().requires_grad_(True)
+        pl = [fb.BlockParams(*(t.detach().requires_grad_(True) for t in p)) for p in ps]
+        (run(xl, pl, kernel) ** 2).sum().backward()
+        return [xl.grad] + [t.grad for p in pl for t in p]
+
+    before = all_launches()
+    got = grads(True)
+    assert all_launches() - before == Counter({torch.float32: 1})
+    want = grads(False)
+    names = ["x"] + [f"{f}[{i}]" for i in range(len(ps)) for f in fb.BlockParams._fields]
+    ref = dict(zip(names, want))
+    errs = {n: float(torch.linalg.norm(g - w) / torch.linalg.norm(ref[n.replace("bk[", "bq[")]))
+            for n, g, w in zip(names, got, want)}
+    assert max(errs.values()) <= 1e-4, errs
 
 
 def sequential(x5, ps, axes, heads):
@@ -273,12 +419,12 @@ CHAIN_CASES = [
 def test_chain_kernel_matches_sequence_and_plain(cuda, b, t, h, w, c, heads, axes):
     ps = [params(c, c, seed=10 * i + t, device=cuda) for i in range(len(axes))]
     x5 = bf16_normal((b, t, h, w, c), seed=b + h, device=cuda)
-    before = fb.fused_group_apply.launches, fb.fused_chain_apply.launches
+    before = fb.fused_group_apply.launches.copy(), fb.fused_chain_apply.launches.copy()
     got5 = fb.fused_group_apply(x5, ps, axes, heads)
     got3 = fb.fused_chain_apply(to_order(x5, axes[0]), ps, axes, heads, (t, h, w))
     torch.cuda.synchronize()
-    assert (fb.fused_group_apply.launches, fb.fused_chain_apply.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (fb.fused_group_apply.launches - before[0], fb.fused_chain_apply.launches
+            - before[1]) == (Counter({torch.bfloat16: 1}),) * 2
     seq = sequential(x5, ps, axes, heads)
     assert torch.equal(got5, seq)
     assert torch.equal(got3, to_order(seq, axes[-1]))
@@ -309,11 +455,11 @@ def test_first_design_entries_still_run(cuda):
     b, t, h, w, c, heads = 2, 4, 16, 48, 256, 8
     ps = [params(c, c, seed=40 + i, device=cuda) for i in range(3)]
     x5 = bf16_normal((b, t, h, w, c), seed=41, device=cuda)
-    counts = [fn.launches for fn in fb.WRAPPERS]
+    counts = all_launches()
     got_t = fb.block_tile_canon_t(x5, ps[0], heads)
     got_c = fb.block_tile_chain(x5, ps, "THW", heads, (t, h, w))
     torch.cuda.synchronize()
-    assert [fn.launches for fn in fb.WRAPPERS] == counts
+    assert all_launches() == counts
     torch.testing.assert_close(got_t.float(), fb.canon_t_ref(x5.float(), f32(ps[0]), heads),
                                atol=ATOL, rtol=RTOL)
     want = fb.group_ref(x5.float(), [f32(p) for p in ps], "THW", heads)
@@ -360,9 +506,9 @@ def test_kernel_gradients_match_plain_autograd(cuda, kind, shape, axes):
         (run(x, ps, kernel).float() ** 2).sum().backward()
         return [x.grad] + [t.grad for p in ps for t in p]
 
-    before = sum(fn.launches for fn in fb.WRAPPERS)
+    before = all_launches()
     got = grads(x, ps, kernel=True)
-    assert sum(fn.launches for fn in fb.WRAPPERS) == before + 1  # forward only
+    assert all_launches() - before == Counter({torch.bfloat16: 1})  # forward only
     want = grads(x.float(), [f32(p) for p in ps], kernel=False)
     names = ["x"] + [f"{f}[{i}]" for i in range(len(ps)) for f in fb.BlockParams._fields]
     ref = dict(zip(names, want))
@@ -795,7 +941,7 @@ def test_tp_half_kernels_match_plain(cuda, tp, s, l, c, hidden, heads, causal):
     x = bf16_normal((s, l, c), seed=s + tp, device=cuda)
     attn_sum = torch.zeros(x.shape, device=cuda)
     parts = []
-    before = fb.attn_half_apply.launches, fb.mlp_half_apply.launches
+    before = fb.attn_half_apply.launches.copy(), fb.mlp_half_apply.launches.copy()
     for r in range(tp):
         ap, mp = halves(shard_block(p, tp, r))
         apf, mpf = halves(f32(shard_block(p, tp, r)))
@@ -809,8 +955,8 @@ def test_tp_half_kernels_match_plain(cuda, tp, s, l, c, hidden, heads, causal):
         got = fb.mlp_half_apply(x, mp)
         torch.cuda.synchronize()
         assert_half_close(got, fb.mlp_half_ref(x.float(), mpf))
-    assert (fb.attn_half_apply.launches, fb.mlp_half_apply.launches) == (
-        before[0] + tp, before[1] + tp)
+    assert (fb.attn_half_apply.launches - before[0], fb.mlp_half_apply.launches
+            - before[1]) == (Counter({torch.bfloat16: tp}),) * 2
     xm = (x.float() + attn_sum.to(torch.bfloat16).float() + p.bo.float()).to(torch.bfloat16)
     mlp_sum = sum(fb.mlp_half_apply(xm, mp).float() for mp in parts)
     y = xm.float() + mlp_sum.to(torch.bfloat16).float() + p.b2.float()
@@ -852,10 +998,10 @@ def test_tp_half_kernels_match_first_design(cuda, tp, s, l, c, hidden, heads, ca
              fb.attn_half_ref(x.float(), apf, l, heads // tp, causal)),
             (lambda: fb.mlp_half_apply(x, mp), lambda: fb.block_tile_mlp_half(x, mp),
              fb.mlp_half_ref(x.float(), mpf))):
-        before = fb.attn_half_apply.launches + fb.mlp_half_apply.launches
+        before = all_launches()
         k1, b1, b2, k2 = run(), first(), first(), run()
         torch.cuda.synchronize()
-        assert fb.attn_half_apply.launches + fb.mlp_half_apply.launches == before + 2
+        assert all_launches() - before == Counter({torch.bfloat16: 2})
         assert torch.equal(k1, k2) and torch.equal(b1, b2)
         assert_half_close(k1, want)
         assert_half_close(b1, want)
@@ -972,9 +1118,9 @@ def test_tp_half_function_gradients_match_plain_autograd(cuda, half, shape):
         (y.float() ** 2).sum().backward()
         return dict(zip(("x", *leaves._fields), (x.grad, *(t.grad for t in leaves))))
 
-    before = sum(fn.launches for fn in fb.WRAPPERS)
+    before = all_launches()
     got = grads(x, ps, kernel=True)
-    assert sum(fn.launches for fn in fb.WRAPPERS) == before + 1  # forward only
+    assert all_launches() - before == Counter({torch.bfloat16: 1})  # forward only
     want = grads(x.float(), f32(ps), kernel=False)
     for n, g in got.items():
         scale = torch.linalg.norm(want["bq" if n == "bk" else n])
