@@ -7,8 +7,9 @@ script exits non-zero without the final result line):
 
 1. build    nvcc builds every kernel source of this checkout
             (``tante_tpu_torch/ops/csrc/fused_block_sm90.cu``,
-            ``fused_chain_sm90.cu``, ``fused_half_sm90.cu`` (all three on the
-            Hopper tile body of ``block_sm90.cuh``), ``fused_block.cu`` (the
+            ``fused_chain_sm90.cu``, ``fused_half_sm90.cu``,
+            ``fused_half_sm90_f32.cu`` (all four on the Hopper tile body of
+            ``block_sm90.cuh``), ``fused_block.cu`` (the
             first design, the timing baseline), ``spectral_matmul.cu`` and
             ``packed_attention.cu``, one nvcc each, started together); build
             seconds, the ``-Xptxas -v`` summaries (the bf16 and the f32
@@ -154,14 +155,31 @@ script exits non-zero without the final result line):
             timed calls; once per weight version through ``copy_to_tp``
             views) and one timed at tp = 2; gradients through each half's
             Function.
+16a. tp_kernel_f32  the f32 halves (``*_sm90_f32_fwd``,
+            ``fused_half_sm90_f32.cu``) on every shard at the same H, W and
+            causal T shapes, tp = 2 and 4, on f32 inputs: relative L2 against
+            the f32 plain halves (TF32 off, within 1e-6), the shards' partials
+            recombined against the unsplit f32 block kernel and the f32 plain
+            block (within 1e-6), f32 launches counted, shard 0's kernel
+            device time against the 3xTF32 bound and the FFMA peak, the plain
+            halves' time, no re-layout over the timed calls.
 17. parallel  two spawned ranks of one gloo process group, both on the card:
-            the flagship forward on (dp 1, tp 2) against one rank (exactly 18
-            half launches per model call per rank, no single-device kernel;
-            f32 weights cast per call, and 18 weight re-layouts in the first
+            the flagship forward on (dp 1, tp 2) against one rank, in bf16
+            and in f32 as configs/tante.yaml ships (exactly 18 half launches
+            of the forward's dtype per model call per rank, none of the other
+            and no single-device kernel; 18 weight re-layouts in the first
             call, none in the next four), every step's loss, gradient norm
             (at tp 2 also 18 re-layouts a step) of Trainer at (dp 1, tp 2),
-            (dp 2, tp 1) and FNO at (dp 1, sp 2) against one rank, replicas
-            equal after a dropout step, the tp checkpoint on one rank;
+            (dp 2, tp 1) and FNO at (dp 1, sp 2) against one rank, the f32
+            Trainer (enable_amp off) at (dp 1, tp 2) within 1e-4 of one rank
+            with 36 f32 half launches a step and 18 a validation call;
+            R_Trainer in f32 at (dp 1, tp 2), configs/tante_adaptive.yaml's
+            one-frame engine and the flagship recipe's variable-frame engine
+            from the trained asset with remat on and off (B 2, two steps
+            each): every step's loss, r_t and gradient norm within 1e-4 of
+            one rank, equal calls, cums and model calls, 9 + 9 f32 half
+            launches a model call (twice with remat), its validation step;
+            replicas equal after a dropout step, the tp checkpoint on one rank;
             AttentionUNet (``configs/unet_att.yaml``,
             depth 5, 256x256, global B 2) at (dp 1, sp 2), every 3x3 conv
             halo-exchanging, and at (dp 2, sp 1): its steps against one rank and
@@ -192,7 +210,9 @@ script exits non-zero without the final result line):
             over 3 windows of whole epochs of at least 3 s: batches/s and the
             GB/s that reached the card, median and spread, and their ratio.
 20. kernels one {"kernels": [...]} line (eight kernels, then the three f32
-            entries; the bf16 block, canonical T, chain and tp half rows with
+            block entries, then the two f32 half entries with their launches
+            per f32 flagship call, Trainer step and R_Trainer step at tp 2;
+            the bf16 block, canonical T, chain and tp half rows with
             the first design's time, in turns; the two bf16 block rows also
             with their launches per R_Trainer step, the two f32 block rows
             with theirs on the CLI path).
@@ -254,6 +274,7 @@ ROOT = Path(__file__).resolve().parent
 ASSET = ROOT / "tante_tpu" / "assets" / "tante_flagship.npz"
 FIRST_DESIGN_SOURCE = "tante_tpu_torch/ops/csrc/fused_block.cu"
 HALF_SOURCE = "tante_tpu_torch/ops/csrc/fused_half_sm90.cu"
+HALF_F32_SOURCE = "tante_tpu_torch/ops/csrc/fused_half_sm90_f32.cu"
 SM90_SOURCE = "tante_tpu_torch/ops/csrc/fused_block_sm90.cu"
 CHAIN_SOURCE = "tante_tpu_torch/ops/csrc/fused_chain_sm90.cu"
 SPECTRAL_SOURCE = "tante_tpu_torch/ops/csrc/spectral_matmul.cu"
@@ -455,9 +476,11 @@ def phase_build() -> dict:
                         "block_sm90 f32": f32_plan(l),
                         "half_sm90 attention half, tp 2":
                             fb.half_plan("attn", l, C, C // 2)._asdict(),
+                        "half_sm90 f32 attention half, tp 2": half_f32_plan("attn", l),
                         "fused_block (first design)": _build.plan(l, C, C)}
              for l in (4, 16, AM_L, 48)}
     plans["half_sm90 MLP half, tp 2"] = fb.half_plan("mlp", 1, C, C // 2)._asdict()
+    plans["half_sm90 f32 MLP half, tp 2"] = half_f32_plan("mlp", 1)
     emit({"phase": "build", "seconds": seconds, "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"], "ptxas": v["ptxas"]}
                         for k, v in info.items()},
@@ -470,6 +493,12 @@ def f32_plan(l: int) -> dict:
     plan = fb.sm90_plan(l, C, C, torch.float32)
     return {**plan._asdict(), "smem_bytes": fb.sm90_smem(plan.rows, C, C, plan.np, plan.stages,
                                                          torch.float32)}
+
+
+def half_f32_plan(kind: str, l: int) -> dict:
+    plan = fb.half_plan(kind, l, C, C // 2, torch.float32)
+    return {**plan._asdict(), "smem_bytes": fb.half_smem(
+        kind == "attn", plan.rows, C, plan.width, plan.np, plan.stages, torch.float32)}
 
 
 def block_params(seed: int, device, dtype=torch.bfloat16) -> fb.BlockParams:
@@ -774,7 +803,9 @@ F32_KERNEL_CASES = [
 ]
 F32_ENTRIES = {"fused_block_fwd": "tante_fused_block_sm90_f32_fwd",
                "fused_block_canon_t_fwd": "tante_fused_block_canon_t_sm90_f32_fwd",
-               "fused_chain_fwd": "tante_fused_chain_sm90_f32_fwd"}
+               "fused_chain_fwd": "tante_fused_chain_sm90_f32_fwd",
+               "attn_half_fwd": "tante_attn_half_sm90_f32_fwd",
+               "mlp_half_fwd": "tante_mlp_half_sm90_f32_fwd"}
 
 
 def phase_kernels_f32(dev) -> dict[str, list[dict]]:
@@ -3149,15 +3180,19 @@ def half_bound(kind: str, rows: int, l: int, causal: bool, p) -> tuple[float, st
     """(bound ms, what bounds it, flops, bytes) of one half on one shard:
     matmuls (attention: q/k/v C x C/tp and the C/tp x C out-projection, plus
     4 * C/tp per admitted (query, key) pair; MLP: fc1 and fc2 over the
-    hidden shard) against x in + the partial out + the shard's weights."""
+    hidden shard) against x in + the partial out + the shard's weights, in
+    the shard's dtype.  bf16 at the bf16 tensor-core peak; f32 as three TF32
+    products a product (3xTF32, ``bound_f32``)."""
     if kind == "attn":
         ca = p.wq.shape[-1]
         pairs = rows * (l + 1) / 2 if causal else rows * l
         flops = 2 * rows * 4 * C * ca + 4 * ca * pairs
     else:
         flops = 2 * rows * 2 * C * p.w1.shape[-1]
-    nbytes = 2 * rows * C * 2 + sum(t.numel() * t.element_size() for t in p)
-    t_ops, t_mem = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    elem = p[0].element_size()
+    nbytes = 2 * rows * C * elem + sum(t.numel() * t.element_size() for t in p)
+    t_ops = 3 * flops / PEAK_TF32_FLOPS if elem == 4 else flops / PEAK_BF16_FLOPS
+    t_mem = nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes"), flops, nbytes
 
 
@@ -3331,6 +3366,109 @@ def phase_tp_kernel(dev) -> list[dict]:
     return out
 
 
+# The f32 halves against their f32 plain versions (TF32 off) and, recombined,
+# against the unsplit f32 block kernel: FFMA products in another summation
+# order, nothing rounded below f32 (the f32 block kernels read ~1e-7).
+F32_HALF_REL_L2_TOL = F32_RECOMBINED_REL_L2_TOL = 1e-6
+_HALF_F32_SYMBOLS = {"attn": re.compile(r"half_sm90_f32_kernel(?:<(?:16|32|64),|ILi(?:16|32|64)E)"),
+                     "mlp": re.compile(r"half_sm90_f32_kernel(?:<0,|ILi0E)")}
+
+
+def phase_tp_kernel_f32(dev) -> list[dict]:
+    """Both f32 half kernels (``*_sm90_f32_fwd``, ``fused_half_sm90_f32.cu``)
+    on every shard at the flagship's H, W and causal T shapes for tp = 2 and
+    4, on f32 inputs: relative L2 and max abs error against the f32 plain
+    halves; the shards' partials recombined (summed in f32, then bias and
+    residual, as ``fused_block_apply_tp`` adds them) against the unsplit f32
+    block kernel and the f32 plain block; launches counted (f32 only);
+    shard 0's kernels' own device time against the 3xTF32 bound and the
+    FFMA peak, the plain halves' time; weight re-layouts over the timed
+    calls (none)."""
+    out = []
+    for tp in TP_SIZES:
+        for i, (label, shape, causal) in enumerate(TP_CASES):
+            p = block_params(600 + i, dev, torch.float32)
+            x = torch.from_numpy(np.random.default_rng(60 + i).normal(size=shape).astype(
+                np.float32)).to(dev)
+            rows, l, heads = shape[0] * shape[1], shape[1], HEADS // tp
+            shards = [tp_halves(shard_block(p, tp, r)) for r in range(tp)]
+            errs = {k: {"max_abs_err": 0.0, "rel_l2": 0.0, "plain_rms": 0.0} for k in ("attn", "mlp")}
+            reset_counts()
+            attn_parts = []
+            for ap, mp in shards:
+                for kind, got, want in (
+                        ("attn", fb.attn_half_apply(x, ap, l, heads, causal),
+                         fb.attn_half_ref(x, ap, l, heads, causal)),
+                        ("mlp", fb.mlp_half_apply(x, mp), fb.mlp_half_ref(x, mp))):
+                    torch.cuda.synchronize()
+                    e = errs[kind]
+                    e["max_abs_err"] = max(e["max_abs_err"], float((got - want).abs().max()))
+                    e["rel_l2"] = max(e["rel_l2"], rel_l2(got, want))
+                    e["plain_rms"] = max(e["plain_rms"], float(want.square().mean().sqrt()))
+                    check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+                          f"f32 tp={tp} {label}: the {kind} half's partial is not finite f32")
+                    if kind == "attn":
+                        attn_parts.append(got)
+            launched = {"attn_half_fwd": dict(fb.attn_half_apply.launches),
+                        "mlp_half_fwd": dict(fb.mlp_half_apply.launches)}
+            check(launched == {"attn_half_fwd": {torch.float32: tp},
+                               "mlp_half_fwd": {torch.float32: tp}},
+                  f"f32 tp={tp} {label}: half launches {launched}, want {tp} f32 each")
+            ok = all(e["rel_l2"] <= F32_HALF_REL_L2_TOL for e in errs.values())
+            check(ok, f"f32 tp={tp} {label}: a half kernel disagrees with its plain version {errs}")
+            xm = x + (torch.stack(attn_parts).sum(0) + p.bo)
+            y = xm + (torch.stack([fb.mlp_half_apply(xm, mp) for _, mp in shards]).sum(0) + p.b2)
+            unsplit = fb.fused_block_apply(x, p, l, HEADS, causal)
+            want = fb.block_ref(x, p, l, HEADS, causal)
+            recombined = {"vs_unsplit_f32_kernel_rel_l2": rel_l2(y, unsplit),
+                          "vs_f32_plain_block_rel_l2": rel_l2(y, want),
+                          "vs_unsplit_f32_kernel_max_abs_err": float((y - unsplit).abs().max())}
+            ok_block = max(recombined["vs_unsplit_f32_kernel_rel_l2"],
+                           recombined["vs_f32_plain_block_rel_l2"]) <= F32_RECOMBINED_REL_L2_TOL
+            check(ok_block, f"f32 tp={tp} {label}: the recombined halves disagree with the "
+                            f"unsplit f32 block: {recombined}")
+            res = {"phase": "tp_kernel_f32", "tp": tp, "case": label, "shape": list(shape),
+                   "causal": causal, "local_heads": heads, "local_width": C // tp,
+                   "plans": {"attn": fb.half_plan("attn", l, C, C // tp, torch.float32)._asdict(),
+                             "mlp": fb.half_plan("mlp", 1, C, C // tp, torch.float32)._asdict()},
+                   "tolerance": f"rel L2 <= {F32_HALF_REL_L2_TOL} against the f32 plain half "
+                                f"(TF32 off); recombined block: rel L2 <= "
+                                f"{F32_RECOMBINED_REL_L2_TOL}",
+                   "ok": ok and ok_block, "launches": {k: v.get(torch.float32, 0)
+                                                       for k, v in launched.items()},
+                   "recombined": recombined}
+            ap, mp = shards[0]  # re-laid by their launches above
+            relays = fb.relaid_weights.count
+            for kind, run, plain, hp, wrapper in (
+                    ("attn", lambda: fb.attn_half_apply(x, ap, l, heads, causal),
+                     lambda: fb.attn_half_ref(x, ap, l, heads, causal), ap, fb.attn_half_apply),
+                    ("mlp", lambda: fb.mlp_half_apply(x, mp), lambda: fb.mlp_half_ref(x, mp), mp,
+                     fb.mlp_half_apply)):
+                b_ms, b_by, flops, nbytes = half_bound(kind, rows, l, causal, hp)
+                split = device_split(run, _HALF_F32_SYMBOLS[kind], 10,
+                                     lambda w=wrapper: w.launches[torch.float32],
+                                     f"f32 tp={tp} {label} {kind} half")
+                check(split["kernel_events"] is None or bool(split["symbols"]),
+                      f"f32 tp={tp} {label}: no {kind} f32 half kernel in the profile "
+                      f"{split['all_symbols']}")
+                res[kind] = {**errs[kind], "kernel_ms": split["kernel_ms"],
+                             "call_ms": split["call_ms"], "symbols": split["symbols"],
+                             "events_launches_calls": [split["kernel_events"],
+                                                       split["launches_counted"], split["calls"]],
+                             "plain_ms": device_ms(plain, iters=5), "bound_us": 1e3 * b_ms,
+                             "bound_by": b_by, "ffma_bound_us": 1e6 * flops / PEAK_F32_FLOPS,
+                             "flops": flops, "bytes": nbytes,
+                             "achieved_tflops": flops / split["kernel_ms"] / 1e9,
+                             "bound_share": b_ms / split["kernel_ms"]}
+            res["relays_over_timed_calls"] = fb.relaid_weights.count - relays
+            check(res["relays_over_timed_calls"] == 0,
+                  f"f32 tp={tp} {label}: {res['relays_over_timed_calls']} re-layouts of unchanged "
+                  "weights")
+            emit(res)
+            out.append(res)
+    return out
+
+
 class _StandInGroup:
     """A process group for ``_CopyToTP.apply`` in one process (its forward
     only keeps it)."""
@@ -3414,6 +3552,14 @@ def tp_counts() -> dict:
             "mlp_half_fwd": fb.mlp_half_apply.launches.total()}
 
 
+def half_counts() -> dict:
+    """The tp halves' launches since the last reset, by wrapper and dtype
+    ("bf16" / "f32")."""
+    return {name: {"bf16": fn.launches[torch.bfloat16], "f32": fn.launches[torch.float32]}
+            for name, fn in (("attn_half_fwd", fb.attn_half_apply),
+                             ("mlp_half_fwd", fb.mlp_half_apply))}
+
+
 def parallel_data(dev, batch, n_in, fno=False) -> WaveDataModule:
     """In-memory waves at the flagship resolution; the same on every rank."""
     return WaveDataModule(
@@ -3423,9 +3569,11 @@ def parallel_data(dev, batch, n_in, fno=False) -> WaveDataModule:
                    with_pressure=True, seed=0))
 
 
-def parallel_trainer(dev, workdir: Path, folder: str, kind: str, mesh=None, dropout=0.0):
-    """A Trainer on the flagship TANTE (bf16 over f32 weights, AdamW 5e-5) or on
-    FNO at configs/fno.yaml width (channels-last), on one rank or on ``mesh``."""
+def parallel_trainer(dev, workdir: Path, folder: str, kind: str, mesh=None, dropout=0.0,
+                     amp=True):
+    """A Trainer on the flagship TANTE (bf16 over f32 weights, AdamW 5e-5; f32
+    throughout with ``amp=False``, as configs/tante.yaml ships) or on FNO at
+    configs/fno.yaml width (channels-last), on one rank or on ``mesh``."""
     if kind == "tante":
         dm = parallel_data(dev, PARALLEL_TRAIN_B, IN_T)
         model = flagship(True, torch.float32, dev, dm.train_dataset.metadata, dropout=dropout)
@@ -3436,7 +3584,7 @@ def parallel_trainer(dev, workdir: Path, folder: str, kind: str, mesh=None, drop
         lr = 1e-3
     trainer = Trainer(str(workdir / folder), "channels_first_default", model, dm,
                       AdamW(lr=lr, weight_decay=1e-5), MSE(), L2RE(), max_epoch=1,
-                      enable_amp=True, n_steps_output=2, n_steps_rollout=2, seed=0, mesh=mesh,
+                      enable_amp=amp, n_steps_output=2, n_steps_rollout=2, seed=0, mesh=mesh,
                       device=dev)
     return trainer, dm
 
@@ -3448,23 +3596,37 @@ def train_steps(trainer: Trainer, dm, steps: int) -> dict:
     each step."""
     loader = dm.train_dataloader()
     loader.set_epoch(1)
-    losses, norms, seconds, relays, stats = [], [], [], [], []
+    losses, norms, seconds, relays, stats, halves = [], [], [], [], [], []
     for step, batch in enumerate(loader):
         if step == steps:
             break
         (x,), y = trainer.formatter.process_input(batch)
         torch.cuda.synchronize()
+        reset_counts()
         r0, t0 = fb.relaid_weights.count, time.perf_counter()
         loss = float(trainer.train_step(x, y))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         relays.append(fb.relaid_weights.count - r0)
+        halves.append(half_counts())
         losses.append(loss)
         norms.append(float(trainer.last_grad_norm))
         stats.append({k: b.detach().cpu().numpy().copy() for k, b in trainer.model.named_buffers()
                       if k in trainer.model.state_dict()})
     return {"losses": losses, "grad_norms": norms, "seconds_per_step": seconds,
-            "relays_per_step": relays, "buffers_per_step": stats}
+            "relays_per_step": relays, "half_launches_per_step": halves,
+            "buffers_per_step": stats}
+
+
+def validation_call(trainer: Trainer, dm) -> dict:
+    """One ``eval_step`` on the first validation batch: its loss, model calls
+    and half launches."""
+    (x,), y = trainer.formatter.process_input(next(iter(dm.val_dataloader())))
+    reset_counts()
+    with counted_calls(trainer.model) as n:
+        loss = float(trainer.eval_step(x, y))
+        torch.cuda.synchronize()
+    return {"loss": loss, "model_calls": n[0], "half_launches": half_counts()}
 
 
 def unet_parallel_trainer(dev, workdir: Path, folder: str, mesh=None):
@@ -3480,6 +3642,118 @@ def unet_parallel_trainer(dev, workdir: Path, folder: str, mesh=None):
                       AdamW(lr=5e-5, weight_decay=1e-5), MSE(), L2RE(), max_epoch=1,
                       n_steps_output=1, n_steps_rollout=2, seed=0, mesh=mesh, device=dev)
     return trainer, dm
+
+
+# The adaptive training path under a mesh, f32 as configs/tante_adaptive.yaml
+# ships (no enable_amp) and dropout 0 (the kernels): the config's one-frame
+# engine from seeded weights and the flagship recipe's variable-frame engine
+# (scripts/train_flagship.py:92-107) from the trained asset, remat on and
+# off; two steps each.  Cut: B 2 (the config's 8, the recipe's 4).
+R_PARALLEL_B, R_PARALLEL_STEPS = 2, 2
+VF_RECIPE = dict(train_out_T=8.0, rt_band_hi=8.0, rt_eps=3.0, rt_supervision=0.05,
+                 rt_sup_mode="growth")
+R_PARALLEL_RUNS = (("one_frame", 4, 8, dict(rt_eps=0.5)),
+                   ("vf_remat", 16, 16, VF_RECIPE),
+                   ("vf_no_remat", 16, 16, dict(VF_RECIPE, gradient_checkpointing=False)))
+# f32 on a mesh against one rank on the same card (TF32 off): FFMA sums of
+# the halves and their all-reduce in another order than the unsplit
+# kernels', nothing rounded below f32.  Every step's loss, r_t mean and
+# gradient norm; the flagship forward's change, relative L2.
+F32_MESH_REL_TOL = 1e-4
+F32_TP_FORWARD_REL_TOL = 1e-5
+
+
+def r_parallel_runs(dev, workdir: Path, mesh=None) -> dict:
+    """``R_PARALLEL_RUNS`` through R_Trainer on the f32 flagship, on one rank
+    or on ``mesh``: per step the loss, r_t mean and spread, calls, gradient
+    norm, every sample's cums (variable-frame), model calls, half launches
+    and weight re-layouts; then one validation step (its model calls, r_t
+    log and half launches)."""
+    sched = lambda: LinearWarmupCosineAnnealingLR(  # noqa: E731
+        warmup_epochs=2, max_epochs=34, lr=5e-5, warmup_start_lr=1e-5)
+    out = {}
+    for name, n_out, n_val, kw in R_PARALLEL_RUNS:
+        dm = WaveDataModule(
+            batch_size=R_PARALLEL_B, n_steps_input=IN_T, n_steps_output=n_out,
+            eval_steps_output=n_val, data_workers=2, seed=0, device=dev,
+            waves=dict(resolution=RES, n_trajectories=2, n_steps=IN_T + n_val + 4,
+                       with_pressure=True, seed=0))
+        model = flagship(False, torch.float32, dev, dm.train_dataset.metadata, dropout=0.0)
+        load_jax_params(model, seeded_jax_params(model, seed=0) if name == "one_frame"
+                        else dict(np.load(ASSET)))
+        trainer = R_Trainer(str(workdir / f"r_{name}"), "channels_first_default", model, dm,
+                            AdamW(lr=5e-5, weight_decay=1e-5), MSE(), L2RE(), max_epoch=34,
+                            lr_scheduler=sched(), n_steps_output=n_out, n_steps_rollout=n_val,
+                            rt_n=2, seed=0, mesh=mesh, device=dev, **kw)
+        rollouts = []
+
+        def kept(*args, objective=trainer._adaptive_loss):  # keeps the rollout's record
+            res = objective(*args)
+            rollouts.append(res[4])
+            return res
+
+        trainer._adaptive_loss = kept
+        loader = dm.train_dataloader()
+        loader.set_epoch(1)
+        (x,), y = trainer.formatter.process_input(next(iter(loader)))
+        steps = []
+        for _ in range(R_PARALLEL_STEPS):
+            torch.cuda.synchronize()
+            reset_counts()
+            r0, t0 = fb.relaid_weights.count, time.perf_counter()
+            with counted_calls(trainer.model) as n:
+                loss, rt, rt_var, calls = (float(v) for v in trainer.train_step(x, y))
+                torch.cuda.synchronize()
+            cums = rollouts[-1]["cums"]
+            steps.append({"loss": loss, "rt": rt, "rt_var": rt_var, "calls": calls,
+                          "grad_norm": float(trainer.last_grad_norm),
+                          "cums": None if cums is None else cums.T.tolist(),
+                          "model_calls": n[0], "half_launches": half_counts(),
+                          "block_launches": launch_counts(torch.float32),
+                          "relays": fb.relaid_weights.count - r0,
+                          "seconds": time.perf_counter() - t0})
+        (xv,), yv = trainer.formatter.process_input(next(iter(dm.val_dataloader())))
+        reset_counts()
+        with counted_calls(trainer.model) as n:
+            vloss, rt_log, n_calls = trainer.eval_step(xv, yv)
+            torch.cuda.synchronize()
+        out[name] = {"steps": steps, "validation": {
+            "loss": float(vloss), "n_calls": n_calls, "model_calls": n[0],
+            "rt_log": rt_log[:n_calls].tolist(), "half_launches": half_counts(),
+            "block_launches": launch_counts(torch.float32)},
+            "split_parameters": sum(hasattr(q, "tp_dim") for q in trainer.model.parameters()),
+            "remat": trainer.gradient_checkpointing}
+        del trainer, model
+    return out
+
+
+def tp_forward(model, x, dtype) -> dict:
+    """One warm call of the flagship, then one counted call (the launches of
+    every wrapper in ``dtype`` and in any other) and three timed ones; weight
+    re-layouts in the first call and in the next four."""
+    with torch.no_grad():
+        relays = fb.relaid_weights.count
+        model(x)  # warm
+        torch.cuda.synchronize()
+        relays_first = fb.relaid_weights.count - relays
+        reset_counts()
+        relays = fb.relaid_weights.count
+        y = model(x)
+        torch.cuda.synchronize()
+        halves = half_counts()
+        counts = {**launch_counts(dtype),
+                  **{k: v["f32" if dtype == torch.float32 else "bf16"] for k, v in halves.items()},
+                  "spectral_mode_matmul": fs.spectral_mode_matmul.launches}
+        other = other_launches(dtype) + sum(
+            v["bf16" if dtype == torch.float32 else "f32"] for v in halves.values())
+        t0 = time.perf_counter()
+        for _ in range(3):
+            model(x)
+        torch.cuda.synchronize()
+    return {"y": y.float().cpu().numpy(), "launches_per_call": counts,
+            "other_dtype_launches": other, "seconds_per_call": (time.perf_counter() - t0) / 3,
+            "relays_first_call": relays_first,
+            "relays_next_4_calls": fb.relaid_weights.count - relays}
 
 
 def flagship_input(batch=BATCH) -> np.ndarray:
@@ -3508,30 +3782,14 @@ def parallel_rank(rank: int, world: int, rdv: str, workdir: str, device: str, re
         workdir = Path(workdir)
         tp_mesh = dp_tp_mesh(world, tp=world, device=dev)
 
-        # 1. The flagship forward, blocks split over tp.
-        model = flagship(True, torch.bfloat16, dev, tp_mesh=tp_mesh)
-        load_jax_params(model, seeded_jax_params(model, seed=0), tp_mesh)
+        # 1. The flagship forward, blocks split over tp: bf16, then f32 as
+        # configs/tante.yaml ships.
         x = torch.from_numpy(flagship_input()).to(dev)
-        with torch.no_grad():
-            relays = fb.relaid_weights.count
-            model(x)  # warm
-            torch.cuda.synchronize()
-            relays_first = fb.relaid_weights.count - relays
-            reset_counts()
-            relays = fb.relaid_weights.count
-            y = model(x)
-            torch.cuda.synchronize()
-            counts = {**launch_counts(), **tp_counts(),
-                      "spectral_mode_matmul": fs.spectral_mode_matmul.launches}
-            t0 = time.perf_counter()
-            for _ in range(3):
-                model(x)
-            torch.cuda.synchronize()
-        out["forward"] = {"y": y.float().cpu().numpy(), "launches_per_call": counts,
-                          "seconds_per_call": (time.perf_counter() - t0) / 3,
-                          "relays_first_call": relays_first,
-                          "relays_next_4_calls": fb.relaid_weights.count - relays}
-        del model
+        for key, dtype in (("forward", torch.bfloat16), ("forward_f32", torch.float32)):
+            model = flagship(True, dtype, dev, tp_mesh=tp_mesh)
+            load_jax_params(model, seeded_jax_params(model, seed=0), tp_mesh)
+            out[key] = tp_forward(model, x, dtype)
+            del model
 
         # 2. Trainer at (dp 1, tp 2): dropout 0, then a dropout step; save.
         trainer, dm = parallel_trainer(dev, workdir, "tp", "tante", tp_mesh)
@@ -3548,6 +3806,14 @@ def parallel_rank(rank: int, world: int, rdv: str, workdir: str, device: str, re
             k: hashlib.sha256(v.detach().cpu().numpy().tobytes()).hexdigest()
             for k, v in trainer.model.named_parameters() if not hasattr(v, "tp_dim")}
         del trainer
+        # 2b. The same Trainer in f32 (enable_amp=False), dropout 0: the f32
+        # halves; then one validation step.
+        trainer, dm = parallel_trainer(dev, workdir, "tp_f32", "tante", tp_mesh, amp=False)
+        out["train_tp_f32"] = train_steps(trainer, dm, 2)
+        out["train_tp_f32"]["validation"] = validation_call(trainer, dm)
+        del trainer
+        # 2c. R_Trainer at (dp 1, tp 2) in f32: both engines, remat on and off.
+        out["r_trainer"] = r_parallel_runs(dev, workdir / "r", tp_mesh)
 
         # 3. Trainer at (dp 2, tp 1); 4. FNO at (dp 1, sp 2).
         dp_mesh = dp_tp_mesh(world, tp=1, device=dev)
@@ -3586,17 +3852,24 @@ def phase_parallel(dev, workdir: Path) -> dict:
     import multiprocessing
 
     # Single-rank references, the same seeds.
-    model = flagship(True, torch.bfloat16, dev)
-    load_jax_params(model, seeded_jax_params(model, seed=0))
     x = torch.from_numpy(flagship_input()).to(dev)
-    with torch.no_grad():
-        y_single = model(x).float().cpu()
-    del model
+    y_single = {}
+    for key, dtype in (("forward", torch.bfloat16), ("forward_f32", torch.float32)):
+        model = flagship(True, dtype, dev)
+        load_jax_params(model, seeded_jax_params(model, seed=0))
+        with torch.no_grad():
+            y_single[key] = model(x).float().cpu()
+        del model
     single = {}
     for name, kind in (("tante", "tante"), ("fno", "fno")):
         trainer, dm = parallel_trainer(dev, workdir / "single", name, kind)
         single[name] = train_steps(trainer, dm, 2)
         del trainer
+    trainer, dm = parallel_trainer(dev, workdir / "single", "tante_f32", "tante", amp=False)
+    single["tante_f32"] = train_steps(trainer, dm, 2)
+    single["tante_f32"]["validation"] = validation_call(trainer, dm)
+    del trainer
+    single["r_trainer"] = r_parallel_runs(dev, workdir / "single" / "r")
     trainer, dm = unet_parallel_trainer(dev, workdir / "single", "unet")
     single["unet"] = train_steps(trainer, dm, 2)
     del trainer
@@ -3635,23 +3908,35 @@ def phase_parallel(dev, workdir: Path) -> dict:
         return res
     r0, r1 = ranks[0], ranks[1]
 
-    # 1. forward
+    # 1. forward, bf16 and f32
     want = {"fused_block_fwd": 0, "fused_block_canon_t_fwd": 0, "fused_chain_apply": 0,
             "fused_group_apply": 0, "attn_half_fwd": 9, "mlp_half_fwd": 9,
             "spectral_mode_matmul": 0}
-    fwd_err = [rel_l2(torch.from_numpy(r["forward"]["y"]) - x[:, -1:].float().cpu(),
-                      y_single - x[:, -1:].float().cpu()) for r in (r0, r1)]
-    check(all(r["forward"]["launches_per_call"] == want for r in (r0, r1)),
-          f"tp forward launches {r0['forward']['launches_per_call']}, want {want}")
-    check(max(fwd_err) <= ROLLOUT_REL_TOL, f"tp=2 forward vs single rank: rel L2 {fwd_err}")
-    check(np.array_equal(r0["forward"]["y"], r1["forward"]["y"]), "tp ranks' outputs differ")
-    # Each rank re-lays its 9 blocks' two halves once, though every call
-    # casts the f32 parameters to bf16 anew and hands the LayerNorm ones to
-    # the halves as new copy_to_tp views; a Trainer re-lays them once per
-    # optimizer step.
-    relays = [(r["forward"]["relays_first_call"], r["forward"]["relays_next_4_calls"])
-              for r in (r0, r1)]
-    check(all(r == (18, 0) for r in relays), f"tp forward re-layouts (first call, next 4) {relays}")
+    forward = {}
+    for key, tol in (("forward", ROLLOUT_REL_TOL), ("forward_f32", F32_TP_FORWARD_REL_TOL)):
+        fwd_err = [rel_l2(torch.from_numpy(r[key]["y"]) - x[:, -1:].float().cpu(),
+                          y_single[key] - x[:, -1:].float().cpu()) for r in (r0, r1)]
+        check(all(r[key]["launches_per_call"] == want and not r[key]["other_dtype_launches"]
+                  for r in (r0, r1)),
+              f"tp {key} launches {r0[key]['launches_per_call']} (and "
+              f"{r0[key]['other_dtype_launches']} in the other dtype), want {want}")
+        check(max(fwd_err) <= tol, f"tp=2 {key} vs single rank: rel L2 {fwd_err}")
+        check(np.array_equal(r0[key]["y"], r1[key]["y"]), f"tp ranks' {key} outputs differ")
+        # Each rank re-lays its 9 blocks' two halves once, though every call
+        # casts the f32 parameters to bf16 anew (bf16) and hands the
+        # LayerNorm ones to the halves as new copy_to_tp views; a Trainer
+        # re-lays them once per optimizer step.
+        relays = [(r[key]["relays_first_call"], r[key]["relays_next_4_calls"]) for r in (r0, r1)]
+        check(all(r == (18, 0) for r in relays),
+              f"tp {key} re-layouts (first call, next 4) {relays}")
+        forward[key] = {
+            "batch": BATCH, "dtype": "bf16" if key == "forward" else "f32",
+            "weights": "seeded (numpy seed 0)",
+            "launches_per_model_call_per_rank": r0[key]["launches_per_call"],
+            "other_dtype_launches": r0[key]["other_dtype_launches"],
+            "weight_relayouts_per_rank_first_call_then_next_4": relays,
+            "change_vs_single_rank_rel_l2": fwd_err, "rel_l2_tolerance": tol,
+            "seconds_per_call": [r[key]["seconds_per_call"] for r in (r0, r1)]}
 
     # 2-4. every step's loss and gradient norm against the single-rank Trainer
     def rel(a, b):
@@ -3683,6 +3968,8 @@ def phase_parallel(dev, workdir: Path) -> dict:
         check(gaps["grad_norm"] <= MESH_GNORM_REL_TOL,
               f"{name}: gradient norms {run['grad_norms']} vs {ref['grad_norms']} on one rank")
         check(run["losses"] == r1[name]["losses"], f"{name}: the ranks log different losses")
+    f32_train = f32_trainer_checks(r0, r1, single)
+    r_trainer = r_trainer_checks(r0, r1, single["r_trainer"])
     check(r0["train_tp"]["split_parameters"] == 9 * 10, "tp Trainer: blocks not split")
     check(all(r["train_tp"]["relays_per_step"] == [18, 18] for r in (r0, r1)),
           f"tp Trainer re-layouts per step {[r['train_tp']['relays_per_step'] for r in (r0, r1)]}"
@@ -3723,11 +4010,7 @@ def phase_parallel(dev, workdir: Path) -> dict:
                       y_ckpt - x[:2, -1:].float().cpu())
     check(ckpt_err <= ROLLOUT_REL_TOL, f"tp checkpoint on one rank: rel L2 {ckpt_err}")
     res.update({
-        "forward": {"batch": BATCH, "dtype": "bf16", "weights": "seeded (numpy seed 0)",
-                    "launches_per_model_call_per_rank": r0["forward"]["launches_per_call"],
-                    "weight_relayouts_per_rank_first_call_then_next_4": relays,
-                    "change_vs_single_rank_rel_l2": fwd_err, "rel_l2_tolerance": ROLLOUT_REL_TOL,
-                    "seconds_per_call": [r["forward"]["seconds_per_call"] for r in (r0, r1)]},
+        **forward, "trainer_f32": f32_train, "r_trainer_f32": r_trainer,
         "trainer": losses, "loss_rel_tol": MESH_LOSS_REL_TOL,
         "grad_norm_rel_tol": MESH_GNORM_REL_TOL,
         "dropout_0.1_step_replicated_parameters_equal": same,
@@ -3738,6 +4021,102 @@ def phase_parallel(dev, workdir: Path) -> dict:
         "times_are": "two ranks sharing one card through gloo: not a tp speed"})
     emit(res)
     return res
+
+
+def rel_gap(a: float, b: float) -> float:
+    return abs(a - b) / abs(b) if b else abs(a)
+
+
+def f32_trainer_checks(r0: dict, r1: dict, single: dict) -> dict:
+    """The f32 Trainer at (dp 1, tp 2) against one rank: every step's loss
+    and gradient norm (F32_MESH_REL_TOL), 9 + 9 f32 half launches per model
+    call (two a train step, forward; backward recomputes the plain halves)
+    and none in bf16, 18 re-layouts a step, and the validation call."""
+    run, ref = r0["train_tp_f32"], single["tante_f32"]
+    gaps = {"loss": max(rel_gap(a, b) for a, b in zip(run["losses"], ref["losses"], strict=True)),
+            "grad_norm": max(rel_gap(a, b) for a, b in zip(run["grad_norms"], ref["grad_norms"],
+                                                          strict=True))}
+    check(max(gaps.values()) <= F32_MESH_REL_TOL,
+          f"f32 tp Trainer vs one rank: {gaps} (losses {run['losses']} vs {ref['losses']})")
+    check(run["losses"] == r1["train_tp_f32"]["losses"], "f32 tp Trainer: the ranks' losses differ")
+    per_step = {"attn_half_fwd": {"bf16": 0, "f32": 18}, "mlp_half_fwd": {"bf16": 0, "f32": 18}}
+    check(all(h == per_step for r in (r0, r1) for h in r["train_tp_f32"]["half_launches_per_step"]),
+          f"f32 tp Trainer half launches per step {run['half_launches_per_step']}, want {per_step}")
+    check(all(r["train_tp_f32"]["relays_per_step"] == [18, 18] for r in (r0, r1)),
+          f"f32 tp Trainer re-layouts per step {run['relays_per_step']}, want 18")
+    val, val_ref = run["validation"], ref["validation"]
+    calls = val["model_calls"]
+    want_val = {k: {"bf16": 0, "f32": 9 * calls} for k in per_step}
+    check(val["half_launches"] == want_val and calls == val_ref["model_calls"],
+          f"f32 tp validation: {val['half_launches']} half launches for {calls} calls")
+    check(rel_gap(val["loss"], val_ref["loss"]) <= F32_MESH_REL_TOL,
+          f"f32 tp validation loss {val['loss']} vs {val_ref['loss']} on one rank")
+    return {"losses": run["losses"], "single_rank_losses": ref["losses"],
+            "grad_norms": run["grad_norms"], "single_rank_grad_norms": ref["grad_norms"],
+            "worst_rel_gap": gaps, "rel_tol": F32_MESH_REL_TOL,
+            "half_launches_per_step": run["half_launches_per_step"][0],
+            "relays_per_step": run["relays_per_step"],
+            "seconds_per_step": run["seconds_per_step"],
+            "single_rank_seconds_per_step": ref["seconds_per_step"],
+            "validation": {"loss": val["loss"], "single_rank_loss": val_ref["loss"],
+                           "model_calls": calls, "half_launches": val["half_launches"]}}
+
+
+def r_trainer_checks(r0: dict, r1: dict, single: dict) -> dict:
+    """R_Trainer at (dp 1, tp 2) in f32 against one rank, per run of
+    ``R_PARALLEL_RUNS``: every step's loss, r_t mean and gradient norm within
+    F32_MESH_REL_TOL, equal calls, cums and model calls; the ranks equal;
+    9 + 9 f32 half launches per model call (twice under remat), none in bf16
+    and no single-device block launch; 18 re-layouts a step; the validation
+    step's calls, r_t log and loss."""
+    out = {}
+    for name, *_ in R_PARALLEL_RUNS:
+        run, other, ref = r0["r_trainer"][name], r1["r_trainer"][name], single[name]
+        check(run["split_parameters"] == 9 * 10, f"R_Trainer {name} at tp 2: blocks not split")
+        factor = 2 if run["remat"] else 1
+        gaps = []
+        for i, (a, b, c) in enumerate(zip(run["steps"], ref["steps"], other["steps"], strict=True)):
+            g = {k: rel_gap(a[k], b[k]) for k in ("loss", "rt", "grad_norm")}
+            gaps.append(g)
+            check(max(g.values()) <= F32_MESH_REL_TOL,
+                  f"R_Trainer {name} step {i} at tp 2 vs one rank: {g}")
+            check(a["calls"] == b["calls"] and a["cums"] == b["cums"]
+                  and a["model_calls"] == b["model_calls"],
+                  f"R_Trainer {name} step {i}: calls {a['calls']} / {b['calls']}, cums "
+                  f"{a['cums']} / {b['cums']}, model calls {a['model_calls']} / "
+                  f"{b['model_calls']} at tp 2 / on one rank")
+            check(all(a[k] == c[k] for k in ("loss", "rt", "calls", "cums", "grad_norm")),
+                  f"R_Trainer {name} step {i}: the tp ranks differ")
+            want = {k: {"bf16": 0, "f32": factor * 9 * a["model_calls"]}
+                    for k in ("attn_half_fwd", "mlp_half_fwd")}
+            check(a["half_launches"] == want and not any(a["block_launches"].values())
+                  and a["relays"] == 18,
+                  f"R_Trainer {name} step {i}: half launches {a['half_launches']} (want {want}), "
+                  f"block launches {a['block_launches']}, {a['relays']} re-layouts (want 18)")
+        val, vref = run["validation"], ref["validation"]
+        want = {k: {"bf16": 0, "f32": 9 * val["model_calls"]}
+                for k in ("attn_half_fwd", "mlp_half_fwd")}
+        check(val["n_calls"] == vref["n_calls"] == val["model_calls"]
+              and val["half_launches"] == want,
+              f"R_Trainer {name} validation at tp 2: {val['n_calls']} calls (one rank "
+              f"{vref['n_calls']}), half launches {val['half_launches']}")
+        check(rel_gap(val["loss"], vref["loss"]) <= F32_MESH_REL_TOL
+              and max((rel_gap(a, b) for a, b in zip(val["rt_log"], vref["rt_log"])),
+                      default=0.0) <= F32_MESH_REL_TOL,
+              f"R_Trainer {name} validation at tp 2: loss {val['loss']} vs {vref['loss']}, r_t "
+              f"{val['rt_log']} vs {vref['rt_log']}")
+        out[name] = {
+            "steps": [{k: a[k] for k in ("loss", "rt", "rt_var", "calls", "grad_norm", "cums",
+                                         "model_calls", "half_launches", "relays", "seconds")}
+                      for a in run["steps"]],
+            "single_rank_steps": [{k: b[k] for k in ("loss", "rt", "grad_norm", "calls",
+                                                     "seconds")} for b in ref["steps"]],
+            "worst_rel_gap": {k: max(g[k] for g in gaps) for k in gaps[0]},
+            "validation": {"n_calls": val["n_calls"], "loss": val["loss"],
+                           "single_rank_loss": vref["loss"],
+                           "half_launches": val["half_launches"]},
+            "remat": run["remat"]}
+    return out
 
 
 def cli_launches(cli: dict, name: str, runs=CLI_CONFIGS) -> dict:
@@ -3762,7 +4141,7 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict],
                   kernels_f32: dict[str, list[dict]], chains_f32: dict[str, dict], fixed: dict,
                   fixed_f32: dict, train: dict, adaptive_train: dict, cli: dict,
                   spectral: list[dict], fno: dict, packed: list[dict], avit: dict, cvit: dict,
-                  tp: list[dict], parallel: dict) -> list[dict]:
+                  tp: list[dict], tp_f32: list[dict], parallel: dict) -> list[dict]:
     replaces = {"fused_block_fwd": "tante_tpu/ops/pallas_block.py:163",
                 "fused_block_canon_t_fwd": "tante_tpu/ops/pallas_block.py:401",
                 "fused_chain_apply": "tante_tpu/ops/pallas_block.py:1073",
@@ -3953,6 +4332,39 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict],
                 "bound_us", "bound_by", "achieved_tflops", "max_abs_err", "rel_l2",
                 "plain_rms")}} for c in tp],
         })
+    # The f32 halves (configs/tante.yaml / tante_adaptive.yaml as shipped
+    # under a tp mesh): counted over the parallel phase's f32 forward, with
+    # their launches per f32 Trainer and R_Trainer step beside.
+    main = [c for c in tp_f32 if c["tp"] == 2]
+    per_call = parallel.get("forward_f32", {}).get("launches_per_model_call_per_rank", {})
+    r_runs = parallel.get("r_trainer_f32", {})
+    for kind, name, kernel in (("attn", "attn_half_fwd", "_attn_half_kernel :696"),
+                               ("mlp", "mlp_half_fwd", "_mlp_half_kernel :704")):
+        mean = lambda k: sum(c[kind][k] for c in main) / len(main)  # noqa: E731,B023
+        out.append({
+            "name": f"{name} (f32)", "route": "cuda", "source": HALF_F32_SOURCE,
+            "entry": F32_ENTRIES[name],
+            "replaces": f"tante_tpu/ops/pallas_block.py:730 ({kernel}) (f32 activations)",
+            "launches": per_call.get(name, 0),
+            "launches_counted_over": "one f32 flagship model call on one rank of (dp 1, tp 2)",
+            "launches_per_f32_train_step": parallel.get("trainer_f32", {}).get(
+                "half_launches_per_step", {}).get(name),
+            "launches_per_r_trainer_step": {r: run["steps"][0]["half_launches"][name]
+                                            for r, run in r_runs.items()},
+            "max_abs_err": max(c[kind]["max_abs_err"] for c in tp_f32),
+            "rel_l2": max(c[kind]["rel_l2"] for c in tp_f32),
+            "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_us") / 1e3, "bound_by": main[0][kind]["bound_by"],
+            "ffma_bound_ms": mean("ffma_bound_us") / 1e3,
+            "library_ms": None,  # no single PyTorch call computes a half block
+            "times_are": "device time (torch.profiler) of the kernel alone, shard 0, mean over "
+                         "H, W, T at tp = 2; call_ms: the wrapper's whole device time",
+            "call_ms": mean("call_ms"), "achieved_tflops": mean("achieved_tflops"),
+            "ok": all(c["ok"] for c in tp_f32),
+            "per_shape": [{"tp": c["tp"], "case": c["case"], **{k: c[kind][k] for k in (
+                "kernel_ms", "call_ms", "plain_ms", "bound_us", "ffma_bound_us", "bound_by",
+                "achieved_tflops", "max_abs_err", "rel_l2", "plain_rms")}} for c in tp_f32],
+        })
     check(all(k["launches"] > 0 for k in out), "a kernel of the main paths was never launched")
     emit({"kernels": out})
     return out
@@ -3981,6 +4393,7 @@ def main() -> int:
     packed = phase_packed_kernel(dev)
     phase_packed_grad(dev)
     tp = phase_tp_kernel(dev)
+    tp_f32 = phase_tp_kernel_f32(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = phase_train(dev, Path(workdir))
         adaptive_train = phase_adaptive_train(dev, Path(workdir))
@@ -3992,7 +4405,7 @@ def main() -> int:
         phase_zoo(dev, Path(workdir))
         parallel = phase_parallel(dev, Path(workdir))
     phase_summary(kernels, chains, kernels_f32, chains_f32, fixed, fixed_f32, train,
-                  adaptive_train, cli, spectral, fno, packed, avit, cvit, tp, parallel)
+                  adaptive_train, cli, spectral, fno, packed, avit, cvit, tp, tp_f32, parallel)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

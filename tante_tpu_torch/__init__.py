@@ -17,7 +17,8 @@ The kernels are hand-written CUDA for ``sm_90a``: the fused transformer blocks
 on one Hopper tile body (``ops/csrc/block_sm90.cuh``: the single block and the
 canonical T block in ``fused_block_sm90.cu``, the chain/group of blocks in
 ``fused_chain_sm90.cu``, the two tensor-parallel halves in
-``fused_half_sm90.cu``; the first design's body, ``fused_block.cu``, is kept
+``fused_half_sm90.cu`` and, in f32, ``fused_half_sm90_f32.cu``; the first
+design's body, ``fused_block.cu``, is kept
 as the timing baseline), the spectral convolutions' per-mode complex channel
 mixing (``ops/csrc/spectral_matmul.cu``) and the head-packed attention core
 (``ops/csrc/packed_attention.cu``).

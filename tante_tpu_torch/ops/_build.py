@@ -229,14 +229,18 @@ def _bind_fused_chain_sm90(lib: ctypes.CDLL) -> None:
     lib.tante_chain_sm90_args_bytes.restype = i
 
 
-def _bind_fused_half_sm90(lib: ctypes.CDLL) -> None:
+def _bind_fused_half_sm90(lib: ctypes.CDLL, dt: str = "") -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tante_attn_half_sm90_fwd.argtypes = [
-        p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, i, i, i, p]
-    lib.tante_attn_half_sm90_fwd.restype = i
-    lib.tante_mlp_half_sm90_fwd.argtypes = [
-        p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, p]
-    lib.tante_mlp_half_sm90_fwd.restype = i
+    attn = getattr(lib, f"tante_attn_half_sm90{dt}_fwd")
+    attn.argtypes = [p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, i, i, i, p]
+    attn.restype = i
+    mlp = getattr(lib, f"tante_mlp_half_sm90{dt}_fwd")
+    mlp.argtypes = [p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, p]
+    mlp.restype = i
+
+
+def _bind_fused_half_sm90_f32(lib: ctypes.CDLL) -> None:
+    _bind_fused_half_sm90(lib, "_f32")  # the f32 entries take the bf16 ones' arguments
 
 
 def _bind_spectral_matmul(lib: ctypes.CDLL) -> None:
@@ -262,6 +266,7 @@ KERNELS: dict[str, Callable[[ctypes.CDLL], None]] = {
     "fused_block_sm90": _bind_fused_block_sm90,
     "fused_chain_sm90": _bind_fused_chain_sm90,
     "fused_half_sm90": _bind_fused_half_sm90,
+    "fused_half_sm90_f32": _bind_fused_half_sm90_f32,
     "spectral_matmul": _bind_spectral_matmul,
     "packed_attention": _bind_packed_attention,
 }

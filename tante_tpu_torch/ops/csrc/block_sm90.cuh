@@ -4,7 +4,9 @@
 // body, redesigned for this card, shared by three sources (each its own
 // library, built in parallel; fused_half_sm90.cu, the two tensor-parallel
 // halves, runs its parts: LayerNorm, the slab ring, gemm_np with EpiQkv,
-// EpiGelu and EpiPartial, attention_group):
+// EpiGelu and EpiPartial, attention_group; fused_half_sm90_f32.cu runs the
+// f32 body's: layer_norm_f32, gemm_f32 with EpiQkvF, EpiGeluF and
+// EpiPartialF, attention_group_f32):
 //
 //   y = x' + fc2(gelu_tanh(fc1(ln2(x'))))      x' = x + wo(attn(ln1(x)))
 //
@@ -1192,6 +1194,21 @@ struct EpiResidualF {
   }
 };
 
+// y = v for the tile's valid rows, written at y + yr.off(r): no bias, no
+// residual (a tensor-parallel half's pre-bias partial in f32,
+// fused_half_sm90_f32.cu).  The bias is 0, so the product reaches y as the
+// FMAs left it; a padded shard's zero rows and columns add exact zeros.
+template <class OutRows>
+struct EpiPartialF {
+  float* y;
+  OutRows yr;
+  int valid;
+  __device__ float4 bias(int) const { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ void store(int r, int c, float4 v) const {
+    if (r < valid) *reinterpret_cast<float4*>(y + yr.off(r) + c) = v;
+  }
+};
+
 // out (64 x N) = A (64 x K, row-major in shared memory, ld_f(K)) . W (K x N,
 // the ring's next slabs: per pass of NP = 64*NJ columns, K/16 slabs of
 // 16 x NP row-major), each product an FMA in k order, handed to `epi`.
@@ -1241,7 +1258,13 @@ __device__ void gemm_f32(const float* A, int K, int N, Ring& ring, const Epi& ep
           }
         }
       }
-      release(ring, ring.idx);  // this warp's reads of the slab are done
+      // This warp's reads of the slab are done.  They are generic-proxy
+      // loads, and the producer's next bulk copy into the stage writes
+      // through the async proxy: the mbarrier alone does not order the two
+      // (without this fence the f32 tp halves' persistent grid read a slab
+      // already refilled in 9 of 96 launch pairs on an H100).
+      fence_async_smem();
+      release(ring, ring.idx);
       ++ring.idx;
     }
 #pragma unroll

@@ -32,7 +32,9 @@ Five entry points carry every attention block of the TANTE paths:
   after each.  CUDA kernels ``attn_half_fwd`` and ``mlp_half_fwd`` (wrappers
   ``attn_half_apply`` / ``mlp_half_apply``; ``csrc/fused_half_sm90.cu``, the
   same Hopper tile body on a shard zero-padded to whole 64-column groups,
-  a persistent grid) replace the Pallas kernels reached by
+  a persistent grid; the f32 entries ``*_sm90_f32_fwd`` in
+  ``csrc/fused_half_sm90_f32.cu`` on the f32 tile body) replace the Pallas
+  kernels reached by
   ``fused_block_apply_tp`` (``pallas_block.py:890``, through
   ``_pallas_rowtile``: ``_attn_half_kernel`` / ``_mlp_half_kernel``).  Their
   weights are re-laid once per weight version (``half_weights``), cached
@@ -70,8 +72,8 @@ from its input: bf16 activations and weights with f32 LayerNorm, softmax,
 GELU and accumulators (q/k/v, attention weights and output, fc1 output and
 the residual sums rounded to bf16); or f32 throughout, nothing rounded to
 bf16 (the ``*_f32_fwd`` entries on the f32 tile body: FFMA products, 64-row
-tiles, C <= 256, accurate tanh).  x and every parameter share one dtype,
-bf16 or f32.  The Hopper kernels round at the same points under every row
+tiles, C <= 256, accurate tanh; the tp halves' partials in f32 too).  x and
+every parameter share one dtype, bf16 or f32.  The Hopper kernels round at the same points under every row
 map, so the canonical T kernel equals ``fused_block_apply`` on the
 rearranged tensor, and a chain the single-block kernels in sequence, bit
 for bit.
@@ -354,6 +356,12 @@ def _pass_width(n: int) -> int:
     return n if n <= 192 else 128 if n % 128 == 0 else 64
 
 
+def _pass_width_f32(n: int) -> int:
+    """The f32 body's pass width past the q|k|v one: 128 where it divides N,
+    else 64 (``block_sm90.cuh:gemm_f32_np``)."""
+    return 128 if n % 128 == 0 else 64
+
+
 def sm90_smem(rows: int, c: int, hidden: int, np: tuple, stages: int,
               dtype: torch.dtype = torch.bfloat16) -> int:
     """Shared memory bytes of a plan (``block_sm90.cuh:layout`` /
@@ -384,7 +392,7 @@ def sm90_plan(l: int, c: int, hidden: int, dtype: torch.dtype = torch.bfloat16) 
         if c > SM90_F32_MAX_C:
             return None
         # The f32 body's passes past the q|k|v one are 64 or 128 wide.
-        np = (SM90_QKV_N, *(128 if n % 128 == 0 else 64 for n in (c, hidden, c)))
+        np = (SM90_QKV_N, *(_pass_width_f32(n) for n in (c, hidden, c)))
         rows = SM90_F32_ROWS
         for stages in range(SM90_MAX_STAGES, 1, -1):
             if sm90_smem(rows, c, hidden, np, stages, dtype) <= SMEM_OPTIN:
@@ -977,30 +985,37 @@ def _pack_mlp(flat) -> tuple:
     return (MlpHalfParams(*flat),)
 
 
-def _check_half_x(x: torch.Tensor, c: int, local: int):
+def _check_half_device(x: torch.Tensor):
     if x.device.type != "cuda":
         raise ValueError(f"tp half kernel needs a CUDA tensor, got {x.device}")
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"kernel input must be contiguous bf16, got {x.dtype}")
+
+
+def _check_half_x(x: torch.Tensor, c: int, local: int):
+    """The halves' input on any device: contiguous, in one of the kernels'
+    dtypes (bf16 or f32), of a width the halves take."""
+    if x.dtype not in KERNEL_DTYPES or not x.is_contiguous():
+        raise ValueError(f"kernel input must be contiguous bf16 or f32, got {x.dtype}")
     if c % 64 or c > KERNEL_MAX_C or local % 32 or not 32 <= local <= 2 * c:
         raise ValueError(f"tp half kernel needs C % 64 == 0, C <= {KERNEL_MAX_C} and a local "
                          f"width that is a multiple of 32 in [32, 2C]; got C={c}, local={local}")
 
 
 def _check_attn_half(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int):
+    """x and every parameter of the shard in x's dtype (bf16 or f32)."""
     c, ca = x.shape[-1], p.wq.shape[-1]
     _check_half_x(x, c, ca)
     if heads <= 0 or ca % heads or ca // heads not in KERNEL_HEAD_DIMS or ca > c:
         raise ValueError(f"attention half: local width {ca} over {heads} heads, C={c}")
     if not 1 <= l <= KERNEL_MAX_L:
         raise ValueError(f"kernel holds sequences of 1..{KERNEL_MAX_L}, got L={l}")
-    _check_params(x, p, ((c,), (c,), (c, ca), (ca,), (c, ca), (ca,), (c, ca), (ca,), (ca, c)))
+    _check_params(x, p, ((c,), (c,), (c, ca), (ca,), (c, ca), (ca,), (c, ca), (ca,), (ca, c)),
+                  x.dtype)
 
 
 def _check_mlp_half(x2: torch.Tensor, p: MlpHalfParams):
     c, hl = x2.shape[-1], p.w1.shape[-1]
     _check_half_x(x2, c, hl)
-    _check_params(x2, p, ((c,), (c,), (c, hl), (hl,), (hl, c)))
+    _check_params(x2, p, ((c,), (c,), (c, hl), (hl,), (hl, c)), x2.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -1014,37 +1029,54 @@ class HalfPlan(NamedTuple):
     width: int       # the shard's local width padded to a multiple of 64 (W)
     np: tuple        # column passes: q|k|v (192) or fc1; out-projection or fc2
     stages: int      # weight slabs in the ring
+    f32: bool = False  # the f32 kernels' plan: their weight slabs (arrange_weight_f32)
 
     def ints(self) -> list:
         return [self.rows, self.seqs, self.width, *self.np, self.stages]
 
 
-def half_smem(attn: bool, rows: int, c: int, width: int, np: tuple, stages: int) -> int:
-    """Shared memory bytes of a half's plan (``fused_half_sm90.cu:half_layout``):
-    the LayerNorm output, the attention half's q|k|v tile, the attention or
-    fc1 output (W wide), the slab ring and its barriers."""
+def half_smem(attn: bool, rows: int, c: int, width: int, np: tuple, stages: int,
+              dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory bytes of a half's plan (``fused_half_sm90.cu:half_layout``,
+    ``fused_half_sm90_f32.cu:half_layout_f32``): the LayerNorm output, the
+    attention half's q|k|v tile, the attention or fc1 output (W wide), the
+    slab ring and its barriers.  f32 tiles are row-major with 4 floats of
+    padding a row, and f32 slabs are 16 rows deep."""
+    if dtype == torch.float32:
+        qkv = rows * SM90_F32_QKV_LD * 4 if attn else 0
+        return (rows * (c + 4) * 4 + qkv + rows * (width + 4) * 4
+                + stages * SM90_F32_SLAB_K * max(np) * 4 + 2 * SM90_MAX_STAGES * 8)
     qkv = rows * SM90_QKV_LD * 2 if attn else 0
     return (rows * c * 2 + qkv + rows * width * 2 + stages * SM90_SLAB_K * max(np) * 2
             + 2 * SM90_MAX_STAGES * 8)
 
 
 @functools.lru_cache(maxsize=64)
-def half_plan(kind: str, l: int, c: int, local: int) -> HalfPlan | None:
+def half_plan(kind: str, l: int, c: int, local: int,
+              dtype: torch.dtype = torch.bfloat16) -> HalfPlan | None:
     """The tile plan of the "attn" half on sequences of length ``l`` or the
-    "mlp" half (``l`` = 1) for a shard ``local`` columns wide: 128-row tiles
-    when C <= 256, else 64 (the LayerNorm's registers); as many ring stages
-    as fit, up to four.  None outside ``_check_half_x``'s envelope (and, for
-    the attention half, local <= C)."""
+    "mlp" half (``l`` = 1) for a shard ``local`` columns wide, in ``dtype``:
+    bf16, 128-row tiles when C <= 256, else 64 (the LayerNorm's registers);
+    f32, 64-row tiles, C <= 256 and column passes past the q|k|v one 64 or
+    128 wide (the f32 body's); as many ring stages as fit, up to four.  None
+    outside ``_check_half_x``'s envelope (and, for the attention half,
+    local <= C), or where no f32 tile fits."""
     attn = kind == "attn"
     if not (c % 64 == 0 and 0 < c <= KERNEL_MAX_C and local % 32 == 0
             and 32 <= local <= (c if attn else 2 * c) and 1 <= l <= (KERNEL_MAX_L if attn else 1)):
         return None
     width = -(-local // 64) * 64
-    np = (SM90_QKV_N if attn else _pass_width(width), _pass_width(c))
-    rows = 128 if c <= 256 else 64
+    if dtype == torch.float32:
+        if c > SM90_F32_MAX_C:
+            return None
+        np = (SM90_QKV_N if attn else _pass_width_f32(width), _pass_width_f32(c))
+        rows = SM90_F32_ROWS
+    else:
+        np = (SM90_QKV_N if attn else _pass_width(width), _pass_width(c))
+        rows = 128 if c <= 256 else 64
     for stages in range(SM90_MAX_STAGES, 1, -1):
-        if half_smem(attn, rows, c, width, np, stages) <= SMEM_OPTIN:
-            return HalfPlan(rows, rows // l, width, np, stages)
+        if half_smem(attn, rows, c, width, np, stages, dtype) <= SMEM_OPTIN:
+            return HalfPlan(rows, rows // l, width, np, stages, dtype == torch.float32)
     return None
 
 
@@ -1059,17 +1091,25 @@ def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(w, (0, 0, 0, rows - w.shape[0]))
 
 
+def _slab_layout(plan: HalfPlan) -> Callable:
+    """The weight slabs of the plan's kernels: wgmma's core matrices (bf16)
+    or the f32 body's row-major slabs."""
+    return arrange_weight_f32 if plan.f32 else arrange_weight
+
+
 def _arrange_attn_half(p: AttnHalfParams, heads: int, plan: HalfPlan) -> HalfWeights:
     ws, bqkv = qkv_groups(p, heads)
-    slabs = torch.cat([*(arrange_weight(w, plan.np[0]) for w in ws),
-                       arrange_weight(_pad_rows(p.wo, plan.width), plan.np[1])])
+    arrange = _slab_layout(plan)
+    slabs = torch.cat([*(arrange(w, plan.np[0]) for w in ws),
+                       arrange(_pad_rows(p.wo, plan.width), plan.np[1])])
     return HalfWeights(p.ln1_scale, p.ln1_bias, bqkv, slabs)
 
 
 def _arrange_mlp_half(p: MlpHalfParams, plan: HalfPlan) -> HalfWeights:
     pad = plan.width - p.w1.shape[-1]
-    slabs = torch.cat([arrange_weight(F.pad(p.w1, (0, pad)), plan.np[0]),
-                       arrange_weight(_pad_rows(p.w2, plan.width), plan.np[1])])
+    arrange = _slab_layout(plan)
+    slabs = torch.cat([arrange(F.pad(p.w1, (0, pad)), plan.np[0]),
+                       arrange(_pad_rows(p.w2, plan.width), plan.np[1])])
     return HalfWeights(p.ln2_scale, p.ln2_bias, F.pad(p.b1, (0, pad)), slabs)
 
 
@@ -1083,26 +1123,43 @@ def half_weights(p: AttnHalfParams | MlpHalfParams, plan: HalfPlan,
     return relaid_weights(p, ("mlp", plan), lambda: _arrange_mlp_half(p, plan))
 
 
+def _half_plan_for(kind: str, l: int, c: int, local: int, dtype: torch.dtype) -> HalfPlan:
+    plan = half_plan(kind, l, c, local, dtype)
+    if plan is None:
+        raise ValueError(f"no {kind} half tile plan for L={l}, C={c}, local width {local} in "
+                         f"{dtype}")
+    return plan
+
+
+def _half_entry(kind: str, x: torch.Tensor) -> Callable:
+    """The C entry of the ``kind`` half ("attn" / "mlp") for x's dtype:
+    ``fused_half_sm90.cu``'s (bf16) or ``fused_half_sm90_f32.cu``'s."""
+    from tante_tpu_torch.ops import _build
+
+    dt = "_f32" if _f32(x) else ""
+    return getattr(_build.load(f"fused_half_sm90{dt}"), f"tante_{kind}_half_sm90{dt}_fwd")
+
+
 def attn_half_apply(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
                     causal: bool) -> torch.Tensor:
     """(S, L, C) -> the pre-bias attention partial (S, L, C) of one tp shard
-    (``heads`` local heads).  CUDA kernel ``attn_half_fwd``
-    (``csrc/fused_half_sm90.cu``); the plain version on the CPU."""
+    (``heads`` local heads) in x's dtype.  CUDA kernel ``attn_half_fwd``
+    (``csrc/fused_half_sm90.cu``; in f32 ``csrc/fused_half_sm90_f32.cu``);
+    the plain version on the CPU."""
     if x.device.type == "cpu":
         return attn_half_ref(x, p, l, heads, causal)
     if x.shape[-2] != l:
         raise ValueError(f"x of shape {tuple(x.shape)} does not hold sequences of L={l}")
 
     def launch(x, ps):
-        from tante_tpu_torch.ops import _build
-
         (p,) = ps
+        _check_half_device(x)
         _check_attn_half(x, p, l, heads)
         c, ca = x.shape[-1], p.wq.shape[-1]
-        plan = half_plan("attn", l, c, ca)
+        plan = _half_plan_for("attn", l, c, ca, x.dtype)
         w = half_weights(p, plan, heads)
         out = torch.empty_like(x)
-        rc = _build.load("fused_half_sm90").tante_attn_half_sm90_fwd(
+        rc = _half_entry("attn", x)(
             x.data_ptr(), out.data_ptr(), _ptr_array([w]), (ctypes.c_int * 6)(*plan.ints()),
             x.numel() // (l * c), l, c, ca, heads, int(bool(causal)), _safe(), x.device.index,
             _stream(x),
@@ -1120,21 +1177,21 @@ attn_half_apply.launches = collections.Counter()
 
 def mlp_half_apply(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
     """(..., C) -> the pre-bias MLP partial of one tp shard (rows are
-    independent).  CUDA kernel ``mlp_half_fwd`` (``csrc/fused_half_sm90.cu``);
+    independent) in x2's dtype.  CUDA kernel ``mlp_half_fwd``
+    (``csrc/fused_half_sm90.cu``; in f32 ``csrc/fused_half_sm90_f32.cu``);
     the plain version on the CPU."""
     if x2.device.type == "cpu":
         return mlp_half_ref(x2, p)
 
     def launch(x2, ps):
-        from tante_tpu_torch.ops import _build
-
         (p,) = ps
+        _check_half_device(x2)
         _check_mlp_half(x2, p)
         c, hl = x2.shape[-1], p.w1.shape[-1]
-        plan = half_plan("mlp", 1, c, hl)
+        plan = _half_plan_for("mlp", 1, c, hl, x2.dtype)
         w = half_weights(p, plan)
         out = torch.empty_like(x2)
-        rc = _build.load("fused_half_sm90").tante_mlp_half_sm90_fwd(
+        rc = _half_entry("mlp", x2)(
             x2.data_ptr(), out.data_ptr(), _ptr_array([w]), (ctypes.c_int * 6)(*plan.ints()),
             x2.numel() // c, c, hl, x2.device.index, _stream(x2),
         )
@@ -1156,9 +1213,11 @@ mlp_half_apply.launches = collections.Counter()
 
 def block_tile_attn_half(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
                          causal: bool) -> torch.Tensor:
-    """The attention half through the first design's body (CUDA only)."""
+    """The attention half through the first design's body (CUDA only, bf16)."""
     from tante_tpu_torch.ops import _build
 
+    _check_first_design(x)
+    _check_half_device(x)
     _check_attn_half(x, p, l, heads)
     c, ca = x.shape[-1], p.wq.shape[-1]
     out = torch.empty_like(x)
@@ -1177,9 +1236,11 @@ block_tile_attn_half.launches = collections.Counter()
 
 
 def block_tile_mlp_half(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
-    """The MLP half through the first design's body (CUDA only)."""
+    """The MLP half through the first design's body (CUDA only, bf16)."""
     from tante_tpu_torch.ops import _build
 
+    _check_first_design(x2)
+    _check_half_device(x2)
     _check_mlp_half(x2, p)
     c, hl = x2.shape[-1], p.w1.shape[-1]
     out = torch.empty_like(x2)

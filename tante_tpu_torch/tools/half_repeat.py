@@ -1,0 +1,134 @@
+"""Repeated launches of the f32 tp halves and the f32 block kernel on the card:
+launch-to-launch equality and agreement with the plain versions.
+
+    python3 -m tante_tpu_torch.tools.half_repeat [--repeats N] [--csrc DIR]
+
+For the flagship's H, W and causal T shapes at tp 2 and H at tp 4, both
+softmax forms: ``N`` fresh inputs, and per input and shard two launches of
+each f32 half (``attn_half_apply`` / ``mlp_half_apply``): whether the two are
+equal bit for bit, and the worse one's relative L2 to the plain half (f32,
+TF32 off).  Then the f32 block kernel (``fused_block_apply``) at H and W, two
+launches per input.  A race in a kernel shows as unequal launch pairs.
+
+``--csrc DIR`` builds the f32 halves and the block kernels from DIR's sources
+(``fused_half_sm90_f32.cu``, ``fused_block_sm90.cu`` and the headers beside
+them) in place of this tree's: a copy of ``tante_tpu_torch/ops/csrc`` with one
+edit measures that edit (e.g. without the slab fence of
+``block_sm90.cuh:gemm_f32``).  Prints one JSON line per kernel and shape, the
+card's name and power limit first.  Needs a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from tante_tpu_torch.ops import _build
+from tante_tpu_torch.ops import fused_block as fb
+from tante_tpu_torch.parallel.sharding import shard_block
+
+C, HIDDEN, HEADS = 256, 256, 8
+# (label, rows, L, causal, tp): the flagship's blocks (T rearranged) at tp 2, H at tp 4.
+CASES = [("H", 1536, 16, False, 2), ("W", 512, 48, False, 2), ("T", 6144, 4, True, 2),
+         ("H", 1536, 16, False, 4)]
+
+
+def block_params(seed: int, dev) -> fb.BlockParams:
+    rng = np.random.default_rng(seed)
+
+    def u(*shape, fan_in=None, scale=1.0, offset=0.0):
+        bound = 1.0 / np.sqrt(fan_in or shape[0])
+        a = offset + scale * rng.uniform(-bound, bound, size=shape)
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    return fb.BlockParams(
+        ln1_scale=u(C, scale=0.1, offset=1.0), ln1_bias=u(C, scale=0.1),
+        wq=u(C, C), bq=u(C), wk=u(C, C), bk=u(C), wv=u(C, C), bv=u(C), wo=u(C, C), bo=u(C),
+        ln2_scale=u(C, scale=0.1, offset=1.0), ln2_bias=u(C, scale=0.1),
+        w1=u(C, HIDDEN), b1=u(HIDDEN, fan_in=C), w2=u(HIDDEN, C), b2=u(C, fan_in=HIDDEN))
+
+
+def halves(p: fb.BlockParams) -> tuple:
+    return (fb.AttnHalfParams(*(getattr(p, f) for f in fb.AttnHalfParams._fields)),
+            fb.MlpHalfParams(*(getattr(p, f) for f in fb.MlpHalfParams._fields)))
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def use_sources(csrc: Path) -> None:
+    """Build the f32 halves and the block kernels from ``csrc`` and make the
+    wrappers launch them (the loaded libraries ``_build.load`` hands out)."""
+    kernels = ("fused_half_sm90_f32", "fused_block_sm90")
+    built = _build.compile_libraries([(k, f"{k}_repeat", (), csrc / f"{k}.cu") for k in kernels])
+    for k, info in zip(kernels, built):
+        _build._libs[k] = _build.bind(ctypes.CDLL(info["library"]), k)
+
+
+def pair(run, plain) -> tuple[bool, float]:
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    want = plain()
+    return bool(torch.equal(a, b)), max(rel_l2(a, want), rel_l2(b, want))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--repeats", type=int, default=12, help="fresh inputs per shape")
+    ap.add_argument("--csrc", type=Path, help="build the kernels from this source directory")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("half_repeat needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    if args.csrc:
+        use_sources(args.csrc)
+    for label, rows, l, causal, tp in CASES:
+        p = block_params(l + tp, dev)
+        for softmax in ("fast", "safe"):
+            fb.set_block_tuning(softmax=softmax)
+            stats = {"attn": [], "mlp": []}
+            for it in range(args.repeats):
+                x = torch.from_numpy(np.random.default_rng(it).normal(size=(rows, l, C)).astype(
+                    np.float32)).to(dev)
+                for r in range(tp):
+                    ap_, mp = halves(shard_block(p, tp, r))
+                    stats["attn"].append(pair(
+                        lambda: fb.attn_half_apply(x, ap_, l, HEADS // tp, causal),
+                        lambda: fb.attn_half_ref(x, ap_, l, HEADS // tp, causal)))
+                    stats["mlp"].append(pair(lambda: fb.mlp_half_apply(x, mp),
+                                             lambda: fb.mlp_half_ref(x, mp)))
+            for kind, res in stats.items():
+                print(json.dumps({"kernel": f"{kind}_half_fwd (f32)", "case": label, "tp": tp,
+                                  "softmax": softmax, "launch_pairs": len(res),
+                                  "pairs_unequal": sum(not eq for eq, _ in res),
+                                  "worst_rel_l2": max(rel for _, rel in res),
+                                  "median_rel_l2": float(np.median([rel for _, rel in res]))}),
+                      flush=True)
+    fb.set_block_tuning(softmax="fast")
+    for label, rows, l, causal, _ in CASES[:2]:
+        p = block_params(l, dev)
+        res = []
+        for it in range(args.repeats):
+            x = torch.from_numpy(np.random.default_rng(100 + it).normal(size=(rows, l, C)).astype(
+                np.float32)).to(dev)
+            res.append(pair(lambda: fb.fused_block_apply(x, p, l, HEADS, causal),
+                            lambda: fb.block_ref(x, p, l, HEADS, causal)))
+        print(json.dumps({"kernel": "fused_block_fwd (f32)", "case": label,
+                          "launch_pairs": len(res), "pairs_unequal": sum(not eq for eq, _ in res),
+                          "worst_rel_l2": max(rel for _, rel in res)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

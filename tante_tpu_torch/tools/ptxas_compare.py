@@ -2,8 +2,9 @@
 
     python3 -m tante_tpu_torch.tools.ptxas_compare --baseline DIR
 
-Builds ``fused_block_sm90.cu``, ``fused_chain_sm90.cu`` and
-``fused_half_sm90.cu`` of this tree and of the tree at ``DIR`` (its
+Builds ``fused_block_sm90.cu``, ``fused_chain_sm90.cu``,
+``fused_half_sm90.cu`` and ``fused_half_sm90_f32.cu`` of this tree and of
+the tree at ``DIR`` where it has the source (its
 ``tante_tpu_torch/ops/csrc/``; e.g. the parent commit unpacked with ``git
 archive HEAD~1 | tar -x -C build/parent``), one nvcc each, all started
 together, into ``build/kernels/``.  Prints one JSON line per source: whether
@@ -22,7 +23,7 @@ from pathlib import Path
 
 from tante_tpu_torch.ops import _build
 
-SOURCES = ("fused_block_sm90", "fused_chain_sm90", "fused_half_sm90")
+SOURCES = ("fused_block_sm90", "fused_chain_sm90", "fused_half_sm90", "fused_half_sm90_f32")
 FIELDS = ("registers", "spill_store_bytes", "spill_load_bytes")
 
 
@@ -39,13 +40,14 @@ def main(argv=None) -> int:
     trees = {"this": _build.CSRC,
              "baseline": Path(args.baseline) / "tante_tpu_torch" / "ops" / "csrc"}
     specs = [(src, f"{src}_{tag}", (), tree / f"{src}.cu")
-             for src in SOURCES for tag, tree in trees.items()]
+             for src in SOURCES for tag, tree in trees.items() if (tree / f"{src}.cu").exists()]
     built = dict(zip([(spec[0], spec[1].rsplit("_", 1)[1]) for spec in specs],
                      _build.compile_libraries(specs)))
     same_all = True
     for src in SOURCES:
+        # A source the baseline lacks: every kernel of it is new.
         this, base = ({_name(e["kernel"]): {f: e[f] for f in FIELDS}
-                       for e in built[(src, tag)]["ptxas"]} for tag in trees)
+                       for e in built.get((src, tag), {"ptxas": []})["ptxas"]} for tag in trees)
         changed = [{"kernel": k, "this": this.get(k), "baseline": v}
                    for k, v in base.items() if this.get(k) != v]
         same_all &= not changed

@@ -29,7 +29,9 @@ the active count are summed over 'dp' (``psum``, whose backward sums the
 gradient over 'dp' too) before the band penalty, which is not linear in
 them; ``calls`` counts the slots where a sample of any rank was active.
 The validation rollout emits by the global batch's first sample (dp rank
-0's) and logs the global batch's mean r_t.
+0's) and logs the global batch's mean r_t.  Every rank of the mesh decides
+the rollouts' slots and emissions together, so the tp ranks' model calls,
+whose blocks all-reduce, stay in step (``train/rollout.py``).
 """
 
 from __future__ import annotations
@@ -89,6 +91,11 @@ class R_Trainer(Trainer):
     def _dp_group(self):
         return None if self.mesh is None else self.mesh.group("dp")
 
+    def _rollout_group(self):
+        """Every rank of the mesh: they decide the adaptive rollouts' slots
+        and emissions together (``train/rollout.py``)."""
+        return None if self.mesh is None else self.mesh.group(*self.mesh.axis_names)
+
     def _adaptive_loss(self, x: torch.Tensor, y: torch.Tensor):
         """-> (loss, rt_avg, rt_var, calls, rollout): the objective of one
         train step on this rank's batch, its r_t statistics over the global
@@ -103,7 +110,8 @@ class R_Trainer(Trainer):
 
         if self.vf:
             y_pred, rts, actives, cums = rollout_adaptive_train_vf(
-                apply, x, n_steps, k, remat=self.gradient_checkpointing, rng=gen)
+                apply, x, n_steps, k, remat=self.gradient_checkpointing, rng=gen,
+                group=self._rollout_group())
             w = actives.to(rts.dtype)
             n_act = torch.clamp(psum(w.sum(), group), min=1.0)
             rt_avg = psum((rts * w).sum(), group) / n_act
@@ -160,7 +168,7 @@ class R_Trainer(Trainer):
         self.model.eval()
         n = self.n_steps_rollout
         y_pred, rt_log, n_calls = rollout_adaptive_eval(lambda w: self.model(w, float(n)), x, n,
-                                                        group=self._dp_group())
+                                                        group=self._rollout_group())
         loss = self.eval_loss_fn(y_pred.to(y.dtype), y, None).mean()
         return self._dp_mean(loss), rt_log, n_calls
 

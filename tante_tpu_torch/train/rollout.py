@@ -18,7 +18,10 @@ Emission semantics are the JAX ones exactly:
 - ``rollout_adaptive_train_vf``: the differentiable variable-frame engine.
   Every sample consumes ``clip(floor(r_t_i), 1, K)`` frames of its K-frame
   block at its own offset; a slot calls the model only while some sample
-  still consumes (one host sync per slot to decide).
+  still consumes (one host sync per slot to decide).  Ranks that call the
+  model together (a tp group, whose every call holds collectives) decide
+  each slot together: one all-reduce of one flag, as JAX's SPMD
+  ``lax.cond`` decides over the global batch.
 
 Adaptive rollouts return ``(frames, rt_log, n_calls)`` with ``rt_log`` a
 (n_steps,) f32 tensor padded with NaN past the realised calls.
@@ -34,7 +37,7 @@ import torch.distributed as dist
 
 from tante_tpu_torch.models.enc_dec_cnn import PATCH_MAP
 from tante_tpu_torch.ops.convs import morton_pack_grouped, morton_unpack_grouped
-from tante_tpu_torch.parallel.collectives import psum
+from tante_tpu_torch.parallel.collectives import all_reduce, psum
 from tante_tpu_torch.utils.remat import remat as remat_call
 
 
@@ -105,9 +108,19 @@ def rollout_adaptive_train(apply_fn: Callable, window: torch.Tensor, n_steps: in
     return torch.cat(ys, dim=1)[:, :n_steps], torch.stack(rts)
 
 
+def _any_active(active: torch.Tensor, group) -> bool:
+    """Whether a slot calls the model: a sample of this rank, or of any rank
+    of ``group``, still consumes (one host sync; one all-reduce of one flag
+    under a group)."""
+    flag = active.any()
+    if group is not None:
+        flag = all_reduce(flag.float().reshape(1), group)[0] > 0
+    return bool(flag)
+
+
 def rollout_adaptive_train_vf(
     apply_fn: Callable, window: torch.Tensor, n_steps: int, k: int, remat: bool = False,
-    rng: torch.Generator | None = None,
+    rng: torch.Generator | None = None, group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Variable-frame adaptive training rollout (differentiable).
 
@@ -129,6 +142,14 @@ def rollout_adaptive_train_vf(
     remat: recompute each model call in backward (``jax.checkpoint``);
     ``rng``, the dropout generator ``apply_fn`` draws from, is replayed for
     the recompute.
+
+    group: the process group of the ranks that roll out together (under a
+    mesh, all of its ranks).  A slot then calls the model while a sample of
+    any of them is active, on every one of them: the tp ranks' calls hold
+    all-reduces, which would wait forever for a rank that skipped, and a dp
+    rank whose own samples are done computes the call JAX's global
+    ``lax.cond`` makes for it (its blocks blended out, its r_t logged as
+    JAX logs it).
     -> (y (B, n_steps, ...), rts (n_steps, B), actives (n_steps, B) bool,
     cums (n_steps, B) int32: each sample's frame offset before each slot).
     """
@@ -141,7 +162,7 @@ def rollout_adaptive_train_vf(
     for _ in range(n_steps):
         active = cum < n_steps
         cums.append(cum)
-        if not bool(active.any()):  # every later slot is skipped too
+        if not _any_active(active, group):  # every later slot is skipped too
             break
         frames, rt = remat_call(apply_fn, window, rng=rng) if remat else apply_fn(window)
         emit = torch.where(active, torch.floor(rt).long().clamp(1, k), 0)
@@ -165,10 +186,13 @@ def rollout_adaptive_train_vf(
 
 
 def _emit(rt: torch.Tensor, k: int, force_budget: bool, group=None) -> tuple[int, torch.Tensor]:
-    """-> (the call's emission, its mean r_t).  Under a dp ``group`` both
-    are the global batch's, as JAX's GSPMD rollout reads them: the first
-    sample is dp rank 0's, the mean is over every rank's samples (one
-    all-reduce)."""
+    """-> (the call's emission, its mean r_t).  Under ``group`` (the ranks
+    that roll out together) both are the global batch's, as JAX's GSPMD
+    rollout reads them: the first sample is group rank 0's (dp rank 0's),
+    the mean is over every rank's samples (one all-reduce; the tp ranks of
+    a dp rank hold the same samples and count them alike, which leaves the
+    mean as it is).  Every rank of the group emits alike, so their model
+    calls, and the collectives inside them, stay in step."""
     first, mean = rt[0], rt.mean().float()
     if group is not None:
         r = rt.float()
@@ -185,8 +209,9 @@ def rollout_adaptive_eval(
     max_frames_per_call: int = 0, force_budget: bool = False, group=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """apply_fn: window -> (frames (B, K, ...), rt (B,)), K =
-    max_frames_per_call or n_steps (capped at n_steps).  ``group``: the dp
-    process group when ``window`` is this rank's block of a global batch."""
+    max_frames_per_call or n_steps (capped at n_steps).  ``group``: the
+    process group of the ranks that roll out together when ``window`` is
+    this rank's block of a global batch (``_emit``)."""
     t_in = window.shape[1]
     k = min(max_frames_per_call if max_frames_per_call > 0 else n_steps, n_steps)
     ys, rts, cum = [], [], 0

@@ -1,5 +1,6 @@
 """What each rank of a spawned CPU process group runs in
-``tests/test_torch_parallel.py`` (gloo, ``file://`` rendezvous).  Torch and
+``tests/test_torch_parallel.py`` and ``tests/test_torch_tp_adaptive.py``
+(gloo, ``file://`` rendezvous).  Torch and
 the port only: the JAX side is computed in the test process.  Every case
 runs in its own ``try`` and comes back as numpy arrays or as the traceback
 that stopped it, so one failing case fails only its own test."""
@@ -7,6 +8,7 @@ that stopped it, so one failing case fails only its own test."""
 from __future__ import annotations
 
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -29,10 +31,12 @@ from tante_tpu_torch.parallel.halo import (
     sharded_spectral_conv2d_centered,
     spatial_sharding,
 )
+from tante_tpu_torch.parallel.collectives import psum
 from tante_tpu_torch.parallel.sharding import shard_block
 from tante_tpu_torch.train.metrics import L2RE, MSE
 from tante_tpu_torch.train.optimizers import AdamW
 from tante_tpu_torch.train.r_trainer import R_Trainer
+from tante_tpu_torch.train.rollout import rollout_adaptive_train_vf
 from tante_tpu_torch.train.trainer import Trainer
 
 # The small TANTE of the tp model test (tests/test_parallel.py:613-672).
@@ -203,6 +207,90 @@ def r_train_run(mesh, workdir, flat, x, y, model_kw, rkw, steps=2):
             "params": {k: np_(v) for k, v in trainer.model.state_dict().items()}}
 
 
+def r_train_steps(mesh, workdir, flat, x, y, model_kw, rkw, steps=2, save=False, resume=""):
+    """The port's R_Trainer on one batch that every rank holds whole (the
+    tp ranks of one dp rank, or one device): ``steps`` optimizer steps, per
+    step the loss, r_t mean and spread, calls, gradient norm and the
+    rollout's cums and r_t; then its validation step (loss, r_t log, model
+    calls); the full parameters after the steps; with ``save``, the
+    checkpoint rank 0 wrote and one more step's statistics; with ``resume``
+    (a checkpoint), the parameters it started from."""
+    res, n_in, n_out = x.shape[2:4], x.shape[1], y.shape[1]
+    waves = dict(TRAIN_WAVES, resolution=res, n_steps=12, with_pressure=x.shape[-1] == 4)
+    dm = WaveDataModule(batch_size=x.shape[0], n_steps_input=n_in, n_steps_output=n_out,
+                        device="cpu", waves=waves)
+    model = TANTE(dset_metadata=tante_metadata(res, x.shape[-1]), device="cpu", **model_kw)
+    load_jax_params(model, flat)
+    trainer = R_Trainer(str(workdir), "channels_last_default", model, dm, AdamW(lr=1e-3),
+                        MSE(), L2RE(), max_epoch=1, n_steps_output=n_out, n_steps_rollout=n_out,
+                        seed=0, mesh=mesh, device="cpu", checkpoint_path=resume, **rkw)
+    rollouts, objective = [], trainer._adaptive_loss
+
+    def kept(*args):  # the objective, its rollout record kept
+        out = objective(*args)
+        rollouts.append(out[4])
+        return out
+
+    trainer._adaptive_loss = kept
+    xt, yt = _t(x), _t(y)
+
+    def step():
+        stats = [float(v) for v in trainer.train_step(xt, yt)]
+        r = rollouts[-1]
+        return {"stats": stats, "grad_norm": float(trainer.last_grad_norm), "rts": np_(r["rts"]),
+                "cums": None if r["cums"] is None else r["cums"].numpy()}
+
+    # Copies: np_ of a CPU parameter shares its storage, which the steps update.
+    out = ({"start": {k: np_(v).copy() for k, v in trainer.model.state_dict().items()}}
+           if resume else {})
+    out["steps"] = [step() for _ in range(steps)]
+    loss, rt_log, n_calls = trainer.eval_step(xt, yt)
+    out["val"] = {"loss": float(loss), "rt_log": np_(rt_log[:n_calls]), "n_calls": n_calls}
+    out["split"] = sum(hasattr(p, "tp_dim") for p in trainer.model.parameters())
+    full = gather_params(trainer.model, mesh) if mesh is not None else trainer.model.state_dict()
+    out["params"] = {k: np_(v).copy() for k, v in full.items()}
+    if save:
+        trainer.save_model(1, 0.5, "recent")
+        out["ckpt"] = str(Path(workdir) / "recent")
+        out["next_step"] = step()
+    return out
+
+
+# Which samples of the stand-in rollout (test_torch_adaptive_train's
+# engine_inputs: r_t centres 2.6, 3.4, 5.7) each rank holds: rank 0's sample
+# consumes in slots 0-2, rank 1's two samples only in slots 0-1.
+SLOT_SAMPLES = ([0], [1, 2])
+
+
+def vf_slot_decision(mesh, x, wm, v, g, h, centres, k, n_steps, remat):
+    """``rollout_adaptive_train_vf`` on this rank's samples of one batch,
+    under the mesh's group, with a stand-in model (the engine test's
+    ``torch_model``) whose every call all-reduces over the group, as a tp
+    block's halves do.  The ranks' own ``active`` flags differ in slot 2; a
+    rank that skipped a slot its peer calls would leave the peer's
+    all-reduce waiting.  -> the rollout, the gradients of the engine test's
+    loss on this rank's samples, the model calls made."""
+    group = mesh.group(*mesh.axis_names)
+    idx = SLOT_SAMPLES[mesh.rank]
+    twm, tv = _t(wm, True), _t(v, True)
+    calls = []
+
+    def apply(win):
+        calls.append(1)
+        last = win[:, -1:]
+        d = torch.einsum("bthwc,cd->bthwd", last, twm)
+        d = d + 0.0 * psum(d.sum(), group)  # a collective in every call, forward and back
+        frames = torch.cat([last + 0.1 * (j + 1) * d for j in range(k)], dim=1)
+        rt = torch.from_numpy(centres[idx]) + 0.02 * torch.tanh((last * tv).mean(dim=(1, 2, 3, 4)))
+        return frames, rt
+
+    y, rts, act, cums = rollout_adaptive_train_vf(apply, _t(x[idx]), n_steps, k, remat=remat,
+                                                  group=group)
+    (torch.sum(y * _t(g[idx])) + torch.sum(rts * act * _t(h[:, idx]))).backward()
+    return {"y": np_(y), "rts": np_(rts), "act": act.numpy(), "cums": cums.numpy(),
+            "gwm": np_(twm.grad), "gv": np_(tv.grad), "calls": len(calls)}
+
+
 def halo_case(mesh, x, r, halo, periodic):
     """halo_exchange of this rank's rows of x (B, H, W, C) and the gradient
     of sum(out * r_i), r_i this rank's slice of ``r`` (n, B, H/n + 2 halo, W, C)."""
@@ -308,6 +396,8 @@ CASES = {
     "fno_sp_forward": fno_sp_forward,
     "train_run": train_run,
     "r_train_run": r_train_run,
+    "r_train_steps": r_train_steps,
+    "vf_slot_decision": vf_slot_decision,
     "shard_round_trip": shard_round_trip,
     "halo_case": halo_case,
     "sharded_ops": sharded_ops,
@@ -319,8 +409,6 @@ CASES = {
 def run(rank: int, world: int, tmpdir: str, jobs: list) -> dict:
     """``jobs``: (name, mesh axes, mesh shape, case, kwargs) tuples, run in
     order on one process group; -> {name: result or {"error": traceback}}."""
-    from pathlib import Path
-
     out = {}
     for name, axes, shape, case, kw in jobs:
         try:

@@ -60,7 +60,13 @@ pre-bias partial with no residual, far smaller than a block's output), and
 the shards'
 partials summed (rounded to bf16 as the all-reduce leaves them) plus bias and
 residual against the unsplit f32 block; their Functions' gradients as the
-block's."""
+block's.  The f32 halves (``test_f32_tp_half_*``, ``fused_half_sm90_f32.cu``)
+at every head dim, both softmax forms and shard widths 32 / 64 / 128: f32
+inputs and weights against the f32 plain halves with TF32 off, relative L2
+<= 1e-6 and max abs <= 1e-4 max |plain|; the shards' f32 partials summed,
+plus bias and residual, against the unsplit f32 block kernel within 1e-6;
+f32 launches counted apart from bf16; a plan past the f32 tile (C > 256)
+refused."""
 
 from collections import Counter
 
@@ -1088,7 +1094,7 @@ def test_tp_halves_relay_once_per_version_of_f32_parameters(cuda):
 def test_tp_half_kernels_refuse_what_they_cannot_take(cuda):
     p = params(256, 256, seed=0, device=cuda)
     ap, mp = halves(shard_block(p, 2, 0))
-    with pytest.raises(ValueError):  # f32 activations
+    with pytest.raises(ValueError):  # f32 activations, bf16 weights
         fb.attn_half_apply(torch.zeros(4, 16, 256, device=cuda), ap, 16, 4, False)
     with pytest.raises(ValueError):  # head dim 128
         fb.attn_half_apply(bf16_normal((4, 16, 256), 0, cuda), ap, 16, 1, False)
@@ -1126,3 +1132,124 @@ def test_tp_half_function_gradients_match_plain_autograd(cuda, half, shape):
         scale = torch.linalg.norm(want["bq" if n == "bk" else n])
         err = float(torch.linalg.norm(g.float() - want[n]) / scale)
         assert err <= GRAD_REL, f"{half} {n}: rel L2 {err}"
+
+
+# ---- the f32 halves (fused_half_sm90_f32.cu) --------------------------------------
+
+F32_HALF_REL_L2 = 1e-6
+
+
+def assert_f32_half_close(got, want):
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    err, peak = float((got - want).abs().max()), float(want.abs().max())
+    assert rel <= F32_HALF_REL_L2 and err <= F32_MAX_ABS_SHARE * peak, (rel, err, peak)
+
+
+@pytest.fixture(params=["fast", "safe"])
+def softmax(request):
+    fb.set_block_tuning(softmax=request.param)
+    try:
+        yield request.param
+    finally:
+        fb.set_block_tuning(softmax="fast")
+
+
+# (s, l, c, hidden, heads, tp, causal): head dims 32 (C 256, 8 heads), 64
+# (C 256, 4 heads) and 16 (C 128, 8 heads, hidden 2C) at shard widths 128, 64
+# and 32 (zero-padded to one 64-column group), ragged last tiles and padded
+# rows among them.
+F32_HALF_CASES = [
+    (1536, 16, 256, 256, 8, 2, False),   # d 32, CA 128: the flagship H blocks at tp 2
+    (512, 48, 256, 256, 8, 4, False),    # d 32, CA 64: W blocks at tp 4
+    (6144, 4, 256, 256, 8, 8, True),     # d 32, CA 32: T blocks at tp 8
+    (37, 16, 256, 256, 4, 2, True),      # d 64, CA 128, ragged last tile
+    (21, 3, 256, 256, 4, 4, False),      # d 64, CA 64, padded rows (63 of 64)
+    (9, 32, 128, 256, 8, 2, False),      # d 16, CA 64, HL 128
+    (7, 48, 128, 256, 8, 4, True),       # d 16, CA 32, HL 64
+]
+
+
+@pytest.mark.parametrize("s,l,c,hidden,heads,tp,causal", F32_HALF_CASES)
+def test_f32_tp_half_kernels_match_plain(cuda, no_tf32, softmax, s, l, c, hidden, heads, tp,
+                                         causal):
+    """Each shard's f32 halves against their f32 plain versions; their f32
+    sum over the shards, plus bias and residual, against the unsplit f32
+    block kernel; only f32 launches counted."""
+    p = params(c, hidden, seed=l + c + tp, device=cuda, dtype=torch.float32)
+    x = f32_normal((s, l, c), seed=s + tp, device=cuda)
+    before = fb.attn_half_apply.launches.copy(), fb.mlp_half_apply.launches.copy()
+    attn_sum, parts = torch.zeros_like(x), []
+    for r in range(tp):
+        ap, mp = halves(shard_block(p, tp, r))
+        got = fb.attn_half_apply(x, ap, l, heads // tp, causal)
+        torch.cuda.synchronize()
+        assert_f32_half_close(got, fb.attn_half_ref(x, ap, l, heads // tp, causal))
+        attn_sum += got
+        parts.append(mp)
+        got = fb.mlp_half_apply(x, mp)
+        torch.cuda.synchronize()
+        assert_f32_half_close(got, fb.mlp_half_ref(x, mp))
+    assert (fb.attn_half_apply.launches - before[0], fb.mlp_half_apply.launches
+            - before[1]) == (Counter({torch.float32: tp}),) * 2
+    xm = x + (attn_sum + p.bo)
+    y = xm + (sum(fb.mlp_half_apply(xm, mp) for mp in parts) + p.b2)
+    unsplit = fb.fused_block_apply(x, p, l, heads, causal)
+    assert float(torch.linalg.norm(y - unsplit) / torch.linalg.norm(unsplit)) <= F32_HALF_REL_L2
+    assert_f32_close(y, fb.block_ref(x, p, l, heads, causal))
+
+
+def test_f32_tp_halves_relay_once_per_weight_version(cuda, no_tf32):
+    """f32 parameters reach the halves uncast, the LayerNorm ones as new
+    ``copy_to_tp`` views every call: one re-layout per weight version, and an
+    in-place update moves the result with the weights."""
+    from tante_tpu_torch.parallel.collectives import _CopyToTP
+
+    p = shard_block(params(256, 256, seed=11, device=cuda, dtype=torch.float32), 2, 1)
+    x = f32_normal((512, 48, 256), seed=11, device=cuda)
+    g = _StandInGroup()
+
+    def call():
+        ap, mp = halves(p)
+        ap = ap._replace(ln1_scale=_CopyToTP.apply(ap.ln1_scale, g),
+                         ln1_bias=_CopyToTP.apply(ap.ln1_bias, g))
+        mp = mp._replace(ln2_scale=_CopyToTP.apply(mp.ln2_scale, g),
+                         ln2_bias=_CopyToTP.apply(mp.ln2_bias, g))
+        ys = fb.attn_half_apply(x, ap, 48, 4, False), fb.mlp_half_apply(x, mp)
+        torch.cuda.synchronize()
+        return ys
+
+    before = fb.relaid_weights.count
+    first = call()
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(first, call()))
+    assert fb.relaid_weights.count == before + 2
+    with torch.no_grad():
+        p.wk.mul_(2.0)
+        p.b1.add_(0.5)
+    moved = call()
+    assert fb.relaid_weights.count == before + 4
+    ap, mp = halves(p)
+    assert_f32_half_close(moved[0], fb.attn_half_ref(x, ap, 48, 4, False))
+    assert_f32_half_close(moved[1], fb.mlp_half_ref(x, mp))
+
+
+def test_f32_tp_half_kernels_refuse_what_they_cannot_take(cuda):
+    """No f32 tile past C = 256: the wrappers raise on the plan, and on mixed
+    dtypes; nothing is launched."""
+    before = fb.attn_half_apply.launches.copy(), fb.mlp_half_apply.launches.copy()
+    p = params(512, 512, seed=0, device=cuda, dtype=torch.float32)
+    ap, mp = halves(shard_block(p, 2, 0))
+    x = f32_normal((4, 16, 512), seed=0, device=cuda)
+    with pytest.raises(ValueError, match="no attn half tile plan"):
+        fb.attn_half_apply(x, ap, 16, 4, False)
+    with pytest.raises(ValueError, match="no mlp half tile plan"):
+        fb.mlp_half_apply(x, mp)
+    p = params(256, 256, seed=0, device=cuda, dtype=torch.float32)
+    ap, mp = halves(shard_block(p, 2, 0))
+    x = f32_normal((4, 16, 256), seed=0, device=cuda)
+    with pytest.raises(ValueError):  # one bf16 weight among f32
+        fb.attn_half_apply(x, ap._replace(wo=ap.wo.to(torch.bfloat16)), 16, 4, False)
+    with pytest.raises(ValueError):  # bf16 activations, f32 weights
+        fb.mlp_half_apply(x.to(torch.bfloat16), mp)
+    assert (fb.attn_half_apply.launches, fb.mlp_half_apply.launches) == before
