@@ -342,8 +342,9 @@ FNO_BATCH = 4
 FNO_KW = dict(in_T=IN_T, modes1=20, modes2=20, hidden_channels=48, n_layers=4)
 FNO_MODES = 32  # TANTE's FNO encoder/decoder: modes1 = modes2 (configs/tante.yaml)
 
-# The f32 block kernels against their f32 plain versions (TF32 off): FFMA
-# products in another summation order, nothing rounded to bf16: relative L2
+# The f32 block kernels against their f32 plain versions (TF32 off): 3xTF32
+# products (as close as f32 FMAs) in another summation order, nothing
+# rounded to bf16: relative L2
 # error and max abs error as a share of max |plain|.
 F32_REL_L2_TOL, F32_MAX_ABS_SHARE = 1e-5, 1e-4
 # Gradients through the Functions in f32: the backward is the plain
@@ -1194,9 +1195,10 @@ def phase_fixed_f32(dev, fixed: dict, adaptive: dict) -> dict:
     against f32 on the CPU (``phase_fixed``'s reference, same weights and
     input); the same rollout with ``fused_chain=3`` (48 f32 chain launches)
     and with ``fused_group`` (16 f32 group launches), each compared with the
-    per-block rollout; then the trained asset's adaptive rollout in f32
-    (K 8) on the held-out trajectory against the port's f32 CPU run
-    (``phase_adaptive``'s): calls, VRMSE, L2RE."""
+    per-block rollout (each traced: device time, busy share); then the
+    trained asset's adaptive rollout in f32 (K 8) on the held-out trajectory
+    against the port's f32 CPU run (``phase_adaptive``'s): calls, VRMSE,
+    L2RE, and traced on the lane's input."""
     model = flagship(True, torch.float32, dev)
     pred = Predictor.from_numpy(model, seeded_jax_params(model, seed=0))
     x = torch.from_numpy(np.random.default_rng(0).normal(
@@ -1236,7 +1238,8 @@ def phase_fixed_f32(dev, fixed: dict, adaptive: dict) -> dict:
         fusion[label] = {"launches_per_rollout": got,
                          "vs_per_block_rollout_rel_l2": rel_l2(yf, y),
                          "equals_per_block_rollout_bit_for_bit": bool(torch.equal(yf, y)),
-                         **lane_speed(timed_rollouts(roll, n=2, windows=1))}
+                         **lane_speed(timed_rollouts(roll, n=2, windows=1)),
+                         "trace": traced(roll, f"fixed_f32 {label}", f32=True)}
     set_fusion(pred.model)
 
     # The trained asset in f32 on the held-out trajectory (phase_adaptive's
@@ -1262,6 +1265,7 @@ def phase_fixed_f32(dev, fixed: dict, adaptive: dict) -> dict:
     a_roll = lambda: pa.rollout_adaptive(xa, N_STEPS, max_frames_per_call=K)  # noqa: E731
     a_roll()
     a_tm = timed_rollouts(a_roll)
+    a_prof = traced(a_roll, "fixed_f32 adaptive", f32=True)
     res = {"phase": "fixed_f32", "config": "configs/tante.yaml as shipped (f32, no enable_amp)",
            "batch": BATCH, "n_steps": N_STEPS, "dtype": "f32", "weights": "seeded (numpy seed 0)",
            "output_shape": list(y.shape), "finite": finite, "launches_per_rollout": launches,
@@ -1272,7 +1276,8 @@ def phase_fixed_f32(dev, fixed: dict, adaptive: dict) -> dict:
                         "launches_per_rollout": a_launches, "n_calls": calls_a,
                         "rt_log": [float(r) for r in rt_a], "vrmse": v, "l2re": l2,
                         "cpu_f32": {k: ref[k] for k in ("n_calls", "vrmse", "l2re")},
-                        "rel_tolerance": F32_ROLLOUT_REL_TOL, **lane_speed(a_tm)}}
+                        "rel_tolerance": F32_ROLLOUT_REL_TOL, **lane_speed(a_tm),
+                        "trace": a_prof}}
     emit(res)
     return res
 
@@ -3367,8 +3372,9 @@ def phase_tp_kernel(dev) -> list[dict]:
 
 
 # The f32 halves against their f32 plain versions (TF32 off) and, recombined,
-# against the unsplit f32 block kernel: FFMA products in another summation
-# order, nothing rounded below f32 (the f32 block kernels read ~1e-7).
+# against the unsplit f32 block kernel: 3xTF32 products in another
+# summation order, nothing rounded below f32 (the f32 block kernels read
+# ~1e-7).
 F32_HALF_REL_L2_TOL = F32_RECOMBINED_REL_L2_TOL = 1e-6
 _HALF_F32_SYMBOLS = {"attn": re.compile(r"half_sm90_f32_kernel(?:<(?:16|32|64),|ILi(?:16|32|64)E)"),
                      "mlp": re.compile(r"half_sm90_f32_kernel(?:<0,|ILi0E)")}
@@ -3655,7 +3661,7 @@ VF_RECIPE = dict(train_out_T=8.0, rt_band_hi=8.0, rt_eps=3.0, rt_supervision=0.0
 R_PARALLEL_RUNS = (("one_frame", 4, 8, dict(rt_eps=0.5)),
                    ("vf_remat", 16, 16, VF_RECIPE),
                    ("vf_no_remat", 16, 16, dict(VF_RECIPE, gradient_checkpointing=False)))
-# f32 on a mesh against one rank on the same card (TF32 off): FFMA sums of
+# f32 on a mesh against one rank on the same card (TF32 off): 3xTF32 sums of
 # the halves and their all-reduce in another order than the unsplit
 # kernels', nothing rounded below f32.  Every step's loss, r_t mean and
 # gradient norm; the flagship forward's change, relative L2.

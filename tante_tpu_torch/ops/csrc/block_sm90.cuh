@@ -950,8 +950,8 @@ __device__ __forceinline__ int max_pass(const Shape& S) {
 // ---- the element-type policy ------------------------------------------------------
 //
 // What the weight stream's slabs are for each activation type: K rows a slab
-// and bytes an element (bf16: wgmma's core-matrix slabs; f32: the FFMA body's
-// row-major slabs, see the f32 section below).
+// and bytes an element (bf16: wgmma's core-matrix slabs; f32: the 3xTF32
+// body's mma.sync fragment-order slabs, see the f32 section below).
 template <class T>
 struct Elem;
 template <>
@@ -1045,33 +1045,60 @@ __device__ __forceinline__ void block_tile(const Block& B, const Shape& S, const
 
 // ---- the f32 tile body ------------------------------------------------------------
 //
-// The same block in f32: the Pallas kernel's f32 instantiation, which rounds
+// The same block in f32: the Pallas kernel's f32 instantiation (fused_block_apply,
+// pallas_block.py:208 / pallas_call :163; fused_block_canon_t, :368 / :401;
+// the chain and group body, :989 / :1073; the tp halves, :730), which rounds
 // nothing to bf16 (q/k/v, the unnormalised attention weights, the attention
-// output, the fc1 output and both residual sums stay f32).  Every product
-// is an f32 FMA on the CUDA cores: wgmma takes no f32 operand, a single TF32
-// pass (~3e-4 relative a product) is not f32, and FFMA keeps the plain f32
-// version's rounding of every product.  Bound: 2*M*(4C^2 + 2C*hidden) f32
-// FLOP at 67 TFLOP/s (~0.29 ms at the flagship's H block), where a 3xTF32
-// tensor-core design would be bound at ~0.12 ms.
+// output, the fc1 output and both residual sums stay f32).  Every matmul
+// product runs on the tensor cores as three TF32 products (3xTF32): each
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi) (round to
+// nearest, cvt.rna's rounding), and lo.hi + hi.lo + hi.hi is summed in f32
+// with mma.sync m16n8k8; lo.lo (below 2^-22 relative) is dropped.  That is as
+// close to the exact product as an f32 FMA is (relative L2 ~1.3e-7 over a
+// block against the plain version), where one TF32 pass (~8e-5) is not
+// (tests/test_torch_f32_tf32x3.py).
 //
-// What stays of the bf16 design: the row maps, the weight ring (one
-// producer thread streaming slabs with cp.async.bulk, two consumer
-// warpgroups), the order of the phases, and so the bit equality of the
-// canonical T and chain kernels with the single-block kernel.  What differs:
+// Bound: 3 * 2*M*(4C^2 + 2C*hidden) TF32 FLOP at 495 TFLOP/s (chip_smoke.py:
+// bound_f32; ~0.12 ms at the flagship's H block).  That rate is wgmma's;
+// mma.sync m16n8k8 TF32 issues at about half of it, and three passes with
+// no split reach ~100 TFLOP/s of f32 products (tools/mma_rate.py), so this
+// body's own ceiling is ~0.19 ms of products at H; what it reaches is set
+// by the splits (integer operations beside the tensor cores), the weight
+// ring's waits and the FFMA attention.  What the design does about
+// the limits of the FFMA body it replaces:
+// - The FFMA ceiling (67 TFLOP/s): the products run on the tensor cores.
+//   Both operands are split in registers, so the ring carries the f32
+//   bytes: weight slabs are 16 x np in B-fragment order (ops/fused_block.py:
+//   arrange_weight_f32), a lane's b0, b1 of both k8 steps in one 16-byte
+//   load, a warp's 512 bytes contiguous; a warp releases a slab as soon as
+//   its B values are split (after the proxy fence), and splits the slab's
+//   first k8 step of A before it waits for the slab.  Activation tiles are
+//   row-major, K + 4 floats a row: an A fragment's 32 loads (row g, column
+//   t) fall on banks 4g + t.  The tensor cores truncate each sum into an
+//   accumulator, so a slab's six products go to a fresh fragment, added to
+//   the total in f32 (one running total drifted ~3e-6).
+// - Dead rows: a pass is np columns, warp w taking the 8-column tiles
+//   w + 8j of every 16-row block that holds a valid row.  The count of
+//   blocks is a template argument (a runtime test in the loop costs ~36%
+//   of its time, tools/mma_rate.py):
+//   a tile of 33-48 valid rows (the W block's one 48-row sequence) runs 3,
+//   evenly on every warp, others all 4.  It depends on the valid row count
+//   alone, so a row's arithmetic is the same in every kernel that runs it.
+// - Attention: one thread per (query row, head) of the group, its keys in
+//   order (scores with four partial sums), exp2 softmax in both forms,
+//   normalised after the AV sum, on the CUDA cores: ~16% of a W tile and
+//   ~6% of an H tile after the matmuls moved (tools/kernel_phases.py --f32).
+//   GELU uses the accurate tanhf.
 // - A tile is R = 64 rows (f32 tiles take twice the bytes): x^ 65 KB, the
 //   q|k|v tile of a head group 49 KB (later the MLP hidden), the attention
 //   output 65 KB (later the LN2 output), three stages of 16-row slabs,
-//   ~215 KB at C = hidden = 256.  C <= 256.
-// - Activation tiles are row-major, K + 4 floats a row (16-byte loads of
-//   8 rows hit 8 distinct bank quads); weight slabs are row-major 16 x np
-//   (ops/fused_block.py:arrange_weight_f32).
-// - A matmul pass is 64 rows x np columns: thread (ty, tx) of the 16 x 16
-//   grid owns rows ty + 16i (i < 4) and columns 4tx + 64j + {0..3}
-//   (j < np/64), so each 16-byte load of A feeds 4*np/16 FMAs; a warp's
-//   8 rows and 4 column quads read A and B conflict-free.
-// - Attention: one thread per (query row, head) of the group, its keys in
-//   order (scores with four partial sums), exp2 softmax in both forms,
-//   normalised after the AV sum.  GELU uses the accurate tanhf.
+//   ~215 KB at C = hidden = 256.  C <= 256.  The epilogues take what an
+//   accumulator fragment holds (two adjacent columns of a row); the
+//   residual is read before the pass's products.
+// What stays of the bf16 design: the row maps, the weight ring (one
+// producer thread streaming slabs with cp.async.bulk, two consumer
+// warpgroups, setmaxnreg), the order of the phases, and so the bit equality
+// of the canonical T and chain kernels with the single-block kernel.
 constexpr int kRowsF = 64;                     // rows of an f32 tile
 constexpr int kSlabKF = Elem<float>::slab_k;   // K rows of an f32 weight slab
 constexpr int kQkvLdF = kQkvN + 4;             // row stride (floats) of the f32 q|k|v tile
@@ -1147,18 +1174,18 @@ __device__ void layer_norm_f32(const float* src, const Rows& rows, int valid, fl
   }
 }
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-// f32 epilogues: bias(c) is the float4 of bias columns c..c+3; store(r, c,
-// v) takes v = product + bias for row r, columns c..c+3.
+// f32 epilogues, fed what an mma accumulator fragment holds: bias(c) is the
+// float2 of bias columns c, c+1; res(r, c) what the store adds to row r,
+// columns c, c+1 (a residual; read before the pass's products, so the
+// loads land while the tensor cores work); store(r, c, v, x) takes
+// v = product + bias and x = res(r, c).
 struct EpiQkvF {  // row-major q|k|v tile
   float* dst;
   const float* b;
-  __device__ float4 bias(int c) const { return __ldg(reinterpret_cast<const float4*>(b + c)); }
-  __device__ void store(int r, int c, float4 v) const {
-    *reinterpret_cast<float4*>(dst + r * kQkvLdF + c) = v;
+  __device__ float2 bias(int c) const { return __ldg(reinterpret_cast<const float2*>(b + c)); }
+  __device__ float2 res(int, int) const { return make_float2(0.f, 0.f); }
+  __device__ void store(int r, int c, float2 v, float2) const {
+    *reinterpret_cast<float2*>(dst + r * kQkvLdF + c) = v;
   }
 };
 
@@ -1169,119 +1196,238 @@ struct EpiGeluF {  // gelu_tanh into a row-major tile ld floats a row
   __device__ static float gelu(float h) {
     return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
   }
-  __device__ float4 bias(int c) const { return __ldg(reinterpret_cast<const float4*>(b + c)); }
-  __device__ void store(int r, int c, float4 v) const {
-    *reinterpret_cast<float4*>(dst + r * ld + c) =
-        make_float4(gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
+  __device__ float2 bias(int c) const { return __ldg(reinterpret_cast<const float2*>(b + c)); }
+  __device__ float2 res(int, int) const { return make_float2(0.f, 0.f); }
+  __device__ void store(int r, int c, float2 v, float2) const {
+    *reinterpret_cast<float2*>(dst + r * ld + c) = make_float2(gelu(v.x), gelu(v.y));
   }
 };
 
 // y = res + v for the tile's valid rows: row r read at res + rr.off(r)
 // (L2-only: inside a chain another SM wrote it), written at y + yr.off(r).
+// Each (row, column pair) is read and written by the same thread.
 template <class ResRows, class OutRows>
 struct EpiResidualF {
-  const float* res;  // x (out-projection) or y itself (fc2: x' stored there)
+  const float* res_;  // x (out-projection) or y itself (fc2: x' stored there)
   ResRows rr;
   float* y;
   OutRows yr;
   const float* b;
   int valid;
-  __device__ float4 bias(int c) const { return __ldg(reinterpret_cast<const float4*>(b + c)); }
-  __device__ void store(int r, int c, float4 v) const {
-    if (r >= valid) return;
-    const float4 x = __ldcg(reinterpret_cast<const float4*>(res + rr.off(r) + c));
-    *reinterpret_cast<float4*>(y + yr.off(r) + c) = add4(x, v);
+  __device__ float2 bias(int c) const { return __ldg(reinterpret_cast<const float2*>(b + c)); }
+  __device__ float2 res(int r, int c) const {
+    return r < valid ? __ldcg(reinterpret_cast<const float2*>(res_ + rr.off(r) + c))
+                     : make_float2(0.f, 0.f);
+  }
+  __device__ void store(int r, int c, float2 v, float2 x) const {
+    if (r < valid)
+      *reinterpret_cast<float2*>(y + yr.off(r) + c) = make_float2(x.x + v.x, x.y + v.y);
   }
 };
 
 // y = v for the tile's valid rows, written at y + yr.off(r): no bias, no
 // residual (a tensor-parallel half's pre-bias partial in f32,
 // fused_half_sm90_f32.cu).  The bias is 0, so the product reaches y as the
-// FMAs left it; a padded shard's zero rows and columns add exact zeros.
+// tensor cores summed it; a padded shard's zero rows and columns add exact
+// zeros.
 template <class OutRows>
 struct EpiPartialF {
   float* y;
   OutRows yr;
   int valid;
-  __device__ float4 bias(int) const { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ void store(int r, int c, float4 v) const {
-    if (r < valid) *reinterpret_cast<float4*>(y + yr.off(r) + c) = v;
+  __device__ float2 bias(int) const { return make_float2(0.f, 0.f); }
+  __device__ float2 res(int, int) const { return make_float2(0.f, 0.f); }
+  __device__ void store(int r, int c, float2 v, float2) const {
+    if (r < valid) *reinterpret_cast<float2*>(y + yr.off(r) + c) = v;
   }
 };
 
-// out (64 x N) = A (64 x K, row-major in shared memory, ld_f(K)) . W (K x N,
-// the ring's next slabs: per pass of NP = 64*NJ columns, K/16 slabs of
-// 16 x NP row-major), each product an FMA in k order, handed to `epi`.
-template <int NJ, class Epi>
-__device__ void gemm_f32(const float* A, int K, int N, Ring& ring, const Epi& epi) {
+// ---- 3xTF32 on the tensor cores -----------------------------------------------------
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero), as
+// an f32 bit pattern whose low 13 bits are 0: cvt.rna.tf32.f32's rounding
+// of a finite x, in two integer operations (the conversion instruction runs
+// on a slower pipe).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo to within 2^-22 |x|, both TF32: hi = tf32(x), lo = tf32(x - hi)
+// (x - hi is exact in f32).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d (16 x 8 f32) += a (16 x 8) b (8 x 8), TF32 operands, in mma.sync's
+// fragments: lane 4g + t holds a = A[g][t], A[g+8][t], A[g][t+4],
+// A[g+8][t+4]; b = B[t][g], B[t+4][g]; d = D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1].  FRESH: d = a b (the accumulator input is 0).
+template <bool FRESH = false>
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  if constexpr (FRESH)
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+  else
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The f32 product as three TF32 ones: the small terms lo.hi and hi.lo
+// first, then hi.hi.
+template <bool FRESH = false>
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ah, const uint32_t* al,
+                                           const uint32_t* bh, const uint32_t* bl) {
+  mma_tf32<FRESH>(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// 16-row blocks a tile's matmuls run: 3 for a tile of 33 to 48 valid rows
+// (the W block's one 48-row sequence), else all 4 (a ragged last tile of 32
+// rows or fewer also runs rows past `valid`, whose results nothing reads).
+__device__ __forceinline__ int row_blocks(int valid) { return valid > 32 && valid <= 48 ? 3 : 4; }
+
+// out (RB*16 rows x N) = A (64 x K, row-major in shared memory, ld_f(K)) . W
+// (K x N, the ring's next slabs: per pass of NP = 64*NJ columns, K/16 slabs
+// of 16 x NP in B-fragment order), 3xTF32 on the tensor cores; each pair of
+// adjacent columns of a row handed to `epi` with its bias added.  Warp w
+// takes the 8-column tiles w + 8j (j < NJ) of a pass in the tile's first RB
+// 16-row blocks.  The tensor cores truncate each sum into an accumulator
+// (round toward zero); summed so into one running total over K = 256, a
+// product drifted ~3e-6 relative on an H100.  So each slab's six products
+// go to a fresh fragment, added to the total by an f32 add that rounds to
+// nearest.  kind, slot: phase timing only (the matmul's cycle counters).
+template <int NJ, int RB, class Epi>
+__device__ void gemm_f32_rb(const float* A, int K, int N, Ring& ring, const Epi& epi, int kind,
+                            int slot) {
   constexpr int NP = 64 * NJ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ty = (warp >> 2) * 8 + (lane >> 2), tx = (warp & 3) * 4 + (lane & 3);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int lda = ld_f(K);
-  const float* arow = A + ty * lda;
+  const float* arow = A + g * lda + t;
   for (int n0 = 0; n0 < N; n0 += NP) {
-    float4 bb[NJ];
+    float2 bias[NJ], res[RB][NJ][2];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) bb[j] = epi.bias(n0 + 4 * tx + 64 * j);
-    float4 acc[4][NJ];
+    for (int j = 0; j < NJ; ++j) {
+      const int c = n0 + 8 * (warp + 8 * j) + 2 * t;
+      bias[j] = epi.bias(c);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int kc = 0; kc < K / kSlabKF; ++kc) {
-      const int s = ring.idx % ring.stages;
-      mbar_wait(&ring.full[s], (ring.idx / ring.stages) & 1);
-      const float* slab =
-          reinterpret_cast<const float*>(ring.base + (size_t)s * ring.stage_bytes) + 4 * tx;
-#pragma unroll
-      for (int k4 = 0; k4 < kSlabKF; k4 += 4) {
-        float4 a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(arow + 16 * i * lda + kc * kSlabKF + k4);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          float4 b[NJ];
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            b[j] = *reinterpret_cast<const float4*>(slab + (k4 + kk) * NP + 64 * j);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-              acc[i][j].x = fmaf(av, b[j].x, acc[i][j].x);
-              acc[i][j].y = fmaf(av, b[j].y, acc[i][j].y);
-              acc[i][j].z = fmaf(av, b[j].z, acc[i][j].z);
-              acc[i][j].w = fmaf(av, b[j].w, acc[i][j].w);
-            }
-          }
-        }
+      for (int rb = 0; rb < RB; ++rb) {
+        res[rb][j][0] = epi.res(16 * rb + g, c);
+        res[rb][j][1] = epi.res(16 * rb + g + 8, c);
       }
-      // This warp's reads of the slab are done.  They are generic-proxy
-      // loads, and the producer's next bulk copy into the stage writes
-      // through the async proxy: the mbarrier alone does not order the two
-      // (without this fence the f32 tp halves' persistent grid read a slab
-      // already refilled in 9 of 96 launch pairs on an H100).
+    }
+    float acc[RB][NJ][4];
+#pragma unroll
+    for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[rb][j][e] = 0.f;
+    for (int kc = 0; kc < K / kSlabKF; ++kc) {
+      // The slab's first k8 step of A, split while its B may still be in
+      // flight.
+      uint32_t a0h[RB][4], a0l[RB][4];
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) {
+        const float* a = arow + 16 * rb * lda + kc * kSlabKF;
+        split_tf32(a[0], a0h[rb][0], a0l[rb][0]);
+        split_tf32(a[8 * lda], a0h[rb][1], a0l[rb][1]);
+        split_tf32(a[4], a0h[rb][2], a0l[rb][2]);
+        split_tf32(a[8 * lda + 4], a0h[rb][3], a0l[rb][3]);
+      }
+      const int s = ring.idx % ring.stages;
+      CLK(t0);
+      mbar_wait(&ring.full[s], (ring.idx / ring.stages) & 1);
+      CLK(t1);
+      ADD_CYCLES(kind, 0, t1 - t0);
+      // This warp's B fragments of the slab: tile w + 8j is 32 float4s,
+      // lane l's at 4l: rows t, t + 4 (the first k8 step), 8 + t, 12 + t.
+      const float4* slab =
+          reinterpret_cast<const float4*>(ring.base + (size_t)s * ring.stage_bytes) +
+          warp * 32 + lane;
+      uint32_t bh[NJ][4], bl[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 b = slab[j * 256];
+        split_tf32(b.x, bh[j][0], bl[j][0]);
+        split_tf32(b.y, bh[j][1], bl[j][1]);
+        split_tf32(b.z, bh[j][2], bl[j][2]);
+        split_tf32(b.w, bh[j][3], bl[j][3]);
+      }
+      // This warp's reads of the slab are done (their values are split in
+      // registers).  They are generic-proxy loads, and the producer's next
+      // bulk copy into the stage writes through the async proxy: the
+      // mbarrier alone does not order the two (without this fence the f32
+      // tp halves' persistent grid read a slab already refilled in 9 of 96
+      // launch pairs on an H100).
       fence_async_smem();
       release(ring, ring.idx);
       ++ring.idx;
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) {
+        float part[NJ][4];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          mma_3xtf32<true>(part[j], a0h[rb], a0l[rb], &bh[j][0], &bl[j][0]);
+        const float* a = arow + 16 * rb * lda + kc * kSlabKF + 8;
+        uint32_t ah[4], al[4];
+        split_tf32(a[0], ah[0], al[0]);
+        split_tf32(a[8 * lda], ah[1], al[1]);
+        split_tf32(a[4], ah[2], al[2]);
+        split_tf32(a[8 * lda + 4], ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_3xtf32(part[j], ah, al, &bh[j][2], &bl[j][2]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[rb][j][e] += part[j][e];
+      }
+      CLK(t2);
+      ADD_CYCLES(kind, 1, t2 - t1);
     }
+    CLK(t3);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int rb = 0; rb < RB; ++rb) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) epi.store(ty + 16 * i, n0 + 4 * tx + 64 * j, add4(acc[i][j], bb[j]));
+      for (int j = 0; j < NJ; ++j) {
+        const int r = 16 * rb + g, c = n0 + 8 * (warp + 8 * j) + 2 * t;
+        epi.store(r, c, make_float2(acc[rb][j][0] + bias[j].x, acc[rb][j][1] + bias[j].y),
+                  res[rb][j][0]);
+        epi.store(r + 8, c, make_float2(acc[rb][j][2] + bias[j].x, acc[rb][j][3] + bias[j].y),
+                  res[rb][j][1]);
+      }
+    }
+    CLK(t4);
+    ADD_CYCLES(kind, 2, t4 - t3);
   }
+}
+
+// gemm_f32_rb over the 16-row blocks that hold the tile's `rows` valid rows
+// (row_blocks): a W tile's 48 rows run 3 of 4.  kind (q|k|v, out-projection,
+// fc1, fc2) and slot: phase timing only; slot kPhaseSlots records nothing.
+template <int NJ, class Epi>
+__device__ void gemm_f32(const float* A, int K, int N, int rows, Ring& ring, const Epi& epi,
+                         int kind = 0, int slot = kPhaseSlots) {
+  if (row_blocks(rows) == 3)
+    gemm_f32_rb<NJ, 3>(A, K, N, ring, epi, kind, slot);
+  else
+    gemm_f32_rb<NJ, 4>(A, K, N, ring, epi, kind, slot);
 }
 
 // The out-projection, fc1 and fc2 passes are 64 or 128 wide in f32 (the
 // q|k|v pass is 192: gemm_f32<3>); fewer instantiations, a shorter build.
 template <class Epi>
-__device__ void gemm_f32_np(const float* A, int K, int N, int np, Ring& ring, const Epi& epi) {
+__device__ void gemm_f32_np(const float* A, int K, int N, int np, int rows, Ring& ring,
+                            const Epi& epi, int kind = 0, int slot = kPhaseSlots) {
   if (np == 64)
-    gemm_f32<1>(A, K, N, ring, epi);
+    gemm_f32<1>(A, K, N, rows, ring, epi, kind, slot);
   else
-    gemm_f32<2>(A, K, N, ring, epi);
+    gemm_f32<2>(A, K, N, rows, ring, epi, kind, slot);
 }
 
 // Attention of one head group in f32: q|k|v row-major in `qkv` (q at column
@@ -1356,31 +1502,44 @@ __device__ void attention_group_f32(const float* qkv, float* ao, int group, int 
 // One f32 tile of whole sequences (`valid` rows) of block B, in the bf16
 // body's order: LN1, per head group q|k|v and attention, out-projection +
 // residual (x' to y), LN2 (from y), fc1 + GELU, fc2 + residual.  Returns
-// with the shared tiles free for the next tile.
+// with the shared tiles free for the next tile.  slot / stamp: phase timing
+// only (the bf16 body's stamps, each after the consumers' barrier).
 template <int D, bool SAFE, class InRows, class OutRows>
 __device__ __forceinline__ void block_tile_f32(const Block& B, const Shape& S, const float* x,
                                                float* y, const InRows& in, const OutRows& out,
                                                int valid, Ring& ring, float* sA, float* sB,
-                                               float* sQkv) {
+                                               float* sQkv, int slot = 0, bool stamp = false) {
   const int C = S.C, HID = S.HID, groups = C / 64;
+  STAMP(0);
   layer_norm_f32(x, in, valid, sA, C, fptr(B, LN1S), fptr(B, LN1B));
   consumers_sync();
+  STAMP(1);
   for (int gi = 0; gi < groups; ++gi) {
-    gemm_f32<3>(sA, C, kQkvN, ring, EpiQkvF{sQkv, fptr(B, BQKV) + gi * kQkvN});
+    gemm_f32<3>(sA, C, kQkvN, valid, ring, EpiQkvF{sQkv, fptr(B, BQKV) + gi * kQkvN}, 0,
+                stamp ? slot : kPhaseSlots);
     consumers_sync();
+    STAMP(2 + 2 * gi);
     attention_group_f32<D, SAFE>(sQkv, sB, gi, valid, B.L, C, B.causal);
     consumers_sync();  // the next group's projection overwrites q|k|v
+    STAMP(3 + 2 * gi);
   }
-  gemm_f32_np(sB, C, C, S.np[1], ring,
-              EpiResidualF<InRows, OutRows>{x, in, y, out, fptr(B, BO), valid});
+  gemm_f32_np(sB, C, C, S.np[1], valid, ring,
+              EpiResidualF<InRows, OutRows>{x, in, y, out, fptr(B, BO), valid}, 1,
+              stamp ? slot : kPhaseSlots);
   consumers_sync();  // x' stored; the attention output is read no more
+  STAMP(kStamps - 4);
   layer_norm_f32(y, out, valid, sB, C, fptr(B, LN2S), fptr(B, LN2B));
   consumers_sync();
-  gemm_f32_np(sB, C, HID, S.np[2], ring, EpiGeluF{sA, fptr(B, B1), ld_f(HID)});
+  STAMP(kStamps - 3);
+  gemm_f32_np(sB, C, HID, S.np[2], valid, ring, EpiGeluF{sA, fptr(B, B1), ld_f(HID)}, 2,
+              stamp ? slot : kPhaseSlots);
   consumers_sync();
-  gemm_f32_np(sA, HID, C, S.np[3], ring,
-              EpiResidualF<OutRows, OutRows>{y, out, y, out, fptr(B, B2), valid});
+  STAMP(kStamps - 2);
+  gemm_f32_np(sA, HID, C, S.np[3], valid, ring,
+              EpiResidualF<OutRows, OutRows>{y, out, y, out, fptr(B, B2), valid}, 3,
+              stamp ? slot : kPhaseSlots);
   consumers_sync();  // y stored; the hidden tile is free
+  STAMP(kStamps - 1);
 }
 
 // ---- the CTA ---------------------------------------------------------------------

@@ -87,10 +87,11 @@ fused_block_sm90_f32_kernel(const __grid_constant__ Args A) {
         if constexpr (STRIDED)
           block_tile_f32<D, SAFE>(B, S, x, y, strided_tile(B, B.in, seq0, nseq, S.C),
                                   strided_tile(B, B.out, seq0, nseq, S.C), nseq * B.L, ring, sA,
-                                  sB, sQkv);
+                                  sB, sQkv, blockIdx.x, true);
         else
           block_tile_f32<D, SAFE>(B, S, x, y, contig_tile(B, seq0, S.C),
-                                  contig_tile(B, seq0, S.C), nseq * B.L, ring, sA, sB, sQkv);
+                                  contig_tile(B, seq0, S.C), nseq * B.L, ring, sA, sB, sQkv,
+                                  blockIdx.x, true);
       });
 }
 

@@ -35,11 +35,13 @@
 // TF32 products an f32-accurate one): ~0.040 / ~0.020 ms, bound by
 // operations; the FFMA peak (67 TFLOP/s) gives ~0.098 / ~0.048 ms.
 //
-// What the design does: the f32 block body's arithmetic (every product an
-// FFMA in k order, so the plain f32 version's rounding of each product, and
-// nothing rounded below f32; 64-row tiles; row-major activation tiles of
-// K + 4 floats; row-major 16-row weight slabs, ops/fused_block.py:
-// arrange_weight_f32) on the bf16 halves' schedule: a persistent grid of
+// What the design does: the f32 block body's arithmetic (every product
+// three TF32 tensor-core products, 3xTF32 with mma.sync, as close to the
+// exact product as an f32 FMA; nothing rounded below f32; 64-row tiles;
+// row-major activation tiles of K + 4 floats; weight slabs of 16 rows in
+// mma's B-fragment order, ops/fused_block.py:arrange_weight_f32; only the
+// 16-row blocks that hold valid rows multiplied) on the bf16 halves'
+// schedule: a persistent grid of
 // min(tiles, resident CTAs) CTAs walks the tiles, and one producer thread
 // streams every tile's slabs with cp.async.bulk into an mbarrier ring, the
 // next tile's while the consumers finish the current one.  Shared memory at
@@ -116,13 +118,13 @@ __device__ __forceinline__ void attn_half_tile_f32(const HalfArgsF& A, int tile,
   layer_norm_f32(A.x, rows, valid, sA, C, A.ln_s, A.ln_b);
   consumers_sync();
   for (int gi = 0; gi < W / 64; ++gi) {
-    gemm_f32<3>(sA, C, kQkvN, ring, EpiQkvF{sQkv, A.bias + gi * kQkvN});
+    gemm_f32<3>(sA, C, kQkvN, valid, ring, EpiQkvF{sQkv, A.bias + gi * kQkvN});
     consumers_sync();
     // The attention output tile is W wide (ld_f(W)): attention_group_f32's C.
     attention_group_f32<D, SAFE>(sQkv, sB, gi, valid, A.L, W, A.causal);
     consumers_sync();  // the next group's projection overwrites q|k|v
   }
-  gemm_f32_np(sB, W, C, A.np[1], ring, EpiPartialF<ContigTile>{A.y, rows, valid});
+  gemm_f32_np(sB, W, C, A.np[1], valid, ring, EpiPartialF<ContigTile>{A.y, rows, valid});
 }
 
 // The MLP half on one tile of 64 rows.
@@ -133,9 +135,9 @@ __device__ __forceinline__ void mlp_half_tile_f32(const HalfArgsF& A, int tile, 
   const ContigTile rows{(size_t)row0 * C, C};
   layer_norm_f32(A.x, rows, valid, sA, C, A.ln_s, A.ln_b);
   consumers_sync();
-  gemm_f32_np(sA, C, W, A.np[0], ring, EpiGeluF{sH, A.bias, ld_f(W)});
+  gemm_f32_np(sA, C, W, A.np[0], valid, ring, EpiGeluF{sH, A.bias, ld_f(W)});
   consumers_sync();
-  gemm_f32_np(sH, W, C, A.np[1], ring, EpiPartialF<ContigTile>{A.y, rows, valid});
+  gemm_f32_np(sH, W, C, A.np[1], valid, ring, EpiPartialF<ContigTile>{A.y, rows, valid});
 }
 
 // D = 16, 32, 64: the attention half of that head dim; D = 0: the MLP half.

@@ -71,8 +71,9 @@ dtype picks the instantiation, as each Pallas call takes its output dtype
 from its input: bf16 activations and weights with f32 LayerNorm, softmax,
 GELU and accumulators (q/k/v, attention weights and output, fc1 output and
 the residual sums rounded to bf16); or f32 throughout, nothing rounded to
-bf16 (the ``*_f32_fwd`` entries on the f32 tile body: FFMA products, 64-row
-tiles, C <= 256, accurate tanh; the tp halves' partials in f32 too).  x and
+bf16 (the ``*_f32_fwd`` entries on the f32 tile body: each product three
+TF32 tensor-core products (3xTF32), 64-row tiles, C <= 256, accurate tanh;
+the tp halves' partials in f32 too).  x and
 every parameter share one dtype, bf16 or f32.  The Hopper kernels round at the same points under every row
 map, so the canonical T kernel equals ``fused_block_apply`` on the
 rearranged tensor, and a chain the single-block kernels in sequence, bit
@@ -420,11 +421,14 @@ def arrange_weight(w: torch.Tensor, np: int) -> torch.Tensor:
 
 def arrange_weight_f32(w: torch.Tensor, np: int) -> torch.Tensor:
     """(K, N) f32 -> the f32 body's slabs, flat: pass after pass of ``np``
-    columns, in each pass K / 16 slabs of 16 rows x ``np`` columns,
-    row-major (``block_sm90.cuh:gemm_f32`` reads row k of a slab at k * np)."""
+    columns, in each pass K / 16 slabs of 16 rows x ``np`` columns in the
+    order of mma.sync's B fragments (``block_sm90.cuh:gemm_f32``): per
+    8-column tile j of the slab 128 floats, lane 4g + t's four at 4(4g + t):
+    rows t, t + 4, 8 + t, 12 + t of column 8j + g (the b0, b1 of the slab's
+    two k8 steps), one 16-byte load a lane."""
     k, n = w.shape
-    t = w.reshape(k // SM90_F32_SLAB_K, SM90_F32_SLAB_K, n // np, np)
-    return t.permute(2, 0, 1, 3).reshape(-1)
+    t = w.reshape(k // SM90_F32_SLAB_K, 4, 4, n // np, np // 8, 8)  # kc, e, t, pass, j, g
+    return t.permute(3, 0, 4, 5, 2, 1).reshape(-1)
 
 
 class Sm90Weights(NamedTuple):
@@ -1093,7 +1097,7 @@ def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
 
 def _slab_layout(plan: HalfPlan) -> Callable:
     """The weight slabs of the plan's kernels: wgmma's core matrices (bf16)
-    or the f32 body's row-major slabs."""
+    or the f32 body's mma.sync fragment order."""
     return arrange_weight_f32 if plan.f32 else arrange_weight
 
 

@@ -2,9 +2,11 @@
 
     python3 -m tante_tpu_torch.tools.kernel_phases [--halves]
     python3 -m tante_tpu_torch.tools.kernel_phases --packed [--baseline DIR]
+    python3 -m tante_tpu_torch.tools.kernel_phases --f32 [--baseline DIR]
 
 (``--halves``: the tensor-parallel halves' sections alone.  ``--packed``: the
-attention kernel's section alone, described last.)
+attention kernel's section alone, described last.  ``--f32``: the f32 block
+kernels' section alone, described before it.)
 
 First the Hopper single-block kernels (``ops/csrc/fused_block_sm90.cu`` on
 the tile body of ``block_sm90.cuh``): a measurement copy built with
@@ -48,6 +50,21 @@ its chain kernel on the run ``THW``: tiles stamp by tile number and each
 block of a run overwrites the one before, so what is read back are the
 tiles of the run's LAST block (W); ``block_span_us`` is the time from the
 first tile's start to the last tile's end of that block across the grid.
+
+``--f32``: the f32 single-block kernels (``tante_fused_block_sm90_f32_fwd`` and
+the canonical T entry, on ``block_tile_f32``) at the flagship's H, W, rearranged
+causal T and canonical T blocks in f32: a measurement copy of
+``fused_block_sm90.cu`` with ``-DTANTE_PHASE_TIMING`` stamps the global timer
+after the consumers' barrier at each phase (the bf16 body's stamps), one JSON
+line per block with the mean microseconds per tile of LN1, the q|k|v
+projections and attention (summed over the head groups), out-projection,
+LN2, fc1 and fc2, each phase's share of the tile, the valid rows per tile,
+and per matmul the SM cycles consumer thread 0 spends waiting for weight
+slabs, in the slabs' products and in the epilogue.  With ``--baseline DIR``
+the production kernels of DIR's ``fused_block_sm90.cu`` (weights re-laid by
+DIR's own ``ops/fused_block.py``) and of this tree are timed in turns
+(baseline, this tree, this tree, baseline) by CUDA events on the same
+inputs, and their outputs compared.
 
 ``--packed``: the head-packed attention kernel (``ops/csrc/packed_attention.cu``)
 at the AViT shape in f32 (row and column views of one (16, 16, 16, 6, 192)
@@ -164,9 +181,8 @@ def _phase_summary(stamps: np.ndarray, groups: int) -> tuple[dict, np.ndarray]:
             **{k: float(per[k]) for k in ("o_proj", "ln2", "fc1", "fc2")}}, ns
 
 
-def _cycles(per_mm: np.ndarray) -> dict:
-    return {mm: {part: float(per_mm[i][k]) for k, part in
-                 enumerate(("slab_wait", "wgmma", "epilogue"))}
+def _cycles(per_mm: np.ndarray, parts=("slab_wait", "wgmma", "epilogue")) -> dict:
+    return {mm: {part: float(per_mm[i][k]) for k, part in enumerate(parts)}
             for i, mm in enumerate(MATMULS)}
 
 
@@ -373,6 +389,119 @@ def half_phases(dev, stream, card: str) -> None:
             }), flush=True)
 
 
+# ---- the f32 block kernels (--f32) ----------------------------------------------
+
+F32_CASES = {"H": ((1536, 16, C), False), "W": ((512, 48, C), False),
+             "T rearranged": ((8 * 16 * 48, 4, C), True),
+             "T canonical": ((8, 4, 16, 48, C), True)}
+
+
+def _f32_setup(label: str, dev):
+    """A flagship f32 block: its parameters, input, output, plan and, for
+    the canonical T block, the T axis's row map."""
+    (shape, causal), i = F32_CASES[label], list(F32_CASES).index(label)
+    p = fb.BlockParams(*(t.float() for t in _params(50 + i, dev)))
+    x = torch.from_numpy(np.random.default_rng(50 + i).normal(size=shape).astype(np.float32))
+    x = x.to(dev)
+    if label == "T canonical":
+        b, l, h, w, _ = shape
+        n_seqs, row_map = b * h * w, (ctypes.c_int * 6)(*fb.canon_t_map((l, h, w), b))
+    else:
+        (n_seqs, l, _), row_map = shape, None
+    return p, x, torch.empty_like(x), fb.sm90_plan(l, C, HIDDEN, torch.float32), n_seqs, l, \
+        causal, row_map
+
+
+def _f32_launch(lib, module, label: str, p, x, y, plan, n_seqs, l, causal, row_map, stream):
+    """A launch of ``lib``'s f32 entry on the block, its weights re-laid by
+    ``module`` (this tree's ``fused_block`` or a baseline's)."""
+    w = module.sm90_weights(p, HEADS, plan)
+    ptrs, plan_arr = fb._ptr_array([w]), (ctypes.c_int * 7)(*plan.ints())
+    if label == "T canonical":
+        return lambda: lib.tante_fused_block_canon_t_sm90_f32_fwd(  # noqa: E731
+            x.data_ptr(), y.data_ptr(), ptrs, plan_arr, row_map, n_seqs, l, C, HIDDEN, HEADS, 0,
+            stream)
+    return lambda: lib.tante_fused_block_sm90_f32_fwd(  # noqa: E731
+        x.data_ptr(), y.data_ptr(), ptrs, plan_arr, n_seqs, l, C, HIDDEN, HEADS, int(causal), 0,
+        0, stream)
+
+
+def f32_phases(dev, stream, card: str) -> None:
+    """Per-tile phases of the f32 single-block kernels (see the module text)."""
+    lib = _timing_library("fused_block_sm90")
+    n_stamps = lib.tante_sm90_phase_stamps()
+    for label in F32_CASES:
+        p, x, y, plan, n_seqs, l, causal, row_map = _f32_setup(label, dev)
+        launch = _f32_launch(lib, fb, label, p, x, y, plan, n_seqs, l, causal, row_map, stream)
+        tiles = -(-n_seqs // plan.seqs)
+        for _ in range(3):
+            if launch() != 0:
+                raise RuntimeError(f"{label}: launch failed")
+        torch.cuda.synchronize()
+        _read(lib, "tante_sm90_gemm_cycles", (tiles, 4, 3))  # zeroes the counters
+        ms = _timed(launch, 20)
+        per_mm = _read(lib, "tante_sm90_gemm_cycles", (tiles, 4, 3)).astype(np.float64)
+        per_mm = per_mm.mean(axis=0) / (20 + 3)
+        summary, ns = _phase_summary(_read(lib, "tante_sm90_phase_read", (tiles, n_stamps)),
+                                     C // 64)
+        tile_us = float(sum(summary.values()))
+        print(json.dumps({
+            "kernel": ("fused_block_canon_t_sm90_f32_fwd" if label == "T canonical"
+                       else "fused_block_sm90_f32_fwd") + " (fused_block_sm90.cu)",
+            "block": label, "shape": list(x.shape), "causal": causal, "tiles": tiles,
+            "valid_rows_per_tile": plan.seqs * l, "plan": plan._asdict(),
+            "timing_build_ms": ms, "per_tile_us": summary, "tile_us": tile_us,
+            "share_of_tile": {k: v / tile_us for k, v in summary.items()},
+            "matmul_cycles_per_tile": _cycles(per_mm, ("slab_wait", "mma", "epilogue")),
+            "span_us": float((ns[:, -1].max() - ns[:, 0].min()) / 1e3), "card": card,
+        }), flush=True)
+
+
+def _baseline_fused_block(baseline: str):
+    """DIR's ``ops/fused_block.py`` as a module of its own (its weight
+    layouts; its imports resolve to this tree's package)."""
+    import importlib.util
+
+    path = Path(baseline) / "tante_tpu_torch" / "ops" / "fused_block.py"
+    spec = importlib.util.spec_from_file_location("baseline_fused_block", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def f32_in_turns(dev, stream, card: str, baseline: str) -> None:
+    """The baseline tree's f32 kernels and this tree's in turns (module text)."""
+    source = Path(baseline) / "tante_tpu_torch" / "ops" / "csrc" / "fused_block_sm90.cu"
+    info = _build.compile_library("fused_block_sm90", "fused_block_sm90_baseline", (),
+                                  source=source)
+    other = _build.bind(ctypes.CDLL(info["library"]), "fused_block_sm90")
+    this = _build.load("fused_block_sm90")
+    base_fb = _baseline_fused_block(baseline)
+    for label in F32_CASES:
+        p, x, y, plan, n_seqs, l, causal, row_map = _f32_setup(label, dev)
+        y_base = torch.empty_like(y)
+        runs = {"baseline": _f32_launch(other, base_fb, label, p, x, y_base, plan, n_seqs, l,
+                                        causal, row_map, stream),
+                "this_tree": _f32_launch(this, fb, label, p, x, y, plan, n_seqs, l, causal,
+                                         row_map, stream)}
+        for launch in runs.values():
+            if launch() != 0:
+                raise RuntimeError(f"{label}: launch failed")
+        torch.cuda.synchronize()
+        diff = float((y_base - y).abs().max())
+        b1 = event_ms(runs["baseline"], iters=50)
+        t1 = event_ms(runs["this_tree"], iters=50)
+        t2 = event_ms(runs["this_tree"], iters=50)
+        b2 = event_ms(runs["baseline"], iters=50)
+        print(json.dumps({
+            "kernel": "f32 block kernel in turns", "block": label, "baseline": str(source),
+            "shape": list(x.shape), "baseline_ms": (b1 + b2) / 2, "this_tree_ms": (t1 + t2) / 2,
+            "baseline_ms_turns": [b1, b2], "this_tree_ms_turns": [t1, t2],
+            "max_abs_diff_baseline_vs_this_tree": diff,
+            "max_abs_output": float(y_base.abs().max()), "card": card,
+        }), flush=True)
+
+
 # ---- the head-packed attention kernel (--packed) ------------------------------
 
 SLEEP_CYCLES = 50_000_000  # ~27 ms of the card's spin: the host queues a window behind it
@@ -557,6 +686,19 @@ def main() -> int:
         packed_phases(dev, stream, card)
         if "--baseline" in args:
             packed_in_turns(dev, stream, card, args[args.index("--baseline") + 1])
+        return 0
+    if "--f32" in args:
+        dev, stream = torch.device("cuda"), torch.cuda.current_stream().cuda_stream
+        specs = [("fused_block_sm90", "fused_block_sm90_phases", TIMING_FLAGS),
+                 ("fused_block_sm90", "fused_block_sm90", ())]
+        if "--baseline" in args:
+            base = Path(args[args.index("--baseline") + 1])
+            specs.append(("fused_block_sm90", "fused_block_sm90_baseline", (),
+                          base / "tante_tpu_torch" / "ops" / "csrc" / "fused_block_sm90.cu"))
+        _build.compile_libraries(specs)  # one nvcc each, together; each is found built below
+        f32_phases(dev, stream, card)
+        if "--baseline" in args:
+            f32_in_turns(dev, stream, card, args[args.index("--baseline") + 1])
         return 0
     halves_only = "--halves" in args
     # The measurement copies build together; each is found built below.

@@ -1,6 +1,6 @@
 """The Hopper block sources' ``-Xptxas -v`` summaries against another tree's.
 
-    python3 -m tante_tpu_torch.tools.ptxas_compare --baseline DIR
+    python3 -m tante_tpu_torch.tools.ptxas_compare --baseline DIR [--sass TEXT]
 
 Builds ``fused_block_sm90.cu``, ``fused_chain_sm90.cu``,
 ``fused_half_sm90.cu`` and ``fused_half_sm90_f32.cu`` of this tree and of
@@ -11,14 +11,20 @@ together, into ``build/kernels/``.  Prints one JSON line per source: whether
 every kernel the baseline has compiles here to the same registers and
 spills (kernel names compared without the per-file namespace hash), and the
 kernels only this tree has with their registers and spills.  Exits 1 if a
-baseline kernel changed.  Needs ``nvcc``; runs no kernel.
+baseline kernel changed.  ``--sass TEXT``: per kernel of this tree whose name holds TEXT, the counts of
+its tensor-core (``HMMA``) and f32 FMA (``FFMA``) instructions in the SASS
+``cuobjdump -sass`` prints (where the toolkit has it).  Needs ``nvcc``; runs
+no kernel.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import shutil
+import subprocess
 from pathlib import Path
 
 from tante_tpu_torch.ops import _build
@@ -32,10 +38,38 @@ def _name(kernel: str) -> str:
     return re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}", "", kernel)
 
 
+def sass_counts(library: str, text: str) -> list[dict]:
+    """Per kernel of ``library`` whose name holds ``text``: its HMMA and FFMA
+    instruction counts from ``cuobjdump -sass`` (which opcodes of each)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return [{"error": "cuobjdump not found"}]
+    out = subprocess.run([tool, "-sass", library], capture_output=True, text=True,
+                         check=True).stdout
+    found, name, ops = [], None, {}
+    for line in out.splitlines() + ["Function : <end>"]:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if name is not None and text in name:
+                found.append({"kernel": _name(name), "hmma": sum(
+                    v for k, v in ops.items() if k.startswith("HMMA")), "ffma": sum(
+                    v for k, v in ops.items() if k.startswith("FFMA")),
+                    "opcodes": {k: v for k, v in sorted(ops.items())
+                                if k.startswith(("HMMA", "FFMA"))}})
+            name, ops = m.group(1), {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", line)
+        if m and name is not None:
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return found
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--baseline", required=True, help="root of the tree to compare with")
+    ap.add_argument("--sass", help="count HMMA / FFMA in this tree's kernels holding this text")
     args = ap.parse_args(argv)
     trees = {"this": _build.CSRC,
              "baseline": Path(args.baseline) / "tante_tpu_torch" / "ops" / "csrc"}
@@ -51,11 +85,12 @@ def main(argv=None) -> int:
         changed = [{"kernel": k, "this": this.get(k), "baseline": v}
                    for k, v in base.items() if this.get(k) != v]
         same_all &= not changed
-        print(json.dumps({
-            "source": src, "baseline_kernels": len(base),
-            "baseline_kernels_unchanged": not changed, "changed": changed,
-            "new_kernels": [{"kernel": k, **e} for k, e in this.items() if k not in base],
-        }), flush=True)
+        line = {"source": src, "baseline_kernels": len(base),
+                "baseline_kernels_unchanged": not changed, "changed": changed,
+                "new_kernels": [{"kernel": k, **e} for k, e in this.items() if k not in base]}
+        if args.sass and (src, "this") in built:
+            line["sass"] = sass_counts(built[(src, "this")]["library"], args.sass)
+        print(json.dumps(line), flush=True)
     return 0 if same_all else 1
 
 

@@ -1,19 +1,22 @@
 """The f32 block kernels' arithmetic and Python side, on the CPU.
 
 The f32 instantiation of the Hopper block body (``ops/csrc/block_sm90.cuh``,
-``block_tile_f32``) computes every product as an f32 FMA, with ``d**-0.5 *
-log2(e)`` folded into ``wq``/``bq``, exp2 softmax in both forms (no max
-subtract and a clamp at 60*log2(e), or max subtract), the AV sum normalised
-after with a ``+1e-30`` guard, one-pass LayerNorm moments and an accurate
-tanh in the GELU.  ``kernel_f32`` below is that arithmetic in PyTorch; it is
-held against the JAX package's f32 block (``_xla_block``, what JAX runs off
-the TPU), canonical T block and chain, on the same numpy-seeded inputs and
-weights, within the tolerance the card's kernel is held to against its plain
-version (``chip_smoke.py``: relative L2 <= 1e-5, max abs <= 1e-4 max |ref|).
+``block_tile_f32``) computes every matmul product as three TF32 tensor-core
+products (3xTF32: ``tests/_torch_tf32.py``), with ``d**-0.5 * log2(e)``
+folded into ``wq``/``bq``, exp2 softmax in both forms (no max subtract and
+a clamp at 60*log2(e), or max subtract), the AV sum normalised after with a
+``+1e-30`` guard, one-pass LayerNorm moments and an accurate tanh in the
+GELU.  ``kernel_f32`` below is that arithmetic in PyTorch; it is held
+against the JAX package's f32 block (``_xla_block``, what JAX runs off the
+TPU), canonical T block and chain, on the same numpy-seeded inputs and
+weights, within the tolerance the card's kernel is held to against its
+plain version (``chip_smoke.py``: relative L2 <= 1e-5, max abs <= 1e-4 max
+|ref|).
 
 Then the Python side the kernels read: the f32 tile plan against the shared
-memory the card opts into, the bf16 plans unchanged, the f32 weight slabs,
-and the argument checks (one dtype, bf16 or f32)."""
+memory the card opts into, the bf16 plans unchanged, the f32 weight slabs
+(in mma.sync's B-fragment order), and the argument checks (one dtype, bf16
+or f32)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from _torch_parity import block_params, to_jax, to_torch
+from _torch_tf32 import mm3
 from tante_tpu.ops import pallas_block as jblock
 from tante_tpu_torch.ops import fused_block as tblock
 from tante_tpu_torch.ops.activations import gelu_tanh_f32
@@ -29,17 +33,19 @@ REL_L2, MAX_ABS_SHARE = 1e-5, 1e-4
 C, HEADS = 256, 8
 
 
-def kernel_f32(x, p, l, heads, causal, softmax="fast"):
-    """The f32 kernel's arithmetic on (S, L, C) f32 rows."""
+def kernel_f32(x, p, l, heads, causal, softmax="fast", mm=mm3, amm=torch.matmul):
+    """The f32 kernel's arithmetic on (S, L, C) f32 rows: the projections
+    and the MLP through ``mm`` (the card's 3xTF32 product), the attention's
+    scores and AV sum through ``amm`` (f32 FMAs on the card)."""
     s, _, c = x.shape
     d = c // heads
     qs = d**-0.5 * tblock.LOG2E
     xn = tblock.ln(x, p.ln1_scale, p.ln1_bias)
-    q = xn @ (p.wq * qs) + p.bq * qs
-    k = xn @ p.wk + p.bk
-    v = xn @ p.wv + p.bv
-    q, k, v = (t.reshape(s, l, heads, d) for t in (q, k, v))
-    scores = torch.einsum("slhd,smhd->shlm", q, k)
+    q = mm(xn, p.wq * qs) + p.bq * qs
+    k = mm(xn, p.wk) + p.bk
+    v = mm(xn, p.wv) + p.bv
+    q, k, v = (t.reshape(s, l, heads, d).transpose(1, 2) for t in (q, k, v))  # (S, h, L, d)
+    scores = amm(q, k.transpose(-1, -2))
     keep = torch.ones(l, l, dtype=torch.bool)
     if causal:
         keep = torch.tril(keep)
@@ -49,10 +55,10 @@ def kernel_f32(x, p, l, heads, causal, softmax="fast"):
         mx = torch.where(keep, scores, torch.full_like(scores, -1e30)).amax(-1, keepdim=True)
         e = torch.exp2(scores - mx)
     e = torch.where(keep, e, torch.zeros_like(e))
-    o = torch.einsum("shlm,smhd->slhd", e, v) / (e.sum(-1).transpose(1, 2)[..., None] + 1e-30)
-    x1 = x + (o.reshape(s, l, c) @ p.wo + p.bo)
-    h = gelu_tanh_f32(tblock.ln(x1, p.ln2_scale, p.ln2_bias) @ p.w1 + p.b1)
-    return x1 + (h @ p.w2 + p.b2)
+    o = amm(e, v) / (e.sum(-1, keepdim=True) + 1e-30)
+    x1 = x + (mm(o.transpose(1, 2).reshape(s, l, c), p.wo) + p.bo)
+    h = gelu_tanh_f32(mm(tblock.ln(x1, p.ln2_scale, p.ln2_bias), p.w1) + p.b1)
+    return x1 + (mm(h, p.w2) + p.b2)
 
 
 def kernel_f32_canon_t(x5, p, heads):
@@ -192,9 +198,11 @@ def test_bf16_plans_are_unchanged(shape):
 
 
 def unarrange_f32(flat, k, n, np_):
-    """The (K, N) weight the f32 body reads: pass p, slab kc, row kk, column
-    j at ((p * K/16 + kc) * 16 + kk) * np + j."""
-    return flat.reshape(n // np_, k // 16, 16, np_).permute(1, 2, 0, 3).reshape(k, n)
+    """The (K, N) weight the f32 body reads: pass p, slab kc, 8-column tile
+    j, lane 4g + t, element e at (((p * K/16 + kc) * np/8 + j) * 32 + 4g + t)
+    * 4 + e holds row 16 kc + 4e + t, column p * np + 8j + g."""
+    t = flat.reshape(n // np_, k // 16, np_ // 8, 8, 4, 4)  # pass, kc, j, g, t, e
+    return t.permute(1, 5, 4, 0, 2, 3).reshape(k, n)
 
 
 @pytest.mark.parametrize("k,n,np_", [(256, 192, 192), (256, 256, 128), (128, 512, 64),
@@ -204,8 +212,16 @@ def test_f32_slabs_hold_each_weight_exactly(k, n, np_):
     flat = tblock.arrange_weight_f32(w, np_)
     assert flat.dtype == torch.float32 and flat.shape == (k * n,)
     assert torch.equal(unarrange_f32(flat, k, n, np_), w)
-    # Row kk of slab kc of pass 0 is what the kernel reads for K index 16 kc + kk.
-    assert torch.equal(flat[(1 * 16 + 3) * np_:][:np_], w[19, :np_])
+    # What gemm_f32's lane 4g + t of warp w loads as one float4 from slab kc
+    # of pass p, tile w + 8j: rows t, t + 4 (b0, b1 of the first k8 step),
+    # 8 + t, 12 + t (the second's) of column p * np + 8(w + 8j) + g.
+    tiles = np_ // 8
+    for p, kc, tile, g, t in [(0, 0, 0, 0, 0), (0, 1, 3, 5, 2), (n // np_ - 1, k // 16 - 1,
+                                                                tiles - 1, 7, 3)]:
+        off = ((p * (k // 16) + kc) * tiles + tile) * 128 + (4 * g + t) * 4
+        col = p * np_ + 8 * tile + g
+        rows = [16 * kc + t, 16 * kc + t + 4, 16 * kc + 8 + t, 16 * kc + 12 + t]
+        assert torch.equal(flat[off:off + 4], w[rows, col]), (p, kc, tile, g, t)
 
 
 def test_f32_weights_keep_the_prescaled_f32_q_and_every_matrix():

@@ -5,7 +5,8 @@ re-layout cache, the argument checks): the kernels
 is checked.
 
 The re-laid f32 shard weights are read back the way the f32 body reads them
-(row-major slabs of 16 K rows x one column pass, pass after pass), per
+(slabs of 16 K rows x one column pass in mma.sync's B-fragment order, pass
+after pass), per
 64-column head group and through the zero padding of a shard narrower than a
 group, and the half computed from them in f32 with the kernel's softmax
 forms (scores in log2 units, ``exp2``) must equal ``attn_half_ref`` /
@@ -36,9 +37,11 @@ def halves(p):
 
 
 def unarrange_f32(flat, k, n, np_):
-    """The (K, N) weight the f32 body reads: pass p, slab kc, row kk, column
-    j at ((p * K/16 + kc) * 16 + kk) * np + j."""
-    return flat.reshape(n // np_, k // 16, 16, np_).permute(1, 2, 0, 3).reshape(k, n)
+    """The (K, N) weight the f32 body reads: pass p, slab kc, 8-column tile
+    j, lane 4g + t, element e at (((p * K/16 + kc) * np/8 + j) * 32 + 4g + t)
+    * 4 + e holds row 16 kc + 4e + t, column p * np + 8j + g."""
+    t = flat.reshape(n // np_, k // 16, np_ // 8, 8, 4, 4)  # pass, kc, j, g, t, e
+    return t.permute(1, 5, 4, 0, 2, 3).reshape(k, n)
 
 
 def relaid_attn_half(x, w: tblock.HalfWeights, plan, ca, l, heads, causal, softmax):
@@ -147,9 +150,10 @@ def test_relaid_f32_half_weights_compute_the_half(c, hidden, heads, tp, l, causa
 
 
 def test_f32_slab_rows_are_where_the_kernel_reads_them():
-    """Row kk of slab kc of pass p is K index 16 kc + kk, columns p*np...:
-    the layout ``gemm_f32`` walks, for the out-projection of a 32-wide
-    shard padded to 64 rows."""
+    """Lane 4g + t's float4 of 8-column tile j in slab kc of pass p holds
+    rows 16 kc + {t, t + 4, 8 + t, 12 + t} of column p*np + 8j + g: the B
+    fragments ``gemm_f32`` loads, for the out-projection of a 32-wide shard
+    padded to 64 rows."""
     p = to_torch(block_params(256, 256, seed=7))
     ap, _ = halves(shard_block(p, 8, 3))
     plan = tblock.half_plan("attn", 16, 256, 32, F32)
@@ -157,11 +161,14 @@ def test_f32_slab_rows_are_where_the_kernel_reads_them():
     w = tblock.half_weights(ap, plan, 1)
     wo = w.slabs[256 * 192:]  # one head group, then wo: 64 x 256 in passes of 128
     assert wo.numel() == 64 * 256
-    for pss, kc, kk in [(0, 0, 0), (0, 1, 3), (1, 1, 15), (1, 3, 2)]:
-        row = wo[((pss * 4 + kc) * 16 + kk) * 128:][:128]
-        k = 16 * kc + kk
-        want = ap.wo[k, pss * 128:(pss + 1) * 128] if k < 32 else torch.zeros(128)
-        assert torch.equal(row, want), (pss, kc, kk)
+    padded = torch.cat([ap.wo, torch.zeros(32, 256)])
+    for pss, kc, j, g, t in [(0, 0, 0, 0, 0), (0, 1, 3, 2, 1), (1, 1, 15, 7, 3),
+                             (1, 3, 8, 4, 2)]:
+        got = wo[((pss * 4 + kc) * 16 + j) * 128 + (4 * g + t) * 4:][:4]
+        rows = [16 * kc + t, 16 * kc + t + 4, 16 * kc + 8 + t, 16 * kc + 12 + t]
+        want = padded[rows, pss * 128 + 8 * j + g]
+        assert torch.equal(got, want), (pss, kc, j, g, t)
+        assert (kc < 2) == bool(want.any())  # rows 32..63 are the shard's zero padding
 
 
 # ---- the f32 tile plans -------------------------------------------------------

@@ -25,8 +25,12 @@ HBM3 at 700 W).
 
 The f32 instantiations (``test_f32_*``): f32 inputs and weights against the
 f32 plain version with TF32 off, relative L2 <= 1e-5 and max abs <= 1e-4
-max |plain| (every product an f32 FMA, only the order of the sums differs),
-in both softmax forms; the canonical T and chain kernels bit for bit against
+max |plain| (every product three TF32 tensor-core products, 3xTF32, as
+close as an f32 FMA; only the order of the sums differs), in both softmax
+forms; a tile multiplies only its 16-row blocks that hold valid rows (tiles
+of 48 valid rows, as a W tile holds, at most 0.85 of 64-row tiles' time on as
+many tiles; a sequence in a ragged last tile bit-equal to the same sequence
+in a full tile); the canonical T and chain kernels bit for bit against
 the f32 single-block kernels, as in bf16; gradients through the Functions
 within 1e-4 of f32 autograd; f16 and mixed dtypes refused, and f32 past
 C = 256.
@@ -255,7 +259,7 @@ def test_kernel_refuses_what_it_cannot_hold(cuda):
 # --------------------------------------------------------------------------
 # The f32 instantiations (the *_f32_fwd entries): against the f32 plain
 # version with TF32 off, relative L2 <= 1e-5 and max abs <= 1e-4 max |plain|
-# (FFMA products in another summation order; chip_smoke.py's limits); the
+# (3xTF32 products in another summation order; chip_smoke.py's limits); the
 # canonical T and chain kernels bit for bit against the f32 single-block
 # kernel, as in bf16.
 # --------------------------------------------------------------------------
@@ -308,8 +312,73 @@ def test_f32_fused_block_kernel_matches_plain_safe_softmax(cuda, no_tf32, safe_s
     test_f32_fused_block_kernel_matches_plain(cuda, no_tf32, s, l, c, hidden, heads, causal)
 
 
+def event_ms(fn, iters: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def test_f32_tile_multiplies_only_its_valid_row_blocks(cuda, no_tf32):
+    """The same 16-step sequences, 384 tiles of 3 (48 valid rows, as a W
+    tile holds) against 384 tiles of 4 (64), through the f32 entry with the
+    plan's sequences per tile set by hand: both right against the plain
+    version, and the 48-row launch at most 0.85 of the other's time (its
+    matmuls run 3 of 4 row blocks; with all 4 it would be ~0.95: LayerNorm
+    does not shrink), the median of five timings in turns."""
+    import ctypes
+
+    from tante_tpu_torch.ops import _build
+
+    lib = _build.load("fused_block_sm90")
+    p = params(256, 256, seed=48, device=cuda, dtype=torch.float32)
+    plan = fb.sm90_plan(16, 256, 256, torch.float32)
+    w = fb.sm90_weights(p, 8, plan)
+    ptrs, stream = fb._ptr_array([w]), torch.cuda.current_stream().cuda_stream
+    runs, outs = {}, {}
+    for seqs in (3, 4):
+        x = f32_normal((384 * seqs, 16, 256), seed=seqs, device=cuda)
+        y = torch.empty_like(x)
+        plan_arr = (ctypes.c_int * 7)(*plan._replace(seqs=seqs).ints())
+        runs[seqs] = (lambda x=x, y=y, pa=plan_arr: lib.tante_fused_block_sm90_f32_fwd(
+            x.data_ptr(), y.data_ptr(), ptrs, pa, x.shape[0], 16, 256, 256, 8, 0, 0,
+            cuda.index or 0, stream))
+        assert runs[seqs]() == 0
+        torch.cuda.synchronize()
+        assert_f32_close(y, fb.block_ref(x, p, 16, 8, False))
+    ratios = []
+    for _ in range(5):
+        a, b = event_ms(runs[3]), event_ms(runs[4])
+        ratios.append(a / b)
+    assert float(np.median(ratios)) <= 0.85, ratios
+
+
+@pytest.mark.parametrize("l,n_seqs", [(16, 33), (16, 34), (16, 35), (12, 11), (20, 7), (24, 5)])
+def test_f32_ragged_last_tile_rows_equal_a_full_tiles(cuda, no_tf32, l, n_seqs):
+    """n_seqs not a multiple of the tile's sequences: the last tile holds 1
+    to 3 row blocks (some partly valid).  Its sequences equal, bit for bit,
+    the same sequences in a launch where their tile is full, and the plain
+    version within the f32 limits."""
+    p = params(256, 256, seed=l, device=cuda, dtype=torch.float32)
+    seqs = fb.sm90_plan(l, 256, 256, torch.float32).seqs
+    full = -(-n_seqs // seqs) * seqs
+    x = f32_normal((full, l, 256), seed=n_seqs, device=cuda)
+    ragged = fb.fused_block_apply(x[:n_seqs].contiguous(), p, l, 8, False)
+    whole = fb.fused_block_apply(x, p, l, 8, False)
+    torch.cuda.synchronize()
+    assert n_seqs % seqs and torch.equal(ragged, whole[:n_seqs])
+    assert_f32_close(ragged, fb.block_ref(x[:n_seqs], p, l, 8, False))
+
+
 @pytest.mark.parametrize("b,t,h,w,c,heads", [
-    (8, 4, 16, 48, 256, 8), (2, 2, 5, 7, 128, 4), (3, 4, 5, 7, 256, 8), (1, 8, 9, 9, 256, 16)])
+    (8, 4, 16, 48, 256, 8), (2, 2, 5, 7, 128, 4), (3, 4, 5, 7, 256, 8), (1, 8, 9, 9, 256, 16),
+    (1, 8, 3, 5, 256, 8), (2, 6, 4, 3, 256, 8)])
 def test_f32_canon_t_kernel_equals_rearranged_block_bit_for_bit(cuda, no_tf32, b, t, h, w, c,
                                                                  heads):
     p = params(c, c, seed=t + c, device=cuda, dtype=torch.float32)
@@ -324,7 +393,8 @@ def test_f32_canon_t_kernel_equals_rearranged_block_bit_for_bit(cuda, no_tf32, b
 
 @pytest.mark.parametrize("b,t,h,w,c,heads,axes", [
     (8, 4, 16, 48, 256, 8, "THW"), (8, 4, 16, 48, 256, 8, "THWTHWTHW"),
-    (3, 2, 5, 7, 128, 4, "HW"), (2, 8, 4, 8, 128, 4, "WT"), (2, 4, 8, 12, 128, 4, "THWTHWTHWTHW")])
+    (3, 2, 5, 7, 128, 4, "HW"), (2, 8, 4, 8, 128, 4, "WT"), (2, 4, 8, 12, 128, 4, "THWTHWTHWTHW"),
+    (2, 4, 16, 48, 256, 8, "WHT"), (3, 12, 5, 20, 256, 8, "TWH")])
 def test_f32_chain_kernel_equals_sequence_and_matches_plain(cuda, no_tf32, b, t, h, w, c, heads,
                                                             axes):
     ps = [params(c, c, seed=10 * i + t, device=cuda, dtype=torch.float32)
