@@ -7,8 +7,8 @@ script exits non-zero without the final result line):
 
 1. build    nvcc builds every kernel source of this checkout
             (``tante_tpu_torch/ops/csrc/fused_block_sm90.cu``,
-            ``fused_chain_sm90.cu``, ``fused_half_sm90.cu``,
-            ``fused_half_sm90_f32.cu`` (all four on the Hopper tile body of
+            ``fused_block_long_sm90.cu``, ``fused_chain_sm90.cu``, ``fused_half_sm90.cu``,
+            ``fused_half_sm90_f32.cu`` (all five on the Hopper tile body of
             ``block_sm90.cuh``), ``fused_block.cu`` (the
             first design, the timing baseline), ``spectral_matmul.cu`` and
             ``packed_attention.cu``, one nvcc each, started together); build
@@ -41,6 +41,22 @@ script exits non-zero without the final result line):
             f32 single-block kernels in sequence.  Relative L2, max abs error,
             kernel / plain time (CUDA events) and the bound (3xTF32).  Then
             ``grad`` in f32.
+3b. kernel_long  the long entry (``fused_block_long``: ``fused_block_long_sm90.cu``'s
+            qkv kernel into a workspace, then its attention kernel over streamed
+            key blocks and the block's tail), in bf16 (against the f32 plain
+            block from the same bf16 inputs, ATOL / RTOL) and f32 (TF32 off,
+            F32_REL_L2_TOL / F32_MAX_ABS_SHARE): the flagship's L (768), X (192)
+            and A (3072) blocks at C 256 and the C block (24,576 sequences of 256
+            channels, 128 wide; plain on the first 512) in both softmax forms,
+            causal at L 100, ragged at L 65 and 257, L 48 through the low-level
+            entry; each block launched twice and the two compared bit for
+            bit; wq and wk seeded LONG_QK_SCALE times wider, so that the
+            softmax is peaked and a wrong attention shows; in bf16 a control,
+            the plain block with its last key block dropped, must fail the
+            same limit at the flagship's shapes (``dropped_keys_ref``); one
+            launch of each kernel a block; each entry's time, the
+            block's, the plain block's (at C on 512 sequences, scaled and
+            labelled so), the bounds (``long_bounds``); the phase's seconds.
 4. fixed    flagship TANTE (deg=True, bf16, seeded random weights), B=8,
             16-step latent rollout through ``Predictor.rollout``; launch
             counts (exactly 96 + 48 per rollout), frames/s, and a check
@@ -57,6 +73,15 @@ script exits non-zero without the final result line):
             launches) and ``fused_group`` (16); the trained asset's adaptive
             rollout in f32 (K 8): calls, VRMSE and L2RE against the port's f32
             CPU run (within 1e-4 relative), frames/s.
+4b. long_axes  TANTE whose backbone runs every attention axis of the JAX
+            alphabet (``THWLYXAC``, the C block ``expanded_channel`` 128 wide) at
+            the flagship width, seeded weights, B=8 x 16 steps through
+            ``Predictor.rollout``, in bf16 then f32: exactly 16 canonical T, 48
+            single-block (H, W, Y) and 64 launches of each long entry (L, X, A, C)
+            a rollout, the profiler's kernel events held against them; frames/s,
+            device ms, busy share, host split; the first two calls of one sample
+            against the f32 model on the CPU (ROLLOUT_REL_TOL, F32_ROLLOUT_REL_TOL);
+            the phase's seconds.
 5. adaptive the trained asset ``tante_tpu/assets/tante_flagship.npz``
             (deg=False) through ``Predictor.rollout_adaptive`` with K=8 on
             the synthetic-waves input; n_calls, r_t, frames/s, VRMSE and
@@ -215,7 +240,10 @@ script exits non-zero without the final result line):
             the bf16 block, canonical T, chain and tp half rows with
             the first design's time, in turns; the two bf16 block rows also
             with their launches per R_Trainer step, the two f32 block rows
-            with theirs on the CLI path).
+            with theirs on the CLI path; then the long entry's two kernels in
+            bf16 and in f32 with their launches per long_axes rollout, each
+            entry's mean time over the L, X, A and C blocks beside its bound,
+            the plain block's time and the whole block's).
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 result line {"ok": true, "device": {...}}.  Exits non-zero when no CUDA
@@ -254,6 +282,7 @@ from tante_tpu_torch.ops import _build
 from tante_tpu_torch.ops import fused_attention as fa
 from tante_tpu_torch.ops import fused_block as fb
 from tante_tpu_torch.ops import fused_spectral as fs
+from tante_tpu_torch.ops.activations import gelu_tanh_f32
 from tante_tpu_torch.parallel.sharding import shard_block
 from tante_tpu_torch.serve import Predictor
 from tante_tpu_torch.tools.kernel_phases import SCRUB_BYTES, event_ms
@@ -354,6 +383,25 @@ F32_GRAD_REL_TOL = 1e-4
 # (relative L2), and the adaptive lane's VRMSE / L2RE (relative).
 F32_ROLLOUT_REL_TOL = 1e-4
 AM_L = 32  # configs/tante.yaml's active_matter: 256 x 256 at patch 8, 32 x 32 tokens
+LONG_SOURCE = "tante_tpu_torch/ops/csrc/fused_block_long_sm90.cu"
+# The long_axes lane: TANTE with every attention axis of the JAX alphabet
+# (the T, H, W, Y blocks on the single-block kernels, L, X, A and C on the
+# long entry) at the flagship width; the C block's width is the JAX
+# default expanded_channel.
+LONG_AXES, EXPANDED = "THWLYXAC", 128
+# The long blocks at the flagship (B 8 frames, latent T 4 x 16 x 48, C 256):
+# axis -> (sequences, L, width).
+LONG_CASES = {"L": (BATCH * IN_T, 16 * 48, C), "X": (BATCH * 16, IN_T * 48, C),
+              "A": (BATCH, IN_T * 16 * 48, C), "C": (BATCH * IN_T * 16 * 48, C, EXPANDED)}
+LONG_C_PLAIN_SEQS = 512  # the plain block at the C shape runs on this many sequences
+# wq and wk of the kernel_long blocks: scores of std about LONG_QK_SCALE^2 / 3
+# = 2.5 (at 1, about 0.33: a near-uniform softmax, whose output hides a
+# dropped key block under the bf16 limit).
+LONG_QK_SCALE = 2.75
+LONG_WRAPPERS = {"fused_block_long_qkv_fwd": fb.long_qkv_fwd,
+                 "fused_block_long_attn_fwd": fb.long_attn_fwd}
+LONG_ENTRIES = {"fused_block_long_qkv_fwd": "tante_block_long_qkv_sm90{}_fwd",
+                "fused_block_long_attn_fwd": "tante_block_long_attn_sm90{}_fwd"}
 
 FAILURES: list[str] = []
 NOTES: list[str] = []
@@ -424,6 +472,12 @@ def other_launches(dtype: torch.dtype) -> int:
                if dt != dtype)
 
 
+def long_counts(dtype: torch.dtype) -> dict:
+    """Launches of the long entry's two kernels since the last reset, in
+    ``dtype``."""
+    return {name: fn.launches[dtype] for name, fn in LONG_WRAPPERS.items()}
+
+
 def reset_counts():
     """Every wrapper's launch count to 0."""
     fb.reset_launches()
@@ -480,6 +534,12 @@ def phase_build() -> dict:
                         "half_sm90 f32 attention half, tp 2": half_f32_plan("attn", l),
                         "fused_block (first design)": _build.plan(l, C, C)}
              for l in (4, 16, AM_L, 48)}
+    for axis, (_, l, c) in LONG_CASES.items():
+        plans[f"long_sm90 {axis} (L={l}, C={c})"] = {
+            str(dt).replace("torch.", ""): {
+                **fb.long_plan(c, c, HEADS, dt)._asdict(),
+                "smem_bytes_qkv_attn": fb.long_smem(fb.long_plan(c, c, HEADS, dt), c, c, dt)}
+            for dt in (torch.bfloat16, torch.float32)}
     plans["half_sm90 MLP half, tp 2"] = fb.half_plan("mlp", 1, C, C // 2)._asdict()
     plans["half_sm90 f32 MLP half, tp 2"] = half_f32_plan("mlp", 1)
     emit({"phase": "build", "seconds": seconds, "nvcc_flags": " ".join(_build.NVCC_FLAGS),
@@ -502,7 +562,10 @@ def half_f32_plan(kind: str, l: int) -> dict:
         kind == "attn", plan.rows, C, plan.width, plan.np, plan.stages, torch.float32)}
 
 
-def block_params(seed: int, device, dtype=torch.bfloat16) -> fb.BlockParams:
+def block_params(seed: int, device, dtype=torch.bfloat16, c: int = C,
+                 qk_scale: float = 1.0) -> fb.BlockParams:
+    """One block's weights, uniform in +-1/sqrt(fan in); wq and wk
+    ``qk_scale`` times that."""
     rng = np.random.default_rng(seed)
 
     def u(*shape, fan_in=None, scale=1.0, offset=0.0):
@@ -511,10 +574,10 @@ def block_params(seed: int, device, dtype=torch.bfloat16) -> fb.BlockParams:
         return torch.from_numpy(a.astype(np.float32)).to(device, dtype)
 
     return fb.BlockParams(
-        ln1_scale=u(C, scale=0.1, offset=1.0), ln1_bias=u(C, scale=0.1),
-        wq=u(C, C), bq=u(C), wk=u(C, C), bk=u(C), wv=u(C, C), bv=u(C), wo=u(C, C), bo=u(C),
-        ln2_scale=u(C, scale=0.1, offset=1.0), ln2_bias=u(C, scale=0.1),
-        w1=u(C, C), b1=u(C), w2=u(C, C), b2=u(C),
+        ln1_scale=u(c, scale=0.1, offset=1.0), ln1_bias=u(c, scale=0.1),
+        wq=u(c, c, scale=qk_scale), bq=u(c), wk=u(c, c, scale=qk_scale), bk=u(c), wv=u(c, c),
+        bv=u(c), wo=u(c, c), bo=u(c), ln2_scale=u(c, scale=0.1, offset=1.0),
+        ln2_bias=u(c, scale=0.1), w1=u(c, c), b1=u(c), w2=u(c, c), b2=u(c),
     )
 
 
@@ -903,6 +966,157 @@ def phase_chain_kernels_f32(dev) -> dict[str, dict]:
     return results
 
 
+def long_bounds(rows: int, l: int, c: int, hidden: int, causal: bool, dtype) -> dict:
+    """The least time of the long block on these inputs, whole and per entry:
+    operations (projections 2*M*(4c^2 + 2c*hidden), attention 4*c per admitted
+    (query, key) pair) at the dtype's tensor-core rate (f32: three TF32
+    products a product, 3xTF32), bytes (each input read once, each output
+    written once) at the memory rate; the larger of the two.  The qkv entry
+    reads x and its weights and writes the workspace (3 values a token and
+    channel); the attention entry reads x, the workspace and its weights and
+    writes y; the block as a whole reads x and all weights and writes y."""
+    e = 4 if dtype == torch.float32 else 2
+    m = rows * l
+    pairs = rows * l * (l + 1) / 2 if causal else rows * l * l
+    w_qkv = (3 * c * c + 3 * c + 2 * c) * e
+    w_tail = (c * c + 2 * c * hidden + 4 * c + hidden) * e
+    parts = {"qkv": (2 * m * 3 * c * c, 4 * m * c * e + w_qkv),
+             "attn": (2 * m * (c * c + 2 * c * hidden) + 4 * c * pairs, 5 * m * c * e + w_tail),
+             "block": (2 * m * (4 * c * c + 2 * c * hidden) + 4 * c * pairs,
+                       2 * m * c * e + w_qkv + w_tail)}
+    out = {}
+    for k, (flops, nbytes) in parts.items():
+        t_ops = (3 * flops / PEAK_TF32_FLOPS if e == 4 else flops / PEAK_BF16_FLOPS)
+        t_mem = nbytes / PEAK_HBM_BYTES
+        out[k] = {"bound_us": 1e6 * max(t_ops, t_mem),
+                  "bound_by": "operations" if t_ops >= t_mem else "bytes",
+                  "flops": flops, "bytes": nbytes}
+    return out
+
+
+def dropped_keys_ref(x: torch.Tensor, p: fb.BlockParams, l: int, heads: int, causal: bool,
+                     keys: int) -> torch.Tensor:
+    """``block_ref`` in f32 whose attention sees only the first ``keys`` keys
+    of each sequence: the control of kernel_long's bf16 limit."""
+    c = x.shape[-1]
+    d = c // heads
+    xn = fb.ln(x, p.ln1_scale, p.ln1_bias)
+    q = ((xn @ p.wq) + p.bq) * d**-0.5
+    k, v = (xn @ p.wk) + p.bk, (xn @ p.wv) + p.bv
+    q, k, v = (t.reshape(-1, l, heads, d) for t in (q, k, v))
+    logits = torch.einsum("blhd,bmhd->bhlm", q, k[:, :keys])
+    if causal:
+        m = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))[:, :keys]
+        logits = torch.where(m, logits, torch.full_like(logits, -1e30))
+    attn = torch.einsum("bhlm,bmhd->blhd", torch.softmax(logits, dim=-1), v[:, :keys])
+    x = x + attn.reshape(x.shape) @ p.wo + p.bo
+    h = gelu_tanh_f32((fb.ln(x, p.ln2_scale, p.ln2_bias) @ p.w1) + p.b1)
+    return x + h @ p.w2 + p.b2
+
+
+# (label, axis of LONG_CASES or (sequences, L, width), causal, softmax, timed):
+# the flagship's L, X, A and C blocks in both softmax forms, causal at L 100,
+# ragged last tiles at L 65 and 257, and L 48 through the low-level entry
+# (below the single-block kernel's limit).
+LONG_KERNEL_CASES = [
+    *((axis, axis, False, sm, sm == "fast") for axis in "LXAC" for sm in ("fast", "safe")),
+    ("causal L 100", (64, 100, C), True, "fast", False),
+    ("causal L 100 safe", (64, 100, C), True, "safe", False),
+    ("ragged L 65", (48, 65, C), False, "fast", False),
+    ("ragged L 257", (12, 257, C), True, "fast", False),
+    ("L 48, low-level entry", (64, 48, C), False, "fast", False),
+]
+
+
+def phase_kernels_long(dev, dtype) -> list[dict]:
+    """The long entry (``fused_block_long``: the qkv kernel, then the
+    attention kernel) against the plain block on the same inputs, in
+    ``dtype``: bf16 against the f32 plain block from the same bf16 inputs
+    (ATOL / RTOL), f32 against the f32 plain block, TF32 off
+    (F32_REL_L2_TOL / F32_MAX_ABS_SHARE).  At the C shape the kernel runs on
+    all 24,576 sequences and the plain block on the first 512.  The
+    flagship's fast cases are timed (CUDA events): each entry alone, the
+    block (both), and the plain block (at C on its 512 sequences, scaled to
+    the whole tensor and labelled so), beside the bounds."""
+    f32 = dtype == torch.float32
+    t0 = time.perf_counter()
+    out = []
+    gen = torch.Generator(device=dev)
+    for i, (label, shape, causal, softmax, timed) in enumerate(LONG_KERNEL_CASES):
+        rows, l, c = LONG_CASES[shape] if isinstance(shape, str) else shape
+        p = block_params(700 + i, dev, dtype, c, qk_scale=LONG_QK_SCALE)
+        gen.manual_seed(70 + i)
+        x = torch.randn((rows, l, c), generator=gen, device=dev).to(dtype)
+        fb.set_block_tuning(softmax=softmax)
+        reset_counts()
+        got = fb.fused_block_long(x, p, l, HEADS, causal)
+        torch.cuda.synchronize()
+        launched = (long_counts(dtype) == {k: 1 for k in LONG_WRAPPERS}
+                    and not any(fn.launches for fn in BLOCK_WRAPPERS.values()))
+        check(launched, f"kernel_long {label} {dtype}: not one launch of each long entry")
+        again = fb.fused_block_long(x, p, l, HEADS, causal)
+        repeat_equal = bool(torch.equal(got, again))  # a race shows as unequal launches
+        del again
+        check(repeat_equal, f"kernel_long {label} {dtype}: two launches differ")
+        n_plain = min(rows, LONG_C_PLAIN_SEQS)
+        pf = f32_params(p)
+        plain = lambda: fb.block_ref(x[:n_plain].float(), pf, l, HEADS, causal)  # noqa: E731
+        want = plain()
+        sub = got[:n_plain]
+        if f32:
+            ok, agree = f32_agree(sub, want)
+        else:
+            err = (sub.float() - want).abs()
+            limit = ATOL + RTOL * want.abs()
+            ok = bool(torch.isfinite(sub).all()) and bool((err <= limit).all())
+            # The control: the plain block without the keys of the last key
+            # block the kernel streams (at L <= 64, the second half).
+            cut = fb.LONG_KEY_BLOCK * ((l - 1) // fb.LONG_KEY_BLOCK) or l // 2
+            ctl = dropped_keys_ref(x[:n_plain].float(), pf, l, HEADS, causal, cut)
+            agree = {"max_abs_err": float(err.max()),
+                     "tolerance": f"|k - plain| <= {ATOL} + {RTOL}*|plain|",
+                     "max_err_over_limit": float((err / limit).max()),
+                     "control_keys_dropped": l - cut,
+                     "control_max_err_over_limit": float(((ctl - want).abs() / limit).max())}
+            del ctl
+            if isinstance(shape, str):
+                check(agree["control_max_err_over_limit"] > 1,
+                      f"kernel_long {label}: the bf16 limit does not see a dropped key block")
+        ok = ok and bool(torch.isfinite(got).all())
+        check(ok, f"kernel_long {label} {dtype} disagrees with the plain block: {agree}")
+        bounds = long_bounds(rows, l, c, c, causal, dtype)
+        res = {"phase": "kernel_long", "dtype": str(dtype).replace("torch.", ""), "case": label,
+               "shape": [rows, l, c], "heads": HEADS, "causal": causal, "softmax": softmax,
+               **agree, "ok": ok and launched and repeat_equal, "repeat_equal": repeat_equal,
+               "plain_sequences": n_plain,
+               "bounds": bounds}
+        if timed:
+            plan = fb.long_plan(c, c, HEADS, dtype)
+            w = fb.sm90_weights(p, HEADS, plan)
+            ws = fb.long_qkv_fwd(x, w, plan, l)
+            iters = 3 if label == "C" else 10
+            res["qkv_ms"] = cuda_ms(lambda: fb.long_qkv_fwd(x, w, plan, l), iters)
+            res["attn_ms"] = cuda_ms(
+                lambda: fb.long_attn_fwd(x, ws, w, plan, l, HEADS, causal), iters)
+            res["kernel_ms"] = cuda_ms(lambda: fb.fused_block_long(x, p, l, HEADS, causal), iters)
+            del ws
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            res["plain_ms"] = plain_ms * rows / n_plain
+            if n_plain < rows:
+                res["plain_ms_is"] = (f"the plain block on {n_plain} sequences ({plain_ms} ms), "
+                                      f"scaled by {rows}/{n_plain}")
+            res["bound_share"] = bounds["block"]["bound_us"] / 1e3 / res["kernel_ms"]
+            res["achieved_tflops"] = bounds["block"]["flops"] / res["kernel_ms"] / 1e9
+        emit(res)
+        out.append(res)
+        del x, got, want, sub
+        torch.cuda.empty_cache()
+    fb.set_block_tuning(softmax="fast")
+    emit({"phase": "kernel_long", "dtype": str(dtype).replace("torch.", ""),
+          "seconds": time.perf_counter() - t0})
+    return out
+
+
 def trace(fn, top: int = 8, f32: bool = False) -> dict:
     """One call of ``fn`` under ``torch.profiler``: host wall time, device
     kernel time and busy share, kernel launches, and the kernels that take
@@ -927,6 +1141,7 @@ def trace(fn, top: int = 8, f32: bool = False) -> dict:
         "top_kernels": [{"name": e.key[:90], "count": e.count,
                          "ms": e.self_device_time_total / 1e3} for e in kernels[:top]],
         "block_kernel_events": block_kernel_events(kernels, f32),
+        "long_kernel_events": long_kernel_events(kernels, f32),
     }
 
 
@@ -950,6 +1165,15 @@ def block_kernel_events(kernels, f32: bool = False) -> dict:
         elif chain in e.key:
             out["fused_chain_fwd"] += e.count
     return out
+
+
+def long_kernel_events(kernels, f32: bool = False) -> dict:
+    """Kernel events of the long entry's two kernels (bf16, or ``f32``) in a
+    profile."""
+    dt = "_f32" if f32 else ""
+    symbols = {"fused_block_long_qkv_fwd": f"block_long_qkv{dt}_kernel",
+               "fused_block_long_attn_fwd": f"block_long_attn{dt}_kernel"}
+    return {name: sum(e.count for e in kernels if sym in e.key) for name, sym in symbols.items()}
 
 
 def traced(fn, label: str, top: int = 8, f32: bool = False) -> dict:
@@ -1278,6 +1502,94 @@ def phase_fixed_f32(dev, fixed: dict, adaptive: dict) -> dict:
                         "cpu_f32": {k: ref[k] for k in ("n_calls", "vrmse", "l2re")},
                         "rel_tolerance": F32_ROLLOUT_REL_TOL, **lane_speed(a_tm),
                         "trace": a_prof}}
+    emit(res)
+    return res
+
+
+def long_model(dtype, device) -> TANTE:
+    """The long_axes lane's model: the flagship's width and input with every
+    attention axis of the JAX alphabet (``LONG_AXES``)."""
+    return TANTE(in_T=IN_T, dset_metadata=metadata(), taylor_order=1, attn_axes=LONG_AXES,
+                 expanded_channel=EXPANDED, embed_dim=C, patch_scale=8, n_head=HEADS,
+                 mlp_ratio=1.0, output_length=1, deg=True, dtype=dtype, device=device)
+
+
+# Launches per long_axes rollout (16 model calls): the canonical T block, the
+# single-block kernel at H, W, Y (L <= 64), each entry of the long block at
+# L, X, A and C.
+LONG_AXES_WANT = {"fused_block_fwd": 3 * N_STEPS, "fused_block_canon_t_fwd": N_STEPS,
+                  "fused_chain_apply": 0, "fused_group_apply": 0}
+LONG_AXES_LONG_WANT = {name: 4 * N_STEPS for name in LONG_WRAPPERS}
+
+
+def long_axes_lane(dev, dtype, x: torch.Tensor, flat: dict, ref: torch.Tensor, tol: float,
+                   timing: dict) -> dict:
+    """One dtype of the long_axes lane: ``Predictor.rollout`` B 8 x 16 steps,
+    the exact launches of every block kernel (and the profiler's kernel
+    events beside them), frames/s, device time, busy share, host split, and
+    the first two calls of one sample against the f32 CPU rollout ``ref``."""
+    f32 = dtype == torch.float32
+    pred = Predictor.from_numpy(long_model(dtype, dev), flat)
+    roll = lambda: pred.rollout(x, N_STEPS, out_dtype=dtype)  # noqa: E731
+    roll()
+    torch.cuda.synchronize()
+    reset_counts()
+    y = roll()
+    torch.cuda.synchronize()
+    blocks, longs = launch_counts(dtype), long_counts(dtype)
+    other = other_launches(dtype) + sum(n for fn in LONG_WRAPPERS.values()
+                                        for dt, n in fn.launches.items() if dt != dtype)
+    name = "f32" if f32 else "bf16"
+    check(blocks == LONG_AXES_WANT and longs == LONG_AXES_LONG_WANT and not other,
+          f"long_axes {name}: launches {blocks} + {longs} ({other} in other dtypes), want "
+          f"{LONG_AXES_WANT} + {LONG_AXES_LONG_WANT}")
+    finite = bool(torch.isfinite(y).all())
+    check(finite and tuple(y.shape) == (BATCH, N_STEPS, *RES, FIELDS),
+          f"long_axes {name}: output shape / finiteness")
+    tm = timed_rollouts(roll, **timing)
+    prof = traced(roll, f"long_axes {name}", top=10, f32=f32)
+    counted_long = long_counts(dtype)
+    prof["long_launches_counted"] = counted_long
+    prof["long_events_match_counts"] = prof["long_kernel_events"] == counted_long
+    if not prof["long_events_match_counts"]:
+        NOTES.append(f"long_axes {name}: the profiler listed {prof['long_kernel_events']} long "
+                     f"kernel events where the wrappers counted {counted_long}")
+    prof.update(host_split(roll))
+    u = x[:1, -1:].cpu().float()
+    err = rel_l2(pred.rollout(x[:1], 2).float().cpu() - u, ref - u)
+    check(err <= tol, f"long_axes {name} vs CPU f32: rel L2 {err} > {tol}")
+    return {"dtype": name, "output_shape": list(y.shape), "finite": finite,
+            "launches_per_rollout": {**blocks, **longs}, "other_dtype_launches": other,
+            **lane_speed(tm), "first_two_calls_vs_cpu_f32_rel_l2": err, "rel_l2_tolerance": tol,
+            "trace": prof}
+
+
+def phase_long_axes(dev) -> dict:
+    """TANTE whose backbone runs every attention axis of the JAX alphabet
+    (``THWLYXAC``, the C block 128 wide) at the flagship width (embed 256,
+    patch 8, 8 heads, MLP ratio 1, CNN encoder and decoder), seeded weights,
+    B 8 frames of 128x384x4: ``Predictor.rollout`` of 16 steps in bf16, then
+    in f32 (the shipped configs' dtype).  Per rollout exactly 16 canonical T,
+    48 single-block (H, W, Y) and 64 launches of each long entry (L, X, A,
+    C); the first two calls of one sample against the f32 model on the CPU
+    (ROLLOUT_REL_TOL in bf16, F32_ROLLOUT_REL_TOL in f32)."""
+    t0 = time.perf_counter()
+    model = long_model(torch.float32, "cpu")
+    flat = seeded_jax_params(model, seed=0)
+    x = torch.from_numpy(np.random.default_rng(16).normal(
+        size=(BATCH, IN_T, *RES, FIELDS)).astype(np.float32))
+    t_cpu = time.perf_counter()
+    ref = Predictor.from_numpy(model, flat, device="cpu").rollout(x[:1], 2)
+    cpu_s = time.perf_counter() - t_cpu
+    del model
+    x = x.to(dev)
+    lanes = {"bf16": long_axes_lane(dev, torch.bfloat16, x, flat, ref, ROLLOUT_REL_TOL, {}),
+             "f32": long_axes_lane(dev, torch.float32, x, flat, ref, F32_ROLLOUT_REL_TOL,
+                                   dict(n=2, windows=1))}
+    res = {"phase": "long_axes", "attn_axes": LONG_AXES, "expanded_channel": EXPANDED,
+           "embed_dim": C, "heads": HEADS, "batch": BATCH, "n_steps": N_STEPS,
+           "weights": "seeded (numpy seed 0)", "cpu_f32_reference_s": cpu_s, **lanes,
+           "seconds": time.perf_counter() - t0}
     emit(res)
     return res
 
@@ -4143,11 +4455,55 @@ def cli_launches(cli: dict, name: str, runs=CLI_CONFIGS) -> dict:
     return out
 
 
+def long_rows(kernels_long: dict[str, list[dict]], long_axes: dict) -> list[dict]:
+    """The kernels line's rows of the long entry: each kernel in each dtype,
+    its launches per long_axes rollout; ms, bound and plain time are means
+    over the flagship's L, X, A and C blocks ("fast" softmax), per axis
+    beside them.  The plain version is of the whole block (both entries):
+    ``plain_ms`` is the plain block's time."""
+    rows = []
+    for dt, cases in kernels_long.items():
+        main = [c for c in cases if "kernel_ms" in c]
+        mean = lambda f: sum(f(c) for c in main) / len(main)  # noqa: E731
+        lane = long_axes[dt]
+        for name, part in (("fused_block_long_qkv_fwd", "qkv"),
+                           ("fused_block_long_attn_fwd", "attn")):
+            rows.append({
+                "name": name if dt == "bf16" else f"{name} (f32)", "route": "cuda",
+                "source": LONG_SOURCE, "entry": LONG_ENTRIES[name].format(
+                    "_f32" if dt == "f32" else ""),
+                "replaces": "tante_tpu/ops/pallas_block.py:163 (fused_block_apply :208 at L > 64"
+                            + (", f32 activations)" if dt == "f32" else ")"),
+                "launches": lane["launches_per_rollout"][name],
+                "launches_counted_over": f"one long_axes 16-step rollout ({dt})",
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "ms": mean(lambda c: c[f"{part}_ms"]),  # noqa: B023
+                "plain_ms": mean(lambda c: c["plain_ms"]),
+                "plain_is": "the plain block (block_ref, f32), both entries' work; at C on 512 "
+                            "sequences, scaled",
+                "bound_ms": mean(lambda c: c["bounds"][part]["bound_us"]) / 1e3,  # noqa: B023
+                "bound_by": main[0]["bounds"][part]["bound_by"],
+                "library_ms": None,  # no single PyTorch call computes a whole block
+                "block_ms": mean(lambda c: c["kernel_ms"]),
+                "block_bound_ms": mean(lambda c: c["bounds"]["block"]["bound_us"]) / 1e3,
+                "ok": all(c["ok"] for c in cases),
+                "per_axis": [{"axis": c["case"], "shape": c["shape"], "ms": c[f"{part}_ms"],
+                              "bound_ms": c["bounds"][part]["bound_us"] / 1e3,
+                              "bound_by": c["bounds"][part]["bound_by"],
+                              "block_ms": c["kernel_ms"],
+                              "block_bound_ms": c["bounds"]["block"]["bound_us"] / 1e3,
+                              "plain_ms": c["plain_ms"], "max_abs_err": c["max_abs_err"]}
+                             for c in main],
+            })
+    return rows
+
+
 def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict],
                   kernels_f32: dict[str, list[dict]], chains_f32: dict[str, dict], fixed: dict,
                   fixed_f32: dict, train: dict, adaptive_train: dict, cli: dict,
                   spectral: list[dict], fno: dict, packed: list[dict], avit: dict, cvit: dict,
-                  tp: list[dict], tp_f32: list[dict], parallel: dict) -> list[dict]:
+                  tp: list[dict], tp_f32: list[dict], parallel: dict,
+                  kernels_long: dict[str, list[dict]], long_axes: dict) -> list[dict]:
     replaces = {"fused_block_fwd": "tante_tpu/ops/pallas_block.py:163",
                 "fused_block_canon_t_fwd": "tante_tpu/ops/pallas_block.py:401",
                 "fused_chain_apply": "tante_tpu/ops/pallas_block.py:1073",
@@ -4371,6 +4727,7 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict],
                 "kernel_ms", "call_ms", "plain_ms", "bound_us", "ffma_bound_us", "bound_by",
                 "achieved_tflops", "max_abs_err", "rel_l2", "plain_rms")}} for c in tp_f32],
         })
+    out.extend(long_rows(kernels_long, long_axes))
     check(all(k["launches"] > 0 for k in out), "a kernel of the main paths was never launched")
     emit({"kernels": out})
     return out
@@ -4391,9 +4748,12 @@ def main() -> int:
     kernels_f32 = phase_kernels_f32(dev)
     chains_f32 = phase_chain_kernels_f32(dev)
     phase_grad(dev, torch.float32)
+    kernels_long = {"bf16": phase_kernels_long(dev, torch.bfloat16),
+                    "f32": phase_kernels_long(dev, torch.float32)}
     fixed = phase_fixed(dev)
     adaptive = phase_adaptive(dev)
     fixed_f32 = phase_fixed_f32(dev, fixed, adaptive)
+    long_axes = phase_long_axes(dev)
     spectral = phase_spectral_kernel(dev)
     fno = phase_fno_serving(dev)
     packed = phase_packed_kernel(dev)
@@ -4411,7 +4771,8 @@ def main() -> int:
         phase_zoo(dev, Path(workdir))
         parallel = phase_parallel(dev, Path(workdir))
     phase_summary(kernels, chains, kernels_f32, chains_f32, fixed, fixed_f32, train,
-                  adaptive_train, cli, spectral, fno, packed, avit, cvit, tp, tp_f32, parallel)
+                  adaptive_train, cli, spectral, fno, packed, avit, cvit, tp, tp_f32, parallel,
+                  kernels_long, long_axes)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -6,11 +6,19 @@ rearranged so attention runs along that axis:
 
   T  time, causal, per pixel        H/W  rows / columns
   L  H*W tokens per frame           Y/X  (T*H) / (T*W) space-time planes
-  A  all T*H*W tokens
+  A  all T*H*W tokens                C    the C channels of each token, each
+                                          lifted to ``expanded_channel``
 
 A T block inside the canonical gate runs ``fused_block_canon_t`` on the
 (B, T, H, W, C) tensor directly; every other block rearranges and runs
-``fused_block_apply``.  Opt-in, as in the JAX package: ``fused_group`` runs
+``fused_block_apply`` (the single-block kernel up to L = 64, the long entry
+past it: the L, X and A axes at the flagship).  The channel axis ``C``
+(``tante_tpu/models/attn_backbone.py:266-279``) turns each token's C values
+into a sequence of C scalars, lifts each scalar with its own ``Mlp``
+(``channel_lift_{k}``, the k-th C block of the backbone: 1 ->
+expanded_channel / 4 -> expanded_channel, exact GELU), runs a block of width
+``expanded_channel`` over the C channels, and keeps the last feature of each.
+Opt-in, as in the JAX package: ``fused_group`` runs
 a pure T/H/W ``attn_axes`` in one ``fused_group_apply`` launch, and
 ``fused_chain = n >= 2`` runs each run of up to n consecutive T/H/W blocks
 in one ``fused_chain_apply`` launch.  Both, like the canonical T kernel,
@@ -22,7 +30,8 @@ The kernels run in the backbone's dtype, bf16 or f32; the canonical T, chain
 and group gates take it (the f32 body holds C <= 256).  ``tp_mesh`` (tensor parallelism) goes to every
 block; the group, chain and canonical-T kernels are single-device kernels and
 are bypassed under it, so T blocks run as causal (rows, T, C) blocks.  The
-channel-lift axis ``C`` is not ported (raises ``NotImplementedError``).
+group and chain gates take T/H/W letters only, so neither ever holds a C or
+another long axis.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import torch
 from einops import rearrange
 from torch import nn
 
-from tante_tpu_torch.models.common import FusedTransformerBlock
+from tante_tpu_torch.models.common import FusedTransformerBlock, Mlp
 from tante_tpu_torch.ops.activations import gelu
 from tante_tpu_torch.ops.fused_block import (
     canon_t_supported,
@@ -84,16 +93,14 @@ class AttnBackbone(nn.Module):
     def __init__(self, tensor_shape: Tuple[int, int, int, int], attn_axes: str = "THWTHWTHW",
                  n_head: int = 8, mlp_ratio: float = 1.0, dropout: float = 0.0,
                  fused_group: bool = False, fused_chain: int = 0, dtype=torch.float32,
-                 gen=None, tp_mesh=None, fused: bool = True):
+                 gen=None, tp_mesh=None, fused: bool = True, expanded_channel: int = 128):
         super().__init__()
         t, h, w, c = tensor_shape
         self.tensor_shape = tuple(tensor_shape)
         self.axes = attn_axes.replace(" ", "")
         if self.axes == "":
             raise ValueError("Invalid block: empty segment.")
-        bad = set(self.axes) - set(_LAYOUTS)
-        if "C" in bad:
-            raise NotImplementedError("channel-lift axis 'C' is not ported yet")
+        bad = set(self.axes) - set(_LAYOUTS) - {"C"}
         if bad:
             raise ValueError(f"Invalid attention axes {sorted(bad)}")
         self.n_head = n_head
@@ -106,9 +113,16 @@ class AttnBackbone(nn.Module):
         self.vertical_propagator = AxisPropagator(h, 2, dtype, gen)
         self.horizontal_propagator = AxisPropagator(w, 3, dtype, gen)
         self.temporal_propagator = AxisPropagator(t, 1, dtype, gen)
-        for i in range(len(self.axes)):
+        self.lift = {}  # block index of a C block -> its channel_lift index
+        for i, axis in enumerate(self.axes):
+            width = expanded_channel if axis == "C" else c
             self.add_module(f"block_{i}", FusedTransformerBlock(
-                c, n_head, mlp_ratio, dropout, dtype, gen, tp_mesh=tp_mesh, use_kernel=fused))
+                width, n_head, mlp_ratio, dropout, dtype, gen, tp_mesh=tp_mesh, use_kernel=fused))
+            if axis == "C":
+                k = self.lift[i] = len(self.lift)
+                self.add_module(f"channel_lift_{k}", Mlp(
+                    1, expanded_channel // 4, expanded_channel, approximate_gelu=False,
+                    dtype=dtype, gen=gen))
         self.set_tp_mesh(tp_mesh)
 
     def set_tp_mesh(self, mesh) -> None:
@@ -157,6 +171,14 @@ class AttnBackbone(nn.Module):
                     i += len(run)
                     continue
             block = getattr(self, f"block_{i}")
+            if axis == "C":
+                # (b t h w) c 1 -> lift -> block over the C channels -> last feature.
+                y = x.reshape(-1, c, 1)
+                y = getattr(self, f"channel_lift_{self.lift[i]}")(y).contiguous()
+                y = block(y, deterministic=deterministic, generator=generator)[..., -1]
+                x = y.reshape(x.shape)
+                i += 1
+                continue
             i += 1
             if axis == "T" and single and canon_t_supported(t, h, w, c, self.n_head, self.hidden,
                                                             dt):

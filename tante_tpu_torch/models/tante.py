@@ -72,6 +72,7 @@ class TANTE(nn.Module):
         frame_interval: float = 1.0,
         output_length: int = 1,
         attn_axes: str = "THWTHWTHW",
+        expanded_channel: int = 128,
         n_head: int = 8,
         mlp_ratio: float = 1.0,
         dropout: float = 0.0,
@@ -131,7 +132,7 @@ class TANTE(nn.Module):
             self.add_module(f"blocks_{i}", AttnBackbone(
                 (in_T, self.H_p, self.W_p, self.C), block_axes, n_head, mlp_ratio, dropout,
                 fused_chain=fused_chain, dtype=dtype, gen=gen, tp_mesh=tp_mesh,
-                fused=fused_blocks,
+                fused=fused_blocks, expanded_channel=expanded_channel,
             ))
         self.t_emb = nn.Parameter(torch.from_numpy(get_1d_sincos_pos_embed(self.C, in_T)))
         self.s_emb = nn.Parameter(torch.from_numpy(

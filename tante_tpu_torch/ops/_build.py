@@ -217,6 +217,20 @@ def _bind_fused_block_sm90(lib: ctypes.CDLL) -> None:
         canon.restype = i
 
 
+def _bind_fused_block_long_sm90(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for dt in ("", "_f32"):  # the bf16 and f32 entries take the same arguments
+        qkv = getattr(lib, f"tante_block_long_qkv_sm90{dt}_fwd")
+        qkv.argtypes = [p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, p]
+        qkv.restype = i
+        attn = getattr(lib, f"tante_block_long_attn_sm90{dt}_fwd")
+        attn.argtypes = [p, p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, i, i, i, p]
+        attn.restype = i
+    lib.tante_block_long_smem.argtypes = [
+        ctypes.POINTER(i), i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.tante_block_long_smem.restype = i
+
+
 def _bind_fused_chain_sm90(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in ("", "_f32"):
@@ -264,6 +278,7 @@ def _bind_packed_attention(lib: ctypes.CDLL) -> None:
 KERNELS: dict[str, Callable[[ctypes.CDLL], None]] = {
     "fused_block": _bind_fused_block,
     "fused_block_sm90": _bind_fused_block_sm90,
+    "fused_block_long_sm90": _bind_fused_block_long_sm90,
     "fused_chain_sm90": _bind_fused_chain_sm90,
     "fused_half_sm90": _bind_fused_half_sm90,
     "fused_half_sm90_f32": _bind_fused_half_sm90_f32,

@@ -965,21 +965,35 @@ struct Elem<float> {
 
 // ---- the producer --------------------------------------------------------------
 //
-// One tile's share of the weight stream: every slab of the block's schedule
-// (the re-laid weights, ops/fused_block.py:sm90_weights), in the consumers'
-// order.  idx counts the slabs this CTA has streamed so far, so the ring's
-// phase parity carries across tiles and blocks.
+// One tile's share of the weight stream: the slabs of matmuls [m0, m1) of
+// the block's schedule (0 .. C/64 - 1: each head group's q|k|v; then the
+// out-projection, fc1, fc2; by default all of them) from the re-laid
+// weights (ops/fused_block.py:sm90_weights), in the consumers' order.  idx
+// counts the slabs this CTA has streamed so far, so the ring's phase parity
+// carries across tiles and blocks.  With the default range (m0 = 0) the
+// skip loop folds away.
+template <class T>
+__device__ __forceinline__ void slab_run(const Shape& S, int m, uint32_t& bytes, int& n) {
+  const int groups = S.C / 64;
+  const int kind = m < groups ? 0 : m - groups + 1;
+  const int K = kind == 3 ? S.HID : S.C;
+  const int N = kind == 0 ? kQkvN : kind == 2 ? S.HID : S.C;
+  bytes = (uint32_t)Elem<T>::slab_k * S.np[kind] * Elem<T>::bytes;
+  n = (N / S.np[kind]) * (K / Elem<T>::slab_k);
+}
+
 template <class T = bf16>
 __device__ __forceinline__ void produce_tile(const unsigned char* src, const Shape& S, Ring& ring,
-                                             int& idx) {
-  constexpr int SK = Elem<T>::slab_k;
-  const int groups = S.C / 64;
-  for (int m = 0; m < groups + 3; ++m) {
-    const int kind = m < groups ? 0 : m - groups + 1;
-    const int K = kind == 3 ? S.HID : S.C;
-    const int N = kind == 0 ? kQkvN : kind == 2 ? S.HID : S.C;
-    const uint32_t bytes = (uint32_t)SK * S.np[kind] * Elem<T>::bytes;
-    const int n = (N / S.np[kind]) * (K / SK);
+                                             int& idx, int m0 = 0, int m1 = -1) {
+  uint32_t bytes;
+  int n;
+  for (int m = 0; m < m0; ++m) {
+    slab_run<T>(S, m, bytes, n);
+    src += (size_t)n * bytes;
+  }
+  if (m1 < 0) m1 = S.C / 64 + 3;
+  for (int m = m0; m < m1; ++m) {
+    slab_run<T>(S, m, bytes, n);
     for (int i = 0; i < n; ++i, ++idx, src += bytes) {
       const int s = idx % ring.stages;
       if (idx >= ring.stages) mbar_wait(&ring.empty[s], ((idx / ring.stages) - 1) & 1);
@@ -1545,19 +1559,31 @@ __device__ __forceinline__ void block_tile_f32(const Block& B, const Shape& S, c
 // ---- the CTA ---------------------------------------------------------------------
 //
 // What a block kernel's CTA does for activations of type T (bf16 or float;
-// the chain kernels and the f32 single-block kernel; the bf16 single-block
-// kernel spells it out, see fused_block_sm90.cu): lay out the dynamic
-// shared memory, start the slab
-// ring, split the threads.  The producer warpgroup hands most of its
-// registers to the consumers and its first thread runs produce(ring); the
-// two consumer warpgroups (2 x 128 x 232 + 128 x 40 <= 65536 registers) run
-// consume(ring, sA, sB, sQkv).
-template <class T, class Produce, class Consume>
+// the chain kernels, the f32 single-block kernel and the long entry's
+// kernels; the bf16 single-block kernel spells it out, see
+// fused_block_sm90.cu): lay out the dynamic shared memory, start the slab
+// ring, split the threads.  The layout is the tile body's, or Plan's (a type
+// with static layout(S) and stage_bytes(S): fused_block_long_sm90.cu's).
+// The producer warpgroup hands most of its registers to the consumers and
+// its first thread runs produce(ring); the two consumer warpgroups (2 x 128
+// x 232 + 128 x 40 <= 65536 registers) run consume(ring, sA, sB, sQkv), the
+// layout's regions a, b and qkv.
+template <class T, class Plan>
+__device__ __forceinline__ int cta_stage_bytes(const Shape& S, int max_np) {
+  if constexpr (std::is_void<Plan>::value)
+    return Elem<T>::slab_k * max_np * Elem<T>::bytes;
+  else
+    return Plan::stage_bytes(S);
+}
+
+template <class T, class Plan = void, class Produce, class Consume>
 __device__ __forceinline__ void block_cta(const Shape& S, Produce&& produce, Consume&& consume) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int max_np = max_pass(S);
   Layout lay;
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (!std::is_void<Plan>::value)
+    lay = Plan::layout(S);
+  else if constexpr (std::is_same<T, float>::value)
     lay = layout_f32(S.C, S.HID, S.stages, max_np);
   else
     lay = layout(S.R, S.C, S.HID, S.stages, max_np);
@@ -1565,8 +1591,8 @@ __device__ __forceinline__ void block_cta(const Shape& S, Produce&& produce, Con
   T* sB = reinterpret_cast<T*>(smem + lay.b);
   T* sQkv = reinterpret_cast<T*>(smem + lay.qkv);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
-  Ring ring{smem + lay.ring, bars, bars + S.stages, S.stages,
-            Elem<T>::slab_k * max_np * Elem<T>::bytes, 0};
+  Ring ring{smem + lay.ring, bars, bars + S.stages, S.stages, cta_stage_bytes<T, Plan>(S, max_np),
+            0};
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S.stages; ++s) {

@@ -10,6 +10,15 @@ Five entry points carry every attention block of the TANTE paths:
   replaces the Pallas kernel reached by ``fused_block_apply``
   (``pallas_block.py:208``).  Its weights are re-laid once per weight
   version (``sm90_weights``).
+- ``fused_block_long(x, p, l, heads, causal)``: the same block at any L
+  (``fused_block_apply`` sends L > 64 here: the L, X, A and channel C axes),
+  as two CUDA kernels (``csrc/fused_block_long_sm90.cu``): ``long_qkv_fwd``
+  (LN1 and q|k|v of token tiles into a workspace laid out head group by
+  head group) and ``long_attn_fwd`` (per sequence and 64-query tile the keys
+  streamed in blocks of 64, then the out-projection, LN2 and MLP of the
+  single-block body).  Replaces the Pallas kernel reached by
+  ``fused_block_apply`` (``pallas_block.py:208``) at L > 64, where JAX's
+  tile holds one whole sequence.
 - ``fused_block_canon_t(x5, p, heads)``: the causal T block straight on the
   canonical ``(B, T, H, W, C)`` tensor with no transpose on either side.
   CUDA kernel ``fused_block_canon_t_fwd`` (the same Hopper tile body under
@@ -151,9 +160,37 @@ def ln(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tensor:
     return (y * scale.float() + bias.float()).to(x.dtype)
 
 
+# The largest f32 score tensor the plain block makes at once, in bytes: its
+# attention runs over chunks of sequences (the C axis at the flagship would
+# otherwise hold 24,576 x 8 heads x 256^2 f32 scores, 51.5 GB).
+REF_SCORE_BYTES = 1 << 30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  dt: torch.dtype) -> torch.Tensor:
+    """softmax(q k^T) v in plain PyTorch on (S, L, heads, d) (q scaled
+    already): f32 logits, masked (causal) with -1e30, the softmax's weights
+    rounded to ``dt``.  The sequences are independent, so they go in chunks
+    whose f32 scores stay within ``REF_SCORE_BYTES``; the projections
+    around it stay whole.  Returns (S, L, heads * d)."""
+    s, l, heads, d = q.shape
+    per = max(1, REF_SCORE_BYTES // (heads * l * l * 4))
+    m = torch.tril(torch.ones((l, l), dtype=torch.bool, device=q.device)) if causal else None
+    outs = []
+    for i in range(0, max(s, 1), per):  # one (empty) chunk when there are no sequences
+        logits = torch.einsum("blhd,bmhd->bhlm", q[i:i + per], k[i:i + per]).float()
+        if causal:
+            logits = torch.where(m, logits, torch.full_like(logits, -1e30))
+        w = torch.softmax(logits, dim=-1).to(dt)
+        outs.append(torch.einsum("bhlm,bmhd->blhd", w, v[i:i + per]))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out.reshape(s, l, heads * d)
+
+
 def block_ref(x: torch.Tensor, p: BlockParams, l: int, heads: int, causal: bool):
     """Plain PyTorch block: the JAX package's ``_xla_block`` op for op
-    (max-subtract softmax, dtype following ``x``)."""
+    (max-subtract softmax, dtype following ``x``), its attention over chunks
+    of sequences (``attention_ref``)."""
     dt = x.dtype
     c = x.shape[-1]
     d = c // heads
@@ -161,17 +198,8 @@ def block_ref(x: torch.Tensor, p: BlockParams, l: int, heads: int, causal: bool)
     q = ((xn @ p.wq.to(dt)) + p.bq.to(dt)) * (d**-0.5)
     k = (xn @ p.wk.to(dt)) + p.bk.to(dt)
     v = (xn @ p.wv.to(dt)) + p.bv.to(dt)
-
-    def split(t):
-        return t.reshape(*t.shape[:-1], heads, d)
-
-    q, k, v = split(q), split(k), split(v)
-    logits = torch.einsum("blhd,bmhd->bhlm", q, k).float()
-    if causal:
-        m = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
-        logits = torch.where(m, logits, torch.full_like(logits, -1e30))
-    w = torch.softmax(logits, dim=-1).to(dt)
-    attn = torch.einsum("bhlm,bmhd->blhd", w, v).reshape(x.shape)
+    q, k, v = (t.reshape(-1, l, heads, d) for t in (q, k, v))
+    attn = attention_ref(q, k, v, causal, dt).reshape(x.shape)
     x = x + (attn @ p.wo.to(dt)) + p.bo.to(dt)
     yn = ln(x, p.ln2_scale, p.ln2_bias)
     h1 = ((yn @ p.w1.to(dt)) + p.b1.to(dt)).float()
@@ -219,18 +247,21 @@ def _param_shapes(c: int, hidden: int) -> tuple:
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _check_kernel_args(x: torch.Tensor, p: BlockParams, l: int, heads: int):
+def _check_kernel_args(x: torch.Tensor, p: BlockParams, l: int, heads: int,
+                       max_l: int | None = KERNEL_MAX_L):
     """What the kernel takes, checked before any pointer reaches it (one
     pass per tensor: the checks run on every launch): a CUDA tensor and
     ``_check_block_args``."""
     if x.device.type != "cuda":
         raise ValueError(f"fused block kernel needs a CUDA tensor, got {x.device}")
-    _check_block_args(x, p, l, heads)
+    _check_block_args(x, p, l, heads, max_l)
 
 
-def _check_block_args(x: torch.Tensor, p: BlockParams, l: int, heads: int):
+def _check_block_args(x: torch.Tensor, p: BlockParams, l: int, heads: int,
+                      max_l: int | None = KERNEL_MAX_L):
     """The block kernels' envelope on any device: x and every parameter in
-    one dtype, bf16 or f32, contiguous and aligned, of the block's shapes."""
+    one dtype, bf16 or f32, contiguous and aligned, of the block's shapes;
+    sequences of 1..``max_l`` (any length for None: the long entry)."""
     if x.dtype not in KERNEL_DTYPES or not x.is_contiguous():
         raise ValueError(f"kernel input must be contiguous bf16 or f32, got {x.dtype}")
     c, hidden = x.shape[-1], p.w1.shape[-1]
@@ -241,8 +272,8 @@ def _check_block_args(x: torch.Tensor, p: BlockParams, l: int, heads: int):
         )
     if c // heads not in KERNEL_HEAD_DIMS:
         raise ValueError(f"kernel head dim must be one of {KERNEL_HEAD_DIMS}, got {c // heads}")
-    if not 1 <= l <= KERNEL_MAX_L:
-        raise ValueError(f"kernel holds sequences of 1..{KERNEL_MAX_L}, got L={l}")
+    if l < 1 or (max_l is not None and l > max_l):
+        raise ValueError(f"kernel holds sequences of 1..{max_l}, got L={l}")
     _check_params(x, p, _param_shapes(c, hidden), x.dtype)
 
 
@@ -568,11 +599,15 @@ def _count(fn: Callable, x: torch.Tensor):
 def fused_block_apply(
     x: torch.Tensor, p: BlockParams, l: int, heads: int, causal: bool
 ) -> torch.Tensor:
-    """(S, L, C) -> (S, L, C) full pre-LN transformer block."""
+    """(S, L, C) -> (S, L, C) full pre-LN transformer block: the
+    single-block kernel for L <= ``KERNEL_MAX_L``, the long entry
+    (``fused_block_long``) past it."""
     if x.device.type == "cpu":
         return block_ref(x, p, l, heads, causal)
     if x.shape[-2] != l:
         raise ValueError(f"x of shape {tuple(x.shape)} does not hold sequences of L={l}")
+    if l > KERNEL_MAX_L:
+        return fused_block_long(x, p, l, heads, causal)
 
     def launch(x, ps):
         from tante_tpu_torch.ops import _build
@@ -598,6 +633,168 @@ def fused_block_apply(
 
 
 fused_block_apply.launches = collections.Counter()
+
+
+# --------------------------------------------------------------------------
+# The block at any sequence length (csrc/fused_block_long_sm90.cu): a qkv
+# entry over token tiles into a workspace, then an attention entry per
+# (sequence, 64-query tile) that streams the keys and runs the block's tail
+# --------------------------------------------------------------------------
+
+LONG_Q_ROWS = 64     # queries of an attention tile
+LONG_KEY_BLOCK = 64  # keys of a streamed k|v block
+# Row strides of the staged q tile and k|v block (bf16, f32).
+_LONG_Q_LD = {torch.bfloat16: 64 + 8, torch.float32: 64 + 4}
+_LONG_KV_LD = {torch.bfloat16: 128 + 8, torch.float32: 128 + 4}
+
+
+class LongPlan(NamedTuple):
+    rows: int        # token rows of a qkv-entry tile (sequences ignored)
+    qkv_stages: int  # weight slabs in the qkv entry's ring
+    np: tuple        # column pass widths of the qkv, out-projection, fc1, fc2 matmuls
+    stages: int      # weight slabs in the attention entry's ring
+
+    def ints(self) -> list:
+        return [self.rows, self.qkv_stages, *self.np, self.stages]
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def long_smem(plan: LongPlan, c: int, hidden: int, dtype: torch.dtype) -> tuple[int, int]:
+    """Shared memory bytes of the qkv and the attention entry under ``plan``
+    (``fused_block_long_sm90.cu:layout_qkv`` / ``layout_attn``).  qkv: the
+    LN1 output, a head group's q|k|v tile, the slab ring.  Attention: the q
+    tile and two k|v blocks (later the out-projection's staging tile in
+    bf16, then the MLP hidden), the attention output (later the LN2 output),
+    the slab ring.  Each region starts on 128 bytes; then the barriers."""
+    f32 = dtype == torch.float32
+    e = 4 if f32 else 2
+    slab_k = SM90_F32_SLAB_K if f32 else SM90_SLAB_K
+    bars = 2 * SM90_MAX_STAGES * 8
+
+    def tile(rows, width):  # an activation tile: f32 row-major with 4 floats of padding
+        return rows * (width + 4) * 4 if f32 else rows * width * 2
+
+    qkv_ld = SM90_F32_QKV_LD if f32 else SM90_QKV_LD
+    ring = _align128(_align128(tile(plan.rows, c)) + plan.rows * qkv_ld * e)
+    qkv = ring + plan.qkv_stages * slab_k * SM90_QKV_N * e + bars
+    q_kv = LONG_Q_ROWS * _LONG_Q_LD[dtype] * e + 2 * LONG_KEY_BLOCK * _LONG_KV_LD[dtype] * e
+    staging = 0 if f32 else LONG_Q_ROWS * (plan.np[1] + 8) * 2
+    a = max(q_kv, tile(LONG_Q_ROWS, hidden), staging)
+    ring = _align128(_align128(a) + tile(LONG_Q_ROWS, c))
+    attn = ring + plan.stages * slab_k * max(plan.np[1:]) * e + bars
+    return qkv, attn
+
+
+@functools.lru_cache(maxsize=64)
+def long_plan(c: int, hidden: int, heads: int,
+              dtype: torch.dtype = torch.bfloat16) -> LongPlan | None:
+    """The long entry's plan, the same at every sequence length L >= 1 (the
+    attention entry streams the keys, so L sets only the grid): qkv tiles
+    of 128 token rows in bf16 where the LayerNorm holds C (C <= 256), else
+    64; the single-block kernel's column passes; as many ring stages (2-4)
+    as ``SMEM_OPTIN`` holds in each entry.  The envelope is the
+    single-block kernel's in C, hidden and head dim (f32: C <= 256).  None
+    outside it."""
+    if not (c % 64 == 0 and 0 < c <= KERNEL_MAX_C and hidden % 64 == 0
+            and 0 < hidden <= 2 * c and heads > 0 and c % heads == 0
+            and c // heads in KERNEL_HEAD_DIMS and dtype in KERNEL_DTYPES):
+        return None
+    if dtype == torch.float32:
+        if c > SM90_F32_MAX_C:
+            return None
+        rows, np = SM90_F32_ROWS, (SM90_QKV_N, *(_pass_width_f32(n) for n in (c, hidden, c)))
+    else:
+        rows = 128 if c <= 256 else 64
+        np = (SM90_QKV_N, _pass_width(c), _pass_width(hidden), _pass_width(c))
+    stages = range(SM90_MAX_STAGES, 1, -1)
+    qkv = next((s for s in stages
+                if long_smem(LongPlan(rows, s, np, 2), c, hidden, dtype)[0] <= SMEM_OPTIN), None)
+    attn = next((s for s in stages
+                 if long_smem(LongPlan(rows, 2, np, s), c, hidden, dtype)[1] <= SMEM_OPTIN), None)
+    if qkv is None or attn is None:
+        return None
+    return LongPlan(rows, qkv, np, attn)
+
+
+def _long_plan_for(c: int, hidden: int, heads: int, dtype: torch.dtype) -> LongPlan:
+    plan = long_plan(c, hidden, heads, dtype)
+    if plan is None:
+        raise ValueError(f"no long-entry plan for C={c}, hidden={hidden}, heads={heads} "
+                         f"in {dtype}")
+    return plan
+
+
+def _long_lib(x: torch.Tensor):
+    """The long entry's library, for a CUDA tensor (raises for any other)."""
+    from tante_tpu_torch.ops import _build
+
+    if x.device.type != "cuda":
+        raise ValueError(f"the long entry's kernels need a CUDA tensor, got {x.device}")
+    return _build.load("fused_block_long_sm90")
+
+
+def long_qkv_fwd(x: torch.Tensor, w: Sm90Weights, plan: LongPlan, l: int) -> torch.Tensor:
+    """The qkv entry: (S, L, C) -> the workspace (3, S, C/64, L, 64) of
+    q (prescaled), k and v, head group by head group, in x's dtype."""
+    s, _, c = x.shape
+    lib = _long_lib(x)
+    ws = torch.empty((3, s, c // 64, l, 64), dtype=x.dtype, device=x.device)
+    entry = lib.tante_block_long_qkv_sm90_f32_fwd if _f32(x) else lib.tante_block_long_qkv_sm90_fwd
+    rc = entry(x.data_ptr(), ws.data_ptr(), _ptr_array([w]), (ctypes.c_int * 7)(*plan.ints()), s,
+               l, c, w.b1.shape[0], x.device.index, _stream(x))
+    _raise_on(rc, "block_long_qkv_fwd")
+    _count(long_qkv_fwd, x)
+    return ws
+
+
+def long_attn_fwd(x: torch.Tensor, ws: torch.Tensor, w: Sm90Weights, plan: LongPlan, l: int,
+                  heads: int, causal: bool) -> torch.Tensor:
+    """The attention entry: attention over the workspace's streamed keys, the
+    out-projection and residual, the MLP half and residual -> (S, L, C)."""
+    s, _, c = x.shape
+    lib = _long_lib(x)
+    out = torch.empty_like(x)
+    entry = (lib.tante_block_long_attn_sm90_f32_fwd if _f32(x)
+             else lib.tante_block_long_attn_sm90_fwd)
+    rc = entry(x.data_ptr(), ws.data_ptr(), out.data_ptr(), _ptr_array([w]),
+               (ctypes.c_int * 7)(*plan.ints()), s, l, c, w.b1.shape[0], heads, int(bool(causal)),
+               _safe(), x.device.index, _stream(x))
+    _raise_on(rc, "block_long_attn_fwd")
+    _count(long_attn_fwd, x)
+    return out
+
+
+long_qkv_fwd.launches = collections.Counter()
+long_attn_fwd.launches = collections.Counter()
+
+
+def _launch_long(x: torch.Tensor, p: BlockParams, l: int, heads: int, causal: bool):
+    """Both entries of the long block on a CUDA tensor (raises on any
+    other, and outside the plan)."""
+    _check_kernel_args(x, p, l, heads, max_l=None)
+    s, _, c = x.shape
+    if s * l >= 2**31:
+        raise ValueError(f"the long entry indexes tokens in 32 bits; got {s} x {l}")
+    plan = _long_plan_for(c, p.w1.shape[-1], heads, x.dtype)
+    w = sm90_weights(p, heads, plan)
+    return long_attn_fwd(x, long_qkv_fwd(x, w, plan, l), w, plan, l, heads, causal)
+
+
+def fused_block_long(x: torch.Tensor, p: BlockParams, l: int, heads: int,
+                     causal: bool) -> torch.Tensor:
+    """(S, L, C) -> (S, L, C) full pre-LN transformer block at any L through
+    the long entry's two kernels (``fused_block_apply`` sends L > 64 here;
+    called directly it takes L <= 64 too).  Its plain version is
+    ``block_ref``, run for a CPU tensor."""
+    if x.device.type == "cpu":
+        return block_ref(x, p, l, heads, causal)
+    if x.shape[-2] != l:
+        raise ValueError(f"x of shape {tuple(x.shape)} does not hold sequences of L={l}")
+    return _run(lambda x, ps: _launch_long(x, ps[0], l, heads, causal),
+                lambda x, ps: block_ref(x, ps[0], l, heads, causal), x, (p,))
 
 
 def fused_block_canon_t(x5: torch.Tensor, p: BlockParams, heads: int) -> torch.Tensor:
@@ -1298,7 +1495,7 @@ def fused_block_apply_tp(x: torch.Tensor, p: BlockParams, l: int, heads: int, ca
 
 
 WRAPPERS = (fused_block_apply, fused_block_canon_t, fused_chain_apply, fused_group_apply,
-            attn_half_apply, mlp_half_apply)
+            attn_half_apply, mlp_half_apply, long_qkv_fwd, long_attn_fwd)
 
 
 def reset_launches():

@@ -1,4 +1,4 @@
-"""Repeated launches of the f32 tp halves and the f32 block kernel on the card:
+"""Repeated launches of the f32 tp halves and the f32 block kernels on the card:
 launch-to-launch equality and agreement with the plain versions.
 
     python3 -m tante_tpu_torch.tools.half_repeat [--repeats N] [--csrc DIR]
@@ -8,12 +8,15 @@ softmax forms: ``N`` fresh inputs, and per input and shard two launches of
 each f32 half (``attn_half_apply`` / ``mlp_half_apply``): whether the two are
 equal bit for bit, and the worse one's relative L2 to the plain half (f32,
 TF32 off).  Then the f32 block kernel (``fused_block_apply``) at H and W, two
-launches per input.  A race in a kernel shows as unequal launch pairs.
+launches per input.  Then the f32 long entry (``fused_block_long``) at the
+flagship's C block (24,576 sequences of 256 channels, 128 wide, head dim 16;
+plain on the first 512) and L block (32 x 768, C 256), two launches per
+input.  A race in a kernel shows as unequal launch pairs.
 
 ``--csrc DIR`` builds the f32 halves and the block kernels from DIR's sources
-(``fused_half_sm90_f32.cu``, ``fused_block_sm90.cu`` and the headers beside
-them) in place of this tree's: a copy of ``tante_tpu_torch/ops/csrc`` with one
-edit measures that edit (e.g. without the slab fence of
+(``fused_half_sm90_f32.cu``, ``fused_block_sm90.cu``, ``fused_block_long_sm90.cu``
+and the headers beside them) in place of this tree's: a copy of
+``tante_tpu_torch/ops/csrc`` with one edit measures that edit (e.g. without the slab fence of
 ``block_sm90.cuh:gemm_f32``).  Prints one JSON line per kernel and shape, the
 card's name and power limit first.  Needs a card.
 """
@@ -33,13 +36,17 @@ from tante_tpu_torch.ops import _build
 from tante_tpu_torch.ops import fused_block as fb
 from tante_tpu_torch.parallel.sharding import shard_block
 
-C, HIDDEN, HEADS = 256, 256, 8
+C, HEADS = 256, 8  # the flagship's width and heads, MLP ratio 1
 # (label, rows, L, causal, tp): the flagship's blocks (T rearranged) at tp 2, H at tp 4.
 CASES = [("H", 1536, 16, False, 2), ("W", 512, 48, False, 2), ("T", 6144, 4, True, 2),
          ("H", 1536, 16, False, 4)]
+# (label, sequences, L, width): the flagship's long blocks; plain on at most
+# LONG_PLAIN_SEQS sequences.
+LONG_CASES = [("C", 24576, 256, 128), ("L", 32, 768, 256)]
+LONG_PLAIN_SEQS = 512
 
 
-def block_params(seed: int, dev) -> fb.BlockParams:
+def block_params(seed: int, dev, c: int = C) -> fb.BlockParams:
     rng = np.random.default_rng(seed)
 
     def u(*shape, fan_in=None, scale=1.0, offset=0.0):
@@ -48,10 +55,10 @@ def block_params(seed: int, dev) -> fb.BlockParams:
         return torch.from_numpy(a.astype(np.float32)).to(dev)
 
     return fb.BlockParams(
-        ln1_scale=u(C, scale=0.1, offset=1.0), ln1_bias=u(C, scale=0.1),
-        wq=u(C, C), bq=u(C), wk=u(C, C), bk=u(C), wv=u(C, C), bv=u(C), wo=u(C, C), bo=u(C),
-        ln2_scale=u(C, scale=0.1, offset=1.0), ln2_bias=u(C, scale=0.1),
-        w1=u(C, HIDDEN), b1=u(HIDDEN, fan_in=C), w2=u(HIDDEN, C), b2=u(C, fan_in=HIDDEN))
+        ln1_scale=u(c, scale=0.1, offset=1.0), ln1_bias=u(c, scale=0.1),
+        wq=u(c, c), bq=u(c), wk=u(c, c), bk=u(c), wv=u(c, c), bv=u(c), wo=u(c, c), bo=u(c),
+        ln2_scale=u(c, scale=0.1, offset=1.0), ln2_bias=u(c, scale=0.1),
+        w1=u(c, c), b1=u(c), w2=u(c, c), b2=u(c))
 
 
 def halves(p: fb.BlockParams) -> tuple:
@@ -66,7 +73,7 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 def use_sources(csrc: Path) -> None:
     """Build the f32 halves and the block kernels from ``csrc`` and make the
     wrappers launch them (the loaded libraries ``_build.load`` hands out)."""
-    kernels = ("fused_half_sm90_f32", "fused_block_sm90")
+    kernels = ("fused_half_sm90_f32", "fused_block_sm90", "fused_block_long_sm90")
     built = _build.compile_libraries([(k, f"{k}_repeat", (), csrc / f"{k}.cu") for k in kernels])
     for k, info in zip(kernels, built):
         _build._libs[k] = _build.bind(ctypes.CDLL(info["library"]), k)
@@ -126,6 +133,23 @@ def main(argv=None) -> int:
                             lambda: fb.block_ref(x, p, l, HEADS, causal)))
         print(json.dumps({"kernel": "fused_block_fwd (f32)", "case": label,
                           "launch_pairs": len(res), "pairs_unequal": sum(not eq for eq, _ in res),
+                          "worst_rel_l2": max(rel for _, rel in res)}), flush=True)
+    for label, rows, l, c in LONG_CASES:
+        p = block_params(l + c, dev, c)
+        n = min(rows, LONG_PLAIN_SEQS)
+        res = []
+        gen = torch.Generator(device=dev)
+        for it in range(args.repeats):
+            gen.manual_seed(200 + it)  # 3.2 GB at C: drawn on the card
+            x = torch.randn((rows, l, c), generator=gen, device=dev)
+            a, b = (fb.fused_block_long(x, p, l, HEADS, False) for _ in range(2))
+            torch.cuda.synchronize()
+            want = fb.block_ref(x[:n], p, l, HEADS, False)
+            res.append((bool(torch.equal(a, b)), max(rel_l2(a[:n], want), rel_l2(b[:n], want))))
+            del x, a, b, want
+        print(json.dumps({"kernel": "fused_block_long (f32)", "case": label,
+                          "shape": [rows, l, c], "launch_pairs": len(res),
+                          "pairs_unequal": sum(not eq for eq, _ in res),
                           "worst_rel_l2": max(rel for _, rel in res)}), flush=True)
     return 0
 

@@ -70,7 +70,18 @@ inputs and weights against the f32 plain halves with TF32 off, relative L2
 <= 1e-6 and max abs <= 1e-4 max |plain|; the shards' f32 partials summed,
 plus bias and residual, against the unsplit f32 block kernel within 1e-6;
 f32 launches counted apart from bf16; a plan past the f32 tile (C > 256)
-refused."""
+refused.
+
+The long entry (``fused_block_long``: the qkv kernel into a workspace, then
+the attention kernel over streamed key blocks and the block's tail) at
+L = 48 (below the single-block limit, through the low-level entry) to 3072,
+causal and not, both softmax forms, bf16 and f32 at the block tolerances
+above; the C axis's block (width 128, head dim 16), head dims 32 and 64,
+C = 512 in bf16, ragged tiles; one launch of each entry per block;
+``fused_block_apply`` at L > 64 equal to it bit for bit; its plan against
+the kernel's own mirror (``tante_block_long_smem``); refusals (a CPU tensor,
+head dim 8, f32 past C = 256, mixed dtypes); gradients through its
+Function."""
 
 from collections import Counter
 
@@ -96,7 +107,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def params(c, hidden, seed, device, dtype=torch.bfloat16):
+def params(c, hidden, seed, device, dtype=torch.bfloat16, qk_scale=1.0):
+    """One block's weights, uniform in +-1/sqrt(fan in); wq and wk
+    ``qk_scale`` times that."""
     rng = np.random.default_rng(seed)
 
     def u(*shape, fan_in=None, scale=1.0, offset=0.0):
@@ -106,9 +119,10 @@ def params(c, hidden, seed, device, dtype=torch.bfloat16):
 
     return fb.BlockParams(
         ln1_scale=u(c, scale=0.1, offset=1.0), ln1_bias=u(c, scale=0.1),
-        wq=u(c, c), bq=u(c), wk=u(c, c), bk=u(c), wv=u(c, c), bv=u(c), wo=u(c, c), bo=u(c),
-        ln2_scale=u(c, scale=0.1, offset=1.0), ln2_bias=u(c, scale=0.1),
-        w1=u(c, hidden), b1=u(hidden, fan_in=c), w2=u(hidden, c), b2=u(c, fan_in=hidden),
+        wq=u(c, c, scale=qk_scale), bq=u(c), wk=u(c, c, scale=qk_scale), bk=u(c), wv=u(c, c),
+        bv=u(c), wo=u(c, c), bo=u(c), ln2_scale=u(c, scale=0.1, offset=1.0),
+        ln2_bias=u(c, scale=0.1), w1=u(c, hidden), b1=u(hidden, fan_in=c), w2=u(hidden, c),
+        b2=u(c, fan_in=hidden),
     )
 
 
@@ -249,8 +263,9 @@ def test_kernel_refuses_what_it_cannot_hold(cuda):
                              fb.BlockParams(*(t.half() for t in p)), 16, 8, False)
     with pytest.raises(ValueError):  # f32 activations, bf16 weights
         fb.fused_block_apply(torch.zeros(4, 16, 256, device=cuda), p, 16, 8, False)
-    with pytest.raises(ValueError):  # sequence longer than a tile
-        fb.fused_block_apply(bf16_normal((2, 96, 256), 0, cuda), p, 96, 8, False)
+    with pytest.raises(ValueError):  # a sequence longer than a tile, hidden > 2C: no long plan
+        fb.fused_block_apply(bf16_normal((2, 96, 256), 0, cuda), params(256, 768, 0, cuda), 96,
+                             8, False)
     p512 = params(512, 512, seed=0, device=cuda, dtype=torch.float32)
     with pytest.raises(ValueError, match="no tile plan"):  # f32 holds C <= 256
         fb.fused_block_apply(torch.zeros(4, 16, 512, device=cuda), p512, 16, 8, False)
@@ -1323,3 +1338,155 @@ def test_f32_tp_half_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError):  # bf16 activations, f32 weights
         fb.mlp_half_apply(x.to(torch.bfloat16), mp)
     assert (fb.attn_half_apply.launches, fb.mlp_half_apply.launches) == before
+
+
+# --------------------------------------------------------------------------
+# The long entry (csrc/fused_block_long_sm90.cu): the qkv kernel into the
+# workspace, then the attention kernel over streamed key blocks and the
+# block's tail, against the plain block at any L (fused_block_apply sends
+# L > 64 there; fused_block_long takes L <= 64 too), bf16 at the block
+# tolerance, f32 at the f32 one.
+# --------------------------------------------------------------------------
+
+LONG_LS = [48, 65, 100, 192, 256, 768, 3072]
+# wq and wk of the long cases, as chip_smoke.py's LONG_QK_SCALE: scores of
+# std about 2.5, a peaked softmax, so that a wrong attention (a dropped key
+# block) exceeds the bf16 limit.
+LONG_QK_SCALE = 2.75
+
+
+def long_case(l, c, hidden, heads, dtype, device, seed=0):
+    s = max(2, 3072 // l)
+    p = params(c, hidden, seed=l + c + seed, device=device, dtype=dtype, qk_scale=LONG_QK_SCALE)
+    if dtype == torch.float32:
+        x = f32_normal((s, l, c), seed=l, device=device)
+    else:
+        x = bf16_normal((s, l, c), seed=l, device=device)
+    return x, p
+
+
+def run_long(x, p, l, heads, causal):
+    before = (fb.long_qkv_fwd.launches.copy(), fb.long_attn_fwd.launches.copy())
+    got = fb.fused_block_long(x, p, l, heads, causal)
+    torch.cuda.synchronize()
+    one = Counter({x.dtype: 1})
+    assert fb.long_qkv_fwd.launches - before[0] == one
+    assert fb.long_attn_fwd.launches - before[1] == one
+    return got
+
+
+@pytest.mark.parametrize("softmax", ["fast", "safe"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", LONG_LS)
+def test_long_block_matches_plain(cuda, l, causal, softmax):
+    x, p = long_case(l, 256, 256, 8, torch.bfloat16, cuda)
+    fb.set_block_tuning(softmax=softmax)
+    try:
+        got = run_long(x, p, l, 8, causal)
+    finally:
+        fb.set_block_tuning(softmax="fast")
+    want = fb.block_ref(x.float(), f32(p), l, 8, causal)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("softmax", ["fast", "safe"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", LONG_LS)
+def test_f32_long_block_matches_plain(cuda, no_tf32, l, causal, softmax):
+    x, p = long_case(l, 256, 256, 8, torch.float32, cuda)
+    fb.set_block_tuning(softmax=softmax)
+    try:
+        got = run_long(x, p, l, 8, causal)
+    finally:
+        fb.set_block_tuning(softmax="fast")
+    assert_f32_close(got, fb.block_ref(x, p, l, 8, causal))
+
+
+# (L, C, hidden, heads): the C axis's block (width 128, head dim 16), head
+# dims 32 and 64, C = 512 (bf16: 64-row qkv tiles), ragged tiles.
+LONG_SHAPES = [(256, 128, 128, 8), (130, 128, 256, 4), (200, 256, 256, 4), (100, 512, 512, 8),
+               (65, 192, 128, 6)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l,c,hidden,heads,dtype", [
+    (*shape, dt) for shape in LONG_SHAPES for dt in (torch.bfloat16, torch.float32)
+    if dt == torch.bfloat16 or shape[1] <= 256])  # the f32 body holds C <= 256 (refused below)
+def test_long_block_shapes_match_plain(cuda, no_tf32, l, c, hidden, heads, causal, dtype):
+    x, p = long_case(l, c, hidden, heads, dtype, cuda, seed=1)
+    got = run_long(x, p, l, heads, causal)
+    if dtype == torch.float32:
+        assert_f32_close(got, fb.block_ref(x, p, l, heads, causal))
+    else:
+        want = fb.block_ref(x.float(), f32(p), l, heads, causal)
+        torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_long_block_at_the_channel_axis_shape(cuda):
+    """The C block at the flagship's width: 128 wide, 256 channels, head dim
+    16, 3072 sequences (one frame's tokens); plain on the first 256."""
+    x, p = bf16_normal((3072, 256, 128), 3, cuda), params(128, 128, 3, cuda,
+                                                          qk_scale=LONG_QK_SCALE)
+    got = run_long(x, p, 256, 8, False)
+    want = fb.block_ref(x[:256].float(), f32(p), 256, 8, False)
+    torch.testing.assert_close(got[:256].float(), want, atol=ATOL, rtol=RTOL)
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_apply_sends_long_sequences_to_the_long_entry(cuda, no_tf32, dtype):
+    x, p = long_case(192, 256, 256, 8, dtype, cuda, seed=2)
+    before = fb.fused_block_apply.launches.copy()
+    a = fb.fused_block_apply(x, p, 192, 8, False)
+    assert fb.fused_block_apply.launches == before  # not the single-block kernel
+    torch.testing.assert_close(a, run_long(x, p, 192, 8, False), atol=0, rtol=0)
+
+
+def test_long_plan_matches_the_kernels_mirror(cuda):
+    import ctypes
+
+    from tante_tpu_torch.ops import _build
+
+    lib = _build.load("fused_block_long_sm90")
+    for l, c, hidden, heads in [(768, 256, 256, 8), (256, 128, 128, 8), (100, 512, 1024, 8),
+                                (65, 192, 128, 6)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = fb.long_plan(c, hidden, heads, dtype)
+            if plan is None:
+                continue
+            out = (ctypes.c_longlong * 2)()
+            lib.tante_block_long_smem((ctypes.c_int * 7)(*plan.ints()), c, hidden,
+                                      int(dtype == torch.float32), out)
+            assert tuple(out) == fb.long_smem(plan, c, hidden, dtype), (l, c, hidden, dtype)
+
+
+def test_long_block_refuses_what_it_cannot_take(cuda):
+    x, p = long_case(100, 256, 256, 8, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="CUDA"):  # a CPU tensor handed to the launch
+        fb._launch_long(x.cpu(), fb.BlockParams(*(t.cpu() for t in p)), 100, 8, False)
+    with pytest.raises(ValueError):  # head dim 8
+        fb.fused_block_long(x, p, 100, 32, False)
+    p512 = params(512, 512, 0, cuda, torch.float32)
+    with pytest.raises(ValueError, match="no long-entry plan"):  # f32 holds C <= 256
+        fb.fused_block_long(f32_normal((2, 100, 512), 0, cuda), p512, 100, 8, False)
+    with pytest.raises(ValueError):  # mixed dtypes
+        fb.fused_block_long(x.float(), p, 100, 8, False)
+
+
+def test_long_block_gradients_match_plain_autograd(cuda):
+    """The Function's backward recomputes the plain block (bf16) and pulls
+    the cotangent through it, as at L <= 64."""
+    x, p = long_case(100, 256, 256, 8, torch.bfloat16, cuda)
+    x = x[:4].contiguous()
+    xs = x.clone().requires_grad_(True)
+    ps = fb.BlockParams(*(t.clone().requires_grad_(True) for t in p))
+    (fb.fused_block_long(xs, ps, 100, 8, True).float() ** 2).sum().backward()
+    xf = x.float().requires_grad_(True)
+    pf = fb.BlockParams(*(t.float().requires_grad_(True) for t in p))
+    (fb.block_ref(xf, pf, 100, 8, True) ** 2).sum().backward()
+    for name, a, b in [("x", xs, xf), *zip(fb.BlockParams._fields, ps, pf)]:
+        if name == "bk":
+            continue
+        rel = float(torch.linalg.norm(a.grad.float() - b.grad) / torch.linalg.norm(b.grad))
+        assert rel <= GRAD_REL, (name, rel)

@@ -1,0 +1,237 @@
+"""The long block entry's arithmetic and Python side, on the CPU.
+
+The long entry (``ops/csrc/fused_block_long_sm90.cu``) runs a block at any
+sequence length as two kernels: q|k|v of token tiles into a workspace, then
+per (sequence, 64-query tile) attention over the keys streamed in blocks of
+64.  ``long_block`` below is that order of work in PyTorch: the "fast"
+softmax key block by key block (``exp2(min(s, 60 log2 e))`` of the admitted
+keys, the f32 denominator summed per block, the unnormalised weights
+rounded to the activation dtype before the AV product, the result scaled
+by ``1 / (sum + 1e-30)`` after it), the "safe" softmax in two passes (each
+row's maximum over all its keys, then ``exp2(s - max)``), causal masks, and
+the activation dtype's rounding points (bf16: q/k/v, the weights, the
+attention output, the fc1 output and both residual sums).  It is held
+against the JAX package's block (``_xla_block``, what JAX runs off the TPU)
+on the same numpy-seeded inputs: f32 within the card's f32 tolerance
+(``chip_smoke.py``: relative L2 <= 1e-5, max abs <= 1e-4 max |ref|); bf16
+against JAX's bf16 block within the card's bf16 kernel tolerance (5e-2
+abs + 2e-2 rel: both round to bf16, at places that differ).
+
+With wq and wk widened as ``chip_smoke.py`` seeds them for the card, the
+bf16 limit sees a wrong attention (its control, the last key block
+dropped).  Then the plan's envelope, the fusion gates, the plain block's
+chunked attention, and what the wrappers do with a CPU tensor."""
+
+import functools
+
+import chip_smoke
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import block_params, to_torch
+from tante_tpu.ops import pallas_block as jblock
+from tante_tpu_torch.ops import fused_block as tblock
+from tante_tpu_torch.ops.activations import gelu_tanh_f32
+
+C, HEADS = 64, 4          # a short width: head dim 16, the C block's
+REL_L2, MAX_ABS_SHARE = 1e-5, 1e-4
+BF16_ATOL, BF16_RTOL = 5e-2, 2e-2
+LOG2E = 1.4426950408889634
+ROWS = {65: 3, 100: 3, 256: 2, 3072: 1}  # sequences per case
+
+
+def long_block(x, p, l, heads, causal, softmax, kb=tblock.LONG_KEY_BLOCK):
+    """The long entry's order of work on (S, L, C) rows in x's dtype."""
+    dt = x.dtype
+
+    def r(t):  # round to the activation dtype, back to f32 for the sums
+        return t.to(dt).float()
+
+    s, _, c = x.shape
+    d = c // heads
+    qs = d**-0.5 * LOG2E
+    f = lambda t: t.float()  # noqa: E731
+    xn = r(tblock.ln(x, p.ln1_scale, p.ln1_bias))
+    q = r(xn @ r(p.wq * qs) + r(p.bq * qs))
+    k = r(xn @ f(p.wk) + f(p.bk))
+    v = r(xn @ f(p.wv) + f(p.bv))
+    q, k, v = (t.reshape(s, l, heads, d).transpose(1, 2) for t in (q, k, v))  # (S, h, L, d)
+    qi = torch.arange(l)[:, None]
+    blocks = range(0, l, kb)
+
+    def scores(k0):
+        sc = q @ k[:, :, k0:k0 + kb].transpose(-1, -2)
+        keys = torch.arange(k0, min(l, k0 + kb))[None, :]
+        ok = keys <= qi if causal else torch.ones(l, keys.shape[1], dtype=torch.bool)
+        return sc, ok
+
+    mx = torch.full((s, heads, l, 1), -1e30)
+    if softmax == "safe":
+        for k0 in blocks:  # pass 1: each row's maximum over its admitted keys
+            sc, ok = scores(k0)
+            mx = torch.maximum(mx, sc.masked_fill(~ok, -1e30).amax(-1, keepdim=True))
+    o = torch.zeros(s, heads, l, d)
+    den = torch.zeros(s, heads, l, 1)
+    for k0 in blocks:
+        sc, ok = scores(k0)
+        e = torch.exp2(sc - mx if softmax == "safe" else torch.clamp(sc, max=60 * LOG2E))
+        e = torch.where(ok, e, torch.zeros(()))
+        den = den + e.sum(-1, keepdim=True)
+        o = o + r(e) @ v[:, :, k0:k0 + kb]
+    attn = r(o * (1.0 / (den + 1e-30))).transpose(1, 2).reshape(s, l, c)
+    xm = r(f(x) + r(attn @ f(p.wo) + f(p.bo)))
+    yn = r(tblock.ln(xm.to(dt), p.ln2_scale, p.ln2_bias))
+    h = r(gelu_tanh_f32(yn @ f(p.w1) + f(p.b1)))
+    return r(xm + r(h @ f(p.w2) + f(p.b2)))
+
+
+@functools.lru_cache(maxsize=None)
+def case(l, causal, bf16):
+    """(x, params) as numpy, and JAX's block on them (bf16: JAX's bf16 block)."""
+    p = block_params(C, C, seed=l + causal)
+    x = np.random.default_rng(l).normal(size=(ROWS[l], l, C)).astype(np.float32)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    want = jblock._xla_block(jnp.asarray(x, jdt), jblock.BlockParams(
+        *(jnp.asarray(a, jdt) for a in p)), l, HEADS, causal)
+    return x, p, np.asarray(want.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("softmax", ["fast", "safe"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [65, 100, 256, 3072])
+def test_streamed_block_f32_matches_jax(l, causal, softmax):
+    x, p, want = case(l, causal, False)
+    got = long_block(torch.from_numpy(x), to_torch(p), l, HEADS, causal, softmax).numpy()
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel <= REL_L2
+    assert np.abs(got - want).max() <= MAX_ABS_SHARE * np.abs(want).max()
+
+
+@pytest.mark.parametrize("softmax", ["fast", "safe"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [65, 100, 256, 3072])
+def test_streamed_block_bf16_matches_jax_bf16(l, causal, softmax):
+    x, p, want = case(l, causal, True)
+    xb = torch.from_numpy(x).bfloat16()
+    pb = tblock.BlockParams(*(t.bfloat16() for t in to_torch(p)))
+    got = long_block(xb, pb, l, HEADS, causal, softmax).numpy()
+    assert np.all(np.abs(got - want) <= BF16_ATOL + BF16_RTOL * np.abs(want))
+
+
+@pytest.mark.parametrize("softmax", ["fast", "safe"])
+@pytest.mark.parametrize("l", [100, 256, 768])
+def test_bf16_limit_sees_a_dropped_key_block_under_a_peaked_softmax(l, softmax):
+    """With wq and wk ``chip_smoke.LONG_QK_SCALE`` times wider (scores of
+    std about 2.5), the streamed bf16 block stays within the bf16 limit of
+    JAX's f32 block, and ``chip_smoke.dropped_keys_ref``, the plain block
+    without the last key block the kernel streams, does not: the limit
+    sees a wrong attention."""
+    p = block_params(C, C, seed=l)
+    p = p._replace(wq=chip_smoke.LONG_QK_SCALE * p.wq, wk=chip_smoke.LONG_QK_SCALE * p.wk)
+    x = np.random.default_rng(l).normal(size=(2, l, C)).astype(np.float32)
+    x = np.asarray(torch.from_numpy(x).bfloat16().float())  # both sides see bf16 inputs
+    pb = tblock.BlockParams(*(t.bfloat16() for t in to_torch(p)))
+    pf = tblock.BlockParams(*(t.float() for t in pb))
+    want = np.asarray(jblock._xla_block(jnp.asarray(x), jblock.BlockParams(
+        *(jnp.asarray(t.numpy()) for t in pf)), l, HEADS, False))
+    limit = BF16_ATOL + BF16_RTOL * np.abs(want)
+    got = long_block(torch.from_numpy(x).bfloat16(), pb, l, HEADS, False, softmax)
+    assert np.all(np.abs(got.float().numpy() - want) <= limit)
+    cut = tblock.LONG_KEY_BLOCK * ((l - 1) // tblock.LONG_KEY_BLOCK)
+    wrong = chip_smoke.dropped_keys_ref(torch.from_numpy(x), pf, l, HEADS, False, cut).numpy()
+    assert np.any(np.abs(wrong - want) > limit)
+
+
+def test_streaming_is_the_softmax_of_all_keys_at_once():
+    """Key blocks of 64 and one block of all keys give the same f32 block:
+    the streamed sums only reorder."""
+    x, p, _ = case(256, True, False)
+    xt, pt = torch.from_numpy(x), to_torch(p)
+    for softmax in ("fast", "safe"):
+        a = long_block(xt, pt, 256, HEADS, True, softmax)
+        b = long_block(xt, pt, 256, HEADS, True, softmax, kb=256)
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+# Flagship long shapes (8 heads, MLP ratio 1): L, X, A at C 256; C at L 256,
+# width 128 (head dim 16).
+FLAGSHIP = {"L": (768, 256), "X": (192, 256), "A": (3072, 256), "C": (256, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("axis", sorted(FLAGSHIP))
+def test_every_flagship_long_shape_has_a_plan_that_fits(axis, dtype):
+    _, c = FLAGSHIP[axis]
+    plan = tblock.long_plan(c, c, 8, dtype)
+    assert plan is not None
+    qkv, attn = tblock.long_smem(plan, c, c, dtype)
+    assert qkv <= tblock.SMEM_OPTIN and attn <= tblock.SMEM_OPTIN
+    assert plan.np[0] == tblock.SM90_QKV_N
+    assert plan.rows == (64 if dtype == torch.float32 else 128)
+    assert 2 <= plan.qkv_stages <= 4 and 2 <= plan.stages <= 4
+    assert len(plan.ints()) == 7
+
+
+def test_plan_envelope():
+    assert tblock.long_plan(512, 512, 8, torch.float32) is None     # f32 C <= 256
+    assert tblock.long_plan(64, 64, 8, torch.bfloat16) is None      # head dim 8
+    assert tblock.long_plan(256, 768, 8, torch.bfloat16) is None    # hidden > 2C
+    assert tblock.long_plan(512, 1024, 8, torch.bfloat16) is not None
+    assert tblock.long_plan(256, 256, 8, torch.float32) is not None
+    big = tblock.long_plan(512, 1024, 8, torch.bfloat16)
+    assert max(tblock.long_smem(big, 512, 1024, torch.bfloat16)) <= tblock.SMEM_OPTIN
+    # The plan holds at every L; the wrapper's own check refuses L < 1.
+    p = tblock.BlockParams(*(t.clone() for t in to_torch(block_params(C, C, seed=3))))
+    with pytest.raises(ValueError, match="L=0"):
+        tblock._check_block_args(torch.zeros((2, 0, C)), p, 0, HEADS, max_l=None)
+    tblock._check_block_args(torch.zeros((2, 3072, C)), p, 3072, HEADS, max_l=None)
+
+
+def test_fusion_gates_refuse_c_and_long_axes():
+    dims = (4, 16, 48)
+    for axes in ("L", "THWL", "CH", "THWC", "XA"):
+        assert not tblock.group_fusable(axes, dims, 256, 8)
+        assert not tblock.chain_fusable(axes, dims, 256, 8)
+    assert tblock.chain_fusable("THW", dims, 256, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_block_chunks_agree_with_one_chunk(monkeypatch, causal, dtype):
+    """``block_ref`` over chunks of sequences (here 2 a chunk, 4 chunks)
+    against one chunk of all seven: the sequences are independent."""
+    p = tblock.BlockParams(*(t.to(dtype) for t in to_torch(block_params(C, C, seed=4))))
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(7, 80, C)).astype(np.float32))
+    x = x.to(dtype)
+    whole = tblock.block_ref(x, p, 80, HEADS, causal)
+    monkeypatch.setattr(tblock, "REF_SCORE_BYTES", 2 * HEADS * 80 * 80 * 4)
+    chunked = tblock.block_ref(x, p, 80, HEADS, causal)
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(chunked, whole, atol=tol, rtol=tol)
+
+
+def test_plain_block_chunk_size_bounds_the_scores():
+    """At the flagship C block's shape (8 heads, L 256) a chunk holds 512
+    sequences: 1 GiB of f32 scores."""
+    per = tblock.REF_SCORE_BYTES // (8 * 256 * 256 * 4)
+    assert per == 512
+
+
+def test_cpu_tensors_take_the_plain_block_and_launch_nothing():
+    p = to_torch(block_params(C, C, seed=6))
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 100, C)).astype(np.float32))
+    tblock.reset_launches()
+    want = tblock.block_ref(x, p, 100, HEADS, False)
+    torch.testing.assert_close(tblock.fused_block_apply(x, p, 100, HEADS, False), want)
+    torch.testing.assert_close(tblock.fused_block_long(x, p, 100, HEADS, False), want)
+    assert not tblock.long_qkv_fwd.launches and not tblock.long_attn_fwd.launches
+    assert not tblock.fused_block_apply.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tblock._launch_long(x, p, 100, HEADS, False)
+    plan = tblock.long_plan(C, C, HEADS)
+    with pytest.raises(ValueError, match="CUDA"):  # each kernel's launcher alike
+        tblock.long_qkv_fwd(x, None, plan, 100)
+    with pytest.raises(ValueError, match="CUDA"):
+        tblock.long_attn_fwd(x, x, None, plan, 100, HEADS, False)

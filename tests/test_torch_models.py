@@ -109,11 +109,6 @@ def test_backbone_other_axes_match_jax():
     close(got, jb.apply(params, jnp.asarray(x)))
 
 
-def test_channel_axis_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        AttnBackbone((T, 4, 8, 64), "TC", 4)
-
-
 @pytest.mark.parametrize("deg", [True, False])
 def test_head_matches_jax(deg):
     jm, params, tm = models(deg)
