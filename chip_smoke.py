@@ -8,8 +8,9 @@ script exits non-zero without the final result line):
 1. build    nvcc builds every kernel source of this checkout
             (``tante_tpu_torch/ops/csrc/fused_block_sm90.cu``,
             ``fused_block_long_sm90.cu``, ``fused_chain_sm90.cu``, ``fused_half_sm90.cu``,
-            ``fused_half_sm90_f32.cu`` (all five on the Hopper tile body of
-            ``block_sm90.cuh``), ``fused_block.cu`` (the
+            ``fused_half_sm90_f32.cu``, ``fused_half_long_sm90.cu`` (all six on the
+            Hopper tile body of ``block_sm90.cuh``; the two long ones also on
+            ``long_sm90.cuh``), ``fused_block.cu`` (the
             first design, the timing baseline), ``spectral_matmul.cu`` and
             ``packed_attention.cu``, one nvcc each, started together); build
             seconds, the ``-Xptxas -v`` summaries (the bf16 and the f32
@@ -188,12 +189,32 @@ script exits non-zero without the final result line):
             block (within 1e-6), f32 launches counted, shard 0's kernel
             device time against the 3xTF32 bound and the FFMA peak, the plain
             halves' time, no re-layout over the timed calls.
+16b. tp_kernel_long  the long attention half (``attn_half_apply`` at L > 64:
+            ``fused_half_long_sm90.cu``'s qkv kernel into the shard's workspace,
+            then its attention kernel over streamed key blocks and the
+            out-projection partial) at the flagship's L, X, A and C blocks,
+            every shard at tp 2 and shard 0 at tp 4 (at C a 32-wide shard
+            padded to one group), causal L 100 and the "safe" softmax, in bf16
+            (the halves' limits against the f32 plain half from the same bf16
+            inputs; a control, the plain half without its last key block, must
+            fail them at every flagship shape) and f32 (TF32 off,
+            F32_REL_L2_TOL / F32_MAX_ABS_SHARE), wq and wk LONG_QK_SCALE wider;
+            one launch of each kernel a call, two launches bit-equal; at tp 2
+            the shards' partials + bo, then the MLP halves + b2, against the
+            unsplit ``fused_block_long``; shard 0 at tp 2 timed: each kernel,
+            the whole half and the plain half (at C on 512 sequences, scaled)
+            beside the bounds (``half_long_bounds``); gradients through the
+            half's Function at (64, 100, 256).
 17. parallel  two spawned ranks of one gloo process group, both on the card:
             the flagship forward on (dp 1, tp 2) against one rank, in bf16
             and in f32 as configs/tante.yaml ships (exactly 18 half launches
             of the forward's dtype per model call per rank, none of the other
             and no single-device kernel; 18 weight re-layouts in the first
-            call, none in the next four), every step's loss, gradient norm
+            call, none in the next four); the long-axes model (``THWLYXAC``,
+            B cut to 2) on (dp 1, tp 2) in bf16 and f32 against one rank
+            (5e-2 / 1e-5; exactly 4 short attention halves, 4 + 4 long-half
+            kernels and 8 MLP halves a call per rank, nothing else, 16
+            re-layouts in the first call, none in the next two); every step's loss, gradient norm
             (at tp 2 also 18 re-layouts a step) of Trainer at (dp 1, tp 2),
             (dp 2, tp 1) and FNO at (dp 1, sp 2) against one rank, the f32
             Trainer (enable_amp off) at (dp 1, tp 2) within 1e-4 of one rank
@@ -243,7 +264,11 @@ script exits non-zero without the final result line):
             with theirs on the CLI path; then the long entry's two kernels in
             bf16 and in f32 with their launches per long_axes rollout, each
             entry's mean time over the L, X, A and C blocks beside its bound,
-            the plain block's time and the whole block's).
+            the plain block's time and the whole block's; then the long
+            attention half's two kernels in bf16 and in f32 with their launches
+            per long-axes model call per rank at tp 2, each kernel's mean time
+            over the L, X, A and C blocks beside its bound, the plain half's
+            time and the whole half's).
 
 Then the card's name and power limit (``nvidia-smi``) and, last, the
 result line {"ok": true, "device": {...}}.  Exits non-zero when no CUDA
@@ -402,6 +427,13 @@ LONG_WRAPPERS = {"fused_block_long_qkv_fwd": fb.long_qkv_fwd,
                  "fused_block_long_attn_fwd": fb.long_attn_fwd}
 LONG_ENTRIES = {"fused_block_long_qkv_fwd": "tante_block_long_qkv_sm90{}_fwd",
                 "fused_block_long_attn_fwd": "tante_block_long_attn_sm90{}_fwd"}
+# The tensor-parallel attention half at L > 64 (attn_half_apply sends it to
+# attn_half_long): its two kernels.
+HALF_LONG_SOURCE = "tante_tpu_torch/ops/csrc/fused_half_long_sm90.cu"
+HALF_LONG_WRAPPERS = {"attn_half_long_qkv_fwd": fb.half_long_qkv_fwd,
+                      "attn_half_long_attn_fwd": fb.half_long_attn_fwd}
+HALF_LONG_ENTRIES = {"attn_half_long_qkv_fwd": "tante_attn_half_long_qkv_sm90{}_fwd",
+                     "attn_half_long_attn_fwd": "tante_attn_half_long_attn_sm90{}_fwd"}
 
 FAILURES: list[str] = []
 NOTES: list[str] = []
@@ -478,6 +510,12 @@ def long_counts(dtype: torch.dtype) -> dict:
     return {name: fn.launches[dtype] for name, fn in LONG_WRAPPERS.items()}
 
 
+def half_long_counts(dtype: torch.dtype) -> dict:
+    """Launches of the long attention half's two kernels since the last
+    reset, in ``dtype``."""
+    return {name: fn.launches[dtype] for name, fn in HALF_LONG_WRAPPERS.items()}
+
+
 def reset_counts():
     """Every wrapper's launch count to 0."""
     fb.reset_launches()
@@ -539,6 +577,13 @@ def phase_build() -> dict:
             str(dt).replace("torch.", ""): {
                 **fb.long_plan(c, c, HEADS, dt)._asdict(),
                 "smem_bytes_qkv_attn": fb.long_smem(fb.long_plan(c, c, HEADS, dt), c, c, dt)}
+            for dt in (torch.bfloat16, torch.float32)}
+    for axis, (_, l, c) in LONG_CASES.items():
+        plans[f"half_long_sm90 {axis} (L={l}, C={c}), tp 2"] = {
+            str(dt).replace("torch.", ""): {
+                **fb.half_long_plan(c, c // 2, HEADS // 2, dt)._asdict(),
+                "smem_bytes_qkv_attn": fb.half_long_smem(
+                    fb.half_long_plan(c, c // 2, HEADS // 2, dt), c, dt)}
             for dt in (torch.bfloat16, torch.float32)}
     plans["half_sm90 MLP half, tp 2"] = fb.half_plan("mlp", 1, C, C // 2)._asdict()
     plans["half_sm90 f32 MLP half, tp 2"] = half_f32_plan("mlp", 1)
@@ -1506,12 +1551,12 @@ def phase_fixed_f32(dev, fixed: dict, adaptive: dict) -> dict:
     return res
 
 
-def long_model(dtype, device) -> TANTE:
+def long_model(dtype, device, **kw) -> TANTE:
     """The long_axes lane's model: the flagship's width and input with every
     attention axis of the JAX alphabet (``LONG_AXES``)."""
     return TANTE(in_T=IN_T, dset_metadata=metadata(), taylor_order=1, attn_axes=LONG_AXES,
                  expanded_channel=EXPANDED, embed_dim=C, patch_scale=8, n_head=HEADS,
-                 mlp_ratio=1.0, output_length=1, deg=True, dtype=dtype, device=device)
+                 mlp_ratio=1.0, output_length=1, deg=True, dtype=dtype, device=device, **kw)
 
 
 # Launches per long_axes rollout (16 model calls): the canonical T block, the
@@ -3486,6 +3531,10 @@ TP_CASES = [("H", (1536, 16, C), False), ("W", (512, 48, C), False),
 PARALLEL_WORLD = 2          # ranks of the process group, both on cuda:0 (gloo)
 PARALLEL_TIMEOUT_S = 300    # the parent's bound on the two ranks
 PARALLEL_TRAIN_B = 2        # global batch of the parallel Trainer runs (dp 2: 1 a rank)
+# Batch of the long-axes model's tp forward (cut from 8): at B 2 each C-block
+# all-reduce is 0.4 GB in bf16 and 0.8 GB in f32, which gloo carries through
+# the host, two a C block.
+LONG_TP_BATCH = 2
 
 
 def tp_halves(p: fb.BlockParams):
@@ -3787,6 +3836,237 @@ def phase_tp_kernel_f32(dev) -> list[dict]:
     return out
 
 
+# The long attention half (fused_half_long_sm90.cu) at the flagship's long
+# blocks under tp: (label, axis of LONG_CASES or (sequences, L, width),
+# causal, softmax, tp, timed).  tp 2 runs every shard (and is recombined into
+# the block), tp 4 shard 0 (at C a 32-wide shard, padded to one group);
+# causal L 100 and the "safe" softmax are checks only.
+TP_LONG_CASES = [
+    *((axis, axis, False, "fast", 2, True) for axis in "LXAC"),
+    *((f"{axis} tp 4", axis, False, "fast", 4, False) for axis in "LXAC"),
+    ("causal L 100", (64, 100, C), True, "fast", 2, False),
+    ("causal L 100 safe", (64, 100, C), True, "safe", 2, False),
+    ("L 100 safe", (64, 100, C), False, "safe", 2, False),
+]
+TP_LONG_GRAD_SHAPE = (64, 100, C)  # the gradient check through the half's Function
+
+
+def half_long_bounds(rows: int, l: int, c: int, ca: int, width: int, causal: bool,
+                     dtype) -> dict:
+    """The least time of the long attention half on these inputs, per kernel
+    and whole: operations (q|k|v 2*M*C*3*CA, attention 4*CA per admitted
+    (query, key) pair, out-projection 2*M*CA*C) at the dtype's tensor-core
+    rate (f32: 3xTF32), bytes (each input read once, each output written
+    once) at the memory rate; the larger of the two.  The qkv kernel reads x
+    and the q|k|v weights and writes the workspace (3 W values a token); the
+    attention kernel reads the workspace and wo and writes the partial; the
+    half as a function reads x and its weights and writes the partial
+    ("half"), and with the workspace's write and read ("half_with_workspace",
+    what this split moves)."""
+    e = 4 if dtype == torch.float32 else 2
+    m = rows * l
+    pairs = rows * l * (l + 1) / 2 if causal else rows * l * l
+    w_qkv, w_o = (2 * c + 3 * c * ca + 3 * ca) * e, ca * c * e
+    ws = 3 * m * width * e
+    f_qkv, f_attn = 2 * m * c * 3 * ca, 4 * ca * pairs + 2 * m * ca * c
+    parts = {"qkv": (f_qkv, m * c * e + w_qkv + ws), "attn": (f_attn, ws + m * c * e + w_o),
+             "half": (f_qkv + f_attn, 2 * m * c * e + w_qkv + w_o),
+             "half_with_workspace": (f_qkv + f_attn, 2 * m * c * e + w_qkv + w_o + 2 * ws)}
+    out = {}
+    for k, (flops, nbytes) in parts.items():
+        t_ops = 3 * flops / PEAK_TF32_FLOPS if e == 4 else flops / PEAK_BF16_FLOPS
+        t_mem = nbytes / PEAK_HBM_BYTES
+        out[k] = {"bound_us": 1e6 * max(t_ops, t_mem),
+                  "bound_by": "operations" if t_ops >= t_mem else "bytes",
+                  "flops": flops, "bytes": nbytes}
+    return out
+
+
+def dropped_keys_half_ref(x: torch.Tensor, p: fb.AttnHalfParams, l: int, heads: int,
+                          causal: bool, keys: int) -> torch.Tensor:
+    """``attn_half_ref`` in f32 whose attention sees only the first ``keys``
+    keys of each sequence: the control of tp_kernel_long's bf16 limit."""
+    d = p.wq.shape[-1] // heads
+    xn = fb.ln(x, p.ln1_scale, p.ln1_bias)
+    q = ((xn @ p.wq) + p.bq) * d**-0.5
+    k, v = (xn @ p.wk) + p.bk, (xn @ p.wv) + p.bv
+    q, k, v = (t.reshape(-1, l, heads, d) for t in (q, k, v))
+    logits = torch.einsum("blhd,bmhd->bhlm", q, k[:, :keys])
+    if causal:
+        m = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))[:, :keys]
+        logits = torch.where(m, logits, torch.full_like(logits, -1e30))
+    attn = torch.einsum("bhlm,bmhd->blhd", torch.softmax(logits, dim=-1), v[:, :keys])
+    return attn.reshape(*x.shape[:-1], -1) @ p.wo
+
+
+def half_long_agree(got: torch.Tensor, want: torch.Tensor, f32: bool) -> tuple[bool, dict]:
+    """A long half's partial against the plain half: f32 as ``f32_agree``;
+    bf16 within HALF_ATOL + HALF_RTOL |plain| elementwise and HALF_REL_L2_TOL
+    over the partial."""
+    if f32:
+        return f32_agree(got, want)
+    err = (got.float() - want).abs()
+    limit = HALF_ATOL + HALF_RTOL * want.abs()
+    rel = rel_l2(got, want)
+    ok = (bool(torch.isfinite(got).all()) and bool((err <= limit).all())
+          and rel <= HALF_REL_L2_TOL)
+    return ok, {"max_abs_err": float(err.max()), "rel_l2": rel,
+                "max_err_over_limit": float((err / limit).max()),
+                "plain_rms": float(want.square().mean().sqrt()),
+                "tolerance": f"|k - plain| <= {HALF_ATOL} + {HALF_RTOL}*|plain|, rel L2 <= "
+                             f"{HALF_REL_L2_TOL}"}
+
+
+def phase_tp_kernel_long(dev, dtype) -> list[dict]:
+    """The long attention half (``attn_half_apply`` at L > 64: the qkv kernel
+    into the shard's workspace, then the attention kernel and out-projection
+    partial) on the flagship's L, X, A and C blocks, every shard at tp 2 and
+    shard 0 at tp 4, in ``dtype``, with wq and wk LONG_QK_SCALE wider: bf16
+    against the f32 plain half from the same bf16 inputs (the halves'
+    limits; a control, the plain half without its last key block, must fail
+    them at every flagship shape), f32 against the f32 plain half (TF32 off;
+    F32_REL_L2_TOL / F32_MAX_ABS_SHARE); at C the plain half runs on the
+    first LONG_C_PLAIN_SEQS sequences.  Exactly one launch of each kernel a
+    call and none of another kernel; two launches bit-equal.  At tp 2 the
+    shards' partials + bo, then the MLP halves + b2, against the unsplit long
+    block (``fused_block_long``).  Shard 0 at tp 2 timed (CUDA events): each
+    kernel alone, the whole half, the plain half (at C on its sequences,
+    scaled and labelled so), beside the bounds (``half_long_bounds``).  Then
+    the gradients through the half's Function at TP_LONG_GRAD_SHAPE."""
+    f32 = dtype == torch.float32
+    name = "f32" if f32 else "bf16"
+    t0 = time.perf_counter()
+    out = []
+    gen = torch.Generator(device=dev)
+    for i, (label, shape, causal, softmax, tp, timed) in enumerate(TP_LONG_CASES):
+        rows, l, c = LONG_CASES[shape] if isinstance(shape, str) else shape
+        p = block_params(800 + i, dev, dtype, c, qk_scale=LONG_QK_SCALE)
+        gen.manual_seed(80 + i)
+        x = torch.randn((rows, l, c), generator=gen, device=dev).to(dtype)
+        heads, ca = HEADS // tp, c // tp
+        n_plain = min(rows, LONG_C_PLAIN_SEQS)
+        fb.set_block_tuning(softmax=softmax)
+        shards = [tp_halves(shard_block(p, tp, r)) for r in range(tp if tp == 2 else 1)]
+        res = {"phase": "tp_kernel_long", "dtype": name, "case": label, "shape": [rows, l, c],
+               "tp": tp, "shards_checked": len(shards), "local_heads": heads, "local_width": ca,
+               "causal": causal, "softmax": softmax, "plain_sequences": n_plain,
+               "plan": fb.half_long_plan(c, ca, heads, dtype)._asdict()}
+        ok, launched, repeat_equal, parts, worst = True, True, True, [], {}
+        for r, (ap, _) in enumerate(shards):
+            reset_counts()
+            got = fb.attn_half_apply(x, ap, l, heads, causal)
+            torch.cuda.synchronize()
+            others = sum(n for fn in fb.WRAPPERS if fn not in HALF_LONG_WRAPPERS.values()
+                         for n in fn.launches.values())
+            launched &= (half_long_counts(dtype) == {k: 1 for k in HALF_LONG_WRAPPERS}
+                         and not others)
+            repeat_equal &= bool(torch.equal(got, fb.attn_half_apply(x, ap, l, heads, causal)))
+            apf = fb.AttnHalfParams(*(t.float() for t in ap))
+            want = fb.attn_half_ref(x[:n_plain].float(), apf, l, heads, causal)
+            good, agree = half_long_agree(got[:n_plain], want, f32)
+            good &= bool(torch.isfinite(got).all())
+            if not f32 and r == 0:
+                # The control: the plain half without the last key block the
+                # kernel streams.
+                cut = fb.LONG_KEY_BLOCK * ((l - 1) // fb.LONG_KEY_BLOCK)
+                ctl = dropped_keys_half_ref(x[:n_plain].float(), apf, l, heads, causal, cut)
+                agree["control_keys_dropped"] = l - cut
+                agree["control_max_err_over_limit"] = float(
+                    ((ctl - want).abs() / (HALF_ATOL + HALF_RTOL * want.abs())).max())
+                del ctl
+                if isinstance(shape, str):
+                    check(agree["control_max_err_over_limit"] > 1,
+                          f"tp_kernel_long {label}: the bf16 limit does not see a dropped key "
+                          "block")
+            ok &= good
+            for k, v in agree.items():
+                if isinstance(v, float) and k != "max_abs_plain":
+                    worst[k] = max(worst.get(k, v), v)
+                else:
+                    worst.setdefault(k, v)
+            if tp == 2:
+                parts.append(got)
+            del want
+        check(launched, f"tp_kernel_long {label} {name}: not one launch of each long-half kernel "
+                        "a call, or another kernel launched")
+        check(repeat_equal, f"tp_kernel_long {label} {name}: two launches differ")
+        check(ok, f"tp_kernel_long {label} {name} disagrees with the plain half: {worst}")
+        res.update({**worst, "ok": ok and launched and repeat_equal, "launches_one_each": launched,
+                    "repeat_equal": repeat_equal})
+        if parts:
+            # The block from the shards, as fused_block_apply_tp adds them.
+            acc = parts[0].float()
+            for part in parts[1:]:
+                acc += part.float()
+            del parts
+            xm = x + (acc.to(dtype) + p.bo).to(dtype)
+            del acc
+            acc = None
+            for _, mp in shards:
+                h = fb.mlp_half_apply(xm, mp).float()
+                acc = h if acc is None else acc.add_(h)
+                del h
+            y = xm + (acc.to(dtype) + p.b2).to(dtype)
+            del acc, xm
+            unsplit = fb.fused_block_long(x, p, l, HEADS, causal)
+            if f32:
+                good, rec = f32_agree(y, unsplit)
+            else:
+                err = (y.float() - unsplit.float()).abs()
+                lim = ATOL + RTOL * unsplit.float().abs()
+                good = bool(torch.isfinite(y).all()) and bool((err <= lim).all())
+                rec = {"max_abs_err": float(err.max()),
+                       "tolerance": f"|tp - unsplit| <= {ATOL} + {RTOL}*|unsplit|"}
+                del err, lim
+            check(good, f"tp_kernel_long {label} {name}: the recombined shards disagree with "
+                        f"fused_block_long: {rec}")
+            res["recombined_vs_fused_block_long"] = {**rec, "ok": good}
+            res["ok"] = res["ok"] and good
+            del y, unsplit
+        res["bounds"] = bounds = half_long_bounds(rows, l, c, ca, -(-ca // 64) * 64, causal,
+                                                  dtype)
+        if timed:
+            ap = shards[0][0]
+            apf = fb.AttnHalfParams(*(t.float() for t in ap))
+            plan = fb.half_long_plan(c, ca, heads, dtype)
+            w = fb.half_long_weights(ap, heads, plan)
+            ws = fb.half_long_qkv_fwd(x, w, plan, l, ca)
+            iters = 3 if label == "C" else 10
+            res["qkv_ms"] = cuda_ms(lambda: fb.half_long_qkv_fwd(x, w, plan, l, ca), iters)
+            res["attn_ms"] = cuda_ms(
+                lambda: fb.half_long_attn_fwd(x, ws, w, plan, l, ca, heads, causal), iters)
+            res["kernel_ms"] = cuda_ms(lambda: fb.attn_half_apply(x, ap, l, heads, causal), iters)
+            del ws
+            plain_ms = cuda_ms(lambda: fb.attn_half_ref(x[:n_plain].float(), apf, l, heads,
+                                                        causal), iters=3, warmup=1)
+            res["plain_ms"] = plain_ms * rows / n_plain
+            if n_plain < rows:
+                res["plain_ms_is"] = (f"the plain half on {n_plain} sequences ({plain_ms} ms), "
+                                      f"scaled by {rows}/{n_plain}")
+            res["bound_share"] = bounds["half"]["bound_us"] / 1e3 / res["kernel_ms"]
+            res["achieved_tflops"] = bounds["half"]["flops"] / res["kernel_ms"] / 1e9
+        emit(res)
+        out.append(res)
+        del x, shards, p
+        torch.cuda.empty_cache()
+    fb.set_block_tuning(softmax="fast")
+    # Gradients through the half's Function (kernel forward, plain backward)
+    # at a long shape, against f32 autograd (tp_half_grads: shard 1 of tp 2).
+    grad = {}
+    if not f32:
+        p = block_params(899, dev, dtype, C, qk_scale=LONG_QK_SCALE)
+        x = torch.from_numpy(np.random.default_rng(89).normal(size=TP_LONG_GRAD_SHAPE).astype(
+            np.float32)).to(dev, dtype)
+        reset_counts()
+        grad = tp_half_grads(x, p, TP_LONG_GRAD_SHAPE[1], HEADS // 2, False)
+        grad["long_half_launches"] = half_long_counts(dtype)
+        check(grad["long_half_launches"] == {k: 1 for k in HALF_LONG_WRAPPERS},
+              f"tp_kernel_long grad: long-half launches {grad['long_half_launches']}")
+    emit({"phase": "tp_kernel_long", "dtype": name, "grad": grad,
+          "grad_shape": list(TP_LONG_GRAD_SHAPE), "seconds": time.perf_counter() - t0})
+    return out
+
+
 class _StandInGroup:
     """A process group for ``_CopyToTP.apply`` in one process (its forward
     only keeps it)."""
@@ -4045,10 +4325,23 @@ def r_parallel_runs(dev, workdir: Path, mesh=None) -> dict:
     return out
 
 
-def tp_forward(model, x, dtype) -> dict:
-    """One warm call of the flagship, then one counted call (the launches of
-    every wrapper in ``dtype`` and in any other) and three timed ones; weight
-    re-layouts in the first call and in the next four."""
+def tp_launches(dtype: torch.dtype) -> tuple[dict, int]:
+    """Every wrapper's launches since the last reset in ``dtype`` (block,
+    canonical T, chain, group, both halves, both long-block and both
+    long-half kernels, and the mode mixing), and the sum of theirs in any
+    other dtype."""
+    wrappers = {**BLOCK_WRAPPERS, "attn_half_fwd": fb.attn_half_apply,
+                "mlp_half_fwd": fb.mlp_half_apply, **LONG_WRAPPERS, **HALF_LONG_WRAPPERS}
+    counts = {k: fn.launches[dtype] for k, fn in wrappers.items()}
+    counts["spectral_mode_matmul"] = fs.spectral_mode_matmul.launches
+    other = sum(n for fn in wrappers.values() for dt, n in fn.launches.items() if dt != dtype)
+    return counts, other
+
+
+def tp_forward(model, x, dtype, timed: int = 3) -> dict:
+    """One warm call of the model, then one counted call (the launches of
+    every wrapper in ``dtype`` and in any other) and ``timed`` timed ones;
+    weight re-layouts in the first call and in the next 1 + ``timed``."""
     with torch.no_grad():
         relays = fb.relaid_weights.count
         model(x)  # warm
@@ -4058,20 +4351,15 @@ def tp_forward(model, x, dtype) -> dict:
         relays = fb.relaid_weights.count
         y = model(x)
         torch.cuda.synchronize()
-        halves = half_counts()
-        counts = {**launch_counts(dtype),
-                  **{k: v["f32" if dtype == torch.float32 else "bf16"] for k, v in halves.items()},
-                  "spectral_mode_matmul": fs.spectral_mode_matmul.launches}
-        other = other_launches(dtype) + sum(
-            v["bf16" if dtype == torch.float32 else "f32"] for v in halves.values())
+        counts, other = tp_launches(dtype)
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(timed):
             model(x)
         torch.cuda.synchronize()
     return {"y": y.float().cpu().numpy(), "launches_per_call": counts,
-            "other_dtype_launches": other, "seconds_per_call": (time.perf_counter() - t0) / 3,
-            "relays_first_call": relays_first,
-            "relays_next_4_calls": fb.relaid_weights.count - relays}
+            "other_dtype_launches": other, "seconds_per_call": (time.perf_counter() - t0) / timed,
+            "relays_first_call": relays_first, "next_calls": 1 + timed,
+            "relays_next_calls": fb.relaid_weights.count - relays}
 
 
 def flagship_input(batch=BATCH) -> np.ndarray:
@@ -4107,6 +4395,14 @@ def parallel_rank(rank: int, world: int, rdv: str, workdir: str, device: str, re
             model = flagship(True, dtype, dev, tp_mesh=tp_mesh)
             load_jax_params(model, seeded_jax_params(model, seed=0), tp_mesh)
             out[key] = tp_forward(model, x, dtype)
+            del model
+        # 1b. The long-axes model (LONG_AXES: the long attention half at L, X,
+        # A and C), blocks split over tp, bf16 then f32; the batch cut to
+        # LONG_TP_BATCH (gloo carries each C-block all-reduce through the host).
+        for key, dtype in (("long_forward", torch.bfloat16), ("long_forward_f32", torch.float32)):
+            model = long_model(dtype, dev, tp_mesh=tp_mesh)
+            load_jax_params(model, seeded_jax_params(model, seed=0), tp_mesh)
+            out[key] = tp_forward(model, x[:LONG_TP_BATCH], dtype, timed=1)
             del model
 
         # 2. Trainer at (dp 1, tp 2): dropout 0, then a dropout step; save.
@@ -4178,6 +4474,12 @@ def phase_parallel(dev, workdir: Path) -> dict:
         with torch.no_grad():
             y_single[key] = model(x).float().cpu()
         del model
+    for key, dtype in (("long_forward", torch.bfloat16), ("long_forward_f32", torch.float32)):
+        model = long_model(dtype, dev)
+        load_jax_params(model, seeded_jax_params(model, seed=0))
+        with torch.no_grad():
+            y_single[key] = model(x[:LONG_TP_BATCH]).float().cpu()
+        del model
     single = {}
     for name, kind in (("tante", "tante"), ("fno", "fno")):
         trainer, dm = parallel_trainer(dev, workdir / "single", name, kind)
@@ -4226,35 +4528,49 @@ def phase_parallel(dev, workdir: Path) -> dict:
         return res
     r0, r1 = ranks[0], ranks[1]
 
-    # 1. forward, bf16 and f32
-    want = {"fused_block_fwd": 0, "fused_block_canon_t_fwd": 0, "fused_chain_apply": 0,
-            "fused_group_apply": 0, "attn_half_fwd": 9, "mlp_half_fwd": 9,
-            "spectral_mode_matmul": 0}
+    # 1. forward, bf16 and f32: the flagship (9 blocks, each two short
+    # halves), then the long-axes model at B LONG_TP_BATCH (T, H, W, Y on the
+    # short attention half, L, X, A, C on the long one's two kernels; eight
+    # MLP halves).
+    want = {name: 0 for name in (*BLOCK_WRAPPERS, "attn_half_fwd", "mlp_half_fwd",
+                                 *LONG_WRAPPERS, *HALF_LONG_WRAPPERS, "spectral_mode_matmul")}
+    wants = {"forward": {**want, "attn_half_fwd": 9, "mlp_half_fwd": 9},
+             "long_forward": {**want, "attn_half_fwd": 4, "mlp_half_fwd": 8,
+                              **{name: 4 for name in HALF_LONG_WRAPPERS}}}
+    wants["forward_f32"], wants["long_forward_f32"] = wants["forward"], wants["long_forward"]
     forward = {}
-    for key, tol in (("forward", ROLLOUT_REL_TOL), ("forward_f32", F32_TP_FORWARD_REL_TOL)):
-        fwd_err = [rel_l2(torch.from_numpy(r[key]["y"]) - x[:, -1:].float().cpu(),
-                          y_single[key] - x[:, -1:].float().cpu()) for r in (r0, r1)]
-        check(all(r[key]["launches_per_call"] == want and not r[key]["other_dtype_launches"]
-                  for r in (r0, r1)),
+    for key, tol in (("forward", ROLLOUT_REL_TOL), ("forward_f32", F32_TP_FORWARD_REL_TOL),
+                     ("long_forward", ROLLOUT_REL_TOL),
+                     ("long_forward_f32", F32_TP_FORWARD_REL_TOL)):
+        b = LONG_TP_BATCH if key.startswith("long") else BATCH
+        u = x[:b, -1:].float().cpu()
+        fwd_err = [rel_l2(torch.from_numpy(r[key]["y"]) - u, y_single[key] - u) for r in (r0, r1)]
+        check(all(r[key]["launches_per_call"] == wants[key]
+                  and not r[key]["other_dtype_launches"] for r in (r0, r1)),
               f"tp {key} launches {r0[key]['launches_per_call']} (and "
-              f"{r0[key]['other_dtype_launches']} in the other dtype), want {want}")
+              f"{r0[key]['other_dtype_launches']} in the other dtype), want {wants[key]}")
         check(max(fwd_err) <= tol, f"tp=2 {key} vs single rank: rel L2 {fwd_err}")
         check(np.array_equal(r0[key]["y"], r1[key]["y"]), f"tp ranks' {key} outputs differ")
-        # Each rank re-lays its 9 blocks' two halves once, though every call
-        # casts the f32 parameters to bf16 anew (bf16) and hands the
+        # Each rank re-lays its blocks' two halves once (9 or 8 blocks), though
+        # every call casts the f32 parameters to bf16 anew (bf16) and hands the
         # LayerNorm ones to the halves as new copy_to_tp views; a Trainer
         # re-lays them once per optimizer step.
-        relays = [(r[key]["relays_first_call"], r[key]["relays_next_4_calls"]) for r in (r0, r1)]
-        check(all(r == (18, 0) for r in relays),
-              f"tp {key} re-layouts (first call, next 4) {relays}")
+        blocks = len(LONG_AXES) if key.startswith("long") else 9
+        relays = [(r[key]["relays_first_call"], r[key]["relays_next_calls"]) for r in (r0, r1)]
+        check(all(r == (2 * blocks, 0) for r in relays),
+              f"tp {key} re-layouts (first call, next {r0[key]['next_calls']}) {relays}")
         forward[key] = {
-            "batch": BATCH, "dtype": "bf16" if key == "forward" else "f32",
+            "batch": b, "dtype": "f32" if key.endswith("f32") else "bf16",
             "weights": "seeded (numpy seed 0)",
             "launches_per_model_call_per_rank": r0[key]["launches_per_call"],
             "other_dtype_launches": r0[key]["other_dtype_launches"],
-            "weight_relayouts_per_rank_first_call_then_next_4": relays,
+            "weight_relayouts_per_rank_first_call_then_next_calls": relays,
+            "next_calls": r0[key]["next_calls"],
             "change_vs_single_rank_rel_l2": fwd_err, "rel_l2_tolerance": tol,
             "seconds_per_call": [r[key]["seconds_per_call"] for r in (r0, r1)]}
+        if key.startswith("long"):
+            forward[key].update({"attn_axes": LONG_AXES, "expanded_channel": EXPANDED,
+                                 "batch_cut_from": BATCH})
 
     # 2-4. every step's loss and gradient norm against the single-rank Trainer
     def rel(a, b):
@@ -4498,12 +4814,60 @@ def long_rows(kernels_long: dict[str, list[dict]], long_axes: dict) -> list[dict
     return rows
 
 
+def half_long_rows(tp_long: dict[str, list[dict]], parallel: dict) -> list[dict]:
+    """The kernels line's rows of the long attention half: each kernel in
+    each dtype, its launches per long-axes model call on one rank of (dp 1,
+    tp 2) (the parallel phase); ms, bound and plain time are means over the
+    flagship's L, X, A and C blocks (shard 0 at tp 2, "fast"), per axis
+    beside them.  The plain version is of the whole half (both kernels):
+    ``plain_ms`` is the plain half's time."""
+    rows = []
+    for dt, cases in tp_long.items():
+        main = [c for c in cases if "kernel_ms" in c]
+        mean = lambda f: sum(f(c) for c in main) / len(main)  # noqa: E731
+        key = "long_forward_f32" if dt == "f32" else "long_forward"
+        per_call = parallel.get(key, {}).get("launches_per_model_call_per_rank", {})
+        for name, part in (("attn_half_long_qkv_fwd", "qkv"), ("attn_half_long_attn_fwd", "attn")):
+            rows.append({
+                "name": name if dt == "bf16" else f"{name} (f32)", "route": "cuda",
+                "source": HALF_LONG_SOURCE, "entry": HALF_LONG_ENTRIES[name].format(
+                    "_f32" if dt == "f32" else ""),
+                "replaces": "tante_tpu/ops/pallas_block.py:730 (_attn_half_kernel :696 at L > 64"
+                            + (", f32 activations)" if dt == "f32" else ")"),
+                "launches": per_call.get(name, 0),
+                "launches_counted_over": f"one {LONG_AXES} model call on one rank of (dp 1, tp 2), "
+                                         f"{dt}",
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "ms": mean(lambda c: c[f"{part}_ms"]),  # noqa: B023
+                "plain_ms": mean(lambda c: c["plain_ms"]),
+                "plain_is": "the plain half (attn_half_ref, f32), both kernels' work; at C on 512 "
+                            "sequences, scaled",
+                "bound_ms": mean(lambda c: c["bounds"][part]["bound_us"]) / 1e3,  # noqa: B023
+                "bound_by": main[0]["bounds"][part]["bound_by"],
+                "library_ms": None,  # no single PyTorch call computes a half block
+                "half_ms": mean(lambda c: c["kernel_ms"]),
+                "half_bound_ms": mean(lambda c: c["bounds"]["half"]["bound_us"]) / 1e3,
+                "ok": all(c["ok"] for c in cases),
+                "per_axis": [{"axis": c["case"], "shape": c["shape"], "ms": c[f"{part}_ms"],
+                              "bound_ms": c["bounds"][part]["bound_us"] / 1e3,
+                              "bound_by": c["bounds"][part]["bound_by"],
+                              "half_ms": c["kernel_ms"],
+                              "half_bound_ms": c["bounds"]["half"]["bound_us"] / 1e3,
+                              "half_with_workspace_bound_ms":
+                                  c["bounds"]["half_with_workspace"]["bound_us"] / 1e3,
+                              "plain_ms": c["plain_ms"], "max_abs_err": c["max_abs_err"]}
+                             for c in main],
+            })
+    return rows
+
+
 def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict],
                   kernels_f32: dict[str, list[dict]], chains_f32: dict[str, dict], fixed: dict,
                   fixed_f32: dict, train: dict, adaptive_train: dict, cli: dict,
                   spectral: list[dict], fno: dict, packed: list[dict], avit: dict, cvit: dict,
                   tp: list[dict], tp_f32: list[dict], parallel: dict,
-                  kernels_long: dict[str, list[dict]], long_axes: dict) -> list[dict]:
+                  kernels_long: dict[str, list[dict]], long_axes: dict,
+                  tp_long: dict[str, list[dict]]) -> list[dict]:
     replaces = {"fused_block_fwd": "tante_tpu/ops/pallas_block.py:163",
                 "fused_block_canon_t_fwd": "tante_tpu/ops/pallas_block.py:401",
                 "fused_chain_apply": "tante_tpu/ops/pallas_block.py:1073",
@@ -4728,6 +5092,7 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict],
                 "achieved_tflops", "max_abs_err", "rel_l2", "plain_rms")}} for c in tp_f32],
         })
     out.extend(long_rows(kernels_long, long_axes))
+    out.extend(half_long_rows(tp_long, parallel))
     check(all(k["launches"] > 0 for k in out), "a kernel of the main paths was never launched")
     emit({"kernels": out})
     return out
@@ -4760,6 +5125,8 @@ def main() -> int:
     phase_packed_grad(dev)
     tp = phase_tp_kernel(dev)
     tp_f32 = phase_tp_kernel_f32(dev)
+    tp_long = {"bf16": phase_tp_kernel_long(dev, torch.bfloat16),
+               "f32": phase_tp_kernel_long(dev, torch.float32)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         train = phase_train(dev, Path(workdir))
         adaptive_train = phase_adaptive_train(dev, Path(workdir))
@@ -4772,7 +5139,7 @@ def main() -> int:
         parallel = phase_parallel(dev, Path(workdir))
     phase_summary(kernels, chains, kernels_f32, chains_f32, fixed, fixed_f32, train,
                   adaptive_train, cli, spectral, fno, packed, avit, cvit, tp, tp_f32, parallel,
-                  kernels_long, long_axes)
+                  kernels_long, long_axes, tp_long)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -231,6 +231,20 @@ def _bind_fused_block_long_sm90(lib: ctypes.CDLL) -> None:
     lib.tante_block_long_smem.restype = i
 
 
+def _bind_fused_half_long_sm90(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for dt in ("", "_f32"):  # the bf16 and f32 entries take the same arguments
+        qkv = getattr(lib, f"tante_attn_half_long_qkv_sm90{dt}_fwd")
+        qkv.argtypes = [p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, p]
+        qkv.restype = i
+        attn = getattr(lib, f"tante_attn_half_long_attn_sm90{dt}_fwd")
+        attn.argtypes = [p, p, ctypes.POINTER(p), ctypes.POINTER(i), i, i, i, i, i, i, i, i, p]
+        attn.restype = i
+    lib.tante_attn_half_long_smem.argtypes = [
+        ctypes.POINTER(i), i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+    lib.tante_attn_half_long_smem.restype = i
+
+
 def _bind_fused_chain_sm90(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for dt in ("", "_f32"):
@@ -282,6 +296,7 @@ KERNELS: dict[str, Callable[[ctypes.CDLL], None]] = {
     "fused_chain_sm90": _bind_fused_chain_sm90,
     "fused_half_sm90": _bind_fused_half_sm90,
     "fused_half_sm90_f32": _bind_fused_half_sm90_f32,
+    "fused_half_long_sm90": _bind_fused_half_long_sm90,
     "spectral_matmul": _bind_spectral_matmul,
     "packed_attention": _bind_packed_attention,
 }

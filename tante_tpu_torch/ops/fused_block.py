@@ -49,7 +49,14 @@ Five entry points carry every attention block of the TANTE paths:
   weights are re-laid once per weight version (``half_weights``), cached
   under the parameters they came from: through the ``copy_to_tp`` views the
   LayerNorm parameters arrive as, and through the compute-dtype copies of
-  f32 parameters (``cast_weight``) made on every call.
+  f32 parameters (``cast_weight``) made on every call.  At L > 64
+  ``attn_half_apply`` sends the attention half to ``attn_half_long``: two
+  CUDA kernels (``csrc/fused_half_long_sm90.cu``, the long entry's split on
+  the halves' padded shard), ``half_long_qkv_fwd`` (LN1 and the shard's
+  q|k|v into a workspace) and ``half_long_attn_fwd`` (the keys streamed per
+  sequence and 64-query tile, then the out-projection partial), replacing
+  the same Pallas kernel at the lengths where JAX's tile holds one whole
+  sequence.
 
 ``csrc/fused_block.cu`` holds the first design's tile body (``block_tile``,
 wmma), which no model path takes: ``block_tile_canon_t``,
@@ -662,29 +669,46 @@ def _align128(n: int) -> int:
     return -(-n // 128) * 128
 
 
-def long_smem(plan: LongPlan, c: int, hidden: int, dtype: torch.dtype) -> tuple[int, int]:
-    """Shared memory bytes of the qkv and the attention entry under ``plan``
-    (``fused_block_long_sm90.cu:layout_qkv`` / ``layout_attn``).  qkv: the
-    LN1 output, a head group's q|k|v tile, the slab ring.  Attention: the q
-    tile and two k|v blocks (later the out-projection's staging tile in
-    bf16, then the MLP hidden), the attention output (later the LN2 output),
-    the slab ring.  Each region starts on 128 bytes; then the barriers."""
+def _act_tile(rows: int, width: int, dtype: torch.dtype) -> int:
+    """Bytes of an activation tile: bf16 core matrices, or f32 row-major with
+    4 floats of padding a row."""
+    return rows * (width + 4) * 4 if dtype == torch.float32 else rows * width * 2
+
+
+def _long_qkv_smem(rows: int, stages: int, c: int, dtype: torch.dtype) -> int:
+    """Shared memory bytes of a qkv kernel of the long pairs, the block's and
+    the half's alike (``long_sm90.cuh:layout_qkv``): the LN1 output, a head
+    group's q|k|v tile, the slab ring, each region on 128 bytes; the
+    barriers."""
     f32 = dtype == torch.float32
     e = 4 if f32 else 2
     slab_k = SM90_F32_SLAB_K if f32 else SM90_SLAB_K
-    bars = 2 * SM90_MAX_STAGES * 8
-
-    def tile(rows, width):  # an activation tile: f32 row-major with 4 floats of padding
-        return rows * (width + 4) * 4 if f32 else rows * width * 2
-
     qkv_ld = SM90_F32_QKV_LD if f32 else SM90_QKV_LD
-    ring = _align128(_align128(tile(plan.rows, c)) + plan.rows * qkv_ld * e)
-    qkv = ring + plan.qkv_stages * slab_k * SM90_QKV_N * e + bars
-    q_kv = LONG_Q_ROWS * _LONG_Q_LD[dtype] * e + 2 * LONG_KEY_BLOCK * _LONG_KV_LD[dtype] * e
+    ring = _align128(_align128(_act_tile(rows, c, dtype)) + rows * qkv_ld * e)
+    return ring + stages * slab_k * SM90_QKV_N * e + 2 * SM90_MAX_STAGES * 8
+
+
+def _long_q_kv_bytes(dtype: torch.dtype) -> int:
+    """The staged q tile and two k|v blocks of a long attention kernel."""
+    e = 4 if dtype == torch.float32 else 2
+    return LONG_Q_ROWS * _LONG_Q_LD[dtype] * e + 2 * LONG_KEY_BLOCK * _LONG_KV_LD[dtype] * e
+
+
+def long_smem(plan: LongPlan, c: int, hidden: int, dtype: torch.dtype) -> tuple[int, int]:
+    """Shared memory bytes of the qkv and the attention entry under ``plan``
+    (``long_sm90.cuh:layout_qkv``, ``fused_block_long_sm90.cu:layout_attn``).
+    qkv: ``_long_qkv_smem``.  Attention: the q tile and two k|v blocks
+    (later the out-projection's staging tile in bf16, then the MLP hidden),
+    the attention output (later the LN2 output), the slab ring.  Each region
+    starts on 128 bytes; then the barriers."""
+    f32 = dtype == torch.float32
+    e = 4 if f32 else 2
+    slab_k = SM90_F32_SLAB_K if f32 else SM90_SLAB_K
+    qkv = _long_qkv_smem(plan.rows, plan.qkv_stages, c, dtype)
     staging = 0 if f32 else LONG_Q_ROWS * (plan.np[1] + 8) * 2
-    a = max(q_kv, tile(LONG_Q_ROWS, hidden), staging)
-    ring = _align128(_align128(a) + tile(LONG_Q_ROWS, c))
-    attn = ring + plan.stages * slab_k * max(plan.np[1:]) * e + bars
+    a = max(_long_q_kv_bytes(dtype), _act_tile(LONG_Q_ROWS, hidden, dtype), staging)
+    ring = _align128(_align128(a) + _act_tile(LONG_Q_ROWS, c, dtype))
+    attn = ring + plan.stages * slab_k * max(plan.np[1:]) * e + 2 * SM90_MAX_STAGES * 8
     return qkv, attn
 
 
@@ -1145,7 +1169,9 @@ def attn_half_ref(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int, causal
     """The attention half in plain PyTorch on (rows, L, C): ``block_ref`` cut
     at the out-projection matmul (``pallas_block.py:_xla_attn_half``).  ``p``
     may be a tp shard (attention width ``wq.shape[-1]``, ``heads`` local
-    heads).  Returns the pre-bias partial (rows, L, C) in ``x.dtype``."""
+    heads).  Returns the pre-bias partial (rows, L, C) in ``x.dtype``.  Its
+    attention runs over chunks of sequences (``attention_ref``): the C block
+    at tp 2 would otherwise hold 24,576 x 4 heads x 256^2 f32 scores."""
     dt = x.dtype
     c_att = p.wq.shape[-1]
     d = c_att // heads
@@ -1153,13 +1179,8 @@ def attn_half_ref(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int, causal
     q = ((xn @ p.wq.to(dt)) + p.bq.to(dt)) * (d**-0.5)
     k = (xn @ p.wk.to(dt)) + p.bk.to(dt)
     v = (xn @ p.wv.to(dt)) + p.bv.to(dt)
-    q, k, v = (t.reshape(*t.shape[:-1], heads, d) for t in (q, k, v))
-    logits = torch.einsum("blhd,bmhd->bhlm", q, k).float()
-    if causal:
-        m = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
-        logits = torch.where(m, logits, torch.full_like(logits, -1e30))
-    w = torch.softmax(logits, dim=-1).to(dt)
-    attn = torch.einsum("bhlm,bmhd->blhd", w, v).reshape(*x.shape[:-1], c_att)
+    q, k, v = (t.reshape(-1, l, heads, d) for t in (q, k, v))
+    attn = attention_ref(q, k, v, causal, dt).reshape(*x.shape[:-1], c_att)
     return attn @ p.wo.to(dt)
 
 
@@ -1198,17 +1219,21 @@ def _check_half_x(x: torch.Tensor, c: int, local: int):
         raise ValueError(f"kernel input must be contiguous bf16 or f32, got {x.dtype}")
     if c % 64 or c > KERNEL_MAX_C or local % 32 or not 32 <= local <= 2 * c:
         raise ValueError(f"tp half kernel needs C % 64 == 0, C <= {KERNEL_MAX_C} and a local "
-                         f"width that is a multiple of 32 in [32, 2C]; got C={c}, local={local}")
+                         f"width that is a multiple of 32 in [32, 2C]; got C={c}, local={local} "
+                         "(a shard narrower than 32 columns, such as the 128-wide channel block "
+                         "at tp 8, has no kernel: run it at tp <= 4)")
 
 
-def _check_attn_half(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int):
-    """x and every parameter of the shard in x's dtype (bf16 or f32)."""
+def _check_attn_half(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
+                     max_l: int | None = KERNEL_MAX_L):
+    """x and every parameter of the shard in x's dtype (bf16 or f32);
+    sequences of 1..``max_l`` (any length for None: the long half)."""
     c, ca = x.shape[-1], p.wq.shape[-1]
     _check_half_x(x, c, ca)
     if heads <= 0 or ca % heads or ca // heads not in KERNEL_HEAD_DIMS or ca > c:
         raise ValueError(f"attention half: local width {ca} over {heads} heads, C={c}")
-    if not 1 <= l <= KERNEL_MAX_L:
-        raise ValueError(f"kernel holds sequences of 1..{KERNEL_MAX_L}, got L={l}")
+    if l < 1 or (max_l is not None and l > max_l):
+        raise ValueError(f"kernel holds sequences of 1..{max_l}, got L={l}")
     _check_params(x, p, ((c,), (c,), (c, ca), (ca,), (c, ca), (ca,), (c, ca), (ca,), (ca, c)),
                   x.dtype)
 
@@ -1292,13 +1317,14 @@ def _pad_rows(w: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(w, (0, 0, 0, rows - w.shape[0]))
 
 
-def _slab_layout(plan: HalfPlan) -> Callable:
+def _slab_layout(plan: HalfPlan | HalfLongPlan) -> Callable:
     """The weight slabs of the plan's kernels: wgmma's core matrices (bf16)
     or the f32 body's mma.sync fragment order."""
     return arrange_weight_f32 if plan.f32 else arrange_weight
 
 
-def _arrange_attn_half(p: AttnHalfParams, heads: int, plan: HalfPlan) -> HalfWeights:
+def _arrange_attn_half(p: AttnHalfParams, heads: int,
+                       plan: HalfPlan | HalfLongPlan) -> HalfWeights:
     ws, bqkv = qkv_groups(p, heads)
     arrange = _slab_layout(plan)
     slabs = torch.cat([*(arrange(w, plan.np[0]) for w in ws),
@@ -1345,12 +1371,15 @@ def attn_half_apply(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
                     causal: bool) -> torch.Tensor:
     """(S, L, C) -> the pre-bias attention partial (S, L, C) of one tp shard
     (``heads`` local heads) in x's dtype.  CUDA kernel ``attn_half_fwd``
-    (``csrc/fused_half_sm90.cu``; in f32 ``csrc/fused_half_sm90_f32.cu``);
+    (``csrc/fused_half_sm90.cu``; in f32 ``csrc/fused_half_sm90_f32.cu``)
+    for L <= ``KERNEL_MAX_L``, the long half (``attn_half_long``) past it;
     the plain version on the CPU."""
     if x.device.type == "cpu":
         return attn_half_ref(x, p, l, heads, causal)
     if x.shape[-2] != l:
         raise ValueError(f"x of shape {tuple(x.shape)} does not hold sequences of L={l}")
+    if l > KERNEL_MAX_L:
+        return attn_half_long(x, p, l, heads, causal)
 
     def launch(x, ps):
         (p,) = ps
@@ -1404,6 +1433,165 @@ def mlp_half_apply(x2: torch.Tensor, p: MlpHalfParams) -> torch.Tensor:
 
 
 mlp_half_apply.launches = collections.Counter()
+
+
+# --------------------------------------------------------------------------
+# The attention half at any sequence length (csrc/fused_half_long_sm90.cu):
+# the long entry's split after q|k|v on the halves' padded shard.  A qkv
+# kernel over token tiles into a workspace of the shard's head groups, then
+# an attention kernel per (sequence, 64-query tile) that streams the keys
+# and writes the out-projection partial.
+# --------------------------------------------------------------------------
+
+
+class HalfLongPlan(NamedTuple):
+    rows: int          # token rows of a qkv-kernel tile (sequences ignored)
+    qkv_stages: int    # weight slabs in the qkv kernel's ring
+    width: int         # the shard's local width padded to a multiple of 64 (W)
+    np: tuple          # column passes: q|k|v (192), out-projection
+    stages: int        # weight slabs in the attention kernel's ring
+    f32: bool = False  # the f32 kernels' plan: their weight slabs (arrange_weight_f32)
+
+    def ints(self) -> list:
+        return [self.rows, self.qkv_stages, self.width, *self.np, self.stages]
+
+
+def half_long_smem(plan: HalfLongPlan, c: int, dtype: torch.dtype) -> tuple[int, int]:
+    """Shared memory bytes of the long half's qkv and attention kernels
+    (``fused_half_long_sm90.cu:half_long_shape``): the qkv kernel is the long
+    block's (``_long_qkv_smem``); the attention kernel holds the q tile and
+    two k|v blocks (later, bf16, the partial's staging tile), the 64 x W
+    attention output and the ring of out-projection slabs, each region on
+    128 bytes, then the barriers."""
+    f32 = dtype == torch.float32
+    e = 4 if f32 else 2
+    slab_k = SM90_F32_SLAB_K if f32 else SM90_SLAB_K
+    staging = 0 if f32 else LONG_Q_ROWS * (plan.np[1] + 8) * 2
+    a = max(_long_q_kv_bytes(dtype), staging)
+    ring = _align128(_align128(a) + _act_tile(LONG_Q_ROWS, plan.width, dtype))
+    attn = ring + plan.stages * slab_k * plan.np[1] * e + 2 * SM90_MAX_STAGES * 8
+    return _long_qkv_smem(plan.rows, plan.qkv_stages, c, dtype), attn
+
+
+@functools.lru_cache(maxsize=64)
+def half_long_plan(c: int, local: int, heads: int,
+                   dtype: torch.dtype = torch.bfloat16) -> HalfLongPlan | None:
+    """The long half's plan for a shard ``local`` columns wide with ``heads``
+    local heads, the same at every L: the long block's qkv tiles (128 rows in
+    bf16 where C <= 256, else 64; f32 64), the short halves' padded width and
+    column passes, as many ring stages (2-4) as ``SMEM_OPTIN`` holds in each
+    kernel.  The envelope is the short halves' in width (a multiple of 32 in
+    [32, C]) and the block's in head dim (f32: C <= 256).  None outside it."""
+    if not (c % 64 == 0 and 0 < c <= KERNEL_MAX_C and local % 32 == 0 and 32 <= local <= c
+            and heads > 0 and local % heads == 0 and local // heads in KERNEL_HEAD_DIMS
+            and dtype in KERNEL_DTYPES):
+        return None
+    f32 = dtype == torch.float32
+    width = -(-local // 64) * 64
+    if f32:
+        if c > SM90_F32_MAX_C:
+            return None
+        rows, np = SM90_F32_ROWS, (SM90_QKV_N, _pass_width_f32(c))
+    else:
+        rows, np = (128 if c <= 256 else 64), (SM90_QKV_N, _pass_width(c))
+    stages = range(SM90_MAX_STAGES, 1, -1)
+    qkv = next((s for s in stages if _long_qkv_smem(rows, s, c, dtype) <= SMEM_OPTIN), None)
+    attn = next((s for s in stages if half_long_smem(HalfLongPlan(rows, 2, width, np, s, f32),
+                                                     c, dtype)[1] <= SMEM_OPTIN), None)
+    if qkv is None or attn is None:
+        return None
+    return HalfLongPlan(rows, qkv, width, np, attn, f32)
+
+
+def _half_long_plan_for(c: int, local: int, heads: int, dtype: torch.dtype) -> HalfLongPlan:
+    plan = half_long_plan(c, local, heads, dtype)
+    if plan is None:
+        raise ValueError(f"no long attention half plan for C={c}, local width {local}, "
+                         f"{heads} local heads in {dtype}")
+    return plan
+
+
+def half_long_weights(p: AttnHalfParams, heads: int, plan: HalfLongPlan) -> HalfWeights:
+    """The long half's weights for the shard ``p``, re-laid once per weight
+    version under a key of their own: the short halves' layout (each head
+    group's q|k|v slabs, q prescaled, then wo's, zero-padded to W)."""
+    return relaid_weights(p, ("attn_long", heads, plan), lambda: _arrange_attn_half(p, heads, plan))
+
+
+def _half_long_lib(x: torch.Tensor):
+    """The long half's library, for a CUDA tensor (raises for any other)."""
+    from tante_tpu_torch.ops import _build
+
+    if x.device.type != "cuda":
+        raise ValueError(f"the long attention half's kernels need a CUDA tensor, got {x.device}")
+    return _build.load("fused_half_long_sm90")
+
+
+def half_long_qkv_fwd(x: torch.Tensor, w: HalfWeights, plan: HalfLongPlan, l: int,
+                      local: int) -> torch.Tensor:
+    """The qkv kernel: (S, L, C) -> the workspace (3, S, W/64, L, 64) of the
+    shard's q (prescaled), k and v, head group by head group, in x's dtype."""
+    c = x.shape[-1]
+    s = x.numel() // (l * c)
+    lib = _half_long_lib(x)
+    ws = torch.empty((3, s, plan.width // 64, l, 64), dtype=x.dtype, device=x.device)
+    entry = (lib.tante_attn_half_long_qkv_sm90_f32_fwd if _f32(x)
+             else lib.tante_attn_half_long_qkv_sm90_fwd)
+    rc = entry(x.data_ptr(), ws.data_ptr(), _ptr_array([w]), (ctypes.c_int * 6)(*plan.ints()), s,
+               l, c, local, x.device.index, _stream(x))
+    _raise_on(rc, "attn_half_long_qkv_fwd")
+    _count(half_long_qkv_fwd, x)
+    return ws
+
+
+def half_long_attn_fwd(x: torch.Tensor, ws: torch.Tensor, w: HalfWeights, plan: HalfLongPlan,
+                       l: int, local: int, heads: int, causal: bool) -> torch.Tensor:
+    """The attention kernel: attention over the workspace's streamed keys and
+    the out-projection -> the pre-bias partial, x's shape and dtype (x itself
+    is not read: the workspace holds what the kernel needs of it)."""
+    c = x.shape[-1]
+    lib = _half_long_lib(x)
+    out = torch.empty_like(x)
+    entry = (lib.tante_attn_half_long_attn_sm90_f32_fwd if _f32(x)
+             else lib.tante_attn_half_long_attn_sm90_fwd)
+    rc = entry(ws.data_ptr(), out.data_ptr(), _ptr_array([w]), (ctypes.c_int * 6)(*plan.ints()),
+               x.numel() // (l * c), l, c, local, heads, int(bool(causal)), _safe(),
+               x.device.index, _stream(x))
+    _raise_on(rc, "attn_half_long_attn_fwd")
+    _count(half_long_attn_fwd, x)
+    return out
+
+
+half_long_qkv_fwd.launches = collections.Counter()
+half_long_attn_fwd.launches = collections.Counter()
+
+
+def _launch_half_long(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int, causal: bool):
+    """Both kernels of the long half on a CUDA tensor (raises on any other,
+    and outside the plan)."""
+    _check_half_device(x)
+    _check_attn_half(x, p, l, heads, max_l=None)
+    c, ca = x.shape[-1], p.wq.shape[-1]
+    if x.numel() // c >= 2**31:
+        raise ValueError(f"the long half indexes tokens in 32 bits; got {x.numel() // c}")
+    plan = _half_long_plan_for(c, ca, heads, x.dtype)
+    w = half_long_weights(p, heads, plan)
+    ws = half_long_qkv_fwd(x, w, plan, l, ca)
+    return half_long_attn_fwd(x, ws, w, plan, l, ca, heads, causal)
+
+
+def attn_half_long(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
+                   causal: bool) -> torch.Tensor:
+    """(S, L, C) -> the pre-bias attention partial of one tp shard at any L
+    through the long half's two kernels (``attn_half_apply`` sends L > 64
+    here; called directly it takes L <= 64 too).  Its plain version is
+    ``attn_half_ref``, run for a CPU tensor."""
+    if x.device.type == "cpu":
+        return attn_half_ref(x, p, l, heads, causal)
+    if x.shape[-2] != l:
+        raise ValueError(f"x of shape {tuple(x.shape)} does not hold sequences of L={l}")
+    return _run(lambda x, ps: _launch_half_long(x, ps[0], l, heads, causal),
+                lambda x, ps: attn_half_ref(x, ps[0], l, heads, causal), x, (p,), _pack_attn)
 
 
 # The first design's halves (csrc/fused_block.cu: attn_half_kernel /
@@ -1495,7 +1683,8 @@ def fused_block_apply_tp(x: torch.Tensor, p: BlockParams, l: int, heads: int, ca
 
 
 WRAPPERS = (fused_block_apply, fused_block_canon_t, fused_chain_apply, fused_group_apply,
-            attn_half_apply, mlp_half_apply, long_qkv_fwd, long_attn_fwd)
+            attn_half_apply, mlp_half_apply, long_qkv_fwd, long_attn_fwd, half_long_qkv_fwd,
+            half_long_attn_fwd)
 
 
 def reset_launches():

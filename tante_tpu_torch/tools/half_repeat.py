@@ -11,11 +11,14 @@ TF32 off).  Then the f32 block kernel (``fused_block_apply``) at H and W, two
 launches per input.  Then the f32 long entry (``fused_block_long``) at the
 flagship's C block (24,576 sequences of 256 channels, 128 wide, head dim 16;
 plain on the first 512) and L block (32 x 768, C 256), two launches per
-input.  A race in a kernel shows as unequal launch pairs.
+input; then, at the same shapes, the f32 long attention half
+(``attn_half_apply`` at L > 64: ``fused_half_long_sm90.cu``) on every shard
+at tp 2, two launches per input and shard.  A race in a kernel shows as
+unequal launch pairs.
 
 ``--csrc DIR`` builds the f32 halves and the block kernels from DIR's sources
-(``fused_half_sm90_f32.cu``, ``fused_block_sm90.cu``, ``fused_block_long_sm90.cu``
-and the headers beside them) in place of this tree's: a copy of
+(``fused_half_sm90_f32.cu``, ``fused_block_sm90.cu``, ``fused_block_long_sm90.cu``,
+``fused_half_long_sm90.cu`` and the headers beside them) in place of this tree's: a copy of
 ``tante_tpu_torch/ops/csrc`` with one edit measures that edit (e.g. without the slab fence of
 ``block_sm90.cuh:gemm_f32``).  Prints one JSON line per kernel and shape, the
 card's name and power limit first.  Needs a card.
@@ -73,7 +76,8 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 def use_sources(csrc: Path) -> None:
     """Build the f32 halves and the block kernels from ``csrc`` and make the
     wrappers launch them (the loaded libraries ``_build.load`` hands out)."""
-    kernels = ("fused_half_sm90_f32", "fused_block_sm90", "fused_block_long_sm90")
+    kernels = ("fused_half_sm90_f32", "fused_block_sm90", "fused_block_long_sm90",
+               "fused_half_long_sm90")
     built = _build.compile_libraries([(k, f"{k}_repeat", (), csrc / f"{k}.cu") for k in kernels])
     for k, info in zip(kernels, built):
         _build._libs[k] = _build.bind(ctypes.CDLL(info["library"]), k)
@@ -148,6 +152,23 @@ def main(argv=None) -> int:
             res.append((bool(torch.equal(a, b)), max(rel_l2(a[:n], want), rel_l2(b[:n], want))))
             del x, a, b, want
         print(json.dumps({"kernel": "fused_block_long (f32)", "case": label,
+                          "shape": [rows, l, c], "launch_pairs": len(res),
+                          "pairs_unequal": sum(not eq for eq, _ in res),
+                          "worst_rel_l2": max(rel for _, rel in res)}), flush=True)
+        res = []
+        for it in range(args.repeats):
+            gen.manual_seed(300 + it)
+            x = torch.randn((rows, l, c), generator=gen, device=dev)
+            for r in range(2):
+                ap = halves(shard_block(p, 2, r))[0]
+                a, b = (fb.attn_half_apply(x, ap, l, HEADS // 2, False) for _ in range(2))
+                torch.cuda.synchronize()
+                want = fb.attn_half_ref(x[:n], ap, l, HEADS // 2, False)
+                res.append((bool(torch.equal(a, b)),
+                            max(rel_l2(a[:n], want), rel_l2(b[:n], want))))
+                del a, b, want
+            del x
+        print(json.dumps({"kernel": "attn_half_long (f32)", "case": label, "tp": 2,
                           "shape": [rows, l, c], "launch_pairs": len(res),
                           "pairs_unequal": sum(not eq for eq, _ in res),
                           "worst_rel_l2": max(rel for _, rel in res)}), flush=True)

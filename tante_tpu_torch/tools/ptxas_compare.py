@@ -3,8 +3,8 @@
     python3 -m tante_tpu_torch.tools.ptxas_compare --baseline DIR [--sass TEXT]
 
 Builds ``fused_block_sm90.cu``, ``fused_chain_sm90.cu``,
-``fused_half_sm90.cu``, ``fused_half_sm90_f32.cu`` and
-``fused_block_long_sm90.cu`` of this tree and of
+``fused_half_sm90.cu``, ``fused_half_sm90_f32.cu``,
+``fused_block_long_sm90.cu`` and ``fused_half_long_sm90.cu`` of this tree and of
 the tree at ``DIR`` where it has the source (its
 ``tante_tpu_torch/ops/csrc/``; e.g. the parent commit unpacked with ``git
 archive HEAD~1 | tar -x -C build/parent``), one nvcc each, all started
@@ -31,7 +31,7 @@ from pathlib import Path
 from tante_tpu_torch.ops import _build
 
 SOURCES = ("fused_block_sm90", "fused_chain_sm90", "fused_half_sm90", "fused_half_sm90_f32",
-           "fused_block_long_sm90")
+           "fused_block_long_sm90", "fused_half_long_sm90")
 FIELDS = ("registers", "spill_store_bytes", "spill_load_bytes")
 
 

@@ -43,6 +43,12 @@ from tante_tpu_torch.train.trainer import Trainer
 TP_TANTE = dict(in_T=4, taylor_order=1, attn_axes="THW", embed_dim=32, patch_scale=8, n_head=4,
                 output_length=1, deg=True)
 TP_RES, TP_FIELDS = (16, 32), 3
+# A small TANTE with long axes under tp: the L block attends over 8 x 10 = 80
+# latent tokens, the channel block over the 128 channels (64 wide, head dim
+# 16): both past the short halves' 64.
+LONG_TP_TANTE = dict(in_T=4, taylor_order=1, attn_axes="THWLC", embed_dim=128, patch_scale=8,
+                     n_head=4, output_length=1, deg=True, expanded_channel=64)
+LONG_TP_RES = (64, 80)
 # AttentionUNet under sp / dp: depth 2 keeps 8 local rows even at sp 2.
 UNET = dict(in_T=4, depth=2, out_T=1)
 # Trainer cases: in-memory waves, global batch 2, two steps.
@@ -90,10 +96,13 @@ def block_tp(mesh, x, params, l, heads, causal):
     return {"y": np_(y), "gx": np_(x_loc.grad), "gp": [np_(t.grad) for t in p]}
 
 
-def tp_model_forward(mesh, flat, x):
-    """The small TANTE with tp_mesh, full JAX weights loaded then split;
-    this rank's dp block of the batch."""
-    model = TANTE(dset_metadata=tante_metadata(), tp_mesh=mesh, device="cpu", **TP_TANTE)
+def tp_model_forward(mesh, flat, x, long_axes=False):
+    """The small TANTE with tp_mesh (``long_axes``: LONG_TP_TANTE at
+    LONG_TP_RES), full JAX weights loaded then split; this rank's dp block
+    of the batch."""
+    md = tante_metadata(res=LONG_TP_RES) if long_axes else tante_metadata()
+    model = TANTE(dset_metadata=md, tp_mesh=mesh, device="cpu",
+                  **(LONG_TP_TANTE if long_axes else TP_TANTE))
     load_jax_params(model, flat, mesh)
     b = x.shape[0] // mesh.size("dp")
     xl = _t(x[mesh.index("dp") * b:(mesh.index("dp") + 1) * b])

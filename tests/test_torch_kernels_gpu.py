@@ -81,7 +81,18 @@ C = 512 in bf16, ragged tiles; one launch of each entry per block;
 ``fused_block_apply`` at L > 64 equal to it bit for bit; its plan against
 the kernel's own mirror (``tante_block_long_smem``); refusals (a CPU tensor,
 head dim 8, f32 past C = 256, mixed dtypes); gradients through its
-Function."""
+Function.
+
+The long attention half (``attn_half_apply`` at L > 64: the qkv kernel into
+the shard's workspace, then the attention kernel and out-projection partial,
+``fused_half_long_sm90.cu``): every shard at tp 2 and 4 (the C block's
+32-wide shard padded to a group), causal and not, both softmax forms, bf16
+at the halves' limits and f32 at the long block's (wq / wk 2.75x wider, as
+the long block's cases), one launch of each kernel a call and none of the
+short half's, two launches bit-equal; the shards' partials + bo, then the
+MLP halves + b2, against ``fused_block_long``; gradients through its
+Function; its plan against ``tante_attn_half_long_smem``; refusals (a CPU
+tensor, mixed dtypes, f32 past C = 256, the channel block at tp 8)."""
 
 from collections import Counter
 
@@ -1490,3 +1501,152 @@ def test_long_block_gradients_match_plain_autograd(cuda):
             continue
         rel = float(torch.linalg.norm(a.grad.float() - b.grad) / torch.linalg.norm(b.grad))
         assert rel <= GRAD_REL, (name, rel)
+
+
+# --------------------------------------------------------------------------
+# The tensor-parallel attention half at L > 64 (csrc/fused_half_long_sm90.cu):
+# its qkv kernel into the shard's workspace, then its attention kernel over
+# streamed key blocks and the out-projection partial, against the plain half
+# (attn_half_ref) per shard; the shards recombined against the long block.
+# --------------------------------------------------------------------------
+
+# (s, l, c, heads, tp, causal): the flagship's L (768, C 256, d 32) and C
+# block (L 256, 128 wide, d 16: a 64-wide shard at tp 2, a 32-wide one
+# padded to a group at tp 4), causal L 100, a ragged last tile (65), head
+# dim 64 and C 512 (bf16: 64-row qkv tiles).
+LONG_HALF_CASES = [
+    (4, 768, 256, 8, 2, False),
+    (96, 256, 128, 8, 2, False),
+    (96, 256, 128, 8, 4, False),
+    (24, 100, 256, 8, 2, True),
+    (24, 65, 256, 4, 4, True),
+    (12, 130, 512, 8, 2, False),
+]
+
+
+def long_half_shards(s, l, c, heads, tp, dtype, device, seed=0):
+    p = params(c, c, seed=l + c + tp + seed, device=device, dtype=dtype, qk_scale=LONG_QK_SCALE)
+    x = (f32_normal if dtype == torch.float32 else bf16_normal)((s, l, c), l + seed, device)
+    return x, p, [halves(shard_block(p, tp, r)) for r in range(tp)]
+
+
+def run_long_half(x, ap, l, heads, causal):
+    before = (fb.half_long_qkv_fwd.launches.copy(), fb.half_long_attn_fwd.launches.copy(),
+              fb.attn_half_apply.launches.copy())
+    got = fb.attn_half_apply(x, ap, l, heads, causal)
+    torch.cuda.synchronize()
+    one = Counter({x.dtype: 1})
+    assert fb.half_long_qkv_fwd.launches - before[0] == one
+    assert fb.half_long_attn_fwd.launches - before[1] == one
+    assert fb.attn_half_apply.launches == before[2]  # not the short half's kernel
+    return got
+
+
+@pytest.mark.parametrize("softmax", ["fast", "safe"])
+@pytest.mark.parametrize("s,l,c,heads,tp,causal,dtype", [
+    (*case, dt) for case in LONG_HALF_CASES for dt in (torch.bfloat16, torch.float32)
+    if dt == torch.bfloat16 or case[2] <= 256])  # the f32 body holds C <= 256 (refused below)
+def test_long_half_matches_plain(cuda, no_tf32, s, l, c, heads, tp, causal, dtype, softmax):
+    """Every shard's partial against the plain half (bf16: the f32 plain half
+    from the same bf16 inputs, the halves' limits; f32: the long block's f32
+    limits, as wq / wk are as wide: the peaked softmax put the partial at
+    1.4e-6 relative L2 at L 768 on an NVIDIA H100 80GB HBM3 at 700 W), one
+    launch of each kernel a call, two launches bit-equal."""
+    x, p, shards = long_half_shards(s, l, c, heads, tp, dtype, cuda)
+    fb.set_block_tuning(softmax=softmax)
+    try:
+        for ap, _ in shards:
+            got = run_long_half(x, ap, l, heads // tp, causal)
+            assert torch.equal(got, fb.attn_half_apply(x, ap, l, heads // tp, causal))
+            if dtype == torch.float32:
+                assert_f32_close(got, fb.attn_half_ref(x, ap, l, heads // tp, causal))
+            else:
+                apf = fb.AttnHalfParams(*(t.float() for t in ap))
+                assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+                assert_half_close(got, fb.attn_half_ref(x.float(), apf, l, heads // tp, causal))
+    finally:
+        fb.set_block_tuning(softmax="fast")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("s,l,c,heads,tp,causal", LONG_HALF_CASES[:4])
+def test_long_half_shards_recombine_into_the_long_block(cuda, no_tf32, s, l, c, heads, tp,
+                                                        causal, dtype):
+    """The shards' partials summed, + bo and residual, then the MLP halves
+    summed, + b2 and residual, as fused_block_apply_tp adds them, against
+    the unsplit long block kernel (fused_block_long) and the plain block."""
+    x, p, shards = long_half_shards(s, l, c, heads, tp, dtype, cuda, seed=1)
+    attn = torch.stack([fb.attn_half_apply(x, ap, l, heads // tp, causal)
+                        for ap, _ in shards]).float().sum(0)
+    xm = x + (attn.to(dtype) + p.bo).to(dtype)
+    mlp = torch.stack([fb.mlp_half_apply(xm, mp) for _, mp in shards]).float().sum(0)
+    y = xm + (mlp.to(dtype) + p.b2).to(dtype)
+    unsplit = fb.fused_block_long(x, p, l, heads, causal)
+    if dtype == torch.float32:
+        assert_f32_close(y, unsplit)
+        assert_f32_close(y, fb.block_ref(x, p, l, heads, causal))
+    else:
+        want = fb.block_ref(x.float(), f32(p), l, heads, causal)
+        torch.testing.assert_close(y.float(), want, atol=ATOL, rtol=RTOL)
+        torch.testing.assert_close(y.float(), unsplit.float(), atol=ATOL, rtol=RTOL)
+
+
+def test_long_half_gradients_match_plain_autograd(cuda):
+    """The Function's backward recomputes the plain half (bf16) and pulls the
+    cotangent through it, as at L <= 64."""
+    heads, tp, l = 8, 2, 100
+    ps = shard_block(params(256, 256, seed=4, device=cuda, qk_scale=LONG_QK_SCALE), tp, 1)
+    ap, _ = halves(ps)
+    x = bf16_normal((64, l, 256), seed=6, device=cuda)
+
+    def grads(x, ap, kernel):
+        x = x.detach().requires_grad_(True)
+        leaves = fb.AttnHalfParams(*(t.detach().requires_grad_(True) for t in ap))
+        fn = fb.attn_half_apply if kernel else fb.attn_half_ref
+        (fn(x, leaves, l, heads // tp, True).float() ** 2).sum().backward()
+        return dict(zip(("x", *leaves._fields), (x.grad, *(t.grad for t in leaves))))
+
+    before = all_launches()
+    got = grads(x, ap, kernel=True)
+    assert all_launches() - before == Counter({torch.bfloat16: 2})  # the two forward kernels
+    want = grads(x.float(), fb.AttnHalfParams(*(t.float() for t in ap)), kernel=False)
+    for n, g in got.items():
+        scale = torch.linalg.norm(want["bq" if n == "bk" else n])
+        err = float(torch.linalg.norm(g.float() - want[n]) / scale)
+        assert err <= GRAD_REL, f"{n}: rel L2 {err}"
+
+
+def test_long_half_plan_matches_the_kernels_mirror(cuda):
+    import ctypes
+
+    from tante_tpu_torch.ops import _build
+
+    lib = _build.load("fused_half_long_sm90")
+    for c, local, heads in [(256, 128, 4), (256, 64, 2), (128, 64, 4), (128, 32, 2),
+                            (512, 256, 4), (192, 96, 3), (256, 256, 4)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = fb.half_long_plan(c, local, heads, dtype)
+            if plan is None:
+                continue
+            out = (ctypes.c_longlong * 2)()
+            lib.tante_attn_half_long_smem((ctypes.c_int * 6)(*plan.ints()), c, local,
+                                          int(dtype == torch.float32), out)
+            assert tuple(out) == fb.half_long_smem(plan, c, dtype), (c, local, dtype)
+            assert max(out) <= fb.SMEM_OPTIN
+
+
+def test_long_half_refuses_what_it_cannot_take(cuda):
+    x, p, shards = long_half_shards(4, 100, 256, 8, 2, torch.bfloat16, cuda)
+    ap, _ = shards[0]
+    with pytest.raises(ValueError, match="CUDA"):  # a CPU tensor handed to the launch
+        fb._launch_half_long(x.cpu(), fb.AttnHalfParams(*(t.cpu() for t in ap)), 100, 4, False)
+    with pytest.raises(ValueError):  # mixed dtypes
+        fb.attn_half_apply(x.float(), ap, 100, 4, False)
+    p512 = params(512, 512, 0, cuda, torch.float32)
+    with pytest.raises(ValueError, match="no long attention half plan"):  # f32 holds C <= 256
+        fb.attn_half_apply(f32_normal((2, 100, 512), 0, cuda), halves(shard_block(p512, 2, 0))[0],
+                           100, 4, False)
+    p128 = params(128, 128, 0, cuda)
+    with pytest.raises(ValueError, match="tp 8"):  # the C block at tp 8: 16-wide shards
+        fb.attn_half_apply(bf16_normal((4, 256, 128), 0, cuda), halves(shard_block(p128, 8, 0))[0],
+                           256, 1, False)

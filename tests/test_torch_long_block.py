@@ -42,22 +42,31 @@ LOG2E = 1.4426950408889634
 ROWS = {65: 3, 100: 3, 256: 2, 3072: 1}  # sequences per case
 
 
-def long_block(x, p, l, heads, causal, softmax, kb=tblock.LONG_KEY_BLOCK):
-    """The long entry's order of work on (S, L, C) rows in x's dtype."""
-    dt = x.dtype
+def rounder(dt):
+    """Round to the activation dtype ``dt``, back to f32 for the sums."""
+    return lambda t: t.to(dt).float()
 
-    def r(t):  # round to the activation dtype, back to f32 for the sums
-        return t.to(dt).float()
 
-    s, _, c = x.shape
-    d = c // heads
+def long_qkv(x, p, heads):
+    """The qkv kernel's order of work: LN1 and q (prescaled by d^-0.5 log2 e
+    in the weights), k, v of the attention width ``wq.shape[-1]`` (the
+    block's C, or a tp shard's), rounded to x's dtype; each (S, heads, L, d)."""
+    r, f = rounder(x.dtype), (lambda t: t.float())
+    s, l, _ = x.shape
+    d = p.wq.shape[-1] // heads
     qs = d**-0.5 * LOG2E
-    f = lambda t: t.float()  # noqa: E731
     xn = r(tblock.ln(x, p.ln1_scale, p.ln1_bias))
     q = r(xn @ r(p.wq * qs) + r(p.bq * qs))
     k = r(xn @ f(p.wk) + f(p.bk))
     v = r(xn @ f(p.wv) + f(p.bv))
-    q, k, v = (t.reshape(s, l, heads, d).transpose(1, 2) for t in (q, k, v))  # (S, h, L, d)
+    return tuple(t.reshape(s, l, heads, d).transpose(1, 2) for t in (q, k, v))
+
+
+def streamed_attention(q, k, v, causal, softmax, dt, kb=tblock.LONG_KEY_BLOCK):
+    """The attention kernel's streamed softmax over key blocks of ``kb`` on
+    (S, heads, L, d) q/k/v: (S, L, heads * d) rounded to ``dt``."""
+    r = rounder(dt)
+    s, heads, l, d = q.shape
     qi = torch.arange(l)[:, None]
     blocks = range(0, l, kb)
 
@@ -80,7 +89,14 @@ def long_block(x, p, l, heads, causal, softmax, kb=tblock.LONG_KEY_BLOCK):
         e = torch.where(ok, e, torch.zeros(()))
         den = den + e.sum(-1, keepdim=True)
         o = o + r(e) @ v[:, :, k0:k0 + kb]
-    attn = r(o * (1.0 / (den + 1e-30))).transpose(1, 2).reshape(s, l, c)
+    return r(o * (1.0 / (den + 1e-30))).transpose(1, 2).reshape(s, l, heads * d)
+
+
+def long_block(x, p, l, heads, causal, softmax, kb=tblock.LONG_KEY_BLOCK):
+    """The long entry's order of work on (S, L, C) rows in x's dtype."""
+    dt = x.dtype
+    r, f = rounder(dt), (lambda t: t.float())
+    attn = streamed_attention(*long_qkv(x, p, heads), causal, softmax, dt, kb)
     xm = r(f(x) + r(attn @ f(p.wo) + f(p.bo)))
     yn = r(tblock.ln(xm.to(dt), p.ln2_scale, p.ln2_bias))
     h = r(gelu_tanh_f32(yn @ f(p.w1) + f(p.b1)))

@@ -32,8 +32,10 @@ from tante_tpu_torch.utils.checkpoint import CheckpointManager
 
 cpu = jax.devices("cpu")
 
-# tests/test_parallel.py:523-578: the tp block on a (dp 2, tp 2) mesh.
+# tests/test_parallel.py:523-578: the tp block on a (dp 2, tp 2) mesh; also at
+# BLONG, past the short halves' 64 (the long half on the card).
 BC, BHEADS, BHIDDEN, BL, BROWS = 32, 4, 64, 8, 4
+BLONG = 100
 # tests/test_parallel.py:581-610: heads = 3 does not split over tp = 2.
 UC, UHEADS, UHIDDEN, UL, UROWS = 24, 3, 48, 4, 6
 SPEC_MODES = 8
@@ -53,6 +55,15 @@ def tp_model_inputs():
     return jm, params, x
 
 
+def tp_long_model_inputs():
+    jm = JaxTANTE(dset_metadata=R.tante_metadata(res=R.LONG_TP_RES, cls=JaxMetadata),
+                  **R.LONG_TP_TANTE)
+    x = np.random.default_rng(2).normal(size=(2, 4, *R.LONG_TP_RES, R.TP_FIELDS)).astype(
+        np.float32)
+    params = jm.init(jax.random.PRNGKey(1), jnp.asarray(x[:1]))
+    return jm, params, x
+
+
 def spectral_inputs():
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2, 32, 24, 6)).astype(np.float32)
@@ -69,15 +80,20 @@ def fno_inputs():
 
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
-    """(dp 2, tp 2) block and model cases, sp = 4 spectral cases."""
+    """(dp 2, tp 2) block and model cases (also at sequences past the short
+    halves' 64), sp = 4 spectral cases."""
     jobs = []
     for causal in (False, True):
-        x, p = block_inputs(BC, BHIDDEN, BROWS, BL, 0)
-        jobs.append((f"block_causal{causal}", ("dp", "tp"), (2, 2), "block_tp",
-                     dict(x=x, params=tuple(p), l=BL, heads=BHEADS, causal=causal)))
+        for name, l in (("block", BL), ("block_long", BLONG)):
+            x, p = block_inputs(BC, BHIDDEN, BROWS, l, 0)
+            jobs.append((f"{name}_causal{causal}", ("dp", "tp"), (2, 2), "block_tp",
+                         dict(x=x, params=tuple(p), l=l, heads=BHEADS, causal=causal)))
     _, params, x = tp_model_inputs()
     jobs.append(("tp_model", ("dp", "tp"), (2, 2), "tp_model_forward",
                  dict(flat=flatten(params), x=x)))
+    _, params, x = tp_long_model_inputs()
+    jobs.append(("tp_long_model", ("dp", "tp"), (2, 2), "tp_model_forward",
+                 dict(flat=flatten(params), x=x, long_axes=True)))
     xs, w = spectral_inputs()
     jobs.append(("spectral_sp4", ("sp",), (4,), "spectral_sp", dict(x=xs, w=w, modes=SPEC_MODES)))
     xf, _, flat = fno_inputs()
@@ -176,19 +192,19 @@ def test_half_refs_recombine_into_block():
 # ---- (b) the tp block on (dp 2, tp 2) -------------------------------------------
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_block_tp_matches_jax(world4, causal):
-    x, p = block_inputs(BC, BHIDDEN, BROWS, BL, 0)
+def check_block_tp(world4, name, l, causal):
+    """The ranks' tp block, its input and parameter gradients, against JAX's
+    ``fused_block_apply_tp`` on (dp 2, tp 2)."""
+    x, p = block_inputs(BC, BHIDDEN, BROWS, l, 0)
     mesh = make_mesh(4, ("dp", "tp"), (2, 2), devices=cpu[:4])
     jp = to_jax(p)
 
     def loss(a, q):
-        return jnp.sum(jblock.fused_block_apply_tp(a, q, BL, BHEADS, causal, mesh) ** 2)
+        return jnp.sum(jblock.fused_block_apply_tp(a, q, l, BHEADS, causal, mesh) ** 2)
 
-    want = jax.jit(lambda a, q: jblock.fused_block_apply_tp(a, q, BL, BHEADS, causal, mesh))(
+    want = jax.jit(lambda a, q: jblock.fused_block_apply_tp(a, q, l, BHEADS, causal, mesh))(
         jnp.asarray(x), jp)
     gx_want, gp_want = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(x), jp)
-    name = f"block_causal{causal}"
     np.testing.assert_allclose(concat_dp(world4, name), np.asarray(want), atol=2e-5)
     np.testing.assert_allclose(concat_dp(world4, name, "gx"), np.asarray(gx_want),
                                rtol=1e-3, atol=2e-4)
@@ -201,6 +217,18 @@ def test_block_tp_matches_jax(world4, causal):
             np.testing.assert_array_equal(per_tp[0], per_tp[1])  # replicas agree
         np.testing.assert_allclose(got, np.asarray(gp_want[i]), rtol=1e-3, atol=2e-4,
                                    err_msg=f)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_block_tp_matches_jax(world4, causal):
+    check_block_tp(world4, f"block_causal{causal}", BL, causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_block_tp_long_sequences_match_jax(world4, causal):
+    """L = 100: on the card the attention half's long kernels; here the plain
+    half, whose attention runs over chunks of sequences."""
+    check_block_tp(world4, f"block_long_causal{causal}", BLONG, causal)
 
 
 # ---- (c) heads = 3 does not split over tp = 2 --------------------------------------
@@ -235,6 +263,26 @@ def test_tp_model_forward_matches_jax(world4):
                                rtol=1e-5)
     split = world4[0]["tp_model"]["split"]
     assert len(split) == 3 * 10  # ten tensors of each of the three blocks
+
+
+def test_tp_long_axes_model_forward_matches_jax(world4):
+    """A TANTE with long axes (``THWLC``: the L block over 80 latent tokens,
+    the channel block over 128 channels) on (dp 2, tp 2) against the JAX
+    tp_mesh forward on the same mesh: the model's path at L > 64 under tp
+    (``models/common.py`` sends every split block to
+    ``fused_block_apply_tp``), no branch of its own."""
+    _, params, x = tp_long_model_inputs()
+    mesh = make_mesh(4, ("dp", "tp"), (2, 2), devices=cpu[:4])
+    tp_model = JaxTANTE(dset_metadata=R.tante_metadata(res=R.LONG_TP_RES, cls=JaxMetadata),
+                        tp_mesh=mesh, **R.LONG_TP_TANTE)
+    with mesh:
+        p_sh = jax_shard_params(params, mesh, enable_tp=True)
+        x_sh = jax.device_put(jnp.asarray(x), batch_sharding(mesh))
+        want = jax.jit(lambda q, v: tp_model.apply(q, v))(p_sh, x_sh)
+    np.testing.assert_allclose(concat_dp(world4, "tp_long_model"), np.asarray(want), atol=2e-5,
+                               rtol=1e-5)
+    split = world4[0]["tp_long_model"]["split"]
+    assert len(split) == 5 * 10  # every block split, the channel block's too
 
 
 # ---- (e) H-sharded spectral convolution and FNO --------------------------------
