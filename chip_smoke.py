@@ -57,7 +57,11 @@ script exits non-zero without the final result line):
             same limit at the flagship's shapes (``dropped_keys_ref``); one
             launch of each kernel a block; each entry's time, the
             block's, the plain block's (at C on 512 sequences, scaled and
-            labelled so), the bounds (``long_bounds``); the phase's seconds.
+            labelled so), the bounds (``long_bounds``); the attention entry's
+            work (its 128- / 64-row items, pair items past the grid's last
+            whole wave, the grid) and the workspace bytes it reads, items x
+            bytes each, beside the workspace's unique 3*S*L*C values; the
+            phase's seconds.
 4. fixed    flagship TANTE (deg=True, bf16, seeded random weights), B=8,
             16-step latent rollout through ``Predictor.rollout``; launch
             counts (exactly 96 + 48 per rollout), frames/s, and a check
@@ -180,7 +184,9 @@ script exits non-zero without the final result line):
             the achieved TFLOP/s; weight re-layouts counted (none over the
             timed calls; once per weight version through ``copy_to_tp``
             views) and one timed at tp = 2; gradients through each half's
-            Function.
+            Function; then the MLP half on every 16-wide shard of the channel
+            block at tp 8 (48 zero hidden columns), summed against the
+            unsplit MLP.
 16a. tp_kernel_f32  the f32 halves (``*_sm90_f32_fwd``,
             ``fused_half_sm90_f32.cu``) on every shard at the same H, W and
             causal T shapes, tp = 2 and 4, on f32 inputs: relative L2 against
@@ -194,14 +200,16 @@ script exits non-zero without the final result line):
             then its attention kernel over streamed key blocks and the
             out-projection partial) at the flagship's L, X, A and C blocks,
             every shard at tp 2 and shard 0 at tp 4 (at C a 32-wide shard
-            padded to one group), causal L 100 and the "safe" softmax, in bf16
+            padded to one group), every 16-wide shard of the C block at tp 8
+            (one head of 16, three zero heads), causal L 100 and the "safe"
+            softmax, in bf16
             (the halves' limits against the f32 plain half from the same bf16
             inputs; a control, the plain half without its last key block, must
             fail them at every flagship shape) and f32 (TF32 off,
             F32_REL_L2_TOL / F32_MAX_ABS_SHARE), wq and wk LONG_QK_SCALE wider;
             one launch of each kernel a call, two launches bit-equal; at tp 2
-            the shards' partials + bo, then the MLP halves + b2, against the
-            unsplit ``fused_block_long``; shard 0 at tp 2 timed: each kernel,
+            and 8 the shards' partials + bo, then the MLP halves + b2, against
+            the unsplit ``fused_block_long``; shard 0 at tp 2 timed: each kernel,
             the whole half and the plain half (at C on 512 sequences, scaled)
             beside the bounds (``half_long_bounds``); gradients through the
             half's Function at (64, 100, 256).
@@ -1130,13 +1138,16 @@ def phase_kernels_long(dev, dtype) -> list[dict]:
         ok = ok and bool(torch.isfinite(got).all())
         check(ok, f"kernel_long {label} {dtype} disagrees with the plain block: {agree}")
         bounds = long_bounds(rows, l, c, c, causal, dtype)
+        plan = fb.long_plan(c, c, HEADS, dtype)
+        work = fb.long_attn_work(x, plan, c)
         res = {"phase": "kernel_long", "dtype": str(dtype).replace("torch.", ""), "case": label,
                "shape": [rows, l, c], "heads": HEADS, "causal": causal, "softmax": softmax,
                **agree, "ok": ok and launched and repeat_equal, "repeat_equal": repeat_equal,
-               "plain_sequences": n_plain,
+               "plain_sequences": n_plain, "attn_work": work,
+               "attn_workspace_reads": fb.long_attn_reads(plan, rows, l, c, causal,
+                                                          softmax == "safe", dtype, work["big"]),
                "bounds": bounds}
         if timed:
-            plan = fb.long_plan(c, c, HEADS, dtype)
             w = fb.sm90_weights(p, HEADS, plan)
             ws = fb.long_qkv_fwd(x, w, plan, l)
             iters = 3 if label == "C" else 10
@@ -3616,6 +3627,61 @@ def half_in_turns(kind: str, label: str, run, first, iters: int = 10) -> dict:
             "hopper_call_kernels": sorted(set(k1["all_symbols"]) | set(k2["all_symbols"]))}
 
 
+# The channel block at tp 8 (expanded width 128, 8 heads, MLP ratio 1):
+# 16-wide MLP shards, zero-padded to one 64-column pass.
+NARROW_MLP_SHAPE = (1536 * 16, EXPANDED)  # rows (a C block's tokens of two frames), width
+
+
+def narrow_mlp_check(dev, dtype) -> dict:
+    """The MLP half on every 16-wide shard of a 128-wide block at tp 8
+    against its plain version (bf16 at the halves' limits, f32 within
+    ``F32_HALF_REL_L2_TOL``), one launch a shard; the shards' partials
+    summed against the unsplit MLP; shard 0 timed (CUDA events)."""
+    rows, c = NARROW_MLP_SHAPE
+    f32 = dtype == torch.float32
+    p = block_params(650, dev, dtype, c)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(65)
+    x = torch.randn((rows, c), generator=gen, device=dev).to(dtype)
+    shards = [tp_halves(shard_block(p, 8, r))[1] for r in range(8)]
+    before = fb.mlp_half_apply.launches[dtype]
+    worst, total = {"max_abs_err": 0.0, "rel_l2": 0.0, "max_err_over_limit": 0.0}, 0
+    ok = True
+    for mp in shards:
+        got = fb.mlp_half_apply(x, mp)
+        torch.cuda.synchronize()
+        mpf = fb.MlpHalfParams(*(t.float() for t in mp))
+        want = fb.mlp_half_ref(x.float(), mpf)
+        err = (got.float() - want).abs()
+        worst["max_abs_err"] = max(worst["max_abs_err"], float(err.max()))
+        worst["rel_l2"] = max(worst["rel_l2"], rel_l2(got, want))
+        if f32:
+            ok &= worst["rel_l2"] <= F32_HALF_REL_L2_TOL
+        else:
+            limit = HALF_ATOL + HALF_RTOL * want.abs()
+            worst["max_err_over_limit"] = max(worst["max_err_over_limit"],
+                                              float((err / limit).max()))
+            ok &= bool((err <= limit).all()) and worst["rel_l2"] <= HALF_REL_L2_TOL
+        ok &= bool(torch.isfinite(got).all())
+        total = total + got.float()
+    launched = fb.mlp_half_apply.launches[dtype] - before
+    pf = f32_params(p)
+    whole = gelu_tanh_f32(fb.ln(x.float(), pf.ln2_scale, pf.ln2_bias) @ pf.w1 + pf.b1) @ pf.w2
+    recombined = rel_l2(total, whole)
+    ok &= recombined <= (F32_RECOMBINED_REL_L2_TOL if f32 else HALF_REL_L2_TOL)
+    name = "f32" if f32 else "bf16"
+    check(ok and launched == 8, f"16-wide MLP half ({name}, tp 8): {worst}, recombined rel L2 "
+                                f"{recombined}, {launched} launches for 8 shards")
+    res = {"phase": "tp_kernel_f32" if f32 else "tp_kernel", "case": "16-wide MLP half, tp 8",
+           "dtype": name, "shape": [rows, c], "local_width": c // 8,
+           "plan": fb.half_plan("mlp", 1, c, c // 8, dtype)._asdict(), **worst,
+           "recombined_vs_unsplit_mlp_rel_l2": recombined, "launches": launched,
+           "ok": ok and launched == 8,
+           "kernel_ms": cuda_ms(lambda: fb.mlp_half_apply(x, shards[0]), 20)}
+    emit(res)
+    return res
+
+
 def phase_tp_kernel(dev) -> list[dict]:
     """Both Hopper half kernels on every shard at the flagship's H, W and
     causal T shapes for tp = 2 and 4, and at H for tp = 8 (32-wide shards,
@@ -3729,6 +3795,7 @@ def phase_tp_kernel(dev) -> list[dict]:
             res["relays_through_copy_to_tp_views"] = tp_view_relays(x, p, l, heads, causal)
         emit(res)
         out.append(res)
+    narrow_mlp_check(dev, torch.bfloat16)
     return out
 
 
@@ -3833,17 +3900,20 @@ def phase_tp_kernel_f32(dev) -> list[dict]:
                   "weights")
             emit(res)
             out.append(res)
+    narrow_mlp_check(dev, torch.float32)
     return out
 
 
 # The long attention half (fused_half_long_sm90.cu) at the flagship's long
 # blocks under tp: (label, axis of LONG_CASES or (sequences, L, width),
 # causal, softmax, tp, timed).  tp 2 runs every shard (and is recombined into
-# the block), tp 4 shard 0 (at C a 32-wide shard, padded to one group);
-# causal L 100 and the "safe" softmax are checks only.
+# the block), tp 4 shard 0 (at C a 32-wide shard, padded to one group), the
+# C block at tp 8 every 16-wide shard (one head of 16 and three zero heads;
+# recombined); causal L 100 and the "safe" softmax are checks only.
 TP_LONG_CASES = [
     *((axis, axis, False, "fast", 2, True) for axis in "LXAC"),
     *((f"{axis} tp 4", axis, False, "fast", 4, False) for axis in "LXAC"),
+    ("C tp 8", "C", False, "fast", 8, False),
     ("causal L 100", (64, 100, C), True, "fast", 2, False),
     ("causal L 100 safe", (64, 100, C), True, "safe", 2, False),
     ("L 100 safe", (64, 100, C), False, "safe", 2, False),
@@ -3946,12 +4016,13 @@ def phase_tp_kernel_long(dev, dtype) -> list[dict]:
         heads, ca = HEADS // tp, c // tp
         n_plain = min(rows, LONG_C_PLAIN_SEQS)
         fb.set_block_tuning(softmax=softmax)
-        shards = [tp_halves(shard_block(p, tp, r)) for r in range(tp if tp == 2 else 1)]
+        every = tp in (2, 8)  # every shard, recombined into the block
+        shards = [tp_halves(shard_block(p, tp, r)) for r in range(tp if every else 1)]
         res = {"phase": "tp_kernel_long", "dtype": name, "case": label, "shape": [rows, l, c],
                "tp": tp, "shards_checked": len(shards), "local_heads": heads, "local_width": ca,
                "causal": causal, "softmax": softmax, "plain_sequences": n_plain,
                "plan": fb.half_long_plan(c, ca, heads, dtype)._asdict()}
-        ok, launched, repeat_equal, parts, worst = True, True, True, [], {}
+        ok, launched, repeat_equal, acc, worst = True, True, True, None, {}
         for r, (ap, _) in enumerate(shards):
             reset_counts()
             got = fb.attn_half_apply(x, ap, l, heads, causal)
@@ -3984,21 +4055,17 @@ def phase_tp_kernel_long(dev, dtype) -> list[dict]:
                     worst[k] = max(worst.get(k, v), v)
                 else:
                     worst.setdefault(k, v)
-            if tp == 2:
-                parts.append(got)
-            del want
+            if every:  # the partials summed in f32 in shard order
+                acc = got.float() if acc is None else acc.add_(got.float())
+            del want, got
         check(launched, f"tp_kernel_long {label} {name}: not one launch of each long-half kernel "
                         "a call, or another kernel launched")
         check(repeat_equal, f"tp_kernel_long {label} {name}: two launches differ")
         check(ok, f"tp_kernel_long {label} {name} disagrees with the plain half: {worst}")
         res.update({**worst, "ok": ok and launched and repeat_equal, "launches_one_each": launched,
                     "repeat_equal": repeat_equal})
-        if parts:
+        if every:
             # The block from the shards, as fused_block_apply_tp adds them.
-            acc = parts[0].float()
-            for part in parts[1:]:
-                acc += part.float()
-            del parts
             xm = x + (acc.to(dtype) + p.bo).to(dtype)
             del acc
             acc = None

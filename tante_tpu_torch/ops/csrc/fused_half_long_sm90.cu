@@ -28,7 +28,7 @@
 //     _xla_attn_half round it there too, pallas_block.py:735, 763).
 //
 // Widths.  A shard is CA = C/tp attention columns (local heads of d = 16, 32
-// or 64), a multiple of 32; the wrapper pads it to W = the next multiple of
+// or 64), a multiple of 16; the wrapper pads it to W = the next multiple of
 // 64 in the re-laid weights (ops/fused_block.py:half_long_weights, the short
 // halves' layout: each group's (C x 192) q|k|v slabs, then wo's (W x C) with
 // zero rows past CA).  A padded head's q, k and v are 0: its scores are 0,
@@ -169,7 +169,7 @@ long long half_long_shape(Shape& S, const int* plan, int C, int CA, bool f32, bo
   S.R = attn ? kQRows : plan[0];
   S.stages = attn ? plan[5] : plan[1];
   const int maxc = f32 ? kMaxCF : kMaxC;
-  if (C % 64 || C < 64 || C > maxc || CA < 32 || CA % 32 || W % 64 || W < CA || W - CA >= 64 ||
+  if (C % 64 || C < 64 || C > maxc || CA < 16 || CA % 16 || W % 64 || W < CA || W - CA >= 64 ||
       W > C || S.stages < 2 || S.stages > kMaxStages || S.np[0] != kQkvN ||
       !np_ok(S.np[1], C) || (f32 && S.np[1] > 128))
     return 0;

@@ -17,13 +17,15 @@
 // and _mlp_half_kernel (:704).
 //
 // Widths.  A shard is CA = C/tp attention columns (local heads of d = 16,
-// 32 or 64) and HL = hidden/tp MLP columns, each a multiple of 32.  The
+// 32 or 64) and HL = hidden/tp MLP columns, each a multiple of 16.  The
 // body's column passes and head groups are 64 wide, so the wrapper pads a
 // shard to W = the next multiple of 64 in the re-laid weights
 // (ops/fused_block.py:half_weights): zero columns of wq/wk/wv/w1 and zero
 // biases, zero rows of wo/w2.  A padded head's q, k and v are 0, so its
 // output is 0; GELU(0) = 0; the zero rows add exact zeros to the f32 sums.
-// So a 32-wide shard (tp = 8 at the flagship) runs the 64-wide tile.
+// So a 32-wide shard (tp = 8 at the flagship) runs the 64-wide tile, and so
+// does a 16-wide one (the 128-wide channel block at tp 8: one head of 16 and
+// three zero heads, 16 live MLP columns and 48 zero ones).
 //
 // Bound at the flagship's tp = 2 H block (M = 24576 rows, C = 256, CA = HL
 // = 128): ~25 MB of device memory (x in, the partial out; weights 0.2 MB)
@@ -238,7 +240,7 @@ long long half_shape(HalfArgs& A, const int* plan, bool attn, int C, int local) 
   A.np[1] = plan[4];
   A.stages = plan[5];
   if (A.R != (C <= 256 ? 128 : 64) || C < 64 || C % 64 || C > kMaxC ||
-      local < 32 || local % 32 || A.W % 64 || A.W < local || A.W - local >= 64 ||
+      local < 16 || local % 16 || A.W % 64 || A.W < local || A.W - local >= 64 ||
       A.W > (attn ? C : 2 * C) || A.stages < 2 || A.stages > kMaxStages ||
       !np_ok(A.np[0], attn ? kQkvN : A.W) || !np_ok(A.np[1], C))
     return 0;

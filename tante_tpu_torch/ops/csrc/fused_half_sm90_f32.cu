@@ -22,7 +22,7 @@
 //
 // Widths as the bf16 halves': a shard is CA = C/tp attention columns (local
 // heads of d = 16, 32 or 64) and HL = hidden/tp MLP columns, multiples of
-// 32, padded by the wrapper to W = the next multiple of 64 in the re-laid
+// 16, padded by the wrapper to W = the next multiple of 64 in the re-laid
 // weights (ops/fused_block.py:half_weights): zero columns of wq/wk/wv/w1 and
 // zero biases, zero rows of wo/w2.  A padded head's q, k and v are 0, so its
 // output is 0; GELU(0) = 0; the zero rows add exact zeros to the f32 sums.
@@ -215,7 +215,7 @@ long long half_shape_f32(HalfArgsF& A, const int* plan, bool attn, int C, int lo
   A.np[0] = plan[3];
   A.np[1] = plan[4];
   A.stages = plan[5];
-  if (plan[0] != kRowsF || C < 64 || C % 64 || C > kMaxCF || local < 32 || local % 32 ||
+  if (plan[0] != kRowsF || C < 64 || C % 64 || C > kMaxCF || local < 16 || local % 16 ||
       A.W % 64 || A.W < local || A.W - local >= 64 || A.W > (attn ? C : 2 * C) ||
       A.stages < 2 || A.stages > kMaxStages ||
       !(attn ? A.np[0] == kQkvN : np_ok_f32(A.np[0], A.W)) || !np_ok_f32(A.np[1], C))

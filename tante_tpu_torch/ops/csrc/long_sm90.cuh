@@ -2,8 +2,16 @@
 // block (fused_block_long_sm90.cu) and the tensor-parallel attention half at
 // L > 64 (fused_half_long_sm90.cu).  Each pair is a qkv kernel (LN1 and the
 // q|k|v products of token tiles into a workspace laid out head group by head
-// group) and an attention kernel (one CTA per sequence and 64-query tile, the
-// keys streamed in blocks of 64 through a two-stage cp.async ring).
+// group) and an attention kernel.  The qkv body (long_qkv, long_qkv_f32) is
+// both pairs'.  The streamed attention below (attention_long,
+// attention_long_f32: one CTA per sequence and 64-query tile, the keys in
+// blocks of 64 through a two-stage cp.async ring behind two CTA barriers a
+// block, the f32 scores and AV on FFMA) is the long half's only: the long
+// block's attention entry has its own persistent design in
+// fused_block_long_sm90.cu (work items on a producer-fed mbarrier ring,
+// wgmma scores in bf16, 3xTF32 in f32), which the half is to take next
+// (ROADMAP).  What bounds this first design: latency, 5.6-7.1% of the bf16
+// bound at the flagship (PERF.md).
 //
 // Widths.  C is the LayerNorm's (the token width); W is the attention width,
 // a multiple of 64: W = C for the block, the shard's local width padded to

@@ -14,9 +14,10 @@ Five entry points carry every attention block of the TANTE paths:
   (``fused_block_apply`` sends L > 64 here: the L, X, A and channel C axes),
   as two CUDA kernels (``csrc/fused_block_long_sm90.cu``): ``long_qkv_fwd``
   (LN1 and q|k|v of token tiles into a workspace laid out head group by
-  head group) and ``long_attn_fwd`` (per sequence and 64-query tile the keys
-  streamed in blocks of 64, then the out-projection, LN2 and MLP of the
-  single-block body).  Replaces the Pallas kernel reached by
+  head group) and ``long_attn_fwd`` (a persistent grid over work items of
+  one sequence's 128 (bf16) or 64 query rows: the keys streamed in blocks
+  of 64 by a producer warp, then the out-projection, LN2 and MLP of the
+  single-block body on the item's rows).  Replaces the Pallas kernel reached by
   ``fused_block_apply`` (``pallas_block.py:208``) at L > 64, where JAX's
   tile holds one whole sequence.
 - ``fused_block_canon_t(x5, p, heads)``: the causal T block straight on the
@@ -644,13 +645,24 @@ fused_block_apply.launches = collections.Counter()
 
 # --------------------------------------------------------------------------
 # The block at any sequence length (csrc/fused_block_long_sm90.cu): a qkv
-# entry over token tiles into a workspace, then an attention entry per
-# (sequence, 64-query tile) that streams the keys and runs the block's tail
+# entry over token tiles into a workspace, then an attention entry on a
+# persistent grid whose work items are (sequence, R query rows): the keys
+# streamed through a ring, then the block's tail on the item's rows
 # --------------------------------------------------------------------------
 
-LONG_Q_ROWS = 64     # queries of an attention tile
+LONG_Q_ROWS = 64     # queries of a long half's attention tile (and of an f32 item)
 LONG_KEY_BLOCK = 64  # keys of a streamed k|v block
-# Row strides of the staged q tile and k|v block (bf16, f32).
+LONG_MAX_KV = 4      # k|v stages of the attention entry's ring
+LONG_MAX_Q = 2       # q slots of the attention entry
+# A bf16 pair item's exchange area in the tail's tile h (fused_block_long_sm90.cu:
+# kPairScratch): 40 floats for each thread of the second warpgroup, 8 for every
+# consumer thread.
+LONG_PAIR_SCRATCH = 128 * 40 * 4 + 256 * 8 * 4
+# Barriers of the attention entry: the weight ring's, the k|v ring's, the q
+# slots' (full and empty each) and the item's end.
+_LONG_ATTN_BARS = 2 * SM90_MAX_STAGES + 2 * LONG_MAX_KV + 2 * LONG_MAX_Q + 1
+# Row strides of the long half's staged q tile and k|v block (bf16, f32);
+# the long entry's f32 slots and stages are laid out alike.
 _LONG_Q_LD = {torch.bfloat16: 64 + 8, torch.float32: 64 + 4}
 _LONG_KV_LD = {torch.bfloat16: 128 + 8, torch.float32: 128 + 4}
 
@@ -660,9 +672,15 @@ class LongPlan(NamedTuple):
     qkv_stages: int  # weight slabs in the qkv entry's ring
     np: tuple        # column pass widths of the qkv, out-projection, fc1, fc2 matmuls
     stages: int      # weight slabs in the attention entry's ring
+    items: int = 64  # query rows of an attention work item (R)
+    kv_stages: int = 2  # k|v blocks in the attention entry's ring
+    q_slots: int = 1    # q tiles in flight
+    overlap: int = 0    # 1: the tail's tiles overlap the q slots and the ring
+    keep: int = 0       # 1 (bf16, one out-projection pass): x' stays in shared memory
 
     def ints(self) -> list:
-        return [self.rows, self.qkv_stages, *self.np, self.stages]
+        return [self.rows, self.qkv_stages, *self.np, self.stages, self.items, self.kv_stages,
+                self.q_slots, self.overlap, self.keep]
 
 
 def _align128(n: int) -> int:
@@ -689,39 +707,148 @@ def _long_qkv_smem(rows: int, stages: int, c: int, dtype: torch.dtype) -> int:
 
 
 def _long_q_kv_bytes(dtype: torch.dtype) -> int:
-    """The staged q tile and two k|v blocks of a long attention kernel."""
+    """The long half's staged q tile and two k|v blocks."""
     e = 4 if dtype == torch.float32 else 2
     return LONG_Q_ROWS * _LONG_Q_LD[dtype] * e + 2 * LONG_KEY_BLOCK * _LONG_KV_LD[dtype] * e
+
+
+def long_q_bytes(rows: int, dtype: torch.dtype) -> int:
+    """A q slot of the attention entry: bf16 core matrices (rows x 64),
+    f32 row-major 64 x 68."""
+    if dtype == torch.float32:
+        return LONG_Q_ROWS * _LONG_Q_LD[dtype] * 4
+    return rows * 64 * 2
+
+
+def long_kv_bytes(dtype: torch.dtype) -> int:
+    """A k|v stage of the attention entry: bf16 two 64 x 64 core-matrix
+    tiles, f32 64 x 132 row-major (k in columns 0-63, v 64-127)."""
+    if dtype == torch.float32:
+        return LONG_KEY_BLOCK * _LONG_KV_LD[dtype] * 4
+    return LONG_KEY_BLOCK * 128 * 2
 
 
 def long_smem(plan: LongPlan, c: int, hidden: int, dtype: torch.dtype) -> tuple[int, int]:
     """Shared memory bytes of the qkv and the attention entry under ``plan``
     (``long_sm90.cuh:layout_qkv``, ``fused_block_long_sm90.cu:layout_attn``).
-    qkv: ``_long_qkv_smem``.  Attention: the q tile and two k|v blocks
-    (later the out-projection's staging tile in bf16, then the MLP hidden),
-    the attention output (later the LN2 output), the slab ring.  Each region
-    starts on 128 bytes; then the barriers."""
+    qkv: ``_long_qkv_smem``.  Attention: the item's attention output (later
+    the LN2 output), the tail's tile h (bf16: the out-projection's staging
+    tile, then the MLP hidden, at least a pair item's exchange area; f32:
+    the hidden), with ``keep`` the out-projection's staging tile apart (x'
+    until fc2), the q slots and the k|v ring (after those, or over h with
+    ``overlap``), the weight ring; each region on 128 bytes; then the
+    barriers."""
     f32 = dtype == torch.float32
     e = 4 if f32 else 2
     slab_k = SM90_F32_SLAB_K if f32 else SM90_SLAB_K
+    r = plan.items
     qkv = _long_qkv_smem(plan.rows, plan.qkv_stages, c, dtype)
-    staging = 0 if f32 else LONG_Q_ROWS * (plan.np[1] + 8) * 2
-    a = max(_long_q_kv_bytes(dtype), _act_tile(LONG_Q_ROWS, hidden, dtype), staging)
-    ring = _align128(_align128(a) + _act_tile(LONG_Q_ROWS, c, dtype))
-    attn = ring + plan.stages * slab_k * max(plan.np[1:]) * e + 2 * SM90_MAX_STAGES * 8
+    h = _act_tile(r, hidden, dtype)
+    stage = _act_tile(r, c, dtype) if f32 else r * (plan.np[1] + 8) * 2  # x' with keep
+    if not f32:
+        h = max(h if plan.keep else max(h, stage), LONG_PAIR_SCRATCH)
+    at_h = _align128(_act_tile(r, c, dtype))
+    at_x = _align128(at_h + h)
+    at_q = at_h if plan.overlap else _align128(at_x + (stage if plan.keep else 0))
+    at_kv = _align128(at_q + plan.q_slots * long_q_bytes(r, dtype))
+    end = at_kv + plan.kv_stages * long_kv_bytes(dtype)
+    if plan.overlap:
+        end = max(end, at_h + h)
+    attn = (_align128(end) + plan.stages * slab_k * max(plan.np[1:]) * e
+            + _LONG_ATTN_BARS * 8)
     return qkv, attn
+
+
+# A 64-row pair item's time against a 128-row tile's (``fused_block_long_sm90.cu:
+# kPairShare``): each warpgroup weighs half the key blocks, the tail runs on
+# 64 rows.
+LONG_PAIR_SHARE = 0.6
+
+
+def long_big_tiles(plan: LongPlan, tiles: int, sms: int, dtype: torch.dtype) -> int:
+    """The tiles a launch runs as one item each (``fused_block_long_sm90.cu:
+    pair_items``): all of them, but in bf16 with 128-row tiles whose tail
+    tiles stand apart from the ring, the tiles past the grid's last whole
+    wave (one CTA per SM) run as two pair items each where that takes
+    fewer waves' time (pair items at ``LONG_PAIR_SHARE`` of a tile)."""
+    if dtype == torch.float32 or plan.items != 128 or plan.overlap:
+        return tiles
+    full, rest = divmod(tiles, sms)
+    pair_waves = -(-2 * rest // sms)
+    return full * sms if rest and LONG_PAIR_SHARE * pair_waves < 1 else tiles
+
+
+def long_item_map(plan: LongPlan, s: int, l: int, big: int | None = None) -> list[tuple]:
+    """The attention entry's work items in walk order (``fused_block_long_sm90.cu:
+    item_at``): (sequence, first query row, rows, valid rows).  Each sequence
+    is cut into ``plan.items``-row tiles; the first ``big`` tiles (all by
+    default) are one item each, every later tile two 64-row pair items (an
+    empty second half of a ragged tile has valid <= 0 and is skipped)."""
+    qtiles = -(-l // plan.items)
+    tiles = s * qtiles
+    big = tiles if big is None else big
+    out = []
+    for i in range(big + 2 * (tiles - big)):
+        tile = i if i < big else big + (i - big) // 2
+        seq, q0 = divmod(tile, qtiles)
+        q0 *= plan.items
+        rows = plan.items
+        if i >= big:
+            rows, q0 = 64, q0 + 64 * ((i - big) % 2)
+        out.append((seq, q0, rows, min(rows, l - q0)))
+    return out
+
+
+def long_attn_reads(plan: LongPlan, s: int, l: int, c: int, causal: bool, safe: bool,
+                    dtype: torch.dtype, big: int | None = None) -> dict:
+    """Workspace bytes the attention entry reads on these inputs: per item
+    and head group the item's q rows, then each k|v block its queries admit
+    (twice for "safe"); beside the workspace's unique 3*S*L*C values."""
+    e = 4 if dtype == torch.float32 else 2
+    groups = c // 64
+    items = [it for it in long_item_map(plan, s, l, big) if it[3] > 0]
+    reads = 0
+    for _, q0, _, valid in items:
+        keys = q0 + valid if causal else l
+        # A block's rows past the sequence are zero-filled, not read.
+        rows = sum(min(LONG_KEY_BLOCK, l - k0) for k0 in range(0, keys, LONG_KEY_BLOCK))
+        reads += groups * (valid * 64 + (2 if safe else 1) * rows * 128) * e
+    return {"items": len(items), "bytes_per_item": reads / len(items), "bytes_read": reads,
+            "unique_bytes": 3 * s * l * c * e}
+
+
+def long_attn_work(x: torch.Tensor, plan: LongPlan, hidden: int) -> dict:
+    """The attention entry's work on the CUDA tensor x (S, L, C) under
+    ``plan``, from its kernel library: R-row tiles, the big ones, items and
+    grid (one CTA per SM)."""
+    s, l, c = x.shape
+    out = (ctypes.c_int * 4)()
+    rc = _long_lib(x).tante_block_long_attn_items(_ints(plan), s, l, c, hidden, int(_f32(x)),
+                                                  x.device.index, out)
+    _raise_on(rc, "block_long_attn_items")
+    return dict(zip(("tiles", "big", "items", "grid"), out))
 
 
 @functools.lru_cache(maxsize=64)
 def long_plan(c: int, hidden: int, heads: int,
               dtype: torch.dtype = torch.bfloat16) -> LongPlan | None:
     """The long entry's plan, the same at every sequence length L >= 1 (the
-    attention entry streams the keys, so L sets only the grid): qkv tiles
+    attention entry streams the keys, so L sets only the items): qkv tiles
     of 128 token rows in bf16 where the LayerNorm holds C (C <= 256), else
-    64; the single-block kernel's column passes; as many ring stages (2-4)
-    as ``SMEM_OPTIN`` holds in each entry.  The envelope is the
-    single-block kernel's in C, hidden and head dim (f32: C <= 256).  None
-    outside it."""
+    64, the single-block kernel's column passes, as many ring stages (2-4)
+    as ``SMEM_OPTIN`` holds; attention items of 128 query rows in bf16 where
+    C <= 256 (two consumer warpgroups of 64), else 64 (f32: 64), and the
+    first that fits of: the tail's tiles apart from the q slots and the k|v
+    ring (so the next item's copies run under this item's tail), then
+    overlapping them; x' kept in shared memory from the out-projection to
+    fc2 (LN2 and fc2 read no residual from device memory; bf16 where one
+    pass covers C, C <= 192: 3.7% quicker at the f32 C block with a k|v
+    ring of 2 than with 3 and x' through y, on an H100); then the deepest of
+    the k|v ring and the weight ring (2-4 stages each: the shallower of the
+    two first), the deeper k|v ring, weight ring, and two q slots before one
+    (bf16: wgmma reads the q tile until the group's last key block; f32
+    holds it in registers, one slot).  The envelope is the single-block
+    kernel's in C, hidden and head dim (f32: C <= 256).  None outside it."""
     if not (c % 64 == 0 and 0 < c <= KERNEL_MAX_C and hidden % 64 == 0
             and 0 < hidden <= 2 * c and heads > 0 and c % heads == 0
             and c // heads in KERNEL_HEAD_DIMS and dtype in KERNEL_DTYPES):
@@ -730,17 +857,27 @@ def long_plan(c: int, hidden: int, heads: int,
         if c > SM90_F32_MAX_C:
             return None
         rows, np = SM90_F32_ROWS, (SM90_QKV_N, *(_pass_width_f32(n) for n in (c, hidden, c)))
+        items = LONG_Q_ROWS
     else:
         rows = 128 if c <= 256 else 64
         np = (SM90_QKV_N, _pass_width(c), _pass_width(hidden), _pass_width(c))
+        items = rows
     stages = range(SM90_MAX_STAGES, 1, -1)
     qkv = next((s for s in stages
                 if long_smem(LongPlan(rows, s, np, 2), c, hidden, dtype)[0] <= SMEM_OPTIN), None)
-    attn = next((s for s in stages
-                 if long_smem(LongPlan(rows, 2, np, s), c, hidden, dtype)[1] <= SMEM_OPTIN), None)
-    if qkv is None or attn is None:
+    if qkv is None:
         return None
-    return LongPlan(rows, qkv, np, attn)
+    qs = (2, 1) if dtype == torch.bfloat16 else (1,)
+    keeps = (1, 0) if dtype == torch.float32 or np[1] == c else (0,)
+    for overlap in (0, 1):
+        fits = [LongPlan(rows, qkv, np, ws, items, kv, q, overlap, keep)
+                for kv in range(LONG_MAX_KV, 1, -1) for ws in stages for q in qs
+                for keep in (keeps if not overlap else (0,))]
+        fits = [p for p in fits if long_smem(p, c, hidden, dtype)[1] <= SMEM_OPTIN]
+        if fits:
+            return max(fits, key=lambda p: (p.keep, min(p.kv_stages, p.stages), p.kv_stages,
+                                            p.stages, p.q_slots))
+    return None
 
 
 def _long_plan_for(c: int, hidden: int, heads: int, dtype: torch.dtype) -> LongPlan:
@@ -749,6 +886,12 @@ def _long_plan_for(c: int, hidden: int, heads: int, dtype: torch.dtype) -> LongP
         raise ValueError(f"no long-entry plan for C={c}, hidden={hidden}, heads={heads} "
                          f"in {dtype}")
     return plan
+
+
+def _ints(plan: LongPlan):
+    """The plan as the C array the long entry's kernels take."""
+    ints = plan.ints()
+    return (ctypes.c_int * len(ints))(*ints)
 
 
 def _long_lib(x: torch.Tensor):
@@ -767,8 +910,8 @@ def long_qkv_fwd(x: torch.Tensor, w: Sm90Weights, plan: LongPlan, l: int) -> tor
     lib = _long_lib(x)
     ws = torch.empty((3, s, c // 64, l, 64), dtype=x.dtype, device=x.device)
     entry = lib.tante_block_long_qkv_sm90_f32_fwd if _f32(x) else lib.tante_block_long_qkv_sm90_fwd
-    rc = entry(x.data_ptr(), ws.data_ptr(), _ptr_array([w]), (ctypes.c_int * 7)(*plan.ints()), s,
-               l, c, w.b1.shape[0], x.device.index, _stream(x))
+    rc = entry(x.data_ptr(), ws.data_ptr(), _ptr_array([w]), _ints(plan), s, l, c,
+               w.b1.shape[0], x.device.index, _stream(x))
     _raise_on(rc, "block_long_qkv_fwd")
     _count(long_qkv_fwd, x)
     return ws
@@ -776,16 +919,16 @@ def long_qkv_fwd(x: torch.Tensor, w: Sm90Weights, plan: LongPlan, l: int) -> tor
 
 def long_attn_fwd(x: torch.Tensor, ws: torch.Tensor, w: Sm90Weights, plan: LongPlan, l: int,
                   heads: int, causal: bool) -> torch.Tensor:
-    """The attention entry: attention over the workspace's streamed keys, the
-    out-projection and residual, the MLP half and residual -> (S, L, C)."""
+    """The attention entry: on a persistent grid, per work item (sequence,
+    ``plan.items`` query rows) attention over the workspace's streamed keys,
+    the out-projection and residual, the MLP half and residual -> (S, L, C)."""
     s, _, c = x.shape
     lib = _long_lib(x)
     out = torch.empty_like(x)
     entry = (lib.tante_block_long_attn_sm90_f32_fwd if _f32(x)
              else lib.tante_block_long_attn_sm90_fwd)
-    rc = entry(x.data_ptr(), ws.data_ptr(), out.data_ptr(), _ptr_array([w]),
-               (ctypes.c_int * 7)(*plan.ints()), s, l, c, w.b1.shape[0], heads, int(bool(causal)),
-               _safe(), x.device.index, _stream(x))
+    rc = entry(x.data_ptr(), ws.data_ptr(), out.data_ptr(), _ptr_array([w]), _ints(plan), s, l,
+               c, w.b1.shape[0], heads, int(bool(causal)), _safe(), x.device.index, _stream(x))
     _raise_on(rc, "block_long_attn_fwd")
     _count(long_attn_fwd, x)
     return out
@@ -1217,11 +1360,9 @@ def _check_half_x(x: torch.Tensor, c: int, local: int):
     dtypes (bf16 or f32), of a width the halves take."""
     if x.dtype not in KERNEL_DTYPES or not x.is_contiguous():
         raise ValueError(f"kernel input must be contiguous bf16 or f32, got {x.dtype}")
-    if c % 64 or c > KERNEL_MAX_C or local % 32 or not 32 <= local <= 2 * c:
+    if c % 64 or c > KERNEL_MAX_C or local % 16 or not 16 <= local <= 2 * c:
         raise ValueError(f"tp half kernel needs C % 64 == 0, C <= {KERNEL_MAX_C} and a local "
-                         f"width that is a multiple of 32 in [32, 2C]; got C={c}, local={local} "
-                         "(a shard narrower than 32 columns, such as the 128-wide channel block "
-                         "at tp 8, has no kernel: run it at tp <= 4)")
+                         f"width that is a multiple of 16 in [16, 2C]; got C={c}, local={local}")
 
 
 def _check_attn_half(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int,
@@ -1288,8 +1429,8 @@ def half_plan(kind: str, l: int, c: int, local: int,
     outside ``_check_half_x``'s envelope (and, for the attention half,
     local <= C), or where no f32 tile fits."""
     attn = kind == "attn"
-    if not (c % 64 == 0 and 0 < c <= KERNEL_MAX_C and local % 32 == 0
-            and 32 <= local <= (c if attn else 2 * c) and 1 <= l <= (KERNEL_MAX_L if attn else 1)):
+    if not (c % 64 == 0 and 0 < c <= KERNEL_MAX_C and local % 16 == 0
+            and 16 <= local <= (c if attn else 2 * c) and 1 <= l <= (KERNEL_MAX_L if attn else 1)):
         return None
     width = -(-local // 64) * 64
     if dtype == torch.float32:
@@ -1480,9 +1621,9 @@ def half_long_plan(c: int, local: int, heads: int,
     local heads, the same at every L: the long block's qkv tiles (128 rows in
     bf16 where C <= 256, else 64; f32 64), the short halves' padded width and
     column passes, as many ring stages (2-4) as ``SMEM_OPTIN`` holds in each
-    kernel.  The envelope is the short halves' in width (a multiple of 32 in
-    [32, C]) and the block's in head dim (f32: C <= 256).  None outside it."""
-    if not (c % 64 == 0 and 0 < c <= KERNEL_MAX_C and local % 32 == 0 and 32 <= local <= c
+    kernel.  The envelope is the short halves' in width (a multiple of 16 in
+    [16, C]) and the block's in head dim (f32: C <= 256).  None outside it."""
+    if not (c % 64 == 0 and 0 < c <= KERNEL_MAX_C and local % 16 == 0 and 16 <= local <= c
             and heads > 0 and local % heads == 0 and local // heads in KERNEL_HEAD_DIMS
             and dtype in KERNEL_DTYPES):
         return None

@@ -3,10 +3,12 @@
     python3 -m tante_tpu_torch.tools.kernel_phases [--halves]
     python3 -m tante_tpu_torch.tools.kernel_phases --packed [--baseline DIR]
     python3 -m tante_tpu_torch.tools.kernel_phases --f32 [--baseline DIR]
+    python3 -m tante_tpu_torch.tools.kernel_phases --long [--baseline DIR]
 
 (``--halves``: the tensor-parallel halves' sections alone.  ``--packed``: the
-attention kernel's section alone, described last.  ``--f32``: the f32 block
-kernels' section alone, described before it.)
+attention kernel's section alone, described last but one.  ``--f32``: the f32
+block kernels' section alone, described before it.  ``--long``: the long
+block's attention entry alone, described last.)
 
 First the Hopper single-block kernels (``ops/csrc/fused_block_sm90.cu`` on
 the tile body of ``block_sm90.cuh``): a measurement copy built with
@@ -83,6 +85,26 @@ timed in turns (baseline, this tree, this tree, baseline) at the same shapes,
 L2-warm (back to back) and L2-cold (a 128 MB write before each launch; and a
 128 MB read, which leaves no dirty lines to write back), by CUDA events over
 100 launches queued behind a spin of the card.
+
+``--long``: the long block's attention entry (``tante_block_long_attn_sm90_fwd``
+and its f32 twin in ``ops/csrc/fused_block_long_sm90.cu``) at the flagship's
+L, X, A and C blocks in both dtypes ("fast", seeded weights with wq and wk
+2.75x wider, as ``chip_smoke.py``'s ``kernel_long``), the workspace made by
+this tree's qkv entry.  A measurement copy built with ``-DTANTE_PHASE_TIMING``
+counts, per CTA of the persistent grid, the SM cycles consumer thread 0
+spends waiting for k|v blocks, in the scores, the softmax (bf16: with the
+AV product), the AV product (f32), waiting for q tiles, in the tail
+(out-projection, LN2, fc1, fc2; LN2 with its barriers also alone, and per
+matmul its slab waits, products and epilogue) and at the barrier between an
+item's attention and its tail;
+one JSON line per block and dtype with the mean cycles per work item of each
+phase and its share, the items per CTA, the plan and the workspace bytes
+read.  With
+``--baseline DIR`` the attention entry of DIR's ``fused_block_long_sm90.cu``
+(its plan from DIR's own ``ops/fused_block.py``, on the same workspace and
+re-laid weights) and this tree's are timed in turns (baseline, this tree,
+this tree, baseline) by CUDA events on the same inputs, and their outputs
+compared.
 """
 
 from __future__ import annotations
@@ -674,6 +696,136 @@ def packed_in_turns(dev, stream, card: str, baseline: str) -> None:
         }), flush=True)
 
 
+# ---- the long block's attention entry (--long) ----------------------------------
+
+LONG_PHASES = ("kv_wait", "scores", "softmax", "av", "q_wait", "tail", "between", "ln2")
+# axis -> (sequences, L, width): the flagship's long blocks (chip_smoke.py:LONG_CASES).
+LONG_AXES = {"L": (32, 768, 256), "X": (128, 192, 256), "A": (8, 3072, 256),
+             "C": (24576, 256, 128)}
+LONG_QK_SCALE = 2.75
+
+
+def _long_setup(axis: str, dtype, dev):
+    """A flagship long block in ``dtype``: parameters, input, output, this
+    tree's plan, re-laid weights and workspace."""
+    s, l, c = LONG_AXES[axis]
+    rng = np.random.default_rng(80 + list(LONG_AXES).index(axis))
+
+    def u(*shape, scale=1.0, offset=0.0):
+        a = offset + scale * rng.uniform(-1.0, 1.0, size=shape) / np.sqrt(shape[0])
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+
+    p = fb.BlockParams(
+        u(c, scale=0.1, offset=1.0), u(c, scale=0.1), u(c, c, scale=LONG_QK_SCALE), u(c),
+        u(c, c, scale=LONG_QK_SCALE), u(c), u(c, c), u(c), u(c, c), u(c),
+        u(c, scale=0.1, offset=1.0), u(c, scale=0.1), u(c, c), u(c), u(c, c), u(c))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(90 + list(LONG_AXES).index(axis))
+    x = torch.randn((s, l, c), generator=gen, device=dev).to(dtype)
+    plan = fb.long_plan(c, c, HEADS, dtype)
+    w = fb.sm90_weights(p, HEADS, plan)
+    return p, x, torch.empty_like(x), plan, w, fb.long_qkv_fwd(x, w, plan, l)
+
+
+def _long_launch(lib, plan_ints: list, x, ws, y, w, stream):
+    """A launch of ``lib``'s attention entry ("fast", not causal)."""
+    s, l, c = x.shape
+    f32 = x.dtype == torch.float32
+    entry = lib.tante_block_long_attn_sm90_f32_fwd if f32 else lib.tante_block_long_attn_sm90_fwd
+    ptrs, arr = fb._ptr_array([w]), (ctypes.c_int * len(plan_ints))(*plan_ints)
+    return lambda: entry(x.data_ptr(), ws.data_ptr(), y.data_ptr(), ptrs, arr, s, l, c, c,  # noqa: E731
+                         HEADS, 0, 0, x.device.index, stream)
+
+
+def long_phases(dev, stream, card: str) -> None:
+    """Per-item phases of the long attention entry (see the module text)."""
+    info = _build.compile_library("fused_block_long_sm90", "fused_block_long_sm90_phases",
+                                  TIMING_FLAGS)
+    lib = _build.bind(ctypes.CDLL(info["library"]), "fused_block_long_sm90")
+    for fn in ("tante_block_long_phase_read", "tante_sm90_gemm_cycles"):
+        getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int]
+        getattr(lib, fn).restype = ctypes.c_int
+    n_ph = lib.tante_block_long_phase_count()
+    for dtype in (torch.bfloat16, torch.float32):
+        for axis in LONG_AXES:
+            p, x, y, plan, w, ws = _long_setup(axis, dtype, dev)
+            s, l, c = x.shape
+            launch = _long_launch(lib, plan.ints(), x, ws, y, w, stream)
+            work = fb.long_attn_work(x, plan, c)
+            grid = work["grid"]
+            if launch() != 0:
+                raise RuntimeError(f"{axis}: launch failed")
+            torch.cuda.synchronize()
+            _read(lib, "tante_block_long_phase_read", (grid, n_ph))  # zeroes the counters
+            _read(lib, "tante_sm90_gemm_cycles", (grid, 4, 3))
+            iters = 2 if axis == "C" else 10
+            ms = _timed(launch, iters)
+            cyc = _read(lib, "tante_block_long_phase_read", (grid, n_ph)).astype(np.float64)
+            per_mm = _read(lib, "tante_sm90_gemm_cycles", (grid, 4, 3)).astype(np.float64)
+            per_cta_items = cyc[:, -1] / (iters + 3)
+            total = cyc[:, :-1].sum(axis=0) / cyc[:, -1].sum()  # cycles per item
+            per_mm = per_mm.sum(axis=0) / cyc[:, -1].sum()
+            item = float(total.sum() - total[LONG_PHASES.index("ln2")])  # LN2 is in the tail
+            print(json.dumps({
+                "kernel": "long attention entry (fused_block_long_sm90.cu), timing build",
+                "axis": axis, "dtype": str(dtype).replace("torch.", ""), "shape": [s, l, c],
+                "plan": plan._asdict(), **work,
+                "items_per_cta": [float(per_cta_items.min()), float(per_cta_items.max())],
+                "timing_build_ms": ms,
+                "cycles_per_item": {k: float(v) for k, v in zip(LONG_PHASES, total)},
+                "item_cycles": item,
+                "share_of_item": {k: float(v) / item for k, v in zip(LONG_PHASES, total)},
+                "tail_matmul_cycles_per_item": {
+                    k: v for k, v in _cycles(per_mm, ("slab_wait", "mma", "epilogue")).items()
+                    if k != "qkv"},
+                "workspace_reads": fb.long_attn_reads(plan, s, l, c, False, False, dtype,
+                                                      work["big"]),
+                "card": card,
+            }), flush=True)
+            del x, y, ws
+            torch.cuda.empty_cache()
+
+
+def long_in_turns(dev, stream, card: str, baseline: str) -> None:
+    """The baseline tree's long attention entry and this tree's in turns."""
+    source = Path(baseline) / "tante_tpu_torch" / "ops" / "csrc" / "fused_block_long_sm90.cu"
+    info = _build.compile_library("fused_block_long_sm90", "fused_block_long_sm90_baseline", (),
+                                  source=source)
+    other = _build.bind(ctypes.CDLL(info["library"]), "fused_block_long_sm90")
+    this = _build.load("fused_block_long_sm90")
+    base_fb = _baseline_fused_block(baseline)
+    for dtype in (torch.bfloat16, torch.float32):
+        for axis in LONG_AXES:
+            p, x, y, plan, w, ws = _long_setup(axis, dtype, dev)
+            s, l, c = x.shape
+            base_plan = base_fb.long_plan(c, c, HEADS, dtype)
+            y_base = torch.empty_like(y)
+            runs = {"baseline": _long_launch(other, base_plan.ints(), x, ws, y_base,
+                                             base_fb.sm90_weights(p, HEADS, base_plan), stream),
+                    "this_tree": _long_launch(this, plan.ints(), x, ws, y, w, stream)}
+            for launch in runs.values():
+                if launch() != 0:
+                    raise RuntimeError(f"{axis}: launch failed")
+            torch.cuda.synchronize()
+            diff = float((y_base.float() - y.float()).abs().max())
+            iters = 3 if axis == "C" else 50
+            b1 = event_ms(runs["baseline"], iters=iters)
+            t1 = event_ms(runs["this_tree"], iters=iters)
+            t2 = event_ms(runs["this_tree"], iters=iters)
+            b2 = event_ms(runs["baseline"], iters=iters)
+            print(json.dumps({
+                "kernel": "long attention entry in turns", "axis": axis,
+                "dtype": str(dtype).replace("torch.", ""), "baseline": str(source),
+                "shape": [s, l, c], "baseline_ms": (b1 + b2) / 2, "this_tree_ms": (t1 + t2) / 2,
+                "speedup": (b1 + b2) / (t1 + t2),
+                "baseline_ms_turns": [b1, b2], "this_tree_ms_turns": [t1, t2],
+                "max_abs_diff_baseline_vs_this_tree": diff,
+                "max_abs_output": float(y_base.float().abs().max()), "card": card,
+            }), flush=True)
+            del x, y, y_base, ws
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device available", file=sys.stderr)
@@ -686,6 +838,19 @@ def main() -> int:
         packed_phases(dev, stream, card)
         if "--baseline" in args:
             packed_in_turns(dev, stream, card, args[args.index("--baseline") + 1])
+        return 0
+    if "--long" in args:
+        dev, stream = torch.device("cuda"), torch.cuda.current_stream().cuda_stream
+        specs = [("fused_block_long_sm90", "fused_block_long_sm90_phases", TIMING_FLAGS),
+                 ("fused_block_long_sm90", "fused_block_long_sm90", ())]
+        if "--baseline" in args:
+            base = Path(args[args.index("--baseline") + 1])
+            specs.append(("fused_block_long_sm90", "fused_block_long_sm90_baseline", (),
+                          base / "tante_tpu_torch" / "ops" / "csrc" / "fused_block_long_sm90.cu"))
+        _build.compile_libraries(specs)  # one nvcc each, together; each is found built below
+        if "--baseline" in args:
+            long_in_turns(dev, stream, card, args[args.index("--baseline") + 1])
+        long_phases(dev, stream, card)
         return 0
     if "--f32" in args:
         dev, stream = torch.device("cuda"), torch.cuda.current_stream().cuda_stream

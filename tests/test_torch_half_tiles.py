@@ -70,8 +70,9 @@ def relaid_mlp_half(x, w: tblock.HalfWeights, plan):
 
 
 # (C, hidden, heads, tp, L, causal): the flagship width at every tp the
-# 8 heads split into (tp 8: 32-wide shards, zero-padded to one group), and
-# C = 128 with hidden 256 (tp 4: a 32-wide attention shard, 64-wide MLP).
+# 8 heads split into (tp 8: 32-wide shards, zero-padded to one group),
+# C = 128 with hidden 256 (tp 4: a 32-wide attention shard, 64-wide MLP),
+# and the channel block's width at tp 8 (16-wide shards: one head of 16).
 HALF_CASES = [
     (256, 256, 8, 1, 16, False),
     (256, 256, 8, 2, 16, False),
@@ -80,6 +81,7 @@ HALF_CASES = [
     (256, 256, 8, 8, 4, True),
     (128, 256, 4, 2, 16, True),
     (128, 256, 4, 4, 8, False),
+    (128, 128, 8, 8, 16, True),
 ]
 
 
@@ -237,10 +239,10 @@ def test_half_tiles_cover_every_row_once(kind, n_seqs, l):
 
 def test_half_plan_keeps_the_whole_envelope_and_refuses_outside_it():
     """Every C and local width ``_check_half_x`` takes (C % 64 == 0, C <= 512,
-    a multiple of 32 in [32, 2C]; the attention half's also <= C) has a plan
+    a multiple of 16 in [16, 2C]; the attention half's also <= C) has a plan
     within the shared memory, at every L up to 64."""
     for c in range(64, 513, 64):
-        for local in range(32, 2 * c + 1, 32):
+        for local in range(16, 2 * c + 1, 16):
             cases = [("mlp", 1)] + [("attn", l) for l in (1, 3, 4, 16, 48, 64) if local <= c]
             for kind, l in cases:
                 plan = tblock.half_plan(kind, l, c, local)
@@ -252,7 +254,7 @@ def test_half_plan_keeps_the_whole_envelope_and_refuses_outside_it():
                 assert plan.width % plan.np[0] == 0 or kind == "attn"
                 assert c % plan.np[1] == 0 and plan.rows == (128 if c <= 256 else 64)
     for kind, l, c, local in [("attn", 65, 256, 128), ("attn", 0, 256, 128),
-                              ("attn", 16, 256, 288), ("mlp", 1, 256, 544), ("mlp", 1, 256, 48),
-                              ("mlp", 1, 256, 16), ("mlp", 1, 576, 128), ("mlp", 1, 96, 64),
+                              ("attn", 16, 256, 288), ("mlp", 1, 256, 544), ("mlp", 1, 256, 40),
+                              ("mlp", 1, 256, 8), ("mlp", 1, 576, 128), ("mlp", 1, 96, 64),
                               ("attn", 16, 192, 0), ("mlp", 2, 256, 128)]:
         assert tblock.half_plan(kind, l, c, local) is None, (kind, l, c, local)

@@ -65,7 +65,7 @@ the shards'
 partials summed (rounded to bf16 as the all-reduce leaves them) plus bias and
 residual against the unsplit f32 block; their Functions' gradients as the
 block's.  The f32 halves (``test_f32_tp_half_*``, ``fused_half_sm90_f32.cu``)
-at every head dim, both softmax forms and shard widths 32 / 64 / 128: f32
+at every head dim, both softmax forms and shard widths 16 / 32 / 64 / 128: f32
 inputs and weights against the f32 plain halves with TF32 off, relative L2
 <= 1e-6 and max abs <= 1e-4 max |plain|; the shards' f32 partials summed,
 plus bias and residual, against the unsplit f32 block kernel within 1e-6;
@@ -77,7 +77,10 @@ the attention kernel over streamed key blocks and the block's tail) at
 L = 48 (below the single-block limit, through the low-level entry) to 3072,
 causal and not, both softmax forms, bf16 and f32 at the block tolerances
 above; the C axis's block (width 128, head dim 16), head dims 32 and 64,
-C = 512 in bf16, ragged tiles; one launch of each entry per block;
+C = 512 in bf16, ragged tiles; launches that mix 128-row items with 64-row
+pair items (the tiles past the grid's last whole wave), two launches
+bit-equal, and the launch's item counts against their Python mirror
+(``long_big_tiles``, ``long_item_map``); one launch of each entry per block;
 ``fused_block_apply`` at L > 64 equal to it bit for bit; its plan against
 the kernel's own mirror (``tante_block_long_smem``); refusals (a CPU tensor,
 head dim 8, f32 past C = 256, mixed dtypes); gradients through its
@@ -85,14 +88,14 @@ Function.
 
 The long attention half (``attn_half_apply`` at L > 64: the qkv kernel into
 the shard's workspace, then the attention kernel and out-projection partial,
-``fused_half_long_sm90.cu``): every shard at tp 2 and 4 (the C block's
-32-wide shard padded to a group), causal and not, both softmax forms, bf16
+``fused_half_long_sm90.cu``): every shard at tp 2, 4 and 8 (the C block's
+32- and 16-wide shards padded to a group), causal and not, both softmax forms, bf16
 at the halves' limits and f32 at the long block's (wq / wk 2.75x wider, as
 the long block's cases), one launch of each kernel a call and none of the
 short half's, two launches bit-equal; the shards' partials + bo, then the
 MLP halves + b2, against ``fused_block_long``; gradients through its
 Function; its plan against ``tante_attn_half_long_smem``; refusals (a CPU
-tensor, mixed dtypes, f32 past C = 256, the channel block at tp 8)."""
+tensor, mixed dtypes, f32 past C = 256)."""
 
 from collections import Counter
 
@@ -1078,6 +1081,14 @@ def test_tp_half_kernels_match_plain_tp8(cuda, s, l, causal):
     test_tp_half_kernels_match_plain(cuda, 8, s, l, 256, 256, 8, causal)
 
 
+@pytest.mark.parametrize("s,l,causal", [(1536, 16, False), (6144, 4, True), (7, 48, False)])
+def test_tp_half_kernels_match_plain_sixteen_wide(cuda, s, l, causal):
+    """tp = 8 at the channel block's width (C 128, 8 heads, hidden 128):
+    16-wide shards (one head of d = 16, a 16-wide hidden shard), zero-padded
+    to one 64-column group (three zero heads, 48 zero hidden columns)."""
+    test_tp_half_kernels_match_plain(cuda, 8, s, l, 128, 128, 8, causal)
+
+
 @pytest.mark.parametrize("tp,s,l,c,hidden,heads,causal", [
     (2, 1536, 16, 256, 256, 8, False),
     (4, 6144, 4, 256, 256, 8, True),
@@ -1194,9 +1205,9 @@ def test_tp_half_kernels_refuse_what_they_cannot_take(cuda):
         fb.attn_half_apply(torch.zeros(4, 16, 256, device=cuda), ap, 16, 4, False)
     with pytest.raises(ValueError):  # head dim 128
         fb.attn_half_apply(bf16_normal((4, 16, 256), 0, cuda), ap, 16, 1, False)
-    with pytest.raises(ValueError):  # a local width that is not whole warp passes
-        bad = fb.MlpHalfParams(mp.ln2_scale, mp.ln2_bias, mp.w1[:, :48].contiguous(),
-                               mp.b1[:48].contiguous(), mp.w2[:48].contiguous())
+    with pytest.raises(ValueError):  # a local width that is not a multiple of 16
+        bad = fb.MlpHalfParams(mp.ln2_scale, mp.ln2_bias, mp.w1[:, :40].contiguous(),
+                               mp.b1[:40].contiguous(), mp.w2[:40].contiguous())
         fb.mlp_half_apply(bf16_normal((4, 16, 256), 0, cuda), bad)
 
 
@@ -1263,6 +1274,7 @@ F32_HALF_CASES = [
     (21, 3, 256, 256, 4, 4, False),      # d 64, CA 64, padded rows (63 of 64)
     (9, 32, 128, 256, 8, 2, False),      # d 16, CA 64, HL 128
     (7, 48, 128, 256, 8, 4, True),       # d 16, CA 32, HL 64
+    (9, 32, 128, 128, 8, 8, False),      # d 16, CA 16, HL 16: the channel block at tp 8
 ]
 
 
@@ -1454,6 +1466,50 @@ def test_apply_sends_long_sequences_to_the_long_entry(cuda, no_tf32, dtype):
     torch.testing.assert_close(a, run_long(x, p, 192, 8, False), atol=0, rtol=0)
 
 
+# (L, S at one and at two waves of 128-row tiles on 132 SMs) where the
+# launch mixes the two item sizes: tiles past the first wave as pair items
+# (S 140 / 47), and every tile one item (S 264 / 88).
+@pytest.mark.parametrize("softmax", ["fast", "safe"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l,s", [(100, 140), (100, 264), (257, 47), (257, 88), (65, 140)])
+def test_long_block_items_and_pair_items_match_plain(cuda, l, s, causal, softmax):
+    """bf16 at the flagship width where a launch runs 128-row items and, past
+    the grid's last whole wave, 64-row pair items (``long_attn_work``):
+    ragged and causal, both softmax forms; two launches bit-equal."""
+    p = params(256, 256, seed=l + s, device=cuda, qk_scale=LONG_QK_SCALE)
+    x = bf16_normal((s, l, 256), seed=l + s, device=cuda)
+    work = fb.long_attn_work(x, fb.long_plan(256, 256, 8), 256)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert work["big"] == fb.long_big_tiles(fb.long_plan(256, 256, 8), work["tiles"], sms,
+                                            torch.bfloat16)
+    fb.set_block_tuning(softmax=softmax)
+    try:
+        got = run_long(x, p, l, 8, causal)
+        assert torch.equal(got, fb.fused_block_long(x, p, l, 8, causal))
+    finally:
+        fb.set_block_tuning(softmax="fast")
+    want = fb.block_ref(x.float(), f32(p), l, 8, causal)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_long_attn_work_matches_the_mirror(cuda):
+    """The launch's tiles, big tiles and items (the kernel library's
+    ``tante_block_long_attn_items``) against ``long_big_tiles`` and
+    ``long_item_map`` at the flagship's long shapes, both dtypes."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for s, l, c in [(32, 768, 256), (128, 192, 256), (8, 3072, 256), (24576, 256, 128),
+                    (47, 257, 256)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.empty((s, l, c), device=cuda, dtype=dtype)
+            plan = fb.long_plan(c, c, 8, dtype)
+            work = fb.long_attn_work(x, plan, c)
+            assert work["tiles"] == s * -(-l // plan.items)
+            assert work["big"] == fb.long_big_tiles(plan, work["tiles"], sms, dtype)
+            assert work["items"] == len(fb.long_item_map(plan, s, l, work["big"]))
+            assert work["grid"] == min(work["items"], sms)
+
+
 def test_long_plan_matches_the_kernels_mirror(cuda):
     import ctypes
 
@@ -1467,7 +1523,8 @@ def test_long_plan_matches_the_kernels_mirror(cuda):
             if plan is None:
                 continue
             out = (ctypes.c_longlong * 2)()
-            lib.tante_block_long_smem((ctypes.c_int * 7)(*plan.ints()), c, hidden,
+            ints = plan.ints()
+            lib.tante_block_long_smem((ctypes.c_int * len(ints))(*ints), c, hidden,
                                       int(dtype == torch.float32), out)
             assert tuple(out) == fb.long_smem(plan, c, hidden, dtype), (l, c, hidden, dtype)
 
@@ -1521,6 +1578,7 @@ LONG_HALF_CASES = [
     (24, 100, 256, 8, 2, True),
     (24, 65, 256, 4, 4, True),
     (12, 130, 512, 8, 2, False),
+    (96, 256, 128, 8, 8, False),   # the C block at tp 8: 16-wide shards, one head of 16
 ]
 
 
@@ -1569,7 +1627,7 @@ def test_long_half_matches_plain(cuda, no_tf32, s, l, c, heads, tp, causal, dtyp
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("s,l,c,heads,tp,causal", LONG_HALF_CASES[:4])
+@pytest.mark.parametrize("s,l,c,heads,tp,causal", [*LONG_HALF_CASES[:4], LONG_HALF_CASES[-1]])
 def test_long_half_shards_recombine_into_the_long_block(cuda, no_tf32, s, l, c, heads, tp,
                                                         causal, dtype):
     """The shards' partials summed, + bo and residual, then the MLP halves
@@ -1623,7 +1681,7 @@ def test_long_half_plan_matches_the_kernels_mirror(cuda):
 
     lib = _build.load("fused_half_long_sm90")
     for c, local, heads in [(256, 128, 4), (256, 64, 2), (128, 64, 4), (128, 32, 2),
-                            (512, 256, 4), (192, 96, 3), (256, 256, 4)]:
+                            (512, 256, 4), (192, 96, 3), (256, 256, 4), (128, 16, 1)]:
         for dtype in (torch.bfloat16, torch.float32):
             plan = fb.half_long_plan(c, local, heads, dtype)
             if plan is None:
@@ -1646,7 +1704,4 @@ def test_long_half_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="no long attention half plan"):  # f32 holds C <= 256
         fb.attn_half_apply(f32_normal((2, 100, 512), 0, cuda), halves(shard_block(p512, 2, 0))[0],
                            100, 4, False)
-    p128 = params(128, 128, 0, cuda)
-    with pytest.raises(ValueError, match="tp 8"):  # the C block at tp 8: 16-wide shards
-        fb.attn_half_apply(bf16_normal((4, 256, 128), 0, cuda), halves(shard_block(p128, 8, 0))[0],
-                           256, 1, False)
+

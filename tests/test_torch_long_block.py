@@ -2,25 +2,34 @@
 
 The long entry (``ops/csrc/fused_block_long_sm90.cu``) runs a block at any
 sequence length as two kernels: q|k|v of token tiles into a workspace, then
-per (sequence, 64-query tile) attention over the keys streamed in blocks of
-64.  ``long_block`` below is that order of work in PyTorch: the "fast"
-softmax key block by key block (``exp2(min(s, 60 log2 e))`` of the admitted
-keys, the f32 denominator summed per block, the unnormalised weights
-rounded to the activation dtype before the AV product, the result scaled
-by ``1 / (sum + 1e-30)`` after it), the "safe" softmax in two passes (each
-row's maximum over all its keys, then ``exp2(s - max)``), causal masks, and
-the activation dtype's rounding points (bf16: q/k/v, the weights, the
-attention output, the fc1 output and both residual sums).  It is held
-against the JAX package's block (``_xla_block``, what JAX runs off the TPU)
-on the same numpy-seeded inputs: f32 within the card's f32 tolerance
-(``chip_smoke.py``: relative L2 <= 1e-5, max abs <= 1e-4 max |ref|); bf16
-against JAX's bf16 block within the card's bf16 kernel tolerance (5e-2
-abs + 2e-2 rel: both round to bf16, at places that differ).
+an attention entry on a persistent grid whose work items are (sequence,
+R query rows): R = 128 in bf16 (two warpgroups of 64 rows), 64 in f32, and
+in bf16 the tiles past the grid's last whole wave as two 64-row "pair"
+items each, whose warpgroups take the even and the odd key blocks and add
+their sums.  ``long_block`` below is that order of work in PyTorch
+(``fused_block.long_item_map``'s items): the "fast" softmax key block by
+key block (``exp2(min(s, 60 log2 e))`` of the admitted keys, the f32
+denominator summed per block, the unnormalised weights rounded to the
+activation dtype before the AV product, the result scaled by
+``1 / (sum + 1e-30)`` after it), the "safe" softmax in two passes (each
+row's maximum over all its keys, then ``exp2(s - max)``), causal masks, the
+activation dtype's rounding points (bf16: q/k/v, the weights, the attention
+output, the fc1 output and both residual sums), and in f32 the scores and
+the AV product as 3xTF32 (``_torch_tf32.mm3``).  It is held against the JAX
+package's block (``_xla_block``, what JAX runs off the TPU) on the same
+numpy-seeded inputs: f32 within the card's f32 tolerance (``chip_smoke.py``:
+relative L2 <= 1e-5, max abs <= 1e-4 max |ref|); bf16 against JAX's bf16
+block within the card's bf16 kernel tolerance (5e-2 abs + 2e-2 rel: both
+round to bf16, at places that differ).  ``streamed_attention`` is the long
+half's order of work (per 64-query tile, key blocks in order), which
+``test_torch_long_half.py`` models on it.
 
 With wq and wk widened as ``chip_smoke.py`` seeds them for the card, the
 bf16 limit sees a wrong attention (its control, the last key block
-dropped).  Then the plan's envelope, the fusion gates, the plain block's
-chunked attention, and what the wrappers do with a CPU tensor."""
+dropped).  Then the item map (every query of every sequence in exactly one
+item), the plan's envelope and its fit at every flagship shape, the fusion
+gates, the plain block's chunked attention, and what the wrappers do with a
+CPU tensor."""
 
 import functools
 
@@ -31,6 +40,7 @@ import pytest
 import torch
 
 from _torch_parity import block_params, to_torch
+from _torch_tf32 import mm3
 from tante_tpu.ops import pallas_block as jblock
 from tante_tpu_torch.ops import fused_block as tblock
 from tante_tpu_torch.ops.activations import gelu_tanh_f32
@@ -92,11 +102,59 @@ def streamed_attention(q, k, v, causal, softmax, dt, kb=tblock.LONG_KEY_BLOCK):
     return r(o * (1.0 / (den + 1e-30))).transpose(1, 2).reshape(s, l, heads * d)
 
 
-def long_block(x, p, l, heads, causal, softmax, kb=tblock.LONG_KEY_BLOCK):
-    """The long entry's order of work on (S, L, C) rows in x's dtype."""
+def item_attention(q, k, v, causal, softmax, dt, items, tile_rows, kb=tblock.LONG_KEY_BLOCK):
+    """The attention entry's order of work on (S, heads, L, d) q/k/v over
+    ``items`` (``long_item_map`` of ``tile_rows``-row tiles): per item its
+    query rows against the key blocks its queries admit, the sums of a pair
+    item's (a half tile's) even and odd blocks added at the end; f32
+    products as 3xTF32.  (S, L, heads * d) in ``dt``."""
+    r = rounder(dt)
+    s, heads, l, d = q.shape
+    mm = mm3 if dt == torch.float32 else (lambda a, b: a @ b)
+    out = torch.zeros(s, heads, l, d)
+    for seq, q0, rows, valid in items:
+        if valid <= 0:
+            continue
+        qi = torch.arange(q0, q0 + valid)[:, None]
+        kend = q0 + valid if causal else l
+        blocks = list(range(0, kend, kb))
+        pair = rows < tile_rows
+
+        def scores(k0):
+            kk = k[seq, :, k0:k0 + kb]
+            sc = torch.stack([mm(q[seq, h, q0:q0 + valid], kk[h].T) for h in range(heads)])
+            keys = torch.arange(k0, k0 + kk.shape[1])[None, :]
+            ok = keys <= qi if causal else torch.ones(valid, keys.shape[1], dtype=torch.bool)
+            return sc, ok
+
+        mx = torch.full((heads, valid, 1), -1e30)
+        if softmax == "safe":
+            for k0 in blocks:
+                sc, ok = scores(k0)
+                mx = torch.maximum(mx, sc.masked_fill(~ok, -1e30).amax(-1, keepdim=True))
+        o = [torch.zeros(heads, valid, d), torch.zeros(heads, valid, d)]
+        den = [torch.zeros(heads, valid, 1), torch.zeros(heads, valid, 1)]
+        for b, k0 in enumerate(blocks):
+            sc, ok = scores(k0)
+            e = torch.exp2(sc - mx if softmax == "safe" else torch.clamp(sc, max=60 * LOG2E))
+            e = torch.where(ok, e, torch.zeros(()))
+            w = b % 2 if pair else 0  # the warpgroup that weighs block b
+            den[w] = den[w] + e.sum(-1, keepdim=True)
+            vv = v[seq, :, k0:k0 + kb]
+            o[w] = o[w] + torch.stack([mm(r(e[h]), vv[h]) for h in range(heads)])
+        out[seq, :, q0:q0 + valid] = r((o[0] + o[1]) * (1.0 / ((den[0] + den[1]) + 1e-30)))
+    return out.transpose(1, 2).reshape(s, l, heads * d)
+
+
+def long_block(x, p, l, heads, causal, softmax, kb=tblock.LONG_KEY_BLOCK, big=None):
+    """The long entry's order of work on (S, L, C) rows in x's dtype: the
+    plan's items (``big`` tiles one item each, all by default; the others
+    two pair items)."""
     dt = x.dtype
     r, f = rounder(dt), (lambda t: t.float())
-    attn = streamed_attention(*long_qkv(x, p, heads), causal, softmax, dt, kb)
+    plan = tblock.long_plan(x.shape[-1], p.w1.shape[-1], heads, dt)
+    items = tblock.long_item_map(plan, x.shape[0], l, big)
+    attn = item_attention(*long_qkv(x, p, heads), causal, softmax, dt, items, plan.items, kb)
     xm = r(f(x) + r(attn @ f(p.wo) + f(p.bo)))
     yn = r(tblock.ln(xm.to(dt), p.ln2_scale, p.ln2_bias))
     h = r(gelu_tanh_f32(yn @ f(p.w1) + f(p.b1)))
@@ -160,6 +218,87 @@ def test_bf16_limit_sees_a_dropped_key_block_under_a_peaked_softmax(l, softmax):
     assert np.any(np.abs(wrong - want) > limit)
 
 
+@pytest.mark.parametrize("softmax", ["fast", "safe"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [65, 100, 256, 3072])
+def test_pair_items_bf16_match_jax_bf16(l, causal, softmax):
+    """Pair items (no tile one item: every tile two 64-row items whose
+    warpgroups sum the even and the odd key blocks apart) and a mix (the
+    first tile one item) against JAX's bf16 block at the bf16 kernel
+    tolerance."""
+    x, p, want = case(l, causal, True)
+    xb = torch.from_numpy(x).bfloat16()
+    pb = tblock.BlockParams(*(t.bfloat16() for t in to_torch(p)))
+    for big in (0, 1):
+        got = long_block(xb, pb, l, HEADS, causal, softmax, big=big).numpy()
+        assert np.all(np.abs(got - want) <= BF16_ATOL + BF16_RTOL * np.abs(want))
+
+
+def test_pair_items_only_reorder_the_f32_sums():
+    """In f32 (the model's 3xTF32 products) a pair item's two partial sums
+    give the whole items' block within f32 rounding."""
+    x, p, _ = case(256, False, False)
+    xt, pt = torch.from_numpy(x), to_torch(p)
+    qkv = long_qkv(xt, pt, HEADS)
+    for softmax in ("fast", "safe"):
+        whole = item_attention(*qkv, False, softmax, torch.float32,
+                               tblock.long_item_map(tblock.long_plan(C, C, HEADS, torch.bfloat16),
+                                                    2, 256), 128)
+        pairs = item_attention(*qkv, False, softmax, torch.float32,
+                               tblock.long_item_map(tblock.long_plan(C, C, HEADS, torch.bfloat16),
+                                                    2, 256, big=0), 128)
+        torch.testing.assert_close(pairs, whole, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("l", [65, 192, 256, 257, 768, 3072])
+def test_item_map_covers_every_query_once(l, dtype):
+    """Every (sequence, query) in exactly one item, at ragged and whole last
+    tiles, with every tile one item, none, and some (the grid's last wave as
+    pair items); no item crosses a sequence; empty items only as the second
+    half of a ragged tile's pair."""
+    s = 3
+    plan = tblock.long_plan(C, C, HEADS, dtype)
+    tiles = s * -(-l // plan.items)
+    for big in sorted({tiles, 0, tiles // 2, 1}):
+        if dtype == torch.float32 and big != tiles:
+            continue  # f32 launches no pair items
+        seen = np.zeros((s, l), dtype=np.int64)
+        for seq, q0, rows, valid in tblock.long_item_map(plan, s, l, big):
+            assert rows in (plan.items, 64) and 0 <= seq < s
+            if valid <= 0:
+                assert rows == 64 and q0 >= l and q0 % plan.items == 64
+                continue
+            assert q0 + valid <= l and valid <= rows
+            seen[seq, q0:q0 + valid] += 1
+        assert (seen == 1).all()
+
+
+def test_pair_items_fill_the_grid_s_last_wave():
+    """The launch's choice (``long_big_tiles``, the mirror of
+    ``fused_block_long_sm90.cu:pair_items``) at the flagship on an H100's 132
+    SMs: A and L end on 60 tiles past the first wave (120 pair items, 1.6
+    waves' time against 2), X's 124 (248 pair items: 2.2 against 2) stays
+    whole, C's 48 past 372 waves go as pairs, f32 has none; the workspace
+    reads count a pair tile's k|v twice."""
+    plan = tblock.long_plan(256, 256, 8, torch.bfloat16)
+    bf16 = torch.bfloat16
+    assert tblock.long_big_tiles(plan, 8 * 24, 132, bf16) == 132           # A
+    assert tblock.long_big_tiles(plan, 32 * 6, 132, bf16) == 132           # L
+    assert tblock.long_big_tiles(plan, 128 * 2, 132, bf16) == 256          # X
+    plan_c = tblock.long_plan(128, 128, 8, bf16)
+    assert tblock.long_big_tiles(plan_c, 24576 * 2, 132, bf16) == 372 * 132
+    assert tblock.long_big_tiles(plan, 40, 132, bf16) == 0                 # under a wave
+    f32 = tblock.long_plan(256, 256, 8, torch.float32)
+    assert tblock.long_big_tiles(f32, 384, 132, torch.float32) == 384
+    a_whole = tblock.long_attn_reads(plan, 8, 3072, 256, False, False, torch.bfloat16)
+    a_pairs = tblock.long_attn_reads(plan, 8, 3072, 256, False, False, torch.bfloat16, 132)
+    assert (a_whole["items"], a_pairs["items"]) == (192, 132 + 120)
+    kv_tile = 4 * 48 * 64 * 128 * 2  # 4 groups, 48 blocks of 64 keys x 128 values
+    assert a_pairs["bytes_read"] - a_whole["bytes_read"] == 60 * kv_tile
+    assert a_whole["unique_bytes"] == 3 * 8 * 3072 * 256 * 2
+
+
 def test_streaming_is_the_softmax_of_all_keys_at_once():
     """Key blocks of 64 and one block of all keys give the same f32 block:
     the streamed sums only reorder."""
@@ -179,6 +318,11 @@ FLAGSHIP = {"L": (768, 256), "X": (192, 256), "A": (3072, 256), "C": (256, 128)}
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("axis", sorted(FLAGSHIP))
 def test_every_flagship_long_shape_has_a_plan_that_fits(axis, dtype):
+    """Both entries within ``SMEM_OPTIN``; bf16 items of 128 rows with the
+    tail's tiles apart from the q slots and the ring (so the next item's
+    copies run under a tail, and pair items have their exchange area), x'
+    kept in shared memory at the C block (f32: beside a k|v ring of 2); at
+    least three weight stages, and three k|v stages elsewhere."""
     _, c = FLAGSHIP[axis]
     plan = tblock.long_plan(c, c, 8, dtype)
     assert plan is not None
@@ -186,8 +330,13 @@ def test_every_flagship_long_shape_has_a_plan_that_fits(axis, dtype):
     assert qkv <= tblock.SMEM_OPTIN and attn <= tblock.SMEM_OPTIN
     assert plan.np[0] == tblock.SM90_QKV_N
     assert plan.rows == (64 if dtype == torch.float32 else 128)
-    assert 2 <= plan.qkv_stages <= 4 and 2 <= plan.stages <= 4
-    assert len(plan.ints()) == 7
+    assert 2 <= plan.qkv_stages <= 4 and 3 <= plan.stages <= 4 and 2 <= plan.kv_stages <= 4
+    assert plan.items == (64 if dtype == torch.float32 else 128)
+    assert plan.q_slots == 1 or dtype == torch.bfloat16
+    assert plan.overlap == (dtype == torch.float32 and c == 256)
+    assert plan.keep == (c == 128)  # bf16: one out-projection pass; f32: room beside the ring
+    assert plan.kv_stages >= (2 if plan.keep and dtype == torch.float32 else 3)
+    assert len(plan.ints()) == 12
 
 
 def test_plan_envelope():

@@ -7,9 +7,9 @@ blocks of 64 and the out-projection partial), on the CPU the plain half
 ``attn_half_ref``.  Held against the JAX package's ``_xla_attn_half`` on
 numpy-seeded inputs:
 
-- ``attn_half_ref`` at L 65-3072, causal and not, tp 2 and 4 (at C = 128
-  with 8 heads, tp 4 is a 32-wide shard, which the kernels pad to one
-  64-column group), f32 within 1e-5;
+- ``attn_half_ref`` at L 65-3072, causal and not, tp 2, 4 and 8 (at C = 128
+  with 8 heads, tp 4 is a 32-wide shard and tp 8 a 16-wide one, one head of
+  16, which the kernels pad to one 64-column group), f32 within 1e-5;
 - a CPU model of the kernels' order of work (``long_half``: the long
   block's pieces from ``test_torch_long_block.py`` on the zero-padded shard,
   cut at the out-projection, the partial rounded once): f32 within the
@@ -21,9 +21,9 @@ numpy-seeded inputs:
   wrong attention (``chip_smoke.dropped_keys_half_ref``, the last key block
   dropped, fails it);
 - the plan against ``SMEM_OPTIN`` at every flagship long shape for tp 2, 4
-  and 8 in both dtypes (the C block at tp 8, 16-wide shards, refused with a
-  message); the plain half's chunked attention; a CPU tensor takes the
-  plain half and launches nothing.
+  and 8 in both dtypes (the C block at tp 8 a 16-wide shard); the plain
+  half's chunked attention; a CPU tensor takes the plain half and launches
+  nothing.
 """
 
 import functools
@@ -96,7 +96,7 @@ def assert_half_close(got, want):
     assert np.linalg.norm(got - want) <= HALF_REL_L2 * np.linalg.norm(want)
 
 
-@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("tp", [2, 4, 8])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("l", [65, 100, 256, 3072])
 def test_plain_half_matches_jax_at_long_sequences(l, causal, tp):
@@ -106,7 +106,7 @@ def test_plain_half_matches_jax_at_long_sequences(l, causal, tp):
 
 
 @pytest.mark.parametrize("softmax", ["fast", "safe"])
-@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("tp", [2, 4, 8])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("l", [65, 100, 256, 3072])
 def test_streamed_half_f32_matches_jax(l, causal, tp, softmax):
@@ -116,7 +116,7 @@ def test_streamed_half_f32_matches_jax(l, causal, tp, softmax):
 
 
 @pytest.mark.parametrize("softmax", ["fast", "safe"])
-@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("tp", [2, 4, 8])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("l", [65, 100, 256, 3072])
 def test_streamed_half_bf16_within_the_half_limits(l, causal, tp, softmax):
@@ -161,17 +161,14 @@ FLAGSHIP = {"L": (768, 256), "X": (192, 256), "A": (3072, 256), "C": (256, 128)}
 @pytest.mark.parametrize("tp", [2, 4, 8])
 @pytest.mark.parametrize("axis", sorted(FLAGSHIP))
 def test_every_flagship_long_shard_has_a_plan_that_fits(axis, tp, dtype):
-    """tp 2 and 4 everywhere; tp 8 at C 256 (32-wide shards, padded); the C
-    block at tp 8 (16-wide shards) has no plan, and the halves refuse it
-    with a message that says so."""
+    """Every shard at tp 2, 4 and 8: tp 8 at C 256 a 32-wide shard, the C
+    block at tp 8 a 16-wide one (one head of 16), each padded to one group;
+    the halves' checks take both."""
     _, c = FLAGSHIP[axis]
     local, heads = c // tp, 8 // tp
     plan = tblock.half_long_plan(c, local, heads, dtype)
-    if local < 32:
-        assert plan is None
-        with pytest.raises(ValueError, match="tp 8"):
-            tblock._check_half_x(torch.zeros((1, 2, c), dtype=dtype), c, local)
-        return
+    tblock._check_half_x(torch.zeros((1, 2, c), dtype=dtype), c, local)
+    assert tblock.half_plan("mlp", 1, c, local, dtype).width == max(64, local)
     qkv, attn = tblock.half_long_smem(plan, c, dtype)
     assert qkv <= tblock.SMEM_OPTIN and attn <= tblock.SMEM_OPTIN
     assert plan.width == -(-local // 64) * 64 and plan.np[0] == tblock.SM90_QKV_N
@@ -186,7 +183,9 @@ def test_every_flagship_long_shard_has_a_plan_that_fits(axis, tp, dtype):
 def test_plan_envelope():
     assert tblock.half_long_plan(512, 256, 4, torch.float32) is None   # f32 C <= 256
     assert tblock.half_long_plan(256, 96, 12, torch.bfloat16) is None  # head dim 8
-    assert tblock.half_long_plan(256, 48, 3, torch.bfloat16) is None   # not a multiple of 32
+    assert tblock.half_long_plan(256, 48, 3, torch.bfloat16).width == 64  # 3 heads of 16, padded
+    with pytest.raises(ValueError, match="multiple of 16"):             # no head of 16 fits
+        tblock._check_half_x(torch.zeros((1, 2, 256)), 256, 40)
     assert tblock.half_long_plan(256, 512, 8, torch.bfloat16) is None  # wider than C
     big = tblock.half_long_plan(512, 256, 4, torch.bfloat16)
     assert big.rows == 64 and max(tblock.half_long_smem(big, 512, torch.bfloat16)) <= \
