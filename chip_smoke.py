@@ -197,8 +197,11 @@ script exits non-zero without the final result line):
             halves' time, no re-layout over the timed calls.
 16b. tp_kernel_long  the long attention half (``attn_half_apply`` at L > 64:
             ``fused_half_long_sm90.cu``'s qkv kernel into the shard's workspace,
-            then its attention kernel over streamed key blocks and the
-            out-projection partial) at the flagship's L, X, A and C blocks,
+            then its attention kernel, the long block's design over the
+            shard's head groups (a persistent grid of work items, each
+            case's items, grid and workspace bytes read reported beside the
+            workspace's unique 3*S*L*W), and the out-projection partial) at
+            the flagship's L, X, A and C blocks,
             every shard at tp 2 and shard 0 at tp 4 (at C a 32-wide shard
             padded to one group), every 16-wide shard of the C block at tp 8
             (one head of 16, three zero heads), causal L 100 and the "safe"
@@ -4018,10 +4021,14 @@ def phase_tp_kernel_long(dev, dtype) -> list[dict]:
         fb.set_block_tuning(softmax=softmax)
         every = tp in (2, 8)  # every shard, recombined into the block
         shards = [tp_halves(shard_block(p, tp, r)) for r in range(tp if every else 1)]
+        plan = fb.half_long_plan(c, ca, heads, dtype)
+        work = fb.half_long_attn_work(x, plan, l, ca)
         res = {"phase": "tp_kernel_long", "dtype": name, "case": label, "shape": [rows, l, c],
                "tp": tp, "shards_checked": len(shards), "local_heads": heads, "local_width": ca,
                "causal": causal, "softmax": softmax, "plain_sequences": n_plain,
-               "plan": fb.half_long_plan(c, ca, heads, dtype)._asdict()}
+               "plan": plan._asdict(), "attn_work": work,
+               "attn_workspace_reads": fb.long_attn_reads(plan, rows, l, plan.width, causal,
+                                                          softmax == "safe", dtype, work["big"])}
         ok, launched, repeat_equal, acc, worst = True, True, True, None, {}
         for r, (ap, _) in enumerate(shards):
             reset_counts()
@@ -4095,7 +4102,6 @@ def phase_tp_kernel_long(dev, dtype) -> list[dict]:
         if timed:
             ap = shards[0][0]
             apf = fb.AttnHalfParams(*(t.float() for t in ap))
-            plan = fb.half_long_plan(c, ca, heads, dtype)
             w = fb.half_long_weights(ap, heads, plan)
             ws = fb.half_long_qkv_fwd(x, w, plan, l, ca)
             iters = 3 if label == "C" else 10

@@ -247,6 +247,10 @@ def _bind_fused_half_long_sm90(lib: ctypes.CDLL) -> None:
     lib.tante_attn_half_long_smem.argtypes = [
         ctypes.POINTER(i), i, i, i, ctypes.POINTER(ctypes.c_longlong)]
     lib.tante_attn_half_long_smem.restype = i
+    if hasattr(lib, "tante_attn_half_long_attn_items"):  # an older build of the source has none
+        lib.tante_attn_half_long_attn_items.argtypes = [
+            ctypes.POINTER(i), i, i, i, i, i, i, ctypes.POINTER(i)]
+        lib.tante_attn_half_long_attn_items.restype = i
 
 
 def _bind_fused_chain_sm90(lib: ctypes.CDLL) -> None:

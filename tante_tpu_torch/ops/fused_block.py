@@ -54,8 +54,9 @@ Five entry points carry every attention block of the TANTE paths:
   ``attn_half_apply`` sends the attention half to ``attn_half_long``: two
   CUDA kernels (``csrc/fused_half_long_sm90.cu``, the long entry's split on
   the halves' padded shard), ``half_long_qkv_fwd`` (LN1 and the shard's
-  q|k|v into a workspace) and ``half_long_attn_fwd`` (the keys streamed per
-  sequence and 64-query tile, then the out-projection partial), replacing
+  q|k|v into a workspace) and ``half_long_attn_fwd`` (the long entry's
+  attention on a persistent grid of work items over the shard's head
+  groups, then the out-projection partial), replacing
   the same Pallas kernel at the lengths where JAX's tile holds one whole
   sequence.
 
@@ -650,21 +651,19 @@ fused_block_apply.launches = collections.Counter()
 # streamed through a ring, then the block's tail on the item's rows
 # --------------------------------------------------------------------------
 
-LONG_Q_ROWS = 64     # queries of a long half's attention tile (and of an f32 item)
+LONG_Q_ROWS = 64     # query rows of an f32 item (and of a bf16 pair item)
 LONG_KEY_BLOCK = 64  # keys of a streamed k|v block
-LONG_MAX_KV = 4      # k|v stages of the attention entry's ring
-LONG_MAX_Q = 2       # q slots of the attention entry
-# A bf16 pair item's exchange area in the tail's tile h (fused_block_long_sm90.cu:
+LONG_MAX_KV = 4      # k|v stages of an attention kernel's ring
+LONG_MAX_Q = 2       # q slots of an attention kernel
+# A bf16 pair item's exchange area in the tail's tile h (long_sm90.cuh:
 # kPairScratch): 40 floats for each thread of the second warpgroup, 8 for every
 # consumer thread.
 LONG_PAIR_SCRATCH = 128 * 40 * 4 + 256 * 8 * 4
-# Barriers of the attention entry: the weight ring's, the k|v ring's, the q
+# Barriers of an attention kernel: the weight ring's, the k|v ring's, the q
 # slots' (full and empty each) and the item's end.
 _LONG_ATTN_BARS = 2 * SM90_MAX_STAGES + 2 * LONG_MAX_KV + 2 * LONG_MAX_Q + 1
-# Row strides of the long half's staged q tile and k|v block (bf16, f32);
-# the long entry's f32 slots and stages are laid out alike.
-_LONG_Q_LD = {torch.bfloat16: 64 + 8, torch.float32: 64 + 4}
-_LONG_KV_LD = {torch.bfloat16: 128 + 8, torch.float32: 128 + 4}
+# Row strides (floats) of an f32 q slot and k|v stage.
+_LONG_Q_LD_F32, _LONG_KV_LD_F32 = 64 + 4, 128 + 4
 
 
 class LongPlan(NamedTuple):
@@ -706,25 +705,19 @@ def _long_qkv_smem(rows: int, stages: int, c: int, dtype: torch.dtype) -> int:
     return ring + stages * slab_k * SM90_QKV_N * e + 2 * SM90_MAX_STAGES * 8
 
 
-def _long_q_kv_bytes(dtype: torch.dtype) -> int:
-    """The long half's staged q tile and two k|v blocks."""
-    e = 4 if dtype == torch.float32 else 2
-    return LONG_Q_ROWS * _LONG_Q_LD[dtype] * e + 2 * LONG_KEY_BLOCK * _LONG_KV_LD[dtype] * e
-
-
 def long_q_bytes(rows: int, dtype: torch.dtype) -> int:
-    """A q slot of the attention entry: bf16 core matrices (rows x 64),
+    """A q slot of an attention kernel: bf16 core matrices (rows x 64),
     f32 row-major 64 x 68."""
     if dtype == torch.float32:
-        return LONG_Q_ROWS * _LONG_Q_LD[dtype] * 4
+        return LONG_Q_ROWS * _LONG_Q_LD_F32 * 4
     return rows * 64 * 2
 
 
 def long_kv_bytes(dtype: torch.dtype) -> int:
-    """A k|v stage of the attention entry: bf16 two 64 x 64 core-matrix
+    """A k|v stage of an attention kernel: bf16 two 64 x 64 core-matrix
     tiles, f32 64 x 132 row-major (k in columns 0-63, v 64-127)."""
     if dtype == torch.float32:
-        return LONG_KEY_BLOCK * _LONG_KV_LD[dtype] * 4
+        return LONG_KEY_BLOCK * _LONG_KV_LD_F32 * 4
     return LONG_KEY_BLOCK * 128 * 2
 
 
@@ -759,15 +752,17 @@ def long_smem(plan: LongPlan, c: int, hidden: int, dtype: torch.dtype) -> tuple[
     return qkv, attn
 
 
-# A 64-row pair item's time against a 128-row tile's (``fused_block_long_sm90.cu:
+# A 64-row pair item's time against a 128-row tile's (``long_sm90.cuh:
 # kPairShare``): each warpgroup weighs half the key blocks, the tail runs on
 # 64 rows.
 LONG_PAIR_SHARE = 0.6
 
 
-def long_big_tiles(plan: LongPlan, tiles: int, sms: int, dtype: torch.dtype) -> int:
-    """The tiles a launch runs as one item each (``fused_block_long_sm90.cu:
-    pair_items``): all of them, but in bf16 with 128-row tiles whose tail
+def long_big_tiles(plan: LongPlan | HalfLongPlan, tiles: int, sms: int,
+                   dtype: torch.dtype) -> int:
+    """The tiles a launch of an attention kernel (the block's entry or the
+    half's) runs as one item each (``long_sm90.cuh:pair_items``): all of
+    them, but in bf16 with 128-row tiles whose tail
     tiles stand apart from the ring, the tiles past the grid's last whole
     wave (one CTA per SM) run as two pair items each where that takes
     fewer waves' time (pair items at ``LONG_PAIR_SHARE`` of a tile)."""
@@ -778,8 +773,9 @@ def long_big_tiles(plan: LongPlan, tiles: int, sms: int, dtype: torch.dtype) -> 
     return full * sms if rest and LONG_PAIR_SHARE * pair_waves < 1 else tiles
 
 
-def long_item_map(plan: LongPlan, s: int, l: int, big: int | None = None) -> list[tuple]:
-    """The attention entry's work items in walk order (``fused_block_long_sm90.cu:
+def long_item_map(plan: LongPlan | HalfLongPlan, s: int, l: int,
+                  big: int | None = None) -> list[tuple]:
+    """An attention kernel's work items in walk order (``long_sm90.cuh:
     item_at``): (sequence, first query row, rows, valid rows).  Each sequence
     is cut into ``plan.items``-row tiles; the first ``big`` tiles (all by
     default) are one item each, every later tile two 64-row pair items (an
@@ -799,11 +795,12 @@ def long_item_map(plan: LongPlan, s: int, l: int, big: int | None = None) -> lis
     return out
 
 
-def long_attn_reads(plan: LongPlan, s: int, l: int, c: int, causal: bool, safe: bool,
-                    dtype: torch.dtype, big: int | None = None) -> dict:
-    """Workspace bytes the attention entry reads on these inputs: per item
-    and head group the item's q rows, then each k|v block its queries admit
-    (twice for "safe"); beside the workspace's unique 3*S*L*C values."""
+def long_attn_reads(plan: LongPlan | HalfLongPlan, s: int, l: int, c: int, causal: bool,
+                    safe: bool, dtype: torch.dtype, big: int | None = None) -> dict:
+    """Workspace bytes an attention kernel reads on these inputs (``c`` its
+    attention width: the block's C, the half's W): per item and head group
+    the item's q rows, then each k|v block its queries admit (twice for
+    "safe"); beside the workspace's unique 3*S*L*c values."""
     e = 4 if dtype == torch.float32 else 2
     groups = c // 64
     items = [it for it in long_item_map(plan, s, l, big) if it[3] > 0]
@@ -888,8 +885,8 @@ def _long_plan_for(c: int, hidden: int, heads: int, dtype: torch.dtype) -> LongP
     return plan
 
 
-def _ints(plan: LongPlan):
-    """The plan as the C array the long entry's kernels take."""
+def _ints(plan: LongPlan | HalfLongPlan):
+    """The plan as the C array the long kernels take."""
     ints = plan.ints()
     return (ctypes.c_int * len(ints))(*ints)
 
@@ -1580,8 +1577,9 @@ mlp_half_apply.launches = collections.Counter()
 # The attention half at any sequence length (csrc/fused_half_long_sm90.cu):
 # the long entry's split after q|k|v on the halves' padded shard.  A qkv
 # kernel over token tiles into a workspace of the shard's head groups, then
-# an attention kernel per (sequence, 64-query tile) that streams the keys
-# and writes the out-projection partial.
+# the long entry's attention (a persistent grid over work items of R query
+# rows, csrc/long_sm90.cuh) over those groups, whose tail writes the
+# out-projection partial.
 # --------------------------------------------------------------------------
 
 
@@ -1592,25 +1590,37 @@ class HalfLongPlan(NamedTuple):
     np: tuple          # column passes: q|k|v (192), out-projection
     stages: int        # weight slabs in the attention kernel's ring
     f32: bool = False  # the f32 kernels' plan: their weight slabs (arrange_weight_f32)
+    items: int = 64    # query rows of an attention work item (R)
+    kv_stages: int = 2  # k|v blocks in the attention kernel's ring
+    q_slots: int = 1    # q tiles in flight
+
+    @property
+    def overlap(self) -> int:
+        """The half's tail tiles never overlap the q slots and the ring."""
+        return 0
 
     def ints(self) -> list:
-        return [self.rows, self.qkv_stages, self.width, *self.np, self.stages]
+        return [self.rows, self.qkv_stages, self.width, *self.np, self.stages, self.items,
+                self.kv_stages, self.q_slots]
 
 
 def half_long_smem(plan: HalfLongPlan, c: int, dtype: torch.dtype) -> tuple[int, int]:
     """Shared memory bytes of the long half's qkv and attention kernels
-    (``fused_half_long_sm90.cu:half_long_shape``): the qkv kernel is the long
-    block's (``_long_qkv_smem``); the attention kernel holds the q tile and
-    two k|v blocks (later, bf16, the partial's staging tile), the 64 x W
-    attention output and the ring of out-projection slabs, each region on
-    128 bytes, then the barriers."""
+    (``fused_half_long_sm90.cu:half_long_shape``).  qkv: the long block's
+    (``_long_qkv_smem``).  Attention (``layout_half_attn``): the item's
+    attention output (R x W), in bf16 the partial's staging tile of the
+    out-projection pass, at least a pair item's exchange area; the q slots,
+    the k|v ring, the ring of out-projection slabs; each region on 128
+    bytes; then the barriers."""
     f32 = dtype == torch.float32
     e = 4 if f32 else 2
     slab_k = SM90_F32_SLAB_K if f32 else SM90_SLAB_K
-    staging = 0 if f32 else LONG_Q_ROWS * (plan.np[1] + 8) * 2
-    a = max(_long_q_kv_bytes(dtype), staging)
-    ring = _align128(_align128(a) + _act_tile(LONG_Q_ROWS, plan.width, dtype))
-    attn = ring + plan.stages * slab_k * plan.np[1] * e + 2 * SM90_MAX_STAGES * 8
+    r = plan.items
+    h = 0 if f32 else max(r * (plan.np[1] + 8) * 2, LONG_PAIR_SCRATCH)
+    at_q = _align128(_align128(_act_tile(r, plan.width, dtype)) + h)
+    at_kv = _align128(at_q + plan.q_slots * long_q_bytes(r, dtype))
+    at_ring = _align128(at_kv + plan.kv_stages * long_kv_bytes(dtype))
+    attn = at_ring + plan.stages * slab_k * plan.np[1] * e + _LONG_ATTN_BARS * 8
     return _long_qkv_smem(plan.rows, plan.qkv_stages, c, dtype), attn
 
 
@@ -1619,10 +1629,15 @@ def half_long_plan(c: int, local: int, heads: int,
                    dtype: torch.dtype = torch.bfloat16) -> HalfLongPlan | None:
     """The long half's plan for a shard ``local`` columns wide with ``heads``
     local heads, the same at every L: the long block's qkv tiles (128 rows in
-    bf16 where C <= 256, else 64; f32 64), the short halves' padded width and
-    column passes, as many ring stages (2-4) as ``SMEM_OPTIN`` holds in each
-    kernel.  The envelope is the short halves' in width (a multiple of 16 in
-    [16, C]) and the block's in head dim (f32: C <= 256).  None outside it."""
+    bf16 where C <= 256, else 64; f32 64) with as many ring stages (2-4) as
+    ``SMEM_OPTIN`` holds, the short halves' padded width and column passes;
+    attention items of 128 query rows in bf16 where they fit (two consumer
+    warpgroups of 64; else 64), 64 in f32, and as ``long_plan`` picks: the
+    deepest of the k|v ring and the weight ring (2-4 stages each: the
+    shallower of the two first), the deeper k|v ring, weight ring, and two
+    q slots before one (bf16; f32 one).  The envelope is the short halves'
+    in width (a multiple of 16 in [16, C]) and the block's in head dim (f32:
+    C <= 256).  None outside it."""
     if not (c % 64 == 0 and 0 < c <= KERNEL_MAX_C and local % 16 == 0 and 16 <= local <= c
             and heads > 0 and local % heads == 0 and local // heads in KERNEL_HEAD_DIMS
             and dtype in KERNEL_DTYPES):
@@ -1633,15 +1648,22 @@ def half_long_plan(c: int, local: int, heads: int,
         if c > SM90_F32_MAX_C:
             return None
         rows, np = SM90_F32_ROWS, (SM90_QKV_N, _pass_width_f32(c))
+        items, qs = (LONG_Q_ROWS,), (1,)
     else:
         rows, np = (128 if c <= 256 else 64), (SM90_QKV_N, _pass_width(c))
+        items, qs = (128, LONG_Q_ROWS), (2, 1)
     stages = range(SM90_MAX_STAGES, 1, -1)
     qkv = next((s for s in stages if _long_qkv_smem(rows, s, c, dtype) <= SMEM_OPTIN), None)
-    attn = next((s for s in stages if half_long_smem(HalfLongPlan(rows, 2, width, np, s, f32),
-                                                     c, dtype)[1] <= SMEM_OPTIN), None)
-    if qkv is None or attn is None:
+    if qkv is None:
         return None
-    return HalfLongPlan(rows, qkv, width, np, attn, f32)
+    for r in items:
+        fits = [HalfLongPlan(rows, qkv, width, np, ws, f32, r, kv, q)
+                for kv in range(LONG_MAX_KV, 1, -1) for ws in stages for q in qs]
+        fits = [p for p in fits if half_long_smem(p, c, dtype)[1] <= SMEM_OPTIN]
+        if fits:
+            return max(fits, key=lambda p: (min(p.kv_stages, p.stages), p.kv_stages, p.stages,
+                                            p.q_slots))
+    return None
 
 
 def _half_long_plan_for(c: int, local: int, heads: int, dtype: torch.dtype) -> HalfLongPlan:
@@ -1678,8 +1700,8 @@ def half_long_qkv_fwd(x: torch.Tensor, w: HalfWeights, plan: HalfLongPlan, l: in
     ws = torch.empty((3, s, plan.width // 64, l, 64), dtype=x.dtype, device=x.device)
     entry = (lib.tante_attn_half_long_qkv_sm90_f32_fwd if _f32(x)
              else lib.tante_attn_half_long_qkv_sm90_fwd)
-    rc = entry(x.data_ptr(), ws.data_ptr(), _ptr_array([w]), (ctypes.c_int * 6)(*plan.ints()), s,
-               l, c, local, x.device.index, _stream(x))
+    rc = entry(x.data_ptr(), ws.data_ptr(), _ptr_array([w]), _ints(plan), s, l, c, local,
+               x.device.index, _stream(x))
     _raise_on(rc, "attn_half_long_qkv_fwd")
     _count(half_long_qkv_fwd, x)
     return ws
@@ -1687,17 +1709,18 @@ def half_long_qkv_fwd(x: torch.Tensor, w: HalfWeights, plan: HalfLongPlan, l: in
 
 def half_long_attn_fwd(x: torch.Tensor, ws: torch.Tensor, w: HalfWeights, plan: HalfLongPlan,
                        l: int, local: int, heads: int, causal: bool) -> torch.Tensor:
-    """The attention kernel: attention over the workspace's streamed keys and
-    the out-projection -> the pre-bias partial, x's shape and dtype (x itself
-    is not read: the workspace holds what the kernel needs of it)."""
+    """The attention kernel: on a persistent grid, per work item (sequence,
+    ``plan.items`` query rows) attention over the workspace's streamed keys
+    of the shard's head groups and the out-projection -> the pre-bias
+    partial, x's shape and dtype (x itself is not read: the workspace holds
+    what the kernel needs of it)."""
     c = x.shape[-1]
     lib = _half_long_lib(x)
     out = torch.empty_like(x)
     entry = (lib.tante_attn_half_long_attn_sm90_f32_fwd if _f32(x)
              else lib.tante_attn_half_long_attn_sm90_fwd)
-    rc = entry(ws.data_ptr(), out.data_ptr(), _ptr_array([w]), (ctypes.c_int * 6)(*plan.ints()),
-               x.numel() // (l * c), l, c, local, heads, int(bool(causal)), _safe(),
-               x.device.index, _stream(x))
+    rc = entry(ws.data_ptr(), out.data_ptr(), _ptr_array([w]), _ints(plan), x.numel() // (l * c),
+               l, c, local, heads, int(bool(causal)), _safe(), x.device.index, _stream(x))
     _raise_on(rc, "attn_half_long_attn_fwd")
     _count(half_long_attn_fwd, x)
     return out
@@ -1705,6 +1728,18 @@ def half_long_attn_fwd(x: torch.Tensor, ws: torch.Tensor, w: HalfWeights, plan: 
 
 half_long_qkv_fwd.launches = collections.Counter()
 half_long_attn_fwd.launches = collections.Counter()
+
+
+def half_long_attn_work(x: torch.Tensor, plan: HalfLongPlan, l: int, local: int) -> dict:
+    """The attention kernel's work on the CUDA tensor x (S sequences of L,
+    C) under ``plan`` for a shard ``local`` columns wide, from its kernel
+    library: R-row tiles, the big ones, items and grid (one CTA per SM)."""
+    c = x.shape[-1]
+    out = (ctypes.c_int * 4)()
+    rc = _half_long_lib(x).tante_attn_half_long_attn_items(
+        _ints(plan), x.numel() // (l * c), l, c, local, int(_f32(x)), x.device.index, out)
+    _raise_on(rc, "attn_half_long_attn_items")
+    return dict(zip(("tiles", "big", "items", "grid"), out))
 
 
 def _launch_half_long(x: torch.Tensor, p: AttnHalfParams, l: int, heads: int, causal: bool):

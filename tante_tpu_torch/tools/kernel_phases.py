@@ -4,11 +4,13 @@
     python3 -m tante_tpu_torch.tools.kernel_phases --packed [--baseline DIR]
     python3 -m tante_tpu_torch.tools.kernel_phases --f32 [--baseline DIR]
     python3 -m tante_tpu_torch.tools.kernel_phases --long [--baseline DIR]
+    python3 -m tante_tpu_torch.tools.kernel_phases --long-half [--baseline DIR]
 
 (``--halves``: the tensor-parallel halves' sections alone.  ``--packed``: the
 attention kernel's section alone, described last but one.  ``--f32``: the f32
 block kernels' section alone, described before it.  ``--long``: the long
-block's attention entry alone, described last.)
+block's attention entry alone, described last but one; ``--long-half``: the
+long attention half's attention kernel, described last.)
 
 First the Hopper single-block kernels (``ops/csrc/fused_block_sm90.cu`` on
 the tile body of ``block_sm90.cuh``): a measurement copy built with
@@ -101,10 +103,29 @@ one JSON line per block and dtype with the mean cycles per work item of each
 phase and its share, the items per CTA, the plan and the workspace bytes
 read.  With
 ``--baseline DIR`` the attention entry of DIR's ``fused_block_long_sm90.cu``
-(its plan from DIR's own ``ops/fused_block.py``, on the same workspace and
-re-laid weights) and this tree's are timed in turns (baseline, this tree,
-this tree, baseline) by CUDA events on the same inputs, and their outputs
-compared.
+(its plan and re-laid weights from DIR's own ``ops/fused_block.py``; where
+those hold this tree's values, this tree's tensors) and this tree's are
+timed in turns (baseline, this tree, this tree, baseline) by CUDA events on
+the same workspace and one output buffer, and their outputs compared.
+
+``--long-half``: the long attention half's attention kernel
+(``tante_attn_half_long_attn_sm90_fwd`` and its f32 twin in
+``ops/csrc/fused_half_long_sm90.cu``) on shard 0 at tp 2 of the flagship's
+L, X, A and C blocks in both dtypes ("fast", wq and wk 2.75x wider), the
+workspace made by this tree's qkv kernel.  From a ``-DTANTE_PHASE_TIMING``
+build, per work item: the SM cycles consumer thread 0 spends waiting for
+k|v blocks, in the scores, the softmax (bf16: with the AV product), the AV
+product (f32), waiting for q tiles, at the barrier before the tail, and in
+the tail (the out-projection partial, with its slab waits, products and
+epilogue); one JSON line per block and dtype with the plan, the launch's
+work (items, pair items, grid) and the workspace bytes read.  With
+``--baseline DIR`` first the attention kernel of DIR's
+``fused_half_long_sm90.cu`` (its plan and re-laid weights from DIR's own
+``ops/fused_block.py``, shared as in ``--long``) and this tree's in turns
+(baseline, this tree, this tree, baseline) by CUDA events on one workspace
+and one output buffer, their outputs compared;
+then the long block's attention entry against DIR's in the same way (the
+``--long`` turns).
 """
 
 from __future__ import annotations
@@ -123,6 +144,7 @@ from pathlib import Path
 from tante_tpu_torch.ops import _build
 from tante_tpu_torch.ops import fused_attention as fa
 from tante_tpu_torch.ops import fused_block as fb
+from tante_tpu_torch.parallel.sharding import shard_block
 
 PHASES = ("gather", "ln1", "q", "k", "v", "attention", "o_proj", "ln2", "fc1", "fc2")
 C, HIDDEN, HEADS = 256, 256, 8
@@ -705,9 +727,10 @@ LONG_AXES = {"L": (32, 768, 256), "X": (128, 192, 256), "A": (8, 3072, 256),
 LONG_QK_SCALE = 2.75
 
 
-def _long_setup(axis: str, dtype, dev):
+def _long_setup(axis: str, dtype, dev, qkv: bool = True):
     """A flagship long block in ``dtype``: parameters, input, output, this
-    tree's plan, re-laid weights and workspace."""
+    tree's plan, re-laid weights and workspace (none of the three without
+    ``qkv``)."""
     s, l, c = LONG_AXES[axis]
     rng = np.random.default_rng(80 + list(LONG_AXES).index(axis))
 
@@ -722,6 +745,8 @@ def _long_setup(axis: str, dtype, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(90 + list(LONG_AXES).index(axis))
     x = torch.randn((s, l, c), generator=gen, device=dev).to(dtype)
+    if not qkv:
+        return p, x, torch.empty_like(x), None, None, None
     plan = fb.long_plan(c, c, HEADS, dtype)
     w = fb.sm90_weights(p, HEADS, plan)
     return p, x, torch.empty_like(x), plan, w, fb.long_qkv_fwd(x, w, plan, l)
@@ -786,6 +811,15 @@ def long_phases(dev, stream, card: str) -> None:
             torch.cuda.empty_cache()
 
 
+def _same_or_own(base_w, w):
+    """The baseline's re-laid weights, or this tree's where they hold the
+    same values (then both kernels read the same addresses: where a copy of
+    the weights lies in memory can move a short kernel's time by itself);
+    and whether they were shared."""
+    same = len(base_w) == len(w) and all(torch.equal(a, b) for a, b in zip(base_w, w))
+    return (w if same else base_w), same
+
+
 def long_in_turns(dev, stream, card: str, baseline: str) -> None:
     """The baseline tree's long attention entry and this tree's in turns."""
     source = Path(baseline) / "tante_tpu_torch" / "ops" / "csrc" / "fused_block_long_sm90.cu"
@@ -799,15 +833,16 @@ def long_in_turns(dev, stream, card: str, baseline: str) -> None:
             p, x, y, plan, w, ws = _long_setup(axis, dtype, dev)
             s, l, c = x.shape
             base_plan = base_fb.long_plan(c, c, HEADS, dtype)
+            base_w, shared = _same_or_own(base_fb.sm90_weights(p, HEADS, base_plan), w)
             y_base = torch.empty_like(y)
-            runs = {"baseline": _long_launch(other, base_plan.ints(), x, ws, y_base,
-                                             base_fb.sm90_weights(p, HEADS, base_plan), stream),
-                    "this_tree": _long_launch(this, plan.ints(), x, ws, y, w, stream)}
-            for launch in runs.values():
-                if launch() != 0:
-                    raise RuntimeError(f"{axis}: launch failed")
+            if (_long_launch(other, base_plan.ints(), x, ws, y_base, base_w, stream)() != 0
+                    or _long_launch(this, plan.ints(), x, ws, y, w, stream)() != 0):
+                raise RuntimeError(f"{axis}: launch failed")
             torch.cuda.synchronize()
             diff = float((y_base.float() - y.float()).abs().max())
+            # Timed on the same inputs and one output buffer.
+            runs = {"baseline": _long_launch(other, base_plan.ints(), x, ws, y, base_w, stream),
+                    "this_tree": _long_launch(this, plan.ints(), x, ws, y, w, stream)}
             iters = 3 if axis == "C" else 50
             b1 = event_ms(runs["baseline"], iters=iters)
             t1 = event_ms(runs["this_tree"], iters=iters)
@@ -817,12 +852,135 @@ def long_in_turns(dev, stream, card: str, baseline: str) -> None:
                 "kernel": "long attention entry in turns", "axis": axis,
                 "dtype": str(dtype).replace("torch.", ""), "baseline": str(source),
                 "shape": [s, l, c], "baseline_ms": (b1 + b2) / 2, "this_tree_ms": (t1 + t2) / 2,
-                "speedup": (b1 + b2) / (t1 + t2),
+                "speedup": (b1 + b2) / (t1 + t2), "weights_shared": shared,
                 "baseline_ms_turns": [b1, b2], "this_tree_ms_turns": [t1, t2],
                 "max_abs_diff_baseline_vs_this_tree": diff,
                 "max_abs_output": float(y_base.float().abs().max()), "card": card,
             }), flush=True)
             del x, y, y_base, ws
+            torch.cuda.empty_cache()
+
+
+# ---- the long half's attention kernel (--long-half) -----------------------------
+
+
+def _half_long_setup(axis: str, dtype, dev):
+    """Shard 0 at tp 2 of a flagship long block in ``dtype``: the shard's
+    attention half, input, output, this tree's plan, re-laid weights and
+    workspace (this tree's qkv kernel)."""
+    p, x, y, _, _, _ = _long_setup(axis, dtype, dev, qkv=False)
+    c = x.shape[-1]
+    ps = shard_block(p, 2, 0)
+    ap = fb.AttnHalfParams(*(getattr(ps, f) for f in fb.AttnHalfParams._fields))
+    ca, heads = c // 2, HEADS // 2
+    plan = fb.half_long_plan(c, ca, heads, dtype)
+    w = fb.half_long_weights(ap, heads, plan)
+    return ap, x, y, plan, w, fb.half_long_qkv_fwd(x, w, plan, x.shape[1], ca)
+
+
+def _half_long_launch(lib, plan_ints: list, x, ws, y, w, stream):
+    """A launch of ``lib``'s long-half attention kernel ("fast", not causal)."""
+    s, l, c = x.shape
+    f32 = x.dtype == torch.float32
+    entry = (lib.tante_attn_half_long_attn_sm90_f32_fwd if f32
+             else lib.tante_attn_half_long_attn_sm90_fwd)
+    ptrs, arr = fb._ptr_array([w]), (ctypes.c_int * len(plan_ints))(*plan_ints)
+    return lambda: entry(ws.data_ptr(), y.data_ptr(), ptrs, arr, s, l, c, c // 2,  # noqa: E731
+                         HEADS // 2, 0, 0, x.device.index, stream)
+
+
+def half_long_in_turns(dev, stream, card: str, baseline: str) -> None:
+    """The baseline tree's long-half attention kernel and this tree's in turns."""
+    source = Path(baseline) / "tante_tpu_torch" / "ops" / "csrc" / "fused_half_long_sm90.cu"
+    info = _build.compile_library("fused_half_long_sm90", "fused_half_long_sm90_baseline", (),
+                                  source=source)
+    other = _build.bind(ctypes.CDLL(info["library"]), "fused_half_long_sm90")
+    this = _build.load("fused_half_long_sm90")
+    base_fb = _baseline_fused_block(baseline)
+    for dtype in (torch.bfloat16, torch.float32):
+        for axis in LONG_AXES:
+            ap, x, y, plan, w, ws = _half_long_setup(axis, dtype, dev)
+            s, l, c = x.shape
+            base_plan = base_fb.half_long_plan(c, c // 2, HEADS // 2, dtype)
+            base_w, shared = _same_or_own(base_fb.half_long_weights(ap, HEADS // 2, base_plan), w)
+            y_base = torch.empty_like(y)
+            if (_half_long_launch(other, base_plan.ints(), x, ws, y_base, base_w, stream)() != 0
+                    or _half_long_launch(this, plan.ints(), x, ws, y, w, stream)() != 0):
+                raise RuntimeError(f"{axis}: launch failed")
+            torch.cuda.synchronize()
+            diff = float((y_base.float() - y.float()).abs().max())
+            # Timed on the same inputs and one output buffer.
+            runs = {"baseline": _half_long_launch(other, base_plan.ints(), x, ws, y, base_w,
+                                                  stream),
+                    "this_tree": _half_long_launch(this, plan.ints(), x, ws, y, w, stream)}
+            iters = 3 if axis == "C" else 50
+            b1 = event_ms(runs["baseline"], iters=iters)
+            t1 = event_ms(runs["this_tree"], iters=iters)
+            t2 = event_ms(runs["this_tree"], iters=iters)
+            b2 = event_ms(runs["baseline"], iters=iters)
+            print(json.dumps({
+                "kernel": "long half attention kernel in turns", "axis": axis, "tp": 2,
+                "shard": 0, "dtype": str(dtype).replace("torch.", ""), "baseline": str(source),
+                "shape": [s, l, c], "baseline_ms": (b1 + b2) / 2, "this_tree_ms": (t1 + t2) / 2,
+                "speedup": (b1 + b2) / (t1 + t2), "weights_shared": shared,
+                "baseline_ms_turns": [b1, b2], "this_tree_ms_turns": [t1, t2],
+                "max_abs_diff_baseline_vs_this_tree": diff,
+                "max_abs_output": float(y_base.float().abs().max()),
+                "plan": plan._asdict(), "baseline_plan": base_plan._asdict(), "card": card,
+            }), flush=True)
+            del x, y, y_base, ws
+            torch.cuda.empty_cache()
+
+
+HALF_LONG_PHASES = ("kv_wait", "scores", "softmax", "av", "q_wait", "tail", "between")
+
+
+def half_long_phases(dev, stream, card: str) -> None:
+    """Per-item phases of the long half's attention kernel (module text)."""
+    info = _build.compile_library("fused_half_long_sm90", "fused_half_long_sm90_phases",
+                                  TIMING_FLAGS)
+    lib = _build.bind(ctypes.CDLL(info["library"]), "fused_half_long_sm90")
+    for fn in ("tante_attn_half_long_phase_read", "tante_sm90_gemm_cycles"):
+        getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_int]
+        getattr(lib, fn).restype = ctypes.c_int
+    n_ph = lib.tante_attn_half_long_phase_count()
+    for dtype in (torch.bfloat16, torch.float32):
+        for axis in LONG_AXES:
+            ap, x, y, plan, w, ws = _half_long_setup(axis, dtype, dev)
+            s, l, c = x.shape
+            launch = _half_long_launch(lib, plan.ints(), x, ws, y, w, stream)
+            work = fb.half_long_attn_work(x, plan, l, c // 2)
+            grid = work["grid"]
+            if launch() != 0:
+                raise RuntimeError(f"{axis}: launch failed")
+            torch.cuda.synchronize()
+            _read(lib, "tante_attn_half_long_phase_read", (grid, n_ph))  # zeroes the counters
+            _read(lib, "tante_sm90_gemm_cycles", (grid, 4, 3))
+            iters = 2 if axis == "C" else 10
+            ms = _timed(launch, iters)
+            cyc = _read(lib, "tante_attn_half_long_phase_read", (grid, n_ph)).astype(np.float64)
+            per_mm = _read(lib, "tante_sm90_gemm_cycles", (grid, 4, 3)).astype(np.float64)
+            per_cta_items = cyc[:, -1] / (iters + 3)
+            total = cyc[:, :-1].sum(axis=0) / cyc[:, -1].sum()  # cycles per item
+            total = total[:len(HALF_LONG_PHASES)]  # the block's LN2 has no counterpart here
+            per_mm = per_mm.sum(axis=0) / cyc[:, -1].sum()
+            item = float(total.sum())
+            print(json.dumps({
+                "kernel": "long half attention kernel (fused_half_long_sm90.cu), timing build",
+                "axis": axis, "tp": 2, "shard": 0, "dtype": str(dtype).replace("torch.", ""),
+                "shape": [s, l, c], "plan": plan._asdict(), **work,
+                "items_per_cta": [float(per_cta_items.min()), float(per_cta_items.max())],
+                "timing_build_ms": ms,
+                "cycles_per_item": {k: float(v) for k, v in zip(HALF_LONG_PHASES, total)},
+                "item_cycles": item,
+                "share_of_item": {k: float(v) / item for k, v in zip(HALF_LONG_PHASES, total)},
+                "out_projection_cycles_per_item": _cycles(
+                    per_mm, ("slab_wait", "mma", "epilogue"))["o_proj"],
+                "workspace_reads": fb.long_attn_reads(plan, s, l, plan.width, False, False,
+                                                      dtype, work["big"]),
+                "card": card,
+            }), flush=True)
+            del x, y, ws
             torch.cuda.empty_cache()
 
 
@@ -838,6 +996,23 @@ def main() -> int:
         packed_phases(dev, stream, card)
         if "--baseline" in args:
             packed_in_turns(dev, stream, card, args[args.index("--baseline") + 1])
+        return 0
+    if "--long-half" in args:
+        dev, stream = torch.device("cuda"), torch.cuda.current_stream().cuda_stream
+        specs = [("fused_half_long_sm90", "fused_half_long_sm90_phases", TIMING_FLAGS),
+                 ("fused_half_long_sm90", "fused_half_long_sm90", ())]
+        if "--baseline" in args:
+            base = Path(args[args.index("--baseline") + 1]) / "tante_tpu_torch" / "ops" / "csrc"
+            specs += [("fused_half_long_sm90", "fused_half_long_sm90_baseline", (),
+                       base / "fused_half_long_sm90.cu"),
+                      ("fused_block_long_sm90", "fused_block_long_sm90", ()),
+                      ("fused_block_long_sm90", "fused_block_long_sm90_baseline", (),
+                       base / "fused_block_long_sm90.cu")]
+        _build.compile_libraries(specs)  # one nvcc each, together; each is found built below
+        if "--baseline" in args:
+            half_long_in_turns(dev, stream, card, args[args.index("--baseline") + 1])
+            long_in_turns(dev, stream, card, args[args.index("--baseline") + 1])
+        half_long_phases(dev, stream, card)
         return 0
     if "--long" in args:
         dev, stream = torch.device("cuda"), torch.cuda.current_stream().cuda_stream

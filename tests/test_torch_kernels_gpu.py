@@ -92,10 +92,13 @@ the shard's workspace, then the attention kernel and out-projection partial,
 32- and 16-wide shards padded to a group), causal and not, both softmax forms, bf16
 at the halves' limits and f32 at the long block's (wq / wk 2.75x wider, as
 the long block's cases), one launch of each kernel a call and none of the
-short half's, two launches bit-equal; the shards' partials + bo, then the
-MLP halves + b2, against ``fused_block_long``; gradients through its
-Function; its plan against ``tante_attn_half_long_smem``; refusals (a CPU
-tensor, mixed dtypes, f32 past C = 256)."""
+short half's, two launches bit-equal; launches that mix 128-row items
+with pair items, and the launch's item counts against their Python mirror
+(``half_long_attn_work`` against ``long_big_tiles``, ``long_item_map``);
+the shards' partials + bo, then the MLP halves + b2, against
+``fused_block_long``; gradients through its Function; its plan against
+``tante_attn_half_long_smem``; refusals (a CPU tensor, mixed dtypes, f32
+past C = 256)."""
 
 from collections import Counter
 
@@ -1578,6 +1581,7 @@ LONG_HALF_CASES = [
     (24, 100, 256, 8, 2, True),
     (24, 65, 256, 4, 4, True),
     (12, 130, 512, 8, 2, False),
+    (6, 257, 256, 8, 2, True),     # a last tile of one row
     (96, 256, 128, 8, 8, False),   # the C block at tp 8: 16-wide shards, one head of 16
 ]
 
@@ -1687,10 +1691,60 @@ def test_long_half_plan_matches_the_kernels_mirror(cuda):
             if plan is None:
                 continue
             out = (ctypes.c_longlong * 2)()
-            lib.tante_attn_half_long_smem((ctypes.c_int * 6)(*plan.ints()), c, local,
+            ints = plan.ints()
+            lib.tante_attn_half_long_smem((ctypes.c_int * len(ints))(*ints), c, local,
                                           int(dtype == torch.float32), out)
             assert tuple(out) == fb.half_long_smem(plan, c, dtype), (c, local, dtype)
             assert max(out) <= fb.SMEM_OPTIN
+
+
+# (l, s, c, heads, tp): launches whose 128-row bf16 tiles leave a ragged last
+# wave on the grid, so the tiles past the first wave run as 64-row pair items
+# (S 140 / 47 / 1080 at 132 SMs), and one whose every tile is one item (S 264).
+@pytest.mark.parametrize("softmax", ["fast", "safe"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l,s,c,heads,tp", [(100, 140, 256, 8, 2), (100, 264, 256, 8, 2),
+                                            (257, 47, 256, 8, 2), (65, 140, 256, 8, 4),
+                                            (256, 1080, 128, 8, 8)])
+def test_long_half_items_and_pair_items_match_plain(cuda, l, s, c, heads, tp, causal, softmax):
+    """bf16 shard 0 where a launch runs 128-row items and, past the grid's
+    last whole wave, pair items (``half_long_attn_work`` against its mirror):
+    ragged and causal, both softmax forms, the 16-wide shard of tp 8; two
+    launches bit-equal; the half's limits against the f32 plain half."""
+    x, p, shards = long_half_shards(s, l, c, heads, tp, torch.bfloat16, cuda, seed=2)
+    ap, _ = shards[0]
+    plan = fb.half_long_plan(c, c // tp, heads // tp)
+    work = fb.half_long_attn_work(x, plan, l, c // tp)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert work["big"] == fb.long_big_tiles(plan, work["tiles"], sms, torch.bfloat16)
+    fb.set_block_tuning(softmax=softmax)
+    try:
+        got = run_long_half(x, ap, l, heads // tp, causal)
+        assert torch.equal(got, fb.attn_half_apply(x, ap, l, heads // tp, causal))
+    finally:
+        fb.set_block_tuning(softmax="fast")
+    apf = fb.AttnHalfParams(*(t.float() for t in ap))
+    assert torch.isfinite(got).all()
+    assert_half_close(got, fb.attn_half_ref(x.float(), apf, l, heads // tp, causal))
+
+
+def test_long_half_attn_work_matches_the_mirror(cuda):
+    """The attention kernel's tiles, big tiles, items and grid (the kernel
+    library's ``tante_attn_half_long_attn_items``) against
+    ``long_big_tiles`` and ``long_item_map`` of the half's plan at the
+    flagship's long shapes at tp 2, 4 and 8, both dtypes."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for s, l, c in [(32, 768, 256), (128, 192, 256), (8, 3072, 256), (24576, 256, 128),
+                    (47, 257, 256)]:
+        for tp in (2, 4, 8):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.empty((s, l, c), device=cuda, dtype=dtype)
+                plan = fb.half_long_plan(c, c // tp, 8 // tp, dtype)
+                work = fb.half_long_attn_work(x, plan, l, c // tp)
+                assert work["tiles"] == s * -(-l // plan.items)
+                assert work["big"] == fb.long_big_tiles(plan, work["tiles"], sms, dtype)
+                assert work["items"] == len(fb.long_item_map(plan, s, l, work["big"]))
+                assert work["grid"] == min(work["items"], sms)
 
 
 def test_long_half_refuses_what_it_cannot_take(cuda):

@@ -20,9 +20,9 @@ package's block (``_xla_block``, what JAX runs off the TPU) on the same
 numpy-seeded inputs: f32 within the card's f32 tolerance (``chip_smoke.py``:
 relative L2 <= 1e-5, max abs <= 1e-4 max |ref|); bf16 against JAX's bf16
 block within the card's bf16 kernel tolerance (5e-2 abs + 2e-2 rel: both
-round to bf16, at places that differ).  ``streamed_attention`` is the long
-half's order of work (per 64-query tile, key blocks in order), which
-``test_torch_long_half.py`` models on it.
+round to bf16, at places that differ).  ``test_torch_long_half.py`` models
+the long half's attention kernel, which runs the same design, on
+``item_attention``.
 
 With wq and wk widened as ``chip_smoke.py`` seeds them for the card, the
 bf16 limit sees a wrong attention (its control, the last key block
@@ -70,36 +70,6 @@ def long_qkv(x, p, heads):
     k = r(xn @ f(p.wk) + f(p.bk))
     v = r(xn @ f(p.wv) + f(p.bv))
     return tuple(t.reshape(s, l, heads, d).transpose(1, 2) for t in (q, k, v))
-
-
-def streamed_attention(q, k, v, causal, softmax, dt, kb=tblock.LONG_KEY_BLOCK):
-    """The attention kernel's streamed softmax over key blocks of ``kb`` on
-    (S, heads, L, d) q/k/v: (S, L, heads * d) rounded to ``dt``."""
-    r = rounder(dt)
-    s, heads, l, d = q.shape
-    qi = torch.arange(l)[:, None]
-    blocks = range(0, l, kb)
-
-    def scores(k0):
-        sc = q @ k[:, :, k0:k0 + kb].transpose(-1, -2)
-        keys = torch.arange(k0, min(l, k0 + kb))[None, :]
-        ok = keys <= qi if causal else torch.ones(l, keys.shape[1], dtype=torch.bool)
-        return sc, ok
-
-    mx = torch.full((s, heads, l, 1), -1e30)
-    if softmax == "safe":
-        for k0 in blocks:  # pass 1: each row's maximum over its admitted keys
-            sc, ok = scores(k0)
-            mx = torch.maximum(mx, sc.masked_fill(~ok, -1e30).amax(-1, keepdim=True))
-    o = torch.zeros(s, heads, l, d)
-    den = torch.zeros(s, heads, l, 1)
-    for k0 in blocks:
-        sc, ok = scores(k0)
-        e = torch.exp2(sc - mx if softmax == "safe" else torch.clamp(sc, max=60 * LOG2E))
-        e = torch.where(ok, e, torch.zeros(()))
-        den = den + e.sum(-1, keepdim=True)
-        o = o + r(e) @ v[:, :, k0:k0 + kb]
-    return r(o * (1.0 / (den + 1e-30))).transpose(1, 2).reshape(s, l, heads * d)
 
 
 def item_attention(q, k, v, causal, softmax, dt, items, tile_rows, kb=tblock.LONG_KEY_BLOCK):

@@ -2,8 +2,10 @@
 
 ``attn_half_apply`` sends L > 64 to ``attn_half_long``: on the card two
 kernels (``ops/csrc/fused_half_long_sm90.cu``: LN1 and the shard's q|k|v
-into a workspace, then per sequence and 64-query tile the keys streamed in
-blocks of 64 and the out-projection partial), on the CPU the plain half
+into a workspace, then the long block's attention design over the shard's
+head groups, a persistent grid of work items of 128 query rows in bf16 (64-row
+pair items past the grid's last whole wave) and 64 in f32, the keys streamed
+in blocks of 64, then the out-projection partial), on the CPU the plain half
 ``attn_half_ref``.  Held against the JAX package's ``_xla_attn_half`` on
 numpy-seeded inputs:
 
@@ -12,18 +14,20 @@ numpy-seeded inputs:
   16, which the kernels pad to one 64-column group), f32 within 1e-5;
 - a CPU model of the kernels' order of work (``long_half``: the long
   block's pieces from ``test_torch_long_block.py`` on the zero-padded shard,
-  cut at the out-projection, the partial rounded once): f32 within the
-  card's f32 limits (relative L2 <= 1e-5, max abs <= 1e-4 max |ref|), bf16
-  within the halves' bf16 limits of JAX's f32 half on the same bf16 inputs
-  (1.5e-2 + 2e-2 |ref| and relative L2 <= 2e-2, ``chip_smoke.py``); the
-  padded heads' output exactly 0;
+  ``item_attention`` over the half plan's items, 3xTF32 products in f32, cut
+  at the out-projection, the partial rounded once): f32 within the card's
+  f32 limits (relative L2 <= 1e-5, max abs <= 1e-4 max |ref|), bf16 within
+  the halves' bf16 limits of JAX's f32 half on the same bf16 inputs (1.5e-2
+  + 2e-2 |ref| and relative L2 <= 2e-2, ``chip_smoke.py``), with every tile
+  one item and with pair items; the padded heads' output exactly 0;
 - with wq and wk ``chip_smoke.LONG_QK_SCALE`` wider, the bf16 limit sees a
   wrong attention (``chip_smoke.dropped_keys_half_ref``, the last key block
   dropped, fails it);
 - the plan against ``SMEM_OPTIN`` at every flagship long shape for tp 2, 4
-  and 8 in both dtypes (the C block at tp 8 a 16-wide shard); the plain
-  half's chunked attention; a CPU tensor takes the plain half and launches
-  nothing.
+  and 8 in both dtypes (the C block at tp 8 a 16-wide shard); the item map
+  covers every query once; the launch's pair items at the flagship and the
+  workspace bytes the attention kernel reads; the plain half's chunked
+  attention; a CPU tensor takes the plain half and launches nothing.
 """
 
 import functools
@@ -39,7 +43,7 @@ from _torch_parity import block_params
 from tante_tpu.ops import pallas_block as jblock
 from tante_tpu_torch.ops import fused_block as tblock
 from tante_tpu_torch.parallel.sharding import shard_block
-from test_torch_long_block import long_qkv, rounder, streamed_attention
+from test_torch_long_block import item_attention, long_qkv, rounder
 
 C, HEADS = 128, 8         # the channel block's width and heads: head dim 16
 REL_L2, MAX_ABS_SHARE = 1e-5, 1e-4
@@ -48,17 +52,22 @@ HALF_ATOL, HALF_RTOL, HALF_REL_L2 = (chip_smoke.HALF_ATOL, chip_smoke.HALF_RTOL,
 ROWS = {65: 3, 100: 3, 256: 2, 3072: 1}  # sequences per case
 
 
-def long_half(x, p, heads, causal, softmax):
+def long_half(x, p, heads, causal, softmax, big=None):
     """The long half's order of work on (S, L, C) rows in x's dtype, on the
     shard ``p`` (``heads`` local heads) zero-padded to whole 64-column
     groups as the kernels' re-laid weights are: q|k|v of every group, the
-    streamed attention, then bf16(attn wo) with no bias."""
+    attention over ``half_long_plan``'s items (``big`` tiles one item each,
+    all by default; the others two pair items), then bf16(attn wo) with no
+    bias."""
     ca = p.wq.shape[-1]
     pad = -ca % 64
     d = ca // heads
     cols = {f: F.pad(getattr(p, f), (0, pad)) for f in ("wq", "bq", "wk", "bk", "wv", "bv")}
     pp = p._replace(**cols, wo=F.pad(p.wo, (0, 0, 0, pad)))
-    attn = streamed_attention(*long_qkv(x, pp, (ca + pad) // d), causal, softmax, x.dtype)
+    plan = tblock.half_long_plan(x.shape[-1], ca, heads, x.dtype)
+    items = tblock.long_item_map(plan, x.shape[0], x.shape[1], big)
+    attn = item_attention(*long_qkv(x, pp, (ca + pad) // d), causal, softmax, x.dtype, items,
+                          plan.items)
     assert not attn[..., ca:].any()  # the padded heads' output is exactly 0
     return rounder(x.dtype)(attn @ pp.wo.float())
 
@@ -131,6 +140,22 @@ def test_streamed_half_bf16_within_the_half_limits(l, causal, tp, softmax):
     assert_half_close(got.numpy(), want)
 
 
+@pytest.mark.parametrize("softmax", ["fast", "safe"])
+@pytest.mark.parametrize("tp", [2, 8])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", [65, 100, 256, 3072])
+def test_pair_items_half_bf16_within_the_half_limits(l, causal, tp, softmax):
+    """Pair items (no tile one item: every tile two 64-row items whose
+    warpgroups sum the even and the odd key blocks apart) and a mix (the
+    first tile one item) against JAX's f32 half on the same bf16 inputs."""
+    x, ap, _ = case(l, causal, tp)
+    xb = torch.from_numpy(x).bfloat16()
+    apb = tblock.AttnHalfParams(*(t.bfloat16() for t in ap))
+    want = jax_half(xb.float().numpy(), apb, l, HEADS // tp, causal)
+    for big in (0, 1):
+        assert_half_close(long_half(xb, apb, HEADS // tp, causal, softmax, big).numpy(), want)
+
+
 @pytest.mark.parametrize("tp", [2, 4])
 @pytest.mark.parametrize("l", [100, 256, 768])
 def test_half_bf16_limit_sees_a_dropped_key_block(l, tp):
@@ -174,10 +199,65 @@ def test_every_flagship_long_shard_has_a_plan_that_fits(axis, tp, dtype):
     assert plan.width == -(-local // 64) * 64 and plan.np[0] == tblock.SM90_QKV_N
     assert plan.rows == (64 if dtype == torch.float32 else 128)
     assert 2 <= plan.qkv_stages <= 4 and 2 <= plan.stages <= 4
-    assert plan.f32 == (dtype == torch.float32) and len(plan.ints()) == 6
+    assert plan.f32 == (dtype == torch.float32) and len(plan.ints()) == 9
+    # The attention kernel: the block's item rows (bf16 two warpgroups of 64,
+    # f32 64), the deepest rings, two q slots in bf16; its tail tiles apart.
+    assert plan.items == (64 if dtype == torch.float32 else 128) and plan.overlap == 0
+    assert plan.kv_stages == 4 and plan.stages == 4
+    assert plan.q_slots == (1 if dtype == torch.float32 else 2)
     # The qkv kernel is the long block's: the same bytes at the same rows and stages.
     block = tblock.LongPlan(plan.rows, plan.qkv_stages, (192, 64, 64, 64), 2)
     assert qkv == tblock.long_smem(block, c, c, dtype)[0]
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("l", [65, 192, 256, 257, 768, 3072])
+def test_item_map_covers_every_query_once(l, dtype, tp):
+    """The half's items (``long_item_map`` of its plan, the attention
+    kernel's ``item_at``): every (sequence, query) in exactly one item, at
+    ragged and whole last tiles, with every tile one item, none, and some
+    (bf16 pair items; f32 launches none); no item crosses a sequence; empty
+    items only as the second half of a ragged tile's pair."""
+    s = 3
+    plan = tblock.half_long_plan(C, C // tp, HEADS // tp, dtype)
+    tiles = s * -(-l // plan.items)
+    for big in sorted({tiles, 0, tiles // 2, 1}) if dtype == torch.bfloat16 else (tiles,):
+        seen = np.zeros((s, l), dtype=np.int64)
+        for seq, q0, rows, valid in tblock.long_item_map(plan, s, l, big):
+            assert rows in (plan.items, 64) and 0 <= seq < s
+            if valid <= 0:
+                assert rows == 64 and q0 >= l and q0 % plan.items == 64
+                continue
+            assert q0 + valid <= l and valid <= rows
+            seen[seq, q0:q0 + valid] += 1
+        assert (seen == 1).all()
+
+
+def test_pair_items_and_reads_at_the_flagship():
+    """The launch's choice (``long_big_tiles``, the mirror of
+    ``long_sm90.cuh:pair_items``) for the half at tp 2 on an H100's 132 SMs:
+    A and L end on 60 tiles past the first wave (run as 120 pair items), X's
+    124 stays whole, the C block's 48 past 372 waves go as pairs, f32 has
+    none.  The C block's workspace reads: 49,152 items of 16 KB of q and
+    64 KB of k|v (about 3.9 GB, against 7.1 GB for one 64-query tile a
+    CTA), beside the 2.4 GB the workspace holds."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    a = tblock.half_long_plan(256, 128, 4, bf16)
+    assert tblock.long_big_tiles(a, 8 * 24, 132, bf16) == 132            # A
+    assert tblock.long_big_tiles(a, 32 * 6, 132, bf16) == 132            # L
+    assert tblock.long_big_tiles(a, 128 * 2, 132, bf16) == 256           # X
+    c = tblock.half_long_plan(128, 64, 4, bf16)
+    assert tblock.long_big_tiles(c, 24576 * 2, 132, bf16) == 372 * 132
+    af = tblock.half_long_plan(256, 128, 4, f32)
+    assert tblock.long_big_tiles(af, 8 * 48, 132, f32) == 8 * 48
+    whole = tblock.long_attn_reads(c, 24576, 256, c.width, False, False, bf16)
+    assert whole["items"] == 49152
+    assert whole["bytes_read"] == 49152 * (16384 + 65536)
+    assert whole["unique_bytes"] == 3 * 24576 * 256 * 64 * 2
+    pairs = tblock.long_attn_reads(c, 24576, 256, c.width, False, False, bf16, 372 * 132)
+    assert pairs["items"] == 372 * 132 + 96
+    assert pairs["bytes_read"] - whole["bytes_read"] == 48 * 65536  # a pair tile's k|v twice
 
 
 def test_plan_envelope():
