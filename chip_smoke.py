@@ -1050,6 +1050,101 @@ def long_bounds(rows: int, l: int, c: int, hidden: int, causal: bool, dtype) -> 
     return out
 
 
+QKV_GUARD = 4096  # elements past a qkv kernel's workspace that must stay NaN
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |v| (8 significant bits)."""
+    _, e = torch.frexp(v.float().abs().clamp_min(2.0**-126))
+    return torch.ldexp(torch.ones_like(v.float()), e - 8)
+
+
+def qkv_operands(p, heads: int, width: int) -> tuple:
+    """The q|k|v weights and biases of a block's or a tp shard's ``p`` as its
+    qkv kernel reads them (``fb.qkv_groups``): wq, bq times d^-0.5 log2 e
+    (a bf16 product rounded once), zero columns past a shard up to
+    ``width``."""
+    ca = p.wq.shape[-1]
+    qs = (ca // heads) ** -0.5 * fb.LOG2E
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, width - ca))
+
+    return (tuple(pad(t) for t in (p.wq * qs, p.wk, p.wv)),
+            tuple(pad(t) for t in (p.bq * qs, p.bk, p.bv)))
+
+
+def qkv_reference(x, ln_s, ln_b, ws_qkv, bs_qkv, width: int, mm=None):
+    """The workspace (3, S, width/64, L, 64) of a qkv kernel's order of work
+    (``tests/test_torch_long_block.py:long_qkv``: LN1 with one-pass moments,
+    rounded to x's dtype, then each product + bias) on x's sequences, before
+    its last rounding, and (bf16) the bound of what that order leaves open;
+    ws_qkv / bs_qkv from ``qkv_operands``.  bf16: float64 products of the
+    rounded LN1 output; the bound is the f32 sums' order over K = C terms
+    (C 2^-24 |xn| |w|) plus one ulp of each LN1 output that lies within
+    2^-16 of a bf16 rounding boundary (the kernel's f32 moments may round it
+    the other way).  f32: ``mm`` (default: f32 matmul) of the f32 LN1
+    output, no bound (the long block's f32 limits apply)."""
+    s, l, c = x.shape
+    bf16 = x.dtype == torch.bfloat16
+    xf = x.double() if bf16 else x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    xn = (xf - mu) * torch.rsqrt(var + 1e-5) * ln_s.to(xf.dtype) + ln_b.to(xf.dtype)
+    parts, bounds = [], []
+    if bf16:
+        xr = xn.to(torch.bfloat16).double()
+        lo, hi = (xn * (1 - 2.0**-16)).to(torch.bfloat16), (xn * (1 + 2.0**-16)).to(torch.bfloat16)
+        amb = (lo != hi).double() * bf16_ulp(xn).double()
+    for w, b in zip(ws_qkv, bs_qkv):
+        if bf16:
+            wd = w.double()
+            parts.append(xr @ wd + b.double())
+            bounds.append(c * 2.0**-24 * (xr.abs() @ wd.abs()) + amb @ wd.abs())
+        else:
+            parts.append(((mm or torch.matmul)(xn, w.float()) + b.float()).double())
+    g = width // 64
+
+    def lay(t):
+        return t.reshape(s, l, g, 64).permute(0, 2, 1, 3)
+
+    return (torch.stack([lay(t) for t in parts]),
+            torch.stack([lay(t) for t in bounds]) if bf16 else None)
+
+
+def qkv_launch(entry, x, w, plan, s: int, l: int, c: int, width_arg: int, ws_shape) -> tuple:
+    """One launch of a qkv kernel's C entry (the block's or the half's) into
+    a NaN-filled buffer: the workspace view and the QKV_GUARD elements past
+    it.  width_arg: the block's hidden width, or the shard's."""
+    buf = torch.full((math.prod(ws_shape) + QKV_GUARD,), float("nan"), dtype=x.dtype,
+                     device=x.device)
+    ws = buf[:-QKV_GUARD].view(ws_shape)
+    rc = entry(x.data_ptr(), ws.data_ptr(), fb._ptr_array([w]), fb._ints(plan), s, l, c,
+               width_arg, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"qkv kernel launch failed with cudaError {rc}")
+    torch.cuda.synchronize()
+    return ws, buf[-QKV_GUARD:]
+
+
+def qkv_agree(ws, guard, ref, bound, n: int) -> tuple[bool, dict]:
+    """A qkv workspace against ``qkv_reference`` on its first n sequences:
+    every element written (finite) and the guard past it untouched (NaN);
+    bf16 within one bf16 ulp of the reference plus its bound, f32 as
+    ``f32_agree``."""
+    written = bool(torch.isfinite(ws).all()) and bool(torch.isnan(guard).all())
+    got = ws[:, :n].double()
+    if bound is None:
+        ok, agree = f32_agree(got.float(), ref.float())
+    else:
+        err = (got - ref).abs()
+        limit = bf16_ulp(ref).double() + bound
+        over = float((err / limit).max())
+        ok, agree = over <= 1, {"max_abs_err": float(err.max()), "max_err_over_limit": over,
+                                "tolerance": "one bf16 ulp + the order's bound (qkv_reference)"}
+    return ok and written, {**agree, "all_written_none_past": written}
+
+
 def dropped_keys_ref(x: torch.Tensor, p: fb.BlockParams, l: int, heads: int, causal: bool,
                      keys: int) -> torch.Tensor:
     """``block_ref`` in f32 whose attention sees only the first ``keys`` keys
@@ -1082,6 +1177,39 @@ LONG_KERNEL_CASES = [
     ("ragged L 257", (12, 257, C), True, "fast", False),
     ("L 48, low-level entry", (64, 48, C), False, "fast", False),
 ]
+
+
+def long_qkv_check(x: torch.Tensor, p, plan, n: int, shard: tuple | None = None) -> dict:
+    """The qkv kernel of the long block (or, with ``shard`` = (local heads,
+    local width), the long half's on the shard ``p``) on x into a NaN-filled
+    buffer twice: both equal, every element written and none past the end,
+    the first n sequences against ``qkv_reference`` (``qkv_agree``)."""
+    s, l, c = x.shape
+    f32 = x.dtype == torch.float32
+    if shard is None:
+        heads, width, arg = HEADS, c, c
+        w = fb.sm90_weights(p, HEADS, plan)
+        lib = fb._long_lib(x)
+        entry = lib.tante_block_long_qkv_sm90_f32_fwd if f32 else lib.tante_block_long_qkv_sm90_fwd
+    else:
+        (heads, arg), width = shard, plan.width
+        w = fb.half_long_weights(p, heads, plan)
+        lib = fb._half_long_lib(x)
+        entry = (lib.tante_attn_half_long_qkv_sm90_f32_fwd if f32
+                 else lib.tante_attn_half_long_qkv_sm90_fwd)
+    shape = (3, s, width // 64, l, 64)
+    ws, guard = qkv_launch(entry, x, w, plan, s, l, c, arg, shape)
+    again, _ = qkv_launch(entry, x, w, plan, s, l, c, arg, shape)
+    equal = bool(torch.equal(ws, again))
+    del again
+    ref, bound = qkv_reference(x[:n], p.ln1_scale, p.ln1_bias, *qkv_operands(p, heads, width),
+                               width)
+    ok, agree = qkv_agree(ws, guard, ref, bound, n)
+    del ws, guard, ref, bound
+    return {**agree, "repeat_equal": equal, "ok": ok and equal, "sequences_checked": n,
+            "plan": {"rows": plan.rows, "qkv_stages": plan.qkv_stages,
+                     "qkv_parts": plan.qkv_parts, "resident": plan.qkv_resident,
+                     "split": plan.qkv_split}}
 
 
 def phase_kernels_long(dev, dtype) -> list[dict]:
@@ -1143,9 +1271,12 @@ def phase_kernels_long(dev, dtype) -> list[dict]:
         bounds = long_bounds(rows, l, c, c, causal, dtype)
         plan = fb.long_plan(c, c, HEADS, dtype)
         work = fb.long_attn_work(x, plan, c)
+        qkv = long_qkv_check(x, p, plan, n_plain)
+        check(qkv["ok"], f"kernel_long {label} {dtype}: the qkv workspace disagrees: {qkv}")
         res = {"phase": "kernel_long", "dtype": str(dtype).replace("torch.", ""), "case": label,
                "shape": [rows, l, c], "heads": HEADS, "causal": causal, "softmax": softmax,
-               **agree, "ok": ok and launched and repeat_equal, "repeat_equal": repeat_equal,
+               **agree, "ok": ok and launched and repeat_equal and qkv["ok"],
+               "repeat_equal": repeat_equal, "qkv_workspace": qkv,
                "plain_sequences": n_plain, "attn_work": work,
                "attn_workspace_reads": fb.long_attn_reads(plan, rows, l, c, causal,
                                                           softmax == "safe", dtype, work["big"]),
@@ -1155,6 +1286,8 @@ def phase_kernels_long(dev, dtype) -> list[dict]:
             ws = fb.long_qkv_fwd(x, w, plan, l)
             iters = 3 if label == "C" else 10
             res["qkv_ms"] = cuda_ms(lambda: fb.long_qkv_fwd(x, w, plan, l), iters)
+            res["qkv_bound_share"] = bounds["qkv"]["bound_us"] / 1e3 / res["qkv_ms"]
+            res["qkv_gb_per_s"] = bounds["qkv"]["bytes"] / res["qkv_ms"] / 1e6
             res["attn_ms"] = cuda_ms(
                 lambda: fb.long_attn_fwd(x, ws, w, plan, l, HEADS, causal), iters)
             res["kernel_ms"] = cuda_ms(lambda: fb.fused_block_long(x, p, l, HEADS, causal), iters)
@@ -4039,6 +4172,11 @@ def phase_tp_kernel_long(dev, dtype) -> list[dict]:
             launched &= (half_long_counts(dtype) == {k: 1 for k in HALF_LONG_WRAPPERS}
                          and not others)
             repeat_equal &= bool(torch.equal(got, fb.attn_half_apply(x, ap, l, heads, causal)))
+            qkv = long_qkv_check(x, ap, plan, n_plain, (heads, ca))
+            check(qkv["ok"], f"tp_kernel_long {label} {name} shard {r}: the qkv workspace "
+                             f"disagrees: {qkv}")
+            ok &= qkv["ok"]
+            res.setdefault("qkv_workspace", []).append(qkv)
             apf = fb.AttnHalfParams(*(t.float() for t in ap))
             want = fb.attn_half_ref(x[:n_plain].float(), apf, l, heads, causal)
             good, agree = half_long_agree(got[:n_plain], want, f32)
@@ -4106,6 +4244,8 @@ def phase_tp_kernel_long(dev, dtype) -> list[dict]:
             ws = fb.half_long_qkv_fwd(x, w, plan, l, ca)
             iters = 3 if label == "C" else 10
             res["qkv_ms"] = cuda_ms(lambda: fb.half_long_qkv_fwd(x, w, plan, l, ca), iters)
+            res["qkv_bound_share"] = bounds["qkv"]["bound_us"] / 1e3 / res["qkv_ms"]
+            res["qkv_gb_per_s"] = bounds["qkv"]["bytes"] / res["qkv_ms"] / 1e6
             res["attn_ms"] = cuda_ms(
                 lambda: fb.half_long_attn_fwd(x, ws, w, plan, l, ca, heads, causal), iters)
             res["kernel_ms"] = cuda_ms(lambda: fb.attn_half_apply(x, ap, l, heads, causal), iters)
@@ -4865,7 +5005,9 @@ def long_rows(kernels_long: dict[str, list[dict]], long_axes: dict) -> list[dict
                             + (", f32 activations)" if dt == "f32" else ")"),
                 "launches": lane["launches_per_rollout"][name],
                 "launches_counted_over": f"one long_axes 16-step rollout ({dt})",
-                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                # qkv: its workspace against qkv_reference; attention: the block's output
+                "max_abs_err": max((c["qkv_workspace"] if part == "qkv" else c)["max_abs_err"]  # noqa: B023
+                                   for c in cases),
                 "ms": mean(lambda c: c[f"{part}_ms"]),  # noqa: B023
                 "plain_ms": mean(lambda c: c["plain_ms"]),
                 "plain_is": "the plain block (block_ref, f32), both entries' work; at C on 512 "
@@ -4879,6 +5021,7 @@ def long_rows(kernels_long: dict[str, list[dict]], long_axes: dict) -> list[dict
                 "per_axis": [{"axis": c["case"], "shape": c["shape"], "ms": c[f"{part}_ms"],
                               "bound_ms": c["bounds"][part]["bound_us"] / 1e3,
                               "bound_by": c["bounds"][part]["bound_by"],
+                              "gb_per_s": c["bounds"][part]["bytes"] / c[f"{part}_ms"] / 1e6,
                               "block_ms": c["kernel_ms"],
                               "block_bound_ms": c["bounds"]["block"]["bound_us"] / 1e3,
                               "plain_ms": c["plain_ms"], "max_abs_err": c["max_abs_err"]}
@@ -4910,7 +5053,9 @@ def half_long_rows(tp_long: dict[str, list[dict]], parallel: dict) -> list[dict]
                 "launches": per_call.get(name, 0),
                 "launches_counted_over": f"one {LONG_AXES} model call on one rank of (dp 1, tp 2), "
                                          f"{dt}",
-                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                # qkv: each shard's workspace against qkv_reference; attention: the partial
+                "max_abs_err": max(q["max_abs_err"] for c in cases for q in c["qkv_workspace"])
+                if part == "qkv" else max(c["max_abs_err"] for c in cases),
                 "ms": mean(lambda c: c[f"{part}_ms"]),  # noqa: B023
                 "plain_ms": mean(lambda c: c["plain_ms"]),
                 "plain_is": "the plain half (attn_half_ref, f32), both kernels' work; at C on 512 "
@@ -4924,6 +5069,7 @@ def half_long_rows(tp_long: dict[str, list[dict]], parallel: dict) -> list[dict]
                 "per_axis": [{"axis": c["case"], "shape": c["shape"], "ms": c[f"{part}_ms"],
                               "bound_ms": c["bounds"][part]["bound_us"] / 1e3,
                               "bound_by": c["bounds"][part]["bound_by"],
+                              "gb_per_s": c["bounds"][part]["bytes"] / c[f"{part}_ms"] / 1e6,
                               "half_ms": c["kernel_ms"],
                               "half_bound_ms": c["bounds"]["half"]["bound_us"] / 1e3,
                               "half_with_workspace_bound_ms":

@@ -15,12 +15,15 @@
 //
 //   tante_block_long_qkv_sm90[_f32]_fwd   LN1 and the q|k|v products of
 //     64- or 128-row tiles of the (S*L, C) token matrix, sequences ignored:
-//     the single-block kernel's LayerNorm, gemm (wgmma, bf16) / gemm_f32
-//     (3xTF32 mma.sync, f32) and weight ring, q prescaled by d^-0.5*log2(e)
-//     (folded into wq/bq by the wrapper), + bias, rounded to the activation
-//     type, into a workspace laid out head group by head group,
+//     the single-block kernel's LayerNorm arithmetic and products (wgmma,
+//     bf16; 3xTF32 mma.sync, f32), q prescaled by d^-0.5*log2(e) (folded
+//     into wq/bq by the wrapper), + bias, rounded to the activation type,
+//     into a workspace laid out head group by head group,
 //     (3, S, C/64, L, 64): the 64 keys of a block of one head group are one
-//     contiguous run of 64 x 64 values (long_sm90.cuh).
+//     contiguous run of 64 x 64 values.  long_sm90.cuh's qkv body: a
+//     persistent grid, each tile's x bulk-copied ahead, the weights resident
+//     where they fit (the C block in bf16), bulk stores from staging
+//     buffers.
 //   tante_block_long_attn_sm90[_f32]_fwd  the attention entry, below.
 //
 // The attention entry (redesigned after the first design's one CTA per
@@ -152,12 +155,14 @@ __host__ __device__ inline AttnLayout layout_attn(bool f32, int C, int HID, cons
 //
 // long_sm90.cuh's qkv body over all C/64 head groups.
 
-__global__ void __launch_bounds__(kThreads, 1) block_long_qkv_kernel(const __grid_constant__ LongArgs A) {
-  long_qkv<false>(A);
+__global__ void __launch_bounds__(kThreads, 1)
+    block_long_qkv_kernel(const __grid_constant__ LongArgs A, const __grid_constant__ QkvPlan P) {
+  qkv_cta<false, false>(A, P);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) block_long_qkv_f32_kernel(const __grid_constant__ LongArgs A) {
-  long_qkv_f32<false>(A);
+__global__ void __launch_bounds__(kThreads, 1)
+    block_long_qkv_f32_kernel(const __grid_constant__ LongArgs A, const __grid_constant__ QkvPlan P) {
+  qkv_cta<true, false>(A, P);
 }
 
 
@@ -494,12 +499,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host side -------------------------------------------------------------------
 
-// plan: the qkv entry's tile rows, its ring stages, the four column passes
-// (q|k|v, out-projection, fc1, fc2), the attention entry's weight ring
-// stages, its item rows, k|v stages, q slots, overlap and keep
-// (ops/fused_block.py:long_plan).  Fills S (and AP) for the entry (`attn`)
-// and returns its shared memory bytes, 0 when the plan is outside the
-// kernels.
+// plan: the qkv entry's tile rows, its ring stages (0: the weights
+// resident), the four column passes (q|k|v, out-projection, fc1, fc2), the
+// attention entry's weight ring stages, its item rows, k|v stages, q slots,
+// overlap and keep, the qkv entry's staging buffers and split (f32: LN1's
+// output in TF32 hi / lo tiles) (ops/fused_block.py:long_plan).  Fills S
+// (and AP) for the entry (`attn`) and returns its shared memory bytes, 0
+// when the plan is outside the kernels.
 
 long long long_shape(Shape& S, AttnPlan& AP, const int* plan, int C, int HID, bool f32,
                      bool attn) {
@@ -510,21 +516,20 @@ long long long_shape(Shape& S, AttnPlan& AP, const int* plan, int C, int HID, bo
   S.stages = attn ? plan[6] : plan[1];
   AP = AttnPlan{plan[7], plan[8], plan[9], plan[10], plan[11]};
   const int maxc = f32 ? kMaxCF : kMaxC;
-  if (C % 64 || C < 64 || C > maxc || HID % 64 || HID < 64 || HID > 2 * C || S.stages < 2 ||
-      S.stages > kMaxStages || S.np[0] != kQkvN || !np_ok(S.np[1], C) || !np_ok(S.np[2], HID) ||
-      !np_ok(S.np[3], C))
+  if (C % 64 || C < 64 || C > maxc || HID % 64 || HID < 64 || HID > 2 * C ||
+      S.np[0] != kQkvN || !np_ok(S.np[1], C) || !np_ok(S.np[2], HID) || !np_ok(S.np[3], C))
     return 0;
   if (f32 && (S.np[1] > 128 || S.np[2] > 128 || S.np[3] > 128)) return 0;
   if (attn) {
     const int R = f32 ? kRowsF : (C <= 256 ? 128 : 64);  // a 128-row LayerNorm holds C <= 256
-    if (AP.R != R || AP.kv < 2 || AP.kv > kMaxKv || AP.qs < 1 || AP.qs > kMaxQ ||
+    if (S.stages < 2 || S.stages > kMaxStages || AP.R != R || AP.kv < 2 || AP.kv > kMaxKv ||
+        AP.qs < 1 || AP.qs > kMaxQ ||
         (AP.overlap != 0 && AP.overlap != 1) || (AP.keep != 0 && AP.keep != 1) ||
         (AP.keep && (AP.overlap || (!f32 && S.np[1] != C))))
       return 0;
     return (long long)layout_attn(f32, C, HID, S.np, S.stages, AP).total;
   }
-  if (f32 ? S.R != kRowsF : (S.R != 64 && (S.R != 128 || C > 256))) return 0;
-  return (long long)layout_qkv(f32, S.R, C, S.stages).total;
+  return qkv_smem(S, C, plan[12], plan[13], f32);
 }
 
 // The checks both entries share; fills A.  0 = launch, else a cudaError_t
@@ -549,9 +554,10 @@ int launch_qkv(const void* x, void* ws, const void* const* w, const int* plan, i
   if (rc) return rc < 0 ? cudaSuccess : rc;
   A.x = x;
   A.ws = ws;
-  const int grid = (A.tokens + A.sh.R - 1) / A.sh.R;
-  if (F32) return launch_kernel(block_long_qkv_f32_kernel, A, grid, smem, stream);
-  return launch_kernel(block_long_qkv_kernel, A, grid, smem, stream);
+  const QkvPlan P{plan[12], (A.tokens + A.sh.R - 1) / A.sh.R, plan[13]};
+  const int grid = attn_grid(P.tiles, device);  // one CTA per SM
+  if (F32) return launch_qkv_kernel(block_long_qkv_f32_kernel, A, P, grid, smem, stream);
+  return launch_qkv_kernel(block_long_qkv_kernel, A, P, grid, smem, stream);
 }
 
 
@@ -599,7 +605,7 @@ extern "C" {
 // x: (S, L, C) bf16; ws: (3, S, C/64, L, 64) bf16, written.  w: the 9 device
 // pointers of tante_fused_block_sm90_fwd (ln1_scale, ln1_bias, each head
 // group's q|k|v bias with q prescaled, bo, ln2_scale, ln2_bias, b1, b2, the
-// re-laid weights: ops/fused_block.py:sm90_weights).  plan: 12 ints
+// re-laid weights: ops/fused_block.py:sm90_weights).  plan: 14 ints
 // (ops/fused_block.py:long_plan).  Returns a cudaError_t (0 = launched).
 int tante_block_long_qkv_sm90_fwd(const void* x, void* ws, const void* const* w, const int* plan,
                                   int n_seqs, int L, int C, int HID, int device, void* stream) {
@@ -660,6 +666,17 @@ int tante_block_long_attn_items(const int* plan, int n_seqs, int L, int C, int H
 }
 
 #ifdef TANTE_PHASE_TIMING
+int tante_block_long_qkv_phase_count() { return kQkvPhases; }
+// Copies (and zeroes) the qkv entry's phase cycles of the first n CTAs (n x
+// kQkvPhases values, see g_qkv_cycles).
+int tante_block_long_qkv_phase_read(unsigned long long* host, int n) {
+  if (n > kPhaseSlots) n = kPhaseSlots;
+  const size_t bytes = sizeof(unsigned long long) * kQkvPhases * n;
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_qkv_cycles, bytes);
+  if (err != cudaSuccess) return err;
+  static unsigned long long zeros[kPhaseSlots * kQkvPhases];
+  return cudaMemcpyToSymbol(g_qkv_cycles, zeros, bytes);
+}
 int tante_block_long_phase_count() { return kLongPhases; }
 // Copies (and zeroes) the attention entry's phase cycles of the first n CTAs
 // (n x kLongPhases values, see g_long_cycles).

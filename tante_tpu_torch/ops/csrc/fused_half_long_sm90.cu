@@ -119,12 +119,14 @@ struct HalfTail {
 
 // ---- the qkv kernels: long_sm90.cuh's body over the shard's W/64 groups ------------
 
-__global__ void __launch_bounds__(kThreads, 1) half_long_qkv_kernel(const __grid_constant__ LongArgs A) {
-  long_qkv<true>(A);
+__global__ void __launch_bounds__(kThreads, 1)
+    half_long_qkv_kernel(const __grid_constant__ LongArgs A, const __grid_constant__ QkvPlan P) {
+  qkv_cta<false, true>(A, P);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) half_long_qkv_f32_kernel(const __grid_constant__ LongArgs A) {
-  long_qkv_f32<true>(A);
+__global__ void __launch_bounds__(kThreads, 1)
+    half_long_qkv_f32_kernel(const __grid_constant__ LongArgs A, const __grid_constant__ QkvPlan P) {
+  qkv_cta<true, true>(A, P);
 }
 
 // ---- the attention kernels: long_sm90.cuh's attention over the W/64 groups -------
@@ -178,10 +180,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host side -------------------------------------------------------------------
 
-// plan: the qkv kernel's tile rows, its ring stages, W (the shard's width
-// padded to whole 64-column groups), the q|k|v and out-projection column
-// passes, the attention kernel's weight ring stages, its item rows, k|v
-// stages and q slots (ops/fused_block.py:half_long_plan).  Fills S (and AP)
+// plan: the qkv kernel's tile rows, its ring stages (0: the weights
+// resident), W (the shard's width padded to whole 64-column groups), the
+// q|k|v and out-projection column passes, the attention kernel's weight
+// ring stages, its item rows, k|v stages and q slots, the qkv kernel's
+// staging buffers and split (ops/fused_block.py:half_long_plan).  Fills S (and AP)
 // for the kernel (`attn`; S.HID = W) and returns its shared memory bytes, 0
 // when the plan is outside the kernels.
 long long half_long_shape(Shape& S, AttnPlan& AP, const int* plan, int C, int CA, bool f32,
@@ -196,17 +199,15 @@ long long half_long_shape(Shape& S, AttnPlan& AP, const int* plan, int C, int CA
   AP = AttnPlan{plan[6], plan[7], plan[8], 0, 0};
   const int maxc = f32 ? kMaxCF : kMaxC;
   if (C % 64 || C < 64 || C > maxc || CA < 16 || CA % 16 || W % 64 || W < CA || W - CA >= 64 ||
-      W > C || S.stages < 2 || S.stages > kMaxStages || S.np[0] != kQkvN ||
-      !np_ok(S.np[1], C) || (f32 && S.np[1] > 128))
+      W > C || S.np[0] != kQkvN || !np_ok(S.np[1], C) || (f32 && S.np[1] > 128))
     return 0;
   if (attn) {
-    if ((f32 ? AP.R != kRowsF : AP.R != 64 && AP.R != 128) || AP.kv < 2 || AP.kv > kMaxKv ||
-        AP.qs < 1 || AP.qs > kMaxQ)
+    if (S.stages < 2 || S.stages > kMaxStages || (f32 ? AP.R != kRowsF : AP.R != 64 && AP.R != 128) ||
+        AP.kv < 2 || AP.kv > kMaxKv || AP.qs < 1 || AP.qs > kMaxQ)
       return 0;
     return (long long)layout_half_attn(f32, W, S.np[1], S.stages, AP).total;
   }
-  if (f32 ? S.R != kRowsF : (S.R != 64 && (S.R != 128 || C > 256))) return 0;
-  return (long long)layout_qkv(f32, S.R, C, S.stages).total;
+  return qkv_smem(S, W, plan[9], plan[10], f32);
 }
 
 // The checks both kernels share; fills A (and AP).  w: the 4 device pointers
@@ -237,9 +238,10 @@ int launch_half_qkv(const void* x, void* ws, const void* const* w, const int* pl
   if (rc) return rc < 0 ? cudaSuccess : rc;
   A.x = x;
   A.ws = ws;
-  const int grid = (A.tokens + A.sh.R - 1) / A.sh.R;
-  if (F32) return launch_kernel(half_long_qkv_f32_kernel, A, grid, smem, stream);
-  return launch_kernel(half_long_qkv_kernel, A, grid, smem, stream);
+  const QkvPlan P{plan[9], (A.tokens + A.sh.R - 1) / A.sh.R, plan[10]};
+  const int grid = attn_grid(P.tiles, device);  // one CTA per SM
+  if (F32) return launch_qkv_kernel(half_long_qkv_f32_kernel, A, P, grid, smem, stream);
+  return launch_qkv_kernel(half_long_qkv_kernel, A, P, grid, smem, stream);
 }
 
 template <bool F32, int D>
@@ -293,7 +295,7 @@ extern "C" {
 // x: (S, L, C) bf16; ws: (3, S, W/64, L, 64) bf16, written.  w: host array of
 // the 4 device pointers above (ops/fused_block.py:half_long_weights: q|k|v
 // biases zero past CA, q's prescaled).  CA: the shard's attention width.
-// plan: 9 ints (ops/fused_block.py:half_long_plan).  Returns a cudaError_t
+// plan: 11 ints (ops/fused_block.py:half_long_plan).  Returns a cudaError_t
 // (0 = launched).
 int tante_attn_half_long_qkv_sm90_fwd(const void* x, void* ws, const void* const* w,
                                       const int* plan, int n_seqs, int L, int C, int CA,
@@ -358,6 +360,17 @@ int tante_attn_half_long_attn_items(const int* plan, int n_seqs, int L, int C, i
 }
 
 #ifdef TANTE_PHASE_TIMING
+int tante_attn_half_long_qkv_phase_count() { return kQkvPhases; }
+// Copies (and zeroes) the qkv kernel's phase cycles of the first n CTAs (n x
+// kQkvPhases values, see g_qkv_cycles).
+int tante_attn_half_long_qkv_phase_read(unsigned long long* host, int n) {
+  if (n > kPhaseSlots) n = kPhaseSlots;
+  const size_t bytes = sizeof(unsigned long long) * kQkvPhases * n;
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_qkv_cycles, bytes);
+  if (err != cudaSuccess) return err;
+  static unsigned long long zeros[kPhaseSlots * kQkvPhases];
+  return cudaMemcpyToSymbol(g_qkv_cycles, zeros, bytes);
+}
 int tante_attn_half_long_phase_count() { return kLongPhases; }
 // Copies (and zeroes) the attention kernel's phase cycles of the first n CTAs
 // (n x kLongPhases values, see g_long_cycles).

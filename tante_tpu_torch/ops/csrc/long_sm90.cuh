@@ -3,7 +3,10 @@
 // L > 64 (fused_half_long_sm90.cu).  Each pair is a qkv kernel (LN1 and the
 // q|k|v products of token tiles into a workspace laid out head group by head
 // group) and an attention kernel.  Both pairs share:
-// - the qkv body (long_qkv, long_qkv_f32);
+// - the qkv body (qkv_cta and above): a persistent grid over R-row token
+//   tiles, each tile's x bulk-copied ahead into shared memory, the q|k|v
+//   weights resident where they fit, the workspace written by asynchronous
+//   bulk stores from staging buffers;
 // - the attention kernels' machinery (attn_cta and below): a persistent
 //   grid over work items (R query rows of a sequence, every head group, then
 //   the kernel's tail on those rows), three producer warps copying q and k|v
@@ -16,7 +19,7 @@
 // What bounds the attention where the tail is light (the half, PERF.md):
 // the softmax's ex2 on the SFU and, at head dim 16, the k|v copies.  Left
 // for later (ROADMAP): k|v resident across a sequence's items, AV on wgmma,
-// f32 products on wgmma's TF32, the qkv body's own redesign.
+// f32 products on wgmma's TF32.
 //
 // Widths.  C is the LayerNorm's (the token width); W is the attention width,
 // a multiple of 64: W = C for the block, the shard's local width padded to
@@ -58,113 +61,872 @@ __device__ __forceinline__ int attn_width(const LongArgs& A) {
   return HALF ? A.sh.HID : A.sh.C;
 }
 
-// The qkv kernel: the LN1 output (a), the q|k|v tile of a head group (b), the
-// slab ring, its barriers.
-__host__ __device__ inline Layout layout_qkv(bool f32, int R, int C, int stages) {
-  Layout l{};
-  const size_t xn = f32 ? (size_t)R * ld_f(C) * 4 : (size_t)R * C * 2;
-  const size_t qkv = f32 ? (size_t)R * kQkvLdF * 4 : (size_t)R * kQkvLd * 2;
-  l.b = align128(xn);
-  l.ring = align128(l.b + qkv);
-  l.bars = l.ring + (size_t)stages * (f32 ? kSlabKF * kQkvN * 4 : kSlabK * kQkvN * 2);
-  l.total = l.bars + 2 * kMaxStages * sizeof(uint64_t);
-  return l;
-}
-
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One head group's q|k|v of the tile's `valid` token rows (from row0), from
-// the row-major tile `src` (ld elements a row: q at columns 0-63, k 64-127,
-// v 128-191) to the workspace of W/64 groups, in 16-byte pieces.
-template <class T, bool HALF>
-__device__ void store_qkv(const T* src, int ld, const LongArgs& A, int gi, int row0, int valid) {
-  constexpr int E = 16 / sizeof(T);  // elements of a piece
-  constexpr int P = 64 / E;          // pieces of a part's 64 columns
-  const int G = attn_width<HALF>(A) / 64;
-  const size_t part = (size_t)A.n_seqs * G * A.L * 64;
-  T* ws = static_cast<T*>(A.ws);
-  for (int i = threadIdx.x; i < valid * 3 * P; i += kConsumers) {
-    const int r = i / (3 * P), k = i - r * (3 * P), which = k / P, piece = k - which * P;
-    const int tok = row0 + r, s = tok / A.L, pos = tok - s * A.L;
-    T* dst = ws + which * part + (((size_t)s * G + gi) * A.L + pos) * 64 + piece * E;
-    *reinterpret_cast<uint4*>(dst) =
-        *reinterpret_cast<const uint4*>(src + r * ld + which * 64 + piece * E);
-  }
-}
+// ---- the qkv kernels ---------------------------------------------------------------
+//
+// LN1 over C of R-row tiles of the (S*L, C) token matrix (sequences
+// ignored), then for each of the W/64 head groups the q|k|v product (K = C,
+// N = 192), + bias, rounded to the activation type, into the workspace
+// (3, S, W/64, L, 64).  The block's and the half's qkv kernels run this one
+// body, the width a template switch (attn_width<HALF>).
+// - A persistent grid: one CTA per SM walks the tiles i, i + grid, ... in
+//   that order.  A row's arithmetic never depends on the CTA that runs it,
+//   so two launches are bit-equal.
+// - x prefetched.  The producer thread copies a tile's rows, one contiguous
+//   run of R*C values, into the x slot with one cp.async.bulk completed on
+//   an mbarrier.  LN1 reads the slot and writes its own tile (a), so the
+//   slot is free once LN1 has read it: the next tile's x lands under this
+//   tile's products.  LN1 is layer_norm_g's / layer_norm_f32's arithmetic
+//   on shared memory, its roundings spelled out: the same values.
+// - Weights resident where the plan has room (S.stages == 0): the q|k|v
+//   slabs of all W/64 groups bulk-copied once per CTA from the re-laid array
+//   (WARR), in the layout the products read.  Elsewhere the slab ring of
+//   S.stages slabs streams them per tile, as before.
+// - Asynchronous workspace stores.  The epilogue (+ bias, rounding) writes
+//   each part's R x 64 tile row-major into a staging buffer (a ring of
+//   `parts` of them), then fence.proxy.async, and each consumer warp
+//   arrives on the buffer's full barrier.  A store thread of the producer
+//   warpgroup issues one cp.async.bulk per run of rows of one sequence (a
+//   contiguous run of 128- (bf16) or 256-byte (f32) workspace rows),
+//   commits the part, and hands a buffer back (its empty barrier) once
+//   cp.async.bulk.wait_group.read has seen its stores read.  No consumer
+//   barrier and no store issue in the epilogue: the consumers wait only for
+//   a buffer still being read, and the next group's products start at once.
+// - L2 hints: the weights' copies evict last, x's and the stores evict
+//   first.
+// bf16: the single-block kernel's wgmma products (m64n192k16 over 128-row
+// tiles, a warpgroup's 64 rows each; m64n96k16 over 64-row tiles, a
+// warpgroup's 96 columns each) in the same order, so the same sums.  Over
+// 128-row tiles each warpgroup runs LN1 on its own 64 rows and syncs with
+// itself alone, so one warpgroup's LN1 and epilogue overlap the other's
+// products.  The epilogue stores 4 bytes a lane, a warp's 32 lanes on 32
+// banks: the lanes of row g (= lane/4) write their 16-byte chunks of a
+// 64-byte half-row in an order rotated by g, rows g and g + 4 the two
+// halves of the row first.
+// f32: gemm_f32's 3xTF32 products per element (the same 16-deep slabs,
+// each slab's products in a fresh fragment, the same order of sums), with
+// all twelve (row block, column tile) fragments of a slab in flight at once,
+// over 64-row tiles: the plan has no room for 128-row f32 tiles beside the
+// x slot, the padded LN1 tile and three staging buffers.  Where the plan
+// has room (C <= 128), LN1 stores its output already split into TF32 hi /
+// lo tiles, so that no warp splits A in the products.
+// Bound: bytes at the bf16 C block (x in, 3 W values a token out: 1.92 ms
+// for the block's entry, 1.20 for the tp 2 shard's kernel at 3.35 TB/s);
+// in f32 the 3xTF32 products on mma.sync hold it (PERF.md: slab, LN1 and
+// epilogue cycles per tile, tools/kernel_phases.py --long-qkv).
 
-// ---- the qkv kernels -------------------------------------------------------------
+constexpr int kQkvSlab = kSlabK * kQkvN * 2;  // bytes of a q|k|v weight slab
+static_assert(kQkvSlab == kSlabKF * kQkvN * 4, "bf16 and f32 q|k|v slabs differ in size");
+constexpr int kMaxParts = 6;                  // staging buffers of a qkv kernel
+constexpr int kQkvMaxStages = 8;              // weight slabs of a qkv kernel's ring
+// Barriers: the ring's full / empty, the x slot's full / empty, the
+// resident weights', the staging buffers' full / empty.
+constexpr int kQkvBars = 2 * kQkvMaxStages + 3 + 2 * kMaxParts;
 
-// The qkv kernel's layout (block_cta's Plan): the same for the block and the half.
-template <bool F32>
+// The qkv kernel's plan past the Shape (whose stages are the ring's, 0 for
+// resident weights): staging buffers, the launch's R-row tiles.
 struct QkvPlan {
-  __device__ static Layout layout(const Shape& S) {
-    return layout_qkv(F32, F32 ? kRowsF : S.R, S.C, S.stages);
-  }
-  __device__ static int stage_bytes(const Shape&) {
-    return F32 ? kSlabKF * kQkvN * 4 : kSlabK * kQkvN * 2;
-  }
+  int parts, tiles;
+  int split;  // f32: LN1 stores its output split in TF32 hi / lo tiles
 };
 
-// The weight stream of matmuls [m0, m1) of the block's schedule.  The first
-// C/64 matmuls are head groups' q|k|v (K = C, N = 192), so [0, W/64) is also
-// the half's q|k|v stream: its slabs lead with its W/64 groups.
+// The qkv kernel's shared memory: the x slot (R x C row-major), the LN1
+// tile a (bf16 core matrices; f32 row-major, ld_f(C), and with `split` its
+// TF32 hi tile then its lo tile), the staging buffers
+// (R x 64 row-major each), the resident weights or the slab ring, the
+// barriers; byte offsets, each region on 128 bytes.
+struct QkvLayout {
+  size_t x, a, st, w, bars, total;
+};
+__host__ __device__ inline QkvLayout layout_qkv(bool f32, int R, int C, int W, int stages,
+                                                int parts, int split) {
+  QkvLayout l{};
+  const size_t e = f32 ? 4 : 2;
+  l.x = 0;
+  l.a = align128((size_t)R * C * e);
+  l.st = align128(l.a + (f32 ? (size_t)(split ? 2 : 1) * R * ld_f(C) * 4 : (size_t)R * C * 2));
+  l.w = align128(l.st + (size_t)parts * R * 64 * e);
+  const size_t w = stages ? (size_t)stages * kQkvSlab : (size_t)(W / 64) * C * kQkvN * e;
+  l.bars = align128(l.w + w);
+  l.total = l.bars + kQkvBars * sizeof(uint64_t);
+  return l;
+}
+
+// The qkv kernel's shared memory bytes under S (R, C, stages) for attention
+// width W, `parts` staging buffers and `split`; 0 outside the kernels: R 64
+// or 128 (bf16, C <= 256; f32 64), resident weights (stages 0) or a ring of
+// 2 to kQkvMaxStages slabs, 3 to kMaxParts staging buffers, split only in
+// f32 at C <= 128.
+inline long long qkv_smem(const Shape& S, int W, int parts, int split, bool f32) {
+  if (f32 ? S.R != kRowsF : (S.R != 64 && (S.R != 128 || S.C > 256))) return 0;
+  if ((S.stages && (S.stages < 2 || S.stages > kQkvMaxStages)) || parts < 3 || parts > kMaxParts)
+    return 0;
+  if (split != 0 && (split != 1 || !f32 || S.C > 128)) return 0;
+  return (long long)layout_qkv(f32, S.R, S.C, W, S.stages, parts, split).total;
+}
+
+// Phase cycles of a qkv kernel (measurement builds only, -DTANTE_PHASE_TIMING;
+// tools/kernel_phases.py --long-qkv): per CTA, the SM cycles consumer thread
+// 0 spent waiting for a tile's x, in LN1 (with its barrier), in the
+// products (summed over the groups), waiting for staging buffers, in the
+// epilogue, waiting for weight slabs (part of the products); the store
+// thread's cycles issuing the stores, waiting for written buffers and for
+// the stores' reads; the tiles and groups.
+enum { QP_XWAIT, QP_LN1, QP_MMA, QP_STAGE_WAIT, QP_EPILOGUE, QP_SLAB_WAIT, QP_STORE_ISSUE,
+       QP_STORE_FULL_WAIT, QP_STORE_READ_WAIT, QP_TILES, QP_GROUPS, kQkvPhases };
+#ifdef TANTE_PHASE_TIMING
+__device__ unsigned long long g_qkv_cycles[kPhaseSlots][kQkvPhases];
+__shared__ unsigned long long s_qkv_slab_wait;  // thread 0's ring waits (in the products)
+#define QSLAB(v) const long long v = clock64()
+#define QSLAB_ADD(t0)                                                              \
+  do {                                                                             \
+    if (threadIdx.x == 0) s_qkv_slab_wait += (unsigned long long)(clock64() - t0); \
+  } while (0)
+#define QCLK(v) const long long v = clock64()
+#define QTICK(v) v = clock64()
+#define QADD(k, dt)                                            \
+  do {                                                         \
+    if (threadIdx.x == 0) qc[k] += (unsigned long long)(dt);   \
+  } while (0)
+#else
+#define QCLK(v) \
+  do {          \
+  } while (0)
+#define QTICK(v) \
+  do {           \
+  } while (0)
+#define QSLAB(v) \
+  do {           \
+  } while (0)
+#define QSLAB_ADD(t0) \
+  do {                \
+  } while (0)
+#define QADD(k, dt) \
+  do {              \
+  } while (0)
+#endif
+
+// L2 policies of the qkv kernels' bulk copies: the weights (read by every
+// CTA, per tile where they stream) evict last; x and the workspace (each
+// byte moved once) evict first, so that they do not push the weights out.
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ void bulk_load_l2(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar)), "l"(policy) : "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes,
+                                           uint64_t policy) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes), "l"(policy) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Until at most n of this thread's committed store groups still read
+// shared memory (n = parts - 3 <= kMaxParts - 3).
+__device__ __forceinline__ void bulk_wait_read_upto(int n) {
+  switch (n) {
+    case 0: bulk_wait_read<0>(); break;
+    case 1: bulk_wait_read<1>(); break;
+    case 2: bulk_wait_read<2>(); break;
+    default: bulk_wait_read<3>(); break;
+  }
+}
+
+// LN1 of the x slot's R rows (row-major, C wide) into the core-matrix tile
+// dst: layer_norm_g's lanes, loads, sums and stores (the same values), its
+// scale and bias read per 8-column block (from L1).  At R = 128 (GROUPS 2)
+// a warpgroup's warps take its own 64 rows (8-row groups wl and wl + 4 of
+// them), at R = 64 the eight warps one 8-row group each.  A lane of an odd
+// row loads its blocks in pairs swapped, so that the two rows of a
+// quarter-warp read the two halves of 128 bytes (no bank conflict); the
+// blocks go back in order before any sum.  Rows past `valid` read as
+// zeros.  EXACT (NB = C/32, the 128-row tiles) drops the run-time block
+// count, so the two groups' chains interleave.
+// LN1's arithmetic spelled out in the roundings the single-block kernel's
+// layer_norm_g / layer_norm_f32 compile to (found by comparing workspaces
+// with that code's), so that no instantiation here fuses a multiply and an
+// add differently: a pair's squares x^2 + y^2 as fma(x, x, y^2), then added
+// to the running sum; the variance fma(-mu, mu, ss / C); the output
+// fma((v - mu) * rs, scale, bias).
+__device__ __forceinline__ float ln_sq2(float x, float y) {
+  return __fmaf_rn(x, x, __fmul_rn(y, y));
+}
+__device__ __forceinline__ float ln_var(float ss, float mu, int C) {
+  return __fmaf_rn(-mu, mu, __fdiv_rn(ss, (float)C));
+}
+__device__ __forceinline__ float ln_out(float v, float mu, float rs, float sc, float bi) {
+  return __fmaf_rn(__fmul_rn(__fsub_rn(v, mu), rs), sc, bi);
+}
+template <int NB, int GROUPS, bool EXACT>  // EXACT: NB == C / 32
+__device__ void ln_slot(const bf16* xs, int valid, bf16* dst, int R, int C,
+                        const bf16* __restrict__ scale, const bf16* __restrict__ bias) {
+  constexpr int kWarps = kConsumers / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
+  const int odd = (lane >> 2) & 1, nb = C / 32;  // nb even: C is a multiple of 64
+  uint4 raw[GROUPS][NB];
+  auto row_of = [&](int g) {
+    return GROUPS == 2 ? 64 * (warp >> 2) + ((warp & 3) + 4 * g) * 8 + (lane >> 2)
+                       : (warp + g * kWarps) * 8 + (lane >> 2);
+  };
+#pragma unroll
+  for (int g = 0; g < GROUPS; ++g) {
+    const int r = row_of(g);
+    const bf16* row = xs + (size_t)r * C;
+    uint4 got[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      got[i] = make_uint4(0u, 0u, 0u, 0u);
+      if ((EXACT || i < nb) && r < valid)
+        got[i] = *reinterpret_cast<const uint4*>(row + (q + 4 * (i ^ odd)) * 8);
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) raw[g][i] = odd ? got[i ^ 1] : got[i];
+  }
+#pragma unroll
+  for (int g = 0; g < GROUPS; ++g) {
+    const int r = row_of(g);  // < R
+    float s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const uint32_t* pu = &raw[g][i].x;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = unpack_bf16(pu[e]);
+        s = __fadd_rn(s, __fadd_rn(a.x, a.y));
+        ss = __fadd_rn(ss, ln_sq2(a.x, a.y));
+      }
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    }
+    const float mu = __fdiv_rn(s, (float)C);
+    const float var = fmaxf(ln_var(ss, mu, C), 0.f);
+    const float rs = rsqrtf(var + 1e-5f);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      if (!EXACT && i >= nb) break;
+      const int c0 = (q + 4 * i) * 8;
+      const uint4 scv = __ldg(reinterpret_cast<const uint4*>(scale + c0));
+      const uint4 biv = __ldg(reinterpret_cast<const uint4*>(bias + c0));
+      const uint32_t *ps = &scv.x, *pb = &biv.x, *pv = &raw[g][i].x;
+      uint4 u;
+      uint32_t* pu = &u.x;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 sc = unpack_bf16(ps[e]), bi = unpack_bf16(pb[e]), v = unpack_bf16(pv[e]);
+        pu[e] = pack_bf16(ln_out(v.x, mu, rs, sc.x, bi.x), ln_out(v.y, mu, rs, sc.y, bi.y));
+      }
+      *reinterpret_cast<uint4*>(dst + blk(r, c0, C)) = u;
+    }
+  }
+}
+
+// LN1 of the x slot's 64 rows (row-major, C wide) into the row-major tile
+// dst (ld_f(C)), with layer_norm_f32's sums: there a warp takes a row, lane
+// l holds the float4 column blocks l and l + 32, and the row's sums meet in
+// warp_sum's butterfly (xor 16, 8, 4, 2, 1).  Here four lanes take a row
+// (eight rows a warp at once): lane q holds the blocks l = q + 4m (m < 8)
+// and l + 32, so that the butterfly's first three levels (m ^ 4, m ^ 2,
+// m ^ 1) are adds inside the lane and the last two shuffles: the same sums
+// in the same order, the same values.  NG = C/16 blocks a lane (C 64, 128,
+// 192 or 256).  A lane of an odd row loads and stores its blocks in pairs
+// swapped (the two rows of a quarter-warp on other banks).  SPLIT: each
+// output stored as its TF32 hi (dst) and lo (64 rows on) parts, split once
+// here rather than by every warp in every slab's products.  Rows past
+// `valid` read as zeros.
+template <int NG, bool SPLIT>
+__device__ void ln_slot_f32(const float* xs, int valid, float* dst, int C,
+                            const float* __restrict__ scale, const float* __restrict__ bias) {
+  static_assert(NG % 4 == 0 && NG >= 4 && NG <= 16, "C = 16 NG in 64 .. 256");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, q = lane & 3;
+  const int r = warp * 8 + (lane >> 2), odd = (lane >> 2) & 1, ld = ld_f(C);
+  const float4* row = reinterpret_cast<const float4*>(xs + (size_t)r * C);
+  float4 got[NG], v[NG];  // v[k]: block q + 4 k
+#pragma unroll
+  for (int k = 0; k < NG; ++k)
+    got[k] = r < valid ? row[q + 4 * (k ^ odd)] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < NG; ++k) v[k] = odd ? got[k ^ 1] : got[k];
+  // The butterfly's leaves: lane l's sums over its blocks l and l + 32.
+  float s[8], ss[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    s[m] = 0.f;
+    ss[m] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = m + 8 * h;
+      if (k < NG) {
+        const float4 a = v[k];
+        s[m] = __fadd_rn(s[m], __fadd_rn(__fadd_rn(a.x, a.y), __fadd_rn(a.z, a.w)));
+        ss[m] = __fadd_rn(ss[m], __fadd_rn(ln_sq2(a.x, a.y), ln_sq2(a.z, a.w)));
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1)  // xor 16, 8, 4: leaves m and m ^ (o)
+#pragma unroll
+    for (int m = 0; m < o; ++m) {
+      s[m] = __fadd_rn(s[m], s[m + o]);
+      ss[m] = __fadd_rn(ss[m], ss[m + o]);
+    }
+  float st = s[0], sst = ss[0];
+#pragma unroll
+  for (int o = 2; o > 0; o >>= 1) {  // xor 2, 1
+    st = __fadd_rn(st, __shfl_xor_sync(0xffffffffu, st, o));
+    sst = __fadd_rn(sst, __shfl_xor_sync(0xffffffffu, sst, o));
+  }
+  const float mu = __fdiv_rn(st, (float)C);
+  const float var = fmaxf(ln_var(sst, mu, C), 0.f);
+  const float rs = rsqrtf(var + 1e-5f);
+#pragma unroll
+  for (int kk = 0; kk < NG; ++kk) {
+    const int b = q + 4 * (kk ^ odd);
+    const float4 a = odd ? v[kk ^ 1] : v[kk];
+    const float4 sc = __ldg(reinterpret_cast<const float4*>(scale) + b);
+    const float4 bi = __ldg(reinterpret_cast<const float4*>(bias) + b);
+    const float4 o =
+        make_float4(ln_out(a.x, mu, rs, sc.x, bi.x), ln_out(a.y, mu, rs, sc.y, bi.y),
+                    ln_out(a.z, mu, rs, sc.z, bi.z), ln_out(a.w, mu, rs, sc.w, bi.w));
+    if constexpr (SPLIT) {
+      uint4 hi, lo;
+      split_tf32(o.x, hi.x, lo.x);
+      split_tf32(o.y, hi.y, lo.y);
+      split_tf32(o.z, hi.z, lo.z);
+      split_tf32(o.w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(dst + r * ld + 4 * b) = hi;
+      *reinterpret_cast<uint4*>(dst + (kRowsF + r) * ld + 4 * b) = lo;
+    } else {
+      *reinterpret_cast<float4*>(dst + r * ld + 4 * b) = o;
+    }
+  }
+}
+
+// A bf16 head group's products (gemm<NW>'s instructions and order):
+// acc (this thread's NW/2) = A (R x K, the LN1 tile) . the group's K/32
+// slabs, from `w` (resident) or, where w is null, the ring's next slabs.
+template <int NW>
+__device__ __forceinline__ void qkv_mma(const bf16* A, int K, int R, const unsigned char* w,
+                                        Ring& ring, float* acc) {
+  const int wg = threadIdx.x >> 7;
+  const bool split_rows = R == 128;
+  const int c_off = split_rows ? 0 : wg * NW;
+  const uint32_t a_sbo = (uint32_t)(K >> 3) * 128;
+  const bf16* a_rows = A + ((split_rows ? wg : 0) * 8) * (K >> 3) * 64;
+#pragma unroll
+  for (int e = 0; e < NW / 2; ++e) acc[e] = 0.f;
+  const int nk = K / kSlabK;
+  auto slab_mma = [&](const bf16* slab, int kc) {
+#pragma unroll
+    for (int ks = 0; ks < kSlabK / 16; ++ks)
+      wgmma<NW>(acc, wg_desc(a_rows + ((kc * kSlabK + ks * 16) >> 3) * 64, 128, a_sbo),
+                wg_desc(slab + ((c_off >> 3) * (kSlabK / 8) + ks * 2) * 64, 128,
+                        (kSlabK / 8) * 128));
+  };
+  if (w) {
+    wg_fence();
+    for (int kc = 0; kc < nk; ++kc)
+      slab_mma(reinterpret_cast<const bf16*>(w + (size_t)kc * kQkvSlab), kc);
+    wg_commit();
+    wg_wait<0>();
+    return;
+  }
+  for (int kc = 0; kc < nk; ++kc) {
+    const int s = ring.idx % ring.stages;
+    QSLAB(w0);
+    mbar_wait(&ring.full[s], (ring.idx / ring.stages) & 1);
+    QSLAB_ADD(w0);
+    wg_fence();
+    slab_mma(reinterpret_cast<const bf16*>(ring.base + (size_t)s * ring.stage_bytes), kc);
+    wg_commit();
+    wg_wait<1>();  // the slab before this one is no longer read
+    if (kc > 0) release(ring, ring.idx - 1);
+    ++ring.idx;
+  }
+  wg_wait<0>();
+  release(ring, ring.idx - 1);
+}
+
+// A bf16 head group's epilogue: acc + bias (bb: this thread's bias pairs,
+// gemm's), rounded, into the staging buffers of the group's parts q, k, v
+// (st[0..2], R x 64 row-major each).  The thread's columns in 8-column
+// chunks j (global chunk c0 + j: part (c0 + j) / 8), taken 8 at a time (a
+// pair of 4-chunk blocks: one 128-byte row of a part) or 4 (the last block
+// of a 64-row tile's 96 columns): at step s, lane (g, t) writes chunk
+// ((s / 4) ^ (g / 4)) * 4 + (s + g) % 4 of the pair at 4t bytes into it, so
+// that the warp's 32 lanes store on 32 banks (a lone block: 16, two lanes a
+// bank).
+template <int NW>
+__device__ __forceinline__ void qkv_stage(const float* acc, const uint32_t* bb,
+                                          unsigned char* st0, unsigned char* st1,
+                                          unsigned char* st2, int R) {
+  const int wg = threadIdx.x >> 7, wl = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, rot = g & 3, hi = g >> 2;
+  const bool split_rows = R == 128;
+  const int c0 = split_rows ? 0 : wg * (NW / 8);
+  const int row = (split_rows ? wg * 64 : 0) + wl * 16 + g;
+  constexpr int kBlocks = NW / 32;
+#pragma unroll
+  for (int bl = 0; bl < kBlocks; bl += 2) {
+    const int n = bl + 1 < kBlocks ? 8 : 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t v[8];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        v[m] = 0u;
+        if (m < n) {
+          const int j = 4 * bl + m;
+          const float2 f = unpack_bf16(bb[j]);
+          v[m] = pack_bf16(acc[4 * j + 2 * h] + f.x, acc[4 * j + 2 * h + 1] + f.y);
+        }
+      }
+      // Each half rotated by rot (w[s] = v[half + (s + rot) % 4]), then the
+      // halves swapped where hi.
+      uint32_t u[8];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) u[m] = (rot & 1) ? v[(m & 4) | ((m + 1) & 3)] : v[m];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) v[m] = (rot & 2) ? u[(m & 4) | ((m + 2) & 3)] : u[m];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) u[m] = (hi && n == 8) ? v[m ^ 4] : v[m];
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        if (s >= n) break;
+        const int m = (n == 8 ? (((s >> 2) ^ hi) << 2) : 0) | ((s + rot) & 3);
+        const int cj = c0 + 4 * bl + m, p = cj >> 3;
+        unsigned char* st = p == 0 ? st0 : (p == 1 ? st1 : st2);
+        *reinterpret_cast<uint32_t*>(st + (row + 8 * h) * 128 + (cj & 7) * 16 + 4 * t) = u[s];
+      }
+    }
+  }
+}
+
+// An f32 head group's products (gemm_f32_rb<3, 4>'s arithmetic): acc =
+// A (64 x K, the LN1 tile, ld_f(K); SPLIT: its TF32 hi and lo tiles) . the
+// group's K/16 slabs, from `w` (RES: resident) or the ring's next slabs.  Warp w takes the
+// 8-column tiles w + 8j (j < 3: column 8w of part j) of the 64 rows.
+template <bool RES, bool SPLIT>
+__device__ __forceinline__ void qkv_mma_f32(const float* A, int K, const unsigned char* w,
+                                            Ring& ring, float (&acc)[4][3][4]) {
+  constexpr int NJ = 3, RB = 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int lda = ld_f(K);
+  const float* arow = A + g * lda + t;
+  // SPLIT: A's TF32 parts as LN1 stored them (hi, then lo 64 rows on).
+  const uint32_t* hrow = reinterpret_cast<const uint32_t*>(arow);
+  const uint32_t* lrow = hrow + kRowsF * lda;
+  auto frag = [&](int off, uint32_t& h, uint32_t& l) {
+    if constexpr (SPLIT) {
+      h = hrow[off];
+      l = lrow[off];
+    } else {
+      split_tf32(arow[off], h, l);
+    }
+  };
+#pragma unroll
+  for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[rb][j][e] = 0.f;
+  for (int kc = 0; kc < K / kSlabKF; ++kc) {
+    // The slab's first k8 step of A, split while its B may still be in
+    // flight.
+    uint32_t a0h[RB][4], a0l[RB][4], a1h[RB][4], a1l[RB][4];
+#pragma unroll
+    for (int rb = 0; rb < RB; ++rb) {
+      const int o = 16 * rb * lda + kc * kSlabKF;
+      frag(o, a0h[rb][0], a0l[rb][0]);
+      frag(o + 8 * lda, a0h[rb][1], a0l[rb][1]);
+      frag(o + 4, a0h[rb][2], a0l[rb][2]);
+      frag(o + 8 * lda + 4, a0h[rb][3], a0l[rb][3]);
+    }
+    const unsigned char* base;
+    if constexpr (RES) {
+      base = w + (size_t)kc * kQkvSlab;
+    } else {
+      const int s = ring.idx % ring.stages;
+      QSLAB(w0);
+      mbar_wait(&ring.full[s], (ring.idx / ring.stages) & 1);
+      QSLAB_ADD(w0);
+      base = ring.base + (size_t)s * ring.stage_bytes;
+    }
+    // This warp's B fragments of the slab: tile w + 8j is 32 float4s,
+    // lane l's at 4l: rows t, t + 4 (the first k8 step), 8 + t, 12 + t.
+    const float4* slab = reinterpret_cast<const float4*>(base) + warp * 32 + lane;
+    uint32_t bh[NJ][4], bl[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 b = slab[j * 256];
+      split_tf32(b.x, bh[j][0], bl[j][0]);
+      split_tf32(b.y, bh[j][1], bl[j][1]);
+      split_tf32(b.z, bh[j][2], bl[j][2]);
+      split_tf32(b.w, bh[j][3], bl[j][3]);
+    }
+    if constexpr (!RES) {
+      // Generic-proxy reads of the stage before the producer's next bulk
+      // copy into it (gemm_f32's fence).
+      fence_async_smem();
+      release(ring, ring.idx);
+      ++ring.idx;
+    }
+#pragma unroll
+    for (int rb = 0; rb < RB; ++rb) {
+      const int o = 16 * rb * lda + kc * kSlabKF + 8;
+      frag(o, a1h[rb][0], a1l[rb][0]);
+      frag(o + 8 * lda, a1h[rb][1], a1l[rb][1]);
+      frag(o + 4, a1h[rb][2], a1l[rb][2]);
+      frag(o + 8 * lda + 4, a1h[rb][3], a1l[rb][3]);
+    }
+    // Each fragment's six products in gemm_f32's order (a fresh fragment,
+    // the first k8 step, the second), the twelve fragments' chains side by
+    // side; then added to the totals.
+    float part[RB][NJ][4];
+#pragma unroll
+    for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        mma_3xtf32<true>(part[rb][j], a0h[rb], a0l[rb], &bh[j][0], &bl[j][0]);
+#pragma unroll
+    for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma_3xtf32(part[rb][j], a1h[rb], a1l[rb], &bh[j][2], &bl[j][2]);
+#pragma unroll
+    for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[rb][j][e] += part[rb][j][e];
+  }
+}
+
+// The store thread: for each head group of each of this CTA's tiles, in the
+// consumers' order, and each part (q, k, v: part n of the CTA in staging
+// buffer n % parts), once the consumer warps have written it (full), one
+// bulk copy per run of the tile's rows inside one sequence, then one
+// commit; a buffer goes back to the consumers (empty) once its stores have
+// read it, keeping parts - 3 parts' reads in flight.
+template <class T, bool HALF>
+__device__ void qkv_stores(const LongArgs& A, const QkvPlan& P, const unsigned char* st,
+                           uint64_t* full, uint64_t* empty) {
+  const Shape& S = A.sh;
+  const int G = attn_width<HALF>(A) / 64, keep = P.parts - 3;
+  const size_t part = (size_t)A.n_seqs * G * A.L * 64;  // elements of a workspace part
+  const size_t part_bytes = (size_t)S.R * 64 * sizeof(T);
+  T* ws = static_cast<T*>(A.ws);
+  const uint64_t once = l2_evict_first();
+#ifdef TANTE_PHASE_TIMING
+  unsigned long long sc[3] = {};
+#endif
+  int n = 0;
+  for (int t = blockIdx.x; t < P.tiles; t += gridDim.x) {
+    const int row0 = t * S.R, valid = min(S.R, A.tokens - row0);
+    for (int gi = 0; gi < G; ++gi) {
+      for (int p = 0; p < 3; ++p, ++n) {
+        const int b = n % P.parts;
+        QCLK(s0);
+        mbar_wait(&full[b], (n / P.parts) & 1);
+        QCLK(s1);
+        const unsigned char* buf = st + (size_t)b * part_bytes;
+        for (int r = 0; r < valid;) {
+          const int tok = row0 + r, s = tok / A.L, pos = tok - s * A.L;
+          const int cnt = min(valid - r, A.L - pos);
+          bulk_store(ws + p * part + (((size_t)s * G + gi) * A.L + pos) * 64,
+                     buf + (size_t)r * 64 * sizeof(T), (uint32_t)(cnt * 64 * sizeof(T)), once);
+          r += cnt;
+        }
+        bulk_commit();
+        QCLK(s2);
+        if (n >= keep) {
+          bulk_wait_read_upto(keep);
+          mbar_arrive(&empty[(n - keep) % P.parts]);
+        }
+        QCLK(s3);
+#ifdef TANTE_PHASE_TIMING
+        sc[0] += s2 - s1;
+        sc[1] += s1 - s0;
+        sc[2] += s3 - s2;
+#endif
+      }
+    }
+  }
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+#ifdef TANTE_PHASE_TIMING
+  if (blockIdx.x < kPhaseSlots)
+    for (int k = 0; k < 3; ++k) g_qkv_cycles[blockIdx.x][QP_STORE_ISSUE + k] += sc[k];
+#endif
+}
+
+// The producer thread: the resident weights (once), each tile's x into the
+// slot once the consumers' LN1 has read the last one, and where the weights
+// stream, each tile's slabs (all W/64 groups', in order); the next tile's x
+// goes out after the first ring-full of this tile's slabs, so that it is
+// issued as soon as this tile's LN1 frees the slot.  xbar: x full, x empty,
+// weights full.
 template <class T>
-__device__ __forceinline__ void produce_range(const LongArgs& A, Ring& ring, int m0, int m1) {
-  int idx = 0;
-  produce_tile<T>(static_cast<const unsigned char*>(A.p[WARR]), A.sh, ring, idx, m0, m1);
+__device__ void qkv_produce(const LongArgs& A, const QkvPlan& P, unsigned char* xs,
+                            unsigned char* wsm, Ring& ring, uint64_t* xbar, int groups) {
+  const Shape& S = A.sh;
+  const unsigned char* w = static_cast<const unsigned char*>(A.p[WARR]);
+  const unsigned char* xg = static_cast<const unsigned char*>(A.x);
+  const size_t row_bytes = (size_t)S.C * sizeof(T);
+  const int slabs = groups * (S.C / Elem<T>::slab_k);  // a tile's
+  const uint64_t keep = l2_evict_last(), once = l2_evict_first();
+  if (!S.stages) {
+    mbar_expect_tx(&xbar[2], (uint32_t)slabs * kQkvSlab);
+    for (int i = 0; i < slabs; ++i)
+      bulk_load_l2(wsm + (size_t)i * kQkvSlab, w + (size_t)i * kQkvSlab, kQkvSlab, &xbar[2],
+                   keep);
+  }
+  auto load_x = [&](int t) {
+    const int row0 = t * S.R, valid = min(S.R, A.tokens - row0);
+    mbar_expect_tx(&xbar[0], (uint32_t)(valid * row_bytes));
+    bulk_load_l2(xs, xg + (size_t)row0 * row_bytes, (uint32_t)(valid * row_bytes), &xbar[0],
+                 once);
+  };
+  load_x(blockIdx.x);
+  const int lead = S.stages ? min(S.stages, slabs) : 0;
+  int idx = 0, n = 0;
+  for (int t = blockIdx.x; t < P.tiles; t += gridDim.x, ++n) {
+    const bool next = t + (int)gridDim.x < P.tiles;
+    for (int i = 0; i < (S.stages ? slabs : 0); ++i, ++idx) {
+      const int s = idx % ring.stages;
+      if (idx >= ring.stages) mbar_wait(&ring.empty[s], ((idx / ring.stages) - 1) & 1);
+      mbar_expect_tx(&ring.full[s], kQkvSlab);
+      bulk_load_l2(ring.base + (size_t)s * ring.stage_bytes, w + (size_t)i * kQkvSlab, kQkvSlab,
+                   &ring.full[s], keep);
+      if (i == lead - 1 && next) {
+        mbar_wait(&xbar[1], n & 1);
+        load_x(t + gridDim.x);
+      }
+    }
+    if (!S.stages && next) {
+      mbar_wait(&xbar[1], n & 1);
+      load_x(t + gridDim.x);
+    }
+  }
 }
 
-// LN1 over C of a tile of token rows, then the q|k|v of each of the W/64 head
-// groups (+ bias, rounded to bf16) into the workspace.
-template <bool HALF>
-__device__ __forceinline__ void long_qkv(const LongArgs& A) {
+// A qkv kernel's CTA (see the section's head): the producer warpgroup's
+// first thread loads weights and x, its second warp's first thread issues
+// the workspace stores; the two consumer warpgroups run LN1, the products
+// and the epilogue.
+template <bool F32, bool HALF>
+__device__ __forceinline__ void qkv_cta(const LongArgs& A, const QkvPlan& P) {
+  using T = typename std::conditional<F32, float, bf16>::type;
+  extern __shared__ __align__(128) unsigned char smem[];
   const Shape& S = A.sh;
-  const int groups = attn_width<HALF>(A) / 64;
-  block_cta<bf16, QkvPlan<false>>(
-      S, [&](Ring& ring) { produce_range<bf16>(A, ring, 0, groups); },
-      [&](Ring& ring, bf16* sA, bf16* sQkv, bf16*) {
-        const int row0 = blockIdx.x * S.R;
-        const int valid = min(S.R, A.tokens - row0);
-        const ContigTile rows{(size_t)row0 * S.C, S.C};
-        layer_norm(static_cast<const bf16*>(A.x), rows, valid, sA, S.R, S.C,
-                   static_cast<const bf16*>(A.p[LN1S]), static_cast<const bf16*>(A.p[LN1B]));
-        fence_async_smem();
-        consumers_sync();
-        for (int gi = 0; gi < groups; ++gi) {
-          gemm_np(sA, S.C, kQkvN, S.np[0], S.R, ring,
-                  EpiQkv{sQkv, static_cast<const bf16*>(A.p[BQKV]) + gi * kQkvN}, 0, blockIdx.x);
-          consumers_sync();
-          store_qkv<bf16, HALF>(sQkv, kQkvLd, A, gi, row0, valid);
-          consumers_sync();  // the next group's projection overwrites q|k|v
+  const int R = S.R, C = S.C, groups = attn_width<HALF>(A) / 64;
+  const QkvLayout lay = layout_qkv(F32, R, C, attn_width<HALF>(A), S.stages, P.parts, P.split);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  Ring ring{smem + lay.w, bars, bars + kQkvMaxStages, S.stages, kQkvSlab, 0};
+  uint64_t* xbar = bars + 2 * kQkvMaxStages;  // x full, x empty, weights full
+  uint64_t* st_full = xbar + 3;
+  uint64_t* st_empty = st_full + kMaxParts;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S.stages; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kConsumers / 32);
+    }
+    mbar_init(&xbar[0], 1);
+    mbar_init(&xbar[1], kConsumers / 32);
+    mbar_init(&xbar[2], 1);
+    for (int b = 0; b < P.parts; ++b) {
+      mbar_init(&st_full[b], kConsumers / 32);
+      mbar_init(&st_empty[b], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+#ifdef TANTE_PHASE_TIMING
+    s_qkv_slab_wait = 0;
+#endif
+  }
+  __syncthreads();
+  unsigned char* st = smem + lay.st;
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == kConsumers)
+      qkv_produce<T>(A, P, smem + lay.x, smem + lay.w, ring, xbar, groups);
+    else if (threadIdx.x == kConsumers + 32)
+      qkv_stores<T, HALF>(A, P, st, st_full, st_empty);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+#ifdef TANTE_PHASE_TIMING
+  unsigned long long qc[kQkvPhases] = {};
+#endif
+  const T* xs = reinterpret_cast<const T*>(smem + lay.x);
+  T* a = reinterpret_cast<T*>(smem + lay.a);
+  const size_t part_bytes = (size_t)R * 64 * sizeof(T);
+  const unsigned char* wres = S.stages ? nullptr : smem + lay.w;
+  const size_t group_bytes = (size_t)C * kQkvN * sizeof(T);
+  const T* ln_s = static_cast<const T*>(A.p[LN1S]);
+  const T* ln_b = static_cast<const T*>(A.p[LN1B]);
+  const T* bqkv = static_cast<const T*>(A.p[BQKV]);
+  const int lane = threadIdx.x & 31, wgi = threadIdx.x >> 7;
+  // 128-row bf16 tiles: each warpgroup its own rows, synced with itself.
+  const bool own_rows = !F32 && R == 128;
+  if (wres) mbar_wait(&xbar[2], 0);
+  int n = 0, ng = 0;
+  for (int t = blockIdx.x; t < P.tiles; t += gridDim.x, ++n) {
+    const int valid = min(R, A.tokens - t * R);
+    // Where every warp reads every row of the LN1 tile (f32; bf16 64-row
+    // tiles), no warp writes it before all have done the last tile's
+    // products.
+    if (!own_rows && n > 0) consumers_sync();
+    QCLK(c0);
+    mbar_wait(&xbar[0], n & 1);
+    QCLK(c1);
+    QADD(QP_XWAIT, c1 - c0);
+    if constexpr (F32) {
+      switch (C + P.split) {  // split only at C <= 128
+        case 64: ln_slot_f32<4, false>(xs, valid, a, C, ln_s, ln_b); break;
+        case 65: ln_slot_f32<4, true>(xs, valid, a, C, ln_s, ln_b); break;
+        case 128: ln_slot_f32<8, false>(xs, valid, a, C, ln_s, ln_b); break;
+        case 129: ln_slot_f32<8, true>(xs, valid, a, C, ln_s, ln_b); break;
+        case 192: ln_slot_f32<12, false>(xs, valid, a, C, ln_s, ln_b); break;
+        default: ln_slot_f32<16, false>(xs, valid, a, C, ln_s, ln_b); break;
+      }
+    }
+    else if (R == 128)
+      switch (C) {  // 64 <= C <= 256
+        case 64: ln_slot<2, 2, true>(xs, valid, a, R, C, ln_s, ln_b); break;
+        case 128: ln_slot<4, 2, true>(xs, valid, a, R, C, ln_s, ln_b); break;
+        case 192: ln_slot<6, 2, true>(xs, valid, a, R, C, ln_s, ln_b); break;
+        default: ln_slot<8, 2, true>(xs, valid, a, R, C, ln_s, ln_b); break;
+      }
+    else
+      ln_slot<kMaxC / 32, 1, false>(xs, valid, a, R, C, ln_s, ln_b);
+    // The slot's reads and the tile's writes before the async proxy's next
+    // copy into the slot and (bf16) wgmma's reads of the tile.
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&xbar[1]);
+    if (own_rows)
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wgi) : "memory");
+    else
+      consumers_sync();
+    QCLK(c2);
+    QADD(QP_LN1, c2 - c1);
+    QADD(QP_TILES, 1);
+    for (int gi = 0; gi < groups; ++gi, ++ng) {
+      const unsigned char* wg_w = wres ? wres + gi * group_bytes : nullptr;
+      unsigned char* sp[3];
+      int bufs[3];
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        bufs[p] = (3 * ng + p) % P.parts;
+        sp[p] = st + (size_t)bufs[p] * part_bytes;
+      }
+      // Wait until the store thread has handed back part p's buffer (part
+      // 3 ng + p - parts read).
+      auto buffer_free = [&](int p) {
+        if (3 * ng + p >= P.parts)
+          mbar_wait(&st_empty[bufs[p]], (((3 * ng + p) / P.parts) - 1) & 1);
+      };
+#ifdef TANTE_PHASE_TIMING
+      long long m2 = 0;  // the staging buffers free
+#endif
+      QCLK(m0);
+      if constexpr (F32) {
+        const int warp = threadIdx.x >> 5, g = lane >> 2, tq = lane & 3;
+        float2 bias[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          bias[j] = __ldg(reinterpret_cast<const float2*>(bqkv + gi * kQkvN + 8 * (warp + 8 * j) +
+                                                          2 * tq));
+        float acc[4][3][4];
+        if (wres && P.split)
+          qkv_mma_f32<true, true>(a, C, wg_w, ring, acc);
+        else if (wres)
+          qkv_mma_f32<true, false>(a, C, wg_w, ring, acc);
+        else if (P.split)
+          qkv_mma_f32<false, true>(a, C, wg_w, ring, acc);
+        else
+          qkv_mma_f32<false, false>(a, C, wg_w, ring, acc);
+        QCLK(m1);
+        QADD(QP_MMA, m1 - m0);
+        buffer_free(0);
+        QTICK(m2);
+        QADD(QP_STAGE_WAIT, m2 - m1);
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int rb = 0; rb < 4; ++rb) {
+            if (rb == 0 && j > 0) buffer_free(j);
+            float* d = reinterpret_cast<float*>(sp[j]) + (16 * rb + g) * 64 + 8 * warp + 2 * tq;
+            *reinterpret_cast<float2*>(d) =
+                make_float2(acc[rb][j][0] + bias[j].x, acc[rb][j][1] + bias[j].y);
+            *reinterpret_cast<float2*>(d + 8 * 64) =
+                make_float2(acc[rb][j][2] + bias[j].x, acc[rb][j][3] + bias[j].y);
+          }
+      } else {
+        constexpr int kMaxNW = 192;
+        uint32_t bb[kMaxNW / 8];
+        float acc[kMaxNW / 2];
+        const int col = (R == 128 ? 0 : wgi * 96) + 2 * (lane & 3);
+        const bf16* b = bqkv + gi * kQkvN;
+        if (R == 128) {
+#pragma unroll
+          for (int j = 0; j < 24; ++j) bb[j] = *reinterpret_cast<const uint32_t*>(b + col + 8 * j);
+          qkv_mma<192>(a, C, R, wg_w, ring, acc);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 12; ++j) bb[j] = *reinterpret_cast<const uint32_t*>(b + col + 8 * j);
+          qkv_mma<96>(a, C, R, wg_w, ring, acc);
         }
-      });
-}
-
-// The same in f32 (64-row tiles, 3xTF32 products).
-template <bool HALF>
-__device__ __forceinline__ void long_qkv_f32(const LongArgs& A) {
-  const Shape& S = A.sh;
-  const int groups = attn_width<HALF>(A) / 64;
-  block_cta<float, QkvPlan<true>>(
-      S, [&](Ring& ring) { produce_range<float>(A, ring, 0, groups); },
-      [&](Ring& ring, float* sA, float* sQkv, float*) {
-        const int row0 = blockIdx.x * kRowsF;
-        const int valid = min(kRowsF, A.tokens - row0);
-        const ContigTile rows{(size_t)row0 * S.C, S.C};
-        layer_norm_f32(static_cast<const float*>(A.x), rows, valid, sA, S.C,
-                       static_cast<const float*>(A.p[LN1S]), static_cast<const float*>(A.p[LN1B]));
-        consumers_sync();
-        for (int gi = 0; gi < groups; ++gi) {
-          gemm_f32<3>(sA, S.C, kQkvN, valid, ring,
-                      EpiQkvF{sQkv, static_cast<const float*>(A.p[BQKV]) + gi * kQkvN});
-          consumers_sync();
-          store_qkv<float, HALF>(sQkv, kQkvLdF, A, gi, row0, valid);
-          consumers_sync();
-        }
-      });
+        QCLK(m1);
+        QADD(QP_MMA, m1 - m0);
+#pragma unroll
+        for (int p = 0; p < 3; ++p) buffer_free(p);
+        QTICK(m2);
+        QADD(QP_STAGE_WAIT, m2 - m1);
+        if (R == 128)
+          qkv_stage<192>(acc, bb, sp[0], sp[1], sp[2], R);
+        else
+          qkv_stage<96>(acc, bb, sp[0], sp[1], sp[2], R);
+      }
+      // The staging writes before the bulk copies read them; each warp's
+      // arrival tells the store thread.
+      fence_async_smem();
+      __syncwarp();
+      if (lane == 0)
+#pragma unroll
+        for (int p = 0; p < 3; ++p) mbar_arrive(&st_full[bufs[p]]);
+      QCLK(m3);
+      QADD(QP_EPILOGUE, m3 - m2);
+      QADD(QP_GROUPS, 1);
+    }
+  }
+#ifdef TANTE_PHASE_TIMING
+  qc[QP_SLAB_WAIT] = s_qkv_slab_wait;
+  if (threadIdx.x == 0 && blockIdx.x < kPhaseSlots)
+    for (int k = 0; k < kQkvPhases; ++k)
+      if (k < QP_STORE_ISSUE || k > QP_STORE_READ_WAIT) g_qkv_cycles[blockIdx.x][k] += qc[k];
+#endif
 }
 
 // ---- the attention kernels ---------------------------------------------------------
@@ -932,10 +1694,11 @@ __device__ __forceinline__ void attn_cta(const LongArgs& A, const AttnPlan& AP, 
 // ---- host side -------------------------------------------------------------------
 
 template <class K>
-cudaError_t launch_kernel(K k, const LongArgs& A, int grid, long long smem, void* stream) {
+cudaError_t launch_qkv_kernel(K k, const LongArgs& A, const QkvPlan& P, int grid, long long smem,
+                              void* stream) {
   cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  k<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(A);
+  k<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(A, P);
   return cudaGetLastError();
 }
 

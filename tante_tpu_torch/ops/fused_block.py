@@ -668,7 +668,7 @@ _LONG_Q_LD_F32, _LONG_KV_LD_F32 = 64 + 4, 128 + 4
 
 class LongPlan(NamedTuple):
     rows: int        # token rows of a qkv-entry tile (sequences ignored)
-    qkv_stages: int  # weight slabs in the qkv entry's ring
+    qkv_stages: int  # weight slabs in the qkv entry's ring; 0: its weights resident
     np: tuple        # column pass widths of the qkv, out-projection, fc1, fc2 matmuls
     stages: int      # weight slabs in the attention entry's ring
     items: int = 64  # query rows of an attention work item (R)
@@ -676,10 +676,17 @@ class LongPlan(NamedTuple):
     q_slots: int = 1    # q tiles in flight
     overlap: int = 0    # 1: the tail's tiles overlap the q slots and the ring
     keep: int = 0       # 1 (bf16, one out-projection pass): x' stays in shared memory
+    qkv_parts: int = 3  # the qkv entry's staging buffers (R x 64 each)
+    qkv_split: int = 0  # 1 (f32): LN1's output stored split in TF32 hi / lo tiles
+
+    @property
+    def qkv_resident(self) -> bool:
+        """The qkv entry holds every group's q|k|v slabs in shared memory."""
+        return self.qkv_stages == 0
 
     def ints(self) -> list:
         return [self.rows, self.qkv_stages, *self.np, self.stages, self.items, self.kv_stages,
-                self.q_slots, self.overlap, self.keep]
+                self.q_slots, self.overlap, self.keep, self.qkv_parts, self.qkv_split]
 
 
 def _align128(n: int) -> int:
@@ -692,17 +699,81 @@ def _act_tile(rows: int, width: int, dtype: torch.dtype) -> int:
     return rows * (width + 4) * 4 if dtype == torch.float32 else rows * width * 2
 
 
-def _long_qkv_smem(rows: int, stages: int, c: int, dtype: torch.dtype) -> int:
+# The qkv kernels of the long pairs (``long_sm90.cuh``): a q|k|v weight slab
+# (bf16 32 x 192, f32 16 x 192) in bytes, the most staging buffers and ring
+# stages, the barriers (the ring's, the x slot's full and empty, the
+# resident weights', the staging buffers' full and empty).
+LONG_QKV_SLAB = SM90_SLAB_K * SM90_QKV_N * 2
+LONG_QKV_MAX_PARTS = 6
+LONG_QKV_MAX_STAGES = 8
+_LONG_QKV_BARS = 2 * LONG_QKV_MAX_STAGES + 3 + 2 * LONG_QKV_MAX_PARTS
+
+
+def _long_qkv_smem(rows: int, stages: int, parts: int, c: int, width: int,
+                   dtype: torch.dtype, split: int = 0) -> int:
     """Shared memory bytes of a qkv kernel of the long pairs, the block's and
-    the half's alike (``long_sm90.cuh:layout_qkv``): the LN1 output, a head
-    group's q|k|v tile, the slab ring, each region on 128 bytes; the
-    barriers."""
-    f32 = dtype == torch.float32
-    e = 4 if f32 else 2
-    slab_k = SM90_F32_SLAB_K if f32 else SM90_SLAB_K
-    qkv_ld = SM90_F32_QKV_LD if f32 else SM90_QKV_LD
-    ring = _align128(_align128(_act_tile(rows, c, dtype)) + rows * qkv_ld * e)
-    return ring + stages * slab_k * SM90_QKV_N * e + 2 * SM90_MAX_STAGES * 8
+    the half's alike (``long_sm90.cuh:layout_qkv``), attention width
+    ``width``: the x slot (rows x C), the LN1 tile (``split``: its TF32 hi and
+    lo tiles), ``parts`` staging buffers (rows x 64 each), the resident q|k|v
+    slabs of all width/64 groups (``stages`` 0) or a ring of ``stages``
+    slabs, each region on 128 bytes; the barriers."""
+    e = 4 if dtype == torch.float32 else 2
+    at_a = _align128(rows * c * e)
+    at_st = _align128(at_a + (2 if split else 1) * _act_tile(rows, c, dtype))
+    at_w = _align128(at_st + parts * rows * 64 * e)
+    w = stages * LONG_QKV_SLAB if stages else (width // 64) * c * SM90_QKV_N * e
+    return _align128(at_w + w) + _LONG_QKV_BARS * 8
+
+
+def long_qkv_layout(c: int, width: int,
+                    dtype: torch.dtype) -> tuple[int, int, int, int] | None:
+    """A qkv kernel's (rows, ring stages, staging buffers, split) for the
+    token width ``c`` and attention width ``width``: tiles of 128 rows in
+    bf16 where the LayerNorm holds C (C <= 256), else 64 (f32: 64, as its
+    products hold them; 128-row f32 tiles leave no room for the x slot, the
+    padded LN1 tile and three staging buffers); then the first that fits
+    ``SMEM_OPTIN`` of: the weights resident (stages 0), a ring of 8, 7, ...,
+    2 slabs; in f32 at C <= 128 each first with LN1's output split in TF32
+    hi / lo tiles (the products then split no A, at twice the tile's bytes)
+    and then without, ring depth yielding to the split; with as many staging
+    buffers (3 to ``LONG_QKV_MAX_PARTS``) as fit beside it.  None where none
+    fits."""
+    rows = 64 if dtype == torch.float32 or c > 256 else 128
+    splits = (1, 0) if dtype == torch.float32 and c <= 128 else (0,)
+    rings = range(LONG_QKV_MAX_STAGES, 1, -1)
+    modes = [(0, sp) for sp in splits] + [(st, sp) for sp in splits for st in rings]
+    for stages, split in modes:
+        for parts in range(LONG_QKV_MAX_PARTS, 2, -1):
+            if _long_qkv_smem(rows, stages, parts, c, width, dtype, split) <= SMEM_OPTIN:
+                return rows, stages, parts, split
+    return None
+
+
+def long_qkv_runs(s: int, l: int, rows: int, width: int, dtype: torch.dtype) -> list[tuple]:
+    """A qkv kernel's workspace stores on S sequences of L (``long_sm90.cuh:
+    qkv_stores``), in the order one CTA issues them for its tiles: per
+    ``rows``-row tile of the (S*L) tokens, head group and part (q, k, v),
+    one bulk copy per run of the tile's rows inside one sequence: (tile,
+    part, group, sequence, first position, rows, the copy's byte offset in
+    the workspace (3, S, width/64, L, 64), its byte offset in the part's
+    staging buffer, its bytes)."""
+    e = 4 if dtype == torch.float32 else 2
+    groups, tokens = width // 64, s * l
+    part = s * groups * l * 64
+    out = []
+    for tile in range(-(-tokens // rows)):
+        row0 = tile * rows
+        valid = min(rows, tokens - row0)
+        for gi in range(groups):
+            for p in range(3):
+                r = 0
+                while r < valid:
+                    seq, pos = divmod(row0 + r, l)
+                    n = min(valid - r, l - pos)
+                    dst = p * part + ((seq * groups + gi) * l + pos) * 64
+                    out.append((tile, p, gi, seq, pos, n, dst * e, r * 64 * e, n * 64 * e))
+                    r += n
+    return out
 
 
 def long_q_bytes(rows: int, dtype: torch.dtype) -> int:
@@ -724,7 +795,7 @@ def long_kv_bytes(dtype: torch.dtype) -> int:
 def long_smem(plan: LongPlan, c: int, hidden: int, dtype: torch.dtype) -> tuple[int, int]:
     """Shared memory bytes of the qkv and the attention entry under ``plan``
     (``long_sm90.cuh:layout_qkv``, ``fused_block_long_sm90.cu:layout_attn``).
-    qkv: ``_long_qkv_smem``.  Attention: the item's attention output (later
+    qkv: ``_long_qkv_smem`` at width C.  Attention: the item's attention output (later
     the LN2 output), the tail's tile h (bf16: the out-projection's staging
     tile, then the MLP hidden, at least a pair item's exchange area; f32:
     the hidden), with ``keep`` the out-projection's staging tile apart (x'
@@ -735,7 +806,7 @@ def long_smem(plan: LongPlan, c: int, hidden: int, dtype: torch.dtype) -> tuple[
     e = 4 if f32 else 2
     slab_k = SM90_F32_SLAB_K if f32 else SM90_SLAB_K
     r = plan.items
-    qkv = _long_qkv_smem(plan.rows, plan.qkv_stages, c, dtype)
+    qkv = _long_qkv_smem(plan.rows, plan.qkv_stages, plan.qkv_parts, c, c, dtype, plan.qkv_split)
     h = _act_tile(r, hidden, dtype)
     stage = _act_tile(r, c, dtype) if f32 else r * (plan.np[1] + 8) * 2  # x' with keep
     if not f32:
@@ -830,10 +901,11 @@ def long_attn_work(x: torch.Tensor, plan: LongPlan, hidden: int) -> dict:
 def long_plan(c: int, hidden: int, heads: int,
               dtype: torch.dtype = torch.bfloat16) -> LongPlan | None:
     """The long entry's plan, the same at every sequence length L >= 1 (the
-    attention entry streams the keys, so L sets only the items): qkv tiles
-    of 128 token rows in bf16 where the LayerNorm holds C (C <= 256), else
-    64, the single-block kernel's column passes, as many ring stages (2-4)
-    as ``SMEM_OPTIN`` holds; attention items of 128 query rows in bf16 where
+    attention entry streams the keys, so L sets only the items): the qkv
+    entry's ``long_qkv_layout`` (tiles of 128 token rows in bf16 where
+    C <= 256, else 64; the weights resident where they fit, else a ring of
+    2-4 slabs; staging buffers), the single-block kernel's column passes;
+    attention items of 128 query rows in bf16 where
     C <= 256 (two consumer warpgroups of 64), else 64 (f32: 64), and the
     first that fits of: the tail's tiles apart from the q slots and the k|v
     ring (so the next item's copies run under this item's tail), then
@@ -853,21 +925,20 @@ def long_plan(c: int, hidden: int, heads: int,
     if dtype == torch.float32:
         if c > SM90_F32_MAX_C:
             return None
-        rows, np = SM90_F32_ROWS, (SM90_QKV_N, *(_pass_width_f32(n) for n in (c, hidden, c)))
+        np = (SM90_QKV_N, *(_pass_width_f32(n) for n in (c, hidden, c)))
         items = LONG_Q_ROWS
     else:
-        rows = 128 if c <= 256 else 64
         np = (SM90_QKV_N, _pass_width(c), _pass_width(hidden), _pass_width(c))
-        items = rows
-    stages = range(SM90_MAX_STAGES, 1, -1)
-    qkv = next((s for s in stages
-                if long_smem(LongPlan(rows, s, np, 2), c, hidden, dtype)[0] <= SMEM_OPTIN), None)
+        items = 128 if c <= 256 else 64
+    qkv = long_qkv_layout(c, c, dtype)
     if qkv is None:
         return None
+    rows, qkv_stages, parts, split = qkv
+    stages = range(SM90_MAX_STAGES, 1, -1)
     qs = (2, 1) if dtype == torch.bfloat16 else (1,)
     keeps = (1, 0) if dtype == torch.float32 or np[1] == c else (0,)
     for overlap in (0, 1):
-        fits = [LongPlan(rows, qkv, np, ws, items, kv, q, overlap, keep)
+        fits = [LongPlan(rows, qkv_stages, np, ws, items, kv, q, overlap, keep, parts, split)
                 for kv in range(LONG_MAX_KV, 1, -1) for ws in stages for q in qs
                 for keep in (keeps if not overlap else (0,))]
         fits = [p for p in fits if long_smem(p, c, hidden, dtype)[1] <= SMEM_OPTIN]
@@ -1585,7 +1656,7 @@ mlp_half_apply.launches = collections.Counter()
 
 class HalfLongPlan(NamedTuple):
     rows: int          # token rows of a qkv-kernel tile (sequences ignored)
-    qkv_stages: int    # weight slabs in the qkv kernel's ring
+    qkv_stages: int    # weight slabs in the qkv kernel's ring; 0: its weights resident
     width: int         # the shard's local width padded to a multiple of 64 (W)
     np: tuple          # column passes: q|k|v (192), out-projection
     stages: int        # weight slabs in the attention kernel's ring
@@ -1593,21 +1664,28 @@ class HalfLongPlan(NamedTuple):
     items: int = 64    # query rows of an attention work item (R)
     kv_stages: int = 2  # k|v blocks in the attention kernel's ring
     q_slots: int = 1    # q tiles in flight
+    qkv_parts: int = 3  # the qkv kernel's staging buffers (R x 64 each)
+    qkv_split: int = 0  # 1 (f32): LN1's output stored split in TF32 hi / lo tiles
 
     @property
     def overlap(self) -> int:
         """The half's tail tiles never overlap the q slots and the ring."""
         return 0
 
+    @property
+    def qkv_resident(self) -> bool:
+        """The qkv kernel holds every group's q|k|v slabs in shared memory."""
+        return self.qkv_stages == 0
+
     def ints(self) -> list:
         return [self.rows, self.qkv_stages, self.width, *self.np, self.stages, self.items,
-                self.kv_stages, self.q_slots]
+                self.kv_stages, self.q_slots, self.qkv_parts, self.qkv_split]
 
 
 def half_long_smem(plan: HalfLongPlan, c: int, dtype: torch.dtype) -> tuple[int, int]:
     """Shared memory bytes of the long half's qkv and attention kernels
     (``fused_half_long_sm90.cu:half_long_shape``).  qkv: the long block's
-    (``_long_qkv_smem``).  Attention (``layout_half_attn``): the item's
+    (``_long_qkv_smem`` at width W).  Attention (``layout_half_attn``): the item's
     attention output (R x W), in bf16 the partial's staging tile of the
     out-projection pass, at least a pair item's exchange area; the q slots,
     the k|v ring, the ring of out-projection slabs; each region on 128
@@ -1621,16 +1699,19 @@ def half_long_smem(plan: HalfLongPlan, c: int, dtype: torch.dtype) -> tuple[int,
     at_kv = _align128(at_q + plan.q_slots * long_q_bytes(r, dtype))
     at_ring = _align128(at_kv + plan.kv_stages * long_kv_bytes(dtype))
     attn = at_ring + plan.stages * slab_k * plan.np[1] * e + _LONG_ATTN_BARS * 8
-    return _long_qkv_smem(plan.rows, plan.qkv_stages, c, dtype), attn
+    return (_long_qkv_smem(plan.rows, plan.qkv_stages, plan.qkv_parts, c, plan.width, dtype,
+                           plan.qkv_split), attn)
 
 
 @functools.lru_cache(maxsize=64)
 def half_long_plan(c: int, local: int, heads: int,
                    dtype: torch.dtype = torch.bfloat16) -> HalfLongPlan | None:
     """The long half's plan for a shard ``local`` columns wide with ``heads``
-    local heads, the same at every L: the long block's qkv tiles (128 rows in
-    bf16 where C <= 256, else 64; f32 64) with as many ring stages (2-4) as
-    ``SMEM_OPTIN`` holds, the short halves' padded width and column passes;
+    local heads, the same at every L: the long block's qkv layout at the
+    padded width W (``long_qkv_layout``: 128-row tiles in bf16 where
+    C <= 256, else 64; f32 64; the weights resident where they fit, else a
+    ring of 2-4 slabs; staging buffers), the short halves' padded width and
+    column passes;
     attention items of 128 query rows in bf16 where they fit (two consumer
     warpgroups of 64; else 64), 64 in f32, and as ``long_plan`` picks: the
     deepest of the k|v ring and the weight ring (2-4 stages each: the
@@ -1647,17 +1728,18 @@ def half_long_plan(c: int, local: int, heads: int,
     if f32:
         if c > SM90_F32_MAX_C:
             return None
-        rows, np = SM90_F32_ROWS, (SM90_QKV_N, _pass_width_f32(c))
+        np = (SM90_QKV_N, _pass_width_f32(c))
         items, qs = (LONG_Q_ROWS,), (1,)
     else:
-        rows, np = (128 if c <= 256 else 64), (SM90_QKV_N, _pass_width(c))
+        np = (SM90_QKV_N, _pass_width(c))
         items, qs = (128, LONG_Q_ROWS), (2, 1)
-    stages = range(SM90_MAX_STAGES, 1, -1)
-    qkv = next((s for s in stages if _long_qkv_smem(rows, s, c, dtype) <= SMEM_OPTIN), None)
+    qkv = long_qkv_layout(c, width, dtype)
     if qkv is None:
         return None
+    rows, qkv_stages, parts, split = qkv
+    stages = range(SM90_MAX_STAGES, 1, -1)
     for r in items:
-        fits = [HalfLongPlan(rows, qkv, width, np, ws, f32, r, kv, q)
+        fits = [HalfLongPlan(rows, qkv_stages, width, np, ws, f32, r, kv, q, parts, split)
                 for kv in range(LONG_MAX_KV, 1, -1) for ws in stages for q in qs]
         fits = [p for p in fits if half_long_smem(p, c, dtype)[1] <= SMEM_OPTIN]
         if fits:

@@ -13,8 +13,12 @@ flagship's C block (24,576 sequences of 256 channels, 128 wide, head dim 16;
 plain on the first 512) and L block (32 x 768, C 256), two launches per
 input; then, at the same shapes, the f32 long attention half
 (``attn_half_apply`` at L > 64: ``fused_half_long_sm90.cu``) on every shard
-at tp 2, two launches per input and shard.  A race in a kernel shows as
-unequal launch pairs.
+at tp 2, two launches per input and shard.  Last the four qkv kernels of
+the long pairs alone (``long_qkv_fwd``; ``half_long_qkv_fwd`` on both
+shards at tp 2), bf16 and f32, at the same C and L blocks: two launches per
+input, their workspaces compared bit for bit (a staging buffer written again
+before its bulk store had read it would show here).  A race in a kernel
+shows as unequal launch pairs.
 
 ``--csrc DIR`` builds the f32 halves and the block kernels from DIR's sources
 (``fused_half_sm90_f32.cu``, ``fused_block_sm90.cu``, ``fused_block_long_sm90.cu``,
@@ -172,6 +176,39 @@ def main(argv=None) -> int:
                           "shape": [rows, l, c], "launch_pairs": len(res),
                           "pairs_unequal": sum(not eq for eq, _ in res),
                           "worst_rel_l2": max(rel for _, rel in res)}), flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        for label, rows, l, c in LONG_CASES:
+            p = fb.BlockParams(*(t.to(dtype) for t in block_params(l + c + 7, dev, c)))
+            plan = fb.long_plan(c, c, HEADS, dtype)
+            w = fb.sm90_weights(p, HEADS, plan)
+            shards = []
+            for r in range(2):
+                ap = halves(shard_block(p, 2, r))[0]
+                hplan = fb.half_long_plan(c, c // 2, HEADS // 2, dtype)
+                shards.append((fb.half_long_weights(ap, HEADS // 2, hplan), hplan))
+            block, half = [], []
+            gen = torch.Generator(device=dev)
+            for it in range(args.repeats):
+                gen.manual_seed(400 + it)
+                x = torch.randn((rows, l, c), generator=gen, device=dev).to(dtype)
+                a, b = (fb.long_qkv_fwd(x, w, plan, l) for _ in range(2))
+                torch.cuda.synchronize()
+                block.append(bool(torch.equal(a, b)))
+                del a, b
+                for hw, hplan in shards:
+                    a, b = (fb.half_long_qkv_fwd(x, hw, hplan, l, c // 2) for _ in range(2))
+                    torch.cuda.synchronize()
+                    half.append(bool(torch.equal(a, b)))
+                    del a, b
+                del x
+            for kernel, res, pl in (("long_qkv_fwd", block, plan),
+                                    ("half_long_qkv_fwd (tp 2, both shards)", half, hplan)):
+                print(json.dumps({"kernel": f"{kernel} ({name})", "case": label,
+                                  "shape": [rows, l, c], "launch_pairs": len(res),
+                                  "pairs_unequal": sum(not eq for eq in res),
+                                  "qkv_resident": pl.qkv_resident, "qkv_parts": pl.qkv_parts}),
+                      flush=True)
     return 0
 
 

@@ -5,12 +5,14 @@
     python3 -m tante_tpu_torch.tools.kernel_phases --f32 [--baseline DIR]
     python3 -m tante_tpu_torch.tools.kernel_phases --long [--baseline DIR]
     python3 -m tante_tpu_torch.tools.kernel_phases --long-half [--baseline DIR]
+    python3 -m tante_tpu_torch.tools.kernel_phases --long-qkv [--baseline DIR]
 
 (``--halves``: the tensor-parallel halves' sections alone.  ``--packed``: the
 attention kernel's section alone, described last but one.  ``--f32``: the f32
 block kernels' section alone, described before it.  ``--long``: the long
-block's attention entry alone, described last but one; ``--long-half``: the
-long attention half's attention kernel, described last.)
+block's attention entry alone, described last but two; ``--long-half``: the
+long attention half's attention kernel, described last but one;
+``--long-qkv``: the long pairs' qkv kernels, described last.)
 
 First the Hopper single-block kernels (``ops/csrc/fused_block_sm90.cu`` on
 the tile body of ``block_sm90.cuh``): a measurement copy built with
@@ -126,6 +128,25 @@ work (items, pair items, grid) and the workspace bytes read.  With
 and one output buffer, their outputs compared;
 then the long block's attention entry against DIR's in the same way (the
 ``--long`` turns).
+
+``--long-qkv``: the four qkv kernels of the long pairs (the long block's
+``tante_block_long_qkv_sm90[_f32]_fwd`` and shard 0 at tp 2 of the long
+half's ``tante_attn_half_long_qkv_sm90[_f32]_fwd``) at the flagship's L, X,
+A and C blocks in both dtypes (seeded weights, wq and wk 2.75x wider).  With
+``--baseline DIR`` first DIR's kernels (its plans and re-laid weights from
+its own ``ops/fused_block.py``; this tree's tensors where those hold the
+same values) and this tree's in turns (baseline, this tree, this tree,
+baseline) by CUDA events, with one x, one weight copy and one workspace
+buffer; each workspace compared bit for bit with the baseline's (a separate
+buffer), the achieved GB/s against the bytes bound (``chip_smoke.py:
+long_bounds`` / ``half_long_bounds``).  Then, from a
+``-DTANTE_PHASE_TIMING`` build, per tile the SM cycles consumer thread 0
+spends waiting for the tile's x, in LN1 (with its barrier), in the
+products (summed over the head groups), waiting for staging buffers and in
+the epilogue (and, of the products, waiting for weight slabs), and the
+store thread's cycles issuing the workspace stores,
+waiting for written buffers and for the stores' reads; one JSON line per
+kernel, block and dtype.
 """
 
 from __future__ import annotations
@@ -984,6 +1005,163 @@ def half_long_phases(dev, stream, card: str) -> None:
             torch.cuda.empty_cache()
 
 
+# ---- the long pairs' qkv kernels (--long-qkv) ------------------------------------
+
+QKV_PHASES = ("x_wait", "ln1", "products", "stage_wait", "epilogue")  # consumer thread 0
+QKV_SLAB_WAIT = len(QKV_PHASES)  # thread 0's weight-slab waits, within its products
+QKV_STORE_PHASES = ("issue", "full_wait", "read_wait")                  # the store thread
+
+
+def _qkv_kernels(dev, dtype, axis: str) -> list[dict]:
+    """The four qkv kernels' operands at a flagship long block in ``dtype``:
+    the long block's entry and shard 0 at tp 2 of the long half's kernel;
+    per kernel its library, C entry name, params, plan, re-laid weights,
+    width argument and workspace shape (one x for both)."""
+    p, x, _, _, _, _ = _long_setup(axis, dtype, dev, qkv=False)
+    s, l, c = x.shape
+    dt = "_f32" if dtype == torch.float32 else ""
+    plan = fb.long_plan(c, c, HEADS, dtype)
+    ap = fb.AttnHalfParams(*(getattr(shard_block(p, 2, 0), f) for f in fb.AttnHalfParams._fields))
+    hplan = fb.half_long_plan(c, c // 2, HEADS // 2, dtype)
+    return x, [
+        {"kernel": "block", "source": "fused_block_long_sm90",
+         "entry": f"tante_block_long_qkv_sm90{dt}_fwd", "params": p, "plan": plan,
+         "weights": lambda mod, pl, p=p: mod.sm90_weights(p, HEADS, pl),
+         "plan_of": lambda mod: mod.long_plan(c, c, HEADS, dtype), "arg": c,
+         "shape": (3, s, c // 64, l, 64)},
+        {"kernel": "half tp 2 shard 0", "source": "fused_half_long_sm90",
+         "entry": f"tante_attn_half_long_qkv_sm90{dt}_fwd", "params": ap, "plan": hplan,
+         "weights": lambda mod, pl, ap=ap: mod.half_long_weights(ap, HEADS // 2, pl),
+         "plan_of": lambda mod: mod.half_long_plan(c, c // 2, HEADS // 2, dtype), "arg": c // 2,
+         "shape": (3, s, hplan.width // 64, l, 64)}]
+
+
+def _qkv_launch(lib, entry: str, x, ws, w, plan_ints: list, arg: int, stream):
+    s, l, c = x.shape
+    fn = getattr(lib, entry)
+    ptrs, arr = fb._ptr_array([w]), (ctypes.c_int * len(plan_ints))(*plan_ints)
+    return lambda: fn(x.data_ptr(), ws.data_ptr(), ptrs, arr, s, l, c, arg,  # noqa: E731
+                      x.device.index, stream)
+
+
+def qkv_in_turns(dev, stream, card: str, baseline: str) -> None:
+    """The baseline tree's four qkv kernels and this tree's in turns (module
+    text), their workspaces compared bit for bit."""
+    import chip_smoke  # noqa: PLC0415 (chip_smoke imports this module)
+
+    csrc = Path(baseline) / "tante_tpu_torch" / "ops" / "csrc"
+    libs = {}
+    for src in ("fused_block_long_sm90", "fused_half_long_sm90"):
+        info = _build.compile_library(src, f"{src}_baseline", (), source=csrc / f"{src}.cu")
+        libs[src] = (_build.bind(ctypes.CDLL(info["library"]), src), _build.load(src))
+    base_fb = _baseline_fused_block(baseline)
+    for dtype in (torch.bfloat16, torch.float32):
+        for axis in LONG_AXES:
+            x, kernels = _qkv_kernels(dev, dtype, axis)
+            s, l, c = x.shape
+            for k in kernels:
+                other, this = libs[k["source"]]
+                plan, base_plan = k["plan"], k["plan_of"](base_fb)
+                w = k["weights"](fb, plan)
+                base_w, shared = _same_or_own(k["weights"](base_fb, base_plan), w)
+                ws = torch.empty(k["shape"], dtype=dtype, device=dev)
+                ws_base = torch.empty_like(ws)
+                runs = {"baseline": _qkv_launch(other, k["entry"], x, ws, base_w,
+                                                base_plan.ints(), k["arg"], stream),
+                        "this_tree": _qkv_launch(this, k["entry"], x, ws, w, plan.ints(),
+                                                 k["arg"], stream)}
+                if (_qkv_launch(other, k["entry"], x, ws_base, base_w, base_plan.ints(),
+                                k["arg"], stream)() != 0 or runs["this_tree"]() != 0):
+                    raise RuntimeError(f"{k['kernel']} {axis}: launch failed")
+                torch.cuda.synchronize()
+                equal = bool(torch.equal(ws, ws_base))
+                diff = float((ws.float() - ws_base.float()).abs().max())
+                del ws_base
+                iters = 5 if axis == "C" else 50
+                b1 = event_ms(runs["baseline"], iters=iters)
+                t1 = event_ms(runs["this_tree"], iters=iters)
+                t2 = event_ms(runs["this_tree"], iters=iters)
+                b2 = event_ms(runs["baseline"], iters=iters)
+                if k["kernel"] == "block":
+                    bounds = chip_smoke.long_bounds(s, l, c, c, False, dtype)["qkv"]
+                else:
+                    bounds = chip_smoke.half_long_bounds(s, l, c, c // 2, plan.width, False,
+                                                         dtype)["qkv"]
+                this_ms = (t1 + t2) / 2
+                print(json.dumps({
+                    "kernel": f"long qkv ({k['kernel']}) in turns", "axis": axis,
+                    "dtype": str(dtype).replace("torch.", ""), "shape": [s, l, c],
+                    "baseline": str(csrc / (k["source"] + ".cu")),
+                    "baseline_ms": (b1 + b2) / 2, "this_tree_ms": this_ms,
+                    "speedup": (b1 + b2) / (t1 + t2), "baseline_ms_turns": [b1, b2],
+                    "this_tree_ms_turns": [t1, t2], "workspace_bit_equal": equal,
+                    "max_abs_diff": diff, "weights_shared": shared,
+                    "bound_ms": bounds["bound_us"] / 1e3, "bound_by": bounds["bound_by"],
+                    "bytes": bounds["bytes"], "this_tree_gb_per_s": bounds["bytes"] / this_ms / 1e6,
+                    "baseline_gb_per_s": bounds["bytes"] / ((b1 + b2) / 2) / 1e6,
+                    "bound_share": bounds["bound_us"] / 1e3 / this_ms,
+                    "plan": plan._asdict(), "baseline_plan": base_plan._asdict(), "card": card,
+                }), flush=True)
+                del ws
+            del x
+            torch.cuda.empty_cache()
+
+
+def qkv_phases(dev, stream, card: str) -> None:
+    """Per-tile phase cycles of the four qkv kernels from a
+    ``-DTANTE_PHASE_TIMING`` build (module text)."""
+    libs = {}
+    for src, read in (("fused_block_long_sm90", "tante_block_long_qkv_phase"),
+                      ("fused_half_long_sm90", "tante_attn_half_long_qkv_phase")):
+        info = _build.compile_library(src, f"{src}_phases", TIMING_FLAGS)
+        lib = _build.bind(ctypes.CDLL(info["library"]), src)
+        getattr(lib, f"{read}_read").argtypes = [ctypes.c_void_p, ctypes.c_int]
+        getattr(lib, f"{read}_read").restype = ctypes.c_int
+        libs[src] = (lib, read)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype in (torch.bfloat16, torch.float32):
+        for axis in LONG_AXES:
+            x, kernels = _qkv_kernels(dev, dtype, axis)
+            s, l, c = x.shape
+            for k in kernels:
+                lib, read = libs[k["source"]]
+                plan = k["plan"]
+                n_ph = getattr(lib, f"{read}_count")()
+                ws = torch.empty(k["shape"], dtype=dtype, device=dev)
+                launch = _qkv_launch(lib, k["entry"], x, ws, k["weights"](fb, plan), plan.ints(),
+                                     k["arg"], stream)
+                tiles = -(-s * l // plan.rows)
+                grid = min(tiles, sms)
+                if launch() != 0:
+                    raise RuntimeError(f"{k['kernel']} {axis}: launch failed")
+                torch.cuda.synchronize()
+                _read(lib, f"{read}_read", (grid, n_ph))  # zeroes the counters
+                iters = 2 if axis == "C" else 10
+                ms = _timed(launch, iters)
+                cyc = _read(lib, f"{read}_read", (grid, n_ph)).astype(np.float64)
+                n_tiles, n_groups = cyc[:, -2].sum(), cyc[:, -1].sum()
+                per_tile = cyc[:, :len(QKV_PHASES)].sum(axis=0) / n_tiles
+                store = cyc[:, QKV_SLAB_WAIT + 1:-2].sum(axis=0) / n_tiles
+                slab_wait = float(cyc[:, QKV_SLAB_WAIT].sum() / n_tiles)
+                tile = float(per_tile.sum())
+                print(json.dumps({
+                    "kernel": f"long qkv ({k['kernel']}), timing build", "axis": axis,
+                    "dtype": str(dtype).replace("torch.", ""), "shape": [s, l, c],
+                    "plan": plan._asdict(), "tiles": tiles, "grid": grid,
+                    "groups_per_tile": float(n_groups / n_tiles), "timing_build_ms": ms,
+                    "cycles_per_tile": {p: float(v) for p, v in zip(QKV_PHASES, per_tile)},
+                    "tile_cycles": tile,
+                    "share_of_tile": {p: float(v) / tile for p, v in zip(QKV_PHASES, per_tile)},
+                    "slab_wait_cycles_per_tile": slab_wait,
+                    "store_thread_cycles_per_tile": {p: float(v)
+                                                     for p, v in zip(QKV_STORE_PHASES, store)},
+                    "card": card,
+                }), flush=True)
+                del ws
+            del x
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device available", file=sys.stderr)
@@ -996,6 +1174,19 @@ def main() -> int:
         packed_phases(dev, stream, card)
         if "--baseline" in args:
             packed_in_turns(dev, stream, card, args[args.index("--baseline") + 1])
+        return 0
+    if "--long-qkv" in args:
+        dev, stream = torch.device("cuda"), torch.cuda.current_stream().cuda_stream
+        specs = [(k, name, flags) for k in ("fused_block_long_sm90", "fused_half_long_sm90")
+                 for name, flags in ((f"{k}_phases", TIMING_FLAGS), (k, ()))]
+        if "--baseline" in args:
+            base = Path(args[args.index("--baseline") + 1]) / "tante_tpu_torch" / "ops" / "csrc"
+            specs += [(k, f"{k}_baseline", (), base / f"{k}.cu")
+                      for k in ("fused_block_long_sm90", "fused_half_long_sm90")]
+        _build.compile_libraries(specs)  # one nvcc each, together; each is found built below
+        if "--baseline" in args:
+            qkv_in_turns(dev, stream, card, args[args.index("--baseline") + 1])
+        qkv_phases(dev, stream, card)
         return 0
     if "--long-half" in args:
         dev, stream = torch.device("cuda"), torch.cuda.current_stream().cuda_stream

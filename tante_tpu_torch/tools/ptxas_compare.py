@@ -1,7 +1,7 @@
 """The Hopper block sources' ``-Xptxas -v`` summaries against another tree's.
 
     python3 -m tante_tpu_torch.tools.ptxas_compare --baseline DIR [--sass TEXT]
-        [--sources NAME ...] [--same-sass]
+        [--sources NAME ...] [--same-sass] [--changed TEXT ...]
 
 Builds ``fused_block_sm90.cu``, ``fused_chain_sm90.cu``,
 ``fused_half_sm90.cu``, ``fused_half_sm90_f32.cu``,
@@ -17,7 +17,11 @@ baseline kernel changed.  ``--sources``: only these of the sources above
 (e.g. ``fused_block_long_sm90 fused_half_long_sm90``).  ``--same-sass``: per
 source, the kernels both trees have whose SASS (``cuobjdump -sass``, addresses
 and encodings left out) differs between them, and how many are the same;
-exits 1 if one differs.  ``--sass TEXT``: per kernel of this tree whose name holds TEXT, the counts of
+exits 1 if one differs.  ``--changed TEXT ...``: the kernels a change means
+to change, each a kernel whose name holds one of the TEXTs (e.g.
+``long_qkv``): they are still reported (as "intended"), but only another
+kernel's registers, spills or (with ``--same-sass``) SASS differing exits 1.
+``--sass TEXT``: per kernel of this tree whose name holds TEXT, the counts of
 its tensor-core (``HMMA``) and f32 FMA (``FFMA``) instructions in the SASS
 ``cuobjdump -sass`` prints (where the toolkit has it).  Needs ``nvcc``; runs
 no kernel.
@@ -99,7 +103,10 @@ def main(argv=None) -> int:
                     help="the sources to compare (default: all)")
     ap.add_argument("--same-sass", action="store_true",
                     help="compare the SASS of the kernels both trees have")
+    ap.add_argument("--changed", nargs="+", default=[], metavar="TEXT",
+                    help="kernels meant to change: names holding any of these")
     args = ap.parse_args(argv)
+    meant = lambda k: any(t in k for t in args.changed)  # noqa: E731
     trees = {"this": _build.CSRC,
              "baseline": Path(args.baseline) / "tante_tpu_torch" / "ops" / "csrc"}
     specs = [(src, f"{src}_{tag}", (), tree / f"{src}.cu")
@@ -112,12 +119,14 @@ def main(argv=None) -> int:
         # A source the baseline lacks: every kernel of it is new.
         this, base = ({_name(e["kernel"]): {f: e[f] for f in FIELDS}
                        for e in built.get((src, tag), {"ptxas": []})["ptxas"]} for tag in trees)
-        changed = [{"kernel": k, "this": this.get(k), "baseline": v}
+        changed = [{"kernel": k, "this": this.get(k), "baseline": v, "intended": meant(k)}
                    for k, v in base.items() if this.get(k) != v]
-        same_all &= not changed
+        same_all &= all(e["intended"] for e in changed)
         line = {"source": src, "baseline_kernels": len(base),
-                "baseline_kernels_unchanged": not changed, "changed": changed,
-                "new_kernels": [{"kernel": k, **e} for k, e in this.items() if k not in base]}
+                "baseline_kernels_unchanged": not changed,
+                "others_unchanged": all(e["intended"] for e in changed), "changed": changed,
+                "new_kernels": [{"kernel": k, **e, "intended": meant(k)}
+                                for k, e in this.items() if k not in base]}
         if args.sass and (src, "this") in built:
             line["sass"] = sass_counts(built[(src, "this")]["library"], args.sass)
         if args.same_sass and all((src, tag) in built for tag in trees):
@@ -128,8 +137,9 @@ def main(argv=None) -> int:
                 both = sorted(set(this_sass) & set(base_sass))
                 differ = [k for k in both if this_sass[k] != base_sass[k]]
                 line["sass_equal"] = {"kernels_in_both": len(both), "same": len(both) - len(differ),
-                                      "differ": differ}
-                same_all &= not differ
+                                      "differ": differ,
+                                      "differ_not_intended": [k for k in differ if not meant(k)]}
+                same_all &= all(meant(k) for k in differ)
         print(json.dumps(line), flush=True)
     return 0 if same_all else 1
 

@@ -109,6 +109,8 @@ import torch
 from tante_tpu_torch.ops import fused_block as fb
 from tante_tpu_torch.ops import fused_spectral as fs
 from tante_tpu_torch.parallel.sharding import shard_block
+from _torch_tf32 import mm3
+from chip_smoke import qkv_agree, qkv_launch, qkv_operands, qkv_reference
 
 pytestmark = pytest.mark.gpu
 ATOL, RTOL = 5e-2, 2e-2
@@ -1759,3 +1761,87 @@ def test_long_half_refuses_what_it_cannot_take(cuda):
         fb.attn_half_apply(f32_normal((2, 100, 512), 0, cuda), halves(shard_block(p512, 2, 0))[0],
                            100, 4, False)
 
+
+
+# --------------------------------------------------------------------------
+# The qkv kernels alone (long_sm90.cuh's qkv body: the long block's qkv entry
+# and the long half's qkv kernel, bf16 and f32): each launch's workspace
+# against the order of work of test_torch_long_block.py:long_qkv (LN1 with
+# one-pass f32 moments, rounded to the activation dtype; q from wq, bq
+# prescaled by d^-0.5 log2 e and rounded; k, v; + bias), written into a
+# NaN-filled buffer with a NaN guard past its end; two launches bit-equal.
+# --------------------------------------------------------------------------
+
+# (S, L, C, heads): the flagship's L, X, A blocks (C 256, head dim 32) and C
+# block (256 channels, 128 wide, head dim 16: 24,576 sequences, checked on
+# the first QKV_CHECK_SEQS); ragged L (a tile across sequence ends, a last
+# tile of one row), C 512 (bf16: 64-row tiles), head dims 16 and 64.
+QKV_CASES = [(32, 768, 256, 8), (128, 192, 256, 8), (8, 3072, 256, 8), (24576, 256, 128, 8),
+             (7, 100, 256, 8), (5, 257, 256, 16), (6, 130, 512, 8), (9, 200, 256, 4)]
+QKV_CHECK_SEQS = 256
+
+
+@pytest.mark.parametrize("s,l,c,heads,dtype", [
+    (*case, dt) for case in QKV_CASES for dt in (torch.bfloat16, torch.float32)
+    if dt == torch.bfloat16 or case[2] <= 256])  # the f32 body holds C <= 256
+def test_long_qkv_workspace_matches_its_order_of_work(cuda, no_tf32, s, l, c, heads, dtype):
+    """The long block's qkv entry (64- and 128-row tiles, resident weights at
+    the C block in bf16, a slab ring elsewhere) into a NaN-filled buffer:
+    every element written and none past it, two launches bit-equal, the
+    wrapper's launch equal; the first sequences against ``qkv_reference``
+    (bf16 within one bf16 ulp and the order's bound, f32 within the long
+    block's f32 limits)."""
+    p = params(c, c, seed=s + l + c, device=cuda, dtype=dtype, qk_scale=LONG_QK_SCALE)
+    x = (f32_normal if dtype == torch.float32 else bf16_normal)((s, l, c), s + l, cuda)
+    plan = fb.long_plan(c, c, heads, dtype)
+    w = fb.sm90_weights(p, heads, plan)
+    lib = fb._long_lib(x)
+    entry = (lib.tante_block_long_qkv_sm90_f32_fwd if dtype == torch.float32
+             else lib.tante_block_long_qkv_sm90_fwd)
+    shape = (3, s, c // 64, l, 64)
+    ws, guard = qkv_launch(entry, x, w, plan, s, l, c, c, shape)
+    again, _ = qkv_launch(entry, x, w, plan, s, l, c, c, shape)
+    assert torch.equal(ws, again)
+    n = min(s, QKV_CHECK_SEQS)
+    ref, bound = qkv_reference(x[:n], p.ln1_scale, p.ln1_bias, *qkv_operands(p, heads, c), c,
+                               mm3)
+    ok, agree = qkv_agree(ws, guard, ref, bound, n)
+    assert ok, agree
+    assert torch.equal(ws, fb.long_qkv_fwd(x, w, plan, l))  # the wrapper's launch
+
+
+# (S, L, C, heads, tp): the C block at tp 2 (a 64-wide shard) and tp 8
+# (16-wide shards, one head of 16 padded to a group), L at tp 2 (128 wide),
+# a ragged L at tp 4.
+QKV_HALF_CASES = [(24576, 256, 128, 8, 2), (24576, 256, 128, 8, 8), (32, 768, 256, 8, 2),
+                  (7, 100, 256, 8, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("s,l,c,heads,tp", QKV_HALF_CASES)
+def test_long_half_qkv_workspace_matches_its_order_of_work(cuda, no_tf32, s, l, c, heads, tp,
+                                                           dtype):
+    """The long half's qkv kernel on the first and last shard (resident
+    weights at the C block's shards, a ring at C 256), as the block's
+    entry: NaN sentinel and guard, two launches and the wrapper's equal,
+    against ``qkv_reference`` with the padded columns exactly 0."""
+    p = params(c, c, seed=s + l + tp, device=cuda, dtype=dtype, qk_scale=LONG_QK_SCALE)
+    x = (f32_normal if dtype == torch.float32 else bf16_normal)((s, l, c), s + l, cuda)
+    lib = fb._half_long_lib(x)
+    entry = (lib.tante_attn_half_long_qkv_sm90_f32_fwd if dtype == torch.float32
+             else lib.tante_attn_half_long_qkv_sm90_fwd)
+    n = min(s, QKV_CHECK_SEQS)
+    for r in sorted({0, tp - 1}):
+        ap = halves(shard_block(p, tp, r))[0]
+        ca, lh = ap.wq.shape[-1], heads // tp
+        plan = fb.half_long_plan(c, ca, lh, dtype)
+        w = fb.half_long_weights(ap, lh, plan)
+        shape = (3, s, plan.width // 64, l, 64)
+        ws, guard = qkv_launch(entry, x, w, plan, s, l, c, ca, shape)
+        again, _ = qkv_launch(entry, x, w, plan, s, l, c, ca, shape)
+        assert torch.equal(ws, again)
+        ref, bound = qkv_reference(x[:n], ap.ln1_scale, ap.ln1_bias,
+                                   *qkv_operands(ap, lh, plan.width), plan.width, mm3)
+        ok, agree = qkv_agree(ws, guard, ref, bound, n)
+        assert ok, agree
+        assert torch.equal(ws, fb.half_long_qkv_fwd(x, w, plan, l, ca))

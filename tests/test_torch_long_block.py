@@ -300,13 +300,111 @@ def test_every_flagship_long_shape_has_a_plan_that_fits(axis, dtype):
     assert qkv <= tblock.SMEM_OPTIN and attn <= tblock.SMEM_OPTIN
     assert plan.np[0] == tblock.SM90_QKV_N
     assert plan.rows == (64 if dtype == torch.float32 else 128)
-    assert 2 <= plan.qkv_stages <= 4 and 3 <= plan.stages <= 4 and 2 <= plan.kv_stages <= 4
+    # The qkv entry: its weights resident at the bf16 C block (96 KB of
+    # slabs); in f32 at C 128 LN1's output split in TF32 hi / lo beside a
+    # ring of 6; else a ring of 4; at least three staging buffers.
+    f32 = dtype == torch.float32
+    assert plan.qkv_resident == (not f32 and c == 128)
+    assert plan.qkv_split == (f32 and c == 128)
+    assert plan.qkv_stages == (0 if plan.qkv_resident else 6 if plan.qkv_split else 4)
+    assert 3 <= plan.qkv_parts <= tblock.LONG_QKV_MAX_PARTS
+    assert 3 <= plan.stages <= 4 and 2 <= plan.kv_stages <= 4
     assert plan.items == (64 if dtype == torch.float32 else 128)
     assert plan.q_slots == 1 or dtype == torch.bfloat16
     assert plan.overlap == (dtype == torch.float32 and c == 256)
     assert plan.keep == (c == 128)  # bf16: one out-projection pass; f32: room beside the ring
     assert plan.kv_stages >= (2 if plan.keep and dtype == torch.float32 else 3)
-    assert len(plan.ints()) == 12
+    assert len(plan.ints()) == 14
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [64, 128, 192, 256, 320, 384, 448, 512])
+def test_every_envelope_width_has_a_qkv_layout_that_fits(c, dtype):
+    """The qkv layout (``long_qkv_layout``, the mirror of ``long_sm90.cuh:
+    layout_qkv``) at every C of the envelope (f32 to 256) and every
+    attention width a multiple of 64 up to C: within ``SMEM_OPTIN`` with at
+    least three staging buffers; the weights resident exactly where all
+    width/64 groups' slabs fit beside the x slot, the LN1 tile and three
+    buffers, else the deepest ring that fits; LN1's output split (f32, C <=
+    128) wherever it fits beside that weights mode or a ring; the block's
+    plan takes the layout at width C, and both of its entries fit for hidden
+    C and 2C."""
+    if dtype == torch.float32 and c > tblock.SM90_F32_MAX_C:
+        assert tblock.long_plan(c, c, c // 64, dtype) is None
+        return
+    fits = lambda *a: tblock._long_qkv_smem(*a) <= tblock.SMEM_OPTIN  # noqa: E731
+    for width in range(64, c + 1, 64):
+        rows, stages, parts, split = tblock.long_qkv_layout(c, width, dtype)
+        assert rows == (64 if dtype == torch.float32 or c > 256 else 128)
+        assert 3 <= parts <= tblock.LONG_QKV_MAX_PARTS
+        assert stages == 0 or 2 <= stages <= tblock.LONG_QKV_MAX_STAGES
+        assert split in (0, 1) and (not split or (dtype == torch.float32 and c <= 128))
+        assert fits(rows, stages, parts, c, width, dtype, split)
+        resident_fits = fits(rows, 0, 3, c, width, dtype)
+        assert (stages == 0) == resident_fits
+        if stages:
+            assert not any(fits(rows, st, 3, c, width, dtype, split)
+                           for st in range(stages + 1, tblock.LONG_QKV_MAX_STAGES + 1))
+            if dtype == torch.float32 and c <= 128:
+                assert split == any(fits(rows, st, 3, c, width, dtype, 1)
+                                    for st in range(2, tblock.LONG_QKV_MAX_STAGES + 1))
+        more = parts + 1
+        assert more > tblock.LONG_QKV_MAX_PARTS or not fits(rows, stages, more, c, width, dtype,
+                                                            split)
+    for hidden in (c, 2 * c):
+        plan = tblock.long_plan(c, hidden, c // 64, dtype)
+        assert plan is not None
+        assert (plan.rows, plan.qkv_stages, plan.qkv_parts, plan.qkv_split) == \
+            tblock.long_qkv_layout(c, c, dtype)
+        assert max(tblock.long_smem(plan, c, hidden, dtype)) <= tblock.SMEM_OPTIN
+
+
+def qkv_cover(s, l, rows, width, dtype):
+    """Each workspace row (part, sequence, group, position) the runs of
+    ``long_qkv_runs`` store, counted; the runs checked for alignment."""
+    e = 4 if dtype == torch.float32 else 2
+    groups = width // 64
+    seen = np.zeros((3, s, groups, l), dtype=np.int64)
+    for tile, p, gi, seq, pos, n, dst, src, nbytes in tblock.long_qkv_runs(s, l, rows, width,
+                                                                             dtype):
+        assert n >= 1 and pos + n <= l
+        assert dst % 16 == 0 and src % 16 == 0 and nbytes % 16 == 0 and nbytes == n * 64 * e
+        assert src + nbytes <= rows * 64 * e  # inside the part's staging buffer
+        assert tile * rows + src // (64 * e) == seq * l + pos  # the run's first token
+        assert dst == (((p * s + seq) * groups + gi) * l + pos) * 64 * e
+        seen[p, seq, gi, pos:pos + n] += 1
+    return seen
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("l", [1, 100, 192, 256, 257, 768, 3072])
+def test_qkv_store_runs_cover_the_workspace_once(l, rows, dtype):
+    """The qkv kernels' bulk stores (``long_qkv_runs``): every workspace
+    row of every part, sequence and group in exactly one run, each run
+    16-byte aligned and sized, within its staging buffer, never across a
+    sequence's end; token counts that are and are not a multiple of the
+    tile's rows, one and two head groups."""
+    for s, width in ((3, 64), (5, 128)):
+        if l == 3072 and s == 5:
+            s = 2
+        seen = qkv_cover(s, l, rows, width, dtype)
+        assert (seen == 1).all(), (s, l, rows, width)
+
+
+def test_qkv_store_runs_split_only_at_a_sequence_end():
+    """A tile inside one sequence is one run per part and group (the C
+    block: L 256, 128-row tiles); a tile that crosses sequence ends makes
+    one run per sequence it touches (X at L 192: 128-row tiles cross every
+    other sequence's end; L 1: one run a row)."""
+    runs = tblock.long_qkv_runs(4, 256, 128, 128, torch.bfloat16)
+    assert len(runs) == 8 * 2 * 3 and all(r[5] == 128 for r in runs)
+    runs = tblock.long_qkv_runs(2, 192, 128, 64, torch.bfloat16)
+    per_tile = {}
+    for r in runs:
+        per_tile[r[0]] = per_tile.get(r[0], 0) + 1
+    assert per_tile == {0: 3, 1: 3 * 2, 2: 3}  # rows 128-255 cross the end at 192
+    assert len(tblock.long_qkv_runs(1, 1, 128, 64, torch.float32)) == 3
 
 
 def test_plan_envelope():

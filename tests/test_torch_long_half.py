@@ -198,16 +198,27 @@ def test_every_flagship_long_shard_has_a_plan_that_fits(axis, tp, dtype):
     assert qkv <= tblock.SMEM_OPTIN and attn <= tblock.SMEM_OPTIN
     assert plan.width == -(-local // 64) * 64 and plan.np[0] == tblock.SM90_QKV_N
     assert plan.rows == (64 if dtype == torch.float32 else 128)
-    assert 2 <= plan.qkv_stages <= 4 and 2 <= plan.stages <= 4
-    assert plan.f32 == (dtype == torch.float32) and len(plan.ints()) == 9
+    assert plan.qkv_stages in (0, 4) and 3 <= plan.qkv_parts <= tblock.LONG_QKV_MAX_PARTS
+    assert 2 <= plan.stages <= 4
+    assert plan.f32 == (dtype == torch.float32) and len(plan.ints()) == 11
+    # The qkv weights resident at the C block's shards (one group: 48 KB of
+    # bf16 slabs, 96 KB of f32), streamed through a ring of 4 at C 256 (two
+    # or more groups; one group fits nowhere but at C 128).
+    assert plan.qkv_resident == (c == 128)
     # The attention kernel: the block's item rows (bf16 two warpgroups of 64,
     # f32 64), the deepest rings, two q slots in bf16; its tail tiles apart.
     assert plan.items == (64 if dtype == torch.float32 else 128) and plan.overlap == 0
     assert plan.kv_stages == 4 and plan.stages == 4
     assert plan.q_slots == (1 if dtype == torch.float32 else 2)
-    # The qkv kernel is the long block's: the same bytes at the same rows and stages.
-    block = tblock.LongPlan(plan.rows, plan.qkv_stages, (192, 64, 64, 64), 2)
-    assert qkv == tblock.long_smem(block, c, c, dtype)[0]
+    # The qkv kernel is the long block's: the same layout and bytes at the
+    # same rows and width.
+    assert (plan.rows, plan.qkv_stages, plan.qkv_parts, plan.qkv_split) == \
+        tblock.long_qkv_layout(c, plan.width, dtype)
+    assert qkv == tblock._long_qkv_smem(plan.rows, plan.qkv_stages, plan.qkv_parts, c,
+                                        plan.width, dtype, plan.qkv_split)
+    if plan.width == c:  # the block's own qkv entry at this width
+        block = tblock.long_plan(c, c, 8, dtype)
+        assert qkv == tblock.long_smem(block, c, c, dtype)[0]
 
 
 @pytest.mark.parametrize("tp", [2, 4, 8])
@@ -258,6 +269,27 @@ def test_pair_items_and_reads_at_the_flagship():
     pairs = tblock.long_attn_reads(c, 24576, 256, c.width, False, False, bf16, 372 * 132)
     assert pairs["items"] == 372 * 132 + 96
     assert pairs["bytes_read"] - whole["bytes_read"] == 48 * 65536  # a pair tile's k|v twice
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [64, 128, 192, 256, 320, 384, 448, 512])
+def test_every_envelope_shard_has_a_plan_that_fits(c, dtype):
+    """Every shard width of the envelope (a multiple of 16 up to C, padded
+    to 64-column groups; f32 C <= 256): both kernels within ``SMEM_OPTIN``,
+    the qkv kernel on the block's layout at the padded width (the same as
+    the block's own qkv entry where that width is C)."""
+    if dtype == torch.float32 and c > tblock.SM90_F32_MAX_C:
+        assert tblock.half_long_plan(c, c // 2, c // 32, dtype) is None
+        return
+    for local in range(16, c + 1, 16):
+        plan = tblock.half_long_plan(c, local, local // 16, dtype)  # heads of 16
+        assert plan is not None and plan.width == -(-local // 64) * 64
+        assert max(tblock.half_long_smem(plan, c, dtype)) <= tblock.SMEM_OPTIN
+        layout = (plan.rows, plan.qkv_stages, plan.qkv_parts, plan.qkv_split)
+        assert layout == tblock.long_qkv_layout(c, plan.width, dtype)
+        if plan.width == c:
+            block = tblock.long_plan(c, c, c // 64, dtype)
+            assert (block.rows, block.qkv_stages, block.qkv_parts, block.qkv_split) == layout
 
 
 def test_plan_envelope():
