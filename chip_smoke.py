@@ -130,6 +130,24 @@ script exits non-zero without the final result line):
             FNO at ``configs/fno.yaml`` width (hidden 48, modes 20, 4 layers,
             B=4, both layouts: 64 launches); frames/s, and the first frames
             against the same weights in f32 on the CPU.
+9a. overlap  overlapping patch convs at full width (``overlap_ratio`` 0.5: stride 1
+            at every stage of the flagship's pyramid, the conv outputs average-pooled
+            to the patch grid, the transposed convs' resized to it): (a) the flagship
+            TANTE (seeded) through ``Predictor.rollout``, B=8 x 16 steps, bf16 and
+            (b) f32 as ``configs/tante.yaml`` ships: exactly 96 + 48 block launches
+            of the lane's dtype, frames/s, device ms, busy share, the top kernels and
+            operators and the device ms of each named range (``op.conv_nhwc``,
+            ``op.conv_transpose_nhwc``, ``op.adaptive_avg_pool2d``,
+            ``op.resize_bilinear``, ``model.encode``, ``model.decode``), the first
+            two calls of one sample against f32 on the CPU (5e-2 / 1e-4); (c) one
+            f32 ``Trainer`` step (B 8, 4 rollout steps, dropout 0): the first loss and
+            gradient norm of one sample within 1e-3 / 1e-2 of the CPU, s/step, peak
+            memory, 24 + 12 f32 launches a step; (d) TANTE-FNO (modes 32) at overlap
+            0.25 in bf16: 66 mode-mixing + 96 + 48 launches, within 5e-2; (e) the
+            packed enc/dec API at overlap 0, bf16: ``encode`` / ``head`` with
+            ``packed=True`` against the plain calls (equal bits, the largest
+            difference reported; 6 + 3 launches a ``head`` call), and the fixed lane's Morton
+            rollout with its encode / decode ranges named.
 10. fno_train_eval  ``Trainer`` on that FNO over in-memory waves (two epochs
             of four steps: 16 forward launches per step, first loss and
             gradient norm against the f32 model on the CPU, the loss falls),
@@ -266,7 +284,9 @@ script exits non-zero without the final result line):
             card over two epochs (max abs 0), then each loader timed in turns
             over 3 windows of whole epochs of at least 3 s: batches/s and the
             GB/s that reached the card, median and spread, and their ratio.
-20. kernels one {"kernels": [...]} line (eight kernels, then the three f32
+20. kernels one {"kernels": [...]} line (the block, canonical T and
+            mode-mixing rows also with their launches per overlap rollout; eight
+            kernels, then the three f32
             block entries, then the two f32 half entries with their launches
             per f32 flagship call, Trainer step and R_Trainer step at tp 2;
             the bf16 block, canonical T, chain and tp half rows with
@@ -315,12 +335,14 @@ from tante_tpu_torch.models.cvit import CViT
 from tante_tpu_torch.models.fno import FNO
 from tante_tpu_torch.models.tante import TANTE
 from tante_tpu_torch.ops import _build
+from tante_tpu_torch.ops import convs as model_convs
 from tante_tpu_torch.ops import fused_attention as fa
 from tante_tpu_torch.ops import fused_block as fb
 from tante_tpu_torch.ops import fused_spectral as fs
 from tante_tpu_torch.ops.activations import gelu_tanh_f32
 from tante_tpu_torch.parallel.sharding import shard_block
 from tante_tpu_torch.serve import Predictor
+from tante_tpu_torch.tools.conv_layouts import wrapped_patch_ops
 from tante_tpu_torch.tools.kernel_phases import SCRUB_BYTES, event_ms
 from tante_tpu_torch.train.evaler import Evaler, cvit_full_grid_rollout, full_grid_coords
 from tante_tpu_torch.train.metrics import L2RE, MSE, NNMSE, VRMSE
@@ -1786,6 +1808,21 @@ def phase_long_axes(dev) -> dict:
     return res
 
 
+def loss_and_gnorm(model, x, y, n_out: int, k: int = 1) -> tuple[float, float]:
+    """The train step's objective with no update: ``rollout_fixed`` of
+    ``n_out`` frames, ``k`` a call, in training mode (dropout drawn from a
+    generator seeded 0 on ``x``'s device), MSE against ``y``; the loss and
+    the gradient norm."""
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    pred = rollout_fixed(lambda w: model(w, deterministic=False, generator=gen), x, n_out, k)
+    loss = MSE()(pred.to(y.dtype), y).mean()
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    gnorm = float(global_norm(model.parameters()))
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), gnorm
+
+
 def phase_train(dev, workdir: Path) -> dict:
     """The flagship through ``Trainer`` and the in-memory datamodule
     (``configs/tante.yaml``'s geometry and optimizer; the schedule starts its
@@ -1817,17 +1854,6 @@ def phase_train(dev, workdir: Path) -> dict:
         with torch.no_grad():
             pred = rollout_fixed(lambda w: model(w), x0, n_out, 1)
             return float(mse(pred.float(), y0).mean())
-
-    def first_loss_and_gnorm(model, x, y):
-        """Loss and gradient norm of the train step's objective, no update."""
-        gen = torch.Generator(device=x.device).manual_seed(0)
-        pred = rollout_fixed(lambda w: model(w, deterministic=False, generator=gen), x, n_out, 1)
-        loss = mse(pred.to(y.dtype), y).mean()
-        model.zero_grad(set_to_none=True)
-        loss.backward()
-        gnorm = float(global_norm(model.parameters()))
-        model.zero_grad(set_to_none=True)
-        return float(loss.detach()), gnorm
 
     def epoch(trainer: Trainer) -> dict:
         """One epoch through ``train_one_epoch`` with the launches counted,
@@ -1871,7 +1897,7 @@ def phase_train(dev, workdir: Path) -> dict:
     # (b) dropout 0: the kernels forward, the plain recompute backward.
     tr_b = trainer_for(0.0, "kernels")
     init_state = {k: v.detach().cpu().clone() for k, v in tr_b.model.state_dict().items()}
-    loss_gpu, gnorm_gpu = first_loss_and_gnorm(tr_b.model, x0[:1], y0[:1])
+    loss_gpu, gnorm_gpu = loss_and_gnorm(tr_b.model, x0[:1], y0[:1], n_out)
     res_b = epoch(tr_b)
     want = {"fused_block_fwd": 6.0 * n_out, "fused_block_canon_t_fwd": 3.0 * n_out,
             "fused_chain_apply": 0.0, "fused_group_apply": 0.0}
@@ -1879,7 +1905,7 @@ def phase_train(dev, workdir: Path) -> dict:
           f"dropout-0 step launches {res_b['launches_per_step']}, want {want}")
     cpu_model = flagship(True, torch.float32, "cpu", md, dropout=0.0)
     cpu_model.load_state_dict(init_state)
-    loss_cpu, gnorm_cpu = first_loss_and_gnorm(cpu_model, x0[:1].cpu(), y0[:1].cpu())
+    loss_cpu, gnorm_cpu = loss_and_gnorm(cpu_model, x0[:1].cpu(), y0[:1].cpu(), n_out)
     check(abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_REL_TOL * loss_cpu,
           f"first loss {loss_gpu} on the card vs {loss_cpu} in f32 on the CPU")
     check(abs(gnorm_gpu - gnorm_cpu) <= TRAIN_GNORM_REL_TOL * gnorm_cpu,
@@ -2910,6 +2936,246 @@ def phase_fno_serving(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Overlapping patch convs and the packed enc/dec API
+# ---------------------------------------------------------------------------
+
+OVERLAP = 0.5      # stride 1 at every stage of the flagship pyramid (0.25 rounds to stride 2)
+FNO_OVERLAP = 0.25  # FNO_PATCH_MAP[8] = (4, 2): stage 0 stride 3, pad 1
+# The overlap Trainer step (f32 both sides): loss and gradient norm of one
+# sample against the CPU, relative.
+OVERLAP_LOSS_REL_TOL, OVERLAP_GNORM_REL_TOL = 1e-3, 1e-2
+
+
+@contextlib.contextmanager
+def labelled_ops(model: TANTE):
+    """Named ranges for ``torch.profiler`` while the block is open: each
+    conv, transposed conv, pool and resize the patch convs call
+    (``op.<function>``), each encode and each decoder call of ``model``."""
+    from torch.profiler import record_function
+
+    def label(fn, name):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    decoders = [getattr(model, f"decoders_{i}") for i in range(model.taylor_order)]
+    model.encode = label(model.encode, "model.encode")  # the instance's, over the method
+    for d in decoders:
+        d.forward = label(d.forward, "model.decode")
+    try:
+        with wrapped_patch_ops(lambda n, fn: label(fn, f"op.{n}")):
+            yield
+    finally:
+        del model.encode
+        for d in decoders:
+            del d.forward
+
+
+def labelled_ranges(fn, model: TANTE, top: int = 10) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` with ``labelled_ops``:
+    per named range its device ms (the kernels launched inside it) and
+    count; the PyTorch operators that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with labelled_ops(model), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+    ranges = {e.key: {"device_ms": e.device_time_total / 1e3, "count": e.count}
+              for e in cpu if e.key.startswith(("op.", "model."))}
+    ops = sorted((e for e in cpu if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)
+    return {"ranges": ranges,
+            "top_operators": [{"name": e.key, "count": e.count,
+                               "self_device_ms": e.self_device_time_total / 1e3}
+                              for e in ops[:top]]}
+
+
+def overlap_lane(label: str, pred: Predictor, x: torch.Tensor, dtype, want_blocks: dict,
+                 want_spectral: int, ref: torch.Tensor, tol: float) -> dict:
+    """``Predictor.rollout`` B 8 x 16 steps: exact launches of the block
+    kernels in ``dtype`` (none in another) and of the mode-mixing kernel,
+    shape and finiteness, frames/s, the trace (device time, busy share, top
+    kernels) and the named ranges; the first two calls of one sample
+    against ``ref`` (the f32 model on the CPU) within ``tol``."""
+    f32 = dtype == torch.float32
+    roll = lambda: pred.rollout(x, N_STEPS, out_dtype=None if f32 else torch.bfloat16)  # noqa: E731
+    for _ in range(2):
+        roll()
+    torch.cuda.synchronize()
+    reset_counts()
+    y = roll()
+    torch.cuda.synchronize()
+    blocks, other = launch_counts(dtype), other_launches(dtype)
+    spectral = fs.spectral_mode_matmul.launches
+    check(blocks == want_blocks and not other,
+          f"{label}: block launches {blocks} ({other} in other dtypes), want {want_blocks}")
+    check(spectral == want_spectral,
+          f"{label}: {spectral} spectral_mode_matmul launches, want {want_spectral}")
+    finite = bool(torch.isfinite(y).all())
+    check(finite and tuple(y.shape) == (BATCH, N_STEPS, *RES, FIELDS),
+          f"{label}: output shape / finiteness")
+    tm = timed_rollouts(roll)
+    prof = traced(roll, label, top=12, f32=f32)
+    prof.update(host_split(roll))
+    prof.update(labelled_ranges(roll, pred.model))
+    u = x[:1, -1:].cpu()
+    err = rel_l2(pred.rollout(x[:1], 2).float().cpu() - u, ref - u)
+    check(err <= tol, f"{label} vs CPU f32: rel L2 {err}")
+    return {"lane": label, "dtype": str(dtype)[6:], "output_shape": list(y.shape),
+            "finite": finite, "launches_per_rollout": blocks,
+            "other_dtype_launches_per_rollout": other,
+            "spectral_mode_matmul_launches_per_rollout": spectral, **lane_speed(tm),
+            "change_vs_cpu_f32_rel_l2": err, "rel_l2_tolerance": tol, "trace": prof}
+
+
+def overlap_train_step(dev, workdir: Path) -> dict:
+    """One ``Trainer`` step at overlap 0.5 in f32 (``configs/tante.yaml`` as
+    shipped: no enable_amp; dropout 0, so the blocks run their kernels
+    forward): the first loss and gradient norm of one sample against the
+    same weights in f32 on the CPU, then steps on B 8: seconds a step (CUDA
+    events), launches a step, peak memory."""
+    n_out = 4
+    dm = WaveDataModule(
+        batch_size=BATCH, n_steps_input=IN_T, n_steps_output=n_out, eval_steps_output=n_out,
+        data_workers=2, seed=0, device=dev,
+        waves=dict(resolution=RES, n_trajectories=4, n_steps=16, with_pressure=True, seed=0))
+    md = dm.train_dataset.metadata
+    model = flagship(True, torch.float32, dev, md, dropout=0.0, overlap_ratio=OVERLAP)
+    load_jax_params(model, seeded_jax_params(model, seed=0))
+    cpu_model = flagship(True, torch.float32, "cpu", md, dropout=0.0, overlap_ratio=OVERLAP)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    trainer = Trainer(str(workdir / "overlap"), "channels_first_default", model, dm,
+                      AdamW(lr=5e-5, weight_decay=1e-5), MSE(), L2RE(), max_epoch=1,
+                      n_steps_output=n_out, seed=0)
+    loader = dm.train_dataloader()
+    loader.set_epoch(1)
+    batches = [tuple(b[k] for k in ("input", "output")) for b in loader]
+    x0, y0 = batches[0]
+
+    loss, gnorm = loss_and_gnorm(model, x0[:1], y0[:1], n_out)
+    loss_cpu, gnorm_cpu = loss_and_gnorm(cpu_model, x0[:1].cpu(), y0[:1].cpu(), n_out)
+    check(abs(loss - loss_cpu) <= OVERLAP_LOSS_REL_TOL * loss_cpu,
+          f"overlap train: first loss {loss} on the card vs {loss_cpu} in f32 on the CPU")
+    check(abs(gnorm - gnorm_cpu) <= OVERLAP_GNORM_REL_TOL * gnorm_cpu,
+          f"overlap train: gradient norm {gnorm} on the card vs {gnorm_cpu} on the CPU")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for x, y in batches:
+        reset_counts()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        losses.append(float(trainer.train_step(x, y)))
+        stop.record()
+        stop.synchronize()
+        ms.append(start.elapsed_time(stop))
+    launches = launch_counts(torch.float32)
+    want = {"fused_block_fwd": 6 * n_out, "fused_block_canon_t_fwd": 3 * n_out,
+            "fused_chain_apply": 0, "fused_group_apply": 0}
+    check(launches == want and not other_launches(torch.float32),
+          f"overlap train: launches a step {launches}, want {want} in f32")
+    check(all(np.isfinite(losses)), f"overlap train: losses {losses}")
+    return {"batch": BATCH, "n_steps_output": n_out, "dtype": "f32 (no enable_amp)",
+            "steps": len(ms), "losses": losses, "launches_per_step": launches,
+            "seconds_per_step_median": sorted(ms[1:])[len(ms[1:]) // 2] / 1e3,
+            "seconds_per_step_all": [m / 1e3 for m in ms],
+            "peak_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "first_step_one_sample": {
+                "loss": loss, "loss_cpu_f32": loss_cpu, "loss_rel_tol": OVERLAP_LOSS_REL_TOL,
+                "grad_norm": gnorm, "grad_norm_cpu_f32": gnorm_cpu,
+                "grad_norm_rel_tol": OVERLAP_GNORM_REL_TOL}}
+
+
+def packed_api(dev, x: torch.Tensor) -> dict:
+    """``encode`` / ``head`` with ``packed=True`` at the flagship width, bf16,
+    overlap 0: against the plain calls on the same input (equal bits, and
+    the largest difference), 6 + 3 block launches a ``head`` call; then the
+    fixed lane's Morton rollout with its encode / decode ranges named, the
+    reference for the overlap lanes' conv pyramids."""
+    model = flagship(True, torch.bfloat16, dev)
+    pred = Predictor.from_numpy(model, seeded_jax_params(model, seed=0))
+    model = pred.model
+    p0 = 2
+    check(model.packed_io_ok(), "flagship: packed_io_ok() is False at overlap 0")
+    with torch.inference_mode():
+        lat = model.encode(x)
+        lat_p = model.encode(model_convs.pack_patches(x, p0), packed=True)
+        u = x[:, -1:]
+        frames = model.head(lat, u)
+        torch.cuda.synchronize()
+        reset_counts()
+        frames_p = model.head(lat, model_convs.pack_patches(u, p0), packed=True)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    want = {"fused_block_fwd": 6, "fused_block_canon_t_fwd": 3, "fused_chain_apply": 0,
+            "fused_group_apply": 0}
+    check(launches == want, f"packed head launches {launches}, want {want}")
+    packed_frames = model_convs.pack_patches(frames, p0)
+    enc_diff = float((lat_p.float() - lat.float()).abs().max())
+    head_diff = float((frames_p.float() - packed_frames.float()).abs().max())
+    # The same operations on the same operands: nothing but equal bits passes.
+    enc_equal, head_equal = torch.equal(lat_p, lat), torch.equal(frames_p, packed_frames)
+    check(enc_equal and head_equal,
+          f"packed API vs plain: encode {enc_diff}, head {head_diff} apart (want equal bits)")
+    roll = lambda: pred.rollout(x, N_STEPS, out_dtype=torch.bfloat16)  # noqa: E731
+    roll()
+    return {"dtype": "bf16", "overlap_ratio": 0.0, "packed_io_ok": True,
+            "encode_equals_plain_bit_for_bit": enc_equal, "encode_max_abs_diff": enc_diff,
+            "head_equals_packed_plain_bit_for_bit": head_equal, "head_max_abs_diff": head_diff,
+            "head_launches_per_call": launches,
+            "morton_rollout": {"morton_io_ok": model.morton_io_ok(),
+                               **trace(roll, top=6), **labelled_ranges(roll, model)}}
+
+
+def phase_overlap(dev, workdir: Path) -> dict:
+    """Overlapping patch convs at full width: (a) the flagship at overlap
+    0.5 in bf16 and (b) in f32 through ``Predictor.rollout`` (96 + 48 block
+    launches a rollout, the first calls against the f32 CPU model), (c) one
+    f32 ``Trainer`` step at overlap 0.5, (d) TANTE-FNO (modes 32) at overlap
+    0.25 in bf16 (66 mode-mixing + 96 + 48 launches), (e) the packed
+    enc/dec API at overlap 0 against the plain calls."""
+    t0 = time.perf_counter()
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(BATCH, IN_T, *RES, FIELDS)).astype(np.float32)).to(dev)
+    blocks = {"fused_block_fwd": 6 * N_STEPS, "fused_block_canon_t_fwd": 3 * N_STEPS,
+              "fused_chain_apply": 0, "fused_group_apply": 0}
+    out = {}
+    cpu_model = flagship(True, torch.float32, "cpu", overlap_ratio=OVERLAP)
+    flat = seeded_jax_params(cpu_model, seed=0)
+    ref = Predictor.from_numpy(cpu_model, flat, device="cpu").rollout(x[:1].cpu(), 2)
+    for key, dtype, tol in (("bf16", torch.bfloat16, ROLLOUT_REL_TOL),
+                            ("f32", torch.float32, F32_ROLLOUT_REL_TOL)):
+        pred = Predictor.from_numpy(flagship(True, dtype, dev, overlap_ratio=OVERLAP), flat)
+        check(not pred.model.morton_io_ok() and not pred.model.packed_io_ok(),
+              "overlap: a packed gate is open")
+        out[key] = overlap_lane(f"overlap {OVERLAP} {key}", pred, x, dtype, blocks, 0, ref, tol)
+        out[key]["t_s"] = time.perf_counter() - t0
+        del pred
+    out["train"] = overlap_train_step(dev, workdir)
+    out["train"]["t_s"] = time.perf_counter() - t0
+    kw = dict(enc_dec_type="fno", modes1=FNO_MODES, modes2=FNO_MODES, overlap_ratio=FNO_OVERLAP)
+    model = flagship(True, torch.bfloat16, dev, **kw)
+    flat = seeded_jax_params(model, seed=0)
+    ref = Predictor.from_numpy(flagship(True, torch.float32, "cpu", **kw), flat,
+                               device="cpu").rollout(x[:1].cpu(), 2)
+    out["fno"] = overlap_lane(f"TANTE-FNO overlap {FNO_OVERLAP} bf16",
+                              Predictor.from_numpy(model, flat), x, torch.bfloat16, blocks,
+                              2 + N_STEPS * 4, ref, ROLLOUT_REL_TOL)
+    out["fno"]["t_s"] = time.perf_counter() - t0
+    del model
+    out["packed_api"] = packed_api(dev, x)
+    res = {"phase": "overlap", "batch": BATCH, "n_steps": N_STEPS,
+           "weights": "seeded (numpy seed 0)", "overlap_ratio": OVERLAP,
+           "fno_overlap_ratio": FNO_OVERLAP, **out, "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
 def phase_fno_train_eval(dev, workdir: Path) -> dict:
     """``Trainer`` on FNO (``configs/fno.yaml``: B=4, 4 rollout steps per train
     step, 8 per evaluation; AdamW at a constant 1e-3 so that eight steps move
@@ -2931,23 +3197,14 @@ def phase_fno_train_eval(dev, workdir: Path) -> dict:
     first = list(loader)[0]
     x0, y0 = first["input"], first["output"]
 
-    def loss_and_gnorm(model, x, y):
-        pred = rollout_fixed(lambda w: model(w, deterministic=False), x, n_out, 1)
-        loss = mse(pred.to(y.dtype), y).mean()
-        model.zero_grad(set_to_none=True)
-        loss.backward()
-        gnorm = float(global_norm(model.parameters()))
-        model.zero_grad(set_to_none=True)
-        return float(loss.detach()), gnorm
-
     def eval_loss() -> float:
         with torch.no_grad():
             return float(mse(rollout_fixed(model, x0, n_out, 1).float(), y0).mean())
 
-    loss_gpu, gnorm_gpu = loss_and_gnorm(model, x0[:1], y0[:1])
+    loss_gpu, gnorm_gpu = loss_and_gnorm(model, x0[:1], y0[:1], n_out)
     cpu_model = fno_model(torch.float32, "cpu", md)
     cpu_model.load_state_dict(init_state)
-    loss_cpu, gnorm_cpu = loss_and_gnorm(cpu_model, x0[:1].cpu(), y0[:1].cpu())
+    loss_cpu, gnorm_cpu = loss_and_gnorm(cpu_model, x0[:1].cpu(), y0[:1].cpu(), n_out)
     check(abs(loss_gpu - loss_cpu) <= TRAIN_LOSS_REL_TOL * loss_cpu,
           f"FNO first loss {loss_gpu} on the card vs {loss_cpu} in f32 on the CPU")
     check(abs(gnorm_gpu - gnorm_cpu) <= TRAIN_GNORM_REL_TOL * gnorm_cpu,
@@ -3345,22 +3602,12 @@ def phase_avit(dev, workdir: Path) -> dict:
     batch0 = next(iter(loader))
     x0, y0 = batch0["input"][:1], batch0["output"][:1]
 
-    def loss_and_gnorm(model, x, y):
-        gen = torch.Generator(device=x.device).manual_seed(0)
-        pred = rollout_fixed(lambda w: model(w, deterministic=False, generator=gen), x, 4, 4)
-        loss = mse(pred, y).mean()
-        model.zero_grad(set_to_none=True)
-        loss.backward()
-        gnorm = float(global_norm(model.parameters()))
-        model.zero_grad(set_to_none=True)
-        return float(loss.detach()), gnorm
-
     # drop path 0: the first loss and gradient norm on the card and on the CPU
     one = {}
     for device in (dev, "cpu"):
         m = avit_model(device, md, drop_path=0.0)
         load_jax_params(m, flat)
-        one[str(device)] = loss_and_gnorm(m, x0.to(device), y0.to(device))
+        one[str(device)] = loss_and_gnorm(m, x0.to(device), y0.to(device), 4, 4)
         del m
     (loss_gpu, gnorm_gpu), (loss_cpu, gnorm_cpu) = one[str(dev)], one["cpu"]
     check(abs(loss_gpu - loss_cpu) <= AVIT_LOSS_REL_TOL * loss_cpu,
@@ -5086,7 +5333,7 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict],
                   spectral: list[dict], fno: dict, packed: list[dict], avit: dict, cvit: dict,
                   tp: list[dict], tp_f32: list[dict], parallel: dict,
                   kernels_long: dict[str, list[dict]], long_axes: dict,
-                  tp_long: dict[str, list[dict]]) -> list[dict]:
+                  tp_long: dict[str, list[dict]], overlap: dict) -> list[dict]:
     replaces = {"fused_block_fwd": "tante_tpu/ops/pallas_block.py:163",
                 "fused_block_canon_t_fwd": "tante_tpu/ops/pallas_block.py:401",
                 "fused_chain_apply": "tante_tpu/ops/pallas_block.py:1073",
@@ -5124,6 +5371,10 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict],
         # The paper's entry points in bf16 (cli phase, configs/tante.yaml
         # with the CLI_AMP overrides).
         row["launches_on_the_cli_path"] = cli_launches(cli, name, ("tante_bf16",))
+        # The overlap phase's rollouts (overlap 0.5, and TANTE-FNO at 0.25).
+        row["launches_per_overlap_rollout"] = {
+            "flagship": overlap["bf16"]["launches_per_rollout"][name],
+            "tante_fno": overlap["fno"]["launches_per_rollout"][name]}
         out.append(row)
     val = train["validation"]
     per_call = {"fused_chain_apply": val["fused_chain=3"]["launches_per_model_call"],
@@ -5166,6 +5417,8 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict],
                 "case", "shape", "softmax", "kernel_ms", "plain_ms", "bound_us", "rel_l2",
                 "max_abs_err")} for c in cases],
             "launches_on_the_cli_path": cli_launches(cli, name),
+            "launches_per_overlap_rollout": overlap["f32"]["launches_per_rollout"][name],
+            "launches_per_overlap_train_step": overlap["train"]["launches_per_step"][name],
         })
     chain, group = chains_f32["fused_chain_apply"], chains_f32["fused_group_apply"]
     fusion = fixed_f32["fusion"]
@@ -5202,6 +5455,8 @@ def phase_summary(kernels: dict[str, list[dict]], chains: dict[str, dict],
         "launches": fno["tante_fno"]["spectral_mode_matmul_launches_per_rollout"],
         "launches_counted_over": "one 16-step rollout of TANTE with the FNO encoder/decoder",
         "launches_per_fno_rollout": fno["fno_cw"]["spectral_mode_matmul_launches_per_rollout"],
+        "launches_per_overlap_rollout":
+            overlap["fno"]["spectral_mode_matmul_launches_per_rollout"],
         "max_abs_err": max(c["max_abs_err"] for c in spectral),
         "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_us") / 1e3,
         "bound_by": main[0]["bound_by"], "library_ms": mean("library_ms"),
@@ -5347,6 +5602,7 @@ def main() -> int:
     tp_long = {"bf16": phase_tp_kernel_long(dev, torch.bfloat16),
                "f32": phase_tp_kernel_long(dev, torch.float32)}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        overlap = phase_overlap(dev, Path(workdir))
         train = phase_train(dev, Path(workdir))
         adaptive_train = phase_adaptive_train(dev, Path(workdir))
         cli = phase_cli(dev, Path(workdir))
@@ -5358,7 +5614,7 @@ def main() -> int:
         parallel = phase_parallel(dev, Path(workdir))
     phase_summary(kernels, chains, kernels_f32, chains_f32, fixed, fixed_f32, train,
                   adaptive_train, cli, spectral, fno, packed, avit, cvit, tp, tp_f32, parallel,
-                  kernels_long, long_axes, tp_long)
+                  kernels_long, long_axes, tp_long, overlap)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

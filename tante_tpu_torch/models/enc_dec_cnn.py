@@ -3,10 +3,17 @@
 
 Encoder (B, T, H, W, C_in) -> (B, T, H_p, W_p, C_embed), three patch-conv
 stages with per-stage patch sizes ``PATCH_MAP[patch_scale]``; the decoder
-mirrors back.  Two modes are ported: plain (physical frames) and
-``"morton"``: the constant-row pyramid on ``morton_pack_grouped`` frames,
-one row per latent pixel, where every stage is one grouped matmul
-(``ops/convs.py``).
+mirrors back, at any ``overlap_ratio`` (``ops/convs.py``).  Three modes:
+plain (physical frames); ``packed=True``: the frames in
+``pack_patches(frames, p0)`` layout, where stage 0 skips its
+space-to-depth (the encoder) or its depth-to-space (the decoder) and the
+other stages run plain; ``"morton"``: the constant-row pyramid on
+``morton_pack_grouped`` frames, one row per latent pixel, where every
+stage is one grouped matmul.  JAX forks the packed mode into an
+"all-dense" pyramid where every stage is a clean space-to-depth, because
+its plain stages are XLA convs; here a plain stride == patch, unpadded
+stage already is space-to-depth + one matmul (``ops/convs.py``), so the
+plain stages are that pyramid, the same operations on the same operands.
 """
 
 from __future__ import annotations
@@ -18,7 +25,11 @@ from torch import nn
 
 from tante_tpu_torch.data.metadata import TanteMetadata
 from tante_tpu_torch.ops.activations import gelu
-from tante_tpu_torch.ops.convs import RealConv2d, RealTransConv2d, morton_pyramid_ok
+from tante_tpu_torch.ops.convs import (
+    RealConv2d,
+    RealTransConv2d,
+    morton_pyramid_ok,
+)
 
 # patch_scale -> per-stage patch sizes (reference enc_dec_cnn.py:39-46).
 PATCH_MAP = {
@@ -32,8 +43,8 @@ PATCH_MAP = {
 
 
 def _check_mode(packed, p, overlap_ratio):
-    if packed not in (False, "morton"):
-        raise NotImplementedError("only the plain and 'morton' enc/dec modes are ported")
+    if packed not in (False, True, "morton"):
+        raise ValueError(f"enc/dec mode {packed!r}: the modes are False, True and 'morton'")
     if packed == "morton" and not morton_pyramid_ok(p, overlap_ratio):
         raise ValueError("'morton' mode needs a clean pyramid (TANTE.morton_io_ok())")
 
@@ -56,7 +67,8 @@ class EncCNN(nn.Module):
         self.RealConv2d_2 = RealConv2d(e // 2, e, p[2], overlap_ratio, dtype, gen)
 
     def forward(self, x: torch.Tensor, packed_in=False) -> torch.Tensor:
-        """packed_in="morton": x is (B, T, H_p*W_p, g*p0*p0*C_in) rows."""
+        """packed_in=True: x is ``pack_patches(frames, p0)``; "morton": x is
+        (B, T, H_p*W_p, g*p0*p0*C_in) rows."""
         _check_mode(packed_in, self.p, self.overlap_ratio)
         p = self.p
         b, t = x.shape[0], x.shape[1]
@@ -68,7 +80,7 @@ class EncCNN(nn.Module):
             z = self.RealConv2d_2(z, packed_in=True, packed_group=1)
             hp, wp = (r // self.patch_scale for r in self.resolution)
             return z.reshape(b, t, hp, wp, self.embed_dim)
-        z = gelu(self.RealConv2d_0(z))
+        z = gelu(self.RealConv2d_0(z, packed_in=packed_in))
         z = gelu(self.RealConv2d_1(z))
         z = self.RealConv2d_2(z)
         return z.reshape(b, t, *z.shape[1:])
@@ -90,7 +102,8 @@ class DecCNN(nn.Module):
                                                  dtype, gen)
 
     def forward(self, x: torch.Tensor, packed_out=False) -> torch.Tensor:
-        """packed_out="morton": returns (B, T, H_p*W_p, g*p0*p0*C_out) rows."""
+        """packed_out=True: returns ``pack_patches(frames, p0)``; "morton":
+        (B, T, H_p*W_p, g*p0*p0*C_out) rows."""
         _check_mode(packed_out, self.p, self.overlap_ratio)
         p = self.p
         b, t = x.shape[0], x.shape[1]
@@ -103,5 +116,5 @@ class DecCNN(nn.Module):
             return z.reshape(b, t, *z.shape[1:])
         z = gelu(self.RealTransConv2d_0(z))
         z = gelu(self.RealTransConv2d_1(z))
-        z = self.RealTransConv2d_2(z)
+        z = self.RealTransConv2d_2(z, packed_out=packed_out)
         return z.reshape(b, t, *z.shape[1:])

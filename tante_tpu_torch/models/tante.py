@@ -40,7 +40,7 @@ from tante_tpu_torch.models.common import (
 from tante_tpu_torch.models.enc_dec_cnn import PATCH_MAP, DecCNN, EncCNN
 from tante_tpu_torch.models.enc_dec_fno import DecFNO, EncFNO
 from tante_tpu_torch.ops.backend import resolve_device
-from tante_tpu_torch.ops.convs import morton_pyramid_ok
+from tante_tpu_torch.ops.convs import morton_pyramid_ok, packed_patch_ok
 
 
 class Interprator(nn.Module):
@@ -164,6 +164,13 @@ class TANTE(nn.Module):
         """Static frame-slot count for adaptive calls with budget out_T."""
         return max(1, int(math.floor(out_T + 1e-3)))
 
+    def packed_io_ok(self) -> bool:
+        """Whether frames can stay in ``pack_patches(frames, p0)`` layout
+        across a decode -> encode round trip: the CNN pyramid's stage 0 is a
+        clean space-to-depth (stride == patch, no padding)."""
+        return self.enc_dec_type == "cnn" and packed_patch_ok(
+            PATCH_MAP[self.patch_scale][0], self.overlap_ratio)
+
     def morton_io_ok(self) -> bool:
         """Whether the Morton-packed fast path applies: the CNN pyramid with
         every stage a clean space-to-depth.  The FNO encoder/decoder works on
@@ -172,8 +179,9 @@ class TANTE(nn.Module):
             PATCH_MAP[self.patch_scale], self.overlap_ratio)
 
     def encode(self, inputs: torch.Tensor, packed=False) -> torch.Tensor:
-        """(B, K, H, W, C) -> (B, K, H_p, W_p, C); packed="morton" takes
-        ``morton_pack_grouped`` frames."""
+        """(B, K, H, W, C) -> (B, K, H_p, W_p, C); packed=True takes
+        ``pack_patches(frames, p0)`` (gate with ``packed_io_ok()``),
+        packed="morton" ``morton_pack_grouped`` frames (``morton_io_ok()``)."""
         if packed:
             return self.encoder(inputs, packed_in=packed)
         return self.encoder(inputs)
@@ -182,7 +190,9 @@ class TANTE(nn.Module):
              deterministic: bool = True, packed=False,
              generator: torch.Generator | None = None):
         """Backbone + Taylor prediction from cached latents (B, T, H_p, W_p, C)
-        and the expansion point u_last (B, 1, ...) (morton rows if packed).
+        and the expansion point u_last (B, 1, ...), in the decoders' layout:
+        ``pack_patches`` frames if packed is True, morton rows if "morton"
+        (the Taylor sum is elementwise, so any layout serves).
         ``deterministic=False`` turns the blocks' dropout on, drawn from
         ``generator``."""
         dt = self.dtype

@@ -1,16 +1,24 @@
-"""Patchify / de-patchify convolutions as dense matmuls (counterpart of
+"""Patchify / de-patchify convolutions (counterpart of
 ``tante_tpu/ops/convs.py``), channels-last.
 
-Ported: stride == patch (``overlap_ratio=0``).  With 1x1 or 2x2 patches
-(every stage of the CNN pyramid at ``patch_scale=8``) the symmetric padding
-``(p - 1) // 2`` is zero and a patch conv IS space-to-depth + one matmul, its
-transpose one matmul + depth-to-space, so the plain, ``packed`` and
-``"morton"`` modes all run as matmuls.  Larger patches (the FNO pyramid's
-4x4 stage) pad: the conv then reads the frame shifted by the padding (the
-same matmul on the shifted frame; the grid already is (H/p, W/p)), and the
-transposed conv crops the padding off its (H*p, W*p) output and resizes
-bilinearly back to that grid, plain mode only.  Strides below the patch
-(``overlap_ratio > 0``) raise ``NotImplementedError``.
+Stride == patch: with 1x1 or 2x2 patches (every stage of the CNN pyramid at
+``patch_scale=8``) the symmetric padding ``(p - 1) // 2`` is zero and a
+patch conv IS space-to-depth + one matmul, its transpose one matmul +
+depth-to-space, so the plain, ``packed`` and ``"morton"`` modes all run as
+matmuls.  Larger patches (the FNO pyramid's 4x4 stage) pad: the conv then
+reads the frame shifted by the padding (the same matmul on the shifted
+frame; the grid already is (H/p, W/p)), and the transposed conv crops the
+padding off its (H*p, W*p) output and resizes bilinearly back to that
+grid, plain mode only.
+
+Stride below the patch (``overlap_ratio > 0``, stride
+``max(1, round(p * (1 - overlap_ratio)))``, Python's rounding: patch 2 at
+0.25 keeps stride 2): ``RealConv2d`` is the padded strided conv
+(``conv_nhwc``) average-pooled to the (H/p, W/p) grid
+(``ops/pooling.py:adaptive_avg_pool2d``); ``RealTransConv2d`` the VALID
+transposed conv (``F.conv_transpose2d`` on the spatially flipped flax
+kernel), cropped by the padding and resized bilinearly to (H*p, W*p).
+``enforce_patch_grid=False`` skips the pool / the resize, as in JAX.
 
 Parameters keep the flax layouts: ``kernel`` HWIO ``(ph, pw, ci, co)``,
 ``bias`` ``(co,)``.
@@ -33,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tante_tpu_torch.ops.initializers import torch_bias_init, torch_kernel_init
-from tante_tpu_torch.ops.pooling import resize_bilinear
+from tante_tpu_torch.ops.pooling import adaptive_avg_pool2d, resize_bilinear
 
 
 def patchify(x: torch.Tensor, patch: Tuple[int, ...]) -> torch.Tensor:
@@ -139,14 +147,6 @@ def _stride(p: int, overlap_ratio: float) -> int:
     return max(1, int(round(p * (1.0 - overlap_ratio))))
 
 
-def _require_stride_is_patch(p: int, overlap_ratio: float):
-    if _stride(p, overlap_ratio) != p:
-        raise NotImplementedError(
-            f"patch {p} with overlap_ratio {overlap_ratio}: overlapping patch convs and their "
-            "adaptive-pool grid enforcement are not ported yet"
-        )
-
-
 def _pad(p: int) -> int:
     """Symmetric 'same'-style padding of a pxp patch conv."""
     return (p - 1) // 2
@@ -173,73 +173,97 @@ class _ConvParams(nn.Module):
 
 
 class RealConv2d(nn.Module):
-    """Stride == patch conv as space-to-depth + matmul (``ops/convs.py:296``).
-    With padding ``pad`` (patches of 3 and more) the windows start ``pad``
-    pixels before the frame and the last ``pad`` pixels fall outside every
-    window: the frame shifted by ``pad`` with zeros in front."""
+    """Patch conv onto the (H/p, W/p) grid (``ops/convs.py:296``).  Stride ==
+    patch on a frame the patch divides: space-to-depth + matmul; with
+    padding ``pad`` (patches of 3 and more) the windows start ``pad`` pixels
+    before the frame and the last ``pad`` pixels fall outside every window:
+    the frame shifted by ``pad`` with zeros in front.  Otherwise the padded
+    strided conv, average-pooled to the grid where ``enforce_patch_grid``."""
 
     def __init__(self, c_in, out_channels, patch_size, overlap_ratio=0.0,
-                 dtype=torch.float32, gen=None):
+                 dtype=torch.float32, gen=None, enforce_patch_grid: bool = True):
         super().__init__()
-        _require_stride_is_patch(patch_size, overlap_ratio)
         self.p = patch_size
+        self.stride = _stride(patch_size, overlap_ratio)
         self.dtype = dtype
+        self.enforce_patch_grid = enforce_patch_grid
         self.Conv_0 = _ConvParams(patch_size, c_in, out_channels, gen)
 
     def forward(self, x, packed_in: bool = False, packed_group: int = 1):
         """x: (..., H, W, C) or, with ``packed_in``, ``pack_patches`` rows
         whose last dim carries ``packed_group`` packed pixels."""
+        p, pad = self.p, _pad(self.p)
         k = self.Conv_0.kernel
         wmat = k.reshape(-1, k.shape[-1]).to(self.dtype)
         bias = self.Conv_0.bias.to(self.dtype)
-        if not packed_in:
-            pad = _pad(self.p)
+        if packed_in:
+            if pad or self.stride != p:
+                raise ValueError(f"packed input needs an unpadded patch conv of stride == patch, "
+                                 f"got patch {p}, stride {self.stride}")
+            return _grouped_matmul(x.to(self.dtype), wmat, packed_group, bias)
+        h, w = x.shape[-3], x.shape[-2]
+        divisible = h % p == 0 and w % p == 0
+        if self.stride == p and divisible:
             if pad:
-                h, w = x.shape[-3], x.shape[-2]
-                if h % self.p or w % self.p:
-                    raise ValueError(f"H and W must be divisible by the patch {self.p}")
                 x = F.pad(x, (0, 0, pad, 0, pad, 0))[..., :h, :w, :]
-            x = pack_patches(x, self.p) if self.p > 1 else x
-            packed_group = 1
-        elif _pad(self.p):
-            raise ValueError(f"packed input needs an unpadded patch conv, got patch {self.p}")
-        return _grouped_matmul(x.to(self.dtype), wmat, packed_group, bias)
+            x = pack_patches(x, p) if p > 1 else x
+            return _grouped_matmul(x.to(self.dtype), wmat, 1, bias)
+        if self.enforce_patch_grid and not divisible:
+            raise ValueError(f"to enforce the (H/p, W/p) grid, H and W ({h}, {w}) must be "
+                             f"divisible by the patch {p}")
+        lead = x.shape[:-3]
+        y = conv_nhwc(x.reshape(-1, h, w, x.shape[-1]).to(self.dtype), k.to(self.dtype), bias,
+                      self.stride, ((pad, pad), (pad, pad)), 1)
+        y = y.reshape(*lead, *y.shape[1:])
+        return adaptive_avg_pool2d(y, (h // p, w // p)) if self.enforce_patch_grid else y
 
 
 class RealTransConv2d(nn.Module):
-    """Stride == patch transposed conv as matmul + depth-to-space
-    (``ops/convs.py:365``).  With padding the (H*p, W*p) output loses ``pad``
-    pixels on every side and is resized bilinearly back to (H*p, W*p)."""
+    """Transposed patch conv onto the (H*p, W*p) grid (``ops/convs.py:365``).
+    Stride == patch: matmul + depth-to-space; otherwise the VALID
+    transposed conv (``conv_transpose_nhwc``).  Either way the output loses
+    the padding on every side and, where ``enforce_patch_grid``, is resized
+    bilinearly to (H*p, W*p) unless it already has that size."""
 
     def __init__(self, c_in, out_channels, patch_size, overlap_ratio=0.0,
-                 dtype=torch.float32, gen=None):
+                 dtype=torch.float32, gen=None, enforce_patch_grid: bool = True):
         super().__init__()
-        _require_stride_is_patch(patch_size, overlap_ratio)
         self.p = patch_size
+        self.stride = _stride(patch_size, overlap_ratio)
         self.dtype = dtype
+        self.enforce_patch_grid = enforce_patch_grid
         self.ConvTranspose_0 = _ConvParams(patch_size, c_in, out_channels, gen)
 
-    def forward(self, x, packed_out: bool = False, packed_group: int = 1):
-        p = self.p
+    def _wmat(self) -> torch.Tensor:
+        """(ph, pw, ci, co) -> (ci, ph*pw*co).  lax.conv_transpose (flax's
+        ConvTranspose, transpose_kernel=False) mirrors the kernel spatially,
+        so flip it (``_PatchDenseTranspose``, convs.py:262-267)."""
         k = self.ConvTranspose_0.kernel
-        c_in, c_out = k.shape[2], k.shape[3]
-        # (ph, pw, ci, co) -> (ci, ph*pw*co).  lax.conv_transpose (flax's
-        # ConvTranspose, transpose_kernel=False) mirrors the kernel
-        # spatially, so flip it (``_PatchDenseTranspose``, convs.py:262-267).
-        wmat = k.flip(0, 1).permute(2, 0, 1, 3).reshape(c_in, p * p * c_out).to(self.dtype)
+        return k.flip(0, 1).permute(2, 0, 1, 3).reshape(k.shape[2], -1).to(self.dtype)
+
+    def forward(self, x, packed_out: bool = False, packed_group: int = 1):
+        p, pad = self.p, _pad(self.p)
         bias = self.ConvTranspose_0.bias.to(self.dtype)
-        pad = _pad(p)
+        h, w = x.shape[-3], x.shape[-2]
         if packed_out:
-            if pad:
-                raise ValueError(f"packed output needs an unpadded patch conv, got patch {p}")
-            return _grouped_matmul(x.to(self.dtype), wmat, packed_group, bias)
-        y = x.to(self.dtype) @ wmat
-        if p > 1:
-            y = unpack_patches(y, p)
-        y = y + bias
+            if pad or self.stride != p:
+                raise ValueError(f"packed output needs an unpadded patch conv of stride == "
+                                 f"patch, got patch {p}, stride {self.stride}")
+            return _grouped_matmul(x.to(self.dtype), self._wmat(), packed_group, bias)
+        if self.stride == p:
+            y = x.to(self.dtype) @ self._wmat()
+            if p > 1:
+                y = unpack_patches(y, p)
+            y = y + bias
+        else:
+            lead = x.shape[:-3]
+            y = conv_transpose_nhwc(x.reshape(-1, h, w, x.shape[-1]).to(self.dtype),
+                                    self.ConvTranspose_0.kernel.to(self.dtype), bias, self.stride)
+            y = y.reshape(*lead, *y.shape[1:])
         if pad:
-            full = (y.shape[-3], y.shape[-2])
-            y = resize_bilinear(y[..., pad:-pad, pad:-pad, :], full)
+            y = y[..., pad:-pad, pad:-pad, :]
+        if self.enforce_patch_grid and (y.shape[-3], y.shape[-2]) != (h * p, w * p):
+            y = resize_bilinear(y, (h * p, w * p))
         return y
 
 
@@ -314,6 +338,29 @@ def conv_nhwc(x: torch.Tensor, kernel: torch.Tensor, bias, stride: int, padding,
                      padding=pad, groups=groups)
     finally:
         torch.backends.cudnn.enabled = cudnn
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_transpose_nhwc(x: torch.Tensor, kernel: torch.Tensor, bias, stride: int):
+    """flax ``nn.ConvTranspose(strides=stride, padding="VALID")`` of
+    (B, H, W, Cin) with a (kh, kw, Cin, Cout) kernel, channels-last in and
+    out: (B, (H - 1) * stride + kh, (W - 1) * stride + kw, Cout).
+    ``lax.conv_transpose`` (``transpose_kernel=False``) correlates the
+    stride-dilated input with the kernel as it is, which is torch's
+    transposed conv (a scatter of every input pixel through the kernel) with
+    the kernel flipped spatially.
+
+    On the card it runs on cuDNN, and in f32 with cuDNN's TF32 off whatever
+    ``torch.backends.cudnn.allow_tf32`` says (PyTorch's default is on), so
+    that the decoder computes in f32 as ``conv_nhwc``'s encoder conv does.
+    The backward runs under the caller's flags, as ``conv_nhwc``'s does."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = tf32 and not (x.is_cuda and x.dtype == torch.float32)
+    try:
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), kernel.flip(0, 1).permute(2, 3, 0, 1),
+                               bias, stride=stride)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
     return y.permute(0, 2, 3, 1)
 
 

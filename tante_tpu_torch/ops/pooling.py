@@ -1,6 +1,15 @@
-"""Image resizing as separable matmuls (counterpart of the resize half of
-``tante_tpu/ops/pooling.py`` and of ``jax.image.resize`` as the JAX package
-calls it), channels-last.
+"""Adaptive average pooling and image resizing, channels-last (counterpart
+of ``tante_tpu/ops/pooling.py`` and of ``jax.image.resize`` as the JAX
+package calls it).
+
+``adaptive_avg_pool2d(x, (h_out, w_out))`` has torch's bins (bin i covers
+``[floor(i*In/Out), ceil((i+1)*In/Out))``), which the JAX package
+reproduces with differences of cumulative sums.  Here it is
+``F.adaptive_avg_pool2d`` itself on a channels-last view of the input in
+f32: each bin is summed directly (no cumsum, whose running total loses the
+small differences), in f32 whatever the activation dtype, and rounded once
+to it.  The JAX form in bf16 runs its cumsum in bf16 and is off by whole
+units (``ROADMAP.md`` section 3), so the port does not follow it there.
 
 ``resize(x, size, method)`` reproduces ``jax.image.resize``'s weights:
 half-pixel centres, the triangle ("linear") or the Keys cubic kernel with
@@ -18,6 +27,19 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, output_size: Tuple[int, int]) -> torch.Tensor:
+    """(..., H, W, C) -> (..., H_out, W_out, C), averaged in f32 and
+    rounded once to ``x.dtype``; ``x`` itself where the size is unchanged."""
+    h_out, w_out = output_size
+    *lead, h, w, c = x.shape
+    if (h, w) == (h_out, w_out):
+        return x
+    z = x.reshape(-1, h, w, c).permute(0, 3, 1, 2).float()
+    y = F.adaptive_avg_pool2d(z, (h_out, w_out)).to(x.dtype)
+    return y.permute(0, 2, 3, 1).reshape(*lead, h_out, w_out, c)
 
 
 def _triangle(x: np.ndarray) -> np.ndarray:

@@ -6,13 +6,26 @@ of the port's (B, H, W, C) fields ("nhwc") or a contiguous NCHW copy
 ("nchw"); then one AttentionUNet call at ``configs/unet_att.yaml`` (seeded
 weights) under each.
 
-    python3 -m tante_tpu_torch.tools.conv_layouts [--model]
+    python3 -m tante_tpu_torch.tools.conv_layouts [--model | --overlap]
 
 ``--model`` instead times every convolution of an AttentionUNet call (B 4 and
 B 1) on its own with the operands the model passes, through cuDNN (marking
 those it runs by an FFT algorithm) and through PyTorch's own im2col + GEMM,
 and one call and one forward + backward with each route and with the port's
 (``ops/convs.py:conv_nhwc``: the forward without cuDNN, the backward with it).
+
+``--overlap`` times every operation of TANTE's overlapping patch pyramids
+that is not a matmul, on its own, with the operands one model call passes:
+the convs (``conv_nhwc``), transposed convs (``conv_transpose_nhwc``),
+pools and resizes of the flagship (``configs/tante.yaml`` width, B 8 of
+128x384x4, seeded weights) at overlap 0.5 and of TANTE-FNO (modes 32) at
+0.25, in f32 and bf16; each conv and transposed conv through cuDNN and
+without it (PyTorch's own kernels), with whether cuDNN took an FFT
+algorithm; each bf16 pool also on the bf16 view without the f32 copy (time,
+and whether it gives the same bits); each f32 conv and transposed conv's
+largest error against float64, relative to its largest output, as the port
+runs it under PyTorch's default flags (cuDNN's TF32 on) and through cuDNN
+itself with TF32 on.
 
 Prints one JSON line: per case the forward and forward + backward
 milliseconds (CUDA events, 10 calls after 3), the maximum error against the
@@ -212,12 +225,123 @@ def model_step(route: str) -> dict:
                 "kernels": kernels(step)}
 
 
+# The operations of the patch convs that are not matmuls (``ops/convs.py``).
+PATCH_OPS = ("conv_nhwc", "conv_transpose_nhwc", "adaptive_avg_pool2d", "resize_bilinear")
+
+
+@contextlib.contextmanager
+def wrapped_patch_ops(wrap):
+    """Each of ``PATCH_OPS``, as the patch convs call it, replaced by
+    ``wrap(name, fn)`` while the block is open."""
+    plain = {n: getattr(convs, n) for n in PATCH_OPS}
+    for n, fn in plain.items():
+        setattr(convs, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in plain.items():
+            setattr(convs, n, fn)
+
+
+def recorded(seen: dict):
+    """Every conv, transposed conv, pool and resize the patch convs call
+    while the block is open, once per (kind, operand shapes), in ``seen``."""
+    def wrap(name, fn):
+        def call(x, *args):
+            key = (name, tuple(x.shape), *(tuple(a.shape) for a in args if torch.is_tensor(a)))
+            seen.setdefault(key, (fn, x.detach().clone(), args))
+            return fn(x, *args)
+        return call
+
+    return wrapped_patch_ops(wrap)
+
+
+def tf32_errors(name: str, fn, xin: torch.Tensor, args: tuple) -> dict:
+    """An f32 conv (``conv_nhwc``) or transposed conv (``conv_transpose_nhwc``)
+    against float64 on the CPU: the largest error relative to the largest
+    output, of ``fn`` (the port's) and of cuDNN's own call, both with
+    ``cudnn.allow_tf32`` on as PyTorch sets it by default."""
+    if name == "conv_nhwc":
+        raw = routed()
+    else:
+        def raw(x, kernel, bias, stride):
+            return F.conv_transpose2d(x.permute(0, 3, 1, 2), kernel.flip(0, 1).permute(2, 3, 0, 1),
+                                      bias, stride=stride).permute(0, 2, 3, 1)
+    with torch.no_grad():
+        ref = fn(xin.cpu().double(), *(a.cpu().double() if torch.is_tensor(a) else a for a in args))
+
+    def err(f):
+        return float((f(xin, *args).cpu().double() - ref).abs().max() / ref.abs().max())
+
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with cudnn_enabled(True), torch.no_grad():
+            return {"err_port_default_flags": err(fn), "err_cudnn_tf32": err(raw)}
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def overlap_ops(kind: str, dtype: torch.dtype) -> list:
+    """One model call of the overlap lane ``kind`` ("cnn" at overlap 0.5,
+    "fno" at 0.25) in ``dtype``: its encode of 8 frames and its decode of
+    one derivative each, every recorded operation timed alone."""
+    from tante_tpu_torch.convert import load_jax_params, seeded_jax_params
+    from tante_tpu_torch.data.metadata import TanteMetadata
+    from tante_tpu_torch.models.tante import TANTE
+
+    md = TanteMetadata(dataset_name="t", n_spatial_dims=2, spatial_resolution=(128, 384),
+                       field_names={0: ["f"] * 4, 1: [], 2: []},
+                       boundary_condition_types=["PERIODIC"], n_files=1,
+                       n_trajectories_per_file=[1], n_steps_per_trajectory=[8], n_fields=4)
+    kw = dict(enc_dec_type="fno", modes1=32, modes2=32, overlap_ratio=0.25) if kind == "fno" \
+        else dict(overlap_ratio=0.5)
+    model = TANTE(in_T=4, dset_metadata=md, attn_axes="THWTHWTHW", embed_dim=256, patch_scale=8,
+                  n_head=8, dtype=dtype, device="cuda", **kw)
+    load_jax_params(model, seeded_jax_params(model, 0))
+    x = torch.randn(8, 1, 128, 384, 4, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    seen = {}
+    with recorded(seen), torch.no_grad():
+        lat = model.encode(x.to(dtype))
+        model.decoders_0(lat)
+    out = []
+    for (name, *shapes), (fn, xin, args) in seen.items():
+        row = {"op": name, "shapes": [list(s) for s in shapes], "ms": events_ms(lambda: fn(xin, *args))}
+        if name == "conv_nhwc":
+            cudnn_fn = routed()
+        elif name == "conv_transpose_nhwc":
+            cudnn_fn = fn
+        else:
+            if name == "adaptive_avg_pool2d" and xin.dtype == torch.bfloat16:
+                # PyTorch's pool on the bf16 view itself, without the f32 copy.
+                direct = lambda: F.adaptive_avg_pool2d(  # noqa: E731
+                    xin.permute(0, 3, 1, 2), args[0]).permute(0, 2, 3, 1)  # noqa: B023
+                row.update(direct_bf16_ms=events_ms(direct),
+                           direct_bf16_equal=bool(torch.equal(direct(), fn(xin, *args))))
+            out.append(row)
+            continue
+        with cudnn_enabled(True):  # conv_nhwc turns cuDNN off itself for dense f32
+            row["cudnn_ms"] = events_ms(lambda: cudnn_fn(xin, *args))  # noqa: B023
+            ks = kernels(lambda: cudnn_fn(xin, *args))  # noqa: B023
+        with cudnn_enabled(False):
+            row["without_cudnn_ms"] = events_ms(lambda: cudnn_fn(xin, *args))  # noqa: B023
+        row.update(cudnn_kernels=ks, fft=any("cf32" in k[0] or "fft" in k[0].lower() for k in ks))
+        if xin.dtype == torch.float32:
+            row.update(tf32_errors(name, fn, xin, args))
+        out.append(row)
+    return out
+
+
 def main() -> None:
     import sys
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if "--model" in sys.argv:
+    if "--overlap" in sys.argv:
+        out = {f"{kind}_{str(dt)[6:]}": overlap_ops(kind, dt) for kind in ("cnn", "fno")
+               for dt in (torch.float32, torch.bfloat16)}
+    elif "--model" in sys.argv:
         out = {"model_convs": {b: model_convs(b) for b in (4, 1)},
                "steps": [model_step(r) for r in ("cudnn", "native", "port")]}
     else:
