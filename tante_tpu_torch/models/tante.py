@@ -41,6 +41,7 @@ from tante_tpu_torch.models.enc_dec_cnn import PATCH_MAP, DecCNN, EncCNN
 from tante_tpu_torch.models.enc_dec_fno import DecFNO, EncFNO
 from tante_tpu_torch.ops.backend import resolve_device
 from tante_tpu_torch.ops.convs import morton_pyramid_ok, packed_patch_ok
+from tante_tpu_torch.utils.profiling import count, span
 
 
 class Interprator(nn.Module):
@@ -91,62 +92,63 @@ class TANTE(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        if enc_dec_type not in ("cnn", "fno"):
-            raise ValueError(f"Unknown enc_dec_type '{enc_dec_type}'")
-        dev = resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
-        md = dset_metadata
-        shape = md.spatial_resolution if md else (128, 384)
-        self.in_T = in_T
-        self.taylor_order = taylor_order
-        self.frame_interval = frame_interval
-        self.output_length = output_length
-        self.enc_dec_type = enc_dec_type
-        self.patch_scale = patch_scale
-        self.overlap_ratio = overlap_ratio
-        self.deg = deg
-        self.dtype = dtype
-        self.H_p, self.W_p = shape[0] // patch_scale, shape[1] // patch_scale
-        self.C = embed_dim
+        with span("tante.init"):
+            if enc_dec_type not in ("cnn", "fno"):
+                raise ValueError(f"Unknown enc_dec_type '{enc_dec_type}'")
+            dev = resolve_device(device)
+            gen = torch.Generator().manual_seed(seed)
+            md = dset_metadata
+            shape = md.spatial_resolution if md else (128, 384)
+            self.in_T = in_T
+            self.taylor_order = taylor_order
+            self.frame_interval = frame_interval
+            self.output_length = output_length
+            self.enc_dec_type = enc_dec_type
+            self.patch_scale = patch_scale
+            self.overlap_ratio = overlap_ratio
+            self.deg = deg
+            self.dtype = dtype
+            self.H_p, self.W_p = shape[0] // patch_scale, shape[1] // patch_scale
+            self.C = embed_dim
 
-        axes = attn_axes.replace(" ", "")
-        if set(axes) - set("THWLACXY-"):
-            raise ValueError("There are invalid letters")
-        blocks_axes = [p.strip() for p in axes.split("-")]
-        if len(blocks_axes) != taylor_order:
-            raise ValueError(
-                f"Block allocation doesn't match expansion order: expected "
-                f"{taylor_order} parts, got {len(blocks_axes)} (input='{axes}')."
-            )
+            axes = attn_axes.replace(" ", "")
+            if set(axes) - set("THWLACXY-"):
+                raise ValueError("There are invalid letters")
+            blocks_axes = [p.strip() for p in axes.split("-")]
+            if len(blocks_axes) != taylor_order:
+                raise ValueError(
+                    f"Block allocation doesn't match expansion order: expected "
+                    f"{taylor_order} parts, got {len(blocks_axes)} (input='{axes}')."
+                )
 
-        enc_kw = dict(dset_metadata=md, embed_dim=embed_dim, patch_scale=patch_scale,
-                      overlap_ratio=overlap_ratio, dtype=dtype, gen=gen)
-        enc_cls, dec_cls = EncCNN, DecCNN
-        if enc_dec_type == "fno":
-            enc_cls, dec_cls = EncFNO, DecFNO
-            enc_kw["modes"] = (modes1, modes2)
-        self.encoder = enc_cls(**enc_kw)
-        for i in range(taylor_order):
-            self.add_module(f"decoders_{i}", dec_cls(**enc_kw))
-        for i, block_axes in enumerate(blocks_axes):
-            self.add_module(f"blocks_{i}", AttnBackbone(
-                (in_T, self.H_p, self.W_p, self.C), block_axes, n_head, mlp_ratio, dropout,
-                fused_chain=fused_chain, dtype=dtype, gen=gen, tp_mesh=tp_mesh,
-                fused=fused_blocks, expanded_channel=expanded_channel,
-            ))
-        self.t_emb = nn.Parameter(torch.from_numpy(get_1d_sincos_pos_embed(self.C, in_T)))
-        self.s_emb = nn.Parameter(torch.from_numpy(
-            get_2d_sincos_pos_embed(self.C, (self.H_p, self.W_p), flatten=False)
-        ))
-        self.register_buffer(
-            "t_seq", torch.from_numpy(t_series(in_T, frame_interval)), persistent=False
-        )
-        self.t_encode = Film(self.C, 1, dtype, gen)
-        if not deg:
+            enc_kw = dict(dset_metadata=md, embed_dim=embed_dim, patch_scale=patch_scale,
+                          overlap_ratio=overlap_ratio, dtype=dtype, gen=gen)
+            enc_cls, dec_cls = EncCNN, DecCNN
+            if enc_dec_type == "fno":
+                enc_cls, dec_cls = EncFNO, DecFNO
+                enc_kw["modes"] = (modes1, modes2)
+            self.encoder = enc_cls(**enc_kw)
             for i in range(taylor_order):
-                self.add_module(f"interprators_{i}", Interprator(self.C, dtype=dtype, gen=gen))
-                self.add_module(f"modifiers_{i}", Film(self.C, 1, dtype, gen))
-        self.to(dev)
+                self.add_module(f"decoders_{i}", dec_cls(**enc_kw))
+            for i, block_axes in enumerate(blocks_axes):
+                self.add_module(f"blocks_{i}", AttnBackbone(
+                    (in_T, self.H_p, self.W_p, self.C), block_axes, n_head, mlp_ratio, dropout,
+                    fused_chain=fused_chain, dtype=dtype, gen=gen, tp_mesh=tp_mesh,
+                    fused=fused_blocks, expanded_channel=expanded_channel,
+                ))
+            self.t_emb = nn.Parameter(torch.from_numpy(get_1d_sincos_pos_embed(self.C, in_T)))
+            self.s_emb = nn.Parameter(torch.from_numpy(
+                get_2d_sincos_pos_embed(self.C, (self.H_p, self.W_p), flatten=False)
+            ))
+            self.register_buffer(
+                "t_seq", torch.from_numpy(t_series(in_T, frame_interval)), persistent=False
+            )
+            self.t_encode = Film(self.C, 1, dtype, gen)
+            if not deg:
+                for i in range(taylor_order):
+                    self.add_module(f"interprators_{i}", Interprator(self.C, dtype=dtype, gen=gen))
+                    self.add_module(f"modifiers_{i}", Film(self.C, 1, dtype, gen))
+            self.to(dev)
 
     @property
     def tp_mesh(self):
@@ -182,9 +184,10 @@ class TANTE(nn.Module):
         """(B, K, H, W, C) -> (B, K, H_p, W_p, C); packed=True takes
         ``pack_patches(frames, p0)`` (gate with ``packed_io_ok()``),
         packed="morton" ``morton_pack_grouped`` frames (``morton_io_ok()``)."""
-        if packed:
-            return self.encoder(inputs, packed_in=packed)
-        return self.encoder(inputs)
+        with span("tante.encode"):
+            if packed:
+                return self.encoder(inputs, packed_in=packed)
+            return self.encoder(inputs)
 
     def head(self, latents: torch.Tensor, u_last: torch.Tensor, out_T: float = 1,
              deterministic: bool = True, packed=False,
@@ -195,38 +198,47 @@ class TANTE(nn.Module):
         (the Taylor sum is elementwise, so any layout serves).
         ``deterministic=False`` turns the blocks' dropout on, drawn from
         ``generator``."""
-        dt = self.dtype
-        x = self.t_encode(latents, self.t_seq)
-        x = x + self.s_emb.to(dt)
-        x = x + self.t_emb[:, :, None, None, :].to(dt)
+        count("model_calls")
+        with span("tante.head"):
+            dt = self.dtype
+            with span("tante.embed"):
+                x = self.t_encode(latents, self.t_seq)
+                x = x + self.s_emb.to(dt)
+                x = x + self.t_emb[:, :, None, None, :].to(dt)
 
-        derivatives, r_ts = [], []
-        for i in range(self.taylor_order):
-            x = getattr(self, f"blocks_{i}")(x, deterministic, generator)
-            derivative = x[:, -1:]
-            if not self.deg:
-                b = derivative.shape[0]
-                tokens = derivative.reshape(b, self.H_p * self.W_p, self.C)
-                rt = getattr(self, f"interprators_{i}")(tokens, out_T)
-                r_ts.append(rt)
-                tokens = getattr(self, f"modifiers_{i}")(tokens, rt)
-                derivative = tokens.reshape(b, 1, self.H_p, self.W_p, self.C)
-            decoder = getattr(self, f"decoders_{i}")
-            derivatives.append(decoder(derivative, packed_out=packed) if packed
-                               else decoder(derivative))
+            derivatives, r_ts = [], []
+            for i in range(self.taylor_order):
+                with span("tante.blocks"):
+                    x = getattr(self, f"blocks_{i}")(x, deterministic, generator)
+                derivative = x[:, -1:]
+                if not self.deg:
+                    with span("tante.interprator"):
+                        b = derivative.shape[0]
+                        tokens = derivative.reshape(b, self.H_p * self.W_p, self.C)
+                        rt = getattr(self, f"interprators_{i}")(tokens, out_T)
+                        r_ts.append(rt)
+                        tokens = getattr(self, f"modifiers_{i}")(tokens, rt)
+                        derivative = tokens.reshape(b, 1, self.H_p, self.W_p, self.C)
+                decoder = getattr(self, f"decoders_{i}")
+                with span("tante.decode"):
+                    derivatives.append(decoder(derivative, packed_out=packed) if packed
+                                       else decoder(derivative))
 
-        n_out = self.output_length if self.deg else self.n_frames(out_T)
-        derivs = torch.cat(derivatives, dim=1)
-        # Taylor coefficients ((i+1) dt)^(k+1) / (k+1)!, built on the device:
-        # a host-to-device copy here would block the host every call.
-        dev = derivs.device
-        steps = torch.arange(1, n_out + 1, dtype=torch.float32, device=dev) * self.frame_interval
-        orders = torch.arange(1, self.taylor_order + 1, dtype=torch.float32, device=dev)
-        coeffs = (steps[:, None] ** orders / torch.cumprod(orders, 0)).to(derivs.dtype)
-        outputs = torch.einsum("ik,bk...->bi...", coeffs, derivs) + u_last
-        if self.deg:
-            return outputs
-        return outputs, torch.stack(r_ts, dim=1).mean(dim=1)
+            with span("tante.taylor"):
+                n_out = self.output_length if self.deg else self.n_frames(out_T)
+                derivs = torch.cat(derivatives, dim=1)
+                # Taylor coefficients ((i+1) dt)^(k+1) / (k+1)!, built on the
+                # device: a host-to-device copy here would block the host
+                # every call.
+                dev = derivs.device
+                steps = torch.arange(1, n_out + 1, dtype=torch.float32,
+                                     device=dev) * self.frame_interval
+                orders = torch.arange(1, self.taylor_order + 1, dtype=torch.float32, device=dev)
+                coeffs = (steps[:, None] ** orders / torch.cumprod(orders, 0)).to(derivs.dtype)
+                outputs = torch.einsum("ik,bk...->bi...", coeffs, derivs) + u_last
+                if self.deg:
+                    return outputs
+                return outputs, torch.stack(r_ts, dim=1).mean(dim=1)
 
     def forward(self, inputs: torch.Tensor, out_T: float = 1, deterministic: bool = True,
                 generator: torch.Generator | None = None):

@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Callable, Sequence
 
+from tante_tpu_torch.utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -319,5 +321,6 @@ def bind(lib: ctypes.CDLL, kernel: str = "fused_block") -> ctypes.CDLL:
 def load(kernel: str = "fused_block") -> ctypes.CDLL:
     """The loaded library of one kernel source (built on first call)."""
     if kernel not in _libs:
-        _libs[kernel] = bind(ctypes.CDLL(build([kernel])[kernel]["library"]), kernel)
+        with span("ops.load"):
+            _libs[kernel] = bind(ctypes.CDLL(build([kernel])[kernel]["library"]), kernel)
     return _libs[kernel]

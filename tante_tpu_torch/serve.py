@@ -33,6 +33,7 @@ from tante_tpu_torch.train.rollout import (
 )
 from tante_tpu_torch.train.trainer import set_compute_dtype
 from tante_tpu_torch.utils.checkpoint import STATE_FILE, CheckpointManager
+from tante_tpu_torch.utils.profiling import count, span
 
 
 class Predictor:
@@ -57,10 +58,11 @@ class Predictor:
         dtype = getattr(model, "dtype", None) or torch.float32
         keep = {id(m._parameters[name]) for m in model.modules()
                 for name in getattr(m, "mode_space_params", ()) + getattr(m, "f32_params", ())}
-        model.to(self.device).requires_grad_(False)
-        for t in (*model.parameters(), *model.buffers()):
-            if t.is_floating_point() and id(t) not in keep:
-                t.data = t.data.to(dtype)
+        with span("serve.place"):
+            model.to(self.device).requires_grad_(False)
+            for t in (*model.parameters(), *model.buffers()):
+                if t.is_floating_point() and id(t) not in keep:
+                    t.data = t.data.to(dtype)
         self.model = model.eval()
         self.metadata = metadata
 
@@ -92,8 +94,9 @@ class Predictor:
         datamodule = instantiate(cfg.data, seed=cfg.seed, device=device)
         md = datamodule.train_dataset.metadata
         model = instantiate(cfg.model, dset_metadata=md, seed=cfg.seed, device="cpu")
-        model.load_state_dict(
-            CheckpointManager(folder).restore_params(ckpt_path, model.state_dict()))
+        with span("serve.load_weights"):
+            model.load_state_dict(
+                CheckpointManager(folder).restore_params(ckpt_path, model.state_dict()))
         if cfg.evaler.get("enable_amp", False):
             set_compute_dtype(model, torch.bfloat16)
         return cls(model, metadata=md, device=device)
@@ -102,7 +105,8 @@ class Predictor:
     def from_numpy(cls, model: torch.nn.Module, flat_params: Mapping[str, np.ndarray],
                    metadata: Any = None, device=None) -> "Predictor":
         """Load flax-keyed (``"a/b/c"``) numpy weights, e.g. an npz asset."""
-        load_jax_params(model, flat_params)
+        with span("serve.load_weights"):
+            load_jax_params(model, flat_params)
         return cls(model, metadata, device)
 
     def _history(self, history) -> torch.Tensor:
@@ -111,14 +115,15 @@ class Predictor:
     @torch.inference_mode()
     def rollout(self, history, n_steps: int, out_dtype=None) -> torch.Tensor:
         """history (B, T, H, W, C) -> predicted frames (B, n_steps, H, W, C)."""
-        x = self._history(history)
-        if not getattr(self.model, "deg", True):
-            return rollout_adaptive_eval_tante(self.model, x, n_steps, out_dtype=out_dtype)[0]
-        if isinstance(self.model, TANTE):
-            return rollout_tante_latent(self.model, x, n_steps, out_dtype=out_dtype)
-        chunk = int(getattr(self.model, "output_length", 1) or 1)
-        y = rollout_fixed(self.model, x, n_steps, chunk)
-        return y if out_dtype is None else y.to(out_dtype)
+        with span("serve.rollout"):
+            x = self._history(history)
+            if not getattr(self.model, "deg", True):
+                return rollout_adaptive_eval_tante(self.model, x, n_steps, out_dtype=out_dtype)[0]
+            if isinstance(self.model, TANTE):
+                return rollout_tante_latent(self.model, x, n_steps, out_dtype=out_dtype)
+            chunk = int(getattr(self.model, "output_length", 1) or 1)
+            y = rollout_fixed(self.model, x, n_steps, chunk)
+            return y if out_dtype is None else y.to(out_dtype)
 
     @torch.inference_mode()
     def rollout_adaptive(self, history, n_steps: int, max_frames_per_call: int = 0,
@@ -128,9 +133,13 @@ class Predictor:
         a call (0: n_steps)."""
         if getattr(self.model, "deg", True):
             raise ValueError("model is fixed-step (deg=True); use rollout()")
-        y, rt_log, n_calls = rollout_adaptive_eval_tante(
-            self.model, self._history(history), n_steps, max_frames_per_call,
-            out_dtype=out_dtype,
-        )
-        return y, rt_log[:n_calls].cpu().numpy(), n_calls
+        with span("serve.rollout"):
+            y, rt_log, n_calls = rollout_adaptive_eval_tante(
+                self.model, self._history(history), n_steps, max_frames_per_call,
+                out_dtype=out_dtype,
+            )
+            with span("serve.read_log"):
+                count("host_syncs")
+                rt = rt_log[:n_calls].cpu().numpy()
+        return y, rt, n_calls
 

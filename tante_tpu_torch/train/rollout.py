@@ -38,6 +38,7 @@ import torch.distributed as dist
 from tante_tpu_torch.models.enc_dec_cnn import PATCH_MAP
 from tante_tpu_torch.ops.convs import morton_pack_grouped, morton_unpack_grouped
 from tante_tpu_torch.parallel.collectives import all_reduce, psum
+from tante_tpu_torch.utils.profiling import count, span
 from tante_tpu_torch.utils.remat import remat as remat_call
 
 
@@ -115,6 +116,7 @@ def _any_active(active: torch.Tensor, group) -> bool:
     flag = active.any()
     if group is not None:
         flag = all_reduce(flag.float().reshape(1), group)[0] > 0
+    count("host_syncs")
     return bool(flag)
 
 
@@ -192,16 +194,24 @@ def _emit(rt: torch.Tensor, k: int, force_budget: bool, group=None) -> tuple[int
     the mean is over every rank's samples (one all-reduce; the tp ranks of
     a dp rank hold the same samples and count them alike, which leaves the
     mean as it is).  Every rank of the group emits alike, so their model
-    calls, and the collectives inside them, stay in step."""
-    first, mean = rt[0], rt.mean().float()
-    if group is not None:
-        r = rt.float()
-        lead = r[0] if dist.get_rank(group) == 0 else r.new_zeros(())
-        s = psum(torch.stack([lead, r.sum(), r.new_tensor(r.numel())]), group)
-        first, mean = s[0], s[1] / s[2]
+    calls, and the collectives inside them, stay in step.  With
+    ``force_budget`` the host reads nothing."""
     if force_budget:
-        return k, mean
-    return min(max(int(math.floor(float(first))), 1), k), mean
+        return k, _first_and_mean(rt, group)[1]
+    with span("rollout.read_rt"):
+        first, mean = _first_and_mean(rt, group)
+        count("host_syncs")
+        return min(max(int(math.floor(float(first))), 1), k), mean
+
+
+def _first_and_mean(rt: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first sample's r_t and the mean r_t, on the device (``_emit``)."""
+    if group is None:
+        return rt[0], rt.mean().float()
+    r = rt.float()
+    lead = r[0] if dist.get_rank(group) == 0 else r.new_zeros(())
+    s = psum(torch.stack([lead, r.sum(), r.new_tensor(r.numel())]), group)
+    return s[0], s[1] / s[2]
 
 
 def rollout_adaptive_eval(

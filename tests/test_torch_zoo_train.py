@@ -299,7 +299,7 @@ def test_profiling_trace_annotate_and_hard_sync(tmp_path):
     model = AttentionUNet(in_T=T, depth=2, out_T=1, device="cpu")
     x = torch.zeros(1, T, 8, 8, 4)
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("zoo_forward"), torch.no_grad():
+        with profiling.span("zoo_forward"), torch.no_grad():
             y = model(x)
     profiling.hard_sync({"y": [y, (y,)], "n": 3})
     names = {e.name for e in prof.events()}
